@@ -1,0 +1,70 @@
+"""BGZF writer (blocked gzip, the htslib container framing) for ``.vcf.gz`` output.
+
+Counterpart of the writer half of ``variantcalling_tpu/io/bgzf.py``:
+independent <=64 KiB gzip members carrying the BC extra field, closed by
+the 28-byte EOF sentinel. Pure ``zlib``; no ``.tbi`` index is written yet.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+MAX_BLOCK_DATA = 65280  # uncompressed payload per block (htslib convention)
+BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000000000")
+
+
+def compress_block(data, level: int = 6) -> bytes:
+    """One complete BGZF block for <=64 KiB of payload."""
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    deflated = co.compress(data) + co.flush()
+    bsize = len(deflated) + 26  # header(18) + deflated + crc/isize(8)
+    if bsize - 1 > 0xFFFF:
+        raise ValueError("BGZF block overflow (incompressible 64K payload)")
+    header = (
+        b"\x1f\x8b\x08\x04"  # magic, CM=deflate, FLG=FEXTRA
+        + b"\x00\x00\x00\x00"  # MTIME
+        + b"\x00\xff"  # XFL, OS=unknown
+        + struct.pack("<H", 6)  # XLEN
+        + b"BC"
+        + struct.pack("<H", 2)
+        + struct.pack("<H", bsize - 1)  # BSIZE = total block size - 1
+    )
+    trailer = struct.pack("<II", zlib.crc32(data) & 0xFFFFFFFF, len(data) & 0xFFFFFFFF)
+    return header + deflated + trailer
+
+
+class BgzfWriter:
+    """Binary file-like writer emitting BGZF blocks."""
+
+    def __init__(self, path: str, level: int = 6):
+        self._fh = open(path, "wb")
+        self._buf = bytearray()
+        self._level = level
+
+    def write(self, data: bytes) -> int:
+        self._buf += data
+        if len(self._buf) >= MAX_BLOCK_DATA:
+            n_full = (len(self._buf) // MAX_BLOCK_DATA) * MAX_BLOCK_DATA
+            view = memoryview(self._buf)
+            self._fh.write(b"".join(
+                compress_block(view[i:i + MAX_BLOCK_DATA], self._level)
+                for i in range(0, n_full, MAX_BLOCK_DATA)))
+            view.release()
+            del self._buf[:n_full]
+        return len(data)
+
+    def close(self) -> None:
+        if self._fh.closed:
+            return
+        if self._buf:
+            self._fh.write(compress_block(bytes(self._buf), self._level))
+            self._buf.clear()
+        self._fh.write(BGZF_EOF)
+        self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,0 +1,174 @@
+"""Synthetic forests and a vectorised writer of a whole filter world from a seed.
+
+Counterpart of ``variantcalling_tpu/synthetic.py`` (``synthetic_forest``)
+and of ``bench.make_fixtures_fast`` (a callset written with numpy byte
+arrays, no per-record Python): a reference genome (``.fa`` + ``.fai``), a
+called VCF with SNPs, hmer and non-hmer indels and multiallelics, and a
+forest model pickle, all from one ``numpy`` seed.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from variantcalling_tpu_torch.featurize import BASE_FEATURES
+from variantcalling_tpu_torch.models.forest import FlatForest
+from variantcalling_tpu_torch.models.registry import save_models
+
+N_HOT_FEATURES = 12
+_BASES = np.frombuffer(b"ACGT", dtype="S1")
+
+#: value range of each BASE_FEATURES column in :func:`write_world`'s callsets,
+#: used to spread the synthetic forest's thresholds over real values
+FEATURE_RANGES = {
+    "qual": (10, 90), "dp": (10, 60), "sor": (0, 3), "af": (0, 1), "gq": (10, 99),
+    "is_het": (0, 1), "is_snp": (0, 1), "is_indel": (0, 1), "is_ins": (0, 1),
+    "indel_length": (0, 3), "hmer_indel_length": (0, 8), "hmer_indel_nuc": (0, 4),
+    "gc_content": (0, 1), "cycleskip_status": (-1, 2), "left_motif": (0, 3124),
+    "right_motif": (0, 3124), "ref_code": (0, 4), "alt_code": (0, 4), "n_alts": (1, 2),
+}
+
+
+def synthetic_forest(rng: np.random.Generator, n_trees: int = 40, depth: int = 12,
+                     n_features: int = N_HOT_FEATURES) -> FlatForest:
+    """Random, structurally valid forest of complete binary trees with
+    2^(depth-1) - 1 internal nodes and 2^(depth-1) leaves each (the same
+    arrays as the reference's ``synthetic_forest`` for the same generator)."""
+    m = 2**depth
+    feature = rng.integers(0, n_features, size=(n_trees, m)).astype(np.int32)
+    left = np.minimum(2 * np.arange(m) + 1, m - 1).astype(np.int32)
+    right = np.minimum(2 * np.arange(m) + 2, m - 1).astype(np.int32)
+    is_leaf = np.arange(m) >= (m // 2 - 1)
+    feature[:, is_leaf] = -1
+    return FlatForest(
+        feature=feature,
+        threshold=rng.uniform(0, 50, size=(n_trees, m)).astype(np.float32),
+        left=np.broadcast_to(np.where(is_leaf, np.arange(m), left), (n_trees, m)).astype(np.int32),
+        right=np.broadcast_to(np.where(is_leaf, np.arange(m), right), (n_trees, m)).astype(np.int32),
+        value=rng.uniform(0, 1, size=(n_trees, m)).astype(np.float32),
+        max_depth=depth,
+    )
+
+
+def filter_forest(rng: np.random.Generator, n_trees: int, depth: int,
+                  aggregation: str = "logit_sum") -> FlatForest:
+    """A :func:`synthetic_forest` over BASE_FEATURES whose thresholds fall inside
+    each feature's value range and whose scores spread over (0, 1)."""
+    forest = synthetic_forest(rng, n_trees=n_trees, depth=depth, n_features=len(BASE_FEATURES))
+    lo = np.asarray([FEATURE_RANGES[f][0] for f in BASE_FEATURES], dtype=np.float64)
+    hi = np.asarray([FEATURE_RANGES[f][1] for f in BASE_FEATURES], dtype=np.float64)
+    f = np.maximum(forest.feature, 0)
+    forest.threshold = (lo[f] + forest.threshold / 50.0 * (hi[f] - lo[f])).astype(np.float32)
+    if aggregation == "logit_sum":
+        forest.value = ((forest.value - 0.5) * 0.4).astype(np.float32)
+    forest.aggregation = aggregation
+    forest.feature_names = list(BASE_FEATURES)
+    return forest
+
+
+def _genome(rng: np.random.Generator, length: int) -> np.ndarray:
+    """uint8 codes: random bases with homopolymer runs of 3-14 injected every ~200 bp."""
+    arr = rng.integers(0, 4, size=length, dtype=np.uint8)
+    n_runs = length // 200
+    starts = rng.integers(0, max(1, length - 20), size=n_runs)
+    lens = rng.integers(3, 15, size=n_runs)
+    offs = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens, lens)
+    arr[np.repeat(starts, lens) + offs] = np.repeat(arr[starts], lens)
+    return arr
+
+
+def _write_fasta(path: str, name: str, codes: np.ndarray) -> None:
+    seq = _BASES[codes].view(np.uint8)
+    k = len(seq) // 60
+    with open(path, "wb") as fh:
+        fh.write(f">{name}\n".encode())
+        offset = fh.tell()
+        fh.write(np.concatenate([seq[: k * 60].reshape(k, 60),
+                                 np.full((k, 1), ord("\n"), np.uint8)], axis=1).tobytes())
+        tail = seq[k * 60:]
+        if len(tail):
+            fh.write(tail.tobytes() + b"\n")
+    with open(path + ".fai", "wt") as fh:
+        fh.write(f"{name}\t{len(codes)}\t{offset}\t60\t61\n")
+
+
+def _cat(*parts) -> np.ndarray:
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = np.char.add(acc, p)
+    return acc
+
+
+def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_167,
+                n_variants: int = 104_000, n_trees: int = 100, depth: int = 7,
+                aggregation: str = "logit_sum", model_name: str = "rf_model_ignore_gt_incl_hpol_runs") -> dict:
+    """Write ``ref.fa`` (+ ``.fai``), ``calls.vcf`` and ``model.pkl`` under ``d``.
+
+    The callset: 65% SNPs, 5% multiallelic SNPs, 15% insertions (half of them
+    hmer insertions of the next reference base) and 15% deletions of 1-3 bases,
+    at distinct sorted positions. Returns the paths and the model name.
+    """
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    genome = _genome(rng, length)
+    fasta = os.path.join(d, "ref.fa")
+    _write_fasta(fasta, contig, genome)
+
+    n = n_variants
+    cand = np.unique(rng.integers(100, length - 100, size=n + n // 16 + 64))
+    while len(cand) < n:
+        cand = np.unique(np.concatenate([cand, rng.integers(100, length - 100, size=n)]))
+    pos0 = np.sort(cand[np.sort(rng.choice(len(cand), size=n, replace=False))])
+    kind = rng.random(n)
+    multi = (kind >= 0.65) & (kind < 0.70)
+    ins, dele = (kind >= 0.70) & (kind < 0.85), kind >= 0.85
+    ref_c = genome[pos0]
+    shift = rng.integers(1, 4, size=n).astype(np.uint8)
+    shift2 = (shift % 3 + 1).astype(np.uint8)  # another nonzero shift
+    k = rng.integers(1, 4, size=n)
+    anchor = _BASES[ref_c]
+    alt = _BASES[(ref_c + shift) % 4].astype("S8")
+    alt[multi] = _cat(alt[multi], b",", _BASES[(ref_c[multi] + shift2[multi]) % 4])
+    hmer = rng.random(n) < 0.5
+    ins_codes = np.where(hmer[:, None], genome[pos0 + 1][:, None],
+                         rng.integers(0, 4, size=(n, 3), dtype=np.uint8))
+    ins_s = anchor.astype("S8")
+    ref = anchor.astype("S8")
+    for j in range(3):
+        ins_s = np.where(k > j, _cat(ins_s, _BASES[ins_codes[:, j]]), ins_s)
+        ref = np.where(dele & (k > j), _cat(ref, _BASES[genome[pos0 + 1 + j]]), ref)
+    alt[ins] = ins_s[ins]
+    alt[dele] = anchor[dele]
+
+    qual = np.char.mod(b"%g", np.round(rng.uniform(10, 90, n), 2))
+    info = _cat(b"DP=", np.char.mod(b"%d", rng.integers(10, 60, n)),
+                b";SOR=", np.char.mod(b"%.3f", rng.uniform(0, 3, n)))
+    gt = np.where(multi, b"1/2", np.where(rng.random(n) < 0.6, b"0/1", b"1/1"))
+    ad = _cat(np.char.mod(b"%d", rng.integers(0, 40, n)), b",",
+              np.char.mod(b"%d", rng.integers(1, 40, n))).astype("S12")
+    ad[multi] = _cat(ad[multi], b",", np.char.mod(b"%d", rng.integers(1, 40, int(multi.sum()))))
+    sample = _cat(gt, b":", np.char.mod(b"%d", rng.integers(10, 99, n)), b":", ad)
+    tab = b"\t"
+    rec = _cat(np.full(n, contig.encode()), tab, np.char.mod(b"%d", pos0 + 1), tab, b".", tab,
+               ref, tab, alt, tab, qual, tab, b"PASS", tab, info, tab, b"GT:GQ:AD", tab, sample)
+    header = [
+        "##fileformat=VCFv4.2",
+        '##FILTER=<ID=PASS,Description="All filters passed">',
+        '##INFO=<ID=DP,Number=1,Type=Integer,Description="Depth">',
+        '##INFO=<ID=SOR,Number=1,Type=Float,Description="Symmetric odds ratio">',
+        '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+        '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Genotype quality">',
+        '##FORMAT=<ID=AD,Number=R,Type=Integer,Description="Allele depths">',
+        f"##contig=<ID={contig},length={length}>",
+        "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tHG002",
+    ]
+    vcf = os.path.join(d, "calls.vcf")
+    with open(vcf, "wb") as fh:
+        fh.write(("\n".join(header) + "\n").encode())
+        fh.write(b"\n".join(rec.tolist()) + b"\n")
+
+    model = os.path.join(d, "model.pkl")
+    save_models(model, {model_name: filter_forest(rng, n_trees, depth, aggregation)})
+    return {"fasta": fasta, "vcf": vcf, "model": model, "model_name": model_name}
