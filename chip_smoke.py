@@ -12,7 +12,8 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    the card, bit for bit (``torch.equal``), for the train_models default
    forest (100 trees, 63 internal nodes / 64 leaves, logit_sum) and an
    sklearn-RF-shaped mean forest (100 trees, 256 leaves), at the main
-   path's shape, at one 262,144-row chunk and at 5,000,000 rows in chunks;
+   path's shape (104,000 rows), at one 262,144-row chunk and at 5,000,000
+   rows in chunks;
    times with CUDA events (median after warm-up) beside the bound;
 4. pipeline: ``filter_variants_pipeline`` on a synthetic chr20-scale world
    (64,444,167 bp, 104,000 variants, the 100-tree logit_sum forest) through
@@ -107,7 +108,7 @@ def _bound(kernel, n: int) -> tuple[float, str, dict]:
     byte read once (features, tables), each margin written once; operations are
     the threshold compares the walk makes (complete trees: depth per tree) and
     the adds of the tree sum, at the float32 rate outside the tensor cores."""
-    wf = kernel.wf
+    wf = kernel.wide()
     nbytes = n * kernel.n_features * 4 + kernel.nodes.numel() * 4 + kernel.leaf_val.numel() * 4 \
         + kernel.roots.numel() * 4 + n * 4
     plen = wf.plen.reshape(-1, kernel.n_leaf)[: wf.n_trees]
@@ -138,9 +139,8 @@ def phase_kernel(main_rows: int) -> dict:
                              ("sklearn_rf_shaped_100x256", 9, "mean")):
         forest = filter_forest(np.random.default_rng(depth), n_trees=100, depth=depth, aggregation=agg)
         check(fmod.resolve_strategy(forest, torch.device("cuda")) == "cuda-wide", f"{name}: not on the kernel")
-        wf = fmod.to_wide(fmod.to_gemm(forest, x_all.shape[1]))
-        kernel = forest_cuda.WideForestKernel(wf, "cuda")
-        plain = lambda v, wf=wf: forest_cuda.wide_margin_plain(wf, v)  # noqa: E731
+        kernel = forest_cuda.WideForestKernel(forest, x_all.shape[1], "cuda")
+        plain = kernel.plain
         # parity: every chunk of the north-star callset, bit for bit
         for lo in range(0, NORTH_STAR_ROWS, KERNEL_ROWS):
             xc = x_all[lo: lo + KERNEL_ROWS]
@@ -152,6 +152,7 @@ def phase_kernel(main_rows: int) -> dict:
         rows = {}
         for n in (main_rows, KERNEL_ROWS):
             xn = x_all[:n].contiguous()
+            check(torch.equal(kernel.launch(xn), plain(xn)), f"{name}: kernel != plain at {n} rows")
             bound_ms, bound_by, detail = _bound(kernel, n)
             ms = cuda_ms(lambda xn=xn: kernel.launch(xn))
             rows[n] = {"ms": ms, "plain_ms": cuda_ms(lambda xn=xn: plain(xn), reps=5),
@@ -163,8 +164,8 @@ def phase_kernel(main_rows: int) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms, **detail,
             "launches": math.ceil(NORTH_STAR_ROWS / KERNEL_ROWS)}
         for n, r in rows.items():
-            print("KERNEL_DETAIL " + json.dumps({"forest": name, "rows": n, "blocks": wf.n_blocks,
-                                                 "tree_block": wf.tree_block, **r}), flush=True)
+            print("KERNEL_DETAIL " + json.dumps({"forest": name, "rows": n, "blocks": kernel.n_blocks,
+                                                 "tree_block": kernel.tree_block, **r}), flush=True)
         results[name] = rows
     del x_all
     torch.cuda.empty_cache()

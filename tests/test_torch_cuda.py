@@ -22,12 +22,11 @@ def test_kernel_matches_plain_version_on_card(depth, n_trees, tree_block, n):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     rng = np.random.default_rng(depth * 1000 + n)
     forest = synthetic_forest(rng, n_trees=n_trees, depth=depth, n_features=19)
-    wf = fmod.to_wide(fmod.to_gemm(forest, 19), tree_block)
-    kernel = forest_cuda.WideForestKernel(wf, "cuda")
+    kernel = forest_cuda.WideForestKernel(forest, 19, "cuda", tree_block)
     x = torch.from_numpy(rng.uniform(0, 50, (n, 19)).astype(np.float32)).cuda()
     before = forest_cuda.LAUNCHES
     got = kernel(x)
     torch.cuda.synchronize()
     assert forest_cuda.LAUNCHES == before + 1
-    assert torch.equal(got, forest_cuda.wide_margin_plain(wf, x))
+    assert torch.equal(got, kernel.plain(x))
     assert torch.equal(got, fmod.predict_margin(forest, x))

@@ -5,8 +5,9 @@
   gather walk equal the reference's Pallas wide-block kernel (interpret
   mode, as its own tests run it on the CPU) and its ``wide``/``gather``
   strategies, bit for bit;
-- the kernel's compact tables, walked in numpy exactly as the CUDA source
-  walks them, give the same bits (the kernel itself needs the card);
+- the kernel's compact tables, built from the forest's node arrays and
+  walked in numpy exactly as the CUDA source walks them, give the same
+  bits (the kernel itself needs the card);
 - ``finalize_margin`` bytes, the forest conversion, and the refusal of
   default_left forests on the kernel path.
 """
@@ -83,21 +84,19 @@ def _walk_compact_tables(kernel: forest_cuda.WideForestKernel, x: np.ndarray) ->
     nodes = kernel.nodes.numpy()
     vals = kernel.leaf_val.numpy()
     roots = kernel.roots.numpy()
-    wf = kernel.wf
-    g, n_int, n_leaf = wf.tree_block, kernel.n_int, kernel.n_leaf
+    g, n_int, n_leaf = kernel.tree_block, kernel.n_int, kernel.n_leaf
     acc = np.zeros(len(x), dtype=np.float32)
-    for b in range(wf.n_blocks):
+    for b in range(kernel.n_blocks):
         for j in range(g):
             t = b * g + j
-            if t >= wf.n_trees:
+            if t >= kernel.forest.n_trees:
                 break
             node = np.full(len(x), roots[t], dtype=np.int64)
             live = node >= 0
             while live.any():
                 nd = nodes[b, j * n_int + node[live]]
-                xv = np.where(nd[:, 0] >= 0, x[live, np.maximum(nd[:, 0], 0)], np.float32(0))
                 thr = nd[:, 1].astype(np.int32).view(np.float32)
-                node[live] = np.where(xv <= thr, nd[:, 2], nd[:, 3])
+                node[live] = np.where(x[live, nd[:, 0]] <= thr, nd[:, 2], nd[:, 3])
                 live = node >= 0
             acc = (acc + vals[b, j * n_leaf + ~node]).astype(np.float32)
     return acc
@@ -128,7 +127,10 @@ def test_wide_margins_bit_identical_to_pallas_and_strategies(forests, name, tree
     jw = jforest.to_wide(jforest.to_gemm(ref, f), tree_block)
     pallas = make_wide_pallas_margin_predictor(jforest.to_gemm(ref, f), tree_block=tree_block,
                                                interpret=True)
-    kernel = forest_cuda.WideForestKernel(tforest.to_wide(tforest.to_gemm(forest, f), tree_block))
+    kernel = forest_cuda.WideForestKernel(forest, f, "cpu", tree_block)
+    # the kernel's tables are packed as the wide encoding is: same blocks, nodes and leaves per tree
+    assert (kernel.n_blocks, kernel.tree_block) == (jw.n_blocks, jw.tree_block)
+    assert (kernel.n_int, kernel.n_leaf) == (jw.a.shape[2] // jw.tree_block, jw.value.shape[2])
     x = _x(1100, f, scale)
     want = np.asarray(pallas(jnp.asarray(x)))
     np.testing.assert_array_equal(np.asarray(jax.jit(lambda v: jforest.predict_margin_wide(jw, v))(x)), want)
@@ -225,7 +227,7 @@ def test_default_left_refused_on_kernel_path(forests):
     with pytest.raises(NotImplementedError):
         tforest.resolve_strategy(forest, torch.device("cuda"))
     with pytest.raises(NotImplementedError):
-        forest_cuda.WideForestKernel(tforest.to_wide(tforest.to_gemm(forest, f)))
+        forest_cuda.WideForestKernel(forest, f, "cpu")
     # on the CPU the gather walk serves it, with NaN taking the default branch
     assert tforest.resolve_strategy(forest, torch.device("cpu")) == "gather"
     x = _x(300, f, 1.0)
@@ -252,11 +254,14 @@ def test_strategy_rule(forests):
 
 def test_kernel_wrapper_checks_inputs(forests):
     ref, f, _ = forests["synthetic_depth7"]
-    kernel = forest_cuda.WideForestKernel(tforest.to_wide(tforest.to_gemm(_port(ref), f)))
+    kernel = forest_cuda.WideForestKernel(_port(ref), f, "cpu")
+    before = forest_cuda.LAUNCHES
     with pytest.raises(ValueError):
         kernel.launch(torch.zeros((4, f + 1)))
     with pytest.raises(ValueError):
         kernel.launch(torch.zeros((4, f), dtype=torch.float64))
     with pytest.raises(ValueError):
         kernel.launch(torch.zeros((f, 4)).t())
-    assert forest_cuda.LAUNCHES == 0
+    assert forest_cuda.LAUNCHES == before
+    with pytest.raises(ValueError):  # the forest reads a feature the matrix does not have
+        forest_cuda.WideForestKernel(_port(ref), f - 1, "cpu")

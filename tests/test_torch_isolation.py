@@ -5,7 +5,7 @@
 - a subprocess run of the port's CLI with ``--backend cpu`` ends with
   neither package in ``sys.modules``;
 - without a CUDA device and without ``--backend cpu`` the CLI exits 2
-  with a message and writes nothing.
+  with a message and writes nothing, and the API raises.
 """
 
 import ast
@@ -92,3 +92,19 @@ def test_cli_without_cuda_exits_2_and_never_falls_back(small_world, tmp_path):
     assert result["rc"] == 2
     assert "no CUDA device" in proc.stderr
     assert not out.exists()
+
+
+def test_api_defaults_to_the_card_and_never_falls_back(small_world, monkeypatch):
+    """``materialize_features`` without a device asks for the card: on a host
+    without one it raises instead of running on the CPU."""
+    import torch
+
+    from variantcalling_tpu_torch import device, featurize
+    from variantcalling_tpu_torch.io.fasta import FastaReader
+    from variantcalling_tpu_torch.io.vcf import read_vcf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hf = featurize.host_featurize(read_vcf(small_world["vcf"]), FastaReader(small_world["fasta"]))
+    with pytest.raises(device.DeviceUnavailable):
+        featurize.materialize_features(hf)
+    assert featurize.materialize_features(hf, device="cpu").matrix().shape == (300, len(hf.names))

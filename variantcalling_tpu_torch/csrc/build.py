@@ -3,9 +3,11 @@
 Each ``<name>.cu`` here has a plain C interface and is compiled on first
 use for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into
 ``build/lib<name>-<hash>.so`` at the root of the checkout, where ``<hash>``
-covers the source and the flags, so an edited source builds anew. The
-wrapper loads the library with ``ctypes``. Nothing is built when the
-module is imported.
+covers the source and the flags, so an edited source builds anew. An
+installed package (no checkout around it) builds into
+``$TORCH_EXTENSIONS_DIR/variantcalling_tpu_torch`` instead, else into
+``~/.cache/variantcalling_tpu_torch``. The wrapper loads the library with
+``ctypes``. Nothing is built when the module is imported.
 """
 
 from __future__ import annotations
@@ -18,7 +20,12 @@ import sys
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent
-BUILD_DIR = SRC_DIR.parents[1] / "build"
+_CHECKOUT = SRC_DIR.parents[1]
+if (_CHECKOUT / "pyproject.toml").exists():
+    BUILD_DIR = _CHECKOUT / "build"
+else:
+    BUILD_DIR = Path(os.environ.get("TORCH_EXTENSIONS_DIR") or Path.home() / ".cache") \
+        / "variantcalling_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -8,12 +8,12 @@
 // ascending tree sum runs outside it.
 //
 // This kernel computes the same margins from compact tables that the
-// Python wrapper (models/forest_cuda.py) derives once from the wide
-// arrays: per internal node its feature index (-1: a padded all-zero
-// column, picked as 0), its threshold, and the routing of m2 as two child
-// indices (>= 0 an internal node, < 0 the leaf ~child). Walking them from
-// the root reaches exactly the one leaf whose match == plen. The feature
-// pick is an exact read of x[row, feat]; there is no product at all.
+// Python wrapper (models/forest_cuda.py) builds once from the forest's
+// node arrays, G trees to a block as the wide encoding packs them: per
+// internal node its feature index, its threshold, and its two children
+// (>= 0 an internal node, < 0 the leaf ~child). Walking them from the
+// root reaches exactly the one leaf whose match == plen. The feature pick
+// is an exact read of x[row, feat]; there is no product at all.
 //
 // Layout: one thread per variant row, 256 rows per block. The block first
 // stages its (256, F) feature tile in shared memory with coalesced reads
@@ -85,8 +85,7 @@ forest_wide_margin_kernel(const float* __restrict__ x, long long n, int f,
         int node = s_root[j];
         while (node >= 0) {
           const int4 nd = tn[node];
-          const float xv = nd.x >= 0 ? xr[nd.x] : 0.0f;
-          node = (xv <= __int_as_float(nd.y)) ? nd.z : nd.w;
+          node = (xr[nd.x] <= __int_as_float(nd.y)) ? nd.z : nd.w;
         }
         acc = __fadd_rn(acc, s_val[j * n_leaf + ~node]);
       }

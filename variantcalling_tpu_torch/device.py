@@ -25,3 +25,8 @@ def resolve(backend: str = "gpu") -> torch.device:
                 "rerun with --backend cpu to score on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     raise ValueError(f"unknown backend {backend!r} (expected gpu or cpu)")
+
+
+def as_device(device: torch.device | str) -> torch.device:
+    """A ``torch.device`` as given, or a backend name through :func:`resolve`."""
+    return resolve(device) if isinstance(device, str) else device

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from variantcalling_tpu_torch import device as device_mod
 from variantcalling_tpu_torch.io.bed import IntervalSet
 from variantcalling_tpu_torch.io.fasta import FastaReader
 from variantcalling_tpu_torch.io.vcf import VariantTable
@@ -270,9 +271,12 @@ class FeatureSet:
 
 
 def materialize_features(hf: HostFeatures, flow_order: str = fops.DEFAULT_FLOW_ORDER,
-                         device: torch.device | str = "cpu") -> FeatureSet:
-    """Run the window features over a HostFeatures batch and merge the columns."""
-    dev = device_feature_dict(*device_inputs(hf, 0, len(hf.windows), torch.device(device)),
+                         device: torch.device | str = "gpu") -> FeatureSet:
+    """Run the window features over a HostFeatures batch and merge the columns.
+
+    The window features run on the card unless ``device`` is the CPU.
+    """
+    dev = device_feature_dict(*device_inputs(hf, 0, len(hf.windows), device_mod.as_device(device)),
                               center=CENTER, flow_order=flow_order)
     cols = dict(hf.cols)
     cols.update({k: v.cpu().numpy() for k, v in dev.items()})

@@ -4,9 +4,10 @@ Counterpart of ``variantcalling_tpu/models/forest.py``. A trained forest is
 a :class:`FlatForest` of dense (trees, nodes) arrays. Two scoring
 strategies exist in the port:
 
-- ``cuda-wide``: the wide-block encoding (:func:`to_wide`) scored by the
-  hand-written CUDA kernel in :mod:`forest_cuda` — the counterpart of the
-  reference's Pallas wide-block kernel, which the reference picks on a TPU;
+- ``cuda-wide``: the forest in blocks of trees, as :func:`to_wide` packs
+  it, scored by the hand-written CUDA kernel in :mod:`forest_cuda` — the
+  counterpart of the reference's Pallas wide-block kernel, which the
+  reference picks on a TPU;
 - ``gather``: the node-gather walk (:func:`predict_margin`) in plain torch,
   which the reference runs on the CPU and for trees beyond
   :data:`GEMM_MAX_LEAVES` leaves.
@@ -293,7 +294,7 @@ def make_margin_predictor(forest: FlatForest, n_features: int, strategy: str,
     if strategy == "cuda-wide":
         from variantcalling_tpu_torch.models.forest_cuda import WideForestKernel
 
-        return WideForestKernel(to_wide(to_gemm(forest, n_features)), device)
+        return WideForestKernel(forest, n_features, device)
     raise ValueError(f"unknown forest strategy {strategy!r} (expected one of {STRATEGIES})")
 
 

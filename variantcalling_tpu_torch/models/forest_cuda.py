@@ -9,17 +9,16 @@ match ``== plen`` and each tree's leaf value; the ascending tree sum runs
 outside it.
 
 The CUDA kernel (``csrc/forest_wide.cu``) computes the same function
-without the contractions. The wrapper turns :func:`forest.to_wide`'s
-arrays once into compact per-node tables: the feature index of each
-one-hot column of ``a`` (-1 for an all-zero padded column, whose pick is
-0), ``thr``, and the routing of ``m2`` as the two children of each node
-(small signed ints: >= 0 an internal node, < 0 the leaf ``~child``).
-Walking those tables from the root reaches exactly the one leaf whose
-``match == plen`` (the derivation is checked against ``c`` and ``plen``).
-The kernel reads ``x[row, feat]`` exactly — no TF32 product, no
-``torch.matmul`` — and adds each tree's leaf value to one float32
-accumulator per row in ascending tree order, writing (N,) margins.
-Trees past T (``plen = -1`` padding) and rows past N are never touched.
+without the contractions, from compact per-node tables that the wrapper
+builds once from the forest's node arrays (:func:`compact_tables`): per
+internal node its feature index, its threshold and its two children
+(small signed ints: >= 0 an internal node, < 0 the leaf ``~child``),
+packed G trees to a block as :func:`forest.to_wide` packs them. Walking a
+tree from its root reaches the one leaf whose ``d @ m2 + c == plen`` in
+the wide encoding. The kernel reads ``x[row, feat]`` exactly — no TF32
+product, no ``torch.matmul`` — and adds each tree's leaf value to one
+float32 accumulator per row in ascending tree order, writing (N,)
+margins. Padded trees past T and rows past N are never touched.
 
 The plain version (:func:`predict_pertree_margin_wide`) keeps the
 reference's formulation in torch and is what a CPU tensor gets; a CUDA
@@ -33,7 +32,8 @@ import ctypes
 import numpy as np
 import torch
 
-from variantcalling_tpu_torch.models.forest import WideGemmForest, sequential_tree_sum
+from variantcalling_tpu_torch.models.forest import (LEAF, FlatForest, WideGemmForest, resolved_tree_block,
+                                                   sequential_tree_sum, to_gemm, to_wide)
 
 #: launches of the CUDA kernel in this process (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -57,65 +57,50 @@ def _lib():
     return _LIB
 
 
-def compact_tables(wf: WideGemmForest) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(nodes int32 (B, G*I, 4), leaf values f32 (B, G*L), roots int32 (B*G,)).
+def compact_tables(forest: FlatForest, tree_block: int | None = None
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """(nodes int32 (B, G*I, 4), leaf values f32 (B, G*L), roots int32 (B*G,), G).
 
-    A node row is [feature or -1, threshold bits, left child, right child];
-    a child >= 0 is an internal node of the same tree, < 0 the leaf ``~child``.
-    Built from the wide arrays: node k's leaves are the nonzeros of row k of
-    its tree's ``m2`` block, its left subtree the +1 entries, its right the -1
-    entries; a subtree of one leaf is that leaf, a larger one is the internal
-    node with exactly that leaf set.
+    Built straight from the forest's node arrays: each tree's reachable
+    internal nodes are renumbered 0..I-1 and its reachable leaves 0..L-1
+    in node order. A node row is [feature, threshold bits, left child,
+    right child]; a child >= 0 is an internal node of the same tree, < 0
+    the leaf ``~child``. Trees are packed G to a block as :func:`to_wide`
+    packs them; padded trees past T and padded node rows are never walked.
     """
-    b, f, gi_w = wf.a.shape
-    g = wf.tree_block
-    n_int = gi_w // g
-    n_leaf = wf.m2.shape[2] // g
-    if n_int >= 1 << 15 or n_leaf >= 1 << 15:
-        raise ValueError(f"trees too large for the kernel's tables ({n_int} nodes, {n_leaf} leaves)")
-    nodes = np.zeros((b, g * n_int, 4), dtype=np.int32)
-    nodes[:, :, 0] = -1
+    feat, left, right = forest.feature, forest.left, forest.right
+    t, m = feat.shape
+    internal = feat != LEAF
+    reach = np.zeros((t, m), dtype=bool)
+    reach[:, 0] = True
+    frontier = reach & internal
+    while frontier.any():
+        ti, ni = np.nonzero(frontier)
+        kids = np.zeros_like(reach)
+        kids[ti, left[ti, ni]] = True
+        kids[ti, right[ti, ni]] = True
+        frontier = kids & ~reach & internal
+        reach |= kids
+    is_int, is_leaf = reach & internal, reach & ~internal
+    code = np.where(internal, np.cumsum(is_int, axis=1) - 1, ~(np.cumsum(is_leaf, axis=1) - 1))
+    n_int = max(1, int(is_int.sum(axis=1).max()))
+    n_leaf = int(is_leaf.sum(axis=1).max())
+    g = resolved_tree_block(n_int, t, tree_block)
+    b = -(-t // g)
+    nodes = np.zeros((b * g, n_int, 4), dtype=np.int32)
     nodes[:, :, 2:] = ~0
-    nodes[:, :, 1] = wf.thr.astype(np.float32).view(np.int32)
+    ti, ni = np.nonzero(is_int)
+    k = code[ti, ni]
+    nodes[ti, k, 0] = feat[ti, ni]
+    nodes[ti, k, 1] = forest.threshold[ti, ni].astype(np.float32).view(np.int32)
+    nodes[ti, k, 2] = code[ti, left[ti, ni]]
+    nodes[ti, k, 3] = code[ti, right[ti, ni]]
+    leaf_val = np.zeros((b * g, n_leaf), dtype=np.float32)
+    ti, ni = np.nonzero(is_leaf)
+    leaf_val[ti, ~code[ti, ni]] = forest.value[ti, ni]
     roots = np.full(b * g, ~0, dtype=np.int32)
-    for bi in range(b):
-        for j in range(g):
-            t = bi * g + j
-            cols = slice(j * n_int, (j + 1) * n_int)
-            a = wf.a[bi, :, cols]  # (F, I)
-            nz = a != 0
-            if not (np.all(a[nz] == 1.0) and np.all(nz.sum(axis=0) <= 1)):
-                raise ValueError(f"tree {t}: feature selector is not one-hot")
-            has = nz.any(axis=0)
-            nodes[bi, cols, 0] = np.where(has, nz.argmax(axis=0), -1)
-            if t >= wf.n_trees:
-                continue  # padded tree: never walked
-            lsl = slice(j * n_leaf, (j + 1) * n_leaf)
-            m2 = wf.m2[bi, cols, lsl]  # (I, L)
-            plen = wf.plen[bi, lsl]
-            real = plen >= 0
-            under = m2 != 0
-            owner = {under[k].tobytes(): k for k in range(n_int) if under[k].any()}
-
-            def child(leaves: np.ndarray, t=t, owner=owner) -> int:
-                if leaves.sum() == 1:
-                    return ~int(np.flatnonzero(leaves)[0])
-                k = owner.get(leaves.tobytes())
-                if k is None:
-                    raise ValueError(f"tree {t}: routing matrix is not a binary tree")
-                return k
-
-            roots[t] = child(real)
-            for k in owner.values():
-                nodes[bi, j * n_int + k, 2] = child(m2[k] > 0)
-                nodes[bi, j * n_int + k, 3] = child(m2[k] < 0)
-            depth = under.sum(axis=0)
-            rights = (m2 < 0).sum(axis=0)
-            if not (np.array_equal(depth[real], plen[real])
-                    and np.array_equal(rights[real], wf.c[bi, lsl][real])
-                    and not under[:, ~real].any()):
-                raise ValueError(f"tree {t}: routing disagrees with c/plen")
-    return nodes, wf.value.reshape(b, g * n_leaf).astype(np.float32), roots
+    roots[:t] = code[:, 0]
+    return nodes.reshape(b, g * n_int, 4), leaf_val.reshape(b, g * n_leaf), roots, g
 
 
 def predict_pertree_margin_wide(wf: WideGemmForest, x: torch.Tensor) -> torch.Tensor:
@@ -157,28 +142,44 @@ def wide_margin_plain(wf: WideGemmForest, x: torch.Tensor) -> torch.Tensor:
 
 
 class WideForestKernel:
-    """fn(x) -> (N,) margins for one wide-encoded forest.
+    """fn(x) -> (N,) margins for one forest, through the wide-block kernel.
 
-    The compact tables are built once and moved to ``device``. A CPU tensor
-    is scored by the plain version; a CUDA tensor launches the kernel.
+    The compact tables are built once, on ``device``. A CPU tensor is scored
+    by the plain version over the forest's wide encoding (built on first
+    use); a CUDA tensor launches the kernel.
     """
 
-    def __init__(self, wf: WideGemmForest, device: torch.device | str = "cpu"):
-        if wf.dleft is not None:
+    def __init__(self, forest: FlatForest, n_features: int, device: torch.device | str,
+                 tree_block: int | None = None):
+        if forest.default_left is not None:
             raise NotImplementedError("the wide forest kernel does not implement default_left routing")
-        self.wf = wf
-        self.n_features = wf.a.shape[1]
-        self.n_int = wf.a.shape[2] // wf.tree_block
-        self.n_leaf = wf.value.shape[2]
-        nodes, leaf_val, roots = compact_tables(wf)
+        self.forest = forest
+        self.n_features = n_features
+        nodes, leaf_val, roots, self.tree_block = compact_tables(forest, tree_block)
+        if int(nodes[:, :, 0].max()) >= n_features:
+            raise ValueError(f"forest reads feature {int(nodes[:, :, 0].max())} of {n_features}")
+        self.n_blocks = nodes.shape[0]
+        self.n_int = nodes.shape[1] // self.tree_block
+        self.n_leaf = leaf_val.shape[1] // self.tree_block
         device = torch.device(device)
         self.nodes = torch.from_numpy(nodes).to(device)
         self.leaf_val = torch.from_numpy(leaf_val).to(device)
         self.roots = torch.from_numpy(roots).to(device)
+        self._wide: WideGemmForest | None = None
+
+    def wide(self) -> WideGemmForest:
+        """The forest's wide encoding, with the kernel's tree block."""
+        if self._wide is None:
+            self._wide = to_wide(to_gemm(self.forest, self.n_features), self.tree_block)
+        return self._wide
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The kernel's plain version on ``x``, on whatever device ``x`` lives on."""
+        return wide_margin_plain(self.wide(), x)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cpu":
-            return wide_margin_plain(self.wf, x)
+            return self.plain(x)
         if x.device.type != "cuda":
             raise ValueError(f"forest kernel: unsupported device {x.device}")
         return self.launch(x)
@@ -197,13 +198,12 @@ class WideForestKernel:
         if n == 0:
             return out
         lib = _lib()
-        wf = self.wf
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.forest_wide_margin(
                 x.data_ptr(), n, self.n_features, self.nodes.data_ptr(), self.leaf_val.data_ptr(),
-                self.roots.data_ptr(), wf.n_blocks, wf.tree_block, self.n_int, self.n_leaf,
-                wf.n_trees, out.data_ptr(), stream)
+                self.roots.data_ptr(), self.n_blocks, self.tree_block, self.n_int, self.n_leaf,
+                self.forest.n_trees, out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"forest_wide_margin failed: cudaError_t {err}")
         LAUNCHES += 1
