@@ -1,4 +1,4 @@
-"""The forest kernel on the card against its plain version, bit for bit.
+"""The forest kernels on the card against their plain versions, bit for bit.
 
 Needs a CUDA device, nvcc and the kernel's build; skips without a device.
 Imports only the port (no JAX), so it runs on the machine with the card:
@@ -30,3 +30,28 @@ def test_kernel_matches_plain_version_on_card(depth, n_trees, tree_block, n):
     assert forest_cuda.LAUNCHES == before + 1
     assert torch.equal(got, kernel.plain(x))
     assert torch.equal(got, fmod.predict_margin(forest, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,n_trees,dleft", [(3, 7, False), (7, 100, False), (7, 100, True), (9, 10, True),
+                                                 (11, 3, False), (11, 2, True)])
+@pytest.mark.parametrize("n", [1, 513, 70_001])
+def test_tree_step_kernel_matches_plain_version_on_card(depth, n_trees, dleft, n):
+    """The per-tree kernel, with and without default_left (NaN inputs only with
+    it), up to trees of 1,024 leaves whose masks stream through in tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(depth * 1000 + n)
+    forest = synthetic_forest(rng, n_trees=n_trees, depth=depth, n_features=19)
+    x = rng.uniform(0, 50, (n, 19)).astype(np.float32)
+    if dleft:
+        forest.default_left = (rng.random(forest.feature.shape) < 0.5) & (forest.feature != fmod.LEAF)
+        x[rng.random(x.shape) < 0.1] = np.nan
+    kernel = forest_cuda.TreeStepKernel(fmod.to_gemm(forest, 19), "cuda")
+    xt = torch.from_numpy(x).cuda()
+    before = forest_cuda.TREE_STEP_LAUNCHES
+    got = kernel(xt)
+    torch.cuda.synchronize()
+    assert forest_cuda.TREE_STEP_LAUNCHES == before + 1
+    assert torch.equal(got, kernel.plain(xt))
+    assert torch.equal(got, fmod.predict_margin(forest, xt))

@@ -2,9 +2,12 @@
 
 The world is built like tests/system/test_filter_variants_pipeline.py; the
 model pickle is written by the JAX package's ``registry.save_models`` and
-loaded by the port. Outputs must be identical outside the ``##vctpu_*``
-provenance lines (``tests/fixtures.strip_vctpu_header``); for ``.vcf.gz``
-the decompressed bytes are compared.
+loaded by the port. A second world is the port's synthetic xgboost one: a
+bare xgboost JSON model with default_left routing over a callset where
+some records lack SOR and GQ. Outputs must be identical outside the
+``##vctpu_*`` provenance lines (``tests/fixtures.strip_vctpu_header``),
+under every ``VCTPU_FOREST_STRATEGY`` the forest can be served by; for
+``.vcf.gz`` the decompressed bytes are compared.
 """
 
 import gzip
@@ -20,7 +23,9 @@ from variantcalling_tpu.io.vcf import read_vcf
 from variantcalling_tpu.models import registry
 from variantcalling_tpu.models.forest import from_sklearn
 from variantcalling_tpu.pipelines import filter_variants as fvp
+from variantcalling_tpu_torch import synthetic as tsynth
 from variantcalling_tpu_torch.__main__ import main as torch_main
+from variantcalling_tpu_torch.models.forest import FOREST_STRATEGY_ENV
 
 
 @pytest.fixture(scope="module")
@@ -121,3 +126,53 @@ def test_threshold_model_pickle_exits_2(world, tmp_path):
     argv[argv.index("--model_file") + 1] = str(tmp_path / "thr.pkl")
     assert torch_main(["filter_variants_pipeline", *argv]) == 2
     assert not (tmp_path / "o.vcf").exists()
+
+
+@pytest.fixture(scope="module")
+def xgb_world(tmp_path_factory):
+    """The port's xgboost world at a small size, and the reference CLI's output on it."""
+    d = tmp_path_factory.mktemp("torch_fvp_xgb")
+    w = tsynth.write_world(str(d), seed=5, contig="chr20", length=40_000, n_variants=400, n_trees=6,
+                           xgboost=True)
+    argv = ["--input_file", w["vcf"], "--model_file", w["model"], "--model_name", w["model_name"],
+            "--reference_file", w["fasta"], "--backend", "cpu"]
+    assert fvp.run([*argv, "--output_file", str(d / "ref.vcf")]) == 0
+    return d, argv, (d / "ref.vcf").read_bytes()
+
+
+@pytest.mark.parametrize("strategy,recorded", [("auto", "gather"), ("gather", "gather"), ("gemm", "gemm")])
+def test_port_cli_xgboost_world_bytes_equal_reference(xgb_world, monkeypatch, strategy, recorded):
+    d, argv, ref_bytes = xgb_world
+    text = open(argv[1]).read()
+    assert "GT:AD\t" in text and any("SOR=" not in ln for ln in text.splitlines() if not ln.startswith("#"))
+    out = d / f"port_{strategy}.vcf"
+    monkeypatch.setenv(FOREST_STRATEGY_ENV, strategy)
+    assert torch_main(["filter_variants_pipeline", *argv, "--output_file", str(out)]) == 0
+    port_bytes = out.read_bytes()
+    assert fixtures.strip_vctpu_header(port_bytes) == fixtures.strip_vctpu_header(ref_bytes)
+    lines = port_bytes.decode().splitlines()
+    assert f"##vctpu_forest_strategy={recorded}" in lines
+    filters = {ln.split("\t")[6] for ln in lines if not ln.startswith("#")}
+    assert {"PASS", "LOW_SCORE"} <= filters
+
+
+@pytest.mark.parametrize("strategy", ["wide", "pallas", "fastest"])
+def test_unservable_or_malformed_strategy_exits_2(xgb_world, monkeypatch, tmp_path, strategy):
+    """Explicit wide/pallas cannot serve a default_left forest; a malformed value is refused."""
+    _, argv, _ = xgb_world
+    monkeypatch.setenv(FOREST_STRATEGY_ENV, strategy)
+    assert torch_main(["filter_variants_pipeline", *argv, "--output_file", str(tmp_path / "o.vcf")]) == 2
+    assert not (tmp_path / "o.vcf").exists()
+
+
+@pytest.mark.parametrize("strategy,recorded", [("auto", "gather"), ("gather", "gather"), ("gemm", "gemm"),
+                                               ("wide", "wide"), ("pallas", "wide")])
+def test_each_strategy_writes_reference_bytes(world, monkeypatch, strategy, recorded):
+    name = "rf_model_ignore_gt_incl_hpol_runs"
+    ref_out, port_out = world / f"ref_strategy_{strategy}.vcf", world / f"port_strategy_{strategy}.vcf"
+    assert fvp.run(_argv(world, ref_out, name, True)) == 0
+    monkeypatch.setenv(FOREST_STRATEGY_ENV, strategy)
+    assert torch_main(["filter_variants_pipeline", *_argv(world, port_out, name, True)]) == 0
+    port_bytes = _read(port_out)
+    assert fixtures.strip_vctpu_header(port_bytes) == fixtures.strip_vctpu_header(_read(ref_out))
+    assert f"##vctpu_forest_strategy={recorded}" in port_bytes.decode().splitlines()

@@ -8,8 +8,8 @@
 - the kernel's compact tables, built from the forest's node arrays and
   walked in numpy exactly as the CUDA source walks them, give the same
   bits (the kernel itself needs the card);
-- ``finalize_margin`` bytes, the forest conversion, and the refusal of
-  default_left forests on the kernel path.
+- ``finalize_margin`` bytes, the forest conversion, the refusal of
+  default_left forests by the wide kernel, and the strategy rule.
 """
 
 import numpy as np
@@ -220,12 +220,14 @@ def test_synthetic_forest_matches_reference():
     assert tforest.to_wide(gf).tree_block == jforest.default_tree_block(63) == 2
 
 
-def test_default_left_refused_on_kernel_path(forests):
+def test_default_left_refused_on_kernel_path(forests, monkeypatch):
+    """default_left forests: the card resolves them to the per-tree kernel
+    (``cuda-gemm``), the wide kernel refuses them, the CPU walks them."""
+    monkeypatch.delenv(tforest.FOREST_STRATEGY_ENV, raising=False)
     ref, f, _ = forests["boosted_8x6"]
     forest = _port(ref)
     forest.default_left = np.zeros(forest.feature.shape, dtype=bool)
-    with pytest.raises(NotImplementedError):
-        tforest.resolve_strategy(forest, torch.device("cuda"))
+    assert tforest.resolve_strategy(forest, torch.device("cuda")) == "cuda-gemm"
     with pytest.raises(NotImplementedError):
         forest_cuda.WideForestKernel(forest, f, "cpu")
     # on the CPU the gather walk serves it, with NaN taking the default branch
@@ -238,17 +240,23 @@ def test_default_left_refused_on_kernel_path(forests):
     assert tforest.predict_margin(forest, torch.from_numpy(x)).numpy().tobytes() == want.tobytes()
 
 
-def test_strategy_rule(forests):
+def test_strategy_rule(forests, monkeypatch):
+    monkeypatch.delenv(tforest.FOREST_STRATEGY_ENV, raising=False)
     ref, f, _ = forests["synthetic_depth7"]
     cuda = torch.device("cuda")
     assert tforest.resolve_strategy(_port(ref), cuda) == "cuda-wide"
     assert tforest.resolve_strategy(_port(ref), torch.device("cpu")) == "gather"
+    dleft = _port(ref)
+    dleft.default_left = np.ones(dleft.feature.shape, dtype=bool)
+    assert tforest.resolve_strategy(dleft, cuda) == "cuda-gemm"
     big = _port(forests["synthetic_deep"][0])  # depth 9: 256 leaves, still under the limit
     assert tforest.resolve_strategy(big, cuda) == "cuda-wide"
     huge = tforest.FlatForest(**{k: np.tile(getattr(big, k), (1, 4)) for k in REFERENCE_ARRAYS[:5]},
                               max_depth=big.max_depth)
     huge.feature[:, : 2 * tforest.GEMM_MAX_LEAVES] = 0  # more internal nodes than the limit allows
     assert tforest.max_tree_leaves(huge) > tforest.GEMM_MAX_LEAVES
+    assert tforest.resolve_strategy(huge, cuda) == "gather"
+    huge.default_left = np.ones(huge.feature.shape, dtype=bool)
     assert tforest.resolve_strategy(huge, cuda) == "gather"
 
 

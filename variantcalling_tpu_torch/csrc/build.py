@@ -26,6 +26,8 @@ if (_CHECKOUT / "pyproject.toml").exists():
 else:
     BUILD_DIR = Path(os.environ.get("TORCH_EXTENSIONS_DIR") or Path.home() / ".cache") \
         / "variantcalling_tpu_torch"
+#: the kernel sources of this directory, by name
+KERNELS = ("forest_wide", "forest_tree_step")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -67,5 +69,5 @@ def build(name: str, verbose: bool = False) -> Path:
 
 
 if __name__ == "__main__":
-    for arg in sys.argv[1:] or ["forest_wide"]:
+    for arg in sys.argv[1:] or KERNELS:
         print(build(arg, verbose=True))

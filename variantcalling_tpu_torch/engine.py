@@ -12,6 +12,13 @@ from __future__ import annotations
 import torch
 
 HEADER_KEY = "vctpu_engine"
+
+
+class EngineError(RuntimeError):
+    """A requested engine or strategy cannot serve this run (CLI exit 2).
+    Never caught by a fallback: the run fails with a clear message."""
+
+
 _NAMES = {"cuda": "cuda", "cpu": "torch-cpu"}
 
 

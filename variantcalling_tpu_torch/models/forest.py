@@ -1,16 +1,25 @@
 """Decision-forest inference: flat node arrays, GEMM/wide encodings, the gather walk.
 
 Counterpart of ``variantcalling_tpu/models/forest.py``. A trained forest is
-a :class:`FlatForest` of dense (trees, nodes) arrays. Two scoring
-strategies exist in the port:
+a :class:`FlatForest` of dense (trees, nodes) arrays. Three scoring
+strategies exist in the port, each named in the run's header with a
+``cuda-`` prefix when it runs on the card:
 
 - ``cuda-wide``: the forest in blocks of trees, as :func:`to_wide` packs
-  it, scored by the hand-written CUDA kernel in :mod:`forest_cuda` — the
-  counterpart of the reference's Pallas wide-block kernel, which the
-  reference picks on a TPU;
+  it, scored by the hand-written wide-block kernel in :mod:`forest_cuda`
+  (counterpart of the reference's Pallas wide-block kernel);
+- ``cuda-gemm``: the per-tree path-matrix formulation (:func:`to_gemm`,
+  :func:`predict_margin_gemm`), scored by the hand-written per-tree kernel
+  in :mod:`forest_cuda` (counterpart of the reference's Pallas
+  ``_tree_step_kernel``); the one that serves ``default_left`` forests;
 - ``gather``: the node-gather walk (:func:`predict_margin`) in plain torch,
   which the reference runs on the CPU and for trees beyond
   :data:`GEMM_MAX_LEAVES` leaves.
+
+On the CPU, ``wide`` and ``gemm`` run the kernels' plain versions. The
+strategy is requested through ``VCTPU_FOREST_STRATEGY``
+(``auto|gather|gemm|wide|pallas``) and resolved once per run
+(:func:`resolve_strategy`); the resolution is final — there is no fallback.
 
 Every strategy returns the same bits. Each tree's leaf value is picked out
 exactly, the trees are summed in ascending order (:func:`sequential_tree_sum`;
@@ -21,16 +30,24 @@ never scores.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
+from variantcalling_tpu_torch.engine import EngineError
+
 LEAF = -1
 
 #: the VCF header key the filter pipeline records the resolved strategy under
 STRATEGY_HEADER_KEY = "vctpu_forest_strategy"
-STRATEGIES = ("cuda-wide", "gather")
+#: the strategy request: auto|gather|gemm|wide|pallas (``pallas`` names the
+#: reference's wide-block kernel, whose counterpart here is ``wide``)
+FOREST_STRATEGY_ENV = "VCTPU_FOREST_STRATEGY"
+FOREST_STRATEGIES = ("auto", "gather", "gemm", "wide", "pallas")
+#: resolved strategies: the kernels on the card, their plain versions on the CPU, the walk
+STRATEGIES = ("cuda-wide", "cuda-gemm", "wide", "gemm", "gather")
 
 # beyond this many leaves per tree the routing contraction costs more than
 # the gather walk saves; such forests score through the gather walk
@@ -197,6 +214,60 @@ def to_gemm(forest: FlatForest, n_features: int | None = None) -> GemmForest:
                       dleft=dleft)
 
 
+def _device_finalize(margin: torch.Tensor, aggregation: str, n_trees: int,
+                     base_score: float) -> torch.Tensor:
+    """Margin -> score on the device (a convenience for direct callers; the
+    pipeline finalizes on the host with :func:`finalize_margin`, because the
+    device sigmoid's ``exp`` is not bit-portable)."""
+    if aggregation == "mean":
+        return margin / n_trees
+    if aggregation == "logit_sum":
+        return torch.sigmoid(margin + base_score)
+    raise ValueError(f"unknown aggregation {aggregation!r}")
+
+
+def predict_margin_gemm(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
+    """(N,) margins via the per-tree path-matrix formulation, in plain torch.
+
+    The plain version of the per-tree CUDA kernel. Per tree in ascending
+    order: the feature of each internal node picked by index (exact; an
+    all-zero padded column of ``a`` picks 0, as the one-hot product does),
+    the decision ``x <= thr`` — or, with ``default_left``, the node's
+    default where the picked value is NaN (the reference's NaN-mask
+    product) — the routing ``d @ m2 + c == plen`` (operands in {-1, 0, 1},
+    sums at most the depth: exact in float32 and TF32 alike), and the leaf
+    value of the one matching leaf (every other term is zero, so exact in
+    any order), added to one accumulator as ``acc = acc + s``.
+    """
+    dev = x.device
+    a = torch.as_tensor(gf.a, device=dev)  # (T, F, I)
+    has = a.ne(0).any(dim=1)  # (T, I)
+    feat = a.argmax(dim=1)
+    thr = torch.as_tensor(gf.thr, device=dev)
+    m2 = torch.as_tensor(gf.m2, device=dev)
+    c = torch.as_tensor(gf.c, device=dev)
+    plen = torch.as_tensor(gf.plen, device=dev)
+    value = torch.as_tensor(gf.value, device=dev)
+    dleft = None if gf.dleft is None else torch.as_tensor(gf.dleft, device=dev).gt(0.5)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=dev)
+    for t in range(a.shape[0]):
+        xf = torch.where(has[t], x[:, feat[t]], zero)
+        d = xf <= thr[t]
+        if dleft is not None:  # missing (NaN) takes the node's default branch
+            d = torch.where(torch.isnan(xf), dleft[t], d)
+        match = d.to(torch.float32) @ m2[t] + c[t]
+        hit = (match == plen[t]).to(torch.float32)
+        acc = acc + (hit * value[t]).sum(dim=1)
+    return acc
+
+
+def predict_score_gemm(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
+    """TREE_SCORE via the per-tree formulation, finalized on the device."""
+    return _device_finalize(predict_margin_gemm(gf, x), gf.aggregation, gf.m2.shape[0],
+                            gf.base_score)
+
+
 def default_tree_block(n_internal: int) -> int:
     """G such that the routing contraction G*I fills one 128-lane tile."""
     return max(1, 128 // max(n_internal, 1))
@@ -267,23 +338,47 @@ def max_tree_leaves(forest: FlatForest) -> int:
     return int((forest.feature != LEAF).sum(axis=1).max()) + 1
 
 
+def requested_strategy() -> str:
+    """``VCTPU_FOREST_STRATEGY``, trimmed and lower-cased (unset or empty:
+    ``auto``); a value outside :data:`FOREST_STRATEGIES` raises EngineError."""
+    raw = os.environ.get(FOREST_STRATEGY_ENV, "").strip().lower() or "auto"
+    if raw not in FOREST_STRATEGIES:
+        raise EngineError(f"{FOREST_STRATEGY_ENV}={raw!r} is not a valid forest strategy; "
+                          f"choose one of {'/'.join(FOREST_STRATEGIES)}")
+    return raw
+
+
+def validate_strategy_env() -> None:
+    """Check the strategy request up front, before any scoring (CLI exit 2)."""
+    requested_strategy()
+
+
 def resolve_strategy(forest: FlatForest, device: torch.device) -> str:
     """The strategy a run scores with, decided once per run and recorded.
 
-    On the CPU the gather walk (as the reference's CPU program). On the
-    card: the ``cuda-wide`` kernel for trees of at most GEMM_MAX_LEAVES
-    leaves, the gather walk beyond that. Forests with default_left
-    (missing-value) routing are not served on the card yet.
+    ``auto``: on the CPU the gather walk (as the reference's CPU program);
+    on the card the gather walk for trees beyond GEMM_MAX_LEAVES leaves,
+    ``cuda-gemm`` for forests with default_left (missing-value) routing and
+    ``cuda-wide`` for the rest. An explicit ``gemm`` is honoured at any
+    tree size, as in the reference; an explicit ``wide`` or ``pallas``
+    names the wide kernel, which refuses default_left forests (EngineError).
     """
-    if device.type == "cpu":
+    req = requested_strategy()
+    on_card = device.type == "cuda"
+    if req == "auto":
+        if not on_card or max_tree_leaves(forest) > GEMM_MAX_LEAVES:
+            return "gather"
+        kind = "gemm" if forest.default_left is not None else "wide"
+    elif req == "gather":
         return "gather"
-    if forest.default_left is not None:
-        raise NotImplementedError(
-            "forests with default_left (missing-value) routing are not ported to "
-            "the card yet; score them with --backend cpu")
-    if max_tree_leaves(forest) > GEMM_MAX_LEAVES:
-        return "gather"
-    return "cuda-wide"
+    else:
+        kind = "gemm" if req == "gemm" else "wide"
+        if kind == "wide" and forest.default_left is not None:
+            raise EngineError(
+                f"forest strategy {req!r} was explicitly requested ({FOREST_STRATEGY_ENV}) but the "
+                "wide forest kernel does not implement default_left (missing-value) routing; "
+                f"rerun with {FOREST_STRATEGY_ENV}=gemm or auto")
+    return f"cuda-{kind}" if on_card else kind
 
 
 def make_margin_predictor(forest: FlatForest, n_features: int, strategy: str,
@@ -291,10 +386,14 @@ def make_margin_predictor(forest: FlatForest, n_features: int, strategy: str,
     """fn(x: (N, F) float32 tensor on ``device``) -> (N,) float32 margins."""
     if strategy == "gather":
         return lambda x: predict_margin(forest, x)
-    if strategy == "cuda-wide":
+    if strategy in ("cuda-wide", "wide"):
         from variantcalling_tpu_torch.models.forest_cuda import WideForestKernel
 
         return WideForestKernel(forest, n_features, device)
+    if strategy in ("cuda-gemm", "gemm"):
+        from variantcalling_tpu_torch.models.forest_cuda import TreeStepKernel
+
+        return TreeStepKernel(to_gemm(forest, n_features), device)
     raise ValueError(f"unknown forest strategy {strategy!r} (expected one of {STRATEGIES})")
 
 

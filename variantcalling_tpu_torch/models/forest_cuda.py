@@ -1,28 +1,42 @@
-"""The wide-block forest kernel for Hopper: its wrapper, launch count and plain version.
+"""The forest kernels for Hopper: their wrappers, launch counts and plain versions.
 
-Replaces the Pallas kernel ``_wide_block_kernel``
+Two hand-written CUDA C++ kernels, each beside its plain torch version
+(what a CPU tensor gets; a CUDA tensor goes to the kernel or raises) and
+its own launch counter.
+
+**The wide-block kernel** (``csrc/forest_wide.cu``, :class:`WideForestKernel`,
+count :data:`LAUNCHES`) replaces the Pallas kernel ``_wide_block_kernel``
 (``variantcalling_tpu/models/forest_pallas.py:105``), launched by
 ``make_wide_pallas_margin_predictor``. That kernel computes, per 512-row
 tile and block of G trees, the one-hot feature pick ``x @ a``, the
 compare with ``thr``, the block-diagonal routing ``d @ m2 + c``, the leaf
 match ``== plen`` and each tree's leaf value; the ascending tree sum runs
-outside it.
+outside it. The CUDA kernel computes the same function without the
+contractions, from compact per-node tables that the wrapper builds once
+from the forest's node arrays (:func:`compact_tables`): per internal node
+its feature index, its threshold and its two children (small signed ints:
+>= 0 an internal node, < 0 the leaf ``~child``), packed G trees to a block
+as :func:`forest.to_wide` packs them. Walking a tree from its root reaches
+the one leaf whose ``d @ m2 + c == plen`` in the wide encoding. Its plain
+version is :func:`wide_margin_plain`.
 
-The CUDA kernel (``csrc/forest_wide.cu``) computes the same function
-without the contractions, from compact per-node tables that the wrapper
-builds once from the forest's node arrays (:func:`compact_tables`): per
-internal node its feature index, its threshold and its two children
-(small signed ints: >= 0 an internal node, < 0 the leaf ``~child``),
-packed G trees to a block as :func:`forest.to_wide` packs them. Walking a
-tree from its root reaches the one leaf whose ``d @ m2 + c == plen`` in
-the wide encoding. The kernel reads ``x[row, feat]`` exactly — no TF32
-product, no ``torch.matmul`` — and adds each tree's leaf value to one
-float32 accumulator per row in ascending tree order, writing (N,)
-margins. Padded trees past T and rows past N are never touched.
+**The per-tree kernel** (``csrc/forest_tree_step.cu``, :class:`TreeStepKernel`,
+count :data:`TREE_STEP_LAUNCHES`) replaces the Pallas kernel
+``_tree_step_kernel`` (``forest_pallas.py:51``), launched by
+``_margin_pallas`` and driven by ``make_gemm_pallas_predictor``: per tile
+and tree, trees innermost, the same chain for one tree and ``out += hit @
+value``. The CUDA kernel keeps that formulation with bits for products:
+it decides every internal node of a tree into a bitmask ``d`` and tests
+every leaf with two masks (:func:`tree_step_tables`, built from the
+:class:`GemmForest`'s ``m2`` and ``plen``), ``(d & lmask) == lmask and
+(d & rmask) == 0`` — exactly ``d @ m2 + c == plen``. It also takes the
+default-left table, deciding a NaN feature by the node's default as the
+reference's ``predict_margin_gemm`` does. Its plain version is
+:func:`forest.predict_margin_gemm`.
 
-The plain version (:func:`predict_pertree_margin_wide`) keeps the
-reference's formulation in torch and is what a CPU tensor gets; a CUDA
-tensor goes to the kernel or raises.
+Both kernels read ``x[row, feat]`` exactly — no TF32 product, no
+``torch.matmul`` — and add each tree's leaf value to one float32
+accumulator per row in ascending tree order, writing (N,) margins.
 """
 
 from __future__ import annotations
@@ -32,29 +46,46 @@ import ctypes
 import numpy as np
 import torch
 
-from variantcalling_tpu_torch.models.forest import (LEAF, FlatForest, WideGemmForest, resolved_tree_block,
-                                                   sequential_tree_sum, to_gemm, to_wide)
+from variantcalling_tpu_torch.models.forest import (LEAF, FlatForest, GemmForest, WideGemmForest,
+                                                   _device_finalize, predict_margin_gemm,
+                                                   resolved_tree_block, sequential_tree_sum, to_gemm,
+                                                   to_wide)
 
-#: launches of the CUDA kernel in this process (the wrapper adds one per launch)
+#: launches of the wide-block kernel in this process (the wrapper adds one per launch)
 LAUNCHES = 0
+#: launches of the per-tree kernel in this process (the wrapper adds one per launch)
+TREE_STEP_LAUNCHES = 0
 
-_LIB = None
+_LIBS: dict[str, ctypes.CDLL] = {}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # x, n, f, nodes, leaf_val, roots, b, g, i, l, t, out, stream
+    "forest_wide": ("forest_wide_margin", [_P, _LL, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
+    # x, n, f, nodes, dleft, masks, values, t, i, l, w, out, stream
+    "forest_tree_step": ("forest_tree_step_margin", [_P, _LL, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def _lib(name: str):
+    """The C entry point of ``csrc/<name>.cu``, built and loaded at first use."""
+    if name not in _LIBS:
         from variantcalling_tpu_torch.csrc import build
 
-        lib = ctypes.CDLL(str(build.build("forest_wide")))
-        lib.forest_wide_margin.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,  # x, n, f
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # nodes, leaf_val, roots
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, g, i, l, t
-            ctypes.c_void_p, ctypes.c_void_p]  # out, stream
-        lib.forest_wide_margin.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = ctypes.CDLL(str(build.build(name)))
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(_LIBS[name], fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return getattr(_LIBS[name], _SIGNATURES[name][0])
+
+
+def _check_input(x: torch.Tensor, n_features: int, table: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != n_features:
+        raise ValueError(f"{what}: expected float32 (N, {n_features}), got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
+    if table.device != x.device:
+        raise ValueError(f"{what}: tables on {table.device}, x on {x.device}")
 
 
 def compact_tables(forest: FlatForest, tree_block: int | None = None
@@ -186,21 +217,15 @@ class WideForestKernel:
 
     def launch(self, x: torch.Tensor) -> torch.Tensor:
         global LAUNCHES
-        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != self.n_features:
-            raise ValueError(f"forest kernel: expected float32 (N, {self.n_features}), "
-                             f"got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError("forest kernel: x must be contiguous")
-        if self.nodes.device != x.device:
-            raise ValueError(f"forest kernel: tables on {self.nodes.device}, x on {x.device}")
+        _check_input(x, self.n_features, self.nodes, "forest kernel")
         n = x.shape[0]
         out = torch.empty(n, dtype=torch.float32, device=x.device)
         if n == 0:
             return out
-        lib = _lib()
+        fn = _lib("forest_wide")
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.forest_wide_margin(
+            err = fn(
                 x.data_ptr(), n, self.n_features, self.nodes.data_ptr(), self.leaf_val.data_ptr(),
                 self.roots.data_ptr(), self.n_blocks, self.tree_block, self.n_int, self.n_leaf,
                 self.forest.n_trees, out.data_ptr(), stream)
@@ -208,3 +233,103 @@ class WideForestKernel:
             raise RuntimeError(f"forest_wide_margin failed: cudaError_t {err}")
         LAUNCHES += 1
         return out
+
+
+def tree_step_tables(gf: GemmForest) -> tuple[np.ndarray, np.ndarray | None, np.ndarray, np.ndarray]:
+    """The per-tree kernel's tables, built from a :class:`GemmForest`.
+
+    Returns (nodes int32 (T, I, 2), dleft uint32 (T, W) or None, masks
+    uint32 (T, L, 2, W), values float32 (T, L)) with W = ceil(I / 32). A
+    node row is [feature index (``a``'s one-hot row; 0 for a padded column,
+    which no mask reads), threshold bits]. Bit k of word k // 32 stands for
+    internal node k: in ``dleft`` its default branch, in a leaf's ``lmask``
+    a node on its left path (``m2 == 1``), in ``rmask`` one on its right
+    path (``m2 == -1``). A padded leaf (``plen == -1``) gets bit 0 in both
+    masks, which no ``d`` satisfies.
+    """
+    t, _, i = gf.a.shape
+    w = -(-i // 32)
+
+    def pack(bits: np.ndarray) -> np.ndarray:  # (..., I) bool -> (..., W) uint32
+        padded = np.zeros(bits.shape[:-1] + (w * 32,), dtype=bool)
+        padded[..., :i] = bits
+        return np.packbits(padded, axis=-1, bitorder="little").view("<u4").astype(np.uint32)
+
+    nodes = np.stack([gf.a.argmax(axis=1).astype(np.int32),
+                      gf.thr.astype(np.float32).view(np.int32)], axis=2)
+    route = gf.m2.transpose(0, 2, 1)  # (T, L, I)
+    lmask, rmask = pack(route == 1.0), pack(route == -1.0)
+    padded_leaf = gf.plen < 0
+    lmask[padded_leaf, 0] |= 1
+    rmask[padded_leaf, 0] |= 1
+    dleft = None if gf.dleft is None else pack(gf.dleft > 0.5)
+    return nodes, dleft, np.stack([lmask, rmask], axis=2), gf.value.astype(np.float32)
+
+
+class TreeStepKernel:
+    """fn(x) -> (N,) margins for one forest, through the per-tree kernel.
+
+    The tables are built once from ``gf``, on ``device``. A CPU tensor is
+    scored by the plain version (:func:`forest.predict_margin_gemm`); a
+    CUDA tensor launches the kernel.
+    """
+
+    def __init__(self, gf: GemmForest, device: torch.device | str):
+        self.gf = gf
+        self.n_features = gf.a.shape[1]
+        nodes, dleft, masks, values = tree_step_tables(gf)
+        self.n_trees, self.n_int = nodes.shape[:2]
+        self.n_leaf, self.n_words = masks.shape[1], masks.shape[3]
+        device = torch.device(device)
+        self.nodes = torch.from_numpy(nodes).to(device)
+        self.dleft = None if dleft is None else torch.from_numpy(dleft.view(np.int32)).to(device)
+        self.masks = torch.from_numpy(masks.view(np.int32)).to(device)
+        self.values = torch.from_numpy(values).to(device)
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The kernel's plain version on ``x``, on whatever device ``x`` lives on."""
+        return predict_margin_gemm(self.gf, x)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cpu":
+            return self.plain(x)
+        if x.device.type != "cuda":
+            raise ValueError(f"per-tree forest kernel: unsupported device {x.device}")
+        return self.launch(x)
+
+    def launch(self, x: torch.Tensor) -> torch.Tensor:
+        global TREE_STEP_LAUNCHES
+        _check_input(x, self.n_features, self.nodes, "per-tree forest kernel")
+        n = x.shape[0]
+        out = torch.empty(n, dtype=torch.float32, device=x.device)
+        if n == 0:
+            return out
+        fn = _lib("forest_tree_step")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), n, self.n_features, self.nodes.data_ptr(),
+                     None if self.dleft is None else self.dleft.data_ptr(), self.masks.data_ptr(),
+                     self.values.data_ptr(), self.n_trees, self.n_int, self.n_leaf, self.n_words,
+                     out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"forest_tree_step_margin failed: cudaError_t {err} (trees of "
+                               f"{self.n_int} internal nodes and {self.n_leaf} leaves)")
+        TREE_STEP_LAUNCHES += 1
+        return out
+
+
+def make_gemm_cuda_predictor(gf: GemmForest, device: torch.device | str):
+    """fn(x) -> scores for a GemmForest through the per-tree kernel, with the
+    finalize on the device (mean: ``total / n_trees``; logit_sum:
+    ``sigmoid(total + base)``): the counterpart of the reference's
+    ``make_gemm_pallas_predictor``.
+
+    Like it, refuses forests with missing-value routing (ValueError); the
+    filter pipeline scores those through :class:`TreeStepKernel` itself,
+    and finalizes margins on the host.
+    """
+    if gf.dleft is not None:
+        raise ValueError("the per-tree forest predictor does not implement default_left routing")
+    kernel = TreeStepKernel(gf, device)
+    n_trees = gf.m2.shape[0]
+    return lambda x: _device_finalize(kernel(x), gf.aggregation, n_trees, gf.base_score)

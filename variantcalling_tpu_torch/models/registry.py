@@ -14,6 +14,7 @@ import os
 import pickle
 
 from variantcalling_tpu_torch.models.forest import FlatForest, from_sklearn
+from variantcalling_tpu_torch.models.xgb import from_xgboost, from_xgboost_json, looks_like_xgboost
 
 _REFERENCE_PACKAGE = "variantcalling_tpu"
 _REFERENCE_CLASSES = {("variantcalling_tpu.models.forest", "FlatForest"): FlatForest}
@@ -35,7 +36,15 @@ class _Unpickler(pickle.Unpickler):
         if module == "jax" or module.startswith(("jax.", "jaxlib")):
             raise NotImplementedError(
                 f"the pickle holds JAX objects ({module}.{name}); re-save its arrays as numpy")
-        return super().find_class(module, name)
+        try:
+            return super().find_class(module, name)
+        except ModuleNotFoundError as e:
+            if module.split(".")[0] != "xgboost":
+                raise
+            raise ModuleNotFoundError(
+                f"the pickle holds xgboost objects ({module}.{name}), which need the xgboost "
+                "package to load; save the model as JSON (Booster.save_model('model.json')) "
+                "and pass the .json file") from e
 
 
 def save_models(path: str, models: dict[str, object]) -> None:
@@ -47,12 +56,15 @@ def save_models(path: str, models: dict[str, object]) -> None:
 
 
 def load_models(path: str) -> dict[str, object]:
-    if path.endswith(".json"):
-        raise NotImplementedError("xgboost JSON models are not yet ported")
+    if path.endswith(".json"):  # a bare xgboost JSON model file (Booster.save_model output)
+        return {"model": from_xgboost_json(path)}
     with open(path, "rb") as fh:
         models = _Unpickler(fh).load()
     if not isinstance(models, dict):
         models = {"model": models}
+    if isinstance(models.get("learner"), dict) and "gradient_booster" in models["learner"]:
+        # the pickle is one parsed xgboost JSON model, not a name -> model map
+        return {"model": from_xgboost_json(models)}
     return {k: _coerce(v) for k, v in models.items()}
 
 
@@ -66,6 +78,10 @@ def load_model(path: str, model_name: str) -> object:
 def _coerce(model: object) -> object:
     if isinstance(model, FlatForest):
         return model
+    if looks_like_xgboost(model):  # XGBClassifier / Booster: its own JSON dump is the exact source
+        return from_xgboost(model)
+    if isinstance(model, dict) and "learner" in model:
+        return from_xgboost_json(model)
     if hasattr(model, "tree_") or hasattr(model, "estimators_"):
         # the fitted column order rides along: the pipeline reorders model
         # features onto its own layout by name

@@ -1,0 +1,155 @@
+"""xgboost model ingestion -> :class:`FlatForest`, without the xgboost library.
+
+Counterpart of ``variantcalling_tpu/models/xgb.py``. The reference's
+production filtering models are xgboost artifacts; the JSON model format
+(``Booster.save_model("*.json")``, xgboost >= 1.6) is parsed directly, and
+live ``Booster``/``XGBClassifier`` objects round-trip through that same
+dump when xgboost is importable.
+
+Semantics mapped exactly onto the forest's ``x <= threshold`` walk:
+
+- xgboost splits are ``x < split_condition`` -> left; for float32 operands
+  that is ``x <= nextafter(split_condition, -inf)`` (:func:`_lt_to_le`);
+- missing values (NaN) take the node's ``default_left`` branch, carried as
+  ``FlatForest.default_left``;
+- leaf values in the dump already include the learning rate; the margin
+  sum passes through the sigmoid with ``base_score`` mapped through the
+  objective's logit, computed in float64.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+
+import numpy as np
+
+from variantcalling_tpu_torch.models.forest import LEAF, FlatForest
+
+_LOGISTIC_OBJECTIVES = {"binary:logistic", "reg:logistic"}
+
+
+def _lt_to_le(cond: np.ndarray) -> np.ndarray:
+    """Largest float32 strictly below each split condition: makes
+    ``x <= thr`` decide exactly like xgboost's ``x < cond`` for f32 x."""
+    c = cond.astype(np.float32)
+    return np.nextafter(c, np.float32(-np.inf)).astype(np.float32)
+
+
+def from_xgboost_json(source, feature_names: list[str] | None = None,
+                      pass_threshold: float = 0.5) -> FlatForest:
+    """Parse an xgboost JSON model (path, JSON string or bytes, or parsed dict).
+
+    Binary classification only (``num_class`` 0 with a logistic objective).
+    """
+    if isinstance(source, (str, bytes, bytearray)):
+        s = source if isinstance(source, str) else bytes(source).decode()
+        if s.lstrip().startswith("{"):
+            obj = json.loads(s)
+        else:
+            with open(s) as fh:
+                obj = json.load(fh)
+    else:
+        obj = source
+    learner = obj["learner"]
+
+    booster_name = learner["gradient_booster"].get("name", "gbtree")
+    if booster_name == "dart":
+        raise ValueError("dart boosters (per-tree drop weights) are not supported")
+    num_class = int(learner["learner_model_param"].get("num_class", "0") or 0)
+    if num_class not in (0, 1, 2):
+        raise ValueError(f"only binary models are supported (num_class={num_class})")
+    objective = learner.get("objective", {}).get("name", "binary:logistic")
+    if objective not in _LOGISTIC_OBJECTIVES:
+        raise ValueError(f"only logistic objectives are supported (got {objective!r})")
+    if num_class == 2:
+        # a 2-class softprob model carries one tree set per class and does
+        # not sum-then-sigmoid
+        raise ValueError("multi:softprob with num_class=2 is not supported; "
+                         "retrain with binary:logistic")
+
+    base_prob = float(learner["learner_model_param"].get("base_score", "0.5") or 0.5)
+    base_prob = min(max(base_prob, 1e-12), 1 - 1e-12)
+    base_margin = math.log(base_prob / (1.0 - base_prob))
+
+    trees = learner["gradient_booster"]["model"]["trees"]
+    if not trees:
+        raise ValueError("model contains no trees")
+    m = max(len(t["left_children"]) for t in trees)
+    t_n = len(trees)
+    feature = np.full((t_n, m), LEAF, dtype=np.int32)
+    threshold = np.zeros((t_n, m), dtype=np.float32)
+    left = np.zeros((t_n, m), dtype=np.int32)
+    right = np.zeros((t_n, m), dtype=np.int32)
+    value = np.zeros((t_n, m), dtype=np.float32)
+    default_left = np.zeros((t_n, m), dtype=bool)
+    max_depth = 1
+    for ti, tree in enumerate(trees):
+        if tree.get("categories_nodes"):
+            raise ValueError("categorical splits are not supported")
+        lc = np.asarray(tree["left_children"], dtype=np.int32)
+        rc = np.asarray(tree["right_children"], dtype=np.int32)
+        cond = np.asarray(tree["split_conditions"], dtype=np.float32)
+        sidx = np.asarray(tree["split_indices"], dtype=np.int32)
+        dl = np.asarray(tree["default_left"], dtype=bool)
+        nc = len(lc)
+        is_leaf = lc == -1
+        node_ids = np.arange(nc, dtype=np.int32)
+        feature[ti, :nc] = np.where(is_leaf, LEAF, sidx)
+        threshold[ti, :nc] = np.where(is_leaf, 0.0, _lt_to_le(cond))
+        left[ti, :nc] = np.where(is_leaf, node_ids, lc)
+        right[ti, :nc] = np.where(is_leaf, node_ids, rc)
+        # for leaves, split_conditions holds the leaf value (eta included)
+        value[ti, :nc] = np.where(is_leaf, cond, 0.0)
+        default_left[ti, :nc] = ~is_leaf & dl
+        # depth by BFS from the root: pruned models recycle node ids, so a
+        # child can precede its parent and an id-order pass would
+        # underestimate the depth
+        depth = np.zeros(nc, dtype=np.int32)
+        frontier = [0]
+        level = 0
+        while frontier:
+            level += 1
+            if level > nc:  # a tree of nc nodes has < nc levels
+                raise ValueError("malformed model: cyclic child pointers")
+            nxt = set()
+            for node in frontier:
+                if not is_leaf[node]:
+                    depth[lc[node]] = depth[node] + 1
+                    depth[rc[node]] = depth[node] + 1
+                    nxt.add(int(lc[node]))
+                    nxt.add(int(rc[node]))
+            # dedup bounds the frontier at nc, so converging or cyclic
+            # pointers hit the level guard instead of growing the frontier
+            frontier = sorted(nxt)
+        max_depth = max(max_depth, int(depth.max()) + 1)
+
+    names = feature_names
+    if names is None:
+        names = list(learner.get("feature_names") or [])
+    return FlatForest(feature=feature, threshold=threshold, left=left, right=right, value=value,
+                      max_depth=max_depth, aggregation="logit_sum", base_score=base_margin,
+                      feature_names=names or [], pass_threshold=pass_threshold,
+                      default_left=default_left)
+
+
+def from_xgboost(model, feature_names: list[str] | None = None,
+                 pass_threshold: float = 0.5) -> FlatForest:
+    """Convert a live Booster / XGBClassifier via its own JSON dump.
+
+    Such an object exists only where the xgboost package is importable
+    (unpickling one needs it); without it the registry refuses the pickle.
+    """
+    booster = model.get_booster() if hasattr(model, "get_booster") else model
+    if not hasattr(booster, "save_raw"):
+        raise TypeError(f"{type(model).__name__} is not an xgboost Booster or XGBClassifier")
+    if feature_names is None:
+        fni = getattr(model, "feature_names_in_", None)
+        if fni is not None:
+            feature_names = list(fni)
+    raw = booster.save_raw(raw_format="json")
+    return from_xgboost_json(raw, feature_names=feature_names, pass_threshold=pass_threshold)
+
+
+def looks_like_xgboost(model) -> bool:
+    return type(model).__module__.split(".")[0] == "xgboost"

@@ -11,8 +11,10 @@ forest margin) -> margins back to the host -> :func:`forest.finalize_margin`
 in numpy -> FILTER assembly -> VCF writeback with TREE_SCORE.
 
 The run's device is ``cuda`` unless ``--backend cpu`` is given; asking for
-the card where there is none exits 2. The forest strategy is decided once
-per run (:func:`forest.resolve_strategy`) and recorded in the header.
+the card where there is none exits 2. The forest strategy
+(``VCTPU_FOREST_STRATEGY``) is checked before anything is read, decided
+once per run (:func:`forest.resolve_strategy`) and recorded in the header;
+a malformed request, or one the forest cannot be served by, exits 2.
 """
 
 from __future__ import annotations
@@ -299,21 +301,22 @@ def _ensure_output_header(header, engine: str, strategy: str) -> None:
 def run(argv: list[str]) -> int:
     args = get_parser().parse_args(argv)
     try:
+        forest_mod.validate_strategy_env()
         device = device_mod.resolve(args.backend)
-    except device_mod.DeviceUnavailable as e:
+    except (engine_mod.EngineError, device_mod.DeviceUnavailable) as e:
         log.error("%s", e)
         return 2
     try:
         model = load_model(args.model_file, args.model_name)
         blacklist = read_blacklist(args.blacklist) if args.blacklist else None
-    except NotImplementedError as e:
+    except (NotImplementedError, ModuleNotFoundError) as e:
         log.error("%s", e)
         return 2
     annotate = {_interval_name(p): bedio.read_intervals(p) for p in args.annotate_intervals}
     with FastaReader(args.reference_file) as fasta:
         try:
             return run_loaded(args, model, fasta, annotate, blacklist, device)
-        except NotImplementedError as e:
+        except (NotImplementedError, engine_mod.EngineError) as e:
             log.error("%s", e)
             return 2
 

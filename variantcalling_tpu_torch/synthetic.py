@@ -4,17 +4,20 @@ Counterpart of ``variantcalling_tpu/synthetic.py`` (``synthetic_forest``)
 and of ``bench.make_fixtures_fast`` (a callset written with numpy byte
 arrays, no per-record Python): a reference genome (``.fa`` + ``.fai``), a
 called VCF with SNPs, hmer and non-hmer indels and multiallelics, and a
-forest model pickle, all from one ``numpy`` seed.
+forest model — a pickle, or an xgboost 2.x JSON model with missing-value
+routing over a callset where some records lack SOR and GQ — all from one
+``numpy`` seed.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
 
 from variantcalling_tpu_torch.featurize import BASE_FEATURES
-from variantcalling_tpu_torch.models.forest import FlatForest
+from variantcalling_tpu_torch.models.forest import LEAF, FlatForest
 from variantcalling_tpu_torch.models.registry import save_models
 
 N_HOT_FEATURES = 12
@@ -68,6 +71,56 @@ def filter_forest(rng: np.random.Generator, n_trees: int, depth: int,
     return forest
 
 
+def xgboost_json(forest: FlatForest, default_left: np.ndarray, base_prob: float) -> dict:
+    """The xgboost 2.x JSON model (``Booster.save_model`` format) of a
+    ``binary:logistic`` forest of :func:`synthetic_forest`'s complete,
+    heap-ordered trees — the inverse of :func:`models.xgb.from_xgboost_json`.
+
+    xgboost sends ``x < split_condition`` left, so each threshold is written
+    as the next float32 above it; leaves carry their value in
+    ``split_conditions``. The padding node past the last leaf is dropped.
+    """
+    t, m = forest.feature.shape
+    n = m - 1
+    trees = []
+    for ti in range(t):
+        leaf = forest.feature[ti, :n] == LEAF
+        left = np.where(leaf, -1, forest.left[ti, :n])
+        right = np.where(leaf, -1, forest.right[ti, :n])
+        cond = np.where(leaf, forest.value[ti, :n],
+                        np.nextafter(forest.threshold[ti, :n], np.float32(np.inf))).astype(np.float32)
+        parents = np.full(n, 2147483647, dtype=np.int64)
+        parents[left[~leaf]] = np.nonzero(~leaf)[0]
+        parents[right[~leaf]] = np.nonzero(~leaf)[0]
+        trees.append({
+            "base_weights": [0.0] * n, "categories": [], "categories_nodes": [],
+            "categories_segments": [], "categories_sizes": [],
+            "default_left": (default_left[ti, :n] & ~leaf).astype(int).tolist(), "id": ti,
+            "left_children": left.tolist(), "loss_changes": [0.0] * n, "parents": parents.tolist(),
+            "right_children": right.tolist(), "split_conditions": [float(c) for c in cond],
+            "split_indices": np.where(leaf, 0, forest.feature[ti, :n]).tolist(),
+            "split_type": [0] * n, "sum_hessian": [1.0] * n,
+            "tree_param": {"num_deleted": "0", "num_feature": str(len(forest.feature_names)),
+                           "num_nodes": str(n), "size_leaf_vector": "1"},
+        })
+    return {
+        "learner": {
+            "attributes": {}, "feature_names": list(forest.feature_names),
+            "feature_types": ["float"] * len(forest.feature_names),
+            "gradient_booster": {
+                "model": {"gbtree_model_param": {"num_parallel_tree": "1", "num_trees": str(t)},
+                          "iteration_indptr": list(range(t + 1)), "tree_info": [0] * t,
+                          "trees": trees},
+                "name": "gbtree"},
+            "learner_model_param": {"base_score": f"{base_prob:E}", "boost_from_average": "1",
+                                    "num_class": "0", "num_feature": str(len(forest.feature_names)),
+                                    "num_target": "1"},
+            "objective": {"name": "binary:logistic", "reg_loss_param": {"scale_pos_weight": "1"}},
+        },
+        "version": [2, 1, 2],
+    }
+
+
 def _genome(rng: np.random.Generator, length: int) -> np.ndarray:
     """uint8 codes: random bases with homopolymer runs of 3-14 injected every ~200 bp."""
     arr = rng.integers(0, 4, size=length, dtype=np.uint8)
@@ -103,12 +156,20 @@ def _cat(*parts) -> np.ndarray:
 
 def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_167,
                 n_variants: int = 104_000, n_trees: int = 100, depth: int = 7,
-                aggregation: str = "logit_sum", model_name: str = "rf_model_ignore_gt_incl_hpol_runs") -> dict:
+                aggregation: str = "logit_sum", model_name: str = "rf_model_ignore_gt_incl_hpol_runs",
+                xgboost: bool = False) -> dict:
     """Write ``ref.fa`` (+ ``.fai``), ``calls.vcf`` and ``model.pkl`` under ``d``.
 
     The callset: 65% SNPs, 5% multiallelic SNPs, 15% insertions (half of them
     hmer insertions of the next reference base) and 15% deletions of 1-3 bases,
     at distinct sorted positions. Returns the paths and the model name.
+
+    ``xgboost=True`` writes ``model.json`` instead: an xgboost JSON model
+    (:func:`xgboost_json`, ``binary:logistic``, ``default_left`` and
+    ``base_score`` drawn from the seed; ``aggregation`` and ``model_name``
+    do not apply, the registry names a bare JSON model ``model``), and
+    about 10% of the records lack SOR in INFO and GQ in FORMAT, so NaN
+    reaches the forest.
     """
     rng = np.random.default_rng(seed)
     os.makedirs(d, exist_ok=True)
@@ -142,17 +203,20 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
     alt[ins] = ins_s[ins]
     alt[dele] = anchor[dele]
 
+    missing = rng.random(n) < 0.1 if xgboost else np.zeros(n, dtype=bool)
     qual = np.char.mod(b"%g", np.round(rng.uniform(10, 90, n), 2))
-    info = _cat(b"DP=", np.char.mod(b"%d", rng.integers(10, 60, n)),
-                b";SOR=", np.char.mod(b"%.3f", rng.uniform(0, 3, n)))
+    info = _cat(b"DP=", np.char.mod(b"%d", rng.integers(10, 60, n)))
+    info = np.where(missing, info, _cat(info, b";SOR=", np.char.mod(b"%.3f", rng.uniform(0, 3, n))))
     gt = np.where(multi, b"1/2", np.where(rng.random(n) < 0.6, b"0/1", b"1/1"))
     ad = _cat(np.char.mod(b"%d", rng.integers(0, 40, n)), b",",
               np.char.mod(b"%d", rng.integers(1, 40, n))).astype("S12")
     ad[multi] = _cat(ad[multi], b",", np.char.mod(b"%d", rng.integers(1, 40, int(multi.sum()))))
-    sample = _cat(gt, b":", np.char.mod(b"%d", rng.integers(10, 99, n)), b":", ad)
+    gq = np.char.mod(b"%d", rng.integers(10, 99, n))
+    sample = np.where(missing, _cat(gt, b":", ad), _cat(gt, b":", gq, b":", ad))
+    fmt = np.where(missing, b"GT:AD", b"GT:GQ:AD")
     tab = b"\t"
     rec = _cat(np.full(n, contig.encode()), tab, np.char.mod(b"%d", pos0 + 1), tab, b".", tab,
-               ref, tab, alt, tab, qual, tab, b"PASS", tab, info, tab, b"GT:GQ:AD", tab, sample)
+               ref, tab, alt, tab, qual, tab, b"PASS", tab, info, tab, fmt, tab, sample)
     header = [
         "##fileformat=VCFv4.2",
         '##FILTER=<ID=PASS,Description="All filters passed">',
@@ -169,6 +233,13 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
         fh.write(("\n".join(header) + "\n").encode())
         fh.write(b"\n".join(rec.tolist()) + b"\n")
 
-    model = os.path.join(d, "model.pkl")
-    save_models(model, {model_name: filter_forest(rng, n_trees, depth, aggregation)})
+    if xgboost:
+        forest = filter_forest(rng, n_trees, depth)
+        dump = xgboost_json(forest, rng.random(forest.feature.shape) < 0.5, float(rng.uniform(0.3, 0.7)))
+        model, model_name = os.path.join(d, "model.json"), "model"
+        with open(model, "w") as fh:
+            json.dump(dump, fh)
+    else:
+        model = os.path.join(d, "model.pkl")
+        save_models(model, {model_name: filter_forest(rng, n_trees, depth, aggregation)})
     return {"fasta": fasta, "vcf": vcf, "model": model, "model_name": model_name}
