@@ -10,17 +10,20 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    forest_wide.cu`` and ``forest_tree_step.cu``, with nvcc for sm_90a, the
    two nvcc runs started together, and prints each build's seconds;
 3. kernels, each against its plain torch version on the card, bit for bit
-   (``torch.equal``), timed with CUDA events (median after warm-up) beside
-   its bound, at the main path's shape (104,000 rows), at one 262,144-row
+   (``torch.equal``), timed with CUDA events beside its bound (``ms``:
+   single launches, as the main path makes them; ``device_ms``: launches
+   queued back to back, the card's time alone; ``host_ms``: the wrapper's
+   host time), at the main path's shape (104,000 rows), at one 262,144-row
    chunk and, where marked, at 5,000,000 rows in 262,144-row chunks (parity
    at every chunk):
    - the wide-block kernel: the train_models default forest (100 trees, 63
-     internal nodes / 64 leaves, logit_sum; 5 M) and an sklearn-RF-shaped
-     mean forest (100 trees, 256 leaves; 5 M);
-   - the per-tree kernel: the same two forests (the 64-leaf one with 5 M),
-     the 64-leaf forest with seeded default_left on inputs with about 10 %
-     NaN cells (5 M), and 10 trees of 1,024 leaves (depth 11), which only
-     an explicit ``gemm`` request sends to the card;
+     internal nodes / 64 leaves, logit_sum; 5 M), an sklearn-RF-shaped
+     mean forest (100 trees, 256 leaves, streamed through shared memory in
+     chunks; 5 M), and the 64-leaf forest with seeded default_left on
+     inputs with about 10 % NaN cells (the xgboost shape; 5 M);
+   - the per-tree kernel: the same three forests (the 256-leaf one without
+     5 M), and 10 trees of 1,024 leaves (depth 11), which only an explicit
+     ``gemm`` request sends to the card;
 4. pipeline: ``filter_variants_pipeline`` through ``run(argv)`` on two
    synthetic chr20-scale worlds (64,444,167 bp, 104,000 variants), each run
    with every kernel's launch count set to 0 just before it and read just
@@ -30,12 +33,20 @@ Phases (any failure exits non-zero, and the final result line is not printed):
      ``VCTPU_FOREST_STRATEGY=gemm`` (-> ``cuda-gemm``);
    - an xgboost JSON model (100 trees of depth 6, default_left) over a
      callset where about 10 % of the records lack SOR and GQ:
-     ``--backend gpu`` (``auto`` -> ``cuda-gemm``) and ``--backend cpu``;
+     ``--backend gpu`` (``auto`` -> ``cuda-wide``), ``--backend cpu``, and
+     ``--backend gpu`` with ``VCTPU_FOREST_STRATEGY=gemm`` (-> ``cuda-gemm``);
    each GPU run must launch its kernel and only its kernel, and write the
    CPU run's bytes outside the ``##vctpu_*`` lines.
 
 The last two lines of standard output are a JSON object with the kernel
 numbers and the device line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --time-wide CHECKOUT_ROOT
+
+times only the wide kernel of the checkout at CHECKOUT_ROOT (``.`` for this
+one; an older one unpacked under the ignored ``build/``), on the same
+forests and rows as phase 3: run in turns for two checkouts in one call on
+one card, it compares their kernels (:func:`time_wide`).
 """
 
 from __future__ import annotations
@@ -84,6 +95,43 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds the host spends in ``fn``, which returns once its
+    launch is queued; the card is synchronized between calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds of ``fn`` on the card alone: ``reps`` calls enqueued
+    while the card spins (``torch.cuda._sleep``) for longer than the host takes
+    to enqueue them, then timed between one pair of CUDA events, so that the
+    wrapper's host time hides behind the card's work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0  # an upper bound on one call's host time
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0, 1.5 * reps * host_s) * 2e9))  # cycles at about 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def phase_card() -> str:
@@ -145,12 +193,28 @@ def _chunked(kernel_fn, x: torch.Tensor, chunk: int) -> list[torch.Tensor]:
     return [kernel_fn(x[lo: lo + chunk]) for lo in range(0, x.shape[0], chunk)]
 
 
+def _launch_times(launch, x_all: torch.Tensor, n: int) -> dict:
+    """The three times of ``launch`` over the first ``n`` rows (in 262,144-row
+    chunks past one chunk): ``ms``, the median of single launches each
+    between its own pair of events, which is what one launch of the main
+    path costs, the wrapper's host time included where the card waits for
+    it; ``device_ms``, the card's time alone (:func:`device_ms`); ``host_ms``,
+    the wrapper's host time (:func:`host_ms`)."""
+    if n <= KERNEL_ROWS:
+        xn = x_all[:n]
+        fn, reps = (lambda: launch(xn)), 20
+    else:
+        fn, reps = (lambda: _chunked(launch, x_all[:n], KERNEL_ROWS)), 5
+    return {"ms": cuda_ms(fn, reps=reps), "device_ms": device_ms(fn, reps=reps), "host_ms": host_ms(fn, reps=reps)}
+
+
 def _measure(name: str, kernel, x_all: torch.Tensor, main_rows: int, north_star: bool, bound, info: dict
              ) -> tuple[dict, float]:
-    """Parity (``torch.equal``) and CUDA-event times of ``kernel.launch`` against
-    ``kernel.plain`` at the main path's rows, one chunk and, with
-    ``north_star``, 5 M rows in chunks (parity at every chunk).
-    ``bound(n)`` -> (ms, by, detail). Returns (rows -> numbers, max abs error)."""
+    """Parity (``torch.equal``) and CUDA-event times (:func:`_launch_times`) of
+    ``kernel.launch`` against ``kernel.plain`` at the main path's rows, one
+    chunk and, with ``north_star``, 5 M rows in chunks (parity at every
+    chunk). ``bound(n)`` -> (ms, by, detail). Returns (rows -> numbers, max
+    abs error)."""
     max_err = 0.0
     spans = [(lo, KERNEL_ROWS) for lo in range(0, NORTH_STAR_ROWS, KERNEL_ROWS)] if north_star else []
     spans += [(0, main_rows), (0, KERNEL_ROWS)]
@@ -162,22 +226,42 @@ def _measure(name: str, kernel, x_all: torch.Tensor, main_rows: int, north_star:
         max_err = max(max_err, err)
         check(torch.equal(got, want), f"{name}: kernel != plain at rows {lo}..{lo + size} (max abs err {err})")
     rows = {}
-    for n in (main_rows, KERNEL_ROWS):
-        xn = x_all[:n]
+    for n in (main_rows, KERNEL_ROWS) + ((NORTH_STAR_ROWS,) if north_star else ()):
         bound_ms, bound_by, detail = bound(n)
-        ms = cuda_ms(lambda xn=xn: kernel.launch(xn))
-        rows[n] = {"ms": ms, "plain_ms": cuda_ms(lambda xn=xn: kernel.plain(xn), reps=5),
-                   "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms, **detail}
-    if north_star:
-        bound_ms, bound_by, detail = bound(NORTH_STAR_ROWS)
-        ms = cuda_ms(lambda: _chunked(kernel.launch, x_all, KERNEL_ROWS), reps=5, warmup=1)
-        rows[NORTH_STAR_ROWS] = {
-            "ms": ms, "plain_ms": cuda_ms(lambda: _chunked(kernel.plain, x_all, KERNEL_ROWS), reps=2, warmup=1),
-            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms, **detail,
-            "launches": math.ceil(NORTH_STAR_ROWS / KERNEL_ROWS)}
+        times = _launch_times(kernel.launch, x_all, n)
+        if n <= KERNEL_ROWS:
+            plain_ms = cuda_ms(lambda xn=x_all[:n]: kernel.plain(xn), reps=5)
+        else:
+            plain_ms = cuda_ms(lambda: _chunked(kernel.plain, x_all, KERNEL_ROWS), reps=2, warmup=1)
+        rows[n] = {**times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_share": bound_ms / times["ms"], "device_bound_share": bound_ms / times["device_ms"],
+                   **detail, "launches": math.ceil(n / KERNEL_ROWS)}
     for n, r in rows.items():
         print("KERNEL_DETAIL " + json.dumps({"forest": name, "rows": n, **info, **r}), flush=True)
     return rows, max_err
+
+
+def _inputs() -> tuple[torch.Tensor, torch.Tensor]:
+    """5 M rows of seeded features on the card, and the same rows with about
+    10 % of the cells missing (NaN), for the default_left forest."""
+    x_all = torch.from_numpy(_features(np.random.default_rng(20), NORTH_STAR_ROWS)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x_nan = x_all.masked_fill(torch.rand(x_all.shape, generator=gen, device="cuda") < 0.1, math.nan)
+    return x_all, x_nan
+
+
+def _wide_forests(x_all: torch.Tensor, x_nan: torch.Tensor) -> dict:
+    """name -> (forest, its input rows): the three forests of the wide kernel's
+    numbers, seeded; the xgboost-shaped one is the production shape."""
+    from variantcalling_tpu_torch.models import forest as fmod
+    from variantcalling_tpu_torch.synthetic import filter_forest
+
+    dleft = filter_forest(np.random.default_rng(77), n_trees=100, depth=7)
+    dleft.default_left = (np.random.default_rng(78).random(dleft.feature.shape) < 0.5) \
+        & (dleft.feature != fmod.LEAF)
+    return {"train_models_default_100x64": (filter_forest(np.random.default_rng(7), 100, 7, "logit_sum"), x_all),
+            "sklearn_rf_shaped_100x256": (filter_forest(np.random.default_rng(9), 100, 9, "mean"), x_all),
+            "xgboost_default_left_100x64": (dleft, x_nan)}
 
 
 def phase_kernel(main_rows: int) -> dict:
@@ -186,41 +270,35 @@ def phase_kernel(main_rows: int) -> dict:
     from variantcalling_tpu_torch.synthetic import filter_forest
 
     torch.backends.cuda.matmul.allow_tf32 = False  # stated: the plain versions' products stay float32
-    rng = np.random.default_rng(20)
-    x_all = torch.from_numpy(_features(rng, NORTH_STAR_ROWS)).cuda()
-    # the same rows with about 10 % of the cells missing, for the default_left forest
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    x_nan = x_all.masked_fill(torch.rand(x_all.shape, generator=gen, device="cuda") < 0.1, math.nan)
+    x_all, x_nan = _inputs()
     cuda = torch.device("cuda")
     wide, tree_step = {}, {}
     wide_err = tree_err = 0.0
-    finite = {"train_models_default_100x64": filter_forest(np.random.default_rng(7), 100, 7, "logit_sum"),
-              "sklearn_rf_shaped_100x256": filter_forest(np.random.default_rng(9), 100, 9, "mean")}
-    for name, forest in finite.items():
-        check(fmod.resolve_strategy(forest, cuda) == "cuda-wide", f"{name}: not on the wide kernel")
-        kernel = forest_cuda.WideForestKernel(forest, x_all.shape[1], "cuda")
+    forests = _wide_forests(x_all, x_nan)
+    for name, (forest, x) in forests.items():
+        check(fmod.resolve_strategy(forest, cuda) == "cuda-wide", f"{name}: auto does not send it to cuda-wide")
+        kernel = forest_cuda.WideForestKernel(forest, x.shape[1], "cuda")
+        tables = kernel.tables
         wf = kernel.wide()
-        table_bytes = (kernel.nodes.numel() + kernel.leaf_val.numel() + kernel.roots.numel()) * 4
-        plen = wf.plen.reshape(-1, kernel.n_leaf)[: wf.n_trees]
-        wide[name], err = _measure(name, kernel, x_all, main_rows, True,
+        table_bytes = sum(t.numel() * t.element_size()
+                          for t in (kernel.records, kernel.tree_info, kernel.chunk_tree, kernel.chunk_rec))
+        plen = wf.plen.reshape(-1, wf.value.shape[2])[: wf.n_trees]
+        wide[name], err = _measure(name, kernel, x, main_rows, True,
                                    lambda n: _bound(n, kernel.n_features, table_bytes, plen),
-                                   {"kernel": "forest_wide", "blocks": kernel.n_blocks,
-                                    "tree_block": kernel.tree_block})
+                                   {"kernel": "forest_wide", "chunks": tables.n_chunks,
+                                    "chunk_records": tables.chunk_records,
+                                    "default_left": forest.default_left is not None})
         wide_err = max(wide_err, err)
 
-    dleft = filter_forest(np.random.default_rng(77), n_trees=100, depth=7)
-    dleft.default_left = (np.random.default_rng(78).random(dleft.feature.shape) < 0.5) \
-        & (dleft.feature != fmod.LEAF)
     deep = filter_forest(np.random.default_rng(11), n_trees=10, depth=11)
     os.environ[fmod.FOREST_STRATEGY_ENV] = "gemm"
     check(fmod.resolve_strategy(deep, cuda) == "cuda-gemm", "explicit gemm does not reach the per-tree kernel")
     del os.environ[fmod.FOREST_STRATEGY_ENV]
     check(fmod.resolve_strategy(deep, cuda) == "gather", "auto sends trees of 1,024 leaves to a kernel")
-    check(fmod.resolve_strategy(dleft, cuda) == "cuda-gemm", "auto does not send default_left to cuda-gemm")
     for name, forest, x, north_star in (
-            ("train_models_default_100x64", finite["train_models_default_100x64"], x_all, True),
-            ("sklearn_rf_shaped_100x256", finite["sklearn_rf_shaped_100x256"], x_all, False),
-            ("xgboost_default_left_100x64", dleft, x_nan, True),
+            ("train_models_default_100x64", forests["train_models_default_100x64"][0], x_all, True),
+            ("sklearn_rf_shaped_100x256", forests["sklearn_rf_shaped_100x256"][0], x_all, False),
+            ("xgboost_default_left_100x64", *forests["xgboost_default_left_100x64"], True),
             ("explicit_gemm_10x1024", deep, x_all, False)):
         gf = fmod.to_gemm(forest, x.shape[1])
         kernel = forest_cuda.TreeStepKernel(gf, "cuda")
@@ -331,16 +409,46 @@ def phase_pipeline(tmp: Path, card: str) -> dict:
             records = [ln for ln in cpu["bytes"].decode().splitlines() if not ln.startswith("#")]
             missing = sum(";SOR=" not in ln for ln in records)
             check(0.05 * len(records) < missing < 0.15 * len(records), f"{missing} records lack SOR")
-            gpu = _drive(world, tmp / f"{label}_gpu.vcf", "gpu", card, label)
-            _check_same(gpu, cpu, "cuda-gemm", "forest_tree_step", label)
-            runs["xgboost_gpu"] = gpu
-        else:
-            gpu = _drive(world, tmp / f"{label}_gpu.vcf", "gpu", card, label)
-            _check_same(gpu, cpu, "cuda-wide", "forest_wide", label)
-            gemm = _drive(world, tmp / f"{label}_gpu_gemm.vcf", "gpu", card, label + "_gemm", strategy="gemm")
-            _check_same(gemm, cpu, "cuda-gemm", "forest_tree_step", label + " (gemm)")
-            runs["wide_gpu"], runs["gemm_gpu"] = gpu, gemm
+        # auto: every forest within GEMM_MAX_LEAVES, default_left or not, on the wide kernel
+        gpu = _drive(world, tmp / f"{label}_gpu.vcf", "gpu", card, label)
+        _check_same(gpu, cpu, "cuda-wide", "forest_wide", label)
+        gemm = _drive(world, tmp / f"{label}_gpu_gemm.vcf", "gpu", card, label + "_gemm", strategy="gemm")
+        _check_same(gemm, cpu, "cuda-gemm", "forest_tree_step", label + " (gemm)")
+        runs[label] = {"wide_gpu": gpu, "gemm_gpu": gemm}
     return runs
+
+
+def time_wide(root: str) -> int:
+    """``--time-wide ROOT``: the wide kernel of the checkout at ROOT (this
+    one, or an older one unpacked beside it) on :func:`_wide_forests` at the
+    main path's rows, one chunk and 5 M rows, with :func:`_launch_times`,
+    after a parity check against its plain version. A kernel that refuses a
+    forest (before default_left was served) is reported so, with no times.
+    Two checkouts timed in turns in one run on one card compare their
+    kernels. One ``WIDE_TIME`` JSON line per forest and row count."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    card = phase_card()
+    phase_build()
+    import variantcalling_tpu_torch
+    from variantcalling_tpu_torch.models import forest_cuda
+
+    print(f"timing the wide kernel of {Path(variantcalling_tpu_torch.__file__).parent}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x_all, x_nan = _inputs()
+    n_main = WORLD["n_variants"]
+    for name, (forest, x) in _wide_forests(x_all, x_nan).items():
+        try:
+            kernel = forest_cuda.WideForestKernel(forest, x.shape[1], "cuda")
+        except NotImplementedError as e:
+            print("WIDE_TIME " + json.dumps({"root": root, "forest": name, "served": False, "error": str(e),
+                                             "card": card}), flush=True)
+            continue
+        got, want = kernel.launch(x[:n_main]), kernel.plain(x[:n_main])
+        check(torch.equal(got, want), f"{name}: kernel != plain")
+        for n in (n_main, KERNEL_ROWS, NORTH_STAR_ROWS):
+            print("WIDE_TIME " + json.dumps({"root": root, "forest": name, "served": True, "rows": n,
+                                             **_launch_times(kernel.launch, x, n), "card": card}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -350,21 +458,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         pipe = phase_pipeline(Path(tmp), card)
     n = WORLD["n_variants"]
-    rows = {  # each kernel's numbers at the main path's shape, on the forest its main path scores
-        "forest_wide": kern["forest_wide"]["results"]["train_models_default_100x64"][n],
+    rows = {  # each kernel's numbers at the main path's shape, on the production (xgboost) forest
+        "forest_wide": kern["forest_wide"]["results"]["xgboost_default_left_100x64"][n],
         "forest_tree_step": kern["forest_tree_step"]["results"]["xgboost_default_left_100x64"][n],
     }
-    meta = {
+    meta = {  # launches: the xgboost world's auto run, and its run pinned to gemm
         "forest_wide": ("variantcalling_tpu_torch/csrc/forest_wide.cu",
-                        "variantcalling_tpu/models/forest_pallas.py:105", pipe["wide_gpu"]),
+                        "variantcalling_tpu/models/forest_pallas.py:105", pipe["xgboost_json"]["wide_gpu"]),
         "forest_tree_step": ("variantcalling_tpu_torch/csrc/forest_tree_step.cu",
-                             "variantcalling_tpu/models/forest_pallas.py:51", pipe["xgboost_gpu"]),
+                             "variantcalling_tpu/models/forest_pallas.py:51", pipe["xgboost_json"]["gemm_gpu"]),
     }
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": run["launches"][name], "max_abs_err": kern[name]["max_abs_err"],
         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
         "bound_by": rows[name]["bound_by"],
+        # the card's time alone, and the wrapper's host time, beside the single launch's ms
+        "device_ms": rows[name]["device_ms"], "host_ms": rows[name]["host_ms"],
         # no single PyTorch call computes a decision forest
         "library_ms": None,
         "build_s": build_s[name],
@@ -375,4 +485,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-wide":
+        sys.exit(time_wide(sys.argv[2]))
+    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--time-wide CHECKOUT_ROOT]")
     sys.exit(main())

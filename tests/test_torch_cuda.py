@@ -15,21 +15,33 @@ from variantcalling_tpu_torch.synthetic import synthetic_forest
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("depth,n_trees,tree_block", [(3, 7, None), (7, 100, None), (9, 10, 1), (7, 9, 4)])
+@pytest.mark.parametrize("depth,n_trees,dleft", [
+    (3, 7, False), (7, 100, False), (9, 10, False), (7, 9, False), (7, 100, True), (9, 10, True),
+    (9, 100, True),  # 100 trees of 256 leaves: over the shared memory, streamed in chunks
+    (12, 10, False),  # 10 trees of 2,048 leaves (explicit wide): chunks cut inside a group of four
+])
 @pytest.mark.parametrize("n", [1, 513, 70_001])
-def test_kernel_matches_plain_version_on_card(depth, n_trees, tree_block, n):
+def test_kernel_matches_plain_version_on_card(depth, n_trees, dleft, n):
+    """The wide kernel, with and without default_left (NaN inputs only with it),
+    on forests resident in shared memory and on one that streams in chunks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     rng = np.random.default_rng(depth * 1000 + n)
     forest = synthetic_forest(rng, n_trees=n_trees, depth=depth, n_features=19)
-    kernel = forest_cuda.WideForestKernel(forest, 19, "cuda", tree_block)
-    x = torch.from_numpy(rng.uniform(0, 50, (n, 19)).astype(np.float32)).cuda()
+    x = rng.uniform(0, 50, (n, 19)).astype(np.float32)
+    if dleft:
+        forest.default_left = (rng.random(forest.feature.shape) < 0.5) & (forest.feature != fmod.LEAF)
+        x[rng.random(x.shape) < 0.1] = np.nan
+    kernel = forest_cuda.WideForestKernel(forest, 19, "cuda")
+    if (depth, n_trees) in ((9, 100), (12, 10)):
+        assert kernel.tables.n_chunks > 1
+    xt = torch.from_numpy(x).cuda()
     before = forest_cuda.LAUNCHES
-    got = kernel(x)
+    got = kernel(xt)
     torch.cuda.synchronize()
     assert forest_cuda.LAUNCHES == before + 1
-    assert torch.equal(got, kernel.plain(x))
-    assert torch.equal(got, fmod.predict_margin(forest, x))
+    assert torch.equal(got, kernel.plain(xt))
+    assert torch.equal(got, fmod.predict_margin(forest, xt))
 
 
 @pytest.mark.cuda

@@ -140,13 +140,18 @@ def xgb_world(tmp_path_factory):
     return d, argv, (d / "ref.vcf").read_bytes()
 
 
-@pytest.mark.parametrize("strategy,recorded", [("auto", "gather"), ("gather", "gather"), ("gemm", "gemm")])
+@pytest.mark.parametrize("strategy,recorded", [("auto", "gather"), ("gather", "gather"), ("gemm", "gemm"),
+                                               ("wide", "wide")])
 def test_port_cli_xgboost_world_bytes_equal_reference(xgb_world, monkeypatch, strategy, recorded):
+    """Every strategy that serves a default_left forest writes the reference's
+    bytes, and so does the reference itself under the same request."""
     d, argv, ref_bytes = xgb_world
     text = open(argv[1]).read()
     assert "GT:AD\t" in text and any("SOR=" not in ln for ln in text.splitlines() if not ln.startswith("#"))
-    out = d / f"port_{strategy}.vcf"
+    out, ref_out = d / f"port_{strategy}.vcf", d / f"ref_{strategy}.vcf"
     monkeypatch.setenv(FOREST_STRATEGY_ENV, strategy)
+    assert fvp.run([*argv, "--output_file", str(ref_out)]) == 0
+    assert fixtures.strip_vctpu_header(ref_out.read_bytes()) == fixtures.strip_vctpu_header(ref_bytes)
     assert torch_main(["filter_variants_pipeline", *argv, "--output_file", str(out)]) == 0
     port_bytes = out.read_bytes()
     assert fixtures.strip_vctpu_header(port_bytes) == fixtures.strip_vctpu_header(ref_bytes)
@@ -156,9 +161,10 @@ def test_port_cli_xgboost_world_bytes_equal_reference(xgb_world, monkeypatch, st
     assert {"PASS", "LOW_SCORE"} <= filters
 
 
-@pytest.mark.parametrize("strategy", ["wide", "pallas", "fastest"])
+@pytest.mark.parametrize("strategy", ["pallas", "fastest"])
 def test_unservable_or_malformed_strategy_exits_2(xgb_world, monkeypatch, tmp_path, strategy):
-    """Explicit wide/pallas cannot serve a default_left forest; a malformed value is refused."""
+    """Explicit pallas cannot serve a default_left forest (nor can the reference's
+    Pallas kernel); a malformed value is refused."""
     _, argv, _ = xgb_world
     monkeypatch.setenv(FOREST_STRATEGY_ENV, strategy)
     assert torch_main(["filter_variants_pipeline", *argv, "--output_file", str(tmp_path / "o.vcf")]) == 2

@@ -8,8 +8,8 @@
 - the kernel's compact tables, built from the forest's node arrays and
   walked in numpy exactly as the CUDA source walks them, give the same
   bits (the kernel itself needs the card);
-- ``finalize_margin`` bytes, the forest conversion, the refusal of
-  default_left forests by the wide kernel, and the strategy rule.
+- ``finalize_margin`` bytes, the forest conversion, default_left forests
+  on the wide kernel's path, and the strategy rule.
 """
 
 import numpy as np
@@ -79,27 +79,29 @@ def _x(n: int, f: int, scale: float, seed: int = 9) -> np.ndarray:
     return (np.random.default_rng(seed).random((n, f)) * scale).astype(np.float32)
 
 
-def _walk_compact_tables(kernel: forest_cuda.WideForestKernel, x: np.ndarray) -> np.ndarray:
-    """numpy replay of ``csrc/forest_wide.cu``'s per-row walk over the compact tables."""
-    nodes = kernel.nodes.numpy()
-    vals = kernel.leaf_val.numpy()
-    roots = kernel.roots.numpy()
-    g, n_int, n_leaf = kernel.tree_block, kernel.n_int, kernel.n_leaf
-    acc = np.zeros(len(x), dtype=np.float32)
-    for b in range(kernel.n_blocks):
-        for j in range(g):
-            t = b * g + j
-            if t >= kernel.forest.n_trees:
-                break
-            node = np.full(len(x), roots[t], dtype=np.int64)
-            live = node >= 0
-            while live.any():
-                nd = nodes[b, j * n_int + node[live]]
-                thr = nd[:, 1].astype(np.int32).view(np.float32)
-                node[live] = np.where(x[live, nd[:, 0]] <= thr, nd[:, 2], nd[:, 3])
-                live = node >= 0
-            acc = (acc + vals[b, j * n_leaf + ~node]).astype(np.float32)
-    return acc
+def _walk_compact_tables(tables: forest_cuda.WideTables, x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """numpy replay of ``csrc/forest_wide.cu``'s per-row walk over the compact
+    tables, ``depth`` steps a tree with the leaves' extra feature of -inf:
+    (margins (N,), the record each row ends on per tree (N, T))."""
+    rec = tables.records
+    n, t = len(x), len(tables.tree_off)
+    xe = np.concatenate([x, np.full((n, 1), -np.inf, dtype=np.float32)], axis=1)
+    acc = np.zeros(n, dtype=np.float32)
+    ends = np.zeros((n, t), dtype=np.int64)
+    rows = np.arange(n)
+    for c in range(tables.n_chunks):
+        for ti in range(tables.chunk_tree[c], tables.chunk_tree[c + 1]):
+            base = int(tables.chunk_rec[c]) + int(tables.tree_off[ti])
+            s = np.full(n, base, dtype=np.int64)
+            for _ in range(tables.depth[ti]):
+                y = rec[s, 1].astype(np.int64)
+                v = xe[rows, y & 0x7FFF]
+                thr = rec[s, 0].view(np.float32)
+                right = np.where((y & 0x8000) != 0, v > thr, ~(v <= thr))
+                s = base + (y >> 16) + right
+            ends[:, ti] = s
+            acc = (acc + rec[s, 0].view(np.float32)).astype(np.float32)
+    return acc, ends
 
 
 @pytest.mark.parametrize("name", ["sklearn_rf_ragged", "sklearn_gbt", "synthetic_deep",
@@ -127,10 +129,14 @@ def test_wide_margins_bit_identical_to_pallas_and_strategies(forests, name, tree
     jw = jforest.to_wide(jforest.to_gemm(ref, f), tree_block)
     pallas = make_wide_pallas_margin_predictor(jforest.to_gemm(ref, f), tree_block=tree_block,
                                                interpret=True)
-    kernel = forest_cuda.WideForestKernel(forest, f, "cpu", tree_block)
-    # the kernel's tables are packed as the wide encoding is: same blocks, nodes and leaves per tree
-    assert (kernel.n_blocks, kernel.tree_block) == (jw.n_blocks, jw.tree_block)
-    assert (kernel.n_int, kernel.n_leaf) == (jw.a.shape[2] // jw.tree_block, jw.value.shape[2])
+    kernel = forest_cuda.WideForestKernel(forest, f, "cpu")
+    tw = tforest.to_wide(tforest.to_gemm(forest, f), tree_block)
+    tables = forest_cuda.compact_tables(forest, f)
+    # the plain version packs the trees as the reference's wide encoding does; the
+    # kernel's tables hold every tree, one record per reachable node
+    assert (tw.n_blocks, tw.tree_block) == (jw.n_blocks, jw.tree_block)
+    assert len(tables.tree_off) == jw.n_trees
+    assert (tables.node >= 0).sum() == 2 * (np.asarray(jw.plen) >= 0).sum() - jw.n_trees
     x = _x(1100, f, scale)
     want = np.asarray(pallas(jnp.asarray(x)))
     np.testing.assert_array_equal(np.asarray(jax.jit(lambda v: jforest.predict_margin_wide(jw, v))(x)), want)
@@ -138,8 +144,9 @@ def test_wide_margins_bit_identical_to_pallas_and_strategies(forests, name, tree
     xt = torch.from_numpy(x)
     got_wide = kernel(xt).numpy()
     assert got_wide.tobytes() == want.tobytes()
+    assert forest_cuda.wide_margin_plain(tw, xt).numpy().tobytes() == want.tobytes()
     assert tforest.predict_margin(forest, xt).numpy().tobytes() == want.tobytes()
-    assert _walk_compact_tables(kernel, x).tobytes() == want.tobytes()
+    assert _walk_compact_tables(tables, x)[0].tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("n", N_VALUES)
@@ -221,23 +228,29 @@ def test_synthetic_forest_matches_reference():
 
 
 def test_default_left_refused_on_kernel_path(forests, monkeypatch):
-    """default_left forests: the card resolves them to the per-tree kernel
-    (``cuda-gemm``), the wide kernel refuses them, the CPU walks them."""
+    """default_left forests: the card resolves them to the wide kernel
+    (``cuda-wide``), as the reference's ``auto`` resolves them to ``wide``;
+    its wrapper takes them and its plain version takes the node's default on
+    NaN, as the reference's ``predict_margin_wide`` does; the CPU walks them."""
     monkeypatch.delenv(tforest.FOREST_STRATEGY_ENV, raising=False)
     ref, f, _ = forests["boosted_8x6"]
     forest = _port(ref)
-    forest.default_left = np.zeros(forest.feature.shape, dtype=bool)
-    assert tforest.resolve_strategy(forest, torch.device("cuda")) == "cuda-gemm"
-    with pytest.raises(NotImplementedError):
-        forest_cuda.WideForestKernel(forest, f, "cpu")
-    # on the CPU the gather walk serves it, with NaN taking the default branch
+    forest.default_left = np.random.default_rng(10).random(forest.feature.shape) < 0.5
+    assert tforest.resolve_strategy(forest, torch.device("cuda")) == "cuda-wide"
+    kernel = forest_cuda.WideForestKernel(forest, f, "cpu")
     assert tforest.resolve_strategy(forest, torch.device("cpu")) == "gather"
     x = _x(300, f, 1.0)
     x[::3, :] = np.nan
-    want = np.asarray(jax.jit(lambda v: jforest.predict_margin(
-        jforest.FlatForest(**{k: getattr(ref, k) for k in REFERENCE_ARRAYS[:5]}, max_depth=ref.max_depth,
-                           default_left=forest.default_left), v))(jnp.asarray(x)))
-    assert tforest.predict_margin(forest, torch.from_numpy(x)).numpy().tobytes() == want.tobytes()
+    x[1::3, 2] = np.nan
+    jref = jforest.FlatForest(**{k: getattr(ref, k) for k in REFERENCE_ARRAYS[:5]}, max_depth=ref.max_depth,
+                              default_left=forest.default_left)
+    want = np.asarray(jax.jit(lambda v: jforest.predict_margin(jref, v))(jnp.asarray(x)))
+    jw = jforest.to_wide(jforest.to_gemm(jref, f))
+    np.testing.assert_array_equal(np.asarray(jax.jit(lambda v: jforest.predict_margin_wide(jw, v))(x)), want)
+    xt = torch.from_numpy(x)
+    assert tforest.predict_margin(forest, xt).numpy().tobytes() == want.tobytes()
+    assert kernel(xt).numpy().tobytes() == want.tobytes()
+    assert _walk_compact_tables(forest_cuda.compact_tables(forest, f), x)[0].tobytes() == want.tobytes()
 
 
 def test_strategy_rule(forests, monkeypatch):
@@ -248,7 +261,7 @@ def test_strategy_rule(forests, monkeypatch):
     assert tforest.resolve_strategy(_port(ref), torch.device("cpu")) == "gather"
     dleft = _port(ref)
     dleft.default_left = np.ones(dleft.feature.shape, dtype=bool)
-    assert tforest.resolve_strategy(dleft, cuda) == "cuda-gemm"
+    assert tforest.resolve_strategy(dleft, cuda) == "cuda-wide"
     big = _port(forests["synthetic_deep"][0])  # depth 9: 256 leaves, still under the limit
     assert tforest.resolve_strategy(big, cuda) == "cuda-wide"
     huge = tforest.FlatForest(**{k: np.tile(getattr(big, k), (1, 4)) for k in REFERENCE_ARRAYS[:5]},

@@ -11,7 +11,9 @@
   margins (the kernel itself needs the card);
 - ``make_gemm_cuda_predictor`` against ``make_gemm_pallas_predictor``, with
   twins of ``tests/unit/test_forest_pallas.py``;
-- the strategy rule and the ``VCTPU_FOREST_STRATEGY`` request.
+- the strategy rule and the ``VCTPU_FOREST_STRATEGY`` request;
+- the wide kernel's plain version and a replay of its tables on default_left
+  forests with NaN inputs, against the reference's ``predict_margin_wide``.
 """
 
 import numpy as np
@@ -66,6 +68,10 @@ def forests():
                                      ("feature", "threshold", "left", "right", "value")},
                                   max_depth=rf.max_depth, aggregation=rf.aggregation,
                                   default_left=np.random.default_rng(6).random(rf.feature.shape) < 0.5)
+    gbt_dleft = jforest.FlatForest(**{k: np.asarray(getattr(gbt, k)) for k in
+                                      ("feature", "threshold", "left", "right", "value")},
+                                   max_depth=gbt.max_depth, aggregation=gbt.aggregation, base_score=gbt.base_score,
+                                   default_left=np.random.default_rng(15).random(gbt.feature.shape) < 0.5)
     nan_x = _x(1000, 8, 1.0, seed=11)
     nan_x[np.random.default_rng(12).random(nan_x.shape) < 0.1] = np.nan
     return {
@@ -77,6 +83,7 @@ def forests():
                          np.concatenate([_probe_matrix(np.random.default_rng(0))] * 2)),
         "xgb_synthetic_6x64": (jxgb.from_xgboost_json(_xgb_synthetic(13, 6)), 19, _range_features(1000, 14, 0.1)),
         "sklearn_rf_ragged_dleft": (rf_dleft, 8, nan_x),
+        "sklearn_gbt_dleft": (gbt_dleft, 8, nan_x),
     }
 
 
@@ -269,17 +276,18 @@ def _with_leaves(forest: tforest.FlatForest, n_internal: int) -> tforest.FlatFor
 
 
 @pytest.mark.parametrize("request_,dleft,leaves,device,want", [
-    ("auto", True, "small", "cuda", "cuda-gemm"),
+    ("auto", True, "small", "cuda", "cuda-wide"),
     ("auto", False, "small", "cuda", "cuda-wide"),
     ("auto", True, "huge", "cuda", "gather"),
     ("auto", True, "small", "cpu", "gather"),
     ("gemm", True, "huge", "cuda", "cuda-gemm"),
     ("gemm", False, "small", "cpu", "gemm"),
     ("wide", False, "small", "cuda", "cuda-wide"),
+    ("wide", True, "small", "cpu", "wide"),
     ("pallas", False, "small", "cpu", "wide"),
     ("gather", True, "small", "cuda", "gather"),
     (" GEMM ", False, "small", "cuda", "cuda-gemm"),
-    ("", True, "small", "cuda", "cuda-gemm"),
+    ("", True, "small", "cuda", "cuda-wide"),
 ])
 def test_strategy_request_resolution(forests, monkeypatch, request_, dleft, leaves, device, want):
     forest = _port(forests["xgb_synthetic_6x64"][0])
@@ -293,12 +301,51 @@ def test_strategy_request_resolution(forests, monkeypatch, request_, dleft, leav
     assert want in tforest.STRATEGIES
 
 
-@pytest.mark.parametrize("request_", ["wide", "pallas"])
+@pytest.mark.parametrize("request_", ["pallas"])
 def test_explicit_wide_refuses_default_left(forests, monkeypatch, request_):
+    """``pallas`` names the reference's Pallas wide-block kernel, which refuses
+    default_left forests (``forest_pallas.py:147``): so does the port."""
     monkeypatch.setenv(tforest.FOREST_STRATEGY_ENV, request_)
     for device in ("cuda", "cpu"):
         with pytest.raises(EngineError, match="gemm"):
             tforest.resolve_strategy(_port(forests["xgb_synthetic_6x64"][0]), torch.device(device))
+
+
+@pytest.mark.parametrize("device,want", [("cuda", "cuda-wide"), ("cpu", "wide")])
+def test_explicit_wide_serves_default_left(forests, monkeypatch, device, want):
+    """An explicit ``wide`` serves a default_left forest, as the reference's
+    ``wide`` does; on the CPU its margins are the reference's bytes."""
+    monkeypatch.setenv(tforest.FOREST_STRATEGY_ENV, "wide")
+    ref, f, x = forests["xgb_synthetic_6x64"]
+    forest = _port(ref)
+    assert tforest.resolve_strategy(forest, torch.device(device)) == want
+    fn = tforest.make_margin_predictor(forest, f, "wide", torch.device("cpu"))
+    want_bytes = np.asarray(jforest.predict_margin_wide(jforest.to_wide(jforest.to_gemm(ref, f)), jnp.asarray(x)))
+    assert fn(torch.from_numpy(x)).numpy().tobytes() == want_bytes.tobytes()
+
+
+@pytest.mark.parametrize("tree_block", [None, 1, 3])
+@pytest.mark.parametrize("name", ["xgb_two_tree", "xgb_synthetic_6x64", "sklearn_rf_ragged_dleft",
+                                  "sklearn_gbt_dleft"])
+def test_wide_plain_equals_reference_on_default_left(forests, name, tree_block):
+    """The wide kernel's plain version on default_left forests with NaN cells
+    equals the reference's ``predict_margin_wide`` byte for byte (its NaN-mask
+    branch), and so does a numpy replay of the kernel over its tables."""
+    from tests.test_torch_forest import _walk_compact_tables
+
+    ref, f, x = forests[name]
+    assert ref.default_left is not None and np.isnan(x).any()
+    jw = jforest.to_wide(jforest.to_gemm(ref, f), tree_block)
+    want = np.asarray(jax.jit(lambda v: jforest.predict_margin_wide(jw, v))(jnp.asarray(x)))
+    np.testing.assert_array_equal(np.asarray(jax.jit(lambda v: jforest.predict_margin(ref, v))(x)), want)
+    kernel = forest_cuda.WideForestKernel(_port(ref), f, "cpu")
+    before = forest_cuda.LAUNCHES
+    got = kernel(torch.from_numpy(x)).numpy()
+    assert forest_cuda.LAUNCHES == before  # a CPU tensor takes the plain version
+    assert got.tobytes() == want.tobytes()
+    wf = tforest.to_wide(tforest.to_gemm(_port(ref), f), tree_block)
+    assert forest_cuda.wide_margin_plain(wf, torch.from_numpy(x)).numpy().tobytes() == want.tobytes()
+    assert _walk_compact_tables(forest_cuda.compact_tables(_port(ref), f), x)[0].tobytes() == want.tobytes()
 
 
 def test_malformed_strategy_request_raises(monkeypatch):

@@ -1,124 +1,238 @@
 // Wide-block forest margin kernel for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the Pallas TPU kernel _wide_block_kernel
-// (variantcalling_tpu/models/forest_pallas.py:105). Per 512-row tile and
-// block of G trees that kernel computes the one-hot feature pick x @ a,
-// the compare with thr, the block-diagonal routing d @ m2 + c, the leaf
-// match == plen and each tree's leaf value, as MXU contractions; the
-// ascending tree sum runs outside it.
+// (variantcalling_tpu/models/forest_pallas.py:105), launched by
+// make_wide_pallas_margin_predictor. Per 512-row tile and block of G trees
+// that kernel computes the one-hot feature pick x @ a, the compare with thr,
+// the block-diagonal routing d @ m2 + c, the leaf match == plen and each
+// tree's leaf value, as MXU contractions; the ascending tree sum runs
+// outside it. This kernel computes the same (N,) float32 margins by walking
+// each tree from its root to the one leaf that the routing selects.
 //
-// This kernel computes the same margins from compact tables that the
-// Python wrapper (models/forest_cuda.py) builds once from the forest's
-// node arrays, G trees to a block as the wide encoding packs them: per
-// internal node its feature index, its threshold, and its two children
-// (>= 0 an internal node, < 0 the leaf ~child). Walking them from the
-// root reaches exactly the one leaf whose match == plen. The feature pick
-// is an exact read of x[row, feat]; there is no product at all.
+// Tables (built once by the wrapper, models/forest_cuda.py compact_tables):
+// one 8-byte record per tree node, breadth first from the root, so that an
+// internal node's two children sit in adjacent slots:
+//   internal: .x = threshold bits, .y = first << 16 | default_left << 15 | feature
+//   leaf:     .x = value bits,     .y = slot << 16 | 1 << 15 | F (its own slot)
+// A step is next = first + go_right, with go_right = default_left ? v > thr
+// : !(v <= thr) — the reference's isnan(v) ? dleft : v <= thr, and NaN to the
+// right where the forest has no default_left; a leaf, reading the feature
+// tile's extra row F of -inf with its default bit set, steps onto itself, so
+// a walk takes its tree's depth in steps whatever leaf it reaches. The
+// feature pick is an exact read of x[row, feature]; there is no product. The
+// trees are cut into chunks of whole trees, between groups of four where a
+// group fits a chunk; one chunk when the forest fits beside the feature tiles
+// (100 trees of 64 leaves: 12,700 records, 99 KB; 100 of 256 leaves take 7
+// chunks of at most 64 KB). A tree of more than SMEM_BYTES / 32 nodes
+// (forest_cuda.MAX_TREE_NODES, 7,264) may not fit a chunk: the card's
+// strategy refuses it.
 //
-// Layout: one thread per variant row, 256 rows per block. The block first
-// stages its (256, F) feature tile in shared memory with coalesced reads
-// (row stride padded to an odd word count, so threads reading one feature
-// hit distinct banks). It then walks the tree blocks in order: stage one
-// block's tables in shared memory, sync, walk its G trees, and add each
-// tree's leaf value to the row's float32 accumulator with __fadd_rn in
-// ascending tree order (the same sum as sequential_tree_sum). Trees past
-// T (padding) and rows past N are skipped. Output: (N,) float32 margins.
+// Layout: a persistent grid of one block per SM (the forest takes most of
+// the SM's shared memory), each block walking row tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...; one thread per row, `rows` = blockDim.x rows
+// a tile (a multiple of 32, at most 512). A block's work is the sequence of
+// (tile, chunk) pairs. While it walks one pair, cp.async copies the next
+// pair's chunk (when there are several) and, at a new tile, its features
+// into the other of two buffers. A resident forest is copied once per block.
+// Features sit in shared memory feature-major (x[f * rows + r]): the 32
+// threads of a warp read 32 consecutive words whatever features their nodes
+// pick. Each thread walks four trees at once, as many steps as the deepest
+// of them (four independent load chains with no branch between them), and
+// adds their leaf values to one float32 accumulator with __fadd_rn in
+// ascending tree order: the same sum as sequential_tree_sum and the TPU
+// kernel's caller.
 //
-// Bound on this card: bytes. Per 262,144-row chunk at F = 19 the kernel
-// must read 19.9 MB of features and write 1 MB of margins; the tables are
-// ~0.1 MB and stay in L2. The design reads each feature byte from device
-// memory once (the shared-memory tile) and writes only the summed margin,
-// never the (N, T) per-tree margins (105 MB at T = 100). The walk itself
-// is ~depth dependent shared-memory loads per (row, tree); making that
-// side fast (wgmma/TMA or a register-resident tree layout) is later work.
+// Bound on this card: bytes, by chip_smoke.py's count: each feature read
+// once, each margin written once, the tables once — 20.9 MB per 262,144-row
+// chunk at F = 19, 6.3 us at 3.35 TB/s. The work is depth node steps per
+// (row, tree): 157 M for 100 trees of depth 6 on 262,144 rows, each a
+// dependent pair of shared-memory loads. What this design runs into is the
+// shared-memory pipe. Per 32 node steps (one warp's step of one tree): one
+// wavefront for the feature word (conflict free), and for the 8-byte record
+// two at the top levels (a 64-bit load is served a half-warp at a time) and
+// about four and six at the 32- and 64-node levels, where a half-warp's
+// nodes collide in banks: about 26 wavefronts and 13 shared loads per
+// 6-level tree on a warp, some 4.3 wavefronts per 32 steps; at one
+// wavefront per SM and clock, about 90 us per 262,144-row chunk on 132 SMs.
+// The card shows about 1.6x that (PERF.md, Findings), and records
+// split into two 4-byte arrays — fewer wavefronts, three loads a step —
+// ran slower: the rate of shared load instructions sets the pace as much as
+// their wavefronts. Fewer loads per step is the lever left.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxRows = 512;
+constexpr int kTrees = 4;  // trees each thread walks at once
 
-__host__ __device__ inline int x_stride(int f) { return f | 1; }
-
-__host__ inline long long smem_bytes(int f, int g, int n_int, int n_leaf) {
-  return (long long)g * n_int * 16 + (long long)g * n_leaf * 4 + (long long)g * 4 +
-         (long long)kThreads * x_stride(f) * 4;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kThreads)
-forest_wide_margin_kernel(const float* __restrict__ x, long long n, int f,
-                          const int4* __restrict__ nodes,      // (B, G*I)
-                          const float* __restrict__ leaf_val,  // (B, G*L)
-                          const int* __restrict__ roots,       // (B*G)
-                          int n_blocks, int g, int n_int, int n_leaf, int n_trees,
-                          float* __restrict__ out) {
-  extern __shared__ int4 smem[];
-  int4* s_nodes = smem;                                          // G*I
-  float* s_val = reinterpret_cast<float*>(s_nodes + g * n_int);  // G*L
-  int* s_root = reinterpret_cast<int*>(s_val + g * n_leaf);      // G
-  float* s_x = reinterpret_cast<float*>(s_root + g);             // kThreads * stride
-  const int stride = x_stride(f);
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
 
-  const long long row0 = (long long)blockIdx.x * kThreads;
-  const int rows = (int)min((long long)kThreads, n - row0);
-  const float* xt = x + row0 * f;
-  for (int k = threadIdx.x; k < rows * f; k += kThreads) {
-    const int r = k / f;
-    s_x[r * stride + (k - r * f)] = xt[k];
-  }
-  const int r = threadIdx.x;
-  const bool active = r < rows;
-  const float* xr = s_x + r * stride;
-  float acc = 0.0f;
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
 
-  for (int b = 0; b < n_blocks; ++b) {
-    __syncthreads();  // the previous block's tables are no longer read
-    const int4* gn = nodes + (long long)b * g * n_int;
-    for (int k = threadIdx.x; k < g * n_int; k += kThreads) s_nodes[k] = gn[k];
-    const float* gv = leaf_val + (long long)b * g * n_leaf;
-    for (int k = threadIdx.x; k < g * n_leaf; k += kThreads) s_val[k] = gv[k];
-    for (int k = threadIdx.x; k < g; k += kThreads) s_root[k] = roots[b * g + k];
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < g && b * g + j < n_trees; ++j) {
-        const int4* tn = s_nodes + j * n_int;
-        int node = s_root[j];
-        while (node >= 0) {
-          const int4 nd = tn[node];
-          node = (xr[nd.x] <= __int_as_float(nd.y)) ? nd.z : nd.w;
-        }
-        acc = __fadd_rn(acc, s_val[j * n_leaf + ~node]);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the one committed last has landed (this thread's copies)
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Trees [t_begin, t_end) of the chunk in `tab` for the row whose features
+// start at xr (stride `rows`; row f = n_features holds -inf), added to acc in
+// ascending tree order. Each group of kTrees walks takes as many steps as its
+// deepest tree: a step has no branch, and a leaf's step lands on the leaf
+// itself (its feature is the -inf row, its default bit set: -inf > value is
+// false), so the group's loads interleave. A group short of kTrees trees
+// repeats its last tree and does not add it.
+__device__ __forceinline__ float walk_chunk(const int2* __restrict__ tab, const float* xr, int rows,
+                                            const int2* __restrict__ tree_info, int t_begin, int t_end,
+                                            float acc) {
+  for (int t0 = t_begin; t0 < t_end; t0 += kTrees) {
+    int base[kTrees];
+    int2 rec[kTrees];
+    int depth = 0;
+#pragma unroll
+    for (int j = 0; j < kTrees; ++j) {
+      const int2 info = __ldg(tree_info + min(t0 + j, t_end - 1));  // (root slot, depth)
+      base[j] = info.x;
+      depth = max(depth, info.y);
+      rec[j] = tab[base[j]];
+    }
+    for (int d = 0; d < depth; ++d) {
+#pragma unroll
+      for (int j = 0; j < kTrees; ++j) {
+        const int y = rec[j].y;
+        const float v = xr[(y & 0x7fff) * rows];
+        const float thr = __int_as_float(rec[j].x);
+        const bool right = (y & 0x8000) ? (v > thr) : !(v <= thr);
+        rec[j] = tab[base[j] + (y >> 16) + (right ? 1 : 0)];
       }
     }
+#pragma unroll
+    for (int j = 0; j < kTrees; ++j)
+      if (t0 + j < t_end) acc = __fadd_rn(acc, __int_as_float(rec[j].x));
   }
-  if (active) out[row0 + r] = acc;
+  return acc;
+}
+
+__global__ void __launch_bounds__(kMaxRows)
+forest_wide_margin_kernel(const float* __restrict__ x, long long n, int f,
+                          const int2* __restrict__ records,    // (S, 2)
+                          const int2* __restrict__ tree_info,  // (T,) root slot in its chunk, depth
+                          const int* __restrict__ chunk_tree,  // (K + 1,)
+                          const int* __restrict__ chunk_rec,   // (K + 1,), even
+                          int n_chunks, int chunk_records, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = blockDim.x;
+  const bool resident = n_chunks == 1;
+  int2* const fbuf0 = reinterpret_cast<int2*>(smem);
+  int2* const fbuf1 = resident ? fbuf0 : fbuf0 + chunk_records;
+  float* const xbuf0 = reinterpret_cast<float*>(fbuf1 + chunk_records);
+  float* const xbuf1 = xbuf0 + (long long)(f + 1) * rows;
+  const float neg_inf = __int_as_float(0xff800000);
+  xbuf0[f * rows + threadIdx.x] = neg_inf;  // the leaves' feature row, never copied over
+  xbuf1[f * rows + threadIdx.x] = neg_inf;
+
+  const long long n_tiles = (n + rows - 1) / rows;
+  const long long my_tiles =
+      blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long items = my_tiles * n_chunks;  // (tile, chunk) pairs, chunks innermost
+
+  // copies for pair `item` into its buffers; one commit group per call (may be empty)
+  auto prefetch = [&](long long item) {
+    if (item < items) {
+      const long long j = item / n_chunks;
+      const int c = (int)(item - j * n_chunks);
+      if (!resident || item == 0) {
+        const int4* src = reinterpret_cast<const int4*>(records + chunk_rec[c]);
+        int4* dst = reinterpret_cast<int4*>((item & 1) ? fbuf1 : fbuf0);
+        const int count = (chunk_rec[c + 1] - chunk_rec[c]) / 2;
+        for (int k = threadIdx.x; k < count; k += rows) cp_async_16(dst + k, src + k);
+      }
+      if (c == 0) {
+        // rows fastest: a warp writes 32 consecutive words of one feature
+        const long long row0 = (blockIdx.x + j * gridDim.x) * rows;
+        const int nr = (int)min((long long)rows, n - row0);
+        const float* src = x + row0 * f;
+        float* dst = (j & 1) ? xbuf1 : xbuf0;
+        for (int k = threadIdx.x; k < nr * f; k += rows) {
+          const int ff = k / nr, r = k - ff * nr;
+          cp_async_4(dst + ff * rows + r, src + (long long)r * f + ff);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  prefetch(0);
+  float acc = 0.0f;
+  for (long long item = 0; item < items; ++item) {
+    prefetch(item + 1);  // into the buffers of pair item - 1, which every thread has left
+    cp_async_wait_prior();
+    __syncthreads();  // pair item's copies, made by all threads, are visible
+    const long long j = item / n_chunks;
+    const int c = (int)(item - j * n_chunks);
+    const long long row = (blockIdx.x + j * gridDim.x) * rows + threadIdx.x;
+    if (c == 0) acc = 0.0f;
+    if (row < n) {
+      const int2* tab = (resident || !(item & 1)) ? fbuf0 : fbuf1;
+      const float* xr = ((j & 1) ? xbuf1 : xbuf0) + threadIdx.x;
+      acc = walk_chunk(tab, xr, rows, tree_info, chunk_tree[c], chunk_tree[c + 1], acc);
+      if (c == n_chunks - 1) out[row] = acc;
+    }
+    __syncthreads();  // pair item's buffers may be overwritten
+  }
+  cp_async_wait_all();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
-int forest_wide_margin(const float* x, long long n, int f, const void* nodes,
-                       const float* leaf_val, const int* roots, int n_blocks, int g,
-                       int n_int, int n_leaf, int n_trees, float* out, void* stream) {
-  if (n <= 0) return 0;
-  const long long smem = smem_bytes(f, g, n_int, n_leaf);
-  int dev = 0, max_optin = 0;
+// Once per device, on the current device: its SM count and the shared memory
+// a block may opt in to, which the kernel is then allowed to use. Returns the
+// cudaError_t (0 = success).
+int forest_wide_prepare(int* sm_count, int* smem_optin) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  if (smem > max_optin) return (int)cudaErrorInvalidConfiguration;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(forest_wide_margin_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long grid = (n + kThreads - 1) / kThreads;
-  forest_wide_margin_kernel<<<(unsigned)grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      x, n, f, reinterpret_cast<const int4*>(nodes), leaf_val, roots, n_blocks, g, n_int,
-      n_leaf, n_trees, out);
+  err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(forest_wide_margin_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_optin);
+}
+
+// Launches `grid` blocks of `rows` threads with `smem` bytes of shared memory
+// (the wrapper's plan) on `stream`; returns the cudaError_t of the launch.
+int forest_wide_margin(const float* x, long long n, int f, const void* records,
+                       const void* tree_info, const int* chunk_tree, const int* chunk_rec,
+                       int n_chunks, int chunk_records, int rows, int grid, int smem, float* out,
+                       void* stream) {
+  if (n <= 0) return 0;
+  if (rows <= 0 || rows > kMaxRows || rows % 32 != 0 || grid <= 0 || chunk_records % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  forest_wide_margin_kernel<<<grid, rows, (size_t)smem, (cudaStream_t)stream>>>(
+      x, n, f, reinterpret_cast<const int2*>(records), reinterpret_cast<const int2*>(tree_info),
+      chunk_tree, chunk_rec, n_chunks,
+      chunk_records, out);
   return (int)cudaGetLastError();
 }
 

@@ -5,13 +5,15 @@ a :class:`FlatForest` of dense (trees, nodes) arrays. Three scoring
 strategies exist in the port, each named in the run's header with a
 ``cuda-`` prefix when it runs on the card:
 
-- ``cuda-wide``: the forest in blocks of trees, as :func:`to_wide` packs
-  it, scored by the hand-written wide-block kernel in :mod:`forest_cuda`
-  (counterpart of the reference's Pallas wide-block kernel);
+- ``cuda-wide``: the forest walked over compact node records by the
+  hand-written wide-block kernel in :mod:`forest_cuda` (counterpart of the
+  reference's Pallas wide-block kernel and of its jnp ``wide`` strategy,
+  :func:`to_wide`); it serves every forest, ``default_left`` ones included,
+  as the reference's ``wide`` does;
 - ``cuda-gemm``: the per-tree path-matrix formulation (:func:`to_gemm`,
   :func:`predict_margin_gemm`), scored by the hand-written per-tree kernel
   in :mod:`forest_cuda` (counterpart of the reference's Pallas
-  ``_tree_step_kernel``); the one that serves ``default_left`` forests;
+  ``_tree_step_kernel``), on an explicit ``gemm`` request;
 - ``gather``: the node-gather walk (:func:`predict_margin`) in plain torch,
   which the reference runs on the CPU and for trees beyond
   :data:`GEMM_MAX_LEAVES` leaves.
@@ -357,27 +359,36 @@ def resolve_strategy(forest: FlatForest, device: torch.device) -> str:
     """The strategy a run scores with, decided once per run and recorded.
 
     ``auto``: on the CPU the gather walk (as the reference's CPU program);
-    on the card the gather walk for trees beyond GEMM_MAX_LEAVES leaves,
-    ``cuda-gemm`` for forests with default_left (missing-value) routing and
-    ``cuda-wide`` for the rest. An explicit ``gemm`` is honoured at any
-    tree size, as in the reference; an explicit ``wide`` or ``pallas``
-    names the wide kernel, which refuses default_left forests (EngineError).
+    on the card the gather walk for trees beyond GEMM_MAX_LEAVES leaves and
+    ``cuda-wide`` for every other forest, with or without default_left
+    (missing-value) routing, as the reference's ``auto`` resolves to its
+    ``wide``. An explicit ``gemm`` is honoured at any tree size, as in the
+    reference, and so is an explicit ``wide`` on the CPU; on the card the
+    wide kernel holds its trees in shared memory, so ``wide`` refuses trees
+    of more than ``forest_cuda.MAX_TREE_NODES`` nodes there (EngineError).
+    ``pallas`` names the reference's Pallas wide-block kernel, whose
+    counterpart here is ``wide``; like that kernel it refuses default_left
+    forests (EngineError).
     """
     req = requested_strategy()
     on_card = device.type == "cuda"
-    if req == "auto":
-        if not on_card or max_tree_leaves(forest) > GEMM_MAX_LEAVES:
-            return "gather"
-        kind = "gemm" if forest.default_left is not None else "wide"
-    elif req == "gather":
+    if req == "gather" or (req == "auto" and (not on_card or max_tree_leaves(forest) > GEMM_MAX_LEAVES)):
         return "gather"
-    else:
-        kind = "gemm" if req == "gemm" else "wide"
-        if kind == "wide" and forest.default_left is not None:
+    if req == "pallas" and forest.default_left is not None:
+        raise EngineError(
+            f"forest strategy 'pallas' was explicitly requested ({FOREST_STRATEGY_ENV}) but the Pallas "
+            "wide-block kernel does not implement default_left (missing-value) routing; rerun with "
+            f"{FOREST_STRATEGY_ENV}=wide, gemm or auto")
+    kind = "gemm" if req == "gemm" else "wide"
+    if kind == "wide" and on_card:
+        from variantcalling_tpu_torch.models.forest_cuda import MAX_TREE_NODES
+
+        nodes = 2 * max_tree_leaves(forest) - 1
+        if nodes > MAX_TREE_NODES:
             raise EngineError(
-                f"forest strategy {req!r} was explicitly requested ({FOREST_STRATEGY_ENV}) but the "
-                "wide forest kernel does not implement default_left (missing-value) routing; "
-                f"rerun with {FOREST_STRATEGY_ENV}=gemm or auto")
+                f"forest strategy {req!r} on the card: a tree of {nodes} nodes does not fit the wide "
+                f"kernel's shared memory (at most {MAX_TREE_NODES}); rerun with "
+                f"{FOREST_STRATEGY_ENV}=gemm or gather, or on the CPU")
     return f"cuda-{kind}" if on_card else kind
 
 
