@@ -21,9 +21,16 @@ Phases (any failure exits non-zero, and the final result line is not printed):
      mean forest (100 trees, 256 leaves, streamed through shared memory in
      chunks; 5 M), and the 64-leaf forest with seeded default_left on
      inputs with about 10 % NaN cells (the xgboost shape; 5 M);
-   - the per-tree kernel: the same three forests (the 256-leaf one without
-     5 M), and 10 trees of 1,024 leaves (depth 11), which only an explicit
-     ``gemm`` request sends to the card;
+   - the per-tree kernel (int8 routing on the tensor cores): the same three
+     forests and 10 trees of 1,024 leaves (depth 11), which only an explicit
+     ``gemm`` request sends to the card, all at 5 M rows too; beside its
+     bound, ``mma_ms``, the dense routing contraction's time at the int8
+     tensor-core peak, and ``k_blocks``, the 32-node blocks of ``m2`` its
+     tables keep (the kernel skips the all-zero ones);
+   - the wide-block kernel on trees too large for its shared memory (of
+     16,383 and 65,535 nodes, walked from device memory) under an explicit
+     ``wide``, against the gather walk ``forest.predict_margin`` on the
+     card (the plain version's wide encoding would take gigabytes);
 4. pipeline: ``filter_variants_pipeline`` through ``run(argv)`` on two
    synthetic chr20-scale worlds (64,444,167 bp, 104,000 variants), each run
    with every kernel's launch count set to 0 just before it and read just
@@ -41,12 +48,12 @@ Phases (any failure exits non-zero, and the final result line is not printed):
 The last two lines of standard output are a JSON object with the kernel
 numbers and the device line ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --time-wide CHECKOUT_ROOT
+    python3 chip_smoke.py --time-kernel {wide,tree_step} CHECKOUT_ROOT
 
-times only the wide kernel of the checkout at CHECKOUT_ROOT (``.`` for this
-one; an older one unpacked under the ignored ``build/``), on the same
-forests and rows as phase 3: run in turns for two checkouts in one call on
-one card, it compares their kernels (:func:`time_wide`).
+times only one kernel of the checkout at CHECKOUT_ROOT (``.`` for this one;
+an older one unpacked under the ignored ``build/``), on the same forests and
+rows as phase 3: run in turns for two checkouts in one call on one card, it
+compares their kernels (:func:`time_kernel`).
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ import torch
 #: H100 SXM published peaks (NVIDIA data sheet, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1.979e15  # dense, tensor cores
 
 KERNEL_ROWS = 262_144  # one pipeline CHUNK
 NORTH_STAR_ROWS = 5_000_000
@@ -264,10 +272,74 @@ def _wide_forests(x_all: torch.Tensor, x_nan: torch.Tensor) -> dict:
             "xgboost_default_left_100x64": (dleft, x_nan)}
 
 
+def _tree_step_forests(forests: dict, x_all: torch.Tensor) -> dict:
+    """name -> (forest, its input rows): the per-tree kernel's four forests,
+    the wide kernel's three and 10 trees of 1,024 leaves (depth 11)."""
+    from variantcalling_tpu_torch.synthetic import filter_forest
+
+    deep = filter_forest(np.random.default_rng(11), n_trees=10, depth=11)
+    return {**forests, "explicit_gemm_10x1024": (deep, x_all)}
+
+
+def _large_tree_forest():
+    """64-leaf trees around two trees of 16,383 nodes and one of 65,535
+    (depths 14 and 16), default_left seeded: larger than any chunk buffer, so
+    their chunk is walked from device memory."""
+    from variantcalling_tpu_torch.models import forest as fmod
+    from variantcalling_tpu_torch.synthetic import synthetic_forest
+
+    rng = np.random.default_rng(12)
+    parts = [synthetic_forest(rng, n_trees=k, depth=d, n_features=19) for k, d in ((4, 7), (2, 14), (1, 16), (4, 7))]
+    m = max(pt.feature.shape[1] for pt in parts)
+
+    def cat(key: str, fill) -> np.ndarray:
+        return np.concatenate([np.pad(getattr(pt, key), ((0, 0), (0, m - pt.feature.shape[1])), constant_values=fill)
+                               for pt in parts])
+
+    forest = fmod.FlatForest(feature=cat("feature", fmod.LEAF), threshold=cat("threshold", 0), left=cat("left", 0),
+                             right=cat("right", 0), value=cat("value", 0), max_depth=16, aggregation="logit_sum")
+    forest.default_left = (rng.random(forest.feature.shape) < 0.5) & (forest.feature != fmod.LEAF)
+    return forest
+
+
+def phase_large_trees(x_nan: torch.Tensor, main_rows: int) -> dict:
+    """Explicit ``wide`` on trees past the chunk buffers: resolved to the wide
+    kernel on the card, bit for bit the gather walk on the card."""
+    from variantcalling_tpu_torch.models import forest as fmod
+    from variantcalling_tpu_torch.models import forest_cuda
+
+    forest = _large_tree_forest()
+    os.environ[fmod.FOREST_STRATEGY_ENV] = "wide"
+    try:
+        check(fmod.resolve_strategy(forest, torch.device("cuda")) == "cuda-wide",
+              "explicit wide does not send trees of 65,535 nodes to the wide kernel")
+    finally:
+        del os.environ[fmod.FOREST_STRATEGY_ENV]
+    kernel = fmod.make_margin_predictor(forest, 19, "cuda-wide", torch.device("cuda"))
+    tables = kernel.tables
+    check(bool(tables.chunk_global.any()) and not bool(tables.chunk_global.all()),
+          "the large-tree forest does not mix global chunks and chunks in shared memory")
+    max_err, out = 0.0, {}
+    for n in (main_rows, KERNEL_ROWS):
+        xn = x_nan[:n]
+        got, want = kernel(xn), fmod.predict_margin(forest, xn)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().nan_to_num(nan=math.inf).max())
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"large trees: wide kernel != gather walk at {n} rows (max abs err {err})")
+        out[n] = {**_launch_times(kernel.launch, x_nan, n),
+                  "gather_ms": cuda_ms(lambda: fmod.predict_margin(forest, xn), reps=3, warmup=1)}
+        print("KERNEL_DETAIL " + json.dumps({"forest": "explicit_wide_large_trees", "kernel": "forest_wide",
+                                             "rows": n, "trees": forest.n_trees,
+                                             "nodes": (2 * (forest.feature != fmod.LEAF).sum(axis=1) + 1).tolist(),
+                                             "chunks": tables.n_chunks, "global_chunks": int(tables.chunk_global.sum()),
+                                             "chunk_records": tables.chunk_records, **out[n]}), flush=True)
+    return {"results": out, "max_abs_err": max_err}
+
+
 def phase_kernel(main_rows: int) -> dict:
     from variantcalling_tpu_torch.models import forest as fmod
     from variantcalling_tpu_torch.models import forest_cuda
-    from variantcalling_tpu_torch.synthetic import filter_forest
 
     torch.backends.cuda.matmul.allow_tf32 = False  # stated: the plain versions' products stay float32
     x_all, x_nan = _inputs()
@@ -280,8 +352,8 @@ def phase_kernel(main_rows: int) -> dict:
         kernel = forest_cuda.WideForestKernel(forest, x.shape[1], "cuda")
         tables = kernel.tables
         wf = kernel.wide()
-        table_bytes = sum(t.numel() * t.element_size()
-                          for t in (kernel.records, kernel.tree_info, kernel.chunk_tree, kernel.chunk_rec))
+        table_bytes = sum(t.numel() * t.element_size() for t in (kernel.records, kernel.tree_info, kernel.chunk_tree,
+                                                                 kernel.chunk_rec, kernel.chunk_global))
         plen = wf.plen.reshape(-1, wf.value.shape[2])[: wf.n_trees]
         wide[name], err = _measure(name, kernel, x, main_rows, True,
                                    lambda n: _bound(n, kernel.n_features, table_bytes, plen),
@@ -289,36 +361,40 @@ def phase_kernel(main_rows: int) -> dict:
                                     "chunk_records": tables.chunk_records,
                                     "default_left": forest.default_left is not None})
         wide_err = max(wide_err, err)
+    large = phase_large_trees(x_nan, main_rows)
+    wide_err = max(wide_err, large["max_abs_err"])
 
-    deep = filter_forest(np.random.default_rng(11), n_trees=10, depth=11)
+    tree_forests = _tree_step_forests(forests, x_all)
+    deep = tree_forests["explicit_gemm_10x1024"][0]
     os.environ[fmod.FOREST_STRATEGY_ENV] = "gemm"
     check(fmod.resolve_strategy(deep, cuda) == "cuda-gemm", "explicit gemm does not reach the per-tree kernel")
     del os.environ[fmod.FOREST_STRATEGY_ENV]
     check(fmod.resolve_strategy(deep, cuda) == "gather", "auto sends trees of 1,024 leaves to a kernel")
-    for name, forest, x, north_star in (
-            ("train_models_default_100x64", forests["train_models_default_100x64"][0], x_all, True),
-            ("sklearn_rf_shaped_100x256", forests["sklearn_rf_shaped_100x256"][0], x_all, False),
-            ("xgboost_default_left_100x64", *forests["xgboost_default_left_100x64"], True),
-            ("explicit_gemm_10x1024", deep, x_all, False)):
+    for name, (forest, x) in tree_forests.items():
         gf = fmod.to_gemm(forest, x.shape[1])
         kernel = forest_cuda.TreeStepKernel(gf, "cuda")
-        tables = [kernel.nodes, kernel.masks, kernel.values] + ([] if kernel.dleft is None else [kernel.dleft])
-        table_bytes = sum(t.numel() * t.element_size() for t in tables)
+        tables = kernel.tables
+        table_bytes = sum(t.numel() * t.element_size() for t in (kernel.blob, kernel.units))
         t, _, i = gf.a.shape
+        dense = t * (-(-i // 32) * 32) * (-(-gf.n_leaves // 8) * 8)  # int8 MACs a row: I to 32, L to 8
 
         def bound(n: int) -> tuple[float, str, dict]:
             ms, by, detail = _bound(n, kernel.n_features, table_bytes, gf.plen)
-            # the routing contraction's own count, N*T*I*L, for the later redesign
-            return ms, by, {**detail, "contraction_ops": n * t * i * gf.n_leaves}
+            # the dense routing contraction at the int8 tensor-core peak
+            return ms, by, {**detail, "mma_ms": 2 * n * dense / INT8_OPS_PER_S * 1e3}
 
         tree_step[name], err = _measure(
-            name, kernel, x, main_rows, north_star, bound,
+            name, kernel, x, main_rows, True, bound,
             {"kernel": "forest_tree_step", "trees": t, "internal": i, "leaves": gf.n_leaves,
-             "words": kernel.n_words, "default_left": kernel.dleft is not None})
+             "units": len(tables.units), "stages": len(tables.stages),
+             "k_blocks": int((tables.units[:, 1] & 0xFFFF).sum()),
+             "dense_k_blocks": t * -(-i // forest_cuda.K_BLOCK) * -(-gf.n_leaves // forest_cuda.PASS_LEAVES),
+             "stage_bytes": tables.stage_bytes,
+             "default_left": gf.dleft is not None})
         tree_err = max(tree_err, err)
     del x_all, x_nan
     torch.cuda.empty_cache()
-    return {"forest_wide": {"results": wide, "max_abs_err": wide_err},
+    return {"forest_wide": {"results": wide, "large_trees": large["results"], "max_abs_err": wide_err},
             "forest_tree_step": {"results": tree_step, "max_abs_err": tree_err}}
 
 
@@ -418,36 +494,41 @@ def phase_pipeline(tmp: Path, card: str) -> dict:
     return runs
 
 
-def time_wide(root: str) -> int:
-    """``--time-wide ROOT``: the wide kernel of the checkout at ROOT (this
-    one, or an older one unpacked beside it) on :func:`_wide_forests` at the
-    main path's rows, one chunk and 5 M rows, with :func:`_launch_times`,
-    after a parity check against its plain version. A kernel that refuses a
-    forest (before default_left was served) is reported so, with no times.
-    Two checkouts timed in turns in one run on one card compare their
-    kernels. One ``WIDE_TIME`` JSON line per forest and row count."""
+def time_kernel(kind: str, root: str) -> int:
+    """``--time-kernel {wide,tree_step} ROOT``: one kernel of the checkout at
+    ROOT (this one, or an older one unpacked beside it) on phase 3's forests
+    for that kernel at the main path's rows, one chunk and 5 M rows, with
+    :func:`_launch_times`, after a parity check against its plain version. A
+    kernel that refuses a forest is reported so, with no times. Two
+    checkouts timed in turns in one run on one card compare their kernels.
+    One ``KERNEL_TIME`` JSON line per forest and row count."""
     sys.path.insert(0, str(Path(root).resolve()))
     card = phase_card()
     phase_build()
     import variantcalling_tpu_torch
+    from variantcalling_tpu_torch.models import forest as fmod
     from variantcalling_tpu_torch.models import forest_cuda
 
-    print(f"timing the wide kernel of {Path(variantcalling_tpu_torch.__file__).parent}", flush=True)
+    print(f"timing the {kind} kernel of {Path(variantcalling_tpu_torch.__file__).parent}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     x_all, x_nan = _inputs()
     n_main = WORLD["n_variants"]
-    for name, (forest, x) in _wide_forests(x_all, x_nan).items():
+    forests = _wide_forests(x_all, x_nan)
+    if kind == "tree_step":
+        forests = _tree_step_forests(forests, x_all)
+    for name, (forest, x) in forests.items():
+        line = {"kernel": kind, "root": root, "forest": name, "card": card}
         try:
-            kernel = forest_cuda.WideForestKernel(forest, x.shape[1], "cuda")
+            kernel = forest_cuda.WideForestKernel(forest, x.shape[1], "cuda") if kind == "wide" \
+                else forest_cuda.TreeStepKernel(fmod.to_gemm(forest, x.shape[1]), "cuda")
         except NotImplementedError as e:
-            print("WIDE_TIME " + json.dumps({"root": root, "forest": name, "served": False, "error": str(e),
-                                             "card": card}), flush=True)
+            print("KERNEL_TIME " + json.dumps({**line, "served": False, "error": str(e)}), flush=True)
             continue
         got, want = kernel.launch(x[:n_main]), kernel.plain(x[:n_main])
         check(torch.equal(got, want), f"{name}: kernel != plain")
         for n in (n_main, KERNEL_ROWS, NORTH_STAR_ROWS):
-            print("WIDE_TIME " + json.dumps({"root": root, "forest": name, "served": True, "rows": n,
-                                             **_launch_times(kernel.launch, x, n), "card": card}), flush=True)
+            print("KERNEL_TIME " + json.dumps({**line, "served": True, "rows": n,
+                                               **_launch_times(kernel.launch, x, n)}), flush=True)
     return 0
 
 
@@ -485,7 +566,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--time-wide":
-        sys.exit(time_wide(sys.argv[2]))
-    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--time-wide CHECKOUT_ROOT]")
+    if len(sys.argv) == 4 and sys.argv[1] == "--time-kernel" and sys.argv[2] in ("wide", "tree_step"):
+        sys.exit(time_kernel(sys.argv[2], sys.argv[3]))
+    check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--time-kernel {wide,tree_step} CHECKOUT_ROOT]")
     sys.exit(main())

@@ -45,12 +45,42 @@ def test_kernel_matches_plain_version_on_card(depth, n_trees, dleft, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("depths,dleft", [((7, 14, 7), True), ((16, 9), False)])
+@pytest.mark.parametrize("n", [1, 513, 70_001])
+def test_wide_kernel_walks_large_trees_from_device_memory(depths, dleft, n):
+    """Trees past the chunk buffers (16,383 and 65,535 nodes) under an explicit
+    ``wide``: global chunks, bit for bit the gather walk on the card (the
+    plain version's wide encoding would take gigabytes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(sum(depths) * 1000 + n)
+    parts = [synthetic_forest(rng, n_trees=2, depth=d, n_features=19) for d in depths]
+    m = max(pt.feature.shape[1] for pt in parts)
+    arrays = {k: np.concatenate([np.pad(getattr(pt, k), ((0, 0), (0, m - pt.feature.shape[1])),
+                                        constant_values=fmod.LEAF if k == "feature" else 0) for pt in parts])
+              for k in ("feature", "threshold", "left", "right", "value")}
+    forest = fmod.FlatForest(**arrays, max_depth=max(depths))
+    x = rng.uniform(0, 50, (n, 19)).astype(np.float32)
+    if dleft:
+        forest.default_left = (rng.random(forest.feature.shape) < 0.5) & (forest.feature != fmod.LEAF)
+        x[rng.random(x.shape) < 0.1] = np.nan
+    kernel = forest_cuda.WideForestKernel(forest, 19, "cuda")
+    assert kernel.tables.chunk_global.any()
+    xt = torch.from_numpy(x).cuda()
+    before = forest_cuda.LAUNCHES
+    got = kernel(xt)
+    torch.cuda.synchronize()
+    assert forest_cuda.LAUNCHES == before + 1
+    assert torch.equal(got, fmod.predict_margin(forest, xt))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("depth,n_trees,dleft", [(3, 7, False), (7, 100, False), (7, 100, True), (9, 10, True),
-                                                 (11, 3, False), (11, 2, True)])
+                                                 (11, 3, False), (11, 2, True), (1, 3, False), (12, 2, True)])
 @pytest.mark.parametrize("n", [1, 513, 70_001])
 def test_tree_step_kernel_matches_plain_version_on_card(depth, n_trees, dleft, n):
     """The per-tree kernel, with and without default_left (NaN inputs only with
-    it), up to trees of 1,024 leaves whose masks stream through in tiles."""
+    it), from stumps up to trees of 2,048 leaves (32 passes of 64 leaves)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     rng = np.random.default_rng(depth * 1000 + n)

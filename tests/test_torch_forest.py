@@ -81,8 +81,9 @@ def _x(n: int, f: int, scale: float, seed: int = 9) -> np.ndarray:
 
 def _walk_compact_tables(tables: forest_cuda.WideTables, x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """numpy replay of ``csrc/forest_wide.cu``'s per-row walk over the compact
-    tables, ``depth`` steps a tree with the leaves' extra feature of -inf:
-    (margins (N,), the record each row ends on per tree (N, T))."""
+    tables, ``depth`` steps a tree with the leaves' extra feature of -inf, over
+    8-byte records in a chunk held in shared memory and 16-byte ones in a
+    global chunk: (margins (N,), the record each row ends on per tree (N, T))."""
     rec = tables.records
     n, t = len(x), len(tables.tree_off)
     xe = np.concatenate([x, np.full((n, 1), -np.inf, dtype=np.float32)], axis=1)
@@ -90,15 +91,17 @@ def _walk_compact_tables(tables: forest_cuda.WideTables, x: np.ndarray) -> tuple
     ends = np.zeros((n, t), dtype=np.int64)
     rows = np.arange(n)
     for c in range(tables.n_chunks):
+        wide = 2 if tables.chunk_global[c] else 1  # records a slot takes
         for ti in range(tables.chunk_tree[c], tables.chunk_tree[c + 1]):
-            base = int(tables.chunk_rec[c]) + int(tables.tree_off[ti])
+            base = int(tables.chunk_rec[c]) + wide * int(tables.tree_off[ti])
             s = np.full(n, base, dtype=np.int64)
             for _ in range(tables.depth[ti]):
                 y = rec[s, 1].astype(np.int64)
                 v = xe[rows, y & 0x7FFF]
                 thr = rec[s, 0].view(np.float32)
                 right = np.where((y & 0x8000) != 0, v > thr, ~(v <= thr))
-                s = base + (y >> 16) + right
+                first = rec[s + 1, 0].astype(np.int64) if wide == 2 else y >> 16
+                s = base + wide * (first + right)
             ends[:, ti] = s
             acc = (acc + rec[s, 0].view(np.float32)).astype(np.float32)
     return acc, ends

@@ -23,9 +23,15 @@
 // trees are cut into chunks of whole trees, between groups of four where a
 // group fits a chunk; one chunk when the forest fits beside the feature tiles
 // (100 trees of 64 leaves: 12,700 records, 99 KB; 100 of 256 leaves take 7
-// chunks of at most 64 KB). A tree of more than SMEM_BYTES / 32 nodes
-// (forest_cuda.MAX_TREE_NODES, 7,264) may not fit a chunk: the card's
-// strategy refuses it.
+// chunks of at most 64 KB). A tree too large for a chunk buffer (more than a
+// quarter of the shared memory, 7,264 nodes at least) goes, with the large
+// trees next to it, into a global chunk: no copy into shared memory; the walk
+// reads its 16-byte records from device memory with __ldg (the L2 cache, 50
+// MB, holds them), each with a 32-bit child slot,
+//   .x = threshold or value bits, .y = default_left << 15 | feature,
+//   .z = first child (a leaf: its own slot), .w = 0,
+// so explicit `wide` serves trees of any size. Chunks in shared memory take
+// the same path as before, with no extra branch per step.
 //
 // Layout: a persistent grid of one block per SM (the forest takes most of
 // the SM's shared memory), each block walking row tiles blockIdx.x,
@@ -93,6 +99,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// A node record: in shared memory 8 bytes with a 15-bit child slot, in a
+// global chunk 16 bytes read with __ldg and a 32-bit child slot.
+template <bool kGlobal> struct Rec;
+template <> struct Rec<false> {
+  using T = int2;
+  static __device__ __forceinline__ int2 load(const int2* tab, int i) { return tab[i]; }
+  static __device__ __forceinline__ int child(int2 r) { return r.y >> 16; }
+};
+template <> struct Rec<true> {
+  using T = int4;
+  static __device__ __forceinline__ int4 load(const int4* tab, int i) { return __ldg(tab + i); }
+  static __device__ __forceinline__ int child(int4 r) { return r.z; }
+};
+
 // Trees [t_begin, t_end) of the chunk in `tab` for the row whose features
 // start at xr (stride `rows`; row f = n_features holds -inf), added to acc in
 // ascending tree order. Each group of kTrees walks takes as many steps as its
@@ -100,19 +120,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // itself (its feature is the -inf row, its default bit set: -inf > value is
 // false), so the group's loads interleave. A group short of kTrees trees
 // repeats its last tree and does not add it.
-__device__ __forceinline__ float walk_chunk(const int2* __restrict__ tab, const float* xr, int rows,
+template <bool kGlobal>
+__device__ __forceinline__ float walk_chunk(const typename Rec<kGlobal>::T* __restrict__ tab,
+                                            const float* xr, int rows,
                                             const int2* __restrict__ tree_info, int t_begin, int t_end,
                                             float acc) {
+  using R = Rec<kGlobal>;
   for (int t0 = t_begin; t0 < t_end; t0 += kTrees) {
     int base[kTrees];
-    int2 rec[kTrees];
+    typename R::T rec[kTrees];
     int depth = 0;
 #pragma unroll
     for (int j = 0; j < kTrees; ++j) {
       const int2 info = __ldg(tree_info + min(t0 + j, t_end - 1));  // (root slot, depth)
       base[j] = info.x;
       depth = max(depth, info.y);
-      rec[j] = tab[base[j]];
+      rec[j] = R::load(tab, base[j]);
     }
     for (int d = 0; d < depth; ++d) {
 #pragma unroll
@@ -121,7 +144,7 @@ __device__ __forceinline__ float walk_chunk(const int2* __restrict__ tab, const 
         const float v = xr[(y & 0x7fff) * rows];
         const float thr = __int_as_float(rec[j].x);
         const bool right = (y & 0x8000) ? (v > thr) : !(v <= thr);
-        rec[j] = tab[base[j] + (y >> 16) + (right ? 1 : 0)];
+        rec[j] = R::load(tab, base[j] + R::child(rec[j]) + (right ? 1 : 0));
       }
     }
 #pragma unroll
@@ -137,6 +160,7 @@ forest_wide_margin_kernel(const float* __restrict__ x, long long n, int f,
                           const int2* __restrict__ tree_info,  // (T,) root slot in its chunk, depth
                           const int* __restrict__ chunk_tree,  // (K + 1,)
                           const int* __restrict__ chunk_rec,   // (K + 1,), even
+                          const int* __restrict__ chunk_global,  // (K,): read from device memory
                           int n_chunks, int chunk_records, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = blockDim.x;
@@ -159,7 +183,7 @@ forest_wide_margin_kernel(const float* __restrict__ x, long long n, int f,
     if (item < items) {
       const long long j = item / n_chunks;
       const int c = (int)(item - j * n_chunks);
-      if (!resident || item == 0) {
+      if (!chunk_global[c] && (!resident || item == 0)) {
         const int4* src = reinterpret_cast<const int4*>(records + chunk_rec[c]);
         int4* dst = reinterpret_cast<int4*>((item & 1) ? fbuf1 : fbuf0);
         const int count = (chunk_rec[c + 1] - chunk_rec[c]) / 2;
@@ -191,9 +215,14 @@ forest_wide_margin_kernel(const float* __restrict__ x, long long n, int f,
     const long long row = (blockIdx.x + j * gridDim.x) * rows + threadIdx.x;
     if (c == 0) acc = 0.0f;
     if (row < n) {
-      const int2* tab = (resident || !(item & 1)) ? fbuf0 : fbuf1;
       const float* xr = ((j & 1) ? xbuf1 : xbuf0) + threadIdx.x;
-      acc = walk_chunk(tab, xr, rows, tree_info, chunk_tree[c], chunk_tree[c + 1], acc);
+      if (chunk_global[c]) {
+        const int4* tab = reinterpret_cast<const int4*>(records + chunk_rec[c]);
+        acc = walk_chunk<true>(tab, xr, rows, tree_info, chunk_tree[c], chunk_tree[c + 1], acc);
+      } else {
+        const int2* tab = (resident || !(item & 1)) ? fbuf0 : fbuf1;
+        acc = walk_chunk<false>(tab, xr, rows, tree_info, chunk_tree[c], chunk_tree[c + 1], acc);
+      }
       if (c == n_chunks - 1) out[row] = acc;
     }
     __syncthreads();  // pair item's buffers may be overwritten
@@ -224,15 +253,14 @@ int forest_wide_prepare(int* sm_count, int* smem_optin) {
 // (the wrapper's plan) on `stream`; returns the cudaError_t of the launch.
 int forest_wide_margin(const float* x, long long n, int f, const void* records,
                        const void* tree_info, const int* chunk_tree, const int* chunk_rec,
-                       int n_chunks, int chunk_records, int rows, int grid, int smem, float* out,
-                       void* stream) {
+                       const int* chunk_global, int n_chunks, int chunk_records, int rows, int grid,
+                       int smem, float* out, void* stream) {
   if (n <= 0) return 0;
   if (rows <= 0 || rows > kMaxRows || rows % 32 != 0 || grid <= 0 || chunk_records % 2 != 0)
     return (int)cudaErrorInvalidValue;
   forest_wide_margin_kernel<<<grid, rows, (size_t)smem, (cudaStream_t)stream>>>(
       x, n, f, reinterpret_cast<const int2*>(records), reinterpret_cast<const int2*>(tree_info),
-      chunk_tree, chunk_rec, n_chunks,
-      chunk_records, out);
+      chunk_tree, chunk_rec, chunk_global, n_chunks, chunk_records, out);
   return (int)cudaGetLastError();
 }
 

@@ -363,10 +363,9 @@ def resolve_strategy(forest: FlatForest, device: torch.device) -> str:
     ``cuda-wide`` for every other forest, with or without default_left
     (missing-value) routing, as the reference's ``auto`` resolves to its
     ``wide``. An explicit ``gemm`` is honoured at any tree size, as in the
-    reference, and so is an explicit ``wide`` on the CPU; on the card the
-    wide kernel holds its trees in shared memory, so ``wide`` refuses trees
-    of more than ``forest_cuda.MAX_TREE_NODES`` nodes there (EngineError).
-    ``pallas`` names the reference's Pallas wide-block kernel, whose
+    reference, and so is an explicit ``wide``, on the card and on the CPU:
+    the wide kernel walks trees too large for its shared memory from device
+    memory. ``pallas`` names the reference's Pallas wide-block kernel, whose
     counterpart here is ``wide``; like that kernel it refuses default_left
     forests (EngineError).
     """
@@ -380,15 +379,6 @@ def resolve_strategy(forest: FlatForest, device: torch.device) -> str:
             "wide-block kernel does not implement default_left (missing-value) routing; rerun with "
             f"{FOREST_STRATEGY_ENV}=wide, gemm or auto")
     kind = "gemm" if req == "gemm" else "wide"
-    if kind == "wide" and on_card:
-        from variantcalling_tpu_torch.models.forest_cuda import MAX_TREE_NODES
-
-        nodes = 2 * max_tree_leaves(forest) - 1
-        if nodes > MAX_TREE_NODES:
-            raise EngineError(
-                f"forest strategy {req!r} on the card: a tree of {nodes} nodes does not fit the wide "
-                f"kernel's shared memory (at most {MAX_TREE_NODES}); rerun with "
-                f"{FOREST_STRATEGY_ENV}=gemm or gather, or on the CPU")
     return f"cuda-{kind}" if on_card else kind
 
 

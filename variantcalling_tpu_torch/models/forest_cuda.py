@@ -20,21 +20,22 @@ adjacent; per leaf its value. The walk reaches the one leaf whose
 ``d @ m2 + c == plen`` in the wide encoding; a NaN feature takes the
 node's default branch (the reference's NaN mask), or the right branch
 without ``default_left``. The records of the whole forest, or of one chunk
-of trees at a time, sit in shared memory (:class:`WideTables`). Its plain
-version is :func:`wide_margin_plain`.
+of trees at a time, sit in shared memory (:class:`WideTables`); trees too
+large for a chunk are walked from device memory over 16-byte records, so
+every tree size is served. Its plain version is :func:`wide_margin_plain`.
 
 **The per-tree kernel** (``csrc/forest_tree_step.cu``, :class:`TreeStepKernel`,
 count :data:`TREE_STEP_LAUNCHES`) replaces the Pallas kernel
 ``_tree_step_kernel`` (``forest_pallas.py:51``), launched by
 ``_margin_pallas`` and driven by ``make_gemm_pallas_predictor``: per tile
 and tree, trees innermost, the same chain for one tree and ``out += hit @
-value``. The CUDA kernel keeps that formulation with bits for products:
-it decides every internal node of a tree into a bitmask ``d`` and tests
-every leaf with two masks (:func:`tree_step_tables`, built from the
-:class:`GemmForest`'s ``m2`` and ``plen``), ``(d & lmask) == lmask and
-(d & rmask) == 0`` — exactly ``d @ m2 + c == plen``. It also takes the
-default-left table, deciding a NaN feature by the node's default as the
-reference's ``predict_margin_gemm`` does. Its plain version is
+value``. The CUDA kernel keeps that contraction and runs the routing ``d @
+m2`` on the tensor cores as an int8 ``mma`` with exact int32 sums: each
+lane decides the nodes of its A fragment straight from the feature tile
+(NaN takes the node's default with ``default_left``, as the reference's
+``predict_margin_gemm`` does), multiplies them with ``m2`` fragments
+streamed through shared memory (:func:`tree_step_tables`), and picks the
+leaf whose sum equals ``c - plen`` (a true decision is -1). Its plain version is
 :func:`forest.predict_margin_gemm`.
 
 Both kernels read ``x[row, feat]`` exactly — no TF32 product, no
@@ -45,6 +46,7 @@ accumulator per row in ascending tree order, writing (N,) margins.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from dataclasses import dataclass
 from functools import cached_property
 
@@ -61,18 +63,20 @@ LAUNCHES = 0
 TREE_STEP_LAUNCHES = 0
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-#: (SM count, opt-in shared memory per block) by device index
-_LIMITS: dict[int, tuple[int, int]] = {}
+#: (SM count, opt-in shared memory per block) by (prepare entry point, device index)
+_LIMITS: dict[tuple[str, int], tuple[int, int]] = {}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point -> (kernel source, argument types)
 _ENTRIES = {
     # sm_count*, smem_optin*
     "forest_wide_prepare": ("forest_wide", [_P, _P]),
-    # x, n, f, records, tree_info, chunk_tree, chunk_rec, chunks, chunk_records, rows, grid, smem, out, stream
-    "forest_wide_margin": ("forest_wide", [_P, _LL, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
-    # x, n, f, nodes, dleft, masks, values, t, i, l, w, out, stream
-    "forest_tree_step_margin": ("forest_tree_step",
-                                [_P, _LL, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    # x, n, f, records, tree_info, chunk_tree, chunk_rec, chunk_global, chunks, chunk_records, rows, grid,
+    # smem, out, stream
+    "forest_wide_margin": ("forest_wide", [_P, _LL, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
+    # sm_count*, smem_optin*
+    "forest_tree_step_prepare": ("forest_tree_step", [_P, _P]),
+    # x, n, f, columns, blob, units, stages, n_stages, stage_bytes, warps, grid, smem, out, stream
+    "forest_tree_step_margin": ("forest_tree_step", [_P, _LL, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
 }
 
 
@@ -107,31 +111,33 @@ SMEM_BYTES = 232_448
 MAX_TILE_ROWS = 512
 #: trees each thread of the wide kernel walks at once (``kTrees`` in its source)
 TREES_AT_ONCE = 4
-#: a record's 15-bit feature index and 15-bit child slot
+#: a record's 15-bit feature index (and, in shared memory, 15-bit child slot)
 _MAX_FIELD = 0x7FFF
-#: the most nodes a tree may have on the card: a chunk buffer holds at least
-#: a quarter of :data:`SMEM_BYTES` whatever the feature count (the feature
-#: tiles take at most half, and two buffers share the rest)
-MAX_TREE_NODES = SMEM_BYTES // 32
 
 
 @dataclass
 class WideTables:
     """The wide-block kernel's tables, built by :func:`compact_tables`.
 
-    ``records`` int32 (S, 2): one 8-byte record per tree slot. An internal
-    node is [threshold bits, ``first << 16 | default_left << 15 | feature``]
-    and its children sit in slots ``first`` (left) and ``first + 1`` (right)
-    of the same tree. A leaf is [value bits, ``slot << 16 | 1 << 15 |
-    n_features``]: its feature is the kernel's extra feature row of -inf and
-    its ``first`` its own slot, so that a step from a leaf stays on it. Each
-    tree's slots run root first, breadth first. The trees are cut into
-    chunks of whole trees: chunk ``c`` holds trees
-    ``chunk_tree[c]:chunk_tree[c + 1]`` in records
-    ``chunk_rec[c]:chunk_rec[c + 1]`` (an even count: 16-byte copies);
-    ``tree_off[t]`` is tree t's root slot counted from its chunk's first
-    record, and ``depth[t]`` its internal levels (the steps a walk takes).
-    ``node`` int32 (S,) names the forest node each slot holds (-1: padding).
+    ``records`` int32 (S, 2). The trees are cut into chunks of whole trees:
+    chunk ``c`` holds trees ``chunk_tree[c]:chunk_tree[c + 1]`` in records
+    ``chunk_rec[c]:chunk_rec[c + 1]`` (an even count: 16-byte copies). A
+    chunk that fits a shared-memory buffer holds one 8-byte record per
+    tree slot. An internal node is [threshold bits, ``first << 16 |
+    default_left << 15 | feature``] and its children sit in slots ``first``
+    (left) and ``first + 1`` (right) of the same tree. A leaf is [value
+    bits, ``slot << 16 | 1 << 15 | n_features``]: its feature is the
+    kernel's extra feature row of -inf and its ``first`` its own slot, so
+    that a step from a leaf stays on it. A *global* chunk
+    (``chunk_global[c]``) holds trees too large for a buffer; the kernel
+    reads it from device memory, and each of its slots takes two records, a
+    16-byte record [threshold or value bits, ``default_left << 15 |
+    feature``, ``first``, 0] whose ``first`` has all 32 bits. Each tree's
+    slots run root first, breadth first; ``tree_off[t]`` is tree t's root
+    slot counted from its chunk's first record (in slots), and ``depth[t]``
+    its internal levels (the steps a walk takes). ``node`` int32 (S,) names
+    the forest node each record holds (-1: padding, and the second half of
+    a 16-byte record).
     """
 
     records: np.ndarray
@@ -139,6 +145,7 @@ class WideTables:
     depth: np.ndarray
     chunk_tree: np.ndarray
     chunk_rec: np.ndarray
+    chunk_global: np.ndarray
     node: np.ndarray
 
     @property
@@ -147,8 +154,10 @@ class WideTables:
 
     @cached_property
     def chunk_records(self) -> int:
-        """Records of the largest chunk: the size of one shared-memory buffer."""
-        return int(np.diff(self.chunk_rec).max())
+        """Records of the largest chunk held in shared memory: the size of one
+        buffer (0 when every chunk is global)."""
+        local = np.diff(self.chunk_rec)[~self.chunk_global]
+        return int(local.max()) if len(local) else 0
 
     def smem_bytes(self, n_features: int, rows: int) -> int:
         """Shared memory of one block: the forest (one buffer when it is one
@@ -180,8 +189,8 @@ def launch_shape(n: int, sm_count: int, rows_max: int) -> tuple[int, int]:
 
 
 def compact_tables(forest: FlatForest, n_features: int, smem_bytes: int = SMEM_BYTES) -> WideTables:
-    """The wide kernel's 8-byte-record tables (:class:`WideTables`), built
-    straight from the forest's node arrays.
+    """The wide kernel's tables (:class:`WideTables`), built straight from the
+    forest's node arrays.
 
     Each tree's reachable nodes are numbered breadth first from the root,
     so that every internal node's two children take adjacent slots. The
@@ -189,9 +198,11 @@ def compact_tables(forest: FlatForest, n_features: int, smem_bytes: int = SMEM_B
     tiles leave (:func:`tile_rows`); otherwise they are cut, in order, into
     chunks of at most half of it, between the kernel's groups of
     :data:`TREES_AT_ONCE` trees where a group fits a chunk and between
-    single trees where it does not. Raises ValueError where the forest reads
-    a feature past ``n_features``, a field of the record would overflow or
-    a tree does not fit a chunk.
+    single trees where it does not. A tree larger than a chunk goes, with
+    the large trees next to it, into a global chunk of 16-byte records that
+    the kernel reads from device memory: any tree size is served. Raises
+    ValueError where the forest reads a feature past ``n_features`` or the
+    feature count overflows the record's field.
     """
     feat, left, right = forest.feature, forest.left, forest.right
     t, m = feat.shape
@@ -223,49 +234,52 @@ def compact_tables(forest: FlatForest, n_features: int, smem_bytes: int = SMEM_B
     if n_features > _MAX_FIELD:  # the leaves' feature is n_features itself
         raise ValueError(f"wide forest kernel: feature index {n_features} overflows the record's "
                          f"{_MAX_FIELD.bit_length()}-bit field")
-    if int(n_slots.max()) - 1 > _MAX_FIELD:
-        raise ValueError(f"wide forest kernel: a tree of {int(n_slots.max())} nodes overflows the "
-                         f"record's child slot (at most {_MAX_FIELD + 1} nodes a tree)")
-    dleft = np.zeros((t, m), dtype=bool) if forest.default_left is None else forest.default_left
-    word = (first[ti, ni] << 16) | (dleft[ti, ni].astype(np.int64) << 15) | feat[ti, ni]
-    per_tree = np.zeros((t, int(n_slots.max()), 2), dtype=np.int32)
-    per_tree[ti, slot[ti, ni], 0] = np.where(inner, forest.threshold[ti, ni], forest.value[ti, ni]) \
-        .astype(np.float32).view(np.int32)
-    leaf_word = (slot[ti, ni] << 16) | (1 << 15) | n_features
-    per_tree[ti, slot[ti, ni], 1] = np.where(inner, word, leaf_word)
-    node_of = np.full(per_tree.shape[:2], -1, dtype=np.int32)
-    node_of[ti, slot[ti, ni]] = ni
 
     # the chunks: whole trees in order; one chunk if the forest fits beside the feature tiles
     budget = (smem_bytes - 2 * (n_features + 1) * tile_rows(n_features) * 4) // 8
     cap = budget if int(n_slots.sum()) + 1 <= budget else budget // 4 * 2  # even: 16-byte copies
-    if int(n_slots.max()) > cap:
-        raise ValueError(f"wide forest kernel: a tree of {int(n_slots.max())} nodes does not fit a "
-                         f"chunk of {cap} records")
-    chunk_tree, tree_off, used = [0], np.zeros(t, dtype=np.int32), 0
+    assert cap <= _MAX_FIELD + 1  # a tree in shared memory fits the record's child slot
+    big = n_slots > cap  # trees walked from device memory
+    chunk_tree, chunk_global = [0], [bool(big[0])]
+    tree_off, used = np.zeros(t, dtype=np.int32), 0
     for k0 in range(0, t, TREES_AT_ONCE):
-        if used and used + int(n_slots[k0:k0 + TREES_AT_ONCE].sum()) > cap:  # a new chunk for the group
+        group = slice(k0, min(k0 + TREES_AT_ONCE, t))
+        if used and not chunk_global[-1] and not big[group].any() \
+                and used + int(n_slots[group].sum()) > cap:  # a new chunk for the group
             chunk_tree.append(k0)
+            chunk_global.append(False)
             used = 0
-        for k in range(k0, min(k0 + TREES_AT_ONCE, t)):
-            if used + int(n_slots[k]) > cap:  # a group larger than a chunk is cut inside
+        for k in range(group.start, group.stop):
+            # a group larger than a chunk is cut inside; large trees share global chunks
+            if used and (big[k] != chunk_global[-1] or (not big[k] and used + int(n_slots[k]) > cap)):
                 chunk_tree.append(k)
+                chunk_global.append(bool(big[k]))
                 used = 0
             tree_off[k] = used
             used += int(n_slots[k])
     chunk_tree.append(t)
-    chunk_of = np.repeat(np.arange(len(chunk_tree) - 1), np.diff(chunk_tree))
-    ends = tree_off + n_slots
-    sizes = np.asarray([ends[chunk_tree[c + 1] - 1] for c in range(len(chunk_tree) - 1)])
+    glob = np.asarray(chunk_global, dtype=bool)
+    chunk_of = np.repeat(np.arange(len(glob)), np.diff(chunk_tree))
+    width = np.where(big, 2, 1)  # records a slot takes
+    ends = (tree_off + n_slots) * width
+    sizes = np.asarray([ends[chunk_tree[c + 1] - 1] for c in range(len(glob))])
     chunk_rec = np.concatenate([[0], np.cumsum(sizes + sizes % 2)]).astype(np.int32)
-    start = chunk_rec[chunk_of] + tree_off  # each tree's first record in the whole table
-    live = np.arange(per_tree.shape[1])[None, :] < n_slots[:, None]
-    at = (start[:, None] + np.arange(per_tree.shape[1])[None, :])[live]
+    start = chunk_rec[chunk_of] + tree_off * width  # each tree's first record in the whole table
+
+    dleft = np.zeros((t, m), dtype=bool) if forest.default_left is None else forest.default_left
+    s = slot[ti, ni]
+    value = np.where(inner, forest.threshold[ti, ni], forest.value[ti, ni]).astype(np.float32).view(np.int32)
+    low = np.where(inner, (dleft[ti, ni].astype(np.int64) << 15) | feat[ti, ni], (1 << 15) | n_features)
+    nxt = np.where(inner, first[ti, ni], s)  # a leaf steps onto itself
+    wide = big[ti]
+    at = start[ti] + s * width[ti]
     records = np.zeros((int(chunk_rec[-1]), 2), dtype=np.int32)
-    records[at] = per_tree[live]
+    records[at, 0] = value
+    records[at, 1] = np.where(wide, low, (nxt << 16) | low)
+    records[at[wide] + 1, 0] = nxt[wide]
     node = np.full(len(records), -1, dtype=np.int32)
-    node[at] = node_of[live]
-    return WideTables(records, tree_off, depth, np.asarray(chunk_tree, dtype=np.int32), chunk_rec, node)
+    node[at] = ni
+    return WideTables(records, tree_off, depth, np.asarray(chunk_tree, dtype=np.int32), chunk_rec, glob, node)
 
 
 def predict_pertree_margin_wide(wf: WideGemmForest, x: torch.Tensor) -> torch.Tensor:
@@ -311,18 +325,19 @@ def wide_margin_plain(wf: WideGemmForest, x: torch.Tensor) -> torch.Tensor:
     return sequential_tree_sum(predict_pertree_margin_wide(wf, x))
 
 
-def _device_limits(device: torch.device) -> tuple[int, int]:
+def _device_limits(prepare: str, device: torch.device) -> tuple[int, int]:
     """(SM count, opt-in shared memory per block) of ``device``, asked once per
-    device; the first ask also lets the wide kernel use that shared memory."""
+    device and kernel through the kernel's ``prepare`` entry point, which also
+    lets the kernel use that shared memory."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _LIMITS:
+    if (prepare, index) not in _LIMITS:
         sm_count, smem = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(index):
-            err = _entry("forest_wide_prepare")(ctypes.byref(sm_count), ctypes.byref(smem))
+            err = _entry(prepare)(ctypes.byref(sm_count), ctypes.byref(smem))
         if err != 0:
-            raise RuntimeError(f"forest_wide_prepare failed: cudaError_t {err}")
-        _LIMITS[index] = (sm_count.value, smem.value)
-    return _LIMITS[index]
+            raise RuntimeError(f"{prepare} failed: cudaError_t {err}")
+        _LIMITS[prepare, index] = (sm_count.value, smem.value)
+    return _LIMITS[prepare, index]
 
 
 class WideForestKernel:
@@ -353,11 +368,12 @@ class WideForestKernel:
         self.tree_info = torch.from_numpy(np.stack([self.tables.tree_off, self.tables.depth], axis=1)).to(self.device)
         self.chunk_tree = torch.from_numpy(self.tables.chunk_tree).to(self.device)
         self.chunk_rec = torch.from_numpy(self.tables.chunk_rec).to(self.device)
+        self.chunk_global = torch.from_numpy(self.tables.chunk_global.astype(np.int32)).to(self.device)
         self.device = self.records.device  # with its index
         # the launch's arguments after x and n, fixed for the kernel's life
         self._table_args = (n_features, self.records.data_ptr(), self.tree_info.data_ptr(),
-                            self.chunk_tree.data_ptr(), self.chunk_rec.data_ptr(), self.tables.n_chunks,
-                            self.tables.chunk_records)
+                            self.chunk_tree.data_ptr(), self.chunk_rec.data_ptr(), self.chunk_global.data_ptr(),
+                            self.tables.n_chunks, self.tables.chunk_records)
 
     def wide(self) -> WideGemmForest:
         """The forest's wide encoding, as the plain version packs it."""
@@ -379,7 +395,7 @@ class WideForestKernel:
     def _plan(self, n: int, device: torch.device) -> tuple[int, int, int]:
         """(rows a tile, blocks, shared memory bytes) of a launch over ``n``
         rows, worked out at the first launch over ``n`` rows."""
-        sm_count, smem_optin = _device_limits(device)
+        sm_count, smem_optin = _device_limits("forest_wide_prepare", device)
         rows, grid = launch_shape(n, sm_count, self._rows_max)
         smem = self.tables.smem_bytes(self.n_features, rows)
         if smem > smem_optin:
@@ -410,35 +426,191 @@ class WideForestKernel:
         return out
 
 
-def tree_step_tables(gf: GemmForest) -> tuple[np.ndarray, np.ndarray | None, np.ndarray, np.ndarray]:
-    """The per-tree kernel's tables, built from a :class:`GemmForest`.
+#: leaves of one pass of the per-tree kernel: 8 tensor-core n-tiles of 8 leaves
+PASS_LEAVES = 64
+#: internal nodes of one k-block: the depth of an int8 ``mma`` (32)
+K_BLOCK = 32
+#: bytes of one k-block in the per-tree tables: 32 node entries (8 bytes
+#: each) and the ``m2`` fragments of 32 nodes x 64 leaves (int8)
+K_BLOCK_BYTES = K_BLOCK * 8 + K_BLOCK * PASS_LEAVES
+#: bytes of one pass's leaf table: [c - plen, value bits] per leaf
+LEAF_TABLE_BYTES = PASS_LEAVES * 8
+#: the most k-blocks a unit of the per-tree tables holds
+UNIT_K_BLOCKS = 16
+#: bytes of the units the per-tree kernel copies into shared memory at once,
+#: at most (a larger unit goes alone): two buffers and a 4-warp block's feature
+#: rows leave room for four blocks an SM
+STAGE_BYTES = 16 * 1024
+#: unit flags (bits of the unit header's second word, above the k-block count)
+UNIT_FIRST, UNIT_LAST_PASS, UNIT_LAST_TREE = 1 << 16, 1 << 17, 1 << 18
+#: warps a block of the per-tree kernel runs, at most; each scores 32 rows
+TREE_STEP_MAX_WARPS = 4
 
-    Returns (nodes int32 (T, I, 2), dleft uint32 (T, W) or None, masks
-    uint32 (T, L, 2, W), values float32 (T, L)) with W = ceil(I / 32). A
-    node row is [feature index (``a``'s one-hot row; 0 for a padded column,
-    which no mask reads), threshold bits]. Bit k of word k // 32 stands for
-    internal node k: in ``dleft`` its default branch, in a leaf's ``lmask``
-    a node on its left path (``m2 == 1``), in ``rmask`` one on its right
-    path (``m2 == -1``). A padded leaf (``plen == -1``) gets bit 0 in both
-    masks, which no ``d`` satisfies.
+
+@dataclass
+class TreeStepTables:
+    """The per-tree kernel's tables, built by :func:`tree_step_tables`.
+
+    ``blob`` int32: the forest cut into *units*, in ascending tree order, that
+    the kernel streams through shared memory one after the other. Each tree
+    is scored in passes of :data:`PASS_LEAVES` leaves (its leaves in
+    ``to_gemm``'s order, padded to a multiple of 64 with leaves that never
+    match); a pass's routing ``d @ m2`` runs over the k-blocks (32 internal
+    nodes each) whose ``m2`` block under the pass's leaves is not all zero —
+    a zero block adds 0 to every int32 sum — and is cut into units of at
+    most :data:`UNIT_K_BLOCKS` k-blocks. A unit is its k-blocks, each
+    :data:`K_BLOCK_BYTES`: 32 node entries int32 [threshold bits, column]
+    in the order of :func:`_bank_order` (a padded node: threshold 0, the
+    column of its shared load's first node, and a zero ``m2`` row) and the
+    block's int8 ``m2``, its rows in the same order, in the ``mma.m16n8k32``
+    B-fragment order (4 pairs of n-tiles x 32
+    lanes x 16 bytes: :func:`_b_fragments`); the last unit of a pass ends
+    with the pass's leaf table, per leaf int32 [``c - plen``, value bits] (a
+    padded leaf: [1, 0]; its sum is 0). A node's column is its feature, plus
+    ``n_features`` where its default branch is left: the kernel's feature
+    rows hold ``x`` and, after it where the forest has ``default_left``, ``x``
+    with NaN read as -inf, so that ``v <= thr`` alone is the reference's
+    ``isnan(v) ? dleft : v <= thr``. A decision true is the int8 -1, so a
+    pass's sums are ``-(d @ m2)``, hit where they equal ``c - plen``.
+    ``units`` int32 (U, 2): per unit [offset in ``blob`` in 16-byte words,
+    ``k_blocks | UNIT_FIRST (first unit of a pass) | UNIT_LAST_PASS (last
+    unit of a pass: the leaf table follows) | UNIT_LAST_TREE (last unit of
+    a tree)``].
+    ``stages`` int32 (S, 4): the units cut, in order, into runs of at most
+    :data:`STAGE_BYTES` (or one unit where a unit is larger), which the
+    kernel copies into shared memory whole: [offset in ``blob`` in 16-byte
+    words, 16-byte words, first unit, units]; ``stage_bytes``: the largest,
+    one shared-memory buffer. ``columns``: ``n_features``, or twice that
+    with ``default_left``.
     """
-    t, _, i = gf.a.shape
-    w = -(-i // 32)
 
-    def pack(bits: np.ndarray) -> np.ndarray:  # (..., I) bool -> (..., W) uint32
-        padded = np.zeros(bits.shape[:-1] + (w * 32,), dtype=bool)
-        padded[..., :i] = bits
-        return np.packbits(padded, axis=-1, bitorder="little").view("<u4").astype(np.uint32)
+    blob: np.ndarray
+    units: np.ndarray
+    stages: np.ndarray
+    stage_bytes: int
+    columns: int
 
-    nodes = np.stack([gf.a.argmax(axis=1).astype(np.int32),
-                      gf.thr.astype(np.float32).view(np.int32)], axis=2)
-    route = gf.m2.transpose(0, 2, 1)  # (T, L, I)
-    lmask, rmask = pack(route == 1.0), pack(route == -1.0)
-    padded_leaf = gf.plen < 0
-    lmask[padded_leaf, 0] |= 1
-    rmask[padded_leaf, 0] |= 1
-    dleft = None if gf.dleft is None else pack(gf.dleft > 0.5)
-    return nodes, dleft, np.stack([lmask, rmask], axis=2), gf.value.astype(np.float32)
+
+def _b_fragments(m2t: np.ndarray) -> np.ndarray:
+    """(..., 64 leaves, 32 nodes) int8 -> (..., 2048) int8 in the order lane
+    ``l`` of a warp reads as 16 bytes at ``(pair * 32 + l) * 16``: the B
+    fragments of ``mma.m16n8k32.row.col`` for n-tiles ``2 pair`` and ``2 pair
+    + 1``. Lane ``l = 4 g + q`` holds, per n-tile, two 32-bit registers: the
+    bytes of leaf ``8 n + g`` at nodes ``4 q .. 4 q + 3`` and ``16 + 4 q ..
+    16 + 4 q + 3``."""
+    lead = m2t.shape[:-2]
+    # (pair, n-tile of the pair, g, half, q, byte) -> (pair, g, q, n-tile of the pair, half, byte)
+    six = m2t.reshape(lead + (4, 2, 8, 2, 4, 4))
+    k = len(lead)
+    order = tuple(range(k)) + tuple(k + a for a in (0, 2, 4, 1, 3, 5))
+    return np.ascontiguousarray(six.transpose(order)).reshape(lead + (2048,))
+
+
+def _bank_order(cols: np.ndarray, real: np.ndarray) -> np.ndarray:
+    """Slot -> node of one k-block's 32 node entries (``cols`` their columns,
+    ``real`` False for padded nodes), so that the kernel's shared loads of
+    feature values meet no bank conflict where the block allows it. Lanes q =
+    0..3 of a warp read, in one load, the columns of slots ``s | 4 q`` (s with
+    bits 2-3 clear), at a feature-row stride of 8 words modulo the 32 banks:
+    the four are conflict-free when their columns are equal or differ modulo
+    4. Nodes are placed greedily, the most used columns first, each in a load
+    that holds its column already, else in the emptiest load whose columns
+    miss its class; padded nodes fill the loads' last lanes."""
+    cols, real = cols.tolist(), real.tolist()
+    nodes = [k for k in range(K_BLOCK) if real[k]]
+    count = Counter(cols[k] for k in nodes)
+    loads: list[list[int]] = [[] for _ in range(8)]
+    held: list[dict[int, int]] = [{} for _ in range(8)]  # per load: column class -> column
+    for k in sorted(nodes, key=lambda k: (-count[cols[k]], cols[k], k)):
+        c = cols[k]
+        # the fullest load holding c, else the emptiest without c's class, else the emptiest
+        j = min((j for j in range(8) if len(loads[j]) < 4),
+                key=lambda j: ((0, -len(loads[j])) if held[j].get(c % 4) == c
+                               else (1 if c % 4 not in held[j] else 2, len(loads[j])), j))
+        loads[j].append(k)
+        held[j].setdefault(c % 4, c)
+    pads = [k for k in range(K_BLOCK) if not real[k]]
+    order = np.empty(K_BLOCK, dtype=np.int64)
+    for j, lead in enumerate((0, 1, 2, 3, 16, 17, 18, 19)):  # the slots s with bits 2-3 clear
+        order[[lead, lead + 4, lead + 8, lead + 12]] = loads[j] + [pads.pop() for _ in range(4 - len(loads[j]))]
+    return order
+
+
+def tree_step_tables(gf: GemmForest) -> TreeStepTables:
+    """The per-tree kernel's int8 tables (:class:`TreeStepTables`), built once
+    from a :class:`GemmForest`."""
+    t, f, i = gf.a.shape
+    l = gf.n_leaves
+    n_kb, n_pass = -(-i // K_BLOCK), -(-l // PASS_LEAVES)
+    ip, lp = n_kb * K_BLOCK, n_pass * PASS_LEAVES
+    nodes = np.zeros((t, ip, 2), dtype=np.int32)
+    nodes[:, :i, 0] = gf.thr.astype(np.float32).view(np.int32)
+    dleft = np.zeros((t, i), dtype=bool) if gf.dleft is None else gf.dleft > 0.5
+    nodes[:, :i, 1] = gf.a.argmax(axis=1).astype(np.int32) + f * dleft
+    m2t = np.zeros((t, lp, ip), dtype=np.int8)
+    m2t[:, :l, :i] = gf.m2.transpose(0, 2, 1)
+    # each k-block's nodes in bank order; a padded node (m2 row 0) reads its load's first column
+    real_node, spans = np.arange(ip) < i, [slice(kb * K_BLOCK, (kb + 1) * K_BLOCK) for kb in range(n_kb)]
+    order = np.asarray([np.concatenate([ks.start + _bank_order(nodes[ti, ks, 1], real_node[ks]) for ks in spans])
+                        for ti in range(t)]).reshape(t, ip)
+    nodes = np.take_along_axis(nodes, order[:, :, None], axis=1)
+    m2t = np.take_along_axis(m2t, order[:, None, :], axis=2)
+    nodes[:, :, 1] = np.where(order < i, nodes[:, :, 1], nodes[:, np.arange(ip) & ~12, 1])
+    nodes = nodes.reshape(t, n_kb, K_BLOCK * 2)
+    blocks = m2t.reshape(t, n_pass, PASS_LEAVES, n_kb, K_BLOCK).transpose(0, 1, 3, 2, 4)
+    live = blocks.any(axis=(3, 4))  # (T, passes, k-blocks)
+    frags = _b_fragments(blocks).view(np.int32)  # (T, passes, k-blocks, 512)
+    leaves = np.zeros((t, lp, 2), dtype=np.int32)
+    leaves[:, :, 0] = 1  # a padded leaf: its sum, 0, is never 1
+    leaves[:, :l, 0] = (gf.c - gf.plen).astype(np.int32)
+    leaves[:, :l, 1] = gf.value.astype(np.float32).view(np.int32)
+    real = np.zeros((t, lp), dtype=bool)
+    real[:, :l] = gf.plen >= 0
+    real = real.reshape(t, n_pass, PASS_LEAVES).any(axis=2)
+    leaves = leaves.reshape(t, n_pass, LEAF_TABLE_BYTES // 4)
+
+    parts, units, at = [], [], 0
+    for ti in range(t):
+        for pi in np.flatnonzero(real[ti]):  # a pass of padded leaves only cannot hit
+            kbs = np.flatnonzero(live[ti, pi])
+            cuts = [kbs[lo:lo + UNIT_K_BLOCKS] for lo in range(0, len(kbs), UNIT_K_BLOCKS)] or [kbs]
+            for ci, cut in enumerate(cuts):
+                words = [np.concatenate([nodes[ti, kb], frags[ti, pi, kb]]) for kb in cut]
+                flags = len(cut) | (UNIT_FIRST if ci == 0 else 0)
+                if ci == len(cuts) - 1:
+                    words.append(leaves[ti, pi])
+                    flags |= UNIT_LAST_PASS
+                units.append([at // 4, flags])
+                parts += words
+                at += sum(len(w) for w in words)
+        units[-1][1] |= UNIT_LAST_TREE
+    units = np.asarray(units, dtype=np.int32).reshape(-1, 2)
+    blob = np.concatenate(parts).astype(np.int32)
+    words = np.diff(np.append(units[:, 0], at // 4))  # each unit's 16-byte words
+    stages, u0 = [], 0
+    while u0 < len(units):
+        u1 = u0 + 1
+        while u1 < len(units) and 16 * int(words[u0:u1 + 1].sum()) <= STAGE_BYTES:
+            u1 += 1
+        stages.append([units[u0, 0], int(words[u0:u1].sum()), u0, u1 - u0])
+        u0 = u1
+    stages = np.asarray(stages, dtype=np.int32)
+    return TreeStepTables(blob, units, stages, 16 * int(stages[:, 1].max()), f if gf.dleft is None else 2 * f)
+
+
+def tree_step_plan(n: int, columns: int, stage_bytes: int, smem_optin: int) -> tuple[int, int, int]:
+    """(warps a block, blocks, shared memory bytes) of a per-tree launch over
+    ``n`` rows: two stage buffers and the block's feature rows, feature-major
+    (``columns`` rows of ``32 * warps + 8`` floats), with as many warps (32
+    rows each, at most :data:`TREE_STEP_MAX_WARPS`) as fit."""
+    warps = TREE_STEP_MAX_WARPS
+    while warps:
+        smem = 2 * stage_bytes + columns * (32 * warps + 8) * 4
+        if smem <= smem_optin:
+            return warps, -(-n // (warps * 32)), smem
+        warps //= 2
+    raise RuntimeError(f"per-tree forest kernel: stages of {stage_bytes} bytes and rows of {columns} columns "
+                       f"need more than the device's {smem_optin} bytes of shared memory")
 
 
 class TreeStepKernel:
@@ -452,14 +624,17 @@ class TreeStepKernel:
     def __init__(self, gf: GemmForest, device: torch.device | str):
         self.gf = gf
         self.n_features = gf.a.shape[1]
-        nodes, dleft, masks, values = tree_step_tables(gf)
-        self.n_trees, self.n_int = nodes.shape[:2]
-        self.n_leaf, self.n_words = masks.shape[1], masks.shape[3]
+        self.tables = tree_step_tables(gf)
         device = torch.device(device)
-        self.nodes = torch.from_numpy(nodes).to(device)
-        self.dleft = None if dleft is None else torch.from_numpy(dleft.view(np.int32)).to(device)
-        self.masks = torch.from_numpy(masks.view(np.int32)).to(device)
-        self.values = torch.from_numpy(values).to(device)
+        self.blob = torch.from_numpy(self.tables.blob).to(device)
+        self.units = torch.from_numpy(self.tables.units).to(device)
+        self.stages = torch.from_numpy(self.tables.stages).to(device)
+        self.device = self.blob.device  # with its index
+        #: rows -> (warps a block, blocks, shared memory bytes) of a launch
+        self._plans: dict[int, tuple[int, int, int]] = {}
+        # the launch's table arguments, fixed for the kernel's life
+        self._table_args = (self.n_features, self.tables.columns, self.blob.data_ptr(), self.units.data_ptr(),
+                            self.stages.data_ptr(), len(self.tables.stages), self.tables.stage_bytes)
 
     def plain(self, x: torch.Tensor) -> torch.Tensor:
         """The kernel's plain version on ``x``, on whatever device ``x`` lives on."""
@@ -472,22 +647,27 @@ class TreeStepKernel:
             raise ValueError(f"per-tree forest kernel: unsupported device {x.device}")
         return self.launch(x)
 
+    def _plan(self, n: int, device: torch.device) -> tuple[int, int, int]:
+        """The launch plan over ``n`` rows, worked out at the first launch over ``n`` rows."""
+        _, smem_optin = _device_limits("forest_tree_step_prepare", device)
+        if len(self._plans) >= 64:
+            self._plans.clear()
+        self._plans[n] = plan = tree_step_plan(n, self.tables.columns, self.tables.stage_bytes, smem_optin)
+        return plan
+
     def launch(self, x: torch.Tensor) -> torch.Tensor:
         global TREE_STEP_LAUNCHES
-        _check_input(x, self.n_features, self.nodes.device, "per-tree forest kernel")
+        _check_input(x, self.n_features, self.device, "per-tree forest kernel")
         n = x.shape[0]
         out = torch.empty(n, dtype=torch.float32, device=x.device)
         if n == 0:
             return out
+        plan = self._plans.get(n) or self._plan(n, x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _entry("forest_tree_step_margin")(x.data_ptr(), n, self.n_features, self.nodes.data_ptr(),
-                     None if self.dleft is None else self.dleft.data_ptr(), self.masks.data_ptr(),
-                     self.values.data_ptr(), self.n_trees, self.n_int, self.n_leaf, self.n_words,
-                     out.data_ptr(), stream)
+            err = _entry("forest_tree_step_margin")(x.data_ptr(), n, *self._table_args, *plan, out.data_ptr(), stream)
         if err != 0:
-            raise RuntimeError(f"forest_tree_step_margin failed: cudaError_t {err} (trees of "
-                               f"{self.n_int} internal nodes and {self.n_leaf} leaves)")
+            raise RuntimeError(f"forest_tree_step_margin failed: cudaError_t {err}")
         TREE_STEP_LAUNCHES += 1
         return out
 
