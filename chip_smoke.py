@@ -34,16 +34,36 @@ Phases (any failure exits non-zero, and the final result line is not printed):
 4. pipeline: ``filter_variants_pipeline`` through ``run(argv)`` on two
    synthetic chr20-scale worlds (64,444,167 bp, 104,000 variants), each run
    with every kernel's launch count set to 0 just before it and read just
-   after:
-   - the 100-tree logit_sum forest pickle: ``--backend gpu`` (``auto`` ->
-     ``cuda-wide``), ``--backend cpu``, and ``--backend gpu`` with
-     ``VCTPU_FOREST_STRATEGY=gemm`` (-> ``cuda-gemm``);
+   after, each printing its window path, the bytes it sent to the device
+   per variant and, where it built one, the resident genome's encode and
+   upload seconds and bytes. At 104,000 variants every run gathers its
+   windows from the genome resident on its device, as the reference does:
+   - the forest pickle, which also holds a threshold model and a DAN (the
+     mixed pickle of the reference's ``train_models_pipeline``), with its
+     100-tree logit_sum forest: ``--backend cpu``, ``--backend gpu``
+     (``auto`` -> ``cuda-wide``), ``--backend gpu`` with
+     ``VCTPU_FOREST_STRATEGY=gemm`` (-> ``cuda-gemm``), and ``--backend gpu``
+     on the host window gather (``featurize.GENOME_RESIDENT_MIN_VARIANTS``
+     set past the table in process, the genome cache hidden), writing
+     ``.vcf.gz``: its ``.tbi`` must exist and a region read through the
+     port's ``TabixIndex`` must return the plain output's records;
    - an xgboost JSON model (100 trees of depth 6, default_left) over a
      callset where about 10 % of the records lack SOR and GQ:
-     ``--backend gpu`` (``auto`` -> ``cuda-wide``), ``--backend cpu``, and
+     ``--backend cpu``, ``--backend gpu`` (``auto`` -> ``cuda-wide``), and
      ``--backend gpu`` with ``VCTPU_FOREST_STRATEGY=gemm`` (-> ``cuda-gemm``);
    each GPU run must launch its kernel and only its kernel, and write the
-   CPU run's bytes outside the ``##vctpu_*`` lines.
+   CPU run's bytes outside the ``##vctpu_*`` lines;
+5. families, on the forest pickle world's callset: the DAN at
+   ``train_dan``'s widths (hidden 256, 2 layers, embed 16) and the threshold
+   model over qual and sor, each through the CLI on ``--backend gpu`` and
+   ``--backend cpu`` (no kernel launched; records differing only as
+   ``tests/torch_vcf_compare.py`` allows, counted) and through the API on
+   the world's features: GPU against CPU scores within 1e-5 (DAN) and 1e-6
+   (threshold); the DAN's scores of 104,000 rows in one call ``torch.equal``
+   to its scores in chunks of 1,000, and to a call made with
+   ``torch.backends.cuda.matmul.allow_tf32 = True`` set globally; the
+   forward's CUDA-event time beside its float32 FLOP count and bound
+   (``FAMILY_DETAIL``).
 
 The last two lines of standard output are a JSON object with the kernel
 numbers and the device line ``{"ok": true, "device": {...}}``.
@@ -58,6 +78,7 @@ compares their kernels (:func:`time_kernel`).
 
 from __future__ import annotations
 
+import gzip
 import json
 import logging
 import math
@@ -398,36 +419,53 @@ def phase_kernel(main_rows: int) -> dict:
             "forest_tree_step": {"results": tree_step, "max_abs_err": tree_err}}
 
 
-class _StageTimes(logging.Handler):
-    """Collects the pipeline's per-stage timing records (``STAGE_LOG``)."""
+class _RunLog(logging.Handler):
+    """Collects a pipeline run's stage times (``STAGE_LOG``), its window path
+    (``WINDOW_LOG``), the bytes it sent to the device (``TRANSFER_LOG``) and
+    a resident genome's build (``GENOME_LOG``)."""
 
-    def __init__(self, fmt: str):
+    def __init__(self):
         super().__init__(logging.INFO)
-        self.fmt = fmt
         self.stages: dict[str, float] = {}
+        self.window_path = None
+        self.sent = None
+        self.genome = None
 
     def emit(self, record: logging.LogRecord) -> None:
-        if record.msg == self.fmt:
+        from variantcalling_tpu_torch import featurize
+        from variantcalling_tpu_torch.pipelines import filter_variants as fv
+
+        if record.msg == fv.STAGE_LOG:
             name, seconds = record.args
             self.stages[name] = self.stages.get(name, 0.0) + seconds
+        elif record.msg == fv.WINDOW_LOG:
+            self.window_path = record.args[0]
+        elif record.msg == fv.TRANSFER_LOG:
+            self.sent = {"bytes": record.args[0], "variants": record.args[1],
+                         "bytes_per_variant": record.args[0] / max(record.args[1], 1)}
+        elif record.msg == featurize.GENOME_LOG:
+            device, nbytes, encode_s, upload_s = record.args
+            self.genome = {"device": str(device), "bytes": nbytes, "encode_s": encode_s, "upload_s": upload_s}
 
 
 def _strip(data: bytes) -> bytes:
     return b"\n".join(ln for ln in data.split(b"\n") if not ln.startswith(b"##vctpu_"))
 
 
-def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy: str | None = None) -> dict:
+def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy: str | None = None,
+           model_name: str | None = None) -> dict:
     """One ``filter_variants_pipeline`` run through ``run(argv)``; every kernel's
     launch count is set to 0 just before it and read just after."""
     from variantcalling_tpu_torch.models import forest as fmod
     from variantcalling_tpu_torch.models import forest_cuda
     from variantcalling_tpu_torch.pipelines import filter_variants
 
-    argv = ["--input_file", world["vcf"], "--model_file", world["model"], "--model_name", world["model_name"],
+    argv = ["--input_file", world["vcf"], "--model_file", world["model"],
+            "--model_name", model_name or world["model_name"],
             "--reference_file", world["fasta"], "--output_file", str(out), "--backend", backend]
     plog = logging.getLogger("variantcalling_tpu_torch")
     plog.setLevel(logging.INFO)
-    times = _StageTimes(filter_variants.STAGE_LOG)
+    times = _RunLog()
     plog.addHandler(times)
     if strategy is not None:
         os.environ[fmod.FOREST_STRATEGY_ENV] = strategy
@@ -444,10 +482,17 @@ def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy
     check(rc == 0, f"{label} --backend {backend} run exited {rc}")
     n = WORLD["n_variants"]
     print(f"pipeline {label} --backend {backend}: {seconds:.2f} s, {n / seconds:.0f} variants/s, "
-          f"launches {launches} ({card})", flush=True)
+          f"launches {launches}, windows: {times.window_path}, "
+          f"{times.sent['bytes_per_variant']:.2f} bytes a variant sent to the device ({card})", flush=True)
+    if times.genome is not None:
+        print(f"pipeline {label} --backend {backend}: resident genome built: {times.genome}", flush=True)
     print("PIPELINE_STAGES " + json.dumps({"world": label, "backend": backend, "total_s": seconds,
-                                           "launches": launches, **times.stages}), flush=True)
-    return {"bytes": out.read_bytes(), "seconds": seconds, "launches": launches}
+                                           "launches": launches, "window_path": times.window_path,
+                                           "sent": times.sent, "genome_build": times.genome, **times.stages}),
+          flush=True)
+    data = out.read_bytes()
+    return {"bytes": gzip.decompress(data) if str(out).endswith(".gz") else data, "seconds": seconds,
+            "launches": launches, "window_path": times.window_path}
 
 
 def _check_same(gpu: dict, cpu: dict, strategy: str, kernel: str, label: str) -> None:
@@ -455,6 +500,8 @@ def _check_same(gpu: dict, cpu: dict, strategy: str, kernel: str, label: str) ->
     engine and strategy, launched ``kernel`` and no other kernel; the scores
     are in [0, 1] and split the records between PASS and LOW_SCORE."""
     check(_strip(gpu["bytes"]) == _strip(cpu["bytes"]), f"{label}: GPU and CPU outputs differ outside ##vctpu_*")
+    check(gpu["window_path"] == cpu["window_path"] == "genome-resident",
+          f"{label}: windows not from the resident genome ({gpu['window_path']}, {cpu['window_path']})")
     lines = gpu["bytes"].decode().splitlines()
     check("##vctpu_engine=cuda" in lines and f"##vctpu_forest_strategy={strategy}" in lines,
           f"{label}: GPU output does not record the cuda engine and the {strategy} strategy")
@@ -471,6 +518,39 @@ def _check_same(gpu: dict, cpu: dict, strategy: str, kernel: str, label: str) ->
           flush=True)
 
 
+def _host_gather_run(world: dict, tmp: Path, card: str, resident_gpu: dict) -> dict:
+    """The forest pickle world on the card with windows from the host gather
+    (the resident-genome threshold set past the table, the genome cache hidden
+    for the run), written as ``.vcf.gz``: the resident GPU run's records, a
+    ``.tbi`` beside it, and a region read through the port's index that returns
+    the plain output's records of the region."""
+    from variantcalling_tpu_torch import featurize
+    from variantcalling_tpu_torch.io import tabix
+
+    out = tmp / "forest_pickle_gpu_host_gather.vcf.gz"
+    saved = featurize.GENOME_RESIDENT_MIN_VARIANTS, featurize._DEVICE_GENOME_CACHE
+    featurize.GENOME_RESIDENT_MIN_VARIANTS, featurize._DEVICE_GENOME_CACHE = WORLD["n_variants"] + 1, {}
+    try:
+        run = _drive(world, out, "gpu", card, "forest_pickle_host_gather")
+    finally:
+        featurize.GENOME_RESIDENT_MIN_VARIANTS, featurize._DEVICE_GENOME_CACHE = saved
+    check(run["window_path"] == "host gather", f"the host-gather run took {run['window_path']}")
+    check(run["launches"]["forest_wide"] > 0, "the host-gather run never launched forest_wide")
+    check(_strip(run["bytes"]) == _strip(resident_gpu["bytes"]),
+          "host-gather and genome-resident GPU runs differ outside ##vctpu_*")
+    tbi = Path(f"{out}.tbi")
+    check(tbi.exists(), "no .tbi beside the .vcf.gz output")
+    beg, end = 20_000_000, 20_500_000
+    got = list(tabix.read_region_lines(str(out), WORLD["contig"], beg, end, tabix.TabixIndex.load(str(tbi))))
+    want = [ln for ln in resident_gpu["bytes"].decode().splitlines() if not ln.startswith("#")
+            and beg < int(ln.split("\t")[1]) + len(ln.split("\t")[3]) and int(ln.split("\t")[1]) - 1 < end]
+    check(len(want) > 100 and got == want, f"region read: {len(got)} records, the plain output has {len(want)}")
+    print(f"pipeline forest_pickle_host_gather: bytes equal the genome-resident GPU run's; .tbi "
+          f"{tbi.stat().st_size} bytes; {WORLD['contig']}:{beg}-{end} through the index: {len(got)} records, "
+          f"as in the plain output", flush=True)
+    return run
+
+
 def phase_pipeline(tmp: Path, card: str) -> dict:
     from variantcalling_tpu_torch import synthetic
 
@@ -478,6 +558,8 @@ def phase_pipeline(tmp: Path, card: str) -> dict:
     for label, seed, xgboost in (("forest_pickle", 2026, False), ("xgboost_json", 2027, True)):
         t0 = time.perf_counter()
         world = synthetic.write_world(str(tmp / label), seed=seed, xgboost=xgboost, **WORLD)
+        if not xgboost:  # the threshold model and the DAN share the forest's pickle
+            world["families"] = synthetic.add_family_models(world["model"], seed=seed + 100)
         print(f"world {label}: {WORLD['n_variants']} variants on {WORLD['length']} bp in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         cpu = _drive(world, tmp / f"{label}_cpu.vcf", "cpu", card, label)
@@ -490,8 +572,109 @@ def phase_pipeline(tmp: Path, card: str) -> dict:
         _check_same(gpu, cpu, "cuda-wide", "forest_wide", label)
         gemm = _drive(world, tmp / f"{label}_gpu_gemm.vcf", "gpu", card, label + "_gemm", strategy="gemm")
         _check_same(gemm, cpu, "cuda-gemm", "forest_tree_step", label + " (gemm)")
-        runs[label] = {"wide_gpu": gpu, "gemm_gpu": gemm}
+        runs[label] = {"world": world, "wide_gpu": gpu, "gemm_gpu": gemm}
+        if not xgboost:
+            runs[label]["host_gather_gpu"] = _host_gather_run(world, tmp, card, gpu)
     return runs
+
+
+def _family_cli(world: dict, tmp: Path, card: str, family: str, tol: float) -> dict:
+    """One family's model through the CLI on the card and on the CPU: no kernel
+    launched, the family recorded, the records differing only as
+    ``tests/torch_vcf_compare.py`` allows (counted)."""
+    from tests.torch_vcf_compare import differing_records
+    from variantcalling_tpu_torch.models import registry
+
+    name = world["families"][family]
+    model = registry.load_model(world["model"], name)
+    label = f"forest_pickle_{family}"
+    gpu = _drive(world, tmp / f"{label}_gpu.vcf", "gpu", card, label, model_name=name)
+    cpu = _drive(world, tmp / f"{label}_cpu.vcf", "cpu", card, label, model_name=name)
+    check(all(v == 0 for v in gpu["launches"].values()), f"{label}: a forest kernel was launched")
+    check(gpu["window_path"] == cpu["window_path"] == "genome-resident", f"{label}: windows not resident")
+    lines = gpu["bytes"].decode().splitlines()
+    check(f"##vctpu_model_family={family}" in lines and "##vctpu_forest_strategy=torch" in lines
+          and "##vctpu_engine=cuda" in lines, f"{label}: the GPU output does not record cuda, torch and {family}")
+    n_diff = differing_records(gpu["bytes"], cpu["bytes"], model.pass_threshold, tol)
+    records = [ln for ln in lines if not ln.startswith("#")]
+    n_pass = sum(ln.split("\t")[6] in ("PASS", "HPOL_RUN") for ln in records)
+    check(len(records) == WORLD["n_variants"] and 0 < n_pass < len(records), f"{label}: {n_pass} PASS")
+    print(f"pipeline {label}: GPU and CPU outputs: {n_diff} of {len(records)} records differ, each within "
+          f"{tol:g} of the rule; {n_pass} PASS", flush=True)
+    return {"cli_differing_records": n_diff, "records": len(records), "pass": n_pass,
+            "gpu_s": gpu["seconds"], "cpu_s": cpu["seconds"]}
+
+
+def phase_families(world: dict, tmp: Path, card: str) -> dict:
+    """The threshold and DAN families on the forest pickle world's callset:
+    through the CLI (:func:`_family_cli`), then through the API on the
+    world's feature matrix: GPU against CPU, the DAN's row invariance and
+    its indifference to a global TF32 request, and their CUDA-event times."""
+    from variantcalling_tpu_torch.featurize import host_featurize, materialize_features
+    from variantcalling_tpu_torch.io.fasta import FastaReader
+    from variantcalling_tpu_torch.io.vcf import read_vcf
+    from variantcalling_tpu_torch.models import dan, registry, threshold
+
+    out = {"dan": _family_cli(world, tmp, card, "dan", 1e-5),
+           "threshold": _family_cli(world, tmp, card, "threshold", 1e-6)}
+    with FastaReader(world["fasta"]) as fasta:
+        hf = host_featurize(read_vcf(world["vcf"]), fasta)
+    fs = materialize_features(hf, device="cuda")
+    names = fs.feature_names
+    x_cpu = torch.from_numpy(fs.matrix())
+    x = x_cpu.cuda()
+    n = x.shape[0]
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = registry.load_model(world["model"], world["families"]["dan"])
+    cfg = model.cfg
+    check((cfg.hidden, cfg.n_layers, cfg.embed_dim, cfg.n_numeric) == (256, 2, 16, 17), f"DAN widths {cfg}")
+    scorer = dan.make_score_predictor(model, names, "cuda")
+    s_gpu = scorer(x)
+    s_cpu = dan.make_score_predictor(model, names, "cpu")(x_cpu)
+    err = float((s_gpu.cpu() - s_cpu).abs().max())
+    check(err <= 1e-5, f"DAN: GPU and CPU scores differ by {err}")
+    chunks = torch.cat([scorer(x[lo: lo + 1000]) for lo in range(0, n, 1000)])
+    check(torch.equal(chunks, s_gpu), "DAN: scores in chunks of 1,000 differ from one call's")
+    with dan.full_float32(), torch.no_grad():  # cuBLAS at the caller's shapes, without the row blocks
+        whole = scorer.logits(x)
+        parts = torch.cat([scorer.logits(x[lo: lo + 1000]) for lo in range(0, n, 1000)])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        s_tf32 = scorer(x)
+        check(torch.backends.cuda.matmul.allow_tf32, "DAN: the scorer left the caller's TF32 request changed")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(torch.equal(s_tf32, s_gpu), "DAN: a global TF32 request changed the scores")
+    in_dim = cfg.n_numeric + 2 * cfg.embed_dim
+    flops = 2 * n * (in_dim * cfg.hidden + (cfg.n_layers - 1) * cfg.hidden ** 2 + cfg.hidden)
+    nbytes = x.numel() * 4 + sum(v.size * 4 for v in model.params_np.values()) + n * 4
+    dan_detail = {
+        "rows": n, "max_abs_err_gpu_cpu": err, "row_invariant_chunks_1000": True, "tf32_request_equal": True,
+        "unblocked_row_invariant": bool(torch.equal(whole, parts)),
+        "unblocked_max_abs_logit_diff": float((whole - parts).abs().max()),
+        "ms": cuda_ms(lambda: scorer(x)), "unblocked_ms": cuda_ms(lambda: scorer.logits(x)),
+        "flops": flops, "bytes": nbytes, "bound_ms": max(flops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / FP32_OPS_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"}
+    t0 = time.perf_counter()
+    dan.make_score_predictor(model, names, "cpu")(x_cpu)
+    dan_detail["cpu_host_ms"] = (time.perf_counter() - t0) * 1e3
+
+    tmodel = registry.load_model(world["model"], world["families"]["threshold"])
+    tscore = threshold.make_score_predictor(tmodel, names, torch.device("cuda"))
+    t_gpu = tscore(x)
+    terr = float((t_gpu.cpu() - threshold.make_score_predictor(tmodel, names, torch.device("cpu"))(x_cpu)).abs().max())
+    check(terr <= 1e-6, f"threshold: GPU and CPU scores differ by {terr}")
+    threshold_detail = {"rows": n, "max_abs_err_gpu_cpu": terr, "ms": cuda_ms(lambda: tscore(x)),
+                        "features": tmodel.feature_names}
+    out["dan"].update(dan_detail)
+    out["threshold"].update(threshold_detail)
+    for fam, detail in out.items():
+        print("FAMILY_DETAIL " + json.dumps({"family": fam, "card": card, **detail}), flush=True)
+    print(f"families: DAN GPU vs CPU max abs err {err:.3g} (<= 1e-5), one call == chunks of 1,000, TF32 request "
+          f"changed nothing, {dan_detail['ms']:.3f} ms for {n} rows (bound {dan_detail['bound_ms']:.3f} ms); "
+          f"threshold max abs err {terr:.3g} (<= 1e-6)", flush=True)
+    return out
 
 
 def time_kernel(kind: str, root: str) -> int:
@@ -538,6 +721,7 @@ def main() -> int:
     kern = phase_kernel(main_rows=WORLD["n_variants"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         pipe = phase_pipeline(Path(tmp), card)
+        phase_families(pipe["forest_pickle"]["world"], Path(tmp), card)
     n = WORLD["n_variants"]
     rows = {  # each kernel's numbers at the main path's shape, on the production (xgboost) forest
         "forest_wide": kern["forest_wide"]["results"]["xgboost_default_left_100x64"][n],

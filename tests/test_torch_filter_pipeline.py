@@ -1,31 +1,47 @@
-"""The port's filter_variants_pipeline CLI against the JAX package's, byte for byte.
+"""The port's filter_variants_pipeline CLI against the JAX package's.
 
 The world is built like tests/system/test_filter_variants_pipeline.py; the
 model pickle is written by the JAX package's ``registry.save_models`` and
 loaded by the port. A second world is the port's synthetic xgboost one: a
 bare xgboost JSON model with default_left routing over a callset where
-some records lack SOR and GQ. Outputs must be identical outside the
+some records lack SOR and GQ. Forest outputs must be identical outside the
 ``##vctpu_*`` provenance lines (``tests/fixtures.strip_vctpu_header``),
-under every ``VCTPU_FOREST_STRATEGY`` the forest can be served by; for
-``.vcf.gz`` the decompressed bytes are compared.
+under every ``VCTPU_FOREST_STRATEGY`` the forest can be served by, with
+windows from the host gather and from the resident genome (the port's
+``GENOME_RESIDENT_MIN_VARIANTS`` set to 0); for ``.vcf.gz`` the
+decompressed bytes are compared, and the ``.tbi`` beside it equals the
+reference's index of the same file. Threshold and DAN models (in one
+pickle with the forest, saved by the JAX package) are held to 1e-6 and
+1e-5: differing records are counted, printed and checked by
+``tests/torch_vcf_compare.py``. ``VCTPU_MODEL_FAMILY``: a mismatch or a
+malformed value exits 2; the family's header line.
 """
 
+import dataclasses
 import gzip
+import logging
 import pickle
+import shutil
 
 import numpy as np
 import pytest
 
 from tests import fixtures
-from variantcalling_tpu.featurize import featurize
+from tests.torch_vcf_compare import differing_records
+from variantcalling_tpu.featurize import BASE_FEATURES, featurize
 from variantcalling_tpu.io.fasta import FastaReader
 from variantcalling_tpu.io.vcf import read_vcf
+from variantcalling_tpu.io import tabix as jtabix
+from variantcalling_tpu.models import dan as jdan
 from variantcalling_tpu.models import registry
 from variantcalling_tpu.models.forest import from_sklearn
+from variantcalling_tpu.models.threshold import ThresholdModel as JThresholdModel
 from variantcalling_tpu.pipelines import filter_variants as fvp
 from variantcalling_tpu_torch import synthetic as tsynth
 from variantcalling_tpu_torch.__main__ import main as torch_main
+from variantcalling_tpu_torch import featurize as tfeat
 from variantcalling_tpu_torch.models.forest import FOREST_STRATEGY_ENV
+from variantcalling_tpu_torch.models.registry import MODEL_FAMILY_ENV
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +131,9 @@ def test_h5_blacklist_exits_2(world, tmp_path):
     assert not (tmp_path / "o.vcf").exists()
 
 
-def test_threshold_model_pickle_exits_2(world, tmp_path):
+def test_threshold_model_pickle_exits_2(world, tmp_path, monkeypatch):
+    """A threshold model scores only through VCTPU_MODEL_FAMILY=auto: an explicit
+    forest request against it exits 2 and writes nothing."""
     from variantcalling_tpu.models.threshold import ThresholdModel
 
     registry.save_models(str(tmp_path / "thr.pkl"), {"threshold_model_ignore_gt_incl_hpol_runs":
@@ -124,6 +142,7 @@ def test_threshold_model_pickle_exits_2(world, tmp_path):
         scales=np.ones(1, np.float32))})
     argv = _argv(world, tmp_path / "o.vcf", "threshold_model_ignore_gt_incl_hpol_runs", False)
     argv[argv.index("--model_file") + 1] = str(tmp_path / "thr.pkl")
+    monkeypatch.setenv(MODEL_FAMILY_ENV, "forest")
     assert torch_main(["filter_variants_pipeline", *argv]) == 2
     assert not (tmp_path / "o.vcf").exists()
 
@@ -182,3 +201,152 @@ def test_each_strategy_writes_reference_bytes(world, monkeypatch, strategy, reco
     port_bytes = _read(port_out)
     assert fixtures.strip_vctpu_header(port_bytes) == fixtures.strip_vctpu_header(_read(ref_out))
     assert f"##vctpu_forest_strategy={recorded}" in port_bytes.decode().splitlines()
+
+
+@pytest.fixture
+def resident(monkeypatch, caplog):
+    """Windows from the port's resident genome at any table size; a genome cache
+    of the test's own, so that later tests keep the host gather."""
+    monkeypatch.setattr(tfeat, "GENOME_RESIDENT_MIN_VARIANTS", 0)
+    monkeypatch.setattr(tfeat, "_DEVICE_GENOME_CACHE", {})
+    caplog.set_level(logging.INFO, logger="variantcalling_tpu_torch")
+    return caplog
+
+
+def _window_paths(caplog) -> list[str]:
+    return [r.getMessage() for r in caplog.records if r.getMessage().startswith("window path ")]
+
+
+@pytest.mark.parametrize("strategy,recorded", [("auto", "gather"), ("gather", "gather"), ("gemm", "gemm"),
+                                               ("wide", "wide"), ("pallas", "wide")])
+def test_resident_genome_writes_reference_bytes(world, monkeypatch, resident, strategy, recorded):
+    """Everything but --blacklist_cg_insertions (which keeps host windows)."""
+    def argv(out):
+        return [*_argv(world, out, "rf_model_ignore_gt_incl_hpol_runs", False), "--runs_file",
+                str(world / "runs.bed"), "--annotate_intervals", str(world / "LCR-test.bed"),
+                "--blacklist", str(world / "blacklist.pkl")]
+
+    ref_out, port_out = world / f"ref_resident_{strategy}.vcf", world / f"port_resident_{strategy}.vcf"
+    assert fvp.run(argv(ref_out)) == 0
+    monkeypatch.setenv(FOREST_STRATEGY_ENV, strategy)
+    assert torch_main(["filter_variants_pipeline", *argv(port_out)]) == 0
+    assert _window_paths(resident) == ["window path genome-resident"]
+    port_bytes = port_out.read_bytes()
+    assert fixtures.strip_vctpu_header(port_bytes) == fixtures.strip_vctpu_header(ref_out.read_bytes())
+    assert f"##vctpu_forest_strategy={recorded}" in port_bytes.decode().splitlines()
+    assert any("COHORT_FP" in ln or "HPOL_RUN" in ln for ln in port_bytes.decode().splitlines()[-400:])
+
+
+@pytest.mark.parametrize("strategy,recorded", [("auto", "gather"), ("gemm", "gemm"), ("wide", "wide")])
+def test_resident_genome_xgboost_world_bytes(xgb_world, monkeypatch, resident, tmp_path, strategy, recorded):
+    d, argv, ref_bytes = xgb_world
+    monkeypatch.setenv(FOREST_STRATEGY_ENV, strategy)
+    assert torch_main(["filter_variants_pipeline", *argv, "--output_file", str(tmp_path / "o.vcf")]) == 0
+    assert _window_paths(resident) == ["window path genome-resident"]
+    port_bytes = (tmp_path / "o.vcf").read_bytes()
+    assert fixtures.strip_vctpu_header(port_bytes) == fixtures.strip_vctpu_header(ref_bytes)
+    assert f"##vctpu_forest_strategy={recorded}" in port_bytes.decode().splitlines()
+
+
+def test_cg_insertions_keep_the_host_gather(world, resident, tmp_path):
+    """--blacklist_cg_insertions reads windows on the host, whatever the table size."""
+    argv = _argv(world, tmp_path / "o.vcf", "rf_model_ignore_gt_incl_hpol_runs", True)
+    assert torch_main(["filter_variants_pipeline", *argv]) == 0
+    assert _window_paths(resident) == ["window path host gather"]
+    assert fvp.run(_argv(world, tmp_path / "r.vcf", "rf_model_ignore_gt_incl_hpol_runs", True)) == 0
+    assert fixtures.strip_vctpu_header((tmp_path / "o.vcf").read_bytes()) == \
+        fixtures.strip_vctpu_header((tmp_path / "r.vcf").read_bytes())
+
+
+FAMILY_NAMES = {"threshold": "threshold_model_ignore_gt_incl_hpol_runs", "dan": "dan_model_ignore_gt_incl_hpol_runs"}
+FAMILY_TOL = {"threshold": 1e-6, "dan": 1e-5}
+
+
+@pytest.fixture(scope="module")
+def family_pickle(world):
+    """One pickle, saved by the JAX package, with a forest, a threshold model over
+    qual and af, and a DAN (hidden 16) whose weights come from a numpy seed."""
+    rng = np.random.default_rng(23)
+    pdan = tsynth.synthetic_dan(rng, list(BASE_FEATURES), embed_dim=4, hidden=16, n_layers=2)
+    jd = jdan.DanModel(cfg=jdan.DanConfig(**dataclasses.asdict(pdan.cfg)), params_np=pdan.params_np,
+                       feature_names=pdan.feature_names, numeric_features=pdan.numeric_features,
+                       pass_threshold=0.5, norm_mu=pdan.norm_mu, norm_sd=pdan.norm_sd)
+    pthr = tsynth.synthetic_threshold(rng, list(BASE_FEATURES), used=("qual", "af"))
+    jt = JThresholdModel(pthr.feature_names, pthr.thresholds, pthr.signs, pthr.scales, pthr.pass_threshold,
+                         pthr.all_feature_names)
+    models = registry.load_models(str(world / "model.pkl"))
+    path = world / "families.pkl"
+    registry.save_models(str(path), {"rf_model_ignore_gt_incl_hpol_runs": models["rf_model_ignore_gt_incl_hpol_runs"],
+                                     FAMILY_NAMES["threshold"]: jt, FAMILY_NAMES["dan"]: jd})
+    return path
+
+
+def _family_argv(world, pickle_path, out, name: str) -> list[str]:
+    argv = _argv(world, out, name, False)
+    argv[argv.index("--model_file") + 1] = str(pickle_path)
+    return argv
+
+
+@pytest.mark.parametrize("family", ["threshold", "dan"])
+@pytest.mark.parametrize("windows", ["host", "resident"])
+def test_family_cli_matches_reference(world, family_pickle, monkeypatch, caplog, capsys, tmp_path, family, windows):
+    name = FAMILY_NAMES[family]
+    caplog.set_level(logging.INFO, logger="variantcalling_tpu_torch")
+    if windows == "resident":
+        monkeypatch.setattr(tfeat, "GENOME_RESIDENT_MIN_VARIANTS", 0)
+        monkeypatch.setattr(tfeat, "_DEVICE_GENOME_CACHE", {})
+    assert fvp.run(_family_argv(world, family_pickle, tmp_path / "ref.vcf", name)) == 0
+    assert torch_main(["filter_variants_pipeline", *_family_argv(world, family_pickle, tmp_path / "port.vcf",
+                                                                   name)]) == 0
+    assert _window_paths(caplog) == [f"window path {'genome-resident' if windows == 'resident' else 'host gather'}"]
+    port = (tmp_path / "port.vcf").read_bytes()
+    pass_threshold = 0.5 if family == "dan" else 0.25
+    n_diff = differing_records(port, (tmp_path / "ref.vcf").read_bytes(), pass_threshold, FAMILY_TOL[family])
+    lines = port.decode().splitlines()
+    n_rec = sum(not ln.startswith("#") for ln in lines)
+    with capsys.disabled():
+        print(f"\n{family} CLI ({windows} windows): {n_diff} of {n_rec} records differ from the reference's")
+    assert n_diff <= n_rec // 100
+    assert lines.count(f"##vctpu_model_family={family}") == 1 and "##vctpu_forest_strategy=torch" in lines
+    filters = {ln.split("\t")[6] for ln in lines if not ln.startswith("#")}
+    assert {"PASS", "LOW_SCORE"} <= filters
+
+
+@pytest.mark.parametrize("request_,name,rc", [
+    ("dan", "rf_model_ignore_gt_incl_hpol_runs", 2), ("forest", "dan_model_ignore_gt_incl_hpol_runs", 2),
+    ("dan", "threshold_model_ignore_gt_incl_hpol_runs", 2), ("threshold", "threshold_model_ignore_gt_incl_hpol_runs", 2),
+    ("banana", "rf_model_ignore_gt_incl_hpol_runs", 2), ("DAN", "dan_model_ignore_gt_incl_hpol_runs", 0),
+    ("forest", "rf_model_ignore_gt_incl_hpol_runs", 0), ("", "threshold_model_ignore_gt_incl_hpol_runs", 0)])
+def test_model_family_request(world, family_pickle, monkeypatch, tmp_path, request_, name, rc):
+    """An explicit family the model is not of, or a malformed request, exits 2
+    and writes nothing; a matching one (any case) or auto scores."""
+    monkeypatch.setenv(MODEL_FAMILY_ENV, request_)
+    out = tmp_path / "o.vcf"
+    assert torch_main(["filter_variants_pipeline", *_family_argv(world, family_pickle, out, name)]) == rc
+    assert out.exists() == (rc == 0)
+
+
+def test_family_header_written_for_dan_and_stripped_for_forest(world, family_pickle, tmp_path):
+    """A re-filtered input carries a stale family line: a forest run strips it,
+    a DAN run replaces it."""
+    stale = tmp_path / "stale.vcf"
+    text = gzip.decompress((world / "calls.vcf.gz").read_bytes()).decode()
+    stale.write_text(text.replace("##fileformat=VCFv4.2\n", "##fileformat=VCFv4.2\n##vctpu_model_family=threshold\n"))
+    for name, want in (("rf_model_ignore_gt_incl_hpol_runs", []), (FAMILY_NAMES["dan"], ["##vctpu_model_family=dan"])):
+        argv = _family_argv(world, family_pickle, tmp_path / "o.vcf", name)
+        argv[argv.index("--input_file") + 1] = str(stale)
+        assert torch_main(["filter_variants_pipeline", *argv]) == 0
+        lines = (tmp_path / "o.vcf").read_text().splitlines()
+        assert [ln for ln in lines if ln.startswith("##vctpu_model_family=")] == want
+
+
+def test_vcf_gz_output_gets_the_reference_index(world, tmp_path):
+    out = tmp_path / "o.vcf.gz"
+    assert torch_main(["filter_variants_pipeline", *_argv(world, out, "rf_model_ignore_gt_incl_hpol_runs", True)]) == 0
+    copy = tmp_path / "copy.vcf.gz"
+    shutil.copyfile(out, copy)
+    jtabix.build_tabix_index(str(copy))
+    assert (tmp_path / "o.vcf.gz.tbi").read_bytes() == (tmp_path / "copy.vcf.gz.tbi").read_bytes()
+    records = [ln for ln in gzip.decompress(out.read_bytes()).decode().splitlines()
+               if not ln.startswith("#") and ln.startswith("chr2\t")]
+    assert list(jtabix.read_region_lines(str(out), "chr2", 0, 10_000)) == records

@@ -1,9 +1,10 @@
 """The port stands alone: no ``jax``, nothing of ``variantcalling_tpu``; no silent CPU.
 
 - an AST scan of ``variantcalling_tpu_torch/`` and ``chip_smoke.py`` finds
-  no import of either (the registry's pickle name mapping is a string);
-- a subprocess run of the port's CLI with ``--backend cpu`` ends with
-  neither package in ``sys.modules``;
+  no import of either, nor of pandas or h5py, which the card's machine does
+  not have (the registry's pickle name mapping is a string);
+- a subprocess run of the port's CLI with ``--backend cpu`` ends with none
+  of those packages in ``sys.modules``;
 - without a CUDA device and without ``--backend cpu`` the CLI exits 2
   with a message and writes nothing, and the API raises.
 """
@@ -18,7 +19,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "variantcalling_tpu")
+FORBIDDEN = ("jax", "jaxlib", "variantcalling_tpu", "pandas", "h5py")
 
 
 def _port_sources() -> list[Path]:
@@ -54,7 +55,7 @@ def _run_cli(args: list[str], tmp_path: Path) -> subprocess.CompletedProcess:
         "from variantcalling_tpu_torch.__main__ import main\n"
         "rc = main(sys.argv[1:])\n"
         "print(json.dumps({'rc': rc, 'loaded': sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'variantcalling_tpu'))}))\n"
+        f"if m.split('.')[0] in {FORBIDDEN!r})}}))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``variantcalling_tpu`` (filter_variants_pipeline, forest models).
+"""PyTorch/CUDA port of ``variantcalling_tpu`` (filter_variants_pipeline: forest, threshold and DAN models).
 
 The JAX package beside this one is the reference: module names mirror its
 layout so each module's counterpart is easy to find, and the port's

@@ -1,15 +1,20 @@
 """Variant featurization: VariantTable + reference genome -> feature columns.
 
-Counterpart of ``variantcalling_tpu/featurize.py``. The host gathers
-fixed-width reference windows around each variant into an (N, 41) uint8
-array (A0 C1 G2 T3 N4) plus the allele and INFO/FORMAT columns; the six
-window features (:data:`DEVICE_FEATURES`) are torch ops on the run's
-device (:func:`device_feature_dict`). The device-resident genome of the
-reference (windows gathered on the device) is not ported yet.
+Counterpart of ``variantcalling_tpu/featurize.py``. The host computes the
+allele and INFO/FORMAT columns; the fixed-width reference windows around
+each variant ((N, 41) uint8, A0 C1 G2 T3 N4) come either from the host
+gather (:func:`gather_windows`) or, for large tables, from the encoded
+genome resident on the run's device (:func:`device_genome`), gathered
+there from one packed 4-byte position a variant
+(:func:`windows_from_packed`). The six window features
+(:data:`DEVICE_FEATURES`) are torch ops on the run's device
+(:func:`device_feature_dict`).
 """
 
 from __future__ import annotations
 
+import logging
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,6 +26,8 @@ from variantcalling_tpu_torch.io.fasta import FastaReader
 from variantcalling_tpu_torch.io.vcf import VariantTable
 from variantcalling_tpu_torch.ops import features as fops
 from variantcalling_tpu_torch.ops import intervals as iops
+
+log = logging.getLogger(__name__)
 
 WINDOW_RADIUS = 20  # bases either side of the anchor in the gathered window
 CENTER = WINDOW_RADIUS
@@ -153,6 +160,149 @@ def gather_windows(table: VariantTable, fasta: FastaReader, radius: int = WINDOW
     return out
 
 
+# The device-resident genome: every contig encoded into one uint8 tensor on
+# the run's device, with 2*radius N bases before, between and after the
+# contigs so that a window never reads across a contig boundary. Each
+# variant then sends one 4-byte global position instead of a 41-byte window
+# row. Torch indexes with int64, so one flat layout serves every genome
+# whose positions pack into 4 bytes (the reference splits larger genomes
+# into 2^20-base blocks because XLA indexes with int32; both layouts give
+# the same windows). Cached per process by (FASTA path, radius, device).
+_DEVICE_GENOME_CACHE: dict = {}
+_DEVICE_GENOME_MAX = 2
+# tables below this size gather windows on the host: a small job must not
+# pay a whole-genome encode and upload
+GENOME_RESIDENT_MIN_VARIANTS = 100_000
+#: log record of a genome upload: device, bytes, encode seconds, upload seconds
+GENOME_LOG = "device genome on %s: %d bytes, encoded in %.3f s, uploaded in %.3f s"
+# the reference's limits for its 4-byte packing (a flat genome below
+# _FLAT_MAX bases, else 2^20-base blocks with three blocks of headroom
+# below 2^32); the port packs under the same bound, so both packages take
+# the same window path for the same FASTA
+_GBLOCK = 1 << 20
+_FLAT_MAX = (1 << 31) - 4 * _GBLOCK
+
+
+@dataclass
+class DeviceGenome:
+    """The encoded genome on one device and where each contig starts in it."""
+
+    codes: torch.Tensor  # 1-D uint8 on the device
+    offsets: dict[str, int]
+    lengths: dict[str, int]
+    radius: int
+    encode_s: float  # host seconds to read and encode the FASTA
+    upload_s: float  # host seconds of the copy to the device, synchronized
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.codes.numel())
+
+
+def _genome_key(fasta: FastaReader, radius: int, device: torch.device) -> tuple:
+    return (getattr(fasta, "path", id(fasta)), radius, str(device))
+
+
+def _genome_resident_worthwhile(table: VariantTable, fasta: FastaReader, device: torch.device,
+                                radius: int = WINDOW_RADIUS) -> bool:
+    """True when this genome is already resident on ``device``, or the table is
+    large enough to pay for the upload."""
+    return (_genome_key(fasta, radius, device) in _DEVICE_GENOME_CACHE
+            or len(table) >= GENOME_RESIDENT_MIN_VARIANTS)
+
+
+def genome_packable(fasta: FastaReader, radius: int = WINDOW_RADIUS) -> bool:
+    """Whether the genome's positions fit 4-byte packing, from contig lengths
+    alone (before any encoding or upload)."""
+    gap = 2 * radius
+    total = gap + sum(fasta.get_reference_length(c) + gap for c in fasta.references)
+    if total < _FLAT_MAX:
+        return True
+    n_blocks = -(-total // _GBLOCK)
+    return (n_blocks + 3) * _GBLOCK <= (1 << 32)
+
+
+def device_genome(fasta: FastaReader, device: torch.device, radius: int = WINDOW_RADIUS) -> DeviceGenome:
+    """The resident genome of ``fasta`` on ``device``, built on first use."""
+    key = _genome_key(fasta, radius, device)
+    hit = _DEVICE_GENOME_CACHE.get(key)
+    if hit is None:
+        hit = _build_device_genome(fasta, device, radius)
+        while len(_DEVICE_GENOME_CACHE) >= _DEVICE_GENOME_MAX:
+            _DEVICE_GENOME_CACHE.pop(next(iter(_DEVICE_GENOME_CACHE)))
+        _DEVICE_GENOME_CACHE[key] = hit
+    return hit
+
+
+def _build_device_genome(fasta: FastaReader, device: torch.device, radius: int) -> DeviceGenome:
+    t0 = time.perf_counter()
+    gap = 2 * radius
+    offsets: dict[str, int] = {}
+    lengths: dict[str, int] = {}
+    cur = gap
+    for contig in fasta.references:
+        offsets[contig] = cur
+        lengths[contig] = fasta.get_reference_length(contig)
+        cur += lengths[contig] + gap
+    flat = np.full(cur, 4, dtype=np.uint8)
+    for contig, off in offsets.items():
+        flat[off: off + lengths[contig]] = fasta.encode_contig(contig)
+    t1 = time.perf_counter()
+    codes = torch.from_numpy(flat).to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    genome = DeviceGenome(codes, offsets, lengths, radius, t1 - t0, time.perf_counter() - t1)
+    log.info(GENOME_LOG, device, genome.nbytes, genome.encode_s, genome.upload_s)
+    return genome
+
+
+def globalize_positions(table: VariantTable, genome: DeviceGenome) -> np.ndarray:
+    """int64 global position of each record's POS in the resident genome.
+
+    Unknown contigs, POS < 1, and positions past a contig's end by the
+    radius or more get :func:`packed_position_fill`, so their windows read
+    all N, as the host gather's do past the end. Positions within the
+    radius past the end land in the N gap after the contig, as in the host
+    gather.
+    """
+    n = len(table)
+    codes, uniques, _ = _contig_runs(table.chrom, n)
+    off = np.asarray([genome.offsets.get(c, -1) for c in uniques], dtype=np.int64)[codes]
+    clen = np.asarray([genome.lengths.get(c, -1) for c in uniques], dtype=np.int64)[codes]
+    pos0 = table.pos.astype(np.int64) - 1
+    bad = (off < 0) | (pos0 < 0) | (pos0 >= clen + genome.radius)
+    return np.where(bad, packed_position_fill(genome), pos0 + off)
+
+
+def packed_position_fill(genome: DeviceGenome) -> int:
+    """The packed position of a row whose window reads all N (an unknown
+    contig, a position past its contig's end): every base of its window lies
+    past the genome's end."""
+    return genome.nbytes + genome.radius
+
+
+def pack_global_positions(gpos: np.ndarray, genome: DeviceGenome) -> np.ndarray | None:
+    """Global positions as one uint32 each, or None where they do not fit."""
+    if packed_position_fill(genome) >= 1 << 32:
+        return None
+    return gpos.astype(np.uint32)
+
+
+def windows_from_packed(genome_codes: torch.Tensor, gpos: torch.Tensor,
+                        radius: int = WINDOW_RADIUS) -> torch.Tensor:
+    """(N, 2*radius+1) uint8 windows gathered on the genome's device.
+
+    ``gpos`` holds the uint32 packed positions as an int32 view (torch's
+    uint32 support is thin); it is widened here with ``& 0xFFFFFFFF``.
+    Indices outside the genome read N (4).
+    """
+    g = gpos.to(torch.int64) & 0xFFFFFFFF
+    idx = g[:, None] + torch.arange(-radius, radius + 1, device=g.device)[None, :]
+    glen = genome_codes.shape[0]
+    valid = (idx >= 0) & (idx < glen)
+    return genome_codes[idx.clamp_(0, glen - 1)].masked_fill_(~valid, 4)
+
+
 def _compute_af(table: VariantTable) -> np.ndarray:
     """Allele fraction per record: FORMAT AD (alt/sum) where present, else INFO AF."""
     info_af = table.info_field("AF", dtype=np.float64).astype(np.float32)
@@ -175,7 +325,7 @@ class HostFeatures:
     """
 
     alle: AlleleColumns
-    windows: np.ndarray  # (N, 2*WINDOW_RADIUS+1) uint8
+    windows: np.ndarray | None  # (N, 2*WINDOW_RADIUS+1) uint8; None: gathered on the device
     cols: dict[str, np.ndarray]  # host columns only
     names: list[str]
 
@@ -183,11 +333,15 @@ class HostFeatures:
 def host_featurize(table: VariantTable, fasta: FastaReader,
                    annotate_intervals: dict[str, IntervalSet] | None = None,
                    extra_info_fields: list[str] | None = None,
+                   compute_windows: bool = True,
                    keep_nan: bool = False) -> HostFeatures:
-    """``keep_nan=True`` keeps NaN for absent QUAL/INFO/FORMAT values instead of
+    """``compute_windows=False`` skips the host window gather, for the path
+    that gathers windows from the resident genome.
+
+    ``keep_nan=True`` keeps NaN for absent QUAL/INFO/FORMAT values instead of
     zero-filling them (forests with default_left routing are defined on NaN)."""
     alle = classify_alleles(table)
-    windows = gather_windows(table, fasta)
+    windows = gather_windows(table, fasta) if compute_windows else None
     gts = table.genotypes()
     is_het = (gts[:, 0] != gts[:, 1]) & (gts[:, 1] >= 0)
     gq = table.format_numeric("GQ", max_len=1, missing=np.nan)[:, 0]
@@ -247,15 +401,26 @@ def device_feature_dict(windows: torch.Tensor, is_indel: torch.Tensor, indel_nuc
     }
 
 
+_NUMPY_DTYPE = {torch.bool: np.bool_, torch.int32: np.int32, torch.uint8: np.uint8}
+
+
+def _rows(x: np.ndarray, lo: int, hi: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """Rows [lo, hi) of ``x`` in ``dtype`` (converted on the host), on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(x[lo:hi], dtype=_NUMPY_DTYPE[dtype])).to(device)
+
+
+def allele_inputs(alle: AlleleColumns, lo: int, hi: int, device: torch.device) -> tuple:
+    """Rows [lo, hi) of the allele inputs of the window features (is_indel,
+    indel_nuc, ref_code, alt_code, is_snp), as tensors on ``device``."""
+    return (_rows(alle.is_indel, lo, hi, device, torch.bool), _rows(alle.indel_nuc, lo, hi, device, torch.int32),
+            _rows(alle.ref_code, lo, hi, device, torch.int32), _rows(alle.alt_code, lo, hi, device, torch.int32),
+            _rows(alle.is_snp, lo, hi, device, torch.bool))
+
+
 def device_inputs(hf: HostFeatures, lo: int, hi: int, device: torch.device) -> tuple:
-    """Rows [lo, hi) of the window-feature inputs, as tensors on ``device``."""
-    a = hf.alle
-
-    def t(x, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x[lo:hi])).to(device=device, dtype=dtype)
-
-    return (t(hf.windows, torch.uint8), t(a.is_indel, torch.bool), t(a.indel_nuc, torch.int32),
-            t(a.ref_code, torch.int32), t(a.alt_code, torch.int32), t(a.is_snp, torch.bool))
+    """Rows [lo, hi) of the window-feature inputs (host windows first), as
+    tensors on ``device``."""
+    return (_rows(hf.windows, lo, hi, device, torch.uint8), *allele_inputs(hf.alle, lo, hi, device))
 
 
 @dataclass

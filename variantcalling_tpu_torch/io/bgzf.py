@@ -1,8 +1,11 @@
-"""BGZF writer (blocked gzip, the htslib container framing) for ``.vcf.gz`` output.
+"""BGZF (blocked gzip, the htslib container framing) for ``.vcf.gz`` output.
 
-Counterpart of the writer half of ``variantcalling_tpu/io/bgzf.py``:
-independent <=64 KiB gzip members carrying the BC extra field, closed by
-the 28-byte EOF sentinel. Pure ``zlib``; no ``.tbi`` index is written yet.
+Counterpart of ``variantcalling_tpu/io/bgzf.py``'s writer and block
+reader: independent <=64 KiB gzip members carrying the BC extra field,
+closed by the 28-byte EOF sentinel (:data:`BGZF_EOF`), written by
+:class:`BgzfWriter`; :func:`block_spans` and :func:`iter_blocks` read a
+file back block by block for the ``.tbi`` index (``io/tabix.py``). Pure
+``zlib``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,42 @@ def compress_block(data, level: int = 6) -> bytes:
     )
     trailer = struct.pack("<II", zlib.crc32(data) & 0xFFFFFFFF, len(data) & 0xFFFFFFFF)
     return header + deflated + trailer
+
+
+def block_spans(data) -> list[tuple[int, int]]:
+    """(compressed offset, block size) of every BGZF block of ``data``; raises
+    ``ValueError`` where the bytes are not BGZF."""
+    spans = []
+    off, n = 0, len(data)
+    while off < n:
+        if data[off: off + 2] != b"\x1f\x8b" or off + 12 > n:
+            raise ValueError(f"not BGZF at offset {off}")
+        xlen = struct.unpack_from("<H", data, off + 10)[0]
+        xoff, bsize = off + 12, None
+        while xoff + 4 <= off + 12 + xlen:
+            slen = struct.unpack_from("<H", data, xoff + 2)[0]
+            if data[xoff: xoff + 2] == b"BC" and slen == 2:
+                bsize = struct.unpack_from("<H", data, xoff + 4)[0] + 1
+            xoff += 4 + slen
+        if bsize is None or off + bsize > n:
+            raise ValueError(f"no BC subfield, or a truncated block, at offset {off}")
+        spans.append((off, bsize))
+        off += bsize
+    return spans
+
+
+def inflate_block(data, off: int, bsize: int) -> bytes:
+    """The uncompressed payload of the block at ``off``."""
+    xlen = struct.unpack_from("<H", data, off + 10)[0]
+    return zlib.decompress(data[off + 12 + xlen: off + bsize - 8], wbits=-15)
+
+
+def iter_blocks(path: str):
+    """Yield (compressed offset, uncompressed payload) of each block of a BGZF file."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    for off, bsize in block_spans(data):
+        yield off, inflate_block(data, off, bsize)
 
 
 class BgzfWriter:

@@ -114,10 +114,11 @@ class FastaReader:
         """Whole-contig uint8 codes, encoded once per run and cached."""
         got = self._encoded.get(chrom)
         if got is None:
-            got = self._encoded[chrom] = self._encode_contig(chrom)
+            got = self._encoded[chrom] = self.encode_contig(chrom)
         return got
 
-    def _encode_contig(self, chrom: str) -> np.ndarray:
+    def encode_contig(self, chrom: str) -> np.ndarray:
+        """Whole-contig uint8 codes, read and encoded anew (not cached)."""
         e = self._index[chrom]
         if e.length == 0:
             return np.empty(0, dtype=np.uint8)

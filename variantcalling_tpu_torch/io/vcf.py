@@ -11,9 +11,13 @@ from the column arrays.
 from __future__ import annotations
 
 import gzip
+import logging
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 MISSING = "."
 
@@ -300,9 +304,13 @@ def _format_extra_info(n: int, extra_info: dict) -> list[str]:
 
 
 def write_vcf(path: str, table: VariantTable, new_filters=None,
-              extra_info: dict[str, np.ndarray] | None = None) -> None:
+              extra_info: dict[str, np.ndarray] | None = None, index: bool = True) -> None:
     """Write a VariantTable back to VCF (``.gz`` -> BGZF), rewriting FILTER and
-    appending ``extra_info`` keys to INFO; FORMAT/sample tails are verbatim."""
+    appending ``extra_info`` keys to INFO; FORMAT/sample tails are verbatim.
+
+    ``index``: a ``.gz`` output also gets its ``.tbi`` (``io/tabix``), as the
+    reference's does; unsorted records leave the VCF valid and write no
+    index (a stale one beside it is removed)."""
     n = len(table)
     suffix = _format_extra_info(n, extra_info) if extra_info else None
     filters = new_filters if new_filters is not None else table.filters
@@ -333,3 +341,12 @@ def write_vcf(path: str, table: VariantTable, new_filters=None,
                 chunk.clear()
         if chunk:
             out.write(("\n".join(chunk) + "\n").encode())
+    if index and str(path).endswith(".gz"):
+        from variantcalling_tpu_torch.io.tabix import build_tabix_index
+
+        try:
+            build_tabix_index(str(path))
+        except ValueError as e:
+            log.warning("no .tbi for %s: %s", path, e)
+            if os.path.exists(f"{path}.tbi"):
+                os.remove(f"{path}.tbi")

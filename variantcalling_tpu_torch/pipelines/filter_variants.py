@@ -1,20 +1,33 @@
-"""filter_variants_pipeline — ML filtering of a called VCF with a forest model, in torch.
+"""filter_variants_pipeline — ML filtering of a called VCF, in torch.
 
 Counterpart of ``variantcalling_tpu/pipelines/filter_variants.py`` (its
 serial batch path, which the reference runs on an accelerator): the same
-flags, the same output bytes outside the ``##vctpu_*`` provenance lines.
+flags, the same model pickles (forest, threshold and DAN families), the
+same output bytes outside the ``##vctpu_*`` provenance lines (forests), or
+the same scores within a stated tolerance (threshold: 1e-6, DAN: 1e-5).
 
 Path: VCF -> columnar table -> host featurization (allele/INFO/FORMAT
-columns, reference windows) -> per 2^18-row chunk one torch function on
-the run's device (the six window features, the (N, F) float32 matrix, the
-forest margin) -> margins back to the host -> :func:`forest.finalize_margin`
-in numpy -> FILTER assembly -> VCF writeback with TREE_SCORE.
+columns) -> per 2^18-row chunk one torch function on the run's device
+(the reference windows, gathered from the genome resident there or sent
+from the host gather; the six window features; the (N, F) float32 matrix;
+the family's program) -> back to the host: forest margins, finalized by
+:func:`forest.finalize_margin` in numpy, or threshold and DAN scores as
+they are -> FILTER assembly -> VCF writeback with TREE_SCORE, and a
+``.tbi`` beside a ``.vcf.gz``.
+
+Windows come from the resident genome (:func:`featurize.device_genome`)
+when the table has at least ``GENOME_RESIDENT_MIN_VARIANTS`` records or the
+genome is already resident, as in the reference; from the host gather for
+smaller tables, for ``--blacklist_cg_insertions`` (which reads them on the
+host), and for genomes whose positions do not pack into 4 bytes (decided
+once per run from contig lengths).
 
 The run's device is ``cuda`` unless ``--backend cpu`` is given; asking for
 the card where there is none exits 2. The forest strategy
-(``VCTPU_FOREST_STRATEGY``) is checked before anything is read, decided
-once per run (:func:`forest.resolve_strategy`) and recorded in the header;
-a malformed request, or one the forest cannot be served by, exits 2.
+(``VCTPU_FOREST_STRATEGY``) and the model family (``VCTPU_MODEL_FAMILY``)
+are checked before anything is read, decided once per run and recorded in
+the header; a malformed request, or one the model cannot be served by,
+exits 2.
 """
 
 from __future__ import annotations
@@ -32,15 +45,18 @@ import torch
 
 from variantcalling_tpu_torch import device as device_mod
 from variantcalling_tpu_torch import engine as engine_mod
+from variantcalling_tpu_torch import featurize as feat
 from variantcalling_tpu_torch.featurize import (CENTER, DEVICE_FEATURES, classify_alleles,
-                                                device_feature_dict, device_inputs,
-                                                host_featurize)
+                                                device_feature_dict, host_featurize)
 from variantcalling_tpu_torch.io import bed as bedio
 from variantcalling_tpu_torch.io.fasta import FastaReader
 from variantcalling_tpu_torch.io.vcf import FactorizedColumn, VariantTable, read_vcf, write_vcf
+from variantcalling_tpu_torch.models import dan as dan_mod
 from variantcalling_tpu_torch.models import forest as forest_mod
+from variantcalling_tpu_torch.models import registry
+from variantcalling_tpu_torch.models import threshold as threshold_mod
+from variantcalling_tpu_torch.models.dan import DanModel
 from variantcalling_tpu_torch.models.forest import FlatForest
-from variantcalling_tpu_torch.models.registry import load_model
 from variantcalling_tpu_torch.ops import intervals as iops
 
 log = logging.getLogger("variantcalling_tpu_torch")
@@ -51,14 +67,21 @@ HPOL_RUN = "HPOL_RUN"
 PASS = "PASS"
 CHUNK = 1 << 18
 
-# provenance lines of reference features this port does not run (model
-# family, mesh, ranks, knobs): a stale one inherited from a re-filtered
-# input must not mislabel this run
-_STALE_PROVENANCE = ("##vctpu_model_family=", "##vctpu_mesh=", "##vctpu_ranks=", "##vctpu_knobs=")
+# provenance lines of reference features this port does not run (mesh,
+# ranks, knobs): a stale one inherited from a re-filtered input must not
+# mislabel this run
+_STALE_PROVENANCE = ("##vctpu_mesh=", "##vctpu_ranks=", "##vctpu_knobs=")
 
+#: the forest-strategy header value of threshold and DAN runs, which score
+#: through their torch program (the reference writes ``jit``)
+TORCH_PROGRAM = "torch"
 
 #: format of the per-stage timing log records (the stage name, then seconds)
 STAGE_LOG = "stage %s %.3f s"
+#: log record of the window path a table took: "genome-resident" or "host gather"
+WINDOW_LOG = "window path %s"
+#: log record of the bytes a table sent to the device, and its variants
+TRANSFER_LOG = "sent %d bytes to the device for %d variants"
 
 
 @contextlib.contextmanager
@@ -79,7 +102,7 @@ def get_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hpol_filter_length_dist", nargs=2, type=int, default=[10, 10],
                     help="Length and distance to the hpol run to mark")
     ap.add_argument("--runs_file", help="Homopolymer runs BED file")
-    ap.add_argument("--blacklist", help="Blacklist file (bed/pkl of loci; h5 not yet ported)")
+    ap.add_argument("--blacklist", help="Blacklist file: bed or pkl of loci (an h5 blacklist exits 2)")
     ap.add_argument("--blacklist_cg_insertions", action="store_true", help="Filter CCG/GGC insertions")
     ap.add_argument("--reference_file", required=True, help="Indexed reference FASTA file")
     ap.add_argument("--output_file", required=True, help="Output VCF file")
@@ -106,7 +129,8 @@ def read_blacklist(path: str) -> tuple[np.ndarray, np.ndarray]:
         iv = bedio.read_bed(path)
         return iv.chrom, (iv.start + 1).astype(np.int64)
     if path.endswith((".h5", ".hdf", ".hdf5")):
-        raise NotImplementedError("h5 blacklists are not yet ported; use a bed or pkl blacklist")
+        raise NotImplementedError("h5 blacklists need an h5 reader the port does not have yet; "
+                                  "use a bed or pkl blacklist")
     with open(path, "rb") as fh:
         obj = pickle.load(fh)
     chroms, poss = zip(*obj) if obj else ((), ())
@@ -154,42 +178,65 @@ def _narrow_column(a: np.ndarray) -> np.ndarray:
 
 
 class FusedScorer:
-    """The device half of scoring for one feature layout: window features +
-    matrix assembly + the strategy's margin program, one chunk at a time."""
+    """The device half of scoring for one feature layout, one chunk at a time:
+    the windows (sent from the host, or gathered from the resident genome),
+    the window features, the (N, F) float32 matrix and the family's program
+    (forest margins through the strategy's kernel, threshold or DAN scores).
+    Counts the bytes it sends to the device (``sent_bytes``)."""
 
-    def __init__(self, model: FlatForest, names: list[str], strategy: str,
-                 flow_order: str, device: torch.device):
-        self.forest = forest_mod.with_feature_order(model, names)
+    def __init__(self, model, names: list[str], strategy: str, flow_order: str, device: torch.device):
         self.names = list(names)
         self.flow_order = flow_order
         self.device = device
-        self.margin_fn = forest_mod.make_margin_predictor(self.forest, len(names), strategy, device)
+        self.sent_bytes = 0
+        self.finalize = None  # threshold and DAN programs return final scores
+        if isinstance(model, FlatForest):
+            forest = forest_mod.with_feature_order(model, names)
+            self.program = forest_mod.make_margin_predictor(forest, len(names), strategy, device)
+            self.finalize = lambda margin: forest_mod.finalize_margin(margin, forest)
+        elif isinstance(model, DanModel):
+            self.program = dan_mod.make_score_predictor(model, names, device)
+        else:
+            self.program = threshold_mod.make_score_predictor(model, names, device)
 
-    def chunk_margins(self, hf, host_cols: dict[str, np.ndarray], lo: int, hi: int) -> torch.Tensor:
-        """(hi - lo,) float32 margins of rows [lo, hi), on the device."""
-        dev = device_feature_dict(*device_inputs(hf, lo, hi, self.device),
-                                  center=CENTER, flow_order=self.flow_order)
-        cols = [dev[f].to(torch.float32) if f in dev
-                else torch.from_numpy(np.ascontiguousarray(host_cols[f][lo:hi]))
-                .to(self.device).to(torch.float32)
-                for f in self.names]
-        return self.margin_fn(torch.stack(cols, dim=1).contiguous())
+    def _send(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` copied to the device, its bytes counted."""
+        a = np.ascontiguousarray(a)
+        self.sent_bytes += a.nbytes
+        return torch.from_numpy(a).to(self.device)
 
-    def score(self, hf) -> np.ndarray:
-        """TREE_SCORE of every row of ``hf``: chunked device margins, host finalize."""
-        n = len(hf.windows)
+    def chunk_output(self, hf, host_cols: dict[str, np.ndarray], lo: int, hi: int,
+                     genome: feat.DeviceGenome | None = None, gpos: np.ndarray | None = None) -> torch.Tensor:
+        """(hi - lo,) float32 program output (margins or scores) of rows [lo, hi),
+        on the device; with ``genome``, windows come from its packed ``gpos``."""
+        if genome is None:
+            windows = self._send(hf.windows[lo:hi])
+        else:  # 4 bytes a variant, widened on the device
+            windows = feat.windows_from_packed(genome.codes, self._send(gpos[lo:hi].view(np.int32)), genome.radius)
+        alle = feat.allele_inputs(hf.alle, lo, hi, self.device)
+        self.sent_bytes += sum(t.numel() * t.element_size() for t in alle)
+        dev = device_feature_dict(windows, *alle, center=CENTER, flow_order=self.flow_order)
+        cols = [dev[f] if f in dev else self._send(host_cols[f][lo:hi]) for f in self.names]
+        return self.program(torch.stack([c.to(torch.float32) for c in cols], dim=1).contiguous())
+
+    def score(self, hf, genome: feat.DeviceGenome | None = None, gpos: np.ndarray | None = None) -> np.ndarray:
+        """TREE_SCORE of every row of ``hf``: chunked device programs, then the
+        forest's host finalize."""
+        n = len(hf.alle.n_alts)
         host_cols = {f: _narrow_column(hf.cols[f]) for f in self.names if f not in DEVICE_FEATURES}
-        margin = np.empty(n, dtype=np.float32)
+        out = np.empty(n, dtype=np.float32)
         for lo in range(0, n, CHUNK):
             hi = min(lo + CHUNK, n)
-            margin[lo:hi] = self.chunk_margins(hf, host_cols, lo, hi).cpu().numpy()
-        return forest_mod.finalize_margin(margin, self.forest)
+            out[lo:hi] = self.chunk_output(hf, host_cols, lo, hi, genome, gpos).cpu().numpy()
+        return out if self.finalize is None else self.finalize(out)
 
 
 class FilterContext:
     """Run-level scoring state: model wiring, blacklist, hpol runs, interval sets.
 
-    The engine and the forest strategy are decided here once per run.
+    The engine, the model family, the forest strategy and whether the
+    genome's positions pack into 4 bytes are decided here once per run.
+    ``family`` is the run's ``VCTPU_MODEL_FAMILY`` request (None: read it).
     """
 
     def __init__(self, model, fasta: FastaReader, device: torch.device,
@@ -197,13 +244,19 @@ class FilterContext:
                  blacklist: tuple[np.ndarray, np.ndarray] | None = None,
                  blacklist_cg_insertions: bool = False,
                  annotate_intervals: dict[str, bedio.IntervalSet] | None = None,
-                 flow_order: str = "TGCA", is_mutect: bool = False):
-        if not isinstance(model, FlatForest):
-            raise NotImplementedError(f"{type(model).__name__} models are not yet ported")
+                 flow_order: str = "TGCA", is_mutect: bool = False, family: str | None = None):
         self.device = device
         self.engine = engine_mod.engine_name(device)
-        self.forest_strategy = forest_mod.resolve_strategy(model, device)
-        log.info("engine %s, forest strategy %s", self.engine, self.forest_strategy)
+        forest_mod.validate_strategy_env()
+        self.model_family = registry.resolve_family(
+            model, registry.requested_family() if family is None else family)
+        self.forest_strategy = forest_mod.resolve_strategy(model, device) \
+            if isinstance(model, FlatForest) else TORCH_PROGRAM
+        # before any encoding: a genome whose positions do not pack into 4
+        # bytes gathers its windows on the host
+        self.genome_packable = feat.genome_packable(fasta)
+        log.info("engine %s, model family %s, forest strategy %s, genome positions pack into 4 bytes: %s",
+                 self.engine, self.model_family, self.forest_strategy, self.genome_packable)
         self.model = model
         self.fasta = fasta
         self.hpol_dist = hpol_dist
@@ -214,7 +267,7 @@ class FilterContext:
         self.is_mutect = is_mutect
         # default_left forests are defined on NaN: zero-filling absent fields
         # would walk the wrong branch
-        self.keep_nan = model.default_left is not None
+        self.keep_nan = getattr(model, "default_left", None) is not None
         self.extra_info = ["TLOD"] if is_mutect else []
         self._runs: bedio.IntervalSet | None = None
         if runs_file:
@@ -231,9 +284,17 @@ class FilterContext:
         gpos = coords.globalize(np.asarray(table.chrom), table.pos - 1)
         return iops.distance_to_nearest(gpos, gs, ge) <= self.hpol_dist
 
-    def host_features(self, table: VariantTable):
+    def genome_resident(self, table: VariantTable) -> bool:
+        """Whether this table's windows come from the resident genome: host
+        windows are needed for ``--blacklist_cg_insertions``, for genomes that
+        do not pack, and for a small table that finds no genome resident."""
+        return (self.genome_packable and not self.blacklist_cg_insertions
+                and feat._genome_resident_worthwhile(table, self.fasta, self.device))
+
+    def host_features(self, table: VariantTable, compute_windows: bool = True):
         hf = host_featurize(table, self.fasta, annotate_intervals=self.annotate_intervals,
-                            extra_info_fields=self.extra_info, keep_nan=self.keep_nan)
+                            extra_info_fields=self.extra_info, compute_windows=compute_windows,
+                            keep_nan=self.keep_nan)
         if self.is_mutect and "TLOD" in hf.cols:
             hf.cols["tlod"] = hf.cols.pop("TLOD")
             hf.names[hf.names.index("TLOD")] = "tlod"
@@ -241,11 +302,19 @@ class FilterContext:
 
     def score_table(self, table: VariantTable) -> tuple[np.ndarray, FactorizedColumn]:
         """(TREE_SCORE float32 array, FILTER column) of one table."""
+        resident = self.genome_resident(table)
         with _stage("host_featurize"):
-            hf = self.host_features(table)
+            hf = self.host_features(table, compute_windows=not resident)
+        genome = gpos = None
+        if resident:
+            with _stage("genome"):
+                genome = feat.device_genome(self.fasta, self.device)
+                gpos = feat.pack_global_positions(feat.globalize_positions(table, genome), genome)
+        log.info(WINDOW_LOG, "genome-resident" if resident else "host gather")
         with _stage("device_score"):
             scorer = FusedScorer(self.model, hf.names, self.forest_strategy, self.flow_order, self.device)
-            score = scorer.score(hf)
+            score = scorer.score(hf, genome, gpos)
+        log.info(TRANSFER_LOG, scorer.sent_bytes, len(table))
         with _stage("filters"):
             return score, self.assemble_filters(table, score, hf)
 
@@ -285,9 +354,11 @@ def _replace_or_append_meta(header, prefix: str, line: str) -> None:
         header.add_meta_line(line)
 
 
-def _ensure_output_header(header, engine: str, strategy: str) -> None:
+def _ensure_output_header(header, engine: str, strategy: str, family: str) -> None:
     """The pipeline's header additions: FILTER/INFO definitions, then the
-    engine and forest-strategy provenance lines."""
+    engine and forest-strategy provenance lines, and the model family's
+    line for threshold and DAN runs (forest runs write none and strip a
+    stale one, so their bytes stay the reference's)."""
     header.ensure_filter(LOW_SCORE, "Model score below threshold")
     header.ensure_filter(COHORT_FP, "Blacklisted cohort false-positive locus")
     header.ensure_filter(HPOL_RUN, "Variant close to long homopolymer run")
@@ -295,6 +366,11 @@ def _ensure_output_header(header, engine: str, strategy: str) -> None:
     _replace_or_append_meta(header, f"##{engine_mod.HEADER_KEY}=", engine_mod.header_line(engine))
     key = forest_mod.STRATEGY_HEADER_KEY
     _replace_or_append_meta(header, f"##{key}=", f"##{key}={strategy}")
+    fam_prefix = f"##{dan_mod.FAMILY_HEADER_KEY}="
+    if family != "forest":
+        _replace_or_append_meta(header, fam_prefix, f"{fam_prefix}{family}")
+    else:
+        header.lines[:] = [ln for ln in header.lines if not ln.startswith(fam_prefix)]
     header.lines[:] = [ln for ln in header.lines if not ln.startswith(_STALE_PROVENANCE)]
 
 
@@ -302,12 +378,13 @@ def run(argv: list[str]) -> int:
     args = get_parser().parse_args(argv)
     try:
         forest_mod.validate_strategy_env()
+        family = registry.requested_family()
         device = device_mod.resolve(args.backend)
     except (engine_mod.EngineError, device_mod.DeviceUnavailable) as e:
         log.error("%s", e)
         return 2
     try:
-        model = load_model(args.model_file, args.model_name)
+        model = registry.load_model(args.model_file, args.model_name)
         blacklist = read_blacklist(args.blacklist) if args.blacklist else None
     except (NotImplementedError, ModuleNotFoundError) as e:
         log.error("%s", e)
@@ -315,26 +392,29 @@ def run(argv: list[str]) -> int:
     annotate = {_interval_name(p): bedio.read_intervals(p) for p in args.annotate_intervals}
     with FastaReader(args.reference_file) as fasta:
         try:
-            return run_loaded(args, model, fasta, annotate, blacklist, device)
+            return run_loaded(args, model, fasta, annotate, blacklist, device, family)
         except (NotImplementedError, engine_mod.EngineError) as e:
             log.error("%s", e)
             return 2
 
 
-def run_loaded(args, model, fasta: FastaReader, annotate, blacklist, device: torch.device) -> int:
-    """The filter pipeline over already-loaded resources."""
+def run_loaded(args, model, fasta: FastaReader, annotate, blacklist, device: torch.device,
+               family: str | None = None) -> int:
+    """The filter pipeline over already-loaded resources; ``family``: the
+    run's ``VCTPU_MODEL_FAMILY`` request (None: read it)."""
+    ctx = FilterContext(
+        model, fasta, device, runs_file=args.runs_file,
+        hpol_length=args.hpol_filter_length_dist[0], hpol_dist=args.hpol_filter_length_dist[1],
+        blacklist=blacklist, blacklist_cg_insertions=args.blacklist_cg_insertions,
+        annotate_intervals=annotate, flow_order=args.flow_order, is_mutect=args.is_mutect,
+        family=family)
     log.info("reading %s", args.input_file)
     with _stage("ingest"):
         table = read_vcf(args.input_file)
     if args.limit_to_contig:
         table = table.subset(np.asarray(table.chrom) == args.limit_to_contig)
-    ctx = FilterContext(
-        model, fasta, device, runs_file=args.runs_file,
-        hpol_length=args.hpol_filter_length_dist[0], hpol_dist=args.hpol_filter_length_dist[1],
-        blacklist=blacklist, blacklist_cg_insertions=args.blacklist_cg_insertions,
-        annotate_intervals=annotate, flow_order=args.flow_order, is_mutect=args.is_mutect)
     score, filters = ctx.score_table(table)
-    _ensure_output_header(table.header, ctx.engine, ctx.forest_strategy)
+    _ensure_output_header(table.header, ctx.engine, ctx.forest_strategy, ctx.model_family)
     with _stage("writeback"):  # rounding and %g rendering stay in numpy, as in the reference
         write_vcf(args.output_file, table, new_filters=filters,
                   extra_info={"TREE_SCORE": np.round(score, 4)})

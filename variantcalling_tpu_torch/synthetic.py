@@ -1,12 +1,14 @@
-"""Synthetic forests and a vectorised writer of a whole filter world from a seed.
+"""Synthetic models and a vectorised writer of a whole filter world from a seed.
 
-Counterpart of ``variantcalling_tpu/synthetic.py`` (``synthetic_forest``)
-and of ``bench.make_fixtures_fast`` (a callset written with numpy byte
-arrays, no per-record Python): a reference genome (``.fa`` + ``.fai``), a
-called VCF with SNPs, hmer and non-hmer indels and multiallelics, and a
-forest model — a pickle, or an xgboost 2.x JSON model with missing-value
-routing over a callset where some records lack SOR and GQ — all from one
-``numpy`` seed.
+Counterpart of ``variantcalling_tpu/synthetic.py`` (``synthetic_forest``,
+``synthetic_dan``) and of ``bench.make_fixtures_fast`` (a callset written
+with numpy byte arrays, no per-record Python): a reference genome (``.fa``
++ ``.fai``), a called VCF with SNPs, hmer and non-hmer indels and
+multiallelics, and a forest model — a pickle, or an xgboost 2.x JSON model
+with missing-value routing over a callset where some records lack SOR and
+GQ — all from one ``numpy`` seed. :func:`add_family_models` adds a
+threshold model and a DAN to a world's pickle, as the reference's
+``train_models_pipeline`` writes several families into one file.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import os
 import numpy as np
 
 from variantcalling_tpu_torch.featurize import BASE_FEATURES
+from variantcalling_tpu_torch.models.dan import MOTIF_VOCAB, DanConfig, DanModel
 from variantcalling_tpu_torch.models.forest import LEAF, FlatForest
-from variantcalling_tpu_torch.models.registry import save_models
+from variantcalling_tpu_torch.models.registry import load_models, save_models
+from variantcalling_tpu_torch.models.threshold import ThresholdModel
 
 N_HOT_FEATURES = 12
 _BASES = np.frombuffer(b"ACGT", dtype="S1")
@@ -69,6 +73,71 @@ def filter_forest(rng: np.random.Generator, n_trees: int, depth: int,
     forest.aggregation = aggregation
     forest.feature_names = list(BASE_FEATURES)
     return forest
+
+
+def synthetic_dan(rng: np.random.Generator, feature_names: list[str], embed_dim: int = 4,
+                  hidden: int = 16, n_layers: int = 2) -> DanModel:
+    """A random, structurally valid DAN over ``feature_names`` (the numeric block
+    is every feature but the motif codes), its weights drawn from ``rng`` with
+    the reference's ``init_params`` scales and a non-zero output head, so the
+    scores vary. Each numeric feature is normalised onto [-1, 1] over its
+    :data:`FEATURE_RANGES` range (mean 0, sd 10 where it has none, as the
+    reference's ``synthetic_dan``), so the scores spread on both sides of
+    0.5. ``train_dan``'s defaults: embed 16, hidden 256, 2 layers."""
+    numeric = [f for f in feature_names if f not in ("left_motif", "right_motif")]
+    cfg = DanConfig(n_numeric=len(numeric), embed_dim=embed_dim, hidden=hidden, n_layers=n_layers)
+    in_dim = cfg.n_numeric + 2 * embed_dim
+
+    def normal(*shape, scale):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    params = {"motif_embed": normal(MOTIF_VOCAB, embed_dim, scale=0.02),
+              "w_in": normal(in_dim, hidden, scale=1 / np.sqrt(in_dim)),
+              "b_in": np.zeros(hidden, np.float32),
+              "w_out": normal(hidden, 1, scale=1 / np.sqrt(hidden)),
+              "b_out": np.zeros(1, np.float32)}
+    for i in range(n_layers - 1):
+        params[f"w_{i}"] = normal(hidden, hidden, scale=1 / np.sqrt(hidden))
+        params[f"b_{i}"] = np.zeros(hidden, np.float32)
+    model = DanModel.from_params(cfg, params, feature_names=list(feature_names), numeric_features=numeric)
+    lo, hi = np.asarray([FEATURE_RANGES.get(f, (-10, 10)) for f in numeric], dtype=np.float32).T
+    model.norm_mu = (lo + hi) / 2
+    model.norm_sd = (hi - lo) / 2
+    return model
+
+
+def synthetic_threshold(rng: np.random.Generator, feature_names: list[str],
+                        used: tuple[str, ...] = ("qual", "sor")) -> ThresholdModel:
+    """A threshold model over ``used`` (higher qual is better, lower sor): each
+    threshold drawn from the middle half of the feature's range in
+    :data:`FEATURE_RANGES`, each scale a twentieth of the range."""
+    lo = np.asarray([FEATURE_RANGES[f][0] for f in used], dtype=np.float64)
+    hi = np.asarray([FEATURE_RANGES[f][1] for f in used], dtype=np.float64)
+    return ThresholdModel(
+        feature_names=list(used),
+        thresholds=(lo + (hi - lo) * rng.uniform(0.25, 0.75, len(used))).astype(np.float32),
+        signs=np.asarray([-1.0 if f == "sor" else 1.0 for f in used], dtype=np.float32),
+        scales=((hi - lo) / 20).astype(np.float32),
+        pass_threshold=0.25,
+        all_feature_names=list(feature_names))
+
+
+#: model names :func:`add_family_models` writes
+DAN_MODEL_NAME = "dan_model_ignore_gt_incl_hpol_runs"
+THRESHOLD_MODEL_NAME = "threshold_model_ignore_gt_incl_hpol_runs"
+
+
+def add_family_models(model_path: str, seed: int, embed_dim: int = 16, hidden: int = 256,
+                      n_layers: int = 2) -> dict[str, str]:
+    """Add a :func:`synthetic_threshold` model over qual and sor and a
+    :func:`synthetic_dan` over BASE_FEATURES (``train_dan``'s default widths
+    unless given) to the pickle at ``model_path``. Returns family -> model name."""
+    rng = np.random.default_rng(seed)
+    models = load_models(model_path)
+    models[THRESHOLD_MODEL_NAME] = synthetic_threshold(rng, BASE_FEATURES)
+    models[DAN_MODEL_NAME] = synthetic_dan(rng, BASE_FEATURES, embed_dim, hidden, n_layers)
+    save_models(model_path, models)
+    return {"threshold": THRESHOLD_MODEL_NAME, "dan": DAN_MODEL_NAME}
 
 
 def xgboost_json(forest: FlatForest, default_left: np.ndarray, base_prob: float) -> dict:
