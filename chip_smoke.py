@@ -52,7 +52,9 @@ Phases (any failure exits non-zero, and the final result line is not printed):
      ``--backend cpu``, ``--backend gpu`` (``auto`` -> ``cuda-wide``), and
      ``--backend gpu`` with ``VCTPU_FOREST_STRATEGY=gemm`` (-> ``cuda-gemm``);
    each GPU run must launch its kernel and only its kernel, and write the
-   CPU run's bytes outside the ``##vctpu_*`` lines;
+   CPU run's bytes outside the ``##vctpu_*`` lines; every GPU run of this
+   script must write back each record's QUAL text as the input has it
+   (two decimals, as GATK writes them, 1 % of them 10,000 and more);
 5. families, on the forest pickle world's callset: the DAN at
    ``train_dan``'s widths (hidden 256, 2 layers, embed 16) and the threshold
    model over qual and sor, each through the CLI on ``--backend gpu`` and
@@ -63,7 +65,20 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    to its scores in chunks of 1,000, and to a call made with
    ``torch.backends.cuda.matmul.allow_tf32 = True`` set globally; the
    forward's CUDA-event time beside its float32 FLOP count and bound
-   (``FAMILY_DETAIL``).
+   (``FAMILY_DETAIL``);
+6. blacklists, on the forest pickle world: the committed h5 blacklists
+   (``tests/torch_data/blacklist_{vctpu,pytables}.h5``, 300 loci of the
+   world drawn with a stated seed, read by the port's own HDF5 parser),
+   each on ``--backend gpu`` (``auto`` -> ``cuda-wide``, one launch), the
+   same loci as a ``.bed`` on the card, and the first h5 on ``--backend
+   cpu``: all four outputs equal outside ``##vctpu_*``, every locus's
+   record marked COHORT_FP;
+7. the ``.venc`` genome sidecar under a fresh ``VCTPU_GENOME_CACHE_DIR``,
+   the process's resident-genome cache cleared before each run: a GPU run
+   encodes and writes it (its size checked), a second memory-maps it (both
+   runs' ``genome`` stage and ``GENOME_LOG`` printed, bytes equal),
+   ``VCTPU_GENOME_CACHE=0`` reads and writes none, and
+   ``VCTPU_GENOME_CACHE=maybe`` exits 2 before any ingest.
 
 The last two lines of standard output are a JSON object with the kernel
 numbers and the device line ``{"ok": true, "device": {...}}``.
@@ -444,25 +459,45 @@ class _RunLog(logging.Handler):
             self.sent = {"bytes": record.args[0], "variants": record.args[1],
                          "bytes_per_variant": record.args[0] / max(record.args[1], 1)}
         elif record.msg == featurize.GENOME_LOG:
-            device, nbytes, encode_s, upload_s = record.args
-            self.genome = {"device": str(device), "bytes": nbytes, "encode_s": encode_s, "upload_s": upload_s}
+            device, nbytes, source, encode_s, upload_s = record.args
+            self.genome = {"device": str(device), "bytes": nbytes, "source": source, "encode_s": encode_s,
+                           "upload_s": upload_s}
 
 
 def _strip(data: bytes) -> bytes:
     return b"\n".join(ln for ln in data.split(b"\n") if not ln.startswith(b"##vctpu_"))
 
 
+def _qual_column(data: bytes) -> list[bytes]:
+    return [ln.split(b"\t", 6)[5] for ln in data.split(b"\n") if ln and not ln.startswith(b"#")]
+
+
+def _check_qual(world: dict, data: bytes, label: str) -> int:
+    """The output's QUAL column is the input's, record for record (the text as
+    read: "69.40" stays "69.40", as the reference writes it). Returns the count."""
+    if "quals" not in world:
+        world["quals"] = _qual_column(Path(world["vcf"]).read_bytes())
+    got = _qual_column(data)
+    bad = sum(g != w for g, w in zip(got, world["quals"]))
+    check(len(got) == len(world["quals"]) and bad == 0,
+          f"{label}: {bad} of {len(got)} QUAL values differ from the input's")
+    return len(got)
+
+
 def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy: str | None = None,
-           model_name: str | None = None) -> dict:
+           model_name: str | None = None, extra: list[str] | None = None, rc_expected: int = 0) -> dict:
     """One ``filter_variants_pipeline`` run through ``run(argv)``; every kernel's
-    launch count is set to 0 just before it and read just after."""
+    launch count is set to 0 just before it and read just after. A GPU run's
+    QUAL column must be its input's (:func:`_check_qual`). ``extra``: more
+    arguments; ``rc_expected``: the exit code the run must give (a run that
+    must fail returns before any output is read)."""
     from variantcalling_tpu_torch.models import forest as fmod
     from variantcalling_tpu_torch.models import forest_cuda
     from variantcalling_tpu_torch.pipelines import filter_variants
 
     argv = ["--input_file", world["vcf"], "--model_file", world["model"],
             "--model_name", model_name or world["model_name"],
-            "--reference_file", world["fasta"], "--output_file", str(out), "--backend", backend]
+            "--reference_file", world["fasta"], "--output_file", str(out), "--backend", backend, *(extra or [])]
     plog = logging.getLogger("variantcalling_tpu_torch")
     plog.setLevel(logging.INFO)
     times = _RunLog()
@@ -479,7 +514,12 @@ def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy
         launches = {"forest_wide": forest_cuda.LAUNCHES, "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES}
         os.environ.pop(fmod.FOREST_STRATEGY_ENV, None)
         plog.removeHandler(times)
-    check(rc == 0, f"{label} --backend {backend} run exited {rc}")
+    check(rc == rc_expected, f"{label} --backend {backend} run exited {rc}, not {rc_expected}")
+    if rc != 0:
+        check(not out.exists(), f"{label}: the run that exited {rc} wrote {out}")
+        print(f"pipeline {label} --backend {backend}: exited {rc} as it must, no output, stages run: "
+              f"{sorted(times.stages)}", flush=True)
+        return {"rc": rc, "stages": times.stages}
     n = WORLD["n_variants"]
     print(f"pipeline {label} --backend {backend}: {seconds:.2f} s, {n / seconds:.0f} variants/s, "
           f"launches {launches}, windows: {times.window_path}, "
@@ -491,8 +531,11 @@ def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy
                                            "sent": times.sent, "genome_build": times.genome, **times.stages}),
           flush=True)
     data = out.read_bytes()
-    return {"bytes": gzip.decompress(data) if str(out).endswith(".gz") else data, "seconds": seconds,
-            "launches": launches, "window_path": times.window_path}
+    data = gzip.decompress(data) if str(out).endswith(".gz") else data
+    if backend == "gpu":
+        print(f"pipeline {label}: QUAL of all {_check_qual(world, data, label)} records as in the input", flush=True)
+    return {"bytes": data, "seconds": seconds, "launches": launches, "window_path": times.window_path,
+            "stages": times.stages, "genome": times.genome}
 
 
 def _check_same(gpu: dict, cpu: dict, strategy: str, kernel: str, label: str) -> None:
@@ -557,7 +600,7 @@ def phase_pipeline(tmp: Path, card: str) -> dict:
     runs = {}
     for label, seed, xgboost in (("forest_pickle", 2026, False), ("xgboost_json", 2027, True)):
         t0 = time.perf_counter()
-        world = synthetic.write_world(str(tmp / label), seed=seed, xgboost=xgboost, **WORLD)
+        world = {**synthetic.write_world(str(tmp / label), seed=seed, xgboost=xgboost, **WORLD), "seed": seed}
         if not xgboost:  # the threshold model and the DAN share the forest's pickle
             world["families"] = synthetic.add_family_models(world["model"], seed=seed + 100)
         print(f"world {label}: {WORLD['n_variants']} variants on {WORLD['length']} bp in "
@@ -677,6 +720,117 @@ def phase_families(world: dict, tmp: Path, card: str) -> dict:
     return out
 
 
+def _cohort_fp(data: bytes) -> int:
+    return sum(ln.split(b"\t", 7)[6].startswith(b"COHORT_FP") for ln in data.split(b"\n")
+               if ln and not ln.startswith(b"#"))
+
+
+def phase_blacklists(world: dict, tmp: Path, card: str) -> dict:
+    """The forest pickle world with the committed h5 blacklists
+    (``tests/torch_data/``: the JAX package's layout and a pytables fixed
+    frame whose object block is a chunked VLArray), read by the port's own
+    HDF5 parser: ``--backend gpu`` (``auto`` -> ``cuda-wide``) with each, and
+    with the same loci as a ``.bed``; ``--backend cpu`` with the first. The
+    loci are those the stated seeds draw from the world's positions; all four
+    outputs are equal outside ``##vctpu_*`` and mark as many records
+    COHORT_FP as there are loci in the world."""
+    from tests import torch_worlds
+    from variantcalling_tpu_torch.synthetic import blacklist_loci
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    want = blacklist_loci(torch_worlds.BLACKLIST_WORLD_SEED, torch_worlds.BLACKLIST_SEED, torch_worlds.BLACKLIST_LOCI,
+                          WORLD["length"], WORLD["n_variants"])
+    check(world["seed"] == torch_worlds.BLACKLIST_WORLD_SEED, "the blacklists are of another world")
+    for layout, path in torch_worlds.BLACKLIST_FILES.items():
+        frame = h5_utils.read_hdf(str(path), key=h5_utils.list_keys(str(path))[0])
+        check(np.array_equal(frame["pos"], want) and set(frame["chrom"]) == {WORLD["contig"]},
+              f"the {layout} blacklist does not hold the seeded loci")
+    bed = tmp / "blacklist.bed"
+    bed.write_text("".join(f"{WORLD['contig']}\t{p - 1}\t{p}\n" for p in want))
+    world_pos = {int(ln.split(b"\t", 2)[1]) for ln in Path(world["vcf"]).read_bytes().split(b"\n")
+                 if ln and not ln.startswith(b"#")}
+    present = len(world_pos & set(want.tolist()))
+    check(present > 0, "no blacklist locus is a variant of the world")
+    runs = {}
+    for name, path, backend in (("h5_vctpu", torch_worlds.BLACKLIST_FILES["vctpu"], "gpu"),
+                                ("h5_pytables", torch_worlds.BLACKLIST_FILES["pytables"], "gpu"),
+                                ("bed", bed, "gpu"), ("h5_vctpu", torch_worlds.BLACKLIST_FILES["vctpu"], "cpu")):
+        label = f"forest_pickle_blacklist_{name}"
+        runs[f"{name}_{backend}"] = run = _drive(world, tmp / f"{label}_{backend}.vcf", backend, card, label,
+                                                 extra=["--blacklist", str(path)])
+        marked = _cohort_fp(run["bytes"])
+        check(marked == present,
+              f"{label} --backend {backend}: {marked} records COHORT_FP, {present} loci in the world")
+        if backend == "gpu":
+            check(run["launches"] == {"forest_wide": 1, "forest_tree_step": 0}, f"{label}: launches {run['launches']}")
+    base = _strip(runs["h5_vctpu_cpu"]["bytes"])
+    for key, run in runs.items():
+        check(_strip(run["bytes"]) == base, f"blacklist {key}: output differs from the CPU run with the h5 file")
+    print(f"blacklists: the h5 (vctpu layout), h5 (pytables layout) and .bed GPU runs and the h5 CPU run write "
+          f"the same bytes outside ##vctpu_*; {present} of {len(want)} loci in the world, {present} records "
+          f"COHORT_FP in each; launches {runs['h5_pytables_gpu']['launches']}", flush=True)
+    return {k: {"seconds": r["seconds"], "launches": r["launches"], "cohort_fp": present} for k, r in runs.items()}
+
+
+def phase_sidecar(world: dict, tmp: Path, card: str) -> dict:
+    """The ``.venc`` genome sidecar under a fresh ``VCTPU_GENOME_CACHE_DIR``,
+    with the process's resident-genome cache cleared before each run: a GPU
+    run encodes the genome and writes the sidecar (its size: the magic, the
+    JSON line and the contig's bytes); a second memory-maps it; their bytes
+    are equal; ``VCTPU_GENOME_CACHE=0`` reads and writes none; and
+    ``VCTPU_GENOME_CACHE=maybe`` exits 2 before any ingest."""
+    from variantcalling_tpu_torch import featurize
+
+    cache = tmp / "venc"
+    saved = {k: os.environ.get(k) for k in ("VCTPU_GENOME_CACHE", "VCTPU_GENOME_CACHE_DIR")}
+    saved_cache = featurize._DEVICE_GENOME_CACHE
+    os.environ["VCTPU_GENOME_CACHE_DIR"] = str(cache)
+    out = {}
+    try:
+        for label, setting in (("sidecar_written", "1"), ("sidecar_read", "1"), ("sidecar_off", "0"),
+                               ("sidecar_malformed", "maybe")):
+            os.environ["VCTPU_GENOME_CACHE"] = setting
+            featurize._DEVICE_GENOME_CACHE = {}
+            before = {p.name: p.stat().st_mtime_ns for p in cache.iterdir()} if cache.exists() else {}
+            run = _drive(world, tmp / f"forest_pickle_{label}.vcf", "gpu", card, f"forest_pickle_{label}",
+                         rc_expected=2 if setting == "maybe" else 0)
+            after = {p.name: p.stat().st_mtime_ns for p in cache.iterdir()} if cache.exists() else {}
+            out[label] = run
+            if setting == "maybe":
+                check("ingest" not in run["stages"] and after == before, "VCTPU_GENOME_CACHE=maybe ran or wrote")
+                continue
+            check(run["launches"]["forest_wide"] > 0 and run["window_path"] == "genome-resident",
+                  f"{label}: launches {run['launches']}, windows {run['window_path']}")
+            genome = run["genome"]
+            print(f"pipeline forest_pickle_{label}: genome stage {run['stages']['genome']:.4f} s; "
+                  f"GENOME_LOG {genome}", flush=True)
+            if label == "sidecar_written":
+                (name,) = after
+                data = (cache / name).read_bytes()
+                head = data.index(b"\n", 7) + 1
+                check(genome["source"] == "encoded" and data[:7] == b"VCENC1\n"
+                      and len(data) == head + WORLD["length"],
+                      f"sidecar {name}: {len(data)} bytes, source {genome['source']}")
+                print(f"sidecar {name}: {len(data)} bytes = 7 (magic) + {head - 7} (JSON line) + "
+                      f"{WORLD['length']} (codes)", flush=True)
+            elif label == "sidecar_read":
+                check(genome["source"] == "sidecar" and after == before, f"{label}: {genome['source']}, files changed")
+            else:
+                check(genome["source"] == "encoded" and after == before, f"{label}: {genome['source']}, files changed")
+            check(_strip(run["bytes"]) == _strip(out["sidecar_written"]["bytes"]),
+                  f"{label}: output differs from the run that wrote the sidecar")
+    finally:
+        featurize._DEVICE_GENOME_CACHE = saved_cache
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print("sidecar: written, then memory-mapped, then unused with VCTPU_GENOME_CACHE=0, bytes equal; "
+          "VCTPU_GENOME_CACHE=maybe exits 2 before ingest", flush=True)
+    return {k: {"genome_stage_s": r["stages"].get("genome"), "genome": r.get("genome")} for k, r in out.items()}
+
+
 def time_kernel(kind: str, root: str) -> int:
     """``--time-kernel {wide,tree_step} ROOT``: one kernel of the checkout at
     ROOT (this one, or an older one unpacked beside it) on phase 3's forests
@@ -722,6 +876,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         pipe = phase_pipeline(Path(tmp), card)
         phase_families(pipe["forest_pickle"]["world"], Path(tmp), card)
+        phase_blacklists(pipe["forest_pickle"]["world"], Path(tmp), card)
+        phase_sidecar(pipe["forest_pickle"]["world"], Path(tmp), card)
     n = WORLD["n_variants"]
     rows = {  # each kernel's numbers at the main path's shape, on the production (xgboost) forest
         "forest_wide": kern["forest_wide"]["results"]["xgboost_default_left_100x64"][n],

@@ -15,18 +15,27 @@ pickle with the forest, saved by the JAX package) are held to 1e-6 and
 1e-5: differing records are counted, printed and checked by
 ``tests/torch_vcf_compare.py``. ``VCTPU_MODEL_FAMILY``: a mismatch or a
 malformed value exits 2; the family's header line.
+
+A third world (``tests/torch_worlds.write_gatk_world``) writes QUAL as GATK
+does ("69.40", "24240.00", "."), which the reference writes back verbatim:
+the port's bytes must equal its bytes under every strategy, on both window
+paths, into ``.vcf`` and ``.vcf.gz``; so on the world's CRLF copy (the
+``##`` lines keep their ``\r``), with an h5 blacklist in either layout (and
+exit 2 where the port's reader cannot read the file, or the frame has no
+chrom and pos columns), and with and without the ``.venc`` genome sidecar.
 """
 
 import dataclasses
 import gzip
 import logging
+import os
 import pickle
 import shutil
 
 import numpy as np
 import pytest
 
-from tests import fixtures
+from tests import fixtures, torch_worlds
 from tests.torch_vcf_compare import differing_records
 from variantcalling_tpu.featurize import BASE_FEATURES, featurize
 from variantcalling_tpu.io.fasta import FastaReader
@@ -121,14 +130,6 @@ def test_port_cli_output_bytes_equal_reference(world, suffix, model_name, extra)
     assert {"PASS", "LOW_SCORE"} <= filters
     if extra:
         assert any("COHORT_FP" in f for f in filters) and any("HPOL_RUN" in f for f in filters)
-
-
-def test_h5_blacklist_exits_2(world, tmp_path):
-    h5 = tmp_path / "bl.h5"
-    h5.write_bytes(b"")
-    argv = _argv(world, tmp_path / "o.vcf", "rf_model_ignore_gt_incl_hpol_runs", False)
-    assert torch_main(["filter_variants_pipeline", *argv, "--blacklist", str(h5)]) == 2
-    assert not (tmp_path / "o.vcf").exists()
 
 
 def test_threshold_model_pickle_exits_2(world, tmp_path, monkeypatch):
@@ -262,10 +263,10 @@ FAMILY_NAMES = {"threshold": "threshold_model_ignore_gt_incl_hpol_runs", "dan": 
 FAMILY_TOL = {"threshold": 1e-6, "dan": 1e-5}
 
 
-@pytest.fixture(scope="module")
-def family_pickle(world):
-    """One pickle, saved by the JAX package, with a forest, a threshold model over
-    qual and af, and a DAN (hidden 16) whose weights come from a numpy seed."""
+def _save_family_pickle(forest_pickle, path):
+    """One pickle, saved by the JAX package, with the forest of
+    ``forest_pickle``, a threshold model over qual and af, and a DAN (hidden
+    16) whose weights come from a numpy seed."""
     rng = np.random.default_rng(23)
     pdan = tsynth.synthetic_dan(rng, list(BASE_FEATURES), embed_dim=4, hidden=16, n_layers=2)
     jd = jdan.DanModel(cfg=jdan.DanConfig(**dataclasses.asdict(pdan.cfg)), params_np=pdan.params_np,
@@ -274,11 +275,15 @@ def family_pickle(world):
     pthr = tsynth.synthetic_threshold(rng, list(BASE_FEATURES), used=("qual", "af"))
     jt = JThresholdModel(pthr.feature_names, pthr.thresholds, pthr.signs, pthr.scales, pthr.pass_threshold,
                          pthr.all_feature_names)
-    models = registry.load_models(str(world / "model.pkl"))
-    path = world / "families.pkl"
+    models = registry.load_models(str(forest_pickle))
     registry.save_models(str(path), {"rf_model_ignore_gt_incl_hpol_runs": models["rf_model_ignore_gt_incl_hpol_runs"],
                                      FAMILY_NAMES["threshold"]: jt, FAMILY_NAMES["dan"]: jd})
     return path
+
+
+@pytest.fixture(scope="module")
+def family_pickle(world):
+    return _save_family_pickle(world / "model.pkl", world / "families.pkl")
 
 
 def _family_argv(world, pickle_path, out, name: str) -> list[str]:
@@ -350,3 +355,176 @@ def test_vcf_gz_output_gets_the_reference_index(world, tmp_path):
     records = [ln for ln in gzip.decompress(out.read_bytes()).decode().splitlines()
                if not ln.startswith("#") and ln.startswith("chr2\t")]
     assert list(jtabix.read_region_lines(str(out), "chr2", 0, 10_000)) == records
+
+
+# -- GATK-style QUAL, CRLF input, h5 blacklists, the genome sidecar ---------
+
+@pytest.fixture(scope="module")
+def gatk_world(tmp_path_factory):
+    """``tests/torch_worlds.write_gatk_world``, its threshold/DAN pickle, and a
+    cache of the reference CLI's outputs (decompressed bytes, .tbi bytes)."""
+    d = tmp_path_factory.mktemp("torch_fvp_gatk")
+    w = torch_worlds.write_gatk_world(d)
+    w["families"] = _save_family_pickle(d / "model.pkl", d / "families.pkl")
+    w["ref"] = {}
+    return w
+
+
+def _gatk_argv(w, out, input_name="calls.vcf", model_name="rf_model_ignore_gt_incl_hpol_runs",
+               blacklist=None, model_file="model.pkl") -> list[str]:
+    d = w["dir"]
+    argv = ["--input_file", str(d / input_name), "--model_file", str(d / model_file), "--model_name", model_name,
+            "--reference_file", str(d / "ref.fa"), "--output_file", str(out), "--backend", "cpu"]
+    return argv + (["--blacklist", str(d / blacklist)] if blacklist else [])
+
+
+def _gatk_reference(w, **kw) -> bytes:
+    """The reference CLI's output bytes (decompressed) for these arguments, run once."""
+    key = tuple(sorted(kw.items()))
+    if key not in w["ref"]:
+        out = w["dir"] / f"ref_{len(w['ref'])}{'.vcf.gz' if kw.get('suffix') == '.vcf.gz' else '.vcf'}"
+        args = {k: v for k, v in kw.items() if k != "suffix"}
+        assert fvp.run(_gatk_argv(w, out, **args)) == 0
+        w["ref"][key] = _read(out)
+    return w["ref"][key]
+
+
+def _qual_column(data: bytes) -> list[str]:
+    return [ln.split("\t")[5] for ln in data.decode().splitlines() if ln and not ln.startswith("#")]
+
+
+def _port_run(w, tmp_path, suffix, windows, monkeypatch, **kw) -> bytes:
+    if windows == "resident":
+        monkeypatch.setattr(tfeat, "GENOME_RESIDENT_MIN_VARIANTS", 0)
+        monkeypatch.setattr(tfeat, "_DEVICE_GENOME_CACHE", {})
+    out = tmp_path / f"port{suffix}"
+    assert torch_main(["filter_variants_pipeline", *_gatk_argv(w, out, **kw)]) == 0
+    if suffix == ".vcf.gz":  # the .tbi of the port's file equals the reference's index of it
+        copy = tmp_path / "copy.vcf.gz"
+        shutil.copyfile(out, copy)
+        jtabix.build_tabix_index(str(copy))
+        assert (tmp_path / "port.vcf.gz.tbi").read_bytes() == (tmp_path / "copy.vcf.gz.tbi").read_bytes()
+    return _read(out)
+
+
+@pytest.mark.parametrize("suffix", [".vcf", ".vcf.gz"])
+@pytest.mark.parametrize("windows", ["host", "resident"])
+@pytest.mark.parametrize("strategy", ["auto", "gather", "gemm", "wide", "pallas"])
+@pytest.mark.parametrize("model_name", ["rf_model_ignore_gt_incl_hpol_runs", "xgb_model_ignore_gt_incl_hpol_runs"])
+def test_gatk_qual_world_bytes_equal_reference(gatk_world, tmp_path, monkeypatch, suffix, windows, strategy,
+                                               model_name):
+    """QUAL written as read ("69.40", "24240.00", "."): the reference splices it
+    verbatim, and so does the port, under every strategy and window path."""
+    want = _gatk_reference(gatk_world, model_name=model_name, suffix=suffix)
+    monkeypatch.setenv(FOREST_STRATEGY_ENV, strategy)
+    got = _port_run(gatk_world, tmp_path, suffix, windows, monkeypatch, model_name=model_name)
+    assert fixtures.strip_vctpu_header(got) == fixtures.strip_vctpu_header(want)
+    quals = _qual_column(got)
+    assert quals == _qual_column((gatk_world["dir"] / "calls.vcf").read_bytes())
+    assert "." in quals and any(q.endswith("0") and "." in q for q in quals) \
+        and any(float(q) >= 10_000 for q in quals if q != ".")
+
+
+@pytest.mark.parametrize("input_name", ["calls_crlf.vcf", "calls_crlf.vcf.gz"])
+@pytest.mark.parametrize("windows", ["host", "resident"])
+def test_crlf_world_bytes_equal_reference(gatk_world, tmp_path, monkeypatch, input_name, windows):
+    """A CRLF callset: the ``##`` lines keep their ``\\r``, the ``#CHROM`` line
+    and the records lose it, in the reference's output and in the port's."""
+    want = _gatk_reference(gatk_world, input_name=input_name, suffix=".vcf")
+    got = _port_run(gatk_world, tmp_path, ".vcf", windows, monkeypatch, input_name=input_name)
+    assert fixtures.strip_vctpu_header(got) == fixtures.strip_vctpu_header(want)
+    lines = got.split(b"\n")
+    assert b"##fileformat=VCFv4.2\r" in lines and lines[-1] == b""
+    assert not any(ln.endswith(b"\r") for ln in lines if not ln.startswith(b"##"))
+    lf = _gatk_reference(gatk_world, suffix=".vcf")
+    assert [ln for ln in lines if not ln.startswith(b"#")] == [ln for ln in lf.split(b"\n") if not ln.startswith(b"#")]
+
+
+@pytest.mark.parametrize("suffix", [".vcf", ".vcf.gz"])
+@pytest.mark.parametrize("windows", ["host", "resident"])
+@pytest.mark.parametrize("layout", ["vctpu", "pytables"])
+def test_h5_blacklist_bytes_equal_reference(gatk_world, tmp_path, monkeypatch, suffix, windows, layout):
+    """An h5 blacklist in either layout: the reference's bytes, the bytes of the
+    same loci as a .bed, and every blacklisted record marked COHORT_FP."""
+    h5 = f"blacklist_{layout}.h5"
+    want = _gatk_reference(gatk_world, blacklist=h5, suffix=suffix)
+    assert fixtures.strip_vctpu_header(_gatk_reference(gatk_world, blacklist="blacklist.bed", suffix=suffix)) == \
+        fixtures.strip_vctpu_header(want)
+    got = _port_run(gatk_world, tmp_path, suffix, windows, monkeypatch, blacklist=h5)
+    assert fixtures.strip_vctpu_header(got) == fixtures.strip_vctpu_header(want)
+    filters = [ln.split("\t")[6] for ln in got.decode().splitlines() if not ln.startswith("#")]
+    assert sum(f.startswith("COHORT_FP") for f in filters) == gatk_world["blacklisted"] > 0
+
+
+@pytest.mark.parametrize("case,feature", [("latest", "superblock version"), ("lzf", "filter 32000")])
+def test_h5_blacklist_the_reader_cannot_read_exits_2(gatk_world, tmp_path, caplog, case, feature):
+    import h5py
+
+    h5 = tmp_path / "bl.h5"
+    with h5py.File(h5, "w", libver="latest" if case == "latest" else "earliest") as f:
+        g = f.create_group("bl")
+        g.attrs["vctpu_frame"] = 1
+        g.attrs["columns"], g.attrs["kinds"] = '["chrom", "pos"]', '{"chrom": "fstr", "pos": "i"}'
+        g.create_dataset("chrom", data=np.asarray([b"chr1"] * 20))
+        g.create_dataset("pos", data=np.arange(1, 21), **({"chunks": (8,), "compression": "lzf"}
+                                                           if case == "lzf" else {}))
+    caplog.set_level(logging.ERROR)
+    argv = _gatk_argv(gatk_world, tmp_path / "o.vcf")
+    assert torch_main(["filter_variants_pipeline", *argv, "--blacklist", str(h5)]) == 2
+    assert not (tmp_path / "o.vcf").exists()
+    assert any(feature in r.getMessage() and str(h5) in r.getMessage() for r in caplog.records)
+
+
+def test_h5_blacklist_without_chrom_and_pos_fails_in_both(gatk_world, tmp_path, caplog):
+    """The JAX package's writer stores a (chrom, pos) MultiIndex as tuple strings
+    in ``__index__``: its reader then finds no chrom column (KeyError), and the
+    port exits 2 saying so; neither writes an output."""
+    import pandas as pd
+
+    from variantcalling_tpu.utils.h5_utils import write_hdf
+
+    h5 = tmp_path / "multi.h5"
+    idx = pd.MultiIndex.from_tuples([("chr1", 100), ("chr2", 200)], names=["chrom", "pos"])
+    write_hdf(pd.DataFrame({"score": [1.0, 2.0]}, index=idx), str(h5), "bl")
+    argv = [*_gatk_argv(gatk_world, tmp_path / "o.vcf"), "--blacklist", str(h5)]
+    with pytest.raises(KeyError, match="chrom"):
+        fvp.run(argv)
+    caplog.set_level(logging.ERROR)
+    assert torch_main(["filter_variants_pipeline", *argv]) == 2
+    assert not (tmp_path / "o.vcf").exists()
+    assert any("no chrom or pos column" in r.getMessage() for r in caplog.records)
+
+
+@pytest.mark.parametrize("family", ["threshold", "dan"])
+def test_family_gatk_qual_world_keeps_qual(gatk_world, tmp_path, family):
+    """Threshold and DAN outputs: no record differs in QUAL (nor in any column
+    but TREE_SCORE and FILTER, as ``torch_vcf_compare`` allows)."""
+    kw = {"model_file": "families.pkl", "model_name": FAMILY_NAMES[family]}
+    want = _gatk_reference(gatk_world, suffix=".vcf", **kw)
+    assert torch_main(["filter_variants_pipeline", *_gatk_argv(gatk_world, tmp_path / "p.vcf", **kw)]) == 0
+    got = (tmp_path / "p.vcf").read_bytes()
+    pass_threshold = 0.5 if family == "dan" else 0.25
+    differing_records(got, want, pass_threshold, FAMILY_TOL[family])
+    assert _qual_column(got) == _qual_column(want) == _qual_column((gatk_world["dir"] / "calls.vcf").read_bytes())
+
+
+@pytest.mark.parametrize("windows", ["host", "resident"])
+def test_genome_sidecar_leaves_the_bytes_unchanged(gatk_world, tmp_path, monkeypatch, caplog, windows):
+    """A fresh ``VCTPU_GENOME_CACHE_DIR``: the first run encodes and writes the
+    sidecar, the second reads it (on the resident path: "sidecar" in
+    ``GENOME_LOG``), ``VCTPU_GENOME_CACHE=0`` uses none; the reference's bytes
+    every time."""
+    want = fixtures.strip_vctpu_header(_gatk_reference(gatk_world, suffix=".vcf"))
+    cache = tmp_path / "venc"
+    monkeypatch.setenv("VCTPU_GENOME_CACHE_DIR", str(cache))
+    caplog.set_level(logging.INFO, logger="variantcalling_tpu_torch")
+    sources = []
+    for run, setting in enumerate(("1", "1", "0")):
+        monkeypatch.setenv("VCTPU_GENOME_CACHE", setting)
+        caplog.clear()
+        (tmp_path / str(run)).mkdir()
+        got = _port_run(gatk_world, tmp_path / str(run), ".vcf", windows, monkeypatch)
+        assert fixtures.strip_vctpu_header(got) == want
+        assert len(os.listdir(cache)) == 1
+        sources += [r.args[2] for r in caplog.records if r.msg == tfeat.GENOME_LOG]
+    assert sources == (["encoded", "sidecar", "encoded"] if windows == "resident" else [])

@@ -28,6 +28,9 @@ def main(argv: list[str] | None = None) -> int:
         print(f"unknown tool: {tool!r}; run with --help for the tool list", file=sys.stderr)
         return 2
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+    from variantcalling_tpu_torch import knobs
+
+    knobs.warn_unknown_env()  # a misspelt VCTPU_* name configures nothing: say so
     result = importlib.import_module(TOOLS[tool]).run(argv[1:])
     return result if isinstance(result, int) else 0
 

@@ -173,8 +173,10 @@ _DEVICE_GENOME_MAX = 2
 # tables below this size gather windows on the host: a small job must not
 # pay a whole-genome encode and upload
 GENOME_RESIDENT_MIN_VARIANTS = 100_000
-#: log record of a genome upload: device, bytes, encode seconds, upload seconds
-GENOME_LOG = "device genome on %s: %d bytes, encoded in %.3f s, uploaded in %.3f s"
+#: log record of a genome upload: device, bytes, where the codes came from
+#: ("encoded" from the FASTA text, the sidecar then written, or "sidecar":
+#: memory-mapped from the FASTA's ``.venc``), those host seconds, upload seconds
+GENOME_LOG = "device genome on %s: %d bytes, %s in %.3f s, uploaded in %.3f s"
 # the reference's limits for its 4-byte packing (a flat genome below
 # _FLAT_MAX bases, else 2^20-base blocks with three blocks of headroom
 # below 2^32); the port packs under the same bound, so both packages take
@@ -191,7 +193,8 @@ class DeviceGenome:
     offsets: dict[str, int]
     lengths: dict[str, int]
     radius: int
-    encode_s: float  # host seconds to read and encode the FASTA
+    source: str  # "encoded" (from the FASTA text) or "sidecar" (the .venc memory map)
+    encode_s: float  # host seconds to fill the flat codes (and write the sidecar after an encode)
     upload_s: float  # host seconds of the copy to the device, synchronized
 
     @property
@@ -235,6 +238,10 @@ def device_genome(fasta: FastaReader, device: torch.device, radius: int = WINDOW
 
 
 def _build_device_genome(fasta: FastaReader, device: torch.device, radius: int) -> DeviceGenome:
+    """The flat codes from the FASTA's sidecar when one serves the reader,
+    else encoded from the text, and then written as the sidecar. (The
+    reference's resident build encodes from the text every time and reads
+    the sidecar only on its host gather; the codes are the same.)"""
     t0 = time.perf_counter()
     gap = 2 * radius
     offsets: dict[str, int] = {}
@@ -245,14 +252,18 @@ def _build_device_genome(fasta: FastaReader, device: torch.device, radius: int) 
         lengths[contig] = fasta.get_reference_length(contig)
         cur += lengths[contig] + gap
     flat = np.full(cur, 4, dtype=np.uint8)
+    source = "sidecar" if fasta.has_sidecar else "encoded"
     for contig, off in offsets.items():
-        flat[off: off + lengths[contig]] = fasta.encode_contig(contig)
+        view = flat[off: off + lengths[contig]]
+        view[:] = fasta.sidecar_codes(contig) if source == "sidecar" else fasta.encode_contig(contig)
+    if source == "encoded":
+        fasta.persist_encoded({c: flat[off: off + lengths[c]] for c, off in offsets.items()})
     t1 = time.perf_counter()
     codes = torch.from_numpy(flat).to(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    genome = DeviceGenome(codes, offsets, lengths, radius, t1 - t0, time.perf_counter() - t1)
-    log.info(GENOME_LOG, device, genome.nbytes, genome.encode_s, genome.upload_s)
+    genome = DeviceGenome(codes, offsets, lengths, radius, source, t1 - t0, time.perf_counter() - t1)
+    log.info(GENOME_LOG, device, genome.nbytes, source, genome.encode_s, genome.upload_s)
     return genome
 
 

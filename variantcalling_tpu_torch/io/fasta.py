@@ -1,15 +1,27 @@
 """Indexed FASTA reader: ``.fa`` + ``.fai`` (the index is built when missing).
 
 Counterpart of ``variantcalling_tpu/io/fasta.py``, without its native
-encoder and its persistent encoded-genome cache: contigs are encoded with
-one numpy table lookup and held in memory for the run.
+encoder: contigs are encoded with one numpy table lookup and held in
+memory for the run. The encoded genome persists beside the FASTA as the
+reference's ``.venc`` sidecar, byte for byte its format (so either package
+reads the other's): ``VCENC1\n``, one JSON line ``{"key": {"path",
+"mtime_ns", "size"}, "contigs": [[name, offset, length], ...]}``, then every
+contig's codes in index order. A sidecar whose key matches the FASTA's
+(mtime and size) is memory-mapped when the reader opens, and serves
+:meth:`FastaReader.fetch_encoded` with no encode. ``VCTPU_GENOME_CACHE=0``
+reads and writes none; ``VCTPU_GENOME_CACHE_DIR`` keeps sidecars in one
+directory instead of beside each FASTA.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
 import os
 from dataclasses import dataclass
+
+from variantcalling_tpu_torch import knobs
 
 import numpy as np
 
@@ -88,6 +100,10 @@ for _i, _b in enumerate(b"acgt"):
     _CODE[_b] = _i
 
 
+#: sidecar format version (``<fasta>.venc``), the reference's
+_VENC_MAGIC = b"VCENC1\n"
+
+
 def encode_seq(seq: str) -> np.ndarray:
     """str -> uint8 codes (A0 C1 G2 T3, N and anything else 4)."""
     return _CODE[np.frombuffer(seq.encode(), dtype=np.uint8)]
@@ -102,6 +118,9 @@ class FastaReader:
         self._index = read_fai(fai) if os.path.exists(fai) else build_fai(path)
         self._fh = open(path, "rb")
         self._encoded: dict[str, np.ndarray] = {}
+        self._venc: np.memmap | None = None
+        self._venc_offsets: dict[str, tuple[int, int]] = {}
+        self._load_persistent_cache()
 
     @property
     def references(self) -> list[str]:
@@ -110,12 +129,124 @@ class FastaReader:
     def get_reference_length(self, chrom: str) -> int:
         return self._index[chrom].length
 
+    # -- the .venc sidecar -------------------------------------------------
+
+    @property
+    def has_sidecar(self) -> bool:
+        """Whether a valid sidecar serves this reader's codes."""
+        return self._venc is not None
+
+    def _cache_key(self) -> dict:
+        st = os.stat(self.path)
+        return {"path": os.path.abspath(self.path), "mtime_ns": st.st_mtime_ns, "size": st.st_size}
+
+    def _venc_path(self) -> str:
+        d = knobs.get_str("VCTPU_GENOME_CACHE_DIR")
+        if d:
+            tag = hashlib.sha256(os.path.abspath(self.path).encode()).hexdigest()[:16]
+            return os.path.join(d, f"{os.path.basename(self.path)}.{tag}.venc")
+        return self.path + ".venc"
+
+    def _load_persistent_cache(self) -> None:
+        """Memory-map the sidecar when its key matches this FASTA's (mtime and
+        size) and it holds every contig at its length; a stale, truncated or
+        unreadable one is ignored with a warning (and replaced by the next
+        whole-genome encode)."""
+        if not knobs.get_bool("VCTPU_GENOME_CACHE"):
+            return
+        p = self._venc_path()
+        try:
+            if not os.path.exists(p):
+                return
+            with open(p, "rb") as fh:
+                if fh.read(len(_VENC_MAGIC)) != _VENC_MAGIC:
+                    log.warning("ignoring genome cache %s: not a .venc file", p)
+                    return
+                header = json.loads(fh.readline().decode())
+                data_off = fh.tell()
+            key = self._cache_key()
+            if header.get("key", {}).get("mtime_ns") != key["mtime_ns"] or \
+                    header.get("key", {}).get("size") != key["size"]:
+                log.warning("ignoring stale genome cache %s: the FASTA changed since it was written", p)
+                return
+            mm = np.memmap(p, dtype=np.uint8, mode="r", offset=data_off)
+            offsets = {}
+            for name, off, length in header.get("contigs", []):
+                ent = self._index.get(name)
+                if ent is None or ent.length != length or off + length > len(mm):
+                    log.warning("ignoring genome cache %s: contig %s is missing, of another length or "
+                                "cut short", p, name)
+                    return
+                offsets[name] = (int(off), int(length))
+            if len(offsets) != len(self._index):
+                log.warning("ignoring genome cache %s: it lacks contigs of the FASTA", p)
+                return
+            self._venc, self._venc_offsets = mm, offsets
+        except (OSError, ValueError) as e:  # json.JSONDecodeError is a ValueError
+            log.warning("ignoring unreadable genome cache %s: %s", p, e)
+
+    def persist_encoded(self, arrays: dict[str, np.ndarray] | None = None) -> bool:
+        """Write the sidecar from whole-contig codes (``arrays``, default the
+        contigs this reader has encoded), when every contig is there and no
+        valid sidecar serves the reader already. Atomic (tmp + replace); an
+        ``OSError`` (a read-only directory, a full disk) skips it: the
+        sidecar is a cache."""
+        if not knobs.get_bool("VCTPU_GENOME_CACHE") or self._venc is not None:
+            return False
+        arrays = self._encoded if arrays is None else arrays
+        if not all(c in arrays for c in self._index):
+            return False
+        contigs = []
+        off = 0
+        for name, e in self._index.items():
+            contigs.append((name, off, int(e.length)))
+            off += int(e.length)
+        header = json.dumps({"key": self._cache_key(), "contigs": contigs}).encode()
+        p = self._venc_path()
+        tmp = f"{p}.{os.getpid()}.tmp"
+        try:
+            os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+            with open(tmp, "wb") as fh:
+                fh.write(_VENC_MAGIC + header + b"\n")
+                for name in self._index:
+                    fh.write(memoryview(np.ascontiguousarray(arrays[name])))
+            os.replace(tmp, p)
+            return True
+        except OSError as e:
+            log.warning("could not persist genome cache %s: %s", p, e)
+            try:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            except OSError:
+                pass
+            return False
+
+    def sidecar_codes(self, chrom: str) -> np.ndarray | None:
+        """Whole-contig codes memory-mapped from the sidecar, or None without one."""
+        if self._venc is None:
+            return None
+        off, length = self._venc_offsets[chrom]
+        return self._venc[off: off + length]
+
+    # -- encoded contigs -----------------------------------------------------
+
     def fetch_encoded(self, chrom: str) -> np.ndarray:
-        """Whole-contig uint8 codes, encoded once per run and cached."""
-        got = self._encoded.get(chrom)
+        """Whole-contig uint8 codes: from the sidecar, else encoded once per run
+        and cached; the encode that completes the genome writes the sidecar."""
+        got = self.sidecar_codes(chrom)
+        if got is None:
+            got = self._encoded.get(chrom)
         if got is None:
             got = self._encoded[chrom] = self.encode_contig(chrom)
+            if len(self._encoded) == len(self._index):
+                self.persist_encoded()
         return got
+
+    def encode_all(self) -> None:
+        """Encode every contig (and so write the sidecar, so that later
+        processes skip the encode); nothing to do where a sidecar serves."""
+        for chrom in self._index:
+            self.fetch_encoded(chrom)
 
     def encode_contig(self, chrom: str) -> np.ndarray:
         """Whole-contig uint8 codes, read and encoded anew (not cached)."""
@@ -135,6 +266,7 @@ class FastaReader:
 
     def close(self) -> None:
         self._fh.close()
+        self._venc = None
 
     def __enter__(self):
         return self

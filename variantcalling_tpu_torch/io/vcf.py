@@ -1,11 +1,15 @@
 """Columnar VCF reader and writer (host-side ingest and writeback).
 
-Counterpart of ``variantcalling_tpu/io/vcf.py``: its pure-Python
-``read_vcf`` path for ``.vcf``/``.vcf.gz`` and the record rendering of its
-``_write_records_fast``/``_format_extra_info_bytes``/``format_qual``. The
-FORMAT and sample columns of each record are kept as one verbatim tail
-string and written back unchanged; the eight core columns are rendered
-from the column arrays.
+Counterpart of ``variantcalling_tpu/io/vcf.py`` on its default path, the
+native engine's: the file is read as bytes and split on ``\n`` alone, so a
+CRLF file's ``##`` lines keep their ``\r`` (written back as ``\r\n``) while
+the ``#CHROM`` line and the records drop it, as the reference's
+``parse_header_bytes`` and record scanner do. The FORMAT and sample columns
+of each record are kept as one verbatim tail string and written back
+unchanged; so is the QUAL text of every record whose QUAL was not edited
+(the reference splices CHROM..QUAL verbatim, ``write_vcf(verbatim_core=
+True)``). The other core columns are rendered from the column arrays, with
+the reference's ``_format_extra_info_bytes`` rendering of new INFO keys.
 """
 
 from __future__ import annotations
@@ -22,10 +26,10 @@ log = logging.getLogger(__name__)
 MISSING = "."
 
 
-def _open_text(path: str):
+def _open_bytes(path: str):
     if str(path).endswith((".gz", ".bgz")):
-        return gzip.open(path, "rt", encoding="utf-8")
-    return open(path, "rt", encoding="utf-8")
+        return gzip.open(path, "rb")
+    return open(path, "rb")
 
 
 @dataclass
@@ -128,11 +132,14 @@ class VariantTable:
     """Columnar view of a VCF: one numpy array per column over all records.
 
     ``tail`` holds each record's FORMAT and sample columns verbatim (one
-    tab-joined string, "" when the record has none).
+    tab-joined string, "" when the record has none). ``qual_text`` holds each
+    record's QUAL as read, beside the float ``qual`` the features use, and
+    ``qual_read`` a copy of ``qual`` as read: a record whose ``qual`` still
+    equals it writes its text back (both None: a table with no text).
     """
 
     def __init__(self, header: VcfHeader, chrom, pos, vid, ref, alt, qual,
-                 filters, info, tail):
+                 filters, info, tail, qual_text=None, qual_read=None):
         self.header = header
         self.chrom = chrom
         self.pos = pos
@@ -143,6 +150,9 @@ class VariantTable:
         self.filters = filters
         self.info = info
         self.tail = tail
+        self.qual_text = qual_text
+        self.qual_read = None if qual_text is None else \
+            (np.array(qual, dtype=np.float64) if qual_read is None else qual_read)
 
     def __len__(self) -> int:
         return len(self.pos)
@@ -155,7 +165,8 @@ class VariantTable:
         """Row-subset every column by a boolean/index array."""
         return VariantTable(self.header, self.chrom[keep], self.pos[keep], self.vid[keep],
                             self.ref[keep], self.alt[keep], self.qual[keep],
-                            self.filters[keep], self.info[keep], self.tail[keep])
+                            self.filters[keep], self.info[keep], self.tail[keep],
+                            *(() if self.qual_text is None else (self.qual_text[keep], self.qual_read[keep])))
 
     def n_alts(self) -> np.ndarray:
         return np.fromiter(
@@ -239,34 +250,73 @@ def _obj(x: list) -> np.ndarray:
     return a
 
 
+_READ_BYTES = 16 << 20
+
+
+def _text_lines(path: str):
+    """The file's lines as str, split on ``\n`` alone and without it, read in
+    blocks and each block decoded at once. Header (``#``) lines that are not
+    valid UTF-8 decode with replacement characters, as the reference's
+    header parse does; such a record raises."""
+    with _open_bytes(path) as fh:
+        rest = b""
+        while True:
+            block = fh.read(_READ_BYTES)
+            data = rest + block
+            cut = len(data) if not block else data.rfind(b"\n") + 1
+            data, rest = data[:cut], data[cut:]
+            if data:
+                try:
+                    lines = data.decode("utf-8").split("\n")
+                except UnicodeDecodeError:
+                    lines = [ln.decode("utf-8", "replace" if ln.startswith(b"#") else "strict")
+                             for ln in data.split(b"\n")]
+                if data.endswith(b"\n"):
+                    lines.pop()
+                yield from lines
+            if not block:
+                return
+
+
 def read_vcf(path: str) -> VariantTable:
-    """Parse a VCF (``.vcf`` or ``.vcf.gz``) into a :class:`VariantTable`."""
+    """Parse a VCF (``.vcf`` or ``.vcf.gz``) into a :class:`VariantTable`.
+
+    Lines split on ``\n`` alone. ``##`` lines before the first record are
+    the header, kept with any ``\r``; the ``#CHROM`` line and the records
+    lose one trailing ``\r``; empty lines and ``#`` lines among the records
+    are skipped, as the reference's scanner skips them."""
     header = VcfHeader()
-    cols: list[list] = [[] for _ in range(9)]
-    chrom, pos, vid, ref, alt, qual, filt, info, tail = cols
-    with _open_text(path) as fh:
-        for line in fh:
+    cols: list[list] = [[] for _ in range(10)]
+    chrom, pos, vid, ref, alt, qual, qual_text, filt, info, tail = cols
+    for line in _text_lines(path):
+        if line.startswith("#"):
+            if chrom:  # among the records
+                continue
             if line.startswith("##"):
                 header.add_meta_line(line)
-                continue
-            if line.startswith("#"):
-                names = line.rstrip("\n").split("\t")
+            else:
+                names = line.rstrip("\r").split("\t")
                 if len(names) > 9:
                     header.samples = names[9:]
-                continue
-            parts = line.rstrip("\n").split("\t", 8)
-            chrom.append(parts[0])
-            pos.append(int(parts[1]))
-            vid.append(parts[2])
-            ref.append(parts[3])
-            alt.append(parts[4])
-            qual.append(float(parts[5]) if parts[5] != MISSING else np.nan)
-            filt.append(parts[6])
-            info.append(parts[7] if len(parts) > 7 else MISSING)
-            tail.append(parts[8] if len(parts) > 8 else "")
+            continue
+        if line.endswith("\r"):
+            line = line[:-1]
+        if not line:
+            continue
+        parts = line.split("\t", 8)
+        chrom.append(parts[0])
+        pos.append(int(parts[1]))
+        vid.append(parts[2])
+        ref.append(parts[3])
+        alt.append(parts[4])
+        qual_text.append(parts[5])
+        qual.append(float(parts[5]) if parts[5] != MISSING else np.nan)
+        filt.append(parts[6])
+        info.append(parts[7] if len(parts) > 7 else MISSING)
+        tail.append(parts[8] if len(parts) > 8 else "")
     return VariantTable(header, _obj(chrom), np.asarray(pos, dtype=np.int64), _obj(vid),
                         _obj(ref), _obj(alt), np.asarray(qual, dtype=np.float64),
-                        _obj(filt), _obj(info), _obj(tail))
+                        _obj(filt), _obj(info), _obj(tail), qual_text=_obj(qual_text))
 
 
 def format_qual(q: float) -> str:
@@ -289,6 +339,20 @@ def _format_qual_column(qual: np.ndarray) -> np.ndarray:
     return out
 
 
+def _qual_column(table: VariantTable) -> np.ndarray:
+    """QUAL strings to write: the text as read wherever ``qual`` was not
+    edited, :func:`format_qual` of the value elsewhere."""
+    if table.qual_text is None:
+        return _format_qual_column(table.qual)
+    q, was = np.asarray(table.qual, dtype=np.float64), table.qual_read
+    edited = ~((q == was) | (np.isnan(q) & np.isnan(was)))
+    if not edited.any():
+        return table.qual_text
+    out = table.qual_text.copy()
+    out[edited] = _format_qual_column(q[edited])
+    return out
+
+
 def _format_extra_info(n: int, extra_info: dict) -> list[str]:
     """Per-record ";K=V" suffixes in dict key order; float columns render as
     ``%g`` of their float64 value, NaN skips the record."""
@@ -306,7 +370,8 @@ def _format_extra_info(n: int, extra_info: dict) -> list[str]:
 def write_vcf(path: str, table: VariantTable, new_filters=None,
               extra_info: dict[str, np.ndarray] | None = None, index: bool = True) -> None:
     """Write a VariantTable back to VCF (``.gz`` -> BGZF), rewriting FILTER and
-    appending ``extra_info`` keys to INFO; FORMAT/sample tails are verbatim.
+    appending ``extra_info`` keys to INFO; FORMAT/sample tails are verbatim,
+    and so is the QUAL text of every record whose QUAL was not edited.
 
     ``index``: a ``.gz`` output also gets its ``.tbi`` (``io/tabix``), as the
     reference's does; unsorted records leave the VCF valid and write no
@@ -317,7 +382,7 @@ def write_vcf(path: str, table: VariantTable, new_filters=None,
     if isinstance(filters, FactorizedColumn):
         filters = filters.to_object()
     pos_s = np.char.mod("%d", table.pos)
-    qual_s = _format_qual_column(table.qual)
+    qual_s = _qual_column(table)
     if str(path).endswith(".gz"):
         from variantcalling_tpu_torch.io.bgzf import BgzfWriter
 

@@ -32,12 +32,12 @@ never scores.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
+from variantcalling_tpu_torch import knobs
 from variantcalling_tpu_torch.engine import EngineError
 
 LEAF = -1
@@ -47,7 +47,7 @@ STRATEGY_HEADER_KEY = "vctpu_forest_strategy"
 #: the strategy request: auto|gather|gemm|wide|pallas (``pallas`` names the
 #: reference's wide-block kernel, whose counterpart here is ``wide``)
 FOREST_STRATEGY_ENV = "VCTPU_FOREST_STRATEGY"
-FOREST_STRATEGIES = ("auto", "gather", "gemm", "wide", "pallas")
+FOREST_STRATEGIES = knobs.REGISTRY[FOREST_STRATEGY_ENV].choices  # auto gather gemm wide pallas
 #: resolved strategies: the kernels on the card, their plain versions on the CPU, the walk
 STRATEGIES = ("cuda-wide", "cuda-gemm", "wide", "gemm", "gather")
 
@@ -341,13 +341,10 @@ def max_tree_leaves(forest: FlatForest) -> int:
 
 
 def requested_strategy() -> str:
-    """``VCTPU_FOREST_STRATEGY``, trimmed and lower-cased (unset or empty:
-    ``auto``); a value outside :data:`FOREST_STRATEGIES` raises EngineError."""
-    raw = os.environ.get(FOREST_STRATEGY_ENV, "").strip().lower() or "auto"
-    if raw not in FOREST_STRATEGIES:
-        raise EngineError(f"{FOREST_STRATEGY_ENV}={raw!r} is not a valid forest strategy; "
-                          f"choose one of {'/'.join(FOREST_STRATEGIES)}")
-    return raw
+    """``VCTPU_FOREST_STRATEGY`` through the knob registry, trimmed and
+    lower-cased (unset or empty: ``auto``); a value outside
+    :data:`FOREST_STRATEGIES` raises EngineError."""
+    return knobs.get_str(FOREST_STRATEGY_ENV)
 
 
 def validate_strategy_env() -> None:

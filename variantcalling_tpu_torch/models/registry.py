@@ -19,6 +19,7 @@ from __future__ import annotations
 import os
 import pickle
 
+from variantcalling_tpu_torch import knobs
 from variantcalling_tpu_torch.engine import EngineError
 from variantcalling_tpu_torch.models.dan import DanConfig, DanModel
 from variantcalling_tpu_torch.models.forest import FlatForest, from_sklearn
@@ -34,7 +35,7 @@ _NAME_PREFIX_FAMILY = {"rf": "forest", "xgb": "forest", "threshold": "threshold"
 
 #: the run's family request: auto|forest|dan (a threshold model is reached through auto)
 MODEL_FAMILY_ENV = "VCTPU_MODEL_FAMILY"
-FAMILY_REQUESTS = ("auto", "forest", "dan")
+FAMILY_REQUESTS = knobs.REGISTRY[MODEL_FAMILY_ENV].choices  # auto forest dan
 
 _REFERENCE_PACKAGE = "variantcalling_tpu"
 _REFERENCE_CLASSES = {
@@ -71,13 +72,10 @@ def standard_model_names(families=("rf", "threshold")) -> list[str]:
 
 
 def requested_family() -> str:
-    """The validated ``VCTPU_MODEL_FAMILY`` request (unset or empty: auto);
-    a malformed value raises :class:`EngineError` (CLI exit 2)."""
-    raw = os.environ.get(MODEL_FAMILY_ENV, "").strip().lower() or "auto"
-    if raw not in FAMILY_REQUESTS:
-        raise EngineError(f"{MODEL_FAMILY_ENV}={raw!r} is not a valid model family; "
-                          f"choose one of {'/'.join(FAMILY_REQUESTS)}")
-    return raw
+    """The validated ``VCTPU_MODEL_FAMILY`` request, through the knob registry
+    (unset or empty: auto); a malformed value raises :class:`EngineError`
+    (CLI exit 2)."""
+    return knobs.get_str(MODEL_FAMILY_ENV)
 
 
 def resolve_family(model: object, requested: str) -> str:

@@ -23,11 +23,11 @@ host), and for genomes whose positions do not pack into 4 bytes (decided
 once per run from contig lengths).
 
 The run's device is ``cuda`` unless ``--backend cpu`` is given; asking for
-the card where there is none exits 2. The forest strategy
-(``VCTPU_FOREST_STRATEGY``) and the model family (``VCTPU_MODEL_FAMILY``)
-are checked before anything is read, decided once per run and recorded in
-the header; a malformed request, or one the model cannot be served by,
-exits 2.
+the card where there is none exits 2. Every ``VCTPU_*`` value is checked
+against the knob registry (:mod:`knobs`) before anything is read: a
+malformed one exits 2. The forest strategy (``VCTPU_FOREST_STRATEGY``) and
+the model family (``VCTPU_MODEL_FAMILY``) are decided once per run and
+recorded in the header; one the model cannot be served by exits 2.
 """
 
 from __future__ import annotations
@@ -46,9 +46,11 @@ import torch
 from variantcalling_tpu_torch import device as device_mod
 from variantcalling_tpu_torch import engine as engine_mod
 from variantcalling_tpu_torch import featurize as feat
+from variantcalling_tpu_torch import knobs
 from variantcalling_tpu_torch.featurize import (CENTER, DEVICE_FEATURES, classify_alleles,
                                                 device_feature_dict, host_featurize)
 from variantcalling_tpu_torch.io import bed as bedio
+from variantcalling_tpu_torch.io import hdf5
 from variantcalling_tpu_torch.io.fasta import FastaReader
 from variantcalling_tpu_torch.io.vcf import FactorizedColumn, VariantTable, read_vcf, write_vcf
 from variantcalling_tpu_torch.models import dan as dan_mod
@@ -58,6 +60,7 @@ from variantcalling_tpu_torch.models import threshold as threshold_mod
 from variantcalling_tpu_torch.models.dan import DanModel
 from variantcalling_tpu_torch.models.forest import FlatForest
 from variantcalling_tpu_torch.ops import intervals as iops
+from variantcalling_tpu_torch.utils import h5_utils
 
 log = logging.getLogger("variantcalling_tpu_torch")
 
@@ -102,7 +105,7 @@ def get_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hpol_filter_length_dist", nargs=2, type=int, default=[10, 10],
                     help="Length and distance to the hpol run to mark")
     ap.add_argument("--runs_file", help="Homopolymer runs BED file")
-    ap.add_argument("--blacklist", help="Blacklist file: bed or pkl of loci (an h5 blacklist exits 2)")
+    ap.add_argument("--blacklist", help="Blacklist file: bed, h5 (first key: chrom and pos columns) or pkl of loci")
     ap.add_argument("--blacklist_cg_insertions", action="store_true", help="Filter CCG/GGC insertions")
     ap.add_argument("--reference_file", required=True, help="Indexed reference FASTA file")
     ap.add_argument("--output_file", required=True, help="Output VCF file")
@@ -123,20 +126,38 @@ def _interval_name(path: str) -> str:
     return base
 
 
+class BlacklistError(ValueError):
+    """A blacklist that holds no loci in the expected form (CLI exit 2)."""
+
+
 def read_blacklist(path: str) -> tuple[np.ndarray, np.ndarray]:
-    """Blacklist loci -> (chrom object array, 1-based pos). Accepts bed and pkl."""
+    """Blacklist loci -> (chrom object array, 1-based pos). Accepts bed, h5
+    (the first frame key's ``chrom`` and ``pos`` columns, either layout of
+    :mod:`utils.h5_utils`) and pkl. An h5 file this reader cannot read raises
+    :class:`hdf5.H5Unsupported`; one without such a frame, BlacklistError."""
     if path.endswith((".bed", ".bed.gz")):
         iv = bedio.read_bed(path)
         return iv.chrom, (iv.start + 1).astype(np.int64)
     if path.endswith((".h5", ".hdf", ".hdf5")):
-        raise NotImplementedError("h5 blacklists need an h5 reader the port does not have yet; "
-                                  "use a bed or pkl blacklist")
+        keys = h5_utils.list_keys(path)
+        if not keys:
+            raise BlacklistError(f"blacklist {path} holds no frame")
+        frame = h5_utils.read_hdf(path, key=keys[0])
+        missing = [c for c in ("chrom", "pos") if c not in frame]
+        if missing:  # a MultiIndex stored by the JAX package's writer ends here too
+            raise BlacklistError(f"blacklist {path}: frame {keys[0]!r} has no {' or '.join(missing)} column "
+                                 f"(columns: {frame.columns})")
+        return _as_object(frame["chrom"]), np.asarray(frame["pos"], dtype=np.int64)
     with open(path, "rb") as fh:
         obj = pickle.load(fh)
     chroms, poss = zip(*obj) if obj else ((), ())
-    out_c = np.empty(len(chroms), dtype=object)
-    out_c[:] = chroms
-    return out_c, np.asarray(poss, dtype=np.int64)
+    return _as_object(chroms), np.asarray(poss, dtype=np.int64)
+
+
+def _as_object(values) -> np.ndarray:
+    out = np.empty(len(values), dtype=object)
+    out[:] = list(values)
+    return out
 
 
 def _is_cg_insertion(table: VariantTable, windows: np.ndarray, center: int) -> np.ndarray:
@@ -377,7 +398,7 @@ def _ensure_output_header(header, engine: str, strategy: str, family: str) -> No
 def run(argv: list[str]) -> int:
     args = get_parser().parse_args(argv)
     try:
-        forest_mod.validate_strategy_env()
+        knobs.validate_all()  # every VCTPU_* value, before anything is read
         family = registry.requested_family()
         device = device_mod.resolve(args.backend)
     except (engine_mod.EngineError, device_mod.DeviceUnavailable) as e:
@@ -386,7 +407,7 @@ def run(argv: list[str]) -> int:
     try:
         model = registry.load_model(args.model_file, args.model_name)
         blacklist = read_blacklist(args.blacklist) if args.blacklist else None
-    except (NotImplementedError, ModuleNotFoundError) as e:
+    except (NotImplementedError, ModuleNotFoundError, hdf5.H5Unsupported, BlacklistError) as e:
         log.error("%s", e)
         return 2
     annotate = {_interval_name(p): bedio.read_intervals(p) for p in args.annotate_intervals}

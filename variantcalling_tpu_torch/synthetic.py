@@ -223,6 +223,26 @@ def _cat(*parts) -> np.ndarray:
     return acc
 
 
+def _world_genome_positions(rng: np.random.Generator, length: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The world's genome codes and its variants' sorted distinct 0-based
+    positions, the first draws of :func:`write_world`'s generator."""
+    genome = _genome(rng, length)
+    cand = np.unique(rng.integers(100, length - 100, size=n + n // 16 + 64))
+    while len(cand) < n:
+        cand = np.unique(np.concatenate([cand, rng.integers(100, length - 100, size=n)]))
+    return genome, np.sort(cand[np.sort(rng.choice(len(cand), size=n, replace=False))])
+
+
+def blacklist_loci(world_seed: int, seed: int, n_loci: int, length: int = 64_444_167,
+                   n_variants: int = 104_000) -> np.ndarray:
+    """Sorted 1-based positions of ``n_loci`` distinct variants of the world
+    that :func:`write_world` writes with ``world_seed`` (and the same
+    ``length`` and ``n_variants``), drawn with ``seed``: loci that a
+    blacklist of that world marks."""
+    _, pos0 = _world_genome_positions(np.random.default_rng(world_seed), length, n_variants)
+    return np.sort(np.random.default_rng(seed).choice(pos0, size=n_loci, replace=False)) + 1
+
+
 def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_167,
                 n_variants: int = 104_000, n_trees: int = 100, depth: int = 7,
                 aggregation: str = "logit_sum", model_name: str = "rf_model_ignore_gt_incl_hpol_runs",
@@ -231,7 +251,9 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
 
     The callset: 65% SNPs, 5% multiallelic SNPs, 15% insertions (half of them
     hmer insertions of the next reference base) and 15% deletions of 1-3 bases,
-    at distinct sorted positions. Returns the paths and the model name.
+    at distinct sorted positions, with QUAL written as GATK writes it (two
+    decimals; 1% of the records at 10,000 and more). Returns the paths and
+    the model name.
 
     ``xgboost=True`` writes ``model.json`` instead: an xgboost JSON model
     (:func:`xgboost_json`, ``binary:logistic``, ``default_left`` and
@@ -242,15 +264,11 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
     """
     rng = np.random.default_rng(seed)
     os.makedirs(d, exist_ok=True)
-    genome = _genome(rng, length)
+    genome, pos0 = _world_genome_positions(rng, length, n_variants)
     fasta = os.path.join(d, "ref.fa")
     _write_fasta(fasta, contig, genome)
 
     n = n_variants
-    cand = np.unique(rng.integers(100, length - 100, size=n + n // 16 + 64))
-    while len(cand) < n:
-        cand = np.unique(np.concatenate([cand, rng.integers(100, length - 100, size=n)]))
-    pos0 = np.sort(cand[np.sort(rng.choice(len(cand), size=n, replace=False))])
     kind = rng.random(n)
     multi = (kind >= 0.65) & (kind < 0.70)
     ins, dele = (kind >= 0.70) & (kind < 0.85), kind >= 0.85
@@ -273,7 +291,9 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
     alt[dele] = anchor[dele]
 
     missing = rng.random(n) < 0.1 if xgboost else np.zeros(n, dtype=bool)
-    qual = np.char.mod(b"%g", np.round(rng.uniform(10, 90, n), 2))
+    q = rng.uniform(10, 90, n)
+    q = np.where(q > 89.2, 10_000 + (q - 89.2) * 25_000, q)  # 1 % at 10,000-30,000
+    qual = np.char.mod(b"%.2f", q)  # GATK's two decimals
     info = _cat(b"DP=", np.char.mod(b"%d", rng.integers(10, 60, n)))
     info = np.where(missing, info, _cat(info, b";SOR=", np.char.mod(b"%.3f", rng.uniform(0, 3, n))))
     gt = np.where(multi, b"1/2", np.where(rng.random(n) < 0.6, b"0/1", b"1/1"))
