@@ -7,8 +7,9 @@ Phases (any failure exits non-zero, and the final result line is not printed):
 1. card: name and power limit (nvidia-smi), torch/CUDA versions; fails
    without a CUDA device;
 2. build: compiles both kernel sources, ``variantcalling_tpu_torch/csrc/
-   forest_wide.cu`` and ``forest_tree_step.cu``, with nvcc for sm_90a, the
-   two nvcc runs started together, and prints each build's seconds;
+   forest_wide.cu`` and ``forest_tree_step.cu``, with nvcc for sm_90a, and
+   the native host engine (``variantcalling_tpu_torch/native/src``) with
+   g++, the three builds started together, and prints each build's seconds;
 3. kernels, each against its plain torch version on the card, bit for bit
    (``torch.equal``), timed with CUDA events beside its bound (``ms``:
    single launches, as the main path makes them; ``device_ms``: launches
@@ -33,24 +34,33 @@ Phases (any failure exits non-zero, and the final result line is not printed):
      card (the plain version's wide encoding would take gigabytes);
 4. pipeline: ``filter_variants_pipeline`` through ``run(argv)`` on two
    synthetic chr20-scale worlds (64,444,167 bp, 104,000 variants), each run
-   with every kernel's launch count set to 0 just before it and read just
-   after, each printing its window path, the bytes it sent to the device
-   per variant and, where it built one, the resident genome's encode and
-   upload seconds and bytes. At 104,000 variants every run gathers its
-   windows from the genome resident on its device, as the reference does:
+   with every kernel's launch count and every native host engine entry
+   point's count set to 0 just before it and read just after, each printing
+   its window path, the bytes it sent to the device per variant, where it
+   built one, the resident genome's encode and upload seconds and bytes,
+   and the host engine's calls and seconds (``HOST_ENGINE``): every GPU run
+   of this script, in every phase, must have been served by the engine
+   (the scan, the INFO formatter and the record assembly; the BGZF codec
+   and the host gather where its path reaches them) and by no plain
+   version. At 104,000 variants every run gathers its windows from the
+   genome resident on its device, as the reference does:
    - the forest pickle, which also holds a threshold model and a DAN (the
      mixed pickle of the reference's ``train_models_pipeline``), with its
      100-tree logit_sum forest: ``--backend cpu``, ``--backend gpu``
-     (``auto`` -> ``cuda-wide``), ``--backend gpu`` with
+     (``auto`` -> ``cuda-wide``), the same with ``VCTPU_NO_NATIVE=1`` (the
+     plain host versions: equal bytes, the host stages of both in
+     ``HOST_ENGINE_TWINS``), ``--backend gpu`` with
      ``VCTPU_FOREST_STRATEGY=gemm`` (-> ``cuda-gemm``), and ``--backend gpu``
      on the host window gather (``featurize.GENOME_RESIDENT_MIN_VARIANTS``
-     set past the table in process, the genome cache hidden), writing
-     ``.vcf.gz``: its ``.tbi`` must exist and a region read through the
-     port's ``TabixIndex`` must return the plain output's records;
+     set past the table in process, the genome cache hidden), reading a
+     BGZF copy of the callset and writing ``.vcf.gz``: its ``.tbi`` must
+     exist and a region read through the port's ``TabixIndex`` must return
+     the plain output's records;
    - an xgboost JSON model (100 trees of depth 6, default_left) over a
      callset where about 10 % of the records lack SOR and GQ:
-     ``--backend cpu``, ``--backend gpu`` (``auto`` -> ``cuda-wide``), and
-     ``--backend gpu`` with ``VCTPU_FOREST_STRATEGY=gemm`` (-> ``cuda-gemm``);
+     ``--backend cpu``, ``--backend gpu`` (``auto`` -> ``cuda-wide``), its
+     ``VCTPU_NO_NATIVE=1`` twin, and ``--backend gpu`` with
+     ``VCTPU_FOREST_STRATEGY=gemm`` (-> ``cuda-gemm``);
    each GPU run must launch its kernel and only its kernel, and write the
    CPU run's bytes outside the ``##vctpu_*`` lines; every GPU run of this
    script must write back each record's QUAL text as the input has it
@@ -115,6 +125,9 @@ FP32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1.979e15  # dense, tensor cores
 
 KERNEL_ROWS = 262_144  # one pipeline CHUNK
+HOST_ENGINE = "host_engine"  # the native (g++) host engine, in phase_build beside the kernels
+#: entry points of the native host engine every pipeline run reaches (ingest, writeback)
+HOST_ENGINE_PATH = ("vcf_parse", "format_float_info", "vcf_assemble")
 NORTH_STAR_ROWS = 5_000_000
 WORLD = dict(contig="chr20", length=64_444_167, n_variants=104_000, n_trees=100, depth=7,
              aggregation="logit_sum")
@@ -191,18 +204,29 @@ def phase_card() -> str:
 
 
 def phase_build() -> dict[str, float]:
-    """Build every kernel source, one nvcc each, all started together."""
+    """Build every kernel source, one nvcc each, and the native host engine
+    (g++), all started together; a failed build fails the smoke."""
+    from variantcalling_tpu_torch import native
     from variantcalling_tpu_torch.csrc import build
 
     def one(name: str) -> float:
         t0 = time.perf_counter()
-        build.build(name, verbose=True)
+        if name == HOST_ENGINE:
+            native.build()
+        else:
+            build.build(name, verbose=True)
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(build.KERNELS)) as pool:
-        seconds = dict(zip(build.KERNELS, pool.map(one, build.KERNELS)))
+    names = (*build.KERNELS, HOST_ENGINE)
+    with ThreadPoolExecutor(len(names)) as pool:
+        seconds = dict(zip(names, pool.map(one, names)))
     for name, sec in seconds.items():
-        print(f"build: {build.library_path(name).name} in {sec:.2f} s", flush=True)
+        path = native.library_path() if name == HOST_ENGINE else build.library_path(name)
+        print(f"build: {path.name} in {sec:.2f} s", flush=True)
+    check(native.available(), "the native host engine was built but does not load")
+    gxx = subprocess.run(["g++", "-dumpfullversion"], capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"host engine: {native.library_path().name}, g++ {gxx}, {native.native_threads()} threads on "
+          f"{os.cpu_count()} host cores", flush=True)
     return seconds
 
 
@@ -485,34 +509,48 @@ def _check_qual(world: dict, data: bytes, label: str) -> int:
 
 
 def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy: str | None = None,
-           model_name: str | None = None, extra: list[str] | None = None, rc_expected: int = 0) -> dict:
+           model_name: str | None = None, extra: list[str] | None = None, rc_expected: int = 0,
+           env: dict[str, str] | None = None, host_path: tuple[str, ...] = (), input_vcf: str | None = None) -> dict:
     """One ``filter_variants_pipeline`` run through ``run(argv)``; every kernel's
-    launch count is set to 0 just before it and read just after. A GPU run's
-    QUAL column must be its input's (:func:`_check_qual`). ``extra``: more
-    arguments; ``rc_expected``: the exit code the run must give (a run that
-    must fail returns before any output is read)."""
+    launch count and every host engine entry point's count are set to 0 just
+    before it and read just after (a ``HOST_ENGINE`` line). A GPU run's QUAL
+    column must be its input's (:func:`_check_qual`), and, unless ``env``
+    turns the engine off, the native host engine must have served
+    :data:`HOST_ENGINE_PATH` and ``host_path`` and no call of the plain
+    versions. ``extra``: more arguments; ``env``: variables set for the run;
+    ``input_vcf``: another input than the world's; ``rc_expected``: the exit
+    code the run must give (a run that must fail returns before any output
+    is read)."""
+    from variantcalling_tpu_torch import native
     from variantcalling_tpu_torch.models import forest as fmod
     from variantcalling_tpu_torch.models import forest_cuda
     from variantcalling_tpu_torch.pipelines import filter_variants
 
-    argv = ["--input_file", world["vcf"], "--model_file", world["model"],
+    argv = ["--input_file", input_vcf or world["vcf"], "--model_file", world["model"],
             "--model_name", model_name or world["model_name"],
             "--reference_file", world["fasta"], "--output_file", str(out), "--backend", backend, *(extra or [])]
     plog = logging.getLogger("variantcalling_tpu_torch")
     plog.setLevel(logging.INFO)
     times = _RunLog()
     plog.addHandler(times)
-    if strategy is not None:
-        os.environ[fmod.FOREST_STRATEGY_ENV] = strategy
+    env = {**(env or {}), **({fmod.FOREST_STRATEGY_ENV: strategy} if strategy is not None else {})}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     torch.cuda.synchronize()
     forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
+    native.reset_calls()
     t0 = time.perf_counter()
     try:
         rc = filter_variants.run(argv)
     finally:
         seconds = time.perf_counter() - t0
         launches = {"forest_wide": forest_cuda.LAUNCHES, "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES}
-        os.environ.pop(fmod.FOREST_STRATEGY_ENV, None)
+        host = {k: dict(v) for k, v in native.CALLS.items() if v["native"] or v["plain"]}
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         plog.removeHandler(times)
     check(rc == rc_expected, f"{label} --backend {backend} run exited {rc}, not {rc_expected}")
     if rc != 0:
@@ -520,22 +558,32 @@ def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy
         print(f"pipeline {label} --backend {backend}: exited {rc} as it must, no output, stages run: "
               f"{sorted(times.stages)}", flush=True)
         return {"rc": rc, "stages": times.stages}
+    no_native = env.get("VCTPU_NO_NATIVE") == "1"
+    print("HOST_ENGINE " + json.dumps({"world": label, "backend": backend, "no_native": no_native,
+                                       "entry_points": host}), flush=True)
+    if no_native:
+        check(all(v["native"] == 0 for v in host.values()), f"{label}: the engine served with VCTPU_NO_NATIVE=1")
+    elif backend == "gpu":
+        missed = [k for k in (*HOST_ENGINE_PATH, *host_path) if host.get(k, {}).get("native", 0) == 0]
+        plain = [k for k, v in host.items() if v["plain"]]
+        check(not missed and not plain, f"{label}: the host engine did not serve {missed}; plain versions "
+              f"served {plain}")
     n = WORLD["n_variants"]
     print(f"pipeline {label} --backend {backend}: {seconds:.2f} s, {n / seconds:.0f} variants/s, "
           f"launches {launches}, windows: {times.window_path}, "
           f"{times.sent['bytes_per_variant']:.2f} bytes a variant sent to the device ({card})", flush=True)
     if times.genome is not None:
         print(f"pipeline {label} --backend {backend}: resident genome built: {times.genome}", flush=True)
-    print("PIPELINE_STAGES " + json.dumps({"world": label, "backend": backend, "total_s": seconds,
-                                           "launches": launches, "window_path": times.window_path,
-                                           "sent": times.sent, "genome_build": times.genome, **times.stages}),
-          flush=True)
+    print("PIPELINE_STAGES " + json.dumps({"world": label, "backend": backend, "no_native": no_native,
+                                           "total_s": seconds, "launches": launches,
+                                           "window_path": times.window_path, "sent": times.sent,
+                                           "genome_build": times.genome, **times.stages}), flush=True)
     data = out.read_bytes()
     data = gzip.decompress(data) if str(out).endswith(".gz") else data
     if backend == "gpu":
         print(f"pipeline {label}: QUAL of all {_check_qual(world, data, label)} records as in the input", flush=True)
     return {"bytes": data, "seconds": seconds, "launches": launches, "window_path": times.window_path,
-            "stages": times.stages, "genome": times.genome}
+            "stages": times.stages, "genome": times.genome, "host": host}
 
 
 def _check_same(gpu: dict, cpu: dict, strategy: str, kernel: str, label: str) -> None:
@@ -564,17 +612,24 @@ def _check_same(gpu: dict, cpu: dict, strategy: str, kernel: str, label: str) ->
 def _host_gather_run(world: dict, tmp: Path, card: str, resident_gpu: dict) -> dict:
     """The forest pickle world on the card with windows from the host gather
     (the resident-genome threshold set past the table, the genome cache hidden
-    for the run), written as ``.vcf.gz``: the resident GPU run's records, a
-    ``.tbi`` beside it, and a region read through the port's index that returns
-    the plain output's records of the region."""
+    for the run), read from a BGZF copy of its callset and written as
+    ``.vcf.gz``, each through the native host engine, as is the gather: the
+    resident GPU run's records, a ``.tbi`` beside it, and a region read through
+    the port's index that returns the plain output's records of the region."""
     from variantcalling_tpu_torch import featurize
     from variantcalling_tpu_torch.io import tabix
 
+    from variantcalling_tpu_torch.io.bgzf import BgzfWriter
+
     out = tmp / "forest_pickle_gpu_host_gather.vcf.gz"
+    vcf_gz = tmp / "forest_pickle_calls.vcf.gz"
+    with BgzfWriter(str(vcf_gz)) as fh:
+        fh.write(Path(world["vcf"]).read_bytes())
     saved = featurize.GENOME_RESIDENT_MIN_VARIANTS, featurize._DEVICE_GENOME_CACHE
     featurize.GENOME_RESIDENT_MIN_VARIANTS, featurize._DEVICE_GENOME_CACHE = WORLD["n_variants"] + 1, {}
     try:
-        run = _drive(world, out, "gpu", card, "forest_pickle_host_gather")
+        run = _drive(world, out, "gpu", card, "forest_pickle_host_gather", input_vcf=str(vcf_gz),
+                     host_path=("bgzf_decompress_array", "gather_windows_contig", "bgzf_compress"))
     finally:
         featurize.GENOME_RESIDENT_MIN_VARIANTS, featurize._DEVICE_GENOME_CACHE = saved
     check(run["window_path"] == "host gather", f"the host-gather run took {run['window_path']}")
@@ -613,9 +668,16 @@ def phase_pipeline(tmp: Path, card: str) -> dict:
         # auto: every forest within GEMM_MAX_LEAVES, default_left or not, on the wide kernel
         gpu = _drive(world, tmp / f"{label}_gpu.vcf", "gpu", card, label)
         _check_same(gpu, cpu, "cuda-wide", "forest_wide", label)
+        twin = _drive(world, tmp / f"{label}_gpu_no_native.vcf", "gpu", card, label + "_no_native",
+                      env={"VCTPU_NO_NATIVE": "1"})
+        check(twin["bytes"] == gpu["bytes"] and twin["launches"] == gpu["launches"],
+              f"{label}: the VCTPU_NO_NATIVE=1 run differs from the native run")
+        print("HOST_ENGINE_TWINS " + json.dumps({"world": label, **{
+            stage: {"native": gpu["stages"].get(stage), "no_native": twin["stages"].get(stage)}
+            for stage in ("ingest", "host_featurize", "writeback")}}), flush=True)
         gemm = _drive(world, tmp / f"{label}_gpu_gemm.vcf", "gpu", card, label + "_gemm", strategy="gemm")
         _check_same(gemm, cpu, "cuda-gemm", "forest_tree_step", label + " (gemm)")
-        runs[label] = {"world": world, "wide_gpu": gpu, "gemm_gpu": gemm}
+        runs[label] = {"world": world, "wide_gpu": gpu, "wide_gpu_no_native": twin, "gemm_gpu": gemm}
         if not xgboost:
             runs[label]["host_gather_gpu"] = _host_gather_run(world, tmp, card, gpu)
     return runs

@@ -6,7 +6,10 @@
 - a subprocess run of the port's CLI with ``--backend cpu`` ends with none
   of those packages in ``sys.modules``;
 - without a CUDA device and without ``--backend cpu`` the CLI exits 2
-  with a message and writes nothing, and the API raises.
+  with a message and writes nothing, and the API raises;
+- the native host engine (``variantcalling_tpu_torch/native/``) names no
+  path of ``variantcalling_tpu/`` in any source, and its build command reads
+  files of the port only.
 """
 
 import ast
@@ -109,3 +112,31 @@ def test_api_defaults_to_the_card_and_never_falls_back(small_world, monkeypatch)
     with pytest.raises(device.DeviceUnavailable):
         featurize.materialize_features(hf)
     assert featurize.materialize_features(hf, device="cpu").matrix().shape == (300, len(hf.names))
+
+
+NATIVE = ROOT / "variantcalling_tpu_torch" / "native"
+
+
+@pytest.mark.parametrize("path", sorted(p for p in NATIVE.rglob("*") if p.is_file() and "__pycache__" not in p.parts),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_native_sources_name_no_reference_path(path):
+    text = path.read_text()
+    assert "variantcalling_tpu/" not in text and "variantcalling_tpu." not in text
+    assert "variantcalling_tpu\\" not in text
+
+
+def test_native_build_reads_only_files_of_the_port(tmp_path):
+    """Every file the g++ command names lies in the port's ``native/src``
+    (or is the output); the sources it includes lie there too."""
+    from variantcalling_tpu_torch import native
+
+    out = tmp_path / "lib.so"
+    cmd = native.build_command(out)
+    files = [Path(a) for a in cmd[1:] if a.endswith((".cc", ".h", ".cpp"))]
+    assert files and all(f.resolve().parent == NATIVE / "src" for f in files)
+    assert all(not a.startswith(("-I", "-L", "-include")) for a in cmd), cmd
+    assert cmd[cmd.index("-o") + 1] == str(out)
+    for src in (NATIVE / "src").iterdir():
+        for line in src.read_text().splitlines():
+            if line.startswith("#include \""):
+                assert (NATIVE / "src" / line.split('"')[1]).exists(), line

@@ -1,12 +1,13 @@
 """Variant featurization: VariantTable + reference genome -> feature columns.
 
 Counterpart of ``variantcalling_tpu/featurize.py``. The host computes the
-allele and INFO/FORMAT columns; the fixed-width reference windows around
+allele and INFO/FORMAT columns (a table from the native scan gives them as
+arrays: no string is parsed); the fixed-width reference windows around
 each variant ((N, 41) uint8, A0 C1 G2 T3 N4) come either from the host
-gather (:func:`gather_windows`) or, for large tables, from the encoded
-genome resident on the run's device (:func:`device_genome`), gathered
-there from one packed 4-byte position a variant
-(:func:`windows_from_packed`). The six window features
+gather (:func:`gather_windows`, one ``native.gather_windows_contig`` a
+contig) or, for large tables, from the encoded genome resident on the
+run's device (:func:`device_genome`), gathered there from one packed
+4-byte position a variant (:func:`windows_from_packed`). The six window features
 (:data:`DEVICE_FEATURES`) are torch ops on the run's device
 (:func:`device_feature_dict`).
 """
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from variantcalling_tpu_torch import device as device_mod
+from variantcalling_tpu_torch import native
 from variantcalling_tpu_torch.io.bed import IntervalSet
 from variantcalling_tpu_torch.io.fasta import FastaReader
 from variantcalling_tpu_torch.io.vcf import VariantTable
@@ -82,7 +84,13 @@ class AlleleColumns:
 
 
 def classify_alleles(table: VariantTable) -> AlleleColumns:
-    """Indel/SNP classification from the REF/ALT strings."""
+    """Indel/SNP classification from the REF/ALT strings, or from the native
+    scan's allele classes (``aux.alle``) for a scanned table."""
+    if table.aux is not None:
+        a = table.aux.alle
+        cls = a["aclass"]
+        return AlleleColumns((cls & 1).astype(bool), (cls & 2).astype(bool), (cls & 4).astype(bool),
+                             *(a[k].copy() for k in ("indel_length", "indel_nuc", "ref_code", "alt_code", "n_alts")))
     n = len(table)
     is_snp = np.zeros(n, dtype=bool)
     is_indel = np.zeros(n, dtype=bool)
@@ -119,23 +127,37 @@ def classify_alleles(table: VariantTable) -> AlleleColumns:
                          alt_code, table.n_alts())
 
 
-def _contig_runs(chrom: np.ndarray, n: int):
-    """(codes, uniques, bounds) of the CHROM column, uniques in order of first
+def _contig_runs(table: VariantTable, n: int):
+    """(codes, uniques, bounds) of the table's CHROM column (from the native
+    scan's dictionary codes where it has them), uniques in order of first
     appearance; ``bounds`` are the run limits when each contig forms one
     contiguous run (a sorted VCF), else None."""
-    chrom = np.asarray(chrom)
     if n == 0:
         return np.empty(0, np.int64), np.empty(0, dtype=object), np.zeros(1, np.int64)
-    uniq, first, inv = np.unique(chrom, return_index=True, return_inverse=True)
+    names = table.chrom_codes is not None
+    values = table.chrom_codes if names else np.asarray(table.chrom)
+    uniq, first, inv = np.unique(values, return_index=True, return_inverse=True)
     order = np.argsort(first, kind="stable")
     rank = np.empty(len(order), dtype=np.int64)
     rank[order] = np.arange(len(order))
     codes = rank[inv.reshape(-1)]
-    uniques = uniq[order]
+    uniques = table.chrom_names[uniq[order]] if names else uniq[order]
     change = np.flatnonzero(codes[1:] != codes[:-1]) + 1
     contiguous = len(change) == len(uniques) - 1
     bounds = np.concatenate([[0], change, [n]]) if contiguous else None
     return codes, uniques, bounds
+
+
+def _gather_contig(seq: np.ndarray, pos0: np.ndarray, radius: int, out: np.ndarray | None = None) -> np.ndarray:
+    """The windows of one contig: ``native.gather_windows_contig`` (into
+    ``out`` where it is a contiguous slice), else a padded numpy gather."""
+    rows = native.gather_windows_contig(seq, pos0, radius, out=out)
+    if rows is None:
+        padded = np.concatenate([np.full(radius, 4, np.uint8), seq, np.full(radius, 4, np.uint8)])
+        idx = (pos0 + radius)[:, None] + np.arange(-radius, radius + 1, dtype=np.int64)[None, :]
+        valid = (idx >= 0) & (idx < len(padded))
+        rows = np.where(valid, padded[np.clip(idx, 0, len(padded) - 1)], 4)
+    return rows
 
 
 def gather_windows(table: VariantTable, fasta: FastaReader, radius: int = WINDOW_RADIUS) -> np.ndarray:
@@ -145,18 +167,21 @@ def gather_windows(table: VariantTable, fasta: FastaReader, radius: int = WINDOW
     """
     n = len(table)
     out = np.full((n, 2 * radius + 1), 4, dtype=np.uint8)
-    codes, uniques, bounds = _contig_runs(table.chrom, n)
+    codes, uniques, bounds = _contig_runs(table, n)
     pos0 = table.pos.astype(np.int64) - 1
-    offs = np.arange(-radius, radius + 1, dtype=np.int64)[None, :]
     for ui, contig in enumerate(uniques):
         if contig not in fasta.references:
             continue
         seq = fasta.fetch_encoded(contig)
-        padded = np.concatenate([np.full(radius, 4, np.uint8), seq, np.full(radius, 4, np.uint8)])
-        rows = slice(int(bounds[ui]), int(bounds[ui + 1])) if bounds is not None else codes == ui
-        idx = (pos0[rows] + radius)[:, None] + offs
-        valid = (idx >= 0) & (idx < len(padded))
-        out[rows] = np.where(valid, padded[np.clip(idx, 0, len(padded) - 1)], 4)
+        if bounds is not None:
+            lo, hi = int(bounds[ui]), int(bounds[ui + 1])
+            target = out[lo:hi]
+            rows = _gather_contig(seq, pos0[lo:hi], radius, out=target)
+            if rows is not target:
+                target[:] = rows
+        else:
+            m = codes == ui
+            out[m] = _gather_contig(seq, pos0[m], radius)
     return out
 
 
@@ -277,7 +302,7 @@ def globalize_positions(table: VariantTable, genome: DeviceGenome) -> np.ndarray
     gather.
     """
     n = len(table)
-    codes, uniques, _ = _contig_runs(table.chrom, n)
+    codes, uniques, _ = _contig_runs(table, n)
     off = np.asarray([genome.offsets.get(c, -1) for c in uniques], dtype=np.int64)[codes]
     clen = np.asarray([genome.lengths.get(c, -1) for c in uniques], dtype=np.int64)[codes]
     pos0 = table.pos.astype(np.int64) - 1
@@ -315,13 +340,19 @@ def windows_from_packed(genome_codes: torch.Tensor, gpos: torch.Tensor,
 
 
 def _compute_af(table: VariantTable) -> np.ndarray:
-    """Allele fraction per record: FORMAT AD (alt/sum) where present, else INFO AF."""
+    """Allele fraction per record: FORMAT AD (alt/sum) where present, else INFO
+    AF; a scanned table's AD comes from the scan (``aux.ad``)."""
     info_af = table.info_field("AF", dtype=np.float64).astype(np.float32)
-    ad = table.format_numeric("AD")
-    if ad.shape[1] < 2:
-        return info_af
-    tot = np.sum(np.where(ad > 0, ad, 0), axis=1)
-    alt = np.where(ad[:, 1] > 0, ad[:, 1], 0)
+    if table.aux is not None:
+        ad1, tot = table.aux.ad[:, 1], table.aux.ad[:, 2]
+        tot = np.where(np.isnan(tot), 0, tot)
+        alt = np.where(np.isnan(ad1) | (ad1 < 0), 0, ad1)
+    else:
+        ad = table.format_numeric("AD")
+        if ad.shape[1] < 2:
+            return info_af
+        tot = np.sum(np.where(ad > 0, ad, 0), axis=1)
+        alt = np.where(ad[:, 1] > 0, ad[:, 1], 0)
     with np.errstate(invalid="ignore", divide="ignore"):
         ad_af = np.where(tot > 0, alt / np.maximum(tot, 1), np.nan).astype(np.float32)
     return np.where(np.isnan(ad_af), info_af, ad_af)

@@ -4,8 +4,10 @@ Counterpart of ``variantcalling_tpu/io/bgzf.py``'s writer and block
 reader: independent <=64 KiB gzip members carrying the BC extra field,
 closed by the 28-byte EOF sentinel (:data:`BGZF_EOF`), written by
 :class:`BgzfWriter`; :func:`block_spans` and :func:`iter_blocks` read a
-file back block by block for the ``.tbi`` index (``io/tabix.py``). Pure
-``zlib``.
+file back block by block for the ``.tbi`` index (``io/tabix.py``). Full
+blocks are deflated by the native engine where it serves
+(``native.bgzf_compress``), else by ``zlib`` here; both give the same
+bytes where they use the same ``libz``.
 """
 
 from __future__ import annotations
@@ -73,25 +75,43 @@ def iter_blocks(path: str):
         yield off, inflate_block(data, off, bsize)
 
 
+def _compress_full_blocks(chunk, level: int) -> bytes:
+    """BGZF blocks (no EOF block) of a payload whose length is a multiple of
+    :data:`MAX_BLOCK_DATA`: from the native engine, which deflates straight
+    from the caller's buffer, else one :func:`compress_block` each."""
+    from variantcalling_tpu_torch import native
+
+    out = native.bgzf_compress(chunk, level)
+    if out is not None:
+        return out[:-len(BGZF_EOF)]  # close() writes the EOF block once
+    view = memoryview(chunk)
+    return b"".join(compress_block(view[i:i + MAX_BLOCK_DATA], level) for i in range(0, len(view), MAX_BLOCK_DATA))
+
+
 class BgzfWriter:
-    """Binary file-like writer emitting BGZF blocks."""
+    """Binary file-like writer emitting BGZF blocks: every full block through
+    :func:`_compress_full_blocks`, the last one through :func:`compress_block`."""
 
     def __init__(self, path: str, level: int = 6):
         self._fh = open(path, "wb")
         self._buf = bytearray()
         self._level = level
 
-    def write(self, data: bytes) -> int:
+    def write(self, data) -> int:
+        n_in = len(data)
+        if not self._buf and n_in >= MAX_BLOCK_DATA:  # large write: no copy on the way to deflate
+            view = memoryview(data)
+            n_full = (n_in // MAX_BLOCK_DATA) * MAX_BLOCK_DATA
+            self._fh.write(_compress_full_blocks(view[:n_full], self._level))
+            self._buf += view[n_full:]
+            return n_in
         self._buf += data
         if len(self._buf) >= MAX_BLOCK_DATA:
             n_full = (len(self._buf) // MAX_BLOCK_DATA) * MAX_BLOCK_DATA
-            view = memoryview(self._buf)
-            self._fh.write(b"".join(
-                compress_block(view[i:i + MAX_BLOCK_DATA], self._level)
-                for i in range(0, n_full, MAX_BLOCK_DATA)))
-            view.release()
+            chunk = bytes(self._buf[:n_full])
             del self._buf[:n_full]
-        return len(data)
+            self._fh.write(_compress_full_blocks(chunk, self._level))
+        return n_in
 
     def close(self) -> None:
         if self._fh.closed:

@@ -1,12 +1,13 @@
 """Indexed FASTA reader: ``.fa`` + ``.fai`` (the index is built when missing).
 
-Counterpart of ``variantcalling_tpu/io/fasta.py``, without its native
-encoder: contigs are encoded with one numpy table lookup and held in
-memory for the run. The encoded genome persists beside the FASTA as the
-reference's ``.venc`` sidecar, byte for byte its format (so either package
-reads the other's): ``VCENC1\n``, one JSON line ``{"key": {"path",
-"mtime_ns", "size"}, "contigs": [[name, offset, length], ...]}``, then every
-contig's codes in index order. A sidecar whose key matches the FASTA's
+Counterpart of ``variantcalling_tpu/io/fasta.py``: contigs are encoded by
+the native engine (``native.fasta_encode``, threaded), else with one numpy
+table lookup, and held in memory for the run, up to
+``VCTPU_FASTA_CACHE_BYTES``. The encoded genome persists beside the FASTA
+as the reference's ``.venc`` sidecar, byte for byte its format (so either
+package reads the other's): ``VCENC1\n``, one JSON line ``{"key":
+{"path", "mtime_ns", "size"}, "contigs": [[name, offset, length], ...]}``,
+then every contig's codes in index order. A sidecar whose key matches the FASTA's
 (mtime and size) is memory-mapped when the reader opens, and serves
 :meth:`FastaReader.fetch_encoded` with no encode. ``VCTPU_GENOME_CACHE=0``
 reads and writes none; ``VCTPU_GENOME_CACHE_DIR`` keeps sidecars in one
@@ -21,9 +22,9 @@ import logging
 import os
 from dataclasses import dataclass
 
-from variantcalling_tpu_torch import knobs
-
 import numpy as np
+
+from variantcalling_tpu_torch import knobs, native
 
 log = logging.getLogger(__name__)
 
@@ -231,15 +232,23 @@ class FastaReader:
     # -- encoded contigs -----------------------------------------------------
 
     def fetch_encoded(self, chrom: str) -> np.ndarray:
-        """Whole-contig uint8 codes: from the sidecar, else encoded once per run
-        and cached; the encode that completes the genome writes the sidecar."""
+        """Whole-contig uint8 codes: from the sidecar, else encoded and kept in a
+        cache of at most ``VCTPU_FASTA_CACHE_BYTES`` (the oldest contigs leave
+        first; 0 keeps none); the encode that completes the genome in the
+        cache writes the sidecar."""
         got = self.sidecar_codes(chrom)
         if got is None:
             got = self._encoded.get(chrom)
         if got is None:
-            got = self._encoded[chrom] = self.encode_contig(chrom)
-            if len(self._encoded) == len(self._index):
-                self.persist_encoded()
+            got = self.encode_contig(chrom)
+            budget = knobs.get_int("VCTPU_FASTA_CACHE_BYTES")
+            if len(got) <= budget:
+                total = sum(len(v) for v in self._encoded.values()) + len(got)
+                while self._encoded and total > budget:
+                    total -= len(self._encoded.pop(next(iter(self._encoded))))
+                self._encoded[chrom] = got
+                if len(self._encoded) == len(self._index):
+                    self.persist_encoded()
         return got
 
     def encode_all(self) -> None:
@@ -259,6 +268,9 @@ class FastaReader:
         raw = np.frombuffer(self._fh.read(byte_end - e.offset), dtype=np.uint8)
         if e.line_width == e.line_bases:  # no newlines inside the body
             return _CODE[raw[: e.length]]
+        enc = native.fasta_encode(raw, e.line_bases, e.line_width, e.length)
+        if enc is not None:
+            return enc
         full = len(raw) // e.line_width
         body = _CODE[raw[: full * e.line_width].reshape(full, e.line_width)[:, : e.line_bases]]
         tail = _CODE[raw[full * e.line_width:][: e.line_bases]]

@@ -1,15 +1,27 @@
 """Columnar VCF reader and writer (host-side ingest and writeback).
 
 Counterpart of ``variantcalling_tpu/io/vcf.py`` on its default path, the
-native engine's: the file is read as bytes and split on ``\n`` alone, so a
-CRLF file's ``##`` lines keep their ``\r`` (written back as ``\r\n``) while
-the ``#CHROM`` line and the records drop it, as the reference's
-``parse_header_bytes`` and record scanner do. The FORMAT and sample columns
-of each record are kept as one verbatim tail string and written back
-unchanged; so is the QUAL text of every record whose QUAL was not edited
-(the reference splices CHROM..QUAL verbatim, ``write_vcf(verbatim_core=
-True)``). The other core columns are rendered from the column arrays, with
-the reference's ``_format_extra_info_bytes`` rendering of new INFO keys.
+native engine's. The whole file is scanned by the port's native host
+engine (``native.vcf_parse``; a ``.gz`` inflated by
+``native.bgzf_decompress_array`` first): numbers, sample 0's FORMAT
+values, the hot INFO keys and the allele classes come out as arrays
+(:class:`NativeAux`), and the string columns stay byte spans into the text
+until they are read.
+The filter pipeline's writeback (``write_vcf(verbatim_core=True)``) then
+splices each record from that text: CHROM..QUAL and FORMAT..end verbatim,
+a new FILTER, INFO with ``;TREE_SCORE=`` appended (``native.vcf_assemble``,
+``native.format_float_info``).
+
+The plain versions, which serve with ``VCTPU_NO_NATIVE=1``, without a
+compiler, or where the scan declines the input (a malformed record), give
+the same columns and bytes: the file is read as bytes and split on ``\n``
+alone, so a CRLF file's ``##`` lines keep their ``\r`` (written back as
+``\r\n``) while the ``#CHROM`` line and the records drop it, as the
+reference's ``parse_header_bytes`` and record scanner do; each record's
+FORMAT and sample columns are kept as one verbatim tail string, and so is
+its QUAL text, written back for every record whose QUAL was not edited;
+the other core columns are rendered from the column arrays, with the
+reference's ``_format_extra_info_bytes`` rendering of new INFO keys.
 """
 
 from __future__ import annotations
@@ -108,6 +120,33 @@ class VcfHeader:
         return "\t".join(cols)
 
 
+@dataclass
+class NativeAux:
+    """What the native scan (``native.vcf_parse``) gives beside the columns,
+    row-aligned with the owning :class:`VariantTable`: the text buffer and
+    each record's byte spans in it (for the verbatim writeback), sample 0's
+    GT, GQ, DP and AD, the hot INFO keys (``native.VCF_INFO_KEYS``) and the
+    allele classes, so that featurization parses no string."""
+
+    buf: np.ndarray  # uint8 text of the whole file
+    line_spans: np.ndarray  # (n, 2) [start, end) byte offsets
+    tail_spans: np.ndarray  # (n, 2): FORMAT..line end (empty without samples)
+    info_spans: np.ndarray
+    filter_spans: np.ndarray
+    gt: np.ndarray  # (n, 2) int8
+    gq: np.ndarray  # (n,) float32, NaN missing
+    dp_fmt: np.ndarray  # (n,) float32
+    ad: np.ndarray  # (n, 3) float32: ref, first alt, total of the positive counts
+    info_vals: np.ndarray  # (n, len(info_keys)) float64
+    info_keys: tuple
+    alle: dict  # aclass, indel_length, indel_nuc, ref_code, alt_code, n_alts, ref_len
+
+    def take(self, keep) -> "NativeAux":
+        return NativeAux(self.buf, *(getattr(self, f)[keep] for f in (
+            "line_spans", "tail_spans", "info_spans", "filter_spans", "gt", "gq", "dp_fmt", "ad", "info_vals")),
+            self.info_keys, {k: v[keep] for k, v in self.alle.items()})
+
+
 class FactorizedColumn:
     """Low-cardinality string column held as (int32 codes, uniques)."""
 
@@ -128,6 +167,41 @@ class FactorizedColumn:
         return np.asarray(self.uniques, dtype=object)[self.codes]
 
 
+class _LazyCols:
+    """String columns held as (n, 2) byte spans into one text buffer, decoded
+    on first use; a row subset takes the spans only."""
+
+    __slots__ = ("buf", "spans")
+
+    def __init__(self, buf: bytes, spans: dict[str, np.ndarray]):
+        self.buf = buf
+        self.spans = spans
+
+    def take(self, keep) -> "_LazyCols":
+        return _LazyCols(self.buf, {k: v[keep] for k, v in self.spans.items()})
+
+    def materialize(self, name: str) -> np.ndarray:
+        buf = self.buf
+        return _obj([buf[a:b].decode() for a, b in self.spans[name].tolist()])
+
+
+#: the string columns a scanned table decodes only when they are read
+LAZY_COLUMNS = ("vid", "ref", "alt", "filters", "info", "tail", "qual_text")
+
+
+def _lazy_column(name: str) -> property:
+    slot = "_" + name
+
+    def get(self):
+        v = getattr(self, slot)
+        if v is None and self._lazy is not None and name in self._lazy.spans:
+            v = self._lazy.materialize(name)
+            setattr(self, slot, v)
+        return v
+
+    return property(get, lambda self, v: setattr(self, slot, v))
+
+
 class VariantTable:
     """Columnar view of a VCF: one numpy array per column over all records.
 
@@ -136,22 +210,30 @@ class VariantTable:
     record's QUAL as read, beside the float ``qual`` the features use, and
     ``qual_read`` a copy of ``qual`` as read: a record whose ``qual`` still
     equals it writes its text back (both None: a table with no text).
+
+    A table from the native scan also has ``aux`` (:class:`NativeAux`), and
+    its string columns (:data:`LAZY_COLUMNS`) are spans into the text until
+    they are read; ``chrom_codes`` and ``chrom_names`` hold its CHROM
+    dictionary. Row subsets (:meth:`subset`) carry all of it along.
     """
 
-    def __init__(self, header: VcfHeader, chrom, pos, vid, ref, alt, qual,
-                 filters, info, tail, qual_text=None, qual_read=None):
+    vid, ref, alt, filters, info, tail, qual_text = (_lazy_column(c) for c in LAZY_COLUMNS)
+
+    def __init__(self, header: VcfHeader, chrom, pos, vid, ref, alt, qual, filters, info, tail,
+                 qual_text=None, qual_read=None, *, aux: NativeAux | None = None, lazy: _LazyCols | None = None,
+                 chrom_codes: np.ndarray | None = None, chrom_names: np.ndarray | None = None):
         self.header = header
         self.chrom = chrom
         self.pos = pos
-        self.vid = vid
-        self.ref = ref
-        self.alt = alt
         self.qual = qual
-        self.filters = filters
-        self.info = info
-        self.tail = tail
-        self.qual_text = qual_text
-        self.qual_read = None if qual_text is None else \
+        self._lazy = lazy
+        for name, v in zip(LAZY_COLUMNS, (vid, ref, alt, filters, info, tail, qual_text)):
+            setattr(self, "_" + name, v)
+        self.aux = aux
+        self.chrom_codes = chrom_codes
+        self.chrom_names = chrom_names
+        has_text = qual_text is not None or (lazy is not None and "qual_text" in lazy.spans)
+        self.qual_read = None if not has_text else \
             (np.array(qual, dtype=np.float64) if qual_read is None else qual_read)
 
     def __len__(self) -> int:
@@ -162,19 +244,36 @@ class VariantTable:
         return len(self.header.samples)
 
     def subset(self, keep: np.ndarray) -> "VariantTable":
-        """Row-subset every column by a boolean/index array."""
-        return VariantTable(self.header, self.chrom[keep], self.pos[keep], self.vid[keep],
-                            self.ref[keep], self.alt[keep], self.qual[keep],
-                            self.filters[keep], self.info[keep], self.tail[keep],
-                            *(() if self.qual_text is None else (self.qual_text[keep], self.qual_read[keep])))
+        """Row-subset every column (and the scan's arrays) by a boolean/index array."""
+        held = {c: getattr(self, "_" + c) for c in LAZY_COLUMNS}
+        pending = self._lazy is not None and any(v is None for v in held.values())
+
+        def sub(a):
+            return None if a is None else a[keep]
+
+        return VariantTable(self.header, self.chrom[keep], self.pos[keep], sub(held["vid"]), sub(held["ref"]),
+                            sub(held["alt"]), self.qual[keep], sub(held["filters"]), sub(held["info"]),
+                            sub(held["tail"]), sub(held["qual_text"]), sub(self.qual_read),
+                            aux=None if self.aux is None else self.aux.take(keep),
+                            lazy=self._lazy.take(keep) if pending else None,
+                            chrom_codes=sub(self.chrom_codes), chrom_names=self.chrom_names)
 
     def n_alts(self) -> np.ndarray:
+        if self.aux is not None:
+            return self.aux.alle["n_alts"].copy()
         return np.fromiter(
             (0 if a in (MISSING, "") else a.count(",") + 1 for a in self.alt),
             dtype=np.int32, count=len(self))
 
     def info_field(self, name: str, dtype=np.float64, missing=np.nan, index: int = 0) -> np.ndarray:
-        """One INFO key per record (scalar, or the ``index``-th list element)."""
+        """One INFO key per record (scalar, or the ``index``-th list element);
+        a hot key of a scanned table comes from the scan (a bare flag: 1)."""
+        if self.aux is not None and index == 0 and name in self.aux.info_keys:
+            vals = self.aux.info_vals[:, self.aux.info_keys.index(name)]
+            out = np.full(len(self), missing, dtype=dtype)
+            ok = ~np.isnan(vals)
+            out[ok] = vals[ok].astype(dtype)
+            return out
         out = np.full(len(self), missing, dtype=dtype)
         key_eq = name + "="
         conv = np.dtype(dtype).type
@@ -217,6 +316,8 @@ class VariantTable:
 
     def genotypes(self, sample: int = 0) -> np.ndarray:
         """(n, 2) int8 diploid genotype; -1 for missing/haploid-second slot; phasing dropped."""
+        if sample == 0 and self.aux is not None:
+            return self.aux.gt.copy()
         out = np.full((len(self), 2), -1, dtype=np.int8)
         for i, g in enumerate(self.format_field("GT", sample)):
             if not g:
@@ -228,7 +329,11 @@ class VariantTable:
 
     def format_numeric(self, name: str, sample: int = 0, max_len: int | None = None,
                        missing=-1) -> np.ndarray:
-        """Padded (n, max_len) float64 tensor of a comma-listed FORMAT field (e.g. AD)."""
+        """Padded (n, max_len) float64 tensor of a comma-listed FORMAT field (e.g. AD);
+        sample 0's GQ and DP of a scanned table come from the scan."""
+        if sample == 0 and self.aux is not None and name in ("GQ", "DP") and max_len in (None, 1):
+            vals = (self.aux.gq if name == "GQ" else self.aux.dp_fmt).astype(np.float64)[:, None]
+            return np.where(np.isnan(vals), missing, vals)
         split = [r.split(",") if r not in (None, MISSING, "") else []
                  for r in self.format_field(name, sample)]
         if max_len is None:
@@ -278,13 +383,92 @@ def _text_lines(path: str):
                 return
 
 
+# a .gz above this size is read by the plain reader, in blocks, rather than
+# inflated whole by the native engine
+NATIVE_INFLATE_MAX_BYTES = 512 << 20
+
+
 def read_vcf(path: str) -> VariantTable:
     """Parse a VCF (``.vcf`` or ``.vcf.gz``) into a :class:`VariantTable`.
 
     Lines split on ``\n`` alone. ``##`` lines before the first record are
     the header, kept with any ``\r``; the ``#CHROM`` line and the records
     lose one trailing ``\r``; empty lines and ``#`` lines among the records
-    are skipped, as the reference's scanner skips them."""
+    are skipped, as the reference's scanner skips them. The native scan
+    (:func:`_read_vcf_native`) serves where it can, else the plain reader:
+    both give the same columns."""
+    table = _read_vcf_native(path)
+    return table if table is not None else _read_vcf_plain(path)
+
+
+def parse_header_bytes(bufb: bytes) -> tuple[VcfHeader, int]:
+    """The header of a VCF text buffer, and the offset of its first record line."""
+    header = VcfHeader()
+    off, n = 0, len(bufb)
+    while off < n:
+        nl = bufb.find(b"\n", off)
+        end = nl if nl >= 0 else n
+        if end > off and bufb[off: off + 1] != b"#":
+            break
+        line = bufb[off:end].decode("utf-8", "replace")
+        if line.startswith("##"):
+            header.add_meta_line(line)
+        elif line.startswith("#"):
+            names = line.rstrip("\r").split("\t")
+            if len(names) > 9:
+                header.samples = names[9:]
+        off = end + 1
+    return header, min(off, n)
+
+
+def _read_vcf_native(path: str) -> VariantTable | None:
+    """The whole file through the native scan (a ``.gz`` inflated by the
+    engine first); None where the engine is off, the ``.gz`` is larger than
+    :data:`NATIVE_INFLATE_MAX_BYTES`, or the scan declines the input."""
+    from variantcalling_tpu_torch import native
+
+    gz = str(path).endswith((".gz", ".bgz"))
+    if not native.available() or (gz and os.path.getsize(path) > NATIVE_INFLATE_MAX_BYTES):
+        if gz:
+            native.note_plain("bgzf_decompress_array")
+        native.note_plain("vcf_parse")
+        return None
+    with open(path, "rb") as fh:
+        bufb = fh.read()
+    if gz:
+        arr = native.bgzf_decompress_array(bufb)
+        if arr is None:
+            native.note_plain("vcf_parse")
+            return None
+        bufb = arr.tobytes()
+    buf = np.frombuffer(bufb, dtype=np.uint8)
+    header, _ = parse_header_bytes(bufb)
+    parsed = native.vcf_parse(buf, len(header.samples))
+    return None if parsed is None else _table_from_parsed(parsed, header, bufb, buf)
+
+
+def _table_from_parsed(parsed: dict, header: VcfHeader, bufb: bytes, buf: np.ndarray) -> VariantTable:
+    """A table over one scan of ``buf`` (``bufb``: the same bytes): numbers
+    from the scan, string columns lazy, QUAL's text the span between ALT and
+    FILTER."""
+    from variantcalling_tpu_torch import native
+
+    alt, filt = parsed["alt_spans"], parsed["filter_spans"]
+    lazy = _LazyCols(bufb, {"vid": parsed["id_spans"], "ref": parsed["ref_spans"], "alt": alt,
+                            "filters": filt, "info": parsed["info_spans"], "tail": parsed["tail_spans"],
+                            "qual_text": np.stack([alt[:, 1] + 1, filt[:, 0] - 1], axis=1)})
+    aux = NativeAux(buf, parsed["line_spans"], parsed["tail_spans"], parsed["info_spans"], filt, parsed["gt"],
+                    parsed["gq"], parsed["dp_fmt"], parsed["ad"], parsed["info_vals"], native.VCF_INFO_KEYS,
+                    {k: parsed[k] for k in ("aclass", "indel_length", "indel_nuc", "ref_code", "alt_code",
+                                            "n_alts", "ref_len")})
+    names = _obj(parsed["chroms"])
+    codes = parsed["chrom_codes"]
+    return VariantTable(header, names[codes], parsed["pos"], None, None, None, parsed["qual"], None, None, None,
+                        aux=aux, lazy=lazy, chrom_codes=codes, chrom_names=names)
+
+
+def _read_vcf_plain(path: str) -> VariantTable:
+    """:func:`read_vcf` in Python: lines decoded in blocks."""
     header = VcfHeader()
     cols: list[list] = [[] for _ in range(10)]
     chrom, pos, vid, ref, alt, qual, qual_text, filt, info, tail = cols
@@ -368,21 +552,20 @@ def _format_extra_info(n: int, extra_info: dict) -> list[str]:
 
 
 def write_vcf(path: str, table: VariantTable, new_filters=None,
-              extra_info: dict[str, np.ndarray] | None = None, index: bool = True) -> None:
+              extra_info: dict[str, np.ndarray] | None = None, index: bool = True,
+              verbatim_core: bool = False) -> None:
     """Write a VariantTable back to VCF (``.gz`` -> BGZF), rewriting FILTER and
     appending ``extra_info`` keys to INFO; FORMAT/sample tails are verbatim,
     and so is the QUAL text of every record whose QUAL was not edited.
 
+    ``verbatim_core``: the caller has edited none of CHROM..QUAL since the
+    read, so a scanned table's records are assembled by the native engine
+    from its text (:func:`_write_assembled_native`); elsewhere, and when the
+    engine declines, the plain writer renders them, with the same bytes.
+
     ``index``: a ``.gz`` output also gets its ``.tbi`` (``io/tabix``), as the
     reference's does; unsorted records leave the VCF valid and write no
     index (a stale one beside it is removed)."""
-    n = len(table)
-    suffix = _format_extra_info(n, extra_info) if extra_info else None
-    filters = new_filters if new_filters is not None else table.filters
-    if isinstance(filters, FactorizedColumn):
-        filters = filters.to_object()
-    pos_s = np.char.mod("%d", table.pos)
-    qual_s = _qual_column(table)
     if str(path).endswith(".gz"):
         from variantcalling_tpu_torch.io.bgzf import BgzfWriter
 
@@ -392,20 +575,8 @@ def write_vcf(path: str, table: VariantTable, new_filters=None,
     with out:
         head = [*table.header.lines, table.header.column_header()]
         out.write(("\n".join(head) + "\n").encode())
-        chunk: list[str] = []
-        for i in range(n):
-            info = table.info[i]
-            if suffix is not None and suffix[i]:
-                info = suffix[i][1:] if info == MISSING else info + suffix[i]
-            line = "\t".join((table.chrom[i], pos_s[i], table.vid[i], table.ref[i],
-                              table.alt[i], qual_s[i], filters[i], info))
-            t = table.tail[i]
-            chunk.append(line + "\t" + t if t else line)
-            if len(chunk) >= 16384:
-                out.write(("\n".join(chunk) + "\n").encode())
-                chunk.clear()
-        if chunk:
-            out.write(("\n".join(chunk) + "\n").encode())
+        if not (verbatim_core and _write_assembled_native(out, table, new_filters, extra_info)):
+            _write_records(out, table, new_filters, extra_info)
     if index and str(path).endswith(".gz"):
         from variantcalling_tpu_torch.io.tabix import build_tabix_index
 
@@ -415,3 +586,124 @@ def write_vcf(path: str, table: VariantTable, new_filters=None,
             log.warning("no .tbi for %s: %s", path, e)
             if os.path.exists(f"{path}.tbi"):
                 os.remove(f"{path}.tbi")
+
+
+def _write_records(out, table: VariantTable, new_filters, extra_info) -> None:
+    """The plain writer: each record rendered from the columns."""
+    n = len(table)
+    suffix = _format_extra_info(n, extra_info) if extra_info else None
+    filters = new_filters if new_filters is not None else table.filters
+    if isinstance(filters, FactorizedColumn):
+        filters = filters.to_object()
+    pos_s = np.char.mod("%d", table.pos)
+    qual_s = _qual_column(table)
+    chunk: list[str] = []
+    for i in range(n):
+        info = table.info[i]
+        if suffix is not None and suffix[i]:
+            info = suffix[i][1:] if info == MISSING else info + suffix[i]
+        line = "\t".join((table.chrom[i], pos_s[i], table.vid[i], table.ref[i],
+                          table.alt[i], qual_s[i], filters[i], info))
+        t = table.tail[i]
+        chunk.append(line + "\t" + t if t else line)
+        if len(chunk) >= 16384:
+            out.write(("\n".join(chunk) + "\n").encode())
+            chunk.clear()
+    if chunk:
+        out.write(("\n".join(chunk) + "\n").encode())
+
+
+def _single_float_info(extra_info) -> tuple[str, np.ndarray] | None:
+    """The one floating INFO column of ``extra_info`` (the pipeline's
+    TREE_SCORE), which the native engine renders; None otherwise."""
+    if extra_info and len(extra_info) == 1:
+        (k, vals), = extra_info.items()
+        arr = np.asarray(vals)
+        if arr.dtype.kind == "f":
+            return k, arr
+    return None
+
+
+def _encode_column_factorized(values, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """(byte buffer, (n + 1,) offsets) of a low-cardinality string column
+    (FILTER): one fill a distinct value; missing values write ``.``."""
+    if isinstance(values, FactorizedColumn):
+        codes, uniques = values.codes, values.uniques
+    else:
+        index: dict = {}
+        codes = np.fromiter((index.setdefault(v, len(index)) for v in values), dtype=np.int64, count=n)
+        uniques = list(index)
+    enc = [(MISSING if u is None or u == "" else str(u)).encode() for u in uniques]
+    lens = np.fromiter((len(e) for e in enc), dtype=np.int64, count=len(enc))
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens[codes], out=offs[1:])
+    buf = np.empty(int(offs[-1]), dtype=np.uint8)
+    starts = offs[:-1]
+    for ui, e in enumerate(enc):
+        s = starts[codes == ui]
+        for j, byte in enumerate(e):
+            buf[s + j] = byte
+    return buf, offs
+
+
+def _filter_info_blobs(table: VariantTable, new_filters, extra_info):
+    """(FILTER bytes, offsets, INFO suffix bytes, offsets) for
+    ``native.vcf_assemble``: one float INFO column rendered by the engine,
+    anything else by :func:`_format_extra_info`."""
+    from variantcalling_tpu_torch import native
+
+    n = len(table)
+    filt_buf, filt_offs = _encode_column_factorized(new_filters if new_filters is not None else table.filters, n)
+    one = _single_float_info(extra_info)
+    sfx = native.format_float_info(one[1], f";{one[0]}=".encode()) if one is not None else None
+    if sfx is None:
+        suffix = [s.encode() for s in _format_extra_info(n, extra_info)] if extra_info else [b""] * n
+        sfx_offs = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.fromiter(map(len, suffix), dtype=np.int64, count=n), out=sfx_offs[1:])
+        sfx = np.frombuffer(b"".join(suffix), dtype=np.uint8), sfx_offs
+    return filt_buf, filt_offs, *sfx
+
+
+#: records a native assembly call renders into its one reused buffer
+ASSEMBLE_CHUNK = 1 << 20
+
+
+def _write_assembled_native(out, table: VariantTable, new_filters, extra_info) -> bool:
+    """Records spliced by the native engine (CHROM..QUAL and FORMAT..end from
+    the scanned text, a new FILTER, INFO with the suffix), written in chunks
+    of :data:`ASSEMBLE_CHUNK` records through one reused buffer. False, with
+    nothing written, where the table has no scan or the engine is off; a
+    failure after the first chunk finishes with the plain writer."""
+    from variantcalling_tpu_torch import native
+
+    aux = table.aux
+    if aux is None or not native.available():
+        if _single_float_info(extra_info) is not None:
+            native.note_plain("format_float_info")
+        native.note_plain("vcf_assemble")
+        return False
+    n = len(table)
+    filt_buf, filt_offs, sfx_buf, sfx_offs = _filter_info_blobs(table, new_filters, extra_info)
+    scratch = None
+    for lo in range(0, n, ASSEMBLE_CHUNK):
+        hi = min(lo + ASSEMBLE_CHUNK, n)
+        body = native.vcf_assemble(aux.buf, aux.line_spans[lo:hi], aux.filter_spans[lo:hi], aux.info_spans[lo:hi],
+                                   aux.tail_spans[lo:hi], filt_buf, filt_offs[lo: hi + 1], sfx_buf,
+                                   sfx_offs[lo: hi + 1], out=scratch)
+        if body is None:
+            if lo == 0:
+                return False
+            rest = np.arange(lo, n)
+            _write_records(out, table.subset(rest),
+                           None if new_filters is None else _take(new_filters, rest),
+                           {k: np.asarray(v)[rest] for k, v in extra_info.items()} if extra_info else None)
+            return True
+        out.write(memoryview(body))
+        scratch = body.base if isinstance(body.base, np.ndarray) else body
+    return True
+
+
+def _take(column, rows: np.ndarray):
+    if isinstance(column, FactorizedColumn):
+        return FactorizedColumn(column.codes[rows], column.uniques)
+    return np.asarray(column, dtype=object)[rows]

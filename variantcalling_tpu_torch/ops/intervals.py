@@ -1,7 +1,8 @@
 """Interval membership and distance via sorted-interval joins on global coordinates.
 
 Counterpart of ``variantcalling_tpu/ops/intervals.py`` (host numpy in the
-reference too: a genome needs int64 coordinates). Contig i occupies
+reference too: a genome needs int64 coordinates; large membership joins in
+the native engine). Contig i occupies
 [offset[i], offset[i] + len_i), so (chrom, pos) pairs become one int64 axis.
 """
 
@@ -9,9 +10,12 @@ from __future__ import annotations
 
 import numpy as np
 
+from variantcalling_tpu_torch import native
 from variantcalling_tpu_torch.io.bed import IntervalSet
 
 _FAR = np.iinfo(np.int64).max // 4
+#: joins of at least this many positions run in the native engine's binary search
+NATIVE_MIN_POSITIONS = 1 << 16
 
 
 class GenomeCoords:
@@ -48,6 +52,10 @@ def membership(gpos: np.ndarray, gstarts: np.ndarray, gends: np.ndarray) -> np.n
     gpos = np.asarray(gpos, dtype=np.int64)
     if len(gstarts) == 0:
         return np.zeros(gpos.shape, dtype=bool)
+    if gpos.size >= NATIVE_MIN_POSITIONS:
+        out = native.interval_membership(gstarts, gends, np.maximum(gpos, 0))
+        if out is not None:
+            return out.astype(bool) & (gpos >= 0)
     idx = np.searchsorted(gstarts, gpos, side="right") - 1
     safe = np.clip(idx, 0, len(gstarts) - 1)
     return (idx >= 0) & (gpos < gends[safe]) & (gpos >= 0)

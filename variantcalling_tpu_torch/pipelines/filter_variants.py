@@ -46,7 +46,7 @@ import torch
 from variantcalling_tpu_torch import device as device_mod
 from variantcalling_tpu_torch import engine as engine_mod
 from variantcalling_tpu_torch import featurize as feat
-from variantcalling_tpu_torch import knobs
+from variantcalling_tpu_torch import knobs, native
 from variantcalling_tpu_torch.featurize import (CENTER, DEVICE_FEATURES, classify_alleles,
                                                 device_feature_dict, host_featurize)
 from variantcalling_tpu_torch.io import bed as bedio
@@ -162,16 +162,21 @@ def _as_object(values) -> np.ndarray:
 
 def _is_cg_insertion(table: VariantTable, windows: np.ndarray, center: int) -> np.ndarray:
     """CCG/GGC insertion artifacts (--blacklist_cg_insertions): a single-base
-    left-anchored insertion of C between C and G, or of G between G and C."""
+    left-anchored insertion of C between C and G, or of G between G and C.
+    A scanned table's allele classes say which first ALTs start with REF."""
     n = len(table)
     alle = classify_alleles(table)
-    ref_len = np.fromiter(map(len, table.ref), dtype=np.int64, count=n)
-    alt0_len = np.fromiter((len(a) if "," not in a else a.index(",") for a in table.alt),
-                           dtype=np.int64, count=n)
-    cand = alle.is_ins & (alt0_len == ref_len + 1)
-    prefix_ins = np.zeros(n, dtype=bool)
-    for i in np.nonzero(cand)[0]:
-        prefix_ins[i] = table.alt[i].split(",")[0].startswith(table.ref[i])
+    if table.aux is not None:
+        prefix_ins = (table.aux.alle["aclass"] & 8).astype(bool)
+        ref_len = table.aux.alle["ref_len"].astype(np.int64)
+    else:
+        ref_len = np.fromiter(map(len, table.ref), dtype=np.int64, count=n)
+        alt0_len = np.fromiter((len(a) if "," not in a else a.index(",") for a in table.alt),
+                               dtype=np.int64, count=n)
+        cand = alle.is_ins & (alt0_len == ref_len + 1)
+        prefix_ins = np.zeros(n, dtype=bool)
+        for i in np.nonzero(cand)[0]:
+            prefix_ins[i] = table.alt[i].split(",")[0].startswith(table.ref[i])
     # the window is centered on POS (first ref base): the anchor sits at
     # center + ref_len - 1 and the next reference base right after it
     cand = alle.is_ins & prefix_ins & (alle.indel_length == 1)
@@ -276,8 +281,9 @@ class FilterContext:
         # before any encoding: a genome whose positions do not pack into 4
         # bytes gathers its windows on the host
         self.genome_packable = feat.genome_packable(fasta)
-        log.info("engine %s, model family %s, forest strategy %s, genome positions pack into 4 bytes: %s",
-                 self.engine, self.model_family, self.forest_strategy, self.genome_packable)
+        log.info("engine %s, model family %s, forest strategy %s, genome positions pack into 4 bytes: %s, "
+                 "host engine %s", self.engine, self.model_family, self.forest_strategy, self.genome_packable,
+                 native.engine_name())
         self.model = model
         self.fasta = fasta
         self.hpol_dist = hpol_dist
@@ -436,9 +442,11 @@ def run_loaded(args, model, fasta: FastaReader, annotate, blacklist, device: tor
         table = table.subset(np.asarray(table.chrom) == args.limit_to_contig)
     score, filters = ctx.score_table(table)
     _ensure_output_header(table.header, ctx.engine, ctx.forest_strategy, ctx.model_family)
-    with _stage("writeback"):  # rounding and %g rendering stay in numpy, as in the reference
+    with _stage("writeback"):  # rounding stays in numpy, as in the reference
+        # this pipeline edits none of CHROM..QUAL: a scanned table's records
+        # are spliced from its text by the native engine
         write_vcf(args.output_file, table, new_filters=filters,
-                  extra_info={"TREE_SCORE": np.round(score, 4)})
+                  extra_info={"TREE_SCORE": np.round(score, 4)}, verbatim_core=True)
     log.info("wrote %s: %d variants, %d PASS", args.output_file, len(table),
              int(np.sum(filters == PASS)))
     return 0
