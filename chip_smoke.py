@@ -88,7 +88,24 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    encodes and writes it (its size checked), a second memory-maps it (both
    runs' ``genome`` stage and ``GENOME_LOG`` printed, bytes equal),
    ``VCTPU_GENOME_CACHE=0`` reads and writes none, and
-   ``VCTPU_GENOME_CACHE=maybe`` exits 2 before any ingest.
+   ``VCTPU_GENOME_CACHE=maybe`` exits 2 before any ingest;
+8. the streaming executor, the port's default path (``phase_streaming``;
+   phases 4-7 pin ``VCTPU_STREAM=0``, the serial path whose stages,
+   window path and transfers they check): on ``WORLD_STREAM``, the xgboost
+   JSON model over 5,000,000 variants on chr20, chr21 and chr22 at GRCh38's
+   lengths, the default run (streaming, pooled, 8 MiB chunks),
+   ``VCTPU_IO_THREADS=1`` and ``VCTPU_STREAM=0``, each in a process of its
+   own (forked by a ``forkserver``) for its peak RSS: equal outputs, every
+   table on the resident genome, ``forest_wide`` launches equal to the 262,144-row
+   pieces of the tables that reached the card, every run served by the
+   host engine, the streaming runs' peak RSS below the serial run's; on
+   the forest pickle world in 1 MiB chunks, ``.vcf.gz`` streaming against
+   serial (container and ``.tbi`` bytes), a run failed by
+   ``io.writeback:0+3`` resumed to the clean bytes, ``VCTPU_CACHE=1`` twice
+   (the second all hits, no launch, equal bytes), and the DAN and threshold
+   models streaming against their serial GPU runs. A ``STREAM_DETAIL`` line
+   per run: layout, chunks, window paths, launches, wall seconds,
+   variants/s, peak host RSS (5 M runs) and peak card memory.
 
 The last two lines of standard output are a JSON object with the kernel
 numbers and the device line ``{"ok": true, "device": {...}}``.
@@ -459,16 +476,22 @@ def phase_kernel(main_rows: int) -> dict:
 
 
 class _RunLog(logging.Handler):
-    """Collects a pipeline run's stage times (``STAGE_LOG``), its window path
-    (``WINDOW_LOG``), the bytes it sent to the device (``TRANSFER_LOG``) and
-    a resident genome's build (``GENOME_LOG``)."""
+    """Collects a pipeline run's stage times (``STAGE_LOG``, summed over a
+    streaming run's chunks), its window path (``WINDOW_LOG``: the last one,
+    and the count of tables on each), the bytes it sent to the device
+    (``TRANSFER_LOG``, summed, with the variant count of each table that
+    reached the device), a resident genome's build (``GENOME_LOG``) and a
+    streaming run's summary (``STREAM_LOG``)."""
 
     def __init__(self):
         super().__init__(logging.INFO)
         self.stages: dict[str, float] = {}
         self.window_path = None
+        self.window_paths: dict[str, int] = {}
         self.sent = None
+        self.tables: list[int] = []
         self.genome = None
+        self.stream = None
 
     def emit(self, record: logging.LogRecord) -> None:
         from variantcalling_tpu_torch import featurize
@@ -479,9 +502,16 @@ class _RunLog(logging.Handler):
             self.stages[name] = self.stages.get(name, 0.0) + seconds
         elif record.msg == fv.WINDOW_LOG:
             self.window_path = record.args[0]
+            self.window_paths[self.window_path] = self.window_paths.get(self.window_path, 0) + 1
         elif record.msg == fv.TRANSFER_LOG:
-            self.sent = {"bytes": record.args[0], "variants": record.args[1],
-                         "bytes_per_variant": record.args[0] / max(record.args[1], 1)}
+            self.tables.append(record.args[1])
+            nbytes = record.args[0] + (self.sent["bytes"] if self.sent else 0)
+            self.sent = {"bytes": nbytes, "variants": sum(self.tables),
+                         "bytes_per_variant": nbytes / max(sum(self.tables), 1)}
+        elif record.msg == fv.STREAM_LOG:
+            keys = ("output", "layout", "chunks", "resumed", "quarantined", "records", "cache_hits",
+                    "peak_device_bytes")
+            self.stream = dict(zip(keys, record.args))
         elif record.msg == featurize.GENOME_LOG:
             device, nbytes, source, encode_s, upload_s = record.args
             self.genome = {"device": str(device), "bytes": nbytes, "source": source, "encode_s": encode_s,
@@ -510,17 +540,21 @@ def _check_qual(world: dict, data: bytes, label: str) -> int:
 
 def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy: str | None = None,
            model_name: str | None = None, extra: list[str] | None = None, rc_expected: int = 0,
-           env: dict[str, str] | None = None, host_path: tuple[str, ...] = (), input_vcf: str | None = None) -> dict:
+           env: dict[str, str] | None = None, host_path: tuple[str, ...] = (), input_vcf: str | None = None,
+           raises: type | None = None, served: tuple[str, ...] = HOST_ENGINE_PATH) -> dict:
     """One ``filter_variants_pipeline`` run through ``run(argv)``; every kernel's
     launch count and every host engine entry point's count are set to 0 just
     before it and read just after (a ``HOST_ENGINE`` line). A GPU run's QUAL
     column must be its input's (:func:`_check_qual`), and, unless ``env``
     turns the engine off, the native host engine must have served
-    :data:`HOST_ENGINE_PATH` and ``host_path`` and no call of the plain
-    versions. ``extra``: more arguments; ``env``: variables set for the run;
+    ``served`` (default :data:`HOST_ENGINE_PATH`) and ``host_path`` and no
+    call of the plain versions. ``extra``: more arguments; ``env``: variables set for the run,
+    over ``VCTPU_STREAM=0`` (the serial path, whose stages, window path and
+    transfers the earlier phases check; ``phase_streaming`` sets it to 1);
     ``input_vcf``: another input than the world's; ``rc_expected``: the exit
     code the run must give (a run that must fail returns before any output
-    is read)."""
+    is read); ``raises``: the exception the run must raise instead, with no
+    output written."""
     from variantcalling_tpu_torch import native
     from variantcalling_tpu_torch.models import forest as fmod
     from variantcalling_tpu_torch.models import forest_cuda
@@ -533,7 +567,7 @@ def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy
     plog.setLevel(logging.INFO)
     times = _RunLog()
     plog.addHandler(times)
-    env = {**(env or {}), **({fmod.FOREST_STRATEGY_ENV: strategy} if strategy is not None else {})}
+    env = {"VCTPU_STREAM": "0", **(env or {}), **({fmod.FOREST_STRATEGY_ENV: strategy} if strategy is not None else {})}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     torch.cuda.synchronize()
@@ -542,6 +576,10 @@ def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy
     t0 = time.perf_counter()
     try:
         rc = filter_variants.run(argv)
+    except Exception as e:
+        if raises is None or not isinstance(e, raises):
+            raise
+        rc = e
     finally:
         seconds = time.perf_counter() - t0
         launches = {"forest_wide": forest_cuda.LAUNCHES, "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES}
@@ -552,6 +590,11 @@ def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy
             else:
                 os.environ[k] = v
         plog.removeHandler(times)
+    if raises is not None:
+        check(isinstance(rc, raises) and not out.exists(), f"{label}: the run did not raise {raises.__name__} "
+              f"with no output ({rc!r}, {out} exists: {out.exists()})")
+        print(f"pipeline {label} --backend {backend}: raised {rc!r} as it must, no output", flush=True)
+        return {"raised": rc, "stream": times.stream}
     check(rc == rc_expected, f"{label} --backend {backend} run exited {rc}, not {rc_expected}")
     if rc != 0:
         check(not out.exists(), f"{label}: the run that exited {rc} wrote {out}")
@@ -564,14 +607,15 @@ def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy
     if no_native:
         check(all(v["native"] == 0 for v in host.values()), f"{label}: the engine served with VCTPU_NO_NATIVE=1")
     elif backend == "gpu":
-        missed = [k for k in (*HOST_ENGINE_PATH, *host_path) if host.get(k, {}).get("native", 0) == 0]
+        missed = [k for k in (*served, *host_path) if host.get(k, {}).get("native", 0) == 0]
         plain = [k for k, v in host.items() if v["plain"]]
         check(not missed and not plain, f"{label}: the host engine did not serve {missed}; plain versions "
               f"served {plain}")
     n = WORLD["n_variants"]
     print(f"pipeline {label} --backend {backend}: {seconds:.2f} s, {n / seconds:.0f} variants/s, "
           f"launches {launches}, windows: {times.window_path}, "
-          f"{times.sent['bytes_per_variant']:.2f} bytes a variant sent to the device ({card})", flush=True)
+          f"{times.sent['bytes_per_variant'] if times.sent else 0.0:.2f} bytes a variant sent to the device "
+          f"({card})", flush=True)
     if times.genome is not None:
         print(f"pipeline {label} --backend {backend}: resident genome built: {times.genome}", flush=True)
     print("PIPELINE_STAGES " + json.dumps({"world": label, "backend": backend, "no_native": no_native,
@@ -583,6 +627,7 @@ def _drive(world: dict, out: Path, backend: str, card: str, label: str, strategy
     if backend == "gpu":
         print(f"pipeline {label}: QUAL of all {_check_qual(world, data, label)} records as in the input", flush=True)
     return {"bytes": data, "seconds": seconds, "launches": launches, "window_path": times.window_path,
+            "window_paths": times.window_paths, "tables": times.tables, "stream": times.stream,
             "stages": times.stages, "genome": times.genome, "host": host}
 
 
@@ -893,6 +938,245 @@ def phase_sidecar(world: dict, tmp: Path, card: str) -> dict:
     return {k: {"genome_stage_s": r["stages"].get("genome"), "genome": r.get("genome")} for k, r in out.items()}
 
 
+#: the streaming phase's world: GRCh38's chr20, chr21 and chr22 at 5 M variants
+#: (a 30x WGS callset's record count), the xgboost JSON model
+WORLD_STREAM = dict(n_variants=5_000_000, n_trees=100, depth=7)
+#: the 104,000-variant world's chunk size in the streaming phase: 8 chunks
+STREAM_SMALL_CHUNK = 1 << 20
+
+
+def _sha256(path: Path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(16 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _stream_child(spec: dict, results) -> None:
+    """One CLI run in a process of its own, for its own peak RSS: ``spec``
+    holds ``argv`` and ``env``; ``argv`` None runs nothing past the imports
+    and the card's context (the baseline the runs' peaks stand on). Every
+    kernel's and engine entry point's count set to 0 just before the run and
+    read just after; the numbers go to ``results`` (a queue)."""
+    import resource
+
+    from variantcalling_tpu_torch import native
+    from variantcalling_tpu_torch.models import forest_cuda
+    from variantcalling_tpu_torch.pipelines import filter_variants
+
+    os.environ.update(spec["env"])
+    plog = logging.getLogger("variantcalling_tpu_torch")
+    plog.setLevel(logging.INFO)
+    times = _RunLog()
+    plog.addHandler(times)
+    torch.cuda.init()
+    forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
+    native.reset_calls()
+    t0 = time.perf_counter()
+    if spec["argv"] is None:
+        torch.zeros(1, device="cuda").add_(1).cpu()
+        rc = 0
+    else:
+        rc = filter_variants.run(spec["argv"])
+    seconds = time.perf_counter() - t0
+    results.put({
+        "rc": rc, "seconds": seconds,
+        "launches": {"forest_wide": forest_cuda.LAUNCHES, "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES},
+        "host": {k: dict(v) for k, v in native.CALLS.items() if v["native"] or v["plain"]},
+        "window_paths": times.window_paths, "tables": times.tables, "stream": times.stream,
+        "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(), "stages": times.stages})
+
+
+def _forked(spec: dict, label: str) -> dict:
+    """:func:`_stream_child` in a process forked by a ``forkserver``: a child
+    started otherwise keeps this process's peak in its ``ru_maxrss``."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("forkserver")
+    results = ctx.Queue()
+    proc = ctx.Process(target=_stream_child, args=(spec, results), name=label)
+    proc.start()
+    run = None
+    deadline = time.monotonic() + 900
+    while run is None and time.monotonic() < deadline and (proc.is_alive() or not results.empty()):
+        try:
+            run = results.get(timeout=1)
+        except queue.Empty:
+            pass
+    proc.join(timeout=60)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    check(run is not None and proc.exitcode == 0, f"{label}: the run's process exited {proc.exitcode}")
+    return run
+
+
+def _stream_subprocess(world: dict, out: Path, card: str, label: str, env: dict[str, str]) -> dict:
+    """One 5 M-variant CLI run (``--backend gpu``) in a process of its own
+    (:func:`_forked`): served by the host engine, every table that reached
+    the card on the resident genome, one ``forest_wide`` launch a
+    262,144-row piece of each, and a ``STREAM_DETAIL`` line."""
+    argv = ["--input_file", world["vcf"], "--model_file", world["model"], "--model_name", world["model_name"],
+            "--reference_file", world["fasta"], "--output_file", str(out), "--backend", "gpu"]
+    run = _forked({"argv": argv, "env": env}, label)
+    check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+    host = run["host"]
+    missed = [k for k in HOST_ENGINE_PATH if host.get(k, {}).get("native", 0) == 0]
+    plain = [k for k, v in host.items() if v["plain"]]
+    check(not missed and not plain, f"{label}: the host engine did not serve {missed}; plain: {plain}")
+    check(set(run["window_paths"]) == {"genome-resident"}, f"{label}: window paths {run['window_paths']}")
+    want = sum(-(-n // KERNEL_ROWS) for n in run["tables"])
+    check(run["launches"] == {"forest_wide": want, "forest_tree_step": 0},
+          f"{label}: launches {run['launches']}, {want} expected from {len(run['tables'])} tables")
+    n = WORLD_STREAM["n_variants"]
+    check(sum(run["tables"]) == n, f"{label}: {sum(run['tables'])} variants reached the card")
+    stream = run["stream"] or {}
+    detail = {"world": "stream_5m", "run": label, "card": card, "layout": stream.get("layout", "serial"),
+              "chunks": stream.get("chunks", 1), "window_paths": run["window_paths"],
+              "forest_wide_launches": run["launches"]["forest_wide"], "wall_s": run["seconds"],
+              "variants_per_s": n / run["seconds"], "peak_rss_bytes": run["peak_rss_bytes"],
+              "peak_device_bytes": run["peak_device_bytes"],
+              "host_engine_s": {k: v["native_s"] for k, v in host.items()}, "stages": run["stages"]}
+    print("STREAM_DETAIL " + json.dumps(detail), flush=True)
+    return {**detail, "sha256": _sha256(out)}
+
+
+def _stream_detail(run: dict, label: str, card: str, n: int) -> None:
+    stream = run.get("stream") or {}
+    print("STREAM_DETAIL " + json.dumps({
+        "world": "forest_pickle_104k", "run": label, "card": card, "layout": stream.get("layout", "serial"),
+        "chunks": stream.get("chunks", 1), "resumed": stream.get("resumed", 0),
+        "cache_hits": stream.get("cache_hits", 0), "window_paths": run.get("window_paths"),
+        "forest_wide_launches": run["launches"]["forest_wide"], "wall_s": run["seconds"],
+        "variants_per_s": n / run["seconds"], "peak_device_bytes": stream.get("peak_device_bytes")}), flush=True)
+
+
+def phase_streaming(tmp: Path, card: str, pickle_world: dict) -> dict:
+    """The streaming executor, the port's default path, on the card.
+
+    1. ``WORLD_STREAM``: the xgboost JSON model over 5 M variants on chr20,
+       chr21 and chr22 at GRCh38's lengths: the default run (streaming, the
+       pooled layout, 8 MiB chunks), ``VCTPU_IO_THREADS=1`` and
+       ``VCTPU_STREAM=0`` (serial), each in its own process
+       (:func:`_stream_subprocess`); the three outputs equal; the streaming
+       runs' peak RSS below the serial run's.
+    2. The forest pickle world (104,000 variants on chr20) in 1 MiB chunks:
+       into ``.vcf.gz``, streaming against serial (container and ``.tbi``
+       bytes); a run failed by ``io.writeback:0+3`` (partial and journal
+       kept, no output) resumed to the clean bytes; ``VCTPU_CACHE=1`` twice
+       under a fresh directory, the second all hits with no launch and equal
+       bytes; the pickle's DAN and threshold models streaming against their
+       serial GPU runs, within the tolerance rule.
+    """
+    from tests.torch_vcf_compare import differing_records
+    from variantcalling_tpu_torch import synthetic
+    from variantcalling_tpu_torch.io import journal
+    from variantcalling_tpu_torch.models import registry
+    from variantcalling_tpu_torch.utils import faults
+
+    out: dict = {}
+    # -- 1. the 5 M world ---------------------------------------------------
+    t0 = time.perf_counter()
+    world = synthetic.write_world(str(tmp / "stream_5m"), seed=2028, xgboost=True,
+                                  contigs=list(synthetic.GRCH38_CHR20_22), **WORLD_STREAM)
+    print(f"world stream_5m: {WORLD_STREAM['n_variants']} variants on "
+          f"{', '.join(f'{c} ({n} bp)' for c, n in synthetic.GRCH38_CHR20_22)}, "
+          f"{os.path.getsize(world['vcf'])} bytes of VCF, in {time.perf_counter() - t0:.1f} s", flush=True)
+    base = _forked({"argv": None, "env": {}}, "stream_5m_baseline")
+    print("STREAM_DETAIL " + json.dumps({"world": "stream_5m", "run": "baseline", "card": card,
+                                         "peak_rss_bytes": base["peak_rss_bytes"],
+                                         "peak_device_bytes": base["peak_device_bytes"]}), flush=True)
+    runs = {label: _stream_subprocess(world, tmp / f"stream_5m_{label}.vcf", card, f"stream_5m_{label}", env)
+            for label, env in (("default", {}), ("io_threads_1", {"VCTPU_IO_THREADS": "1"}),
+                               ("serial", {"VCTPU_STREAM": "0"}))}
+    check(runs["default"]["layout"] == "pooled" and runs["io_threads_1"]["layout"] == "serial-io"
+          and runs["serial"]["layout"] == "serial", f"layouts {[r['layout'] for r in runs.values()]}")
+    check(len({r["sha256"] for r in runs.values()}) == 1, "the 5 M outputs differ between the runs")
+    check(all(runs[k]["peak_rss_bytes"] < runs["serial"]["peak_rss_bytes"] for k in ("default", "io_threads_1")),
+          f"peak RSS: {[r['peak_rss_bytes'] for r in runs.values()]}")
+    print(f"streaming 5M: default, VCTPU_IO_THREADS=1 and serial outputs identical "
+          f"({runs['default']['chunks']} chunks); peak RSS "
+          f"{[runs[k]['peak_rss_bytes'] >> 20 for k in runs]} MiB ({card})", flush=True)
+    for f in tmp.glob("stream_5m_*.vcf"):
+        f.unlink()
+    out["stream_5m"] = runs
+
+    # -- 2. the 104,000-variant world in 1 MiB chunks --------------------------
+    w = pickle_world
+    n = WORLD["n_variants"]
+    stream_env = {"VCTPU_STREAM": "1", "VCTPU_STREAM_CHUNK_BYTES": str(STREAM_SMALL_CHUNK)}
+    gz_stream = _drive(w, tmp / "stream_104k.vcf.gz", "gpu", card, "stream_104k_gz", env=stream_env,
+                       host_path=("bgzf_compress",))
+    gz_serial = _drive(w, tmp / "serial_104k.vcf.gz", "gpu", card, "serial_104k_gz", host_path=("bgzf_compress",))
+    check(gz_stream["stream"]["chunks"] >= 7 and set(gz_stream["window_paths"]) == {"genome-resident"},
+          f"stream_104k_gz: {gz_stream['stream']}, {gz_stream['window_paths']}")
+    check((tmp / "stream_104k.vcf.gz").read_bytes() == (tmp / "serial_104k.vcf.gz").read_bytes()
+          and (tmp / "stream_104k.vcf.gz.tbi").read_bytes() == (tmp / "serial_104k.vcf.gz.tbi").read_bytes(),
+          "streaming and serial .vcf.gz or .tbi bytes differ")
+    check(gz_stream["launches"]["forest_wide"] == gz_stream["stream"]["chunks"],
+          f"stream_104k_gz: launches {gz_stream['launches']} for {gz_stream['stream']['chunks']} chunks")
+    _stream_detail(gz_stream, "stream_vcf_gz", card, n)
+    print(f"streaming 104k .vcf.gz: container and .tbi bytes equal the serial run's, "
+          f"{gz_stream['stream']['chunks']} chunks", flush=True)
+
+    clean = _drive(w, tmp / "stream_104k_clean.vcf", "gpu", card, "stream_104k_clean", env=stream_env)
+    target = tmp / "stream_104k_resumed.vcf"
+    for spec in faults.parse_spec("io.writeback:0+3"):
+        faults.arm(spec[0], times=spec[1], seconds=spec[2], after=spec[3])
+    try:
+        failed = _drive(w, target, "gpu", card, "stream_104k_interrupted", env=stream_env, raises=OSError)
+    finally:
+        faults.reset()
+    kept = journal.ChunkJournal.load(str(target))
+    check(kept is not None and len(kept[1]) >= 1 and len(list(tmp.glob(target.name + ".partial.*"))) == 1,
+          "the interrupted run left no journal with a chunk and no partial")
+    resumed = _drive(w, target, "gpu", card, "stream_104k_resumed", env=stream_env)
+    check(resumed["stream"]["resumed"] >= 1 and resumed["bytes"] == clean["bytes"],
+          f"resume: {resumed['stream']}, bytes equal: {resumed['bytes'] == clean['bytes']}")
+    check(not Path(journal.journal_path(str(target))).exists() and not list(tmp.glob(target.name + ".partial*")),
+          "the resumed run left its journal or partial")
+    _stream_detail(clean, "stream_vcf_clean", card, n)
+    _stream_detail(resumed, "stream_vcf_resumed", card, n)
+    print(f"streaming 104k resume: the run failed at writeback ({failed['raised']!r}) with {len(kept[1])} "
+          f"chunks journaled, the next "
+          f"resumed {resumed['stream']['resumed']} of {resumed['stream']['chunks']} chunks, bytes equal the clean "
+          f"run's", flush=True)
+
+    cache_env = {**stream_env, "VCTPU_CACHE": "1", "VCTPU_CACHE_DIR": str(tmp / "chunk_cache")}
+    cold = _drive(w, tmp / "stream_104k_cache_cold.vcf", "gpu", card, "stream_104k_cache_cold", env=cache_env)
+    warm = _drive(w, tmp / "stream_104k_cache_warm.vcf", "gpu", card, "stream_104k_cache_warm", env=cache_env,
+                  served=())
+    check(warm["stream"]["cache_hits"] == warm["stream"]["chunks"] == cold["stream"]["chunks"]
+          and cold["stream"]["cache_hits"] == 0, f"cache: cold {cold['stream']}, warm {warm['stream']}")
+    check(warm["launches"] == {"forest_wide": 0, "forest_tree_step": 0} and warm["bytes"] == cold["bytes"]
+          == clean["bytes"], f"cache: warm launches {warm['launches']} or bytes differ")
+    _stream_detail(cold, "stream_cache_cold", card, n)
+    _stream_detail(warm, "stream_cache_warm", card, n)
+    print(f"streaming 104k cache: the second run hit all {warm['stream']['chunks']} chunks with no launch, "
+          f"bytes equal", flush=True)
+
+    families = {}
+    for family, tol in (("dan", 1e-5), ("threshold", 1e-6)):
+        name = w["families"][family]
+        model = registry.load_model(w["model"], name)
+        st = _drive(w, tmp / f"stream_104k_{family}.vcf", "gpu", card, f"stream_104k_{family}", model_name=name,
+                    env=stream_env)
+        se = _drive(w, tmp / f"serial_104k_{family}.vcf", "gpu", card, f"serial_104k_{family}", model_name=name)
+        n_diff = differing_records(st["bytes"], se["bytes"], model.pass_threshold, tol)
+        check(all(v == 0 for v in st["launches"].values()), f"{family}: a forest kernel was launched")
+        families[family] = {"differing_records": n_diff, "chunks": st["stream"]["chunks"]}
+        _stream_detail(st, f"stream_{family}", card, n)
+        print(f"streaming 104k {family}: {n_diff} of {n} records differ from the serial GPU run, within "
+              f"{tol:g}", flush=True)
+    out["stream_104k"] = {"families": families}
+    return out
+
+
 def time_kernel(kind: str, root: str) -> int:
     """``--time-kernel {wide,tree_step} ROOT``: one kernel of the checkout at
     ROOT (this one, or an older one unpacked beside it) on phase 3's forests
@@ -940,20 +1224,23 @@ def main() -> int:
         phase_families(pipe["forest_pickle"]["world"], Path(tmp), card)
         phase_blacklists(pipe["forest_pickle"]["world"], Path(tmp), card)
         phase_sidecar(pipe["forest_pickle"]["world"], Path(tmp), card)
+        stream = phase_streaming(Path(tmp), card, pipe["forest_pickle"]["world"])
     n = WORLD["n_variants"]
     rows = {  # each kernel's numbers at the main path's shape, on the production (xgboost) forest
         "forest_wide": kern["forest_wide"]["results"]["xgboost_default_left_100x64"][n],
         "forest_tree_step": kern["forest_tree_step"]["results"]["xgboost_default_left_100x64"][n],
     }
-    meta = {  # launches: the xgboost world's auto run, and its run pinned to gemm
+    meta = {  # launches: the 5 M world's default (streaming) run, and the xgboost world's run pinned to gemm
         "forest_wide": ("variantcalling_tpu_torch/csrc/forest_wide.cu",
-                        "variantcalling_tpu/models/forest_pallas.py:105", pipe["xgboost_json"]["wide_gpu"]),
+                        "variantcalling_tpu/models/forest_pallas.py:105",
+                        stream["stream_5m"]["default"]["forest_wide_launches"]),
         "forest_tree_step": ("variantcalling_tpu_torch/csrc/forest_tree_step.cu",
-                             "variantcalling_tpu/models/forest_pallas.py:51", pipe["xgboost_json"]["gemm_gpu"]),
+                             "variantcalling_tpu/models/forest_pallas.py:51",
+                             pipe["xgboost_json"]["gemm_gpu"]["launches"]["forest_tree_step"]),
     }
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": run["launches"][name], "max_abs_err": kern[name]["max_abs_err"],
+        "launches": launches, "max_abs_err": kern[name]["max_abs_err"],
         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
         "bound_by": rows[name]["bound_by"],
         # the card's time alone, and the wrapper's host time, beside the single launch's ms
@@ -961,7 +1248,7 @@ def main() -> int:
         # no single PyTorch call computes a decision forest
         "library_ms": None,
         "build_s": build_s[name],
-    } for name, (source, replaces, run) in meta.items()]}))
+    } for name, (source, replaces, launches) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

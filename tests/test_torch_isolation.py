@@ -52,6 +52,14 @@ def test_no_jax_or_reference_imports(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
+def test_the_streaming_modules_are_scanned():
+    """The streaming executor's modules are among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "utils/faults", "utils/degrade", "parallel/pipeline", "io/identity", "io/journal", "io/chunk_cache",
+        "io/bgzf", "io/vcf", "pipelines/filter_variants")} <= scanned
+
+
 def _run_cli(args: list[str], tmp_path: Path) -> subprocess.CompletedProcess:
     code = (
         "import json, sys\n"

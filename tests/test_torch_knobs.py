@@ -93,3 +93,24 @@ def test_malformed_knob_exits_2_from_both_clis_before_ingest(small_world, monkey
     assert not (tmp_path / "ref.vcf").exists() and not (tmp_path / "port.vcf").exists()
     messages = [r.getMessage() for r in caplog.records if name in r.getMessage()]
     assert len(messages) == 2 and messages[0] == messages[1], messages
+
+
+def test_honoured_knobs_are_the_ones_the_port_reads():
+    """Every knob name the port's Python spells (as a whole string literal,
+    outside the registry) is marked honoured, and every honoured knob is
+    read, the native engine's thread cap by its C++."""
+    import ast
+    import re
+    from pathlib import Path
+
+    root = Path(knobs.__file__).resolve().parent
+    read = set()
+    for path in root.rglob("*.py"):
+        if path == Path(knobs.__file__).resolve():
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and re.fullmatch(r"VCTPU_[A-Z_]+", node.value):
+                read.add(node.value)
+    assert "VCTPU_NATIVE_THREADS" in (root / "native" / "src" / "vctpu_threads.h").read_text()
+    assert read | {"VCTPU_NATIVE_THREADS"} == knobs.HONOURED and knobs.HONOURED <= set(knobs.REGISTRY)

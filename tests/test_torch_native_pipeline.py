@@ -68,7 +68,11 @@ def _reference(w, suffix=".vcf", **kw) -> bytes:
 
 def _port(w, tmp_path, monkeypatch, engine: str, suffix=".vcf", **kw) -> tuple[bytes, dict]:
     """The port's output bytes (decompressed) and its call counters, with the
-    engine (``native``) or without it (``plain``)."""
+    engine (``native``) or without it (``plain``), on the serial path
+    (``VCTPU_STREAM=0``), whose entry points these counters name: the
+    streaming executor inflates and scans chunk by chunk
+    (``tests/test_torch_streaming_cli.py``)."""
+    monkeypatch.setenv("VCTPU_STREAM", "0")
     if engine == "plain":
         monkeypatch.setenv("VCTPU_NO_NATIVE", "1")
     else:

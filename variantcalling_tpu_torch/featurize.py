@@ -14,7 +14,9 @@ run's device (:func:`device_genome`), gathered there from one packed
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import threading
 import time
 from dataclasses import dataclass
 
@@ -195,6 +197,11 @@ def gather_windows(table: VariantTable, fasta: FastaReader, radius: int = WINDOW
 # the same windows). Cached per process by (FASTA path, radius, device).
 _DEVICE_GENOME_CACHE: dict = {}
 _DEVICE_GENOME_MAX = 2
+#: guards the cache's dicts; a build holds only its own key's lock
+_DEVICE_GENOME_LOCK = threading.Lock()
+_DEVICE_GENOME_KEYLOCKS: dict = {}
+#: key -> runs holding it (:func:`lease_genome`): never evicted meanwhile
+_DEVICE_GENOME_LEASES: dict = {}
 # tables below this size gather windows on the host: a small job must not
 # pay a whole-genome encode and upload
 GENOME_RESIDENT_MIN_VARIANTS = 100_000
@@ -251,15 +258,47 @@ def genome_packable(fasta: FastaReader, radius: int = WINDOW_RADIUS) -> bool:
 
 
 def device_genome(fasta: FastaReader, device: torch.device, radius: int = WINDOW_RADIUS) -> DeviceGenome:
-    """The resident genome of ``fasta`` on ``device``, built on first use."""
+    """The resident genome of ``fasta`` on ``device``, built on first use.
+
+    Single-flight: concurrent first calls for one key (the streaming
+    executor's workers and its ``genome-prefetch`` thread) build it once,
+    the others wait for that build; builds of other keys go on in parallel.
+    A new entry evicts the oldest ones past :data:`_DEVICE_GENOME_MAX`, but
+    never one a run holds (:func:`lease_genome`)."""
     key = _genome_key(fasta, radius, device)
-    hit = _DEVICE_GENOME_CACHE.get(key)
-    if hit is None:
+    with _DEVICE_GENOME_LOCK:
+        hit = _DEVICE_GENOME_CACHE.get(key)
+        if hit is not None:
+            return hit
+        key_lock = _DEVICE_GENOME_KEYLOCKS.setdefault(key, threading.Lock())
+    with key_lock:
+        with _DEVICE_GENOME_LOCK:
+            hit = _DEVICE_GENOME_CACHE.get(key)
+        if hit is not None:  # built by the caller this one waited for
+            return hit
         hit = _build_device_genome(fasta, device, radius)
-        while len(_DEVICE_GENOME_CACHE) >= _DEVICE_GENOME_MAX:
-            _DEVICE_GENOME_CACHE.pop(next(iter(_DEVICE_GENOME_CACHE)))
-        _DEVICE_GENOME_CACHE[key] = hit
+        with _DEVICE_GENOME_LOCK:
+            idle = [k for k in _DEVICE_GENOME_CACHE if not _DEVICE_GENOME_LEASES.get(k)]
+            for k in idle[: max(0, len(_DEVICE_GENOME_CACHE) + 1 - _DEVICE_GENOME_MAX)]:
+                del _DEVICE_GENOME_CACHE[k]
+            _DEVICE_GENOME_CACHE[key] = hit
     return hit
+
+
+@contextlib.contextmanager
+def lease_genome(fasta: FastaReader, device: torch.device, radius: int = WINDOW_RADIUS):
+    """Hold the resident genome of ``fasta`` on ``device`` in the cache for
+    the ``with`` block: no other key's build evicts it meanwhile."""
+    key = _genome_key(fasta, radius, device)
+    with _DEVICE_GENOME_LOCK:
+        _DEVICE_GENOME_LEASES[key] = _DEVICE_GENOME_LEASES.get(key, 0) + 1
+    try:
+        yield
+    finally:
+        with _DEVICE_GENOME_LOCK:
+            _DEVICE_GENOME_LEASES[key] -= 1
+            if not _DEVICE_GENOME_LEASES[key]:
+                del _DEVICE_GENOME_LEASES[key]
 
 
 def _build_device_genome(fasta: FastaReader, device: torch.device, radius: int) -> DeviceGenome:

@@ -20,6 +20,7 @@ import hashlib
 import json
 import logging
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -118,6 +119,10 @@ class FastaReader:
         fai = path + ".fai"
         self._index = read_fai(fai) if os.path.exists(fai) else build_fai(path)
         self._fh = open(path, "rb")
+        #: one encode at a time, and the shared handle's seek + read together:
+        #: the streaming executor's workers and its prefetch thread share a reader
+        self._enc_lock = threading.Lock()
+        self._io_lock = threading.Lock()
         self._encoded: dict[str, np.ndarray] = {}
         self._venc: np.memmap | None = None
         self._venc_offsets: dict[str, tuple[int, int]] = {}
@@ -204,7 +209,7 @@ class FastaReader:
             off += int(e.length)
         header = json.dumps({"key": self._cache_key(), "contigs": contigs}).encode()
         p = self._venc_path()
-        tmp = f"{p}.{os.getpid()}.tmp"
+        tmp = f"{p}.{os.getpid()}-{threading.get_ident()}.tmp"
         try:
             os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
             with open(tmp, "wb") as fh:
@@ -239,23 +244,34 @@ class FastaReader:
         got = self.sidecar_codes(chrom)
         if got is None:
             got = self._encoded.get(chrom)
-        if got is None:
-            got = self.encode_contig(chrom)
-            budget = knobs.get_int("VCTPU_FASTA_CACHE_BYTES")
-            if len(got) <= budget:
-                total = sum(len(v) for v in self._encoded.values()) + len(got)
-                while self._encoded and total > budget:
-                    total -= len(self._encoded.pop(next(iter(self._encoded))))
-                self._encoded[chrom] = got
-                if len(self._encoded) == len(self._index):
-                    self.persist_encoded()
+        if got is not None:
+            return got
+        with self._enc_lock:
+            got = self._encoded.get(chrom)  # encoded by the caller this one waited for
+            if got is None:
+                got = self.encode_contig(chrom)
+                budget = knobs.get_int("VCTPU_FASTA_CACHE_BYTES")
+                if len(got) <= budget:
+                    total = sum(len(v) for v in self._encoded.values()) + len(got)
+                    while self._encoded and total > budget:
+                        total -= len(self._encoded.pop(next(iter(self._encoded))))
+                    self._encoded[chrom] = got
+                    if len(self._encoded) == len(self._index):
+                        self.persist_encoded()
         return got
 
-    def encode_all(self) -> None:
+    def encode_all(self, cancel: threading.Event | None = None) -> None:
         """Encode every contig (and so write the sidecar, so that later
-        processes skip the encode); nothing to do where a sidecar serves."""
+        processes skip the encode); nothing to do where a sidecar serves.
+        ``cancel`` stops it between contigs."""
         for chrom in self._index:
+            if cancel is not None and cancel.is_set():
+                return
             self.fetch_encoded(chrom)
+
+    def genome_bytes(self) -> int:
+        """The genome's length in bases: bytes of its codes."""
+        return sum(e.length for e in self._index.values())
 
     def encode_contig(self, chrom: str) -> np.ndarray:
         """Whole-contig uint8 codes, read and encoded anew (not cached)."""
@@ -264,8 +280,9 @@ class FastaReader:
             return np.empty(0, dtype=np.uint8)
         last_line = (e.length - 1) // e.line_bases
         byte_end = e.offset + last_line * e.line_width + (e.length - 1 - last_line * e.line_bases) + 1
-        self._fh.seek(e.offset)
-        raw = np.frombuffer(self._fh.read(byte_end - e.offset), dtype=np.uint8)
+        with self._io_lock:
+            self._fh.seek(e.offset)
+            raw = np.frombuffer(self._fh.read(byte_end - e.offset), dtype=np.uint8)
         if e.line_width == e.line_bases:  # no newlines inside the body
             return _CODE[raw[: e.length]]
         enc = native.fasta_encode(raw, e.line_bases, e.line_width, e.length)

@@ -22,11 +22,19 @@ FORMAT and sample columns are kept as one verbatim tail string, and so is
 its QUAL text, written back for every record whose QUAL was not edited;
 the other core columns are rendered from the column arrays, with the
 reference's ``_format_extra_info_bytes`` rendering of new INFO keys.
+
+The streaming filter executor reads through :class:`VcfChunkReader`: the
+same scan over line-aligned chunks (a memory map of a ``.vcf``, or a
+``.vcf.gz`` inflated shard-parallel), each chunk a row slice of
+:func:`read_vcf`'s table, and renders each chunk's records with
+:func:`assemble_table_bytes` (:func:`render_table_bytes_python` without the
+engine).
 """
 
 from __future__ import annotations
 
 import gzip
+import io as _io
 import logging
 import os
 from dataclasses import dataclass, field
@@ -173,7 +181,7 @@ class _LazyCols:
 
     __slots__ = ("buf", "spans")
 
-    def __init__(self, buf: bytes, spans: dict[str, np.ndarray]):
+    def __init__(self, buf, spans: dict[str, np.ndarray]):
         self.buf = buf
         self.spans = spans
 
@@ -181,8 +189,8 @@ class _LazyCols:
         return _LazyCols(self.buf, {k: v[keep] for k, v in self.spans.items()})
 
     def materialize(self, name: str) -> np.ndarray:
-        buf = self.buf
-        return _obj([buf[a:b].decode() for a, b in self.spans[name].tolist()])
+        buf = memoryview(self.buf)  # bytes, or a chunk's uint8 array (a memory map's slice)
+        return _obj([str(buf[a:b], "utf-8") for a, b in self.spans[name].tolist()])
 
 
 #: the string columns a scanned table decodes only when they are read
@@ -578,14 +586,20 @@ def write_vcf(path: str, table: VariantTable, new_filters=None,
         if not (verbatim_core and _write_assembled_native(out, table, new_filters, extra_info)):
             _write_records(out, table, new_filters, extra_info)
     if index and str(path).endswith(".gz"):
-        from variantcalling_tpu_torch.io.tabix import build_tabix_index
+        write_tabix(str(path))
 
-        try:
-            build_tabix_index(str(path))
-        except ValueError as e:
-            log.warning("no .tbi for %s: %s", path, e)
-            if os.path.exists(f"{path}.tbi"):
-                os.remove(f"{path}.tbi")
+
+def write_tabix(path: str) -> None:
+    """The ``.tbi`` beside a ``.vcf.gz`` (``io/tabix``); unsorted records
+    leave the VCF valid and write none (a stale one beside it is removed)."""
+    from variantcalling_tpu_torch.io.tabix import build_tabix_index
+
+    try:
+        build_tabix_index(path)
+    except ValueError as e:
+        log.warning("no .tbi for %s: %s", path, e)
+        if os.path.exists(f"{path}.tbi"):
+            os.remove(f"{path}.tbi")
 
 
 def _write_records(out, table: VariantTable, new_filters, extra_info) -> None:
@@ -707,3 +721,328 @@ def _take(column, rows: np.ndarray):
     if isinstance(column, FactorizedColumn):
         return FactorizedColumn(column.codes[rows], column.uniques)
     return np.asarray(column, dtype=object)[rows]
+
+
+def assemble_table_bytes(table: VariantTable, new_filters=None, extra_info=None) -> np.ndarray | None:
+    """One table's records rendered by the native engine as a uint8 array (the
+    streaming executor's per-chunk writeback); None where the table has no
+    scan or the engine is off: :func:`render_table_bytes_python` serves."""
+    from variantcalling_tpu_torch import native
+
+    aux = table.aux
+    if aux is None or not native.available():
+        if _single_float_info(extra_info) is not None:
+            native.note_plain("format_float_info")
+        native.note_plain("vcf_assemble")
+        return None
+    filt_buf, filt_offs, sfx_buf, sfx_offs = _filter_info_blobs(table, new_filters, extra_info)
+    return native.vcf_assemble(aux.buf, aux.line_spans, aux.filter_spans, aux.info_spans, aux.tail_spans,
+                               filt_buf, filt_offs, sfx_buf, sfx_offs)
+
+
+def render_table_bytes_python(table: VariantTable, new_filters=None, extra_info=None) -> bytes:
+    """The plain version of :func:`assemble_table_bytes`: the same bytes from
+    the plain writer."""
+    sink = _io.BytesIO()
+    _write_records(sink, table, new_filters, extra_info)
+    return sink.getvalue()
+
+
+#: default streaming chunk size (bytes of VCF text a pipeline item), the
+#: default of ``VCTPU_STREAM_CHUNK_BYTES``
+STREAM_CHUNK_BYTES = 8 << 20
+
+
+class _ParallelBgzfStream:
+    """File-like ``read(n)`` over a BGZF file, inflated shard-parallel.
+
+    The compressed file splits at member boundaries
+    (:func:`bgzf.scan_block_spans`) into shards of about
+    ``VCTPU_IO_SHARD_BYTES`` uncompressed bytes, inflated on the IO pool and
+    reassembled in file order: the byte stream of a serial ``gzip`` read, so
+    chunk boundaries do not depend on the worker count. Raises ``ValueError``
+    on a file that is not BGZF-framed (plain gzip): the caller reads it
+    serially.
+    """
+
+    def __init__(self, path: str, pool):
+        from variantcalling_tpu_torch import knobs
+        from variantcalling_tpu_torch.io import bgzf as bgzf_mod
+        from variantcalling_tpu_torch.parallel.pipeline import imap_ordered
+
+        size = os.path.getsize(path)
+        self.path = str(path)
+        self._mm = np.memmap(path, dtype=np.uint8, mode="r") if size else np.empty(0, dtype=np.uint8)
+        spans = bgzf_mod.scan_block_spans(self._mm) if size else []
+        if spans is None:
+            raise ValueError(f"{path}: not BGZF-framed")
+        groups = bgzf_mod.group_spans(spans, knobs.get_int("VCTPU_IO_SHARD_BYTES"))
+        self._shards = imap_ordered(pool, self._inflate, groups, window=pool.threads + 2)
+        self._buf = bytearray()
+        self._eof = False
+
+    def _inflate(self, spans) -> bytes:
+        from variantcalling_tpu_torch.io import bgzf as bgzf_mod
+        from variantcalling_tpu_torch.parallel.pipeline import retry_transient
+        from variantcalling_tpu_torch.utils import faults
+
+        def attempt() -> bytes:
+            # injection point "io.shard_decompress": inflate is a function of
+            # the mapped bytes, so a transient error is safely retried
+            faults.check("io.shard_decompress")
+            return bgzf_mod.inflate_spans(self._mm, spans)
+
+        return retry_transient(attempt, f"bgzf shard inflate ({self.path})")
+
+    def read(self, n: int) -> bytes:
+        while len(self._buf) < n and not self._eof:
+            nxt = next(self._shards, None)
+            if nxt is None:
+                self._eof = True
+                break
+            self._buf += nxt
+        out = bytes(self._buf[:n])
+        del self._buf[:n]
+        return out
+
+    def close(self) -> None:
+        self._shards.close()
+        self._buf.clear()
+        self._mm = None
+
+
+class VcfChunkReader:
+    """Line-aligned chunked VCF ingest for the streaming executor.
+
+    Counterpart of the reference's ``VcfChunkReader`` (whole-file spans
+    only). Iterating yields :class:`VariantTable` chunks in file order, each
+    scanned by ``native.vcf_parse`` and built by the table assembly
+    :func:`read_vcf` uses, so a chunk's table is a row slice of the
+    whole-file table. Sources:
+
+    - ``.vcf``: a memory map, cut at line ends, so the file never
+      materializes in anonymous memory;
+    - ``.vcf.gz``/``.bgz``: streamed decompression, one bytes buffer a chunk
+      with the partial line carried over (shard-parallel inflate of a BGZF
+      file with ``VCTPU_IO_THREADS`` > 1).
+
+    Chunk boundaries follow the reference's rule for the same
+    ``chunk_bytes`` (argument, else ``VCTPU_STREAM_CHUNK_BYTES``), at any
+    IO thread count. With ``VCTPU_IO_THREADS`` > 1 iteration parses the
+    chunks on the IO pool, reassembled in order. One-shot; needs the native
+    engine; a mid-stream scan failure raises.
+    """
+
+    def __init__(self, path: str, chunk_bytes: int = 0, io_threads: int | None = None):
+        from variantcalling_tpu_torch import knobs, native
+        from variantcalling_tpu_torch.parallel.pipeline import resolve_io_threads
+
+        if not native.available():
+            raise RuntimeError("VcfChunkReader requires the native engine")
+        self.path = str(path)
+        #: the absolute (decompressed) end offset of every chunk boundary
+        #: computed so far, skipped chunks included, by sequence number
+        self.chunk_ends: list[int] = []
+        env_chunk = knobs.get_int("VCTPU_STREAM_CHUNK_BYTES") \
+            if knobs.raw("VCTPU_STREAM_CHUNK_BYTES") is not None else None
+        self.chunk_bytes = int(chunk_bytes) or env_chunk or STREAM_CHUNK_BYTES
+        self.io_threads = resolve_io_threads() if io_threads is None else max(1, int(io_threads))
+        self._pool = None
+        self._pool_shared = False
+        #: chunks to advance without parsing (resume: their bytes are committed)
+        self._skip = 0
+        self._gz = self.path.endswith((".gz", ".bgz"))
+        self._mm: np.ndarray | None = None
+        self._fh = None
+        self._pending = b""
+        if self._gz:
+            try:  # a failing header read must release the started pool
+                self._fh = self._open_gz_stream()
+                self.header, first_off, head = self._scan_gz_header(self._fh)
+                self._pending = head[first_off:]
+                self._gz_base = first_off
+            except BaseException:
+                self.close()
+                raise
+        else:
+            size = os.path.getsize(self.path)
+            self._mm = np.memmap(self.path, dtype=np.uint8, mode="r") if size else np.empty(0, dtype=np.uint8)
+            cap = 1 << 20
+            while True:
+                head = bytes(memoryview(self._mm[: min(cap, size)]))
+                header, first_off = parse_header_bytes(head)
+                if (first_off < len(head) and head[first_off: first_off + 1] != b"#") or cap >= size:
+                    break
+                cap *= 8
+            self.header = header
+            self._span_lo, self._span_hi = first_off, size
+
+    def _scan_gz_header(self, fh) -> tuple:
+        """The header off a decompressed stream: ``chunk_bytes`` windows until
+        a record line begins or the stream ends. Returns ``(header,
+        first_off, head)``; ``head[first_off:]`` is the records already read."""
+        head = b""
+        while True:
+            block = fh.read(self.chunk_bytes)
+            head += block
+            header, first_off = parse_header_bytes(head)
+            if not block or (first_off < len(head) and head[first_off:first_off + 1] != b"#"):
+                break
+        return header, first_off, head
+
+    def _open_gz_stream(self):
+        """Shard-parallel BGZF inflate where the IO pool is on and the file
+        is BGZF-framed, else the serial gzip stream: the same bytes."""
+        if self.io_threads > 1:
+            try:
+                return _ParallelBgzfStream(self.path, self._ensure_pool())
+            except ValueError:
+                pass  # not BGZF-framed: one deflate stream, inflated serially
+        return gzip.open(self.path, "rb")
+
+    def _ensure_pool(self):
+        if self._pool is None:
+            from variantcalling_tpu_torch.parallel.pipeline import IoPool
+
+            self._pool = IoPool(self.io_threads)
+        return self._pool
+
+    def shared_pool(self):
+        """The run's IO pool, marked shared: the executor hands it to work
+        that outlives ingest (the chunk fan-out, the compress stage), so the
+        end of iteration no longer shuts it down; the owner's :meth:`close`
+        does."""
+        self._pool_shared = True
+        return self._ensure_pool()
+
+    def _close_stream(self) -> None:
+        if self._fh is not None:
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+            self._fh = None
+
+    def close(self) -> None:
+        """Release the IO pool and the input stream (idempotent)."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+        self._close_stream()
+
+    def skip(self, n_chunks: int) -> None:
+        """Advance past the first ``n_chunks`` chunks without parsing them
+        (resume). Call before iterating."""
+        self._skip = max(0, int(n_chunks))
+
+    def chunk_end(self, seq: int) -> int | None:
+        """The absolute decompressed end offset of chunk ``seq`` (None before
+        its boundary is computed)."""
+        return self.chunk_ends[seq] if 0 <= seq < len(self.chunk_ends) else None
+
+    def parse_chunk(self, buf_np: np.ndarray, lazy_buf) -> VariantTable:
+        """One raw chunk buffer (:meth:`iter_raw`) scanned into a table."""
+        from variantcalling_tpu_torch import native
+        from variantcalling_tpu_torch.parallel.pipeline import retry_transient
+        from variantcalling_tpu_torch.utils import faults
+
+        def attempt() -> VariantTable:
+            # injection point "io.chunk_read": parse is a function of the
+            # buffer already read, so a retry is always safe
+            faults.check("io.chunk_read")
+            parsed = native.vcf_parse(buf_np, len(self.header.samples))
+            if parsed is None:
+                raise RuntimeError(f"native VCF scan failed mid-stream in {self.path}")
+            return _table_from_parsed(parsed, self.header, lazy_buf, buf_np)
+
+        return retry_transient(attempt, f"chunk read ({self.path})")
+
+    def iter_raw(self):
+        """Raw ``(buf_np, lazy_buf)`` chunk buffers in order, not parsed: the
+        pooled layout runs each chunk's whole body (parse, score, render) as
+        one task over them. The same boundaries as iteration."""
+        raw = self._raw_gz() if self._gz else self._raw_mm()
+        try:
+            yield from raw
+        finally:
+            if self._pool_shared:
+                self._close_stream()
+            else:
+                self.close()
+
+    def __iter__(self):
+        raw = self._raw_gz() if self._gz else self._raw_mm()
+        if self.io_threads <= 1:
+            for buf_np, lazy_buf in raw:
+                yield self.parse_chunk(buf_np, lazy_buf)
+            return
+        from variantcalling_tpu_torch.parallel.pipeline import imap_ordered
+
+        try:
+            yield from imap_ordered(self._ensure_pool(), lambda r: self.parse_chunk(*r), raw,
+                                    window=self.io_threads + 1)
+        finally:
+            if self._pool_shared:
+                self._close_stream()
+            else:
+                self.close()
+
+    def _raw_mm(self):
+        """Chunk buffers of a plain-text file: ``chunk_bytes`` from the last
+        cut, extended to the next line end."""
+        mm = self._mm
+        n = self._span_hi
+        off = self._span_lo
+        while off < n:
+            end = min(off + self.chunk_bytes, n)
+            if end < n:
+                probe = 1 << 16  # grows for the all-one-line case
+                while True:
+                    w = mm[end: min(end + probe, n)]
+                    hits = np.flatnonzero(w == 0x0A)
+                    if len(hits):
+                        end = end + int(hits[0]) + 1
+                        break
+                    if end + probe >= n:
+                        end = n
+                        break
+                    probe *= 8
+            self.chunk_ends.append(end)
+            if self._skip > 0:
+                self._skip -= 1
+            else:
+                view = mm[off:end]
+                yield view, view
+            off = end
+
+    def _raw_gz(self):
+        """Chunk buffers of the decompressed stream: ``chunk_bytes`` windows
+        cut at their last line end, the rest carried to the next."""
+        pos = self._gz_base
+        carry = self._pending
+        self._pending = b""
+        while True:
+            block = self._fh.read(self.chunk_bytes)
+            if not block:
+                break
+            block = carry + block
+            cut = block.rfind(b"\n")
+            if cut < 0:
+                carry = block
+                continue
+            carry = block[cut + 1:]
+            chunk = block[: cut + 1]
+            pos += len(chunk)
+            self.chunk_ends.append(pos)
+            if self._skip > 0:
+                self._skip -= 1
+                continue
+            yield np.frombuffer(chunk, dtype=np.uint8), chunk
+        if carry:
+            pos += len(carry)
+            self.chunk_ends.append(pos)
+            if self._skip > 0:
+                self._skip -= 1
+            else:
+                yield np.frombuffer(carry, dtype=np.uint8), carry
+        self._fh.close()

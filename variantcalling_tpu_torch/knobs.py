@@ -11,7 +11,7 @@ closest-match suggestion (:func:`warn_unknown_env`).
 
 The registry lists every knob of the reference, also those the port does
 not honour yet (``ROADMAP.md`` names the slice that brings each): they are
-validated all the same. Left out: the reference's per-request override
+validated all the same. :data:`HONOURED` names the knobs the port reads. Left out: the reference's per-request override
 layer (``knobs.scope``, for its serving daemon), its ``##vctpu_knobs=``
 header line, and the ``knobs`` tool that dumps the registry.
 
@@ -349,6 +349,21 @@ REGISTRY: dict[str, Knob] = {k.name: k for k in (
        "tools/tpu_probe.py total probe-loop duration in hours",
        minimum=0.0),
 )}
+
+
+#: the knobs the port reads, each doing there what it does in the reference
+#: (``VCTPU_NATIVE_THREADS`` is read by the native engine's C++); the rest of
+#: the registry is validated and waits for its module
+HONOURED = frozenset({
+    # the scoring configuration, the host engine and the genome sidecar
+    "VCTPU_FOREST_STRATEGY", "VCTPU_MODEL_FAMILY", "VCTPU_NO_NATIVE", "VCTPU_NATIVE_THREADS",
+    "VCTPU_FASTA_CACHE_BYTES", "VCTPU_GENOME_CACHE", "VCTPU_GENOME_CACHE_DIR",
+    # the streaming executor, its journal, chunk cache and fault injection
+    "VCTPU_THREADS", "VCTPU_STREAM", "VCTPU_STREAM_CHUNK_BYTES", "VCTPU_IO_THREADS", "VCTPU_IO_SHARD_BYTES",
+    "VCTPU_STAGE_TIMEOUT_S", "VCTPU_IO_RETRIES", "VCTPU_IO_BACKOFF_S", "VCTPU_CHUNK_RETRIES",
+    "VCTPU_QUARANTINE", "VCTPU_RESUME", "VCTPU_RESUME_VERIFY", "VCTPU_JOURNAL_FSYNC", "VCTPU_CACHE",
+    "VCTPU_CACHE_DIR", "VCTPU_CACHE_MAX_MB", "VCTPU_FAULTS",
+})
 
 
 def raw(name: str) -> str | None:

@@ -46,6 +46,7 @@ accumulator per row in ascending tree order, writing (N,) margins.
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 from dataclasses import dataclass
 from functools import cached_property
@@ -61,6 +62,17 @@ from variantcalling_tpu_torch.models.forest import (LEAF, FlatForest, GemmForest
 LAUNCHES = 0
 #: launches of the per-tree kernel in this process (the wrapper adds one per launch)
 TREE_STEP_LAUNCHES = 0
+#: guards the two counts: the streaming executor's workers launch concurrently
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    """Add one launch to the count ``name`` (``LAUNCHES`` or ``TREE_STEP_LAUNCHES``)."""
+    with _COUNT_LOCK:
+        globals()[name] += 1
+
+#: one load of each kernel library, whichever thread asks first
+_LIB_LOCK = threading.Lock()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: (SM count, opt-in shared memory per block) by (prepare entry point, device index)
@@ -83,15 +95,16 @@ _ENTRIES = {
 def _entry(fn_name: str):
     """The C entry point ``fn_name``, its source built and loaded at first use."""
     name = _ENTRIES[fn_name][0]
-    if name not in _LIBS:
-        from variantcalling_tpu_torch.csrc import build
+    with _LIB_LOCK:
+        if name not in _LIBS:
+            from variantcalling_tpu_torch.csrc import build
 
-        lib = ctypes.CDLL(str(build.build(name)))
-        for entry, (source, argtypes) in _ENTRIES.items():
-            if source == name:
-                getattr(lib, entry).argtypes = argtypes
-                getattr(lib, entry).restype = ctypes.c_int
-        _LIBS[name] = lib
+            lib = ctypes.CDLL(str(build.build(name)))
+            for entry, (source, argtypes) in _ENTRIES.items():
+                if source == name:
+                    getattr(lib, entry).argtypes = argtypes
+                    getattr(lib, entry).restype = ctypes.c_int
+            _LIBS[name] = lib
     return getattr(_LIBS[name], fn_name)
 
 
@@ -375,6 +388,12 @@ class WideForestKernel:
                             self.chunk_tree.data_ptr(), self.chunk_rec.data_ptr(), self.chunk_global.data_ptr(),
                             self.tables.n_chunks, self.tables.chunk_records)
 
+    def load(self) -> None:
+        """On the card: build and load the kernel's library and ask the
+        device's limits, so that a first launch does neither."""
+        if self.device.type == "cuda":
+            _device_limits("forest_wide_prepare", self.device)
+
     def wide(self) -> WideGemmForest:
         """The forest's wide encoding, as the plain version packs it."""
         if self._wide is None:
@@ -408,7 +427,6 @@ class WideForestKernel:
         return plan
 
     def launch(self, x: torch.Tensor) -> torch.Tensor:
-        global LAUNCHES
         _check_input(x, self.n_features, self.device, "forest kernel")
         if self.tables is None:
             raise ValueError(f"forest kernel: made for {self.device}, which holds no tables")
@@ -422,7 +440,7 @@ class WideForestKernel:
             err = _entry("forest_wide_margin")(x.data_ptr(), n, *self._table_args, *plan, out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"forest_wide_margin failed: cudaError_t {err}")
-        LAUNCHES += 1
+        _count_launch("LAUNCHES")
         return out
 
 
@@ -636,6 +654,12 @@ class TreeStepKernel:
         self._table_args = (self.n_features, self.tables.columns, self.blob.data_ptr(), self.units.data_ptr(),
                             self.stages.data_ptr(), len(self.tables.stages), self.tables.stage_bytes)
 
+    def load(self) -> None:
+        """On the card: build and load the kernel's library and ask the
+        device's limits, so that a first launch does neither."""
+        if self.device.type == "cuda":
+            _device_limits("forest_tree_step_prepare", self.device)
+
     def plain(self, x: torch.Tensor) -> torch.Tensor:
         """The kernel's plain version on ``x``, on whatever device ``x`` lives on."""
         return predict_margin_gemm(self.gf, x)
@@ -656,7 +680,6 @@ class TreeStepKernel:
         return plan
 
     def launch(self, x: torch.Tensor) -> torch.Tensor:
-        global TREE_STEP_LAUNCHES
         _check_input(x, self.n_features, self.device, "per-tree forest kernel")
         n = x.shape[0]
         out = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -668,7 +691,7 @@ class TreeStepKernel:
             err = _entry("forest_tree_step_margin")(x.data_ptr(), n, *self._table_args, *plan, out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"forest_tree_step_margin failed: cudaError_t {err}")
-        TREE_STEP_LAUNCHES += 1
+        _count_launch("TREE_STEP_LAUNCHES")
         return out
 
 

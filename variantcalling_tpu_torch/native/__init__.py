@@ -50,6 +50,8 @@ ENTRY_POINTS = ("bgzf_decompress_array", "vcf_parse", "interval_membership", "fa
                 "gather_windows_contig", "format_float_info", "vcf_assemble", "bgzf_compress")
 #: per entry point: calls served natively, their seconds, and calls left to the plain version
 CALLS: dict[str, dict] = {}
+#: guards CALLS: the streaming executor's workers call the engine concurrently
+_CALLS_LOCK = threading.Lock()
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -67,8 +69,9 @@ _f64p = ctypes.POINTER(ctypes.c_double)
 
 def reset_calls() -> None:
     """Set every entry point's counts to 0."""
-    CALLS.clear()
-    CALLS.update({name: {"native": 0, "native_s": 0.0, "plain": 0} for name in ENTRY_POINTS})
+    with _CALLS_LOCK:
+        CALLS.clear()
+        CALLS.update({name: {"native": 0, "native_s": 0.0, "plain": 0} for name in ENTRY_POINTS})
 
 
 reset_calls()
@@ -76,7 +79,8 @@ reset_calls()
 
 def note_plain(name: str) -> None:
     """Record that the plain version served one call of entry point ``name``."""
-    CALLS[name]["plain"] += 1
+    with _CALLS_LOCK:
+        CALLS[name]["plain"] += 1
 
 
 def _cpu_tag() -> str:
@@ -206,8 +210,10 @@ def _entry(fn):
         if out is None:
             note_plain(name)
         else:
-            CALLS[name]["native"] += 1
-            CALLS[name]["native_s"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            with _CALLS_LOCK:
+                CALLS[name]["native"] += 1
+                CALLS[name]["native_s"] += dt
         return out
 
     return wrapper

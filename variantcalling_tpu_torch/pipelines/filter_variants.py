@@ -22,6 +22,22 @@ smaller tables, for ``--blacklist_cg_insertions`` (which reads them on the
 host), and for genomes whose positions do not pack into 4 bytes (decided
 once per run from contig lengths).
 
+By default the run streams (:func:`run_streaming`, the reference's
+streaming executor): the callset is read in line-aligned chunks
+(``VCTPU_STREAM_CHUNK_BYTES``), each chunk scanned, featurized, scored on
+the run's device and rendered, chunk bodies on the IO worker pool
+(``VCTPU_IO_THREADS``) or on stage threads, and the rendered chunks written
+in order into ``<out>.partial.*`` and renamed onto the output at the end,
+with a resume journal (``.vcf`` outputs), an optional chunk cache
+(``VCTPU_CACHE``) and quarantine (``VCTPU_QUARANTINE``). The bytes are the
+serial path's. ``VCTPU_STREAM=0``, ``VCTPU_THREADS=1``,
+``--limit_to_contig`` or a missing native engine select the serial path
+(the whole table read, scored and written at once). On the card, every
+chunk of a streaming run takes its windows from the resident genome,
+built on the ``genome-prefetch`` thread; a chunk that comes first waits
+for it. The device half of each chunk runs one chunk at a time, under one
+lock.
+
 The run's device is ``cuda`` unless ``--backend cpu`` is given; asking for
 the card where there is none exits 2. Every ``VCTPU_*`` value is checked
 against the knob registry (:mod:`knobs`) before anything is read: a
@@ -38,7 +54,9 @@ import logging
 import os
 import pickle
 import sys
+import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -52,7 +70,8 @@ from variantcalling_tpu_torch.featurize import (CENTER, DEVICE_FEATURES, classif
 from variantcalling_tpu_torch.io import bed as bedio
 from variantcalling_tpu_torch.io import hdf5
 from variantcalling_tpu_torch.io.fasta import FastaReader
-from variantcalling_tpu_torch.io.vcf import FactorizedColumn, VariantTable, read_vcf, write_vcf
+from variantcalling_tpu_torch.io.vcf import (FactorizedColumn, VariantTable, VcfChunkReader, assemble_table_bytes,
+                                             read_vcf, render_table_bytes_python, write_tabix, write_vcf)
 from variantcalling_tpu_torch.models import dan as dan_mod
 from variantcalling_tpu_torch.models import forest as forest_mod
 from variantcalling_tpu_torch.models import registry
@@ -60,7 +79,8 @@ from variantcalling_tpu_torch.models import threshold as threshold_mod
 from variantcalling_tpu_torch.models.dan import DanModel
 from variantcalling_tpu_torch.models.forest import FlatForest
 from variantcalling_tpu_torch.ops import intervals as iops
-from variantcalling_tpu_torch.utils import h5_utils
+from variantcalling_tpu_torch.parallel import pipeline as pipeline_mod
+from variantcalling_tpu_torch.utils import degrade, faults, h5_utils
 
 log = logging.getLogger("variantcalling_tpu_torch")
 
@@ -85,6 +105,32 @@ STAGE_LOG = "stage %s %.3f s"
 WINDOW_LOG = "window path %s"
 #: log record of the bytes a table sent to the device, and its variants
 TRANSFER_LOG = "sent %d bytes to the device for %d variants"
+#: log record of a streaming run's end: output, layout, chunks, chunks resumed,
+#: chunks quarantined, records, cache hits, peak device memory allocated
+#: (bytes; -1 off the card)
+STREAM_LOG = "streamed %s: layout %s, %d chunks, %d resumed, %d quarantined, %d records, %d cache hits, " \
+             "peak device memory %d bytes"
+
+#: sidecar of the original records of quarantined chunks (``VCTPU_QUARANTINE=1``)
+QUARANTINE_SUFFIX = ".quarantine"
+
+
+class DeviceFault(pipeline_mod.LadderEscalation):
+    """A sticky failure of the card (an illegal address, a failed launch):
+    the context cannot run the chunk again, so the run fails (exit 1) with
+    its journal kept for a resume, never retried, quarantined or moved to
+    the CPU."""
+
+
+def _sticky_device_error(e: BaseException) -> bool:
+    """Whether ``e`` is a CUDA error that poisons the context. Device OOM is
+    not: it takes the recovery ladder (bounded re-dispatch, then fail)."""
+    if isinstance(e, torch.OutOfMemoryError):
+        return False
+    if isinstance(e, torch.AcceleratorError):
+        return True
+    text = str(e)
+    return isinstance(e, RuntimeError) and ("CUDA error" in text or "cudaError_t" in text)
 
 
 @contextlib.contextmanager
@@ -215,6 +261,7 @@ class FusedScorer:
         self.flow_order = flow_order
         self.device = device
         self.sent_bytes = 0
+        self._sent_lock = threading.Lock()
         self.finalize = None  # threshold and DAN programs return final scores
         if isinstance(model, FlatForest):
             forest = forest_mod.with_feature_order(model, names)
@@ -225,11 +272,34 @@ class FusedScorer:
         else:
             self.program = threshold_mod.make_score_predictor(model, names, device)
 
+    def _count_sent(self, nbytes: int) -> None:
+        with self._sent_lock:
+            self.sent_bytes += nbytes
+
     def _send(self, a: np.ndarray) -> torch.Tensor:
         """``a`` copied to the device, its bytes counted."""
         a = np.ascontiguousarray(a)
-        self.sent_bytes += a.nbytes
+        self._count_sent(a.nbytes)
         return torch.from_numpy(a).to(self.device)
+
+    def warm_up(self) -> None:
+        """On the card: the first use of the device programs, before a stream
+        starts, so that no chunk body pays it under the watchdog: the window
+        features over one row, the kernel's library loaded (no launch, so no
+        count), the threshold or DAN program, or the gather walk, over one
+        row."""
+        if self.device.type != "cuda":
+            return
+        windows = torch.full((1, 2 * feat.WINDOW_RADIUS + 1), 4, dtype=torch.uint8, device=self.device)
+        flag = torch.zeros(1, dtype=torch.bool, device=self.device)
+        code = torch.zeros(1, dtype=torch.int32, device=self.device)
+        device_feature_dict(windows, flag, code, code, code, flag, center=CENTER, flow_order=self.flow_order)
+        load = getattr(self.program, "load", None)
+        if load is not None:
+            load()
+        else:
+            self.program(torch.zeros((1, len(self.names)), dtype=torch.float32, device=self.device))
+        torch.cuda.synchronize(self.device)
 
     def chunk_output(self, hf, host_cols: dict[str, np.ndarray], lo: int, hi: int,
                      genome: feat.DeviceGenome | None = None, gpos: np.ndarray | None = None) -> torch.Tensor:
@@ -240,7 +310,7 @@ class FusedScorer:
         else:  # 4 bytes a variant, widened on the device
             windows = feat.windows_from_packed(genome.codes, self._send(gpos[lo:hi].view(np.int32)), genome.radius)
         alle = feat.allele_inputs(hf.alle, lo, hi, self.device)
-        self.sent_bytes += sum(t.numel() * t.element_size() for t in alle)
+        self._count_sent(sum(t.numel() * t.element_size() for t in alle))
         dev = device_feature_dict(windows, *alle, center=CENTER, flow_order=self.flow_order)
         cols = [dev[f] if f in dev else self._send(host_cols[f][lo:hi]) for f in self.names]
         return self.program(torch.stack([c.to(torch.float32) for c in cols], dim=1).contiguous())
@@ -296,6 +366,15 @@ class FilterContext:
         # would walk the wrong branch
         self.keep_nan = getattr(model, "default_left", None) is not None
         self.extra_info = ["TLOD"] if is_mutect else []
+        #: the feature order host featurization gives (TLOD is named tlod)
+        self.feature_names = [*feat.BASE_FEATURES, *(["tlod"] if is_mutect else []), *(annotate_intervals or {})]
+        #: set by a streaming run on the card: every chunk's windows come
+        #: from the resident genome (see :meth:`genome_resident`)
+        self.stream_resident = False
+        #: the device half of scoring runs one table at a time
+        self._device_lock = threading.Lock()
+        self._scorers: dict[tuple, FusedScorer] = {}
+        self._scorer_lock = threading.Lock()
         self._runs: bedio.IntervalSet | None = None
         if runs_file:
             runs = bedio.read_bed(runs_file)
@@ -313,10 +392,28 @@ class FilterContext:
 
     def genome_resident(self, table: VariantTable) -> bool:
         """Whether this table's windows come from the resident genome: host
-        windows are needed for ``--blacklist_cg_insertions``, for genomes that
-        do not pack, and for a small table that finds no genome resident."""
+        windows are needed for ``--blacklist_cg_insertions`` and for genomes
+        that do not pack; otherwise every chunk of a streaming run on the
+        card (:attr:`stream_resident`) and any table that finds the genome
+        resident or has at least ``GENOME_RESIDENT_MIN_VARIANTS`` records."""
         return (self.genome_packable and not self.blacklist_cg_insertions
-                and feat._genome_resident_worthwhile(table, self.fasta, self.device))
+                and (self.stream_resident or feat._genome_resident_worthwhile(table, self.fasta, self.device)))
+
+    @property
+    def stream_resident_possible(self) -> bool:
+        """Whether a streaming run takes every chunk's windows from the
+        resident genome: on the card, where the genome packs and no host
+        windows are needed."""
+        return self.device.type == "cuda" and self.genome_packable and not self.blacklist_cg_insertions
+
+    def scorer(self, names: list[str]) -> FusedScorer:
+        """The run's device scorer for feature order ``names``, built once."""
+        key = tuple(names)
+        with self._scorer_lock:
+            if key not in self._scorers:
+                self._scorers[key] = FusedScorer(self.model, names, self.forest_strategy, self.flow_order,
+                                                 self.device)
+            return self._scorers[key]
 
     def host_features(self, table: VariantTable, compute_windows: bool = True):
         hf = host_featurize(table, self.fasta, annotate_intervals=self.annotate_intervals,
@@ -339,9 +436,17 @@ class FilterContext:
                 gpos = feat.pack_global_positions(feat.globalize_positions(table, genome), genome)
         log.info(WINDOW_LOG, "genome-resident" if resident else "host gather")
         with _stage("device_score"):
-            scorer = FusedScorer(self.model, hf.names, self.forest_strategy, self.flow_order, self.device)
-            score = scorer.score(hf, genome, gpos)
-        log.info(TRANSFER_LOG, scorer.sent_bytes, len(table))
+            scorer = self.scorer(hf.names)
+            try:
+                with self._device_lock:
+                    sent = scorer.sent_bytes
+                    score = scorer.score(hf, genome, gpos)
+                    sent = scorer.sent_bytes - sent
+            except Exception as e:  # noqa: BLE001 — classified and re-raised
+                if _sticky_device_error(e):
+                    raise DeviceFault(f"the device failed scoring {len(table)} records: {e}") from e
+                raise
+        log.info(TRANSFER_LOG, sent, len(table))
         with _stage("filters"):
             return score, self.assemble_filters(table, score, hf)
 
@@ -401,6 +506,374 @@ def _ensure_output_header(header, engine: str, strategy: str, family: str) -> No
     header.lines[:] = [ln for ln in header.lines if not ln.startswith(_STALE_PROVENANCE)]
 
 
+def quarantine_path(out_path: str) -> str:
+    return str(out_path) + QUARANTINE_SUFFIX
+
+
+def _guard_chunk(table: VariantTable, what: str, body):
+    """The quarantine rung of the recovery ladder for one chunk body: runs
+    ``body()``; on failure re-raises (the default: a poison chunk fails the
+    run) or, with ``VCTPU_QUARANTINE=1`` on the last re-dispatch attempt,
+    returns None: the render stage then writes the chunk's original records
+    to ``<out>.quarantine`` and nothing to the output. ``EngineError``, the
+    watchdog's error and :class:`DeviceFault` always fail the run."""
+    try:
+        # injection point: a deterministic per-chunk poison
+        faults.check("pipeline.chunk")
+        return body()
+    except (engine_mod.EngineError, pipeline_mod.StageTimeoutError, pipeline_mod.LadderEscalation):
+        raise
+    except Exception as e:  # noqa: BLE001 — opt-in quarantine is recorded; otherwise re-raised
+        if not knobs.get_bool("VCTPU_QUARANTINE") or not pipeline_mod.on_final_attempt():
+            raise
+        pipeline_mod.record_quarantine(what, len(table), e)
+        return None
+
+
+def streaming_eligible(args_limit_to_contig=None) -> bool:
+    """The streaming executor runs where host threads are available
+    (``VCTPU_THREADS`` != 1, ``VCTPU_STREAM`` on), the native engine is
+    built, and the job is the whole file. Anything else selects the serial
+    path."""
+    if not knobs.get_bool("VCTPU_STREAM") or pipeline_mod.resolve_threads() <= 1:
+        return False
+    return native.available() and not args_limit_to_contig
+
+
+def _sink_write(sink, data) -> None:
+    """Write ``data`` to an output sink with bounded retry on transient IO
+    errors (ENOSPC, EIO). A rewindable sink (a plain file) is restored to
+    its position before each retry, so a half-written attempt cannot
+    duplicate bytes; any other sink is not retried."""
+    try:
+        pos = sink.tell()
+    except (AttributeError, OSError):
+        pos = None
+
+    def attempt() -> None:
+        if pos is not None and sink.tell() != pos:
+            sink.seek(pos)
+            sink.truncate()
+        # injection point "io.writeback": fires before bytes move
+        faults.check("io.writeback")
+        sink.write(data)
+
+    pipeline_mod.retry_transient(attempt, "output writeback", attempts=None if pos is not None else 1)
+
+
+def _prefetch_genome(ctx: FilterContext, cancel: threading.Event) -> None:
+    """The ``genome-prefetch`` thread's work: on the card, the resident genome
+    (a chunk that needs it first waits for this build); elsewhere the host
+    encode of every contig (and the ``.venc`` sidecar), where the genome fits
+    ``VCTPU_FASTA_CACHE_BYTES``. A failure is the chunks' to report: they
+    build for themselves and raise."""
+    try:
+        if ctx.stream_resident:
+            feat.device_genome(ctx.fasta, ctx.device)
+        elif ctx.fasta.genome_bytes() <= knobs.get_int("VCTPU_FASTA_CACHE_BYTES"):
+            ctx.fasta.encode_all(cancel=cancel)
+    except Exception as e:  # noqa: BLE001 — recorded; the chunk bodies raise it again
+        degrade.record("stream.genome_prefetch", e, warn=True, fallback="the chunks build the genome themselves")
+
+
+def run_streaming(args, ctx: FilterContext) -> dict:
+    """Chunked streaming execution: chunk ingest, featurize and score on the
+    run's device, ordered writeback, overlapped on the stage executor
+    (:mod:`parallel.pipeline`). Counterpart of the reference's
+    ``run_streaming`` on one device and one rank. The output bytes are the
+    serial path's: chunks are sequence-numbered, written strictly in order,
+    and each runs the code the whole-table path runs.
+
+    Failure semantics:
+
+    - the output is committed atomically: bytes accumulate in
+      ``<out>.partial.<pid>-<hex>`` and are renamed onto the destination
+      after the last chunk;
+    - ``.vcf`` outputs keep a chunk journal (``<out>.journal``), so an
+      interrupted run resumes (``VCTPU_RESUME``, checked per
+      ``VCTPU_RESUME_VERIFY``); ``.vcf.gz`` outputs restart;
+    - transient ingest and writeback IO errors are retried with backoff
+      (``VCTPU_IO_RETRIES``, ``VCTPU_IO_BACKOFF_S``), a failed chunk body is
+      re-dispatched (``VCTPU_CHUNK_RETRIES``) and then fails the run or,
+      with ``VCTPU_QUARANTINE=1``, goes to the ``.quarantine`` sidecar; a
+      hung stage trips the watchdog (``VCTPU_STAGE_TIMEOUT_S``); a sticky
+      device fault fails the run at once (:class:`DeviceFault`);
+    - every exit joins the prefetch thread and the stage workers.
+
+    The caller has checked :func:`streaming_eligible`. Returns the run's
+    counts (records, chunks, resumed, quarantined, cache traffic, layout,
+    peak device memory).
+    """
+    ctx.stream_resident = ctx.stream_resident_possible
+    lease = feat.lease_genome(ctx.fasta, ctx.device) if ctx.stream_resident else contextlib.nullcontext()
+    try:
+        with lease:
+            return _run_streaming_impl(args, ctx)
+    finally:
+        ctx.stream_resident = False
+
+
+def _run_streaming_impl(args, ctx: FilterContext) -> dict:
+    on_card = ctx.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+    # the device's first use (kernel libraries, the window features' and the
+    # families' programs) before the stream, outside any chunk's watchdog
+    ctx.scorer(ctx.feature_names).warm_up()
+    reader = VcfChunkReader(args.input_file)
+    prefetch_cancel = threading.Event()
+    prefetch = threading.Thread(target=_prefetch_genome, args=(ctx, prefetch_cancel), name="genome-prefetch",
+                                daemon=True)
+    prefetch.start()
+    try:
+        return _stream(args, ctx, reader)
+    finally:
+        # on every exit the IO pool is shut down and the prefetch cancelled
+        # and joined (a dying run must not cut a sidecar write short)
+        reader.close()
+        prefetch_cancel.set()
+        prefetch.join()
+
+
+def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
+    """:func:`_run_streaming_impl` past its set-up: the stage pipeline, the
+    sequenced commit, the atomic rename and the ``.tbi``."""
+    from variantcalling_tpu_torch.io import chunk_cache as chunk_cache_mod
+    from variantcalling_tpu_torch.io import identity as identity_mod
+    from variantcalling_tpu_torch.io import journal as journal_mod
+
+    header = reader.header
+    _ensure_output_header(header, ctx.engine, ctx.forest_strategy, ctx.model_family)
+
+    def score_stage(table):
+        # the chunk body rides the recovery ladder: the executor (serial IO)
+        # or raw_chunk_worker (pooled) re-dispatches; the guard quarantines
+        out = _guard_chunk(table, "score_stage", lambda: ctx.score_table(table))
+        return (table, None, None) if out is None else (table, *out)
+
+    def render_stage(item):
+        table, score, filters = item
+        if score is None:
+            # quarantined chunk: nothing to the output, the original records
+            # (no TREE_SCORE, the original FILTER) to the sidecar
+            qbody = assemble_table_bytes(table)
+            if qbody is None:
+                qbody = render_table_bytes_python(table)
+            return b"", len(table), 0, bytes(qbody)
+        extra = {"TREE_SCORE": np.round(score, 4)}
+        body = assemble_table_bytes(table, new_filters=filters, extra_info=extra)
+        if body is None:
+            body = render_table_bytes_python(table, new_filters=filters, extra_info=extra)
+        return body, len(table), int(np.sum(filters.codes == 0)), None
+
+    def raw_chunk_worker(item):
+        """One chunk's whole body over its raw buffer: parse, score, render,
+        inside the chunk's re-dispatch budget. With the cache on, the raw
+        span is keyed first: a hit returns the stored rendered body; a miss
+        computes and stages its result for publication at commit."""
+        seq, (buf_np, lazy_buf) = item
+        ckey = None
+        if cache_session is not None:
+            ckey = cache_session.key_of(buf_np)
+            hit = cache_session.get(ckey)
+            if hit is not None:
+                body, k, p = hit
+                return body, k, p, None
+
+        def body():
+            faults.check("pipeline.stage")
+            faults.check("pipeline.stage_hang")
+            return render_stage(score_stage(reader.parse_chunk(buf_np, lazy_buf)))
+
+        out = pipeline_mod.retry_chunk(body, "chunk_worker", seq=seq)
+        if ckey is not None and out[3] is None:
+            # clean chunks only: a quarantined chunk's empty body is not a
+            # function of its input
+            cache_session.stage(seq, ckey, out[0], out[1], out[2])
+        return out
+
+    out_path = str(args.output_file)
+    gz = out_path.endswith(".gz")
+    header_bytes = (b"".join((line + "\n").encode() for line in header.lines)
+                    + (header.column_header() + "\n").encode())
+
+    compressor = None
+    if gz:
+        from variantcalling_tpu_torch.io.bgzf import BgzfChunkCompressor
+
+        compressor = BgzfChunkCompressor(pool=reader.shared_pool() if reader.io_threads > 1 else None)
+
+        def compress_stage(item):
+            body, k, p, q = item
+            if not len(body):  # a quarantined chunk: nothing to compress
+                return b"", k, p, q
+            return compressor.add(memoryview(body) if isinstance(body, np.ndarray) else body), k, p, q
+
+        # the one stage that is not a pure chunk body: the BGZF carry takes
+        # every byte it sees, so it runs exactly once a chunk and a failure
+        # fails the run
+        compress_stage.retry_safe = False
+
+    scoring_cfg = identity_mod.scoring_config(
+        args, engine=ctx.engine, forest_strategy=ctx.forest_strategy, model_family=ctx.model_family,
+        model_digest=dan_mod.weights_digest(ctx.model) if isinstance(ctx.model, DanModel) else None)
+
+    # resume only for plain-text outputs: a killed BGZF writer's block
+    # state is lost, so .gz runs restart (still atomically)
+    resume_enabled = not gz and knobs.get_bool("VCTPU_RESUME")
+    resume = journal = meta = None
+    if resume_enabled:
+        meta = identity_mod.resume_meta(args, chunk_bytes=reader.chunk_bytes, header_bytes=header_bytes,
+                                        config=scoring_cfg)
+        resume = journal_mod.try_resume(out_path, meta, claim=True)
+
+    n_total = n_pass = n_chunks = 0
+    q_path = quarantine_path(out_path)
+    if resume is None:
+        # a fresh run: an older run's quarantine sidecar must not mix with
+        # this run's (a resumed run keeps it: its journaled chunks are skipped)
+        try:
+            os.remove(q_path)
+        except OSError:
+            pass
+    # the partial's token is claimed before the file exists, and released
+    # on every exit from here on
+    part_token = None
+    try:
+        if resume is not None:
+            n_chunks, n_total, n_pass = resume.chunks, resume.n_records, resume.n_pass
+            part_token = resume.partial_token  # re-tokened and claimed by try_resume
+            reader.skip(resume.chunks)
+            sink = journal_mod.open_partial(out_path, part_token, "ab")  # truncated to the watermark
+            journal = journal_mod.ChunkJournal(out_path)
+            journal.reopen()
+            log.info("streaming resume: %d chunks (%d records) already committed", resume.chunks, resume.n_records)
+        else:
+            journal_mod.discard(out_path)  # leftovers of older runs
+            part_token = journal_mod.new_partial_token()
+            journal_mod.claim_token(part_token)
+            sink = journal_mod.open_partial(out_path, part_token, "wb")
+            if resume_enabled:
+                journal = journal_mod.ChunkJournal(out_path)
+                journal.begin(dict(meta, partial=part_token))
+    except BaseException:
+        if part_token is not None:
+            journal_mod.release_token(part_token)
+        raise
+
+    # chunk-result cache: opened after the resume decision, so sequence
+    # numbers count post-skip delivery order on both sides
+    cache_session = chunk_cache_mod.open_session(scoring_cfg)
+    if reader.io_threads > 1:
+        # pooled: each chunk's whole body (parse, score, render) is one task
+        # over its raw buffer on the IO pool, reassembled in order
+        layout = "pooled"
+        source = pipeline_mod.imap_ordered(reader.shared_pool(), raw_chunk_worker, enumerate(reader.iter_raw()),
+                                           window=reader.io_threads + 2)
+        stages = []
+    elif cache_session is not None:
+        # serial IO with the cache: the same raw-buffer body, inline on the
+        # feed (lookups key the raw span)
+        layout = "serial-io-cached"
+        source = map(raw_chunk_worker, enumerate(reader.iter_raw()))
+        stages = []
+    else:
+        layout = "serial-io"
+        source = reader
+        stages = [score_stage, render_stage]
+    if compressor is not None:
+        stages.append(compress_stage)
+    pipe = pipeline_mod.StagePipeline(stages, queue_depth=2, recover=True)
+    gen = pipe.run(source)
+    ok = False
+    resumed_chunks = n_chunks
+    n_quar_chunks = n_quar_records = 0
+    qsink = None
+    try:
+        with sink:
+            if resume is None:
+                # the header rides the block stream the bodies do, as the
+                # serial writer's buffer takes it
+                _sink_write(sink, compressor.add(header_bytes) if compressor is not None else header_bytes)
+            for body, k, p, qbody in gen:
+                if qbody:
+                    # the sidecar is appended before the journal claims the
+                    # chunk: a kill between them can duplicate records in it
+                    # on resume, never lose them
+                    if qsink is None:
+                        qsink = open(q_path, "ab")
+                    _sink_write(qsink, qbody)
+                    qsink.flush()
+                    n_quar_chunks += 1
+                    n_quar_records += k
+                data = memoryview(body) if isinstance(body, np.ndarray) else body
+                _sink_write(sink, data)
+                n_total += k
+                n_pass += p
+                n_chunks += 1
+                if journal is not None:
+                    # the journal never claims bytes still in the write buffer
+                    sink.flush()
+                    if journal_mod.fsync_enabled():
+                        os.fsync(sink.fileno())
+                    journal.append(n_chunks - 1, k, p, len(data), zlib.crc32(data),
+                                   in_end=reader.chunk_end(n_chunks - 1))
+                if cache_session is not None:
+                    # committed-prefix publication
+                    cache_session.publish_up_to(n_chunks - resumed_chunks - 1)
+            if compressor is not None:
+                _sink_write(sink, compressor.finish())  # the last partial block and the EOF block
+        ok = True
+    finally:
+        # every exit: the stage workers drained and joined, the journal closed
+        gen.close()
+        if qsink is not None:
+            qsink.close()
+        if journal is not None:
+            journal.close()
+        if cache_session is not None and not ok:
+            cache_session.discard()
+        if not ok:
+            journal_mod.release_token(part_token)
+            if journal is None:
+                journal_mod.remove_partial(out_path, part_token)  # nothing to resume: no droppings
+            else:
+                log.info("streaming run failed after %d chunks; partial output and journal kept for resume",
+                         n_chunks)
+
+    def _commit():
+        # injection point "io.commit": fires before the rename, so a
+        # persistent failure leaves the journal and partial for a resume
+        faults.check("io.commit")
+        journal_mod.commit_partial(out_path, part_token)
+
+    try:
+        pipeline_mod.retry_transient(_commit, "output commit")
+    except BaseException:
+        journal_mod.release_token(part_token)
+        if journal is None:
+            journal_mod.remove_partial(out_path, part_token)
+        else:
+            log.info("output commit failed after %d chunks; partial output and journal kept for resume", n_chunks)
+        raise
+    journal_mod.release_token(part_token)
+    if journal is not None:
+        journal.finish()
+    if n_quar_chunks:
+        log.warning("quarantine: %d chunk(s), %d record(s) diverted to %s — the output lacks that many records",
+                    n_quar_chunks, n_quar_records, q_path)
+    if gz:
+        write_tabix(out_path)
+    stats = {"n": n_total, "n_pass": n_pass, "chunks": n_chunks, "layout": layout,
+             "resumed_chunks": resume.chunks if resume is not None else 0,
+             "quarantined_chunks": n_quar_chunks, "quarantined_records": n_quar_records,
+             "cache": cache_session.stats() if cache_session is not None else None,
+             "peak_device_bytes": torch.cuda.max_memory_allocated(ctx.device) if ctx.device.type == "cuda" else -1}
+    log.info(STREAM_LOG, out_path, layout, n_chunks, stats["resumed_chunks"], n_quar_chunks, n_total,
+             stats["cache"]["hits"] if stats["cache"] else 0, stats["peak_device_bytes"])
+    return stats
+
+
 def run(argv: list[str]) -> int:
     args = get_parser().parse_args(argv)
     try:
@@ -423,6 +896,9 @@ def run(argv: list[str]) -> int:
         except (NotImplementedError, engine_mod.EngineError) as e:
             log.error("%s", e)
             return 2
+        except DeviceFault as e:
+            log.error("%s", e)
+            return 1
 
 
 def run_loaded(args, model, fasta: FastaReader, annotate, blacklist, device: torch.device,
@@ -435,6 +911,11 @@ def run_loaded(args, model, fasta: FastaReader, annotate, blacklist, device: tor
         blacklist=blacklist, blacklist_cg_insertions=args.blacklist_cg_insertions,
         annotate_intervals=annotate, flow_order=args.flow_order, is_mutect=args.is_mutect,
         family=family)
+    if streaming_eligible(args.limit_to_contig):
+        log.info("streaming %s", args.input_file)
+        stats = run_streaming(args, ctx)
+        log.info("wrote %s: %d variants, %d PASS", args.output_file, stats["n"], stats["n_pass"])
+        return 0
     log.info("reading %s", args.input_file)
     with _stage("ingest"):
         table = read_vcf(args.input_file)

@@ -201,19 +201,22 @@ def _genome(rng: np.random.Generator, length: int) -> np.ndarray:
     return arr
 
 
-def _write_fasta(path: str, name: str, codes: np.ndarray) -> None:
-    seq = _BASES[codes].view(np.uint8)
-    k = len(seq) // 60
+def _write_fasta(path: str, contigs: list[tuple[str, np.ndarray]]) -> None:
+    """``contigs`` (name, codes) as a FASTA of 60-base lines, and its ``.fai``."""
+    fai = []
     with open(path, "wb") as fh:
-        fh.write(f">{name}\n".encode())
-        offset = fh.tell()
-        fh.write(np.concatenate([seq[: k * 60].reshape(k, 60),
-                                 np.full((k, 1), ord("\n"), np.uint8)], axis=1).tobytes())
-        tail = seq[k * 60:]
-        if len(tail):
-            fh.write(tail.tobytes() + b"\n")
+        for name, codes in contigs:
+            seq = _BASES[codes].view(np.uint8)
+            k = len(seq) // 60
+            fh.write(f">{name}\n".encode())
+            fai.append(f"{name}\t{len(codes)}\t{fh.tell()}\t60\t61\n")
+            fh.write(np.concatenate([seq[: k * 60].reshape(k, 60),
+                                     np.full((k, 1), ord("\n"), np.uint8)], axis=1).tobytes())
+            tail = seq[k * 60:]
+            if len(tail):
+                fh.write(tail.tobytes() + b"\n")
     with open(path + ".fai", "wt") as fh:
-        fh.write(f"{name}\t{len(codes)}\t{offset}\t60\t61\n")
+        fh.write("".join(fai))
 
 
 def _cat(*parts) -> np.ndarray:
@@ -243,10 +246,14 @@ def blacklist_loci(world_seed: int, seed: int, n_loci: int, length: int = 64_444
     return np.sort(np.random.default_rng(seed).choice(pos0, size=n_loci, replace=False)) + 1
 
 
+#: GRCh38's chr20, chr21 and chr22 (name, length in bases)
+GRCH38_CHR20_22 = (("chr20", 64_444_167), ("chr21", 46_709_983), ("chr22", 50_818_468))
+
+
 def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_167,
                 n_variants: int = 104_000, n_trees: int = 100, depth: int = 7,
                 aggregation: str = "logit_sum", model_name: str = "rf_model_ignore_gt_incl_hpol_runs",
-                xgboost: bool = False) -> dict:
+                xgboost: bool = False, contigs: list[tuple[str, int]] | None = None) -> dict:
     """Write ``ref.fa`` (+ ``.fai``), ``calls.vcf`` and ``model.pkl`` under ``d``.
 
     The callset: 65% SNPs, 5% multiallelic SNPs, 15% insertions (half of them
@@ -254,6 +261,11 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
     at distinct sorted positions, with QUAL written as GATK writes it (two
     decimals; 1% of the records at 10,000 and more). Returns the paths and
     the model name.
+
+    ``contigs``: (name, length) of each contig, in order, in place of
+    ``contig`` and ``length``; the variants are shared out in proportion to
+    the lengths (the last contig takes the rest). One contig writes the same
+    bytes as ``contig`` and ``length``.
 
     ``xgboost=True`` writes ``model.json`` instead: an xgboost JSON model
     (:func:`xgboost_json`, ``binary:logistic``, ``default_left`` and
@@ -264,15 +276,26 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
     """
     rng = np.random.default_rng(seed)
     os.makedirs(d, exist_ok=True)
-    genome, pos0 = _world_genome_positions(rng, length, n_variants)
+    contigs = list(contigs) if contigs else [(contig, length)]
+    total = sum(ln for _, ln in contigs)
+    counts = [n_variants * ln // total for _, ln in contigs[:-1]]
+    counts.append(n_variants - sum(counts))
+    genomes, pos_parts, offset = [], [], 0
+    for (_, ln), k in zip(contigs, counts):
+        g, p = _world_genome_positions(rng, ln, k)
+        genomes.append(g)
+        pos_parts.append(p + offset)  # positions into the contigs' concatenation
+        offset += ln
     fasta = os.path.join(d, "ref.fa")
-    _write_fasta(fasta, contig, genome)
+    _write_fasta(fasta, [(name, g) for (name, _), g in zip(contigs, genomes)])
+    genome = genomes[0] if len(genomes) == 1 else np.concatenate(genomes)
+    gpos = np.concatenate(pos_parts)
 
     n = n_variants
     kind = rng.random(n)
     multi = (kind >= 0.65) & (kind < 0.70)
     ins, dele = (kind >= 0.70) & (kind < 0.85), kind >= 0.85
-    ref_c = genome[pos0]
+    ref_c = genome[gpos]
     shift = rng.integers(1, 4, size=n).astype(np.uint8)
     shift2 = (shift % 3 + 1).astype(np.uint8)  # another nonzero shift
     k = rng.integers(1, 4, size=n)
@@ -280,13 +303,13 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
     alt = _BASES[(ref_c + shift) % 4].astype("S8")
     alt[multi] = _cat(alt[multi], b",", _BASES[(ref_c[multi] + shift2[multi]) % 4])
     hmer = rng.random(n) < 0.5
-    ins_codes = np.where(hmer[:, None], genome[pos0 + 1][:, None],
+    ins_codes = np.where(hmer[:, None], genome[gpos + 1][:, None],
                          rng.integers(0, 4, size=(n, 3), dtype=np.uint8))
     ins_s = anchor.astype("S8")
     ref = anchor.astype("S8")
     for j in range(3):
         ins_s = np.where(k > j, _cat(ins_s, _BASES[ins_codes[:, j]]), ins_s)
-        ref = np.where(dele & (k > j), _cat(ref, _BASES[genome[pos0 + 1 + j]]), ref)
+        ref = np.where(dele & (k > j), _cat(ref, _BASES[genome[gpos + 1 + j]]), ref)
     alt[ins] = ins_s[ins]
     alt[dele] = anchor[dele]
 
@@ -304,7 +327,10 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
     sample = np.where(missing, _cat(gt, b":", ad), _cat(gt, b":", gq, b":", ad))
     fmt = np.where(missing, b"GT:AD", b"GT:GQ:AD")
     tab = b"\t"
-    rec = _cat(np.full(n, contig.encode()), tab, np.char.mod(b"%d", pos0 + 1), tab, b".", tab,
+    chrom = np.repeat(np.asarray([name.encode() for name, _ in contigs]), counts)
+    pos1 = np.concatenate([p + 1 for p in pos_parts]) - np.repeat(
+        np.cumsum([0] + [ln for _, ln in contigs[:-1]]), counts)
+    rec = _cat(chrom, tab, np.char.mod(b"%d", pos1), tab, b".", tab,
                ref, tab, alt, tab, qual, tab, b"PASS", tab, info, tab, fmt, tab, sample)
     header = [
         "##fileformat=VCFv4.2",
@@ -314,7 +340,7 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
         '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
         '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Genotype quality">',
         '##FORMAT=<ID=AD,Number=R,Type=Integer,Description="Allele depths">',
-        f"##contig=<ID={contig},length={length}>",
+        *(f"##contig=<ID={name},length={ln}>" for name, ln in contigs),
         "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tHG002",
     ]
     vcf = os.path.join(d, "calls.vcf")
