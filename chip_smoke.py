@@ -6,10 +6,11 @@ Phases (any failure exits non-zero, and the final result line is not printed):
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions; fails
    without a CUDA device;
-2. build: compiles both kernel sources, ``variantcalling_tpu_torch/csrc/
-   forest_wide.cu`` and ``forest_tree_step.cu``, with nvcc for sm_90a, and
-   the native host engine (``variantcalling_tpu_torch/native/src``) with
-   g++, the three builds started together, and prints each build's seconds;
+2. build: compiles the three kernel sources, ``variantcalling_tpu_torch/
+   csrc/forest_wide.cu``, ``forest_tree_step.cu`` and ``gbt_hist.cu``, with
+   nvcc for sm_90a, and the native host engine
+   (``variantcalling_tpu_torch/native/src``) with g++, the four builds
+   started together, and prints each build's seconds;
 3. kernels, each against its plain torch version on the card, bit for bit
    (``torch.equal``), timed with CUDA events beside its bound (``ms``:
    single launches, as the main path makes them; ``device_ms``: launches
@@ -105,7 +106,28 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    (the second all hits, no launch, equal bytes), and the DAN and threshold
    models streaming against their serial GPU runs. A ``STREAM_DETAIL`` line
    per run: layout, chunks, window paths, launches, wall seconds,
-   variants/s, peak host RSS (5 M runs) and peak card memory.
+   variants/s, peak host RSS (5 M runs) and peak card memory;
+9. training (``phase_training``): ``TRAIN_WORLD``, 5,000,000 labeled
+   concordance rows on GRCh38's 22 autosomes (chr20 at 104,000), written by
+   the port's own HDF5 writer, through ``train_models_pipeline
+   --evaluate_concordance --evaluate_concordance_contig chr20`` at the
+   default 100 trees, depth 6, 64 bins, twice, each run in a process of its
+   own with the kernels' counts set to 0 just before it: 2,400 ``gbt_hist``
+   launches and 5 ``forest_wide`` launches a run, byte-equal pickles and
+   ``.h5`` frames (``TRAIN_DETAIL``: wall, seconds by stage, launches, peak
+   RSS and card memory); 200,000 of its rows on the card against
+   ``--backend cpu`` (the native float32 trainer; the threshold models
+   equal, the forests' agreement reported: ``TRAIN_NATIVE_DETAIL``), and
+   ``boosting.fit`` of one model on the card against
+   the CPU torch program (``VCTPU_NATIVE_GBT=0``): equal trees, values to
+   1e-5, scores to 1e-6 (``TRAIN_FIT_DETAIL``); the histogram of one tree at
+   5 M rows level by level, ``torch.equal`` to its plain version, timed
+   beside its bound and the bf16 one-hot ``torch.matmul``
+   (``GBT_HIST_DETAIL``); ``training_prep_pipeline`` and
+   ``train_models_pipeline`` in VCF mode on the 104,000-variant chr20 world
+   with dbSNP IDs, a blacklist, hpol runs and an annotation, the trained
+   forest then filtering it on ``cuda-wide`` to the CPU run's bytes, its
+   pickle naming only the reference's classes, numpy and builtins.
 
 The last two lines of standard output are a JSON object with the kernel
 numbers and the device line ``{"ok": true, "device": {...}}``.
@@ -991,15 +1013,16 @@ def _stream_child(spec: dict, results) -> None:
         "peak_device_bytes": torch.cuda.max_memory_allocated(), "stages": times.stages})
 
 
-def _forked(spec: dict, label: str) -> dict:
-    """:func:`_stream_child` in a process forked by a ``forkserver``: a child
-    started otherwise keeps this process's peak in its ``ru_maxrss``."""
+def _forked(spec: dict, label: str, target=None) -> dict:
+    """``target`` (default :func:`_stream_child`) in a process forked by a
+    ``forkserver``: a child started otherwise keeps this process's peak in
+    its ``ru_maxrss``."""
     import multiprocessing
     import queue
 
     ctx = multiprocessing.get_context("forkserver")
     results = ctx.Queue()
-    proc = ctx.Process(target=_stream_child, args=(spec, results), name=label)
+    proc = ctx.Process(target=target or _stream_child, args=(spec, results), name=label)
     proc.start()
     run = None
     deadline = time.monotonic() + 900
@@ -1177,6 +1200,342 @@ def phase_streaming(tmp: Path, card: str, pickle_world: dict) -> dict:
     return out
 
 
+#: the training phase's world: a 30x WGS callset's tp+fp count (one GIAB sample of BASELINE.json's
+#: config 3), on GRCh38's 22 autosomes, chr20 (the held-out contig) at 104,000 rows
+TRAIN_WORLD = dict(seed=2029, n_rows=5_000_000, chr20_rows=104_000)
+#: rows of the GPU-against-CPU comparison: chr1's first 96,000 and chr20's 104,000
+TRAIN_CPU_ROWS = 200_000
+#: gbt_hist launches of the default grid: 100 trees x depth 6 x the four rf cells
+TRAIN_GRID_LAUNCHES = 100 * 6 * 4
+
+
+def _train_run(argv: list[str], env: dict[str, str] | None = None) -> dict:
+    """One ``train_models_pipeline`` run through ``run(argv)`` in this process:
+    the kernels' launch counts set to 0 just before it and read just after,
+    its stages (``STAGE_LOG``, through :class:`_RunLog`), wall seconds and
+    peak card memory."""
+    from variantcalling_tpu_torch.models import forest_cuda, gbt_hist
+    from variantcalling_tpu_torch.pipelines import train_models
+
+    os.environ.update(env or {})
+    plog = logging.getLogger("variantcalling_tpu_torch")
+    plog.setLevel(logging.INFO)
+    stages = _RunLog()
+    plog.addHandler(stages)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    gbt_hist.LAUNCHES = forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        rc = train_models.run(argv)
+    finally:
+        plog.removeHandler(stages)
+    return {"rc": rc, "seconds": time.perf_counter() - t0, "stages": stages.stages,
+            "launches": {"gbt_hist": gbt_hist.LAUNCHES, "forest_wide": forest_cuda.LAUNCHES,
+                         "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES},
+            "peak_device_bytes": torch.cuda.max_memory_allocated() if torch.cuda.is_available() else -1}
+
+
+def _train_child(spec: dict, results) -> None:
+    """:func:`_train_run` in a process of its own, for its peak RSS."""
+    import resource
+
+    torch.cuda.init()
+    run = _train_run(spec["argv"], spec["env"])
+    results.put({**run, "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024})
+
+
+def _pickle_globals(data: bytes) -> set[tuple[str, str]]:
+    """The (module, name) of every global a pickle names, read by an
+    unpickler that resolves only numpy's and builtins' and stands in for the
+    rest (this machine has no JAX package to resolve the model classes)."""
+    import io
+    import pickle
+
+    seen = set()
+
+    class StandIn:
+        pass
+
+    class Recorder(pickle.Unpickler):
+        def find_class(self, module, name):
+            seen.add((module, name))
+            if module.split(".")[0] in ("numpy", "builtins", "copyreg"):
+                return super().find_class(module, name)
+            return StandIn
+
+    Recorder(io.BytesIO(data)).load()
+    return seen
+
+
+def _check_fit_bar(got, want, label: str, x: np.ndarray) -> dict:
+    """``got`` against ``want`` (two FlatForests of the same torch program,
+    on the card and on the CPU): split features and thresholds equal, leaf
+    values to 1e-5, scores on ``x`` to 1e-6; the largest gaps."""
+    from variantcalling_tpu_torch.models import forest as fmod
+
+    check(np.array_equal(got.feature, want.feature), f"{label}: split features differ "
+          f"({int((got.feature != want.feature).sum())} nodes)")
+    check(np.array_equal(got.threshold, want.threshold), f"{label}: thresholds differ")
+    check(np.allclose(got.value, want.value, rtol=1e-5, atol=0.0), f"{label}: leaf values differ "
+          f"(max {float(np.abs(got.value - want.value).max())})")
+    xt = torch.from_numpy(x)
+    sg = fmod.finalize_margin(fmod.predict_margin(got, xt).numpy(), got)
+    sw = fmod.finalize_margin(fmod.predict_margin(want, xt).numpy(), want)
+    score_gap = float(np.abs(sg - sw).max())
+    check(score_gap <= 1e-6, f"{label}: scores differ by {score_gap}")
+    return {"max_value_gap": float(np.abs(got.value - want.value).max()), "max_score_gap": score_gap,
+            "values_equal": bool(np.array_equal(got.value, want.value))}
+
+
+def _native_agreement(got, want, x: np.ndarray) -> dict:
+    """How a forest fitted on the card (exact sums) agrees with the native
+    CPU trainer's (float32 sums, sibling subtraction): whether every split
+    feature is equal (the JAX package's native-vs-jit bar, which float32
+    sums can miss at a near-tie of two splits' gains), the first tree that
+    differs, the share of split nodes equal, and the largest score gap on
+    ``x``. Reported, not held: the card is held to the CPU torch program."""
+    from variantcalling_tpu_torch.models import forest as fmod
+
+    split = got.feature != fmod.LEAF
+    differ = np.flatnonzero((got.feature != want.feature).any(axis=1))
+    xt = torch.from_numpy(x)
+    sg = fmod.finalize_margin(fmod.predict_margin(got, xt).numpy(), got)
+    sw = fmod.finalize_margin(fmod.predict_margin(want, xt).numpy(), want)
+    first = int(differ[0]) if len(differ) else None
+    before = slice(0, first)  # the trees before the first that differs
+    return {"features_equal": not len(differ), "first_differing_tree": first, "differing_trees": len(differ),
+            "split_nodes_equal_share": float((got.feature == want.feature)[split].mean()),
+            "thresholds_equal_before_it": bool(np.allclose(got.threshold[before], want.threshold[before],
+                                                           rtol=1e-6)),
+            "max_value_gap_before_it": float(np.abs(got.value[before] - want.value[before]).max())
+            if first != 0 else None,
+            "max_score_gap": float(np.abs(sg - sw).max()), "mean_score_gap": float(np.abs(sg - sw).mean())}
+
+
+def _hist_levels(x: np.ndarray, card: str) -> dict:
+    """The histogram of one full-width tree on ``x``, level by level on the
+    card: the kernel ``torch.equal`` to its plain version at every level, and
+    per level its single-launch ``ms``, ``device_ms`` and ``host_ms``, the
+    plain version's ms, the bytes bound, and at levels 0 and 5 the bf16
+    one-hot product of the reference's accelerator formulation
+    (``torch.matmul``, not bit-equal: the ``library_ms`` yardstick)."""
+    from variantcalling_tpu_torch.models import boosting, gbt_hist
+
+    n, f = x.shape
+    cfg = boosting.BoostConfig(n_trees=1)
+    b = cfg.n_bins
+    binned = torch.from_numpy(boosting.bin_features(x, boosting.quantile_bin_edges(x, b))).cuda()
+    rng = np.random.default_rng(31)
+    y = torch.from_numpy((rng.random(n) < 0.6).astype(np.float32)).cuda()
+    p = torch.full((n,), 0.5, device="cuda")
+    g, h = p - y, p * (1 - p)
+    levels = {}
+
+    def both(binned_, node_id, ghq, n_nodes, n_bins):
+        got = gbt_hist.hist_launch(binned_, node_id, ghq, n_nodes, n_bins)
+        want = gbt_hist.hist_plain(binned_, node_id, ghq, n_nodes, n_bins)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"gbt_hist != plain at level {len(levels)} ({n} rows)")
+        nbytes = n * f + 4 * n + 16 * n + n_nodes * f * n_bins * 16
+        ops = 2 * n * f  # int64 adds
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        launch = lambda: gbt_hist.hist_launch(binned_, node_id, ghq, n_nodes, n_bins)  # noqa: E731
+        row = {"level": len(levels), "nodes": n_nodes, "rows": n, "features": f, "bins": n_bins, "card": card,
+               "ms": cuda_ms(launch, reps=10), "device_ms": device_ms(launch, reps=10),
+               "host_ms": host_ms(launch, reps=10),
+               "plain_ms": cuda_ms(lambda: gbt_hist.hist_plain(binned_, node_id, ghq, n_nodes, n_bins), reps=3,
+                                   warmup=1),
+               "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": 0.0,
+               "library_ms": None}
+        if len(levels) in (0, 5):
+            col = torch.arange(f, device="cuda", dtype=torch.int64) * n_bins
+            rhs = torch.zeros(n, f * n_bins, dtype=torch.bfloat16, device="cuda")
+            rhs.scatter_(1, binned_.long() + col, 1.0)
+            lhs = torch.zeros(2 * n_nodes, n, dtype=torch.bfloat16, device="cuda")
+            rows = torch.arange(n, device="cuda")
+            lhs[node_id.long(), rows] = g.bfloat16()
+            lhs[n_nodes + node_id.long(), rows] = h.bfloat16()
+            row["library_ms"] = cuda_ms(lambda: torch.matmul(lhs, rhs), reps=5, warmup=1)
+            del lhs, rhs
+            torch.cuda.empty_cache()
+        print("GBT_HIST_DETAIL " + json.dumps(row), flush=True)
+        levels[len(levels)] = row
+        return got
+
+    boosting._grow_tree(binned, g, h, cfg, hist=both)
+    check(len(levels) == cfg.depth, f"{len(levels)} levels timed")
+    return levels
+
+
+def phase_training(tmp: Path, card: str) -> dict:
+    """``train_models_pipeline`` and ``training_prep_pipeline`` on the card.
+
+    1. ``TRAIN_WORLD`` (5 M labeled rows, 22 autosomes, written by the port's
+       own ``write_frames``) through ``train_models_pipeline
+       --evaluate_concordance --evaluate_concordance_contig chr20`` at the
+       default 100 trees, depth 6, 64 bins, twice, each in a process of its
+       own: ``gbt_hist`` launched 2,400 times, ``forest_wide`` once a forest
+       scored; byte-equal pickles and ``.h5`` files.
+    2. ``TRAIN_CPU_ROWS`` of the same world: the CLI on the card against
+       ``--backend cpu`` (the native float32 trainer): the threshold models
+       equal, the forests' agreement reported (:func:`_native_agreement`);
+       ``boosting.fit`` of one
+       model on the card against the torch program on the CPU
+       (``VCTPU_NATIVE_GBT=0``): features and thresholds equal, values to
+       1e-5, scores to 1e-6, and whether the pickles came out byte-equal.
+    3. The histogram of one full-width tree at 5 M rows, level by level,
+       ``torch.equal`` to its plain version, timed (:func:`_hist_levels`).
+    4. Train -> filter: the 104,000-variant chr20 world with dbSNP IDs, a
+       blacklist, hpol runs and an annotation: ``training_prep_pipeline``,
+       ``train_models_pipeline`` in VCF mode on the card, and the trained
+       forest through ``filter_variants_pipeline`` on ``cuda-wide`` and on
+       the CPU: equal bytes; the pickle names only the reference's model
+       classes, numpy and builtins.
+    """
+    from tests import torch_worlds
+    from variantcalling_tpu_torch import synthetic
+    from variantcalling_tpu_torch.models import boosting, registry
+    from variantcalling_tpu_torch.pipelines import train_models, training_prep
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    out: dict = {}
+    # -- 1. the 5 M world, twice on the card ---------------------------------------
+    t0 = time.perf_counter()
+    frames = synthetic.train_world(TRAIN_WORLD["seed"], TRAIN_WORLD["n_rows"], chr20_rows=TRAIN_WORLD["chr20_rows"])
+    world = tmp / "train_5m.h5"
+    h5_utils.write_frames(str(world), frames)
+    print(f"world train_5m: {TRAIN_WORLD['n_rows']} rows on {len(frames)} contigs ({TRAIN_WORLD['chr20_rows']} on "
+          f"chr20), {os.path.getsize(world)} bytes of h5 written by the port in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    grid = ["--evaluate_concordance", "--evaluate_concordance_contig", "chr20"]
+    runs = {}
+    for label in ("train_5m_gpu", "train_5m_gpu_again"):
+        argv = ["--input_file", str(world), "--output_file_prefix", str(tmp / label), *grid, "--backend", "gpu"]
+        run = _forked({"argv": argv, "env": {}}, label, _train_child)
+        check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+        check(run["launches"]["gbt_hist"] == TRAIN_GRID_LAUNCHES and run["launches"]["forest_wide"] == 5
+              and run["launches"]["forest_tree_step"] == 0, f"{label}: launches {run['launches']}")
+        detail = {"world": "train_5m", "run": label, "card": card, "wall_s": run["seconds"],
+                  "stages": run["stages"], "launches": run["launches"], "peak_rss_bytes": run["peak_rss_bytes"],
+                  "peak_device_bytes": run["peak_device_bytes"]}
+        print("TRAIN_DETAIL " + json.dumps(detail), flush=True)
+        runs[label] = detail
+    pkl = [(tmp / f"{label}.pkl").read_bytes() for label in runs]
+    h5 = [(tmp / f"{label}.h5").read_bytes() for label in runs]
+    check(pkl[0] == pkl[1], "two GPU training runs wrote different pickles")
+    keys = h5_utils.list_keys(str(tmp / "train_5m_gpu.h5"))
+    check(keys == ["optimal_recall_precision", "training_results"], f"h5 keys {keys}")
+    for key in keys:
+        a, b = (h5_utils.read_hdf(str(tmp / f"{label}.h5"), key) for label in runs)
+        check(a.columns == b.columns and all(np.array_equal(a[c], b[c]) for c in a.columns),
+              f"two GPU training runs wrote different {key} frames")
+    models = registry.load_models(str(tmp / "train_5m_gpu.pkl"))
+    check(sorted(models) == sorted(registry.standard_model_names()), f"models {sorted(models)}")
+    results = h5_utils.read_hdf(str(tmp / "train_5m_gpu.h5"), "training_results")
+    acc = h5_utils.read_hdf(str(tmp / "train_5m_gpu.h5"), "optimal_recall_precision")
+    check(all(0.5 < v <= 1 for v in results["f1"][::2]), f"rf F1 {list(results['f1'])}")
+    print(f"training 5M: two GPU runs wrote equal pickles ({len(pkl[0])} bytes) and .h5 files "
+          f"(bytes equal: {h5[0] == h5[1]}); rf F1 {[float(v) for v in results['f1'][::2]]}, held-out chr20 SNP "
+          f"precision/recall {float(acc['precision'][0])}/{float(acc['recall'][0])} ({card})", flush=True)
+    out["train_5m"] = runs
+
+    # -- 2. GPU against CPU on 200,000 rows of the same world ------------------------
+    small = {"chr1": frames["chr1"].take(np.arange(len(frames["chr1"])) < TRAIN_CPU_ROWS - TRAIN_WORLD["chr20_rows"]),
+             "chr20": frames["chr20"]}
+    del frames
+    small_path = tmp / "train_200k.h5"
+    h5_utils.write_frames(str(small_path), small)
+    pair = {}
+    for backend in ("gpu", "cpu"):
+        label = f"train_200k_{backend}"
+        argv = ["--input_file", str(small_path), "--output_file_prefix", str(tmp / label), *grid,
+                "--backend", backend]
+        run = _forked({"argv": argv, "env": {}}, label, _train_child)
+        check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+        print("TRAIN_DETAIL " + json.dumps({"world": "train_200k", "run": label, "card": card,
+                                            "wall_s": run["seconds"], "stages": run["stages"],
+                                            "launches": run["launches"]}), flush=True)
+        pair[backend] = registry.load_models(str(tmp / f"{label}.pkl"))
+    args = train_models.parse_args(["--input_file", str(small_path), "--output_file_prefix", "unused"])
+    x, names, label_, _, weight, _, _ = train_models._ingest(args, torch.device("cpu"))
+    native = {}
+    for name, want in pair["cpu"].items():
+        got = pair["gpu"][name]
+        if name.startswith("rf"):
+            native[name] = _native_agreement(got, want, x)
+            print("TRAIN_NATIVE_DETAIL " + json.dumps({"model": name, "card": card, **native[name]}), flush=True)
+        else:
+            check(all(np.array_equal(getattr(got, k), getattr(want, k)) for k in ("thresholds", "signs", "scales"))
+                  and got.feature_names == want.feature_names, f"{name}: GPU and CPU threshold fits differ")
+    print(f"training 200k: the CLI on the card against --backend cpu (native float32 trainer): split features "
+          f"equal in {sum(v['features_equal'] for v in native.values())} of {len(native)} forests; threshold "
+          f"models equal ({card})", flush=True)
+    cfg = boosting.BoostConfig()
+    t0 = time.perf_counter()
+    gpu_fit = boosting.fit(x, label_, sample_weight=weight, cfg=cfg, feature_names=names, device="cuda")
+    gpu_s = time.perf_counter() - t0
+    os.environ["VCTPU_NATIVE_GBT"] = "0"
+    try:
+        t0 = time.perf_counter()
+        cpu_fit = boosting.fit(x, label_, sample_weight=weight, cfg=cfg, feature_names=names, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        del os.environ["VCTPU_NATIVE_GBT"]
+    one = _check_fit_bar(gpu_fit, cpu_fit, "boosting.fit GPU vs CPU torch program", x)
+    same_bytes = registry.dumps_models({"m": gpu_fit}) == registry.dumps_models({"m": cpu_fit})
+    print("TRAIN_FIT_DETAIL " + json.dumps({"rows": len(x), "features": len(names), "card": card, "gpu_s": gpu_s,
+                                            "cpu_torch_s": cpu_s, "pickles_byte_equal": same_bytes, **one}),
+          flush=True)
+    out["train_200k"] = {"native": native, "fit": {**one, "pickles_byte_equal": same_bytes}}
+
+    # -- 3. the histogram kernel level by level at 5 M rows --------------------------
+    args = train_models.parse_args(["--input_file", str(world), "--output_file_prefix", "unused"])
+    x5 = train_models._ingest(args, torch.device("cpu"))[0]
+    out["gbt_hist"] = _hist_levels(x5, card)
+    del x5
+    torch.cuda.empty_cache()
+
+    # -- 4. train -> filter on the 104,000-variant chr20 world -----------------------
+    d = tmp / "train_vcf"
+    d.mkdir()
+    w = torch_worlds.write_training_vcf_world(d, seed=2026, n_variants=WORLD["n_variants"],
+                                              contigs=((WORLD["contig"], WORLD["length"]),))
+    check(training_prep.run(["--input_file", w["vcf"], "--blacklist", w["blacklist"],
+                             "--output_prefix", str(d / "prep")]) == 0, "training_prep_pipeline failed")
+    labels = h5_utils.read_hdf(str(d / "prep.labels.h5"), "chr20")
+    n_neg = int((labels["label"] == 0).sum())
+    check(0 < n_neg < len(labels), f"labels: {n_neg} of {len(labels)} negative")
+    run = _train_run(["--input_file", w["vcf"], "--reference", w["fasta"], "--runs_intervals", w["runs"],
+                      "--annotate_intervals", w["annotate"], "--blacklist", w["blacklist"],
+                      "--output_file_prefix", str(d / "trained"), "--backend", "gpu"])
+    check(run["rc"] == 0 and run["launches"]["gbt_hist"] == TRAIN_GRID_LAUNCHES,
+          f"VCF-mode training: exit {run['rc']}, launches {run['launches']}")
+    print("TRAIN_DETAIL " + json.dumps({"world": "train_vcf_104k", "run": "train_vcf_gpu", "card": card,
+                                        "wall_s": run["seconds"], "stages": run["stages"],
+                                        "launches": run["launches"], "labels": len(labels),
+                                        "negative": n_neg}), flush=True)
+    data = (d / "trained.pkl").read_bytes()
+    globs = _pickle_globals(data)
+    modules = {m for m, _ in globs}
+    check(modules <= {"variantcalling_tpu.models.forest", "variantcalling_tpu.models.threshold", "numpy",
+                      "numpy._core.multiarray", "numpy.core.multiarray", "builtins"}
+          and ("variantcalling_tpu.models.forest", "FlatForest") in globs, f"pickle globals {sorted(globs)}")
+    trained = {"vcf": w["vcf"], "fasta": w["fasta"], "model": str(d / "trained.pkl"),
+               "model_name": "rf_model_ignore_gt_incl_hpol_runs"}
+    extra = ["--annotate_intervals", w["annotate"], "--runs_file", w["runs"]]
+    gpu = _drive(trained, d / "filtered_gpu.vcf", "gpu", card, "trained_forest", extra=extra)
+    cpu = _drive(trained, d / "filtered_cpu.vcf", "cpu", card, "trained_forest", extra=extra)
+    _check_same(gpu, cpu, "cuda-wide", "forest_wide", "trained_forest")
+    print(f"train -> filter: {len(labels)} labeled variants ({n_neg} blacklisted), trained on the card in "
+          f"{run['seconds']:.1f} s, filtered on cuda-wide to the CPU run's bytes; pickle globals "
+          f"{sorted(modules)}", flush=True)
+    out["train_vcf"] = {"seconds": run["seconds"], "launches": run["launches"]}
+    return out
+
+
 def time_kernel(kind: str, root: str) -> int:
     """``--time-kernel {wide,tree_step} ROOT``: one kernel of the checkout at
     ROOT (this one, or an older one unpacked beside it) on phase 3's forests
@@ -1225,6 +1584,7 @@ def main() -> int:
         phase_blacklists(pipe["forest_pickle"]["world"], Path(tmp), card)
         phase_sidecar(pipe["forest_pickle"]["world"], Path(tmp), card)
         stream = phase_streaming(Path(tmp), card, pipe["forest_pickle"]["world"])
+        train = phase_training(Path(tmp), card)
     n = WORLD["n_variants"]
     rows = {  # each kernel's numbers at the main path's shape, on the production (xgboost) forest
         "forest_wide": kern["forest_wide"]["results"]["xgboost_default_left_100x64"][n],
@@ -1238,7 +1598,7 @@ def main() -> int:
                              "variantcalling_tpu/models/forest_pallas.py:51",
                              pipe["xgboost_json"]["gemm_gpu"]["launches"]["forest_tree_step"]),
     }
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": kern[name]["max_abs_err"],
         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
@@ -1248,7 +1608,21 @@ def main() -> int:
         # no single PyTorch call computes a decision forest
         "library_ms": None,
         "build_s": build_s[name],
-    } for name, (source, replaces, launches) in meta.items()]}))
+    } for name, (source, replaces, launches) in meta.items()]
+    # the fit's histogram, not a TPU kernel: it replaces the XLA one-hot product; its numbers at the
+    # widest level (32 nodes) of the 5 M-row tree, its launches from the first 5 M-row training run
+    hist = train["gbt_hist"][5]
+    kernels.append({
+        "name": "gbt_hist", "route": "cuda", "source": "variantcalling_tpu_torch/csrc/gbt_hist.cu",
+        "replaces": "variantcalling_tpu/models/boosting.py:74",
+        "launches": train["train_5m"]["train_5m_gpu"]["launches"]["gbt_hist"],
+        "max_abs_err": max(r["max_abs_err"] for r in train["gbt_hist"].values()),
+        "ms": hist["ms"], "plain_ms": hist["plain_ms"], "bound_ms": hist["bound_ms"], "bound_by": hist["bound_by"],
+        "device_ms": hist["device_ms"], "host_ms": hist["host_ms"],
+        # the bf16 one-hot product of the reference's accelerator formulation (not bit-equal)
+        "library_ms": hist["library_ms"], "build_s": build_s["gbt_hist"],
+    })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,4 +1,8 @@
-"""The forest kernels on the card against their plain versions, bit for bit.
+"""The kernels on the card against their plain versions, bit for bit.
+
+The forest kernels, and the boosted-forest fit's histogram kernel
+(``gbt_hist``) at every level of a fit, with the fit on the card against
+the same torch program on the CPU.
 
 Needs a CUDA device, nvcc and the kernel's build; skips without a device.
 Imports only the port (no JAX), so it runs on the machine with the card:
@@ -97,3 +101,85 @@ def test_tree_step_kernel_matches_plain_version_on_card(depth, n_trees, dleft, n
     assert forest_cuda.TREE_STEP_LAUNCHES == before + 1
     assert torch.equal(got, kernel.plain(xt))
     assert torch.equal(got, fmod.predict_margin(forest, xt))
+
+
+def _fit_inputs(seed: int, n: int, f: int):
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, f)).astype(np.float32)
+    x[:, -1] = np.round(x[:, -1] * 2)  # a feature of three values: skewed bins, colliding adds
+    y = (3 * (x[:, 0] - 0.5) + 2 * (x[:, 1] - 0.5) + rng.normal(0, 0.5, n) > 0).astype(np.float32)
+    w = np.where(y > 0.5, 2.0, 1.0).astype(np.float32)
+    return x, y, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,n_bins,depth", [(1, 3, 8, 3), (1000, 19, 64, 6), (70_001, 20, 64, 6),
+                                              (20_000, 40, 256, 5)])
+def test_gbt_hist_kernel_matches_plain_version_at_every_level(n, f, n_bins, depth):
+    """One tree grown on the card: at each level the kernel's int64 sums
+    equal the plain version's on the same inputs (``torch.equal``), and the
+    launch count grows by one a level."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from variantcalling_tpu_torch.models import boosting, gbt_hist
+
+    x, y, w = _fit_inputs(n, n, f)
+    cfg = boosting.BoostConfig(n_trees=1, depth=depth, n_bins=n_bins)
+    binned = torch.from_numpy(boosting.bin_features(x, boosting.quantile_bin_edges(x, n_bins))).cuda()
+    g = torch.from_numpy(w * (0.5 - y)).cuda()
+    h = torch.from_numpy(w * 0.25).cuda()
+    levels = []
+
+    def both(binned_, node_id, ghq, n_nodes, b):
+        before = gbt_hist.LAUNCHES
+        got = gbt_hist.gbt_hist(binned_, node_id, ghq, n_nodes, b)
+        want = gbt_hist.hist_plain(binned_, node_id, ghq, n_nodes, b)
+        torch.cuda.synchronize()
+        assert gbt_hist.LAUNCHES == before + 1
+        levels.append(torch.equal(got, want))
+        return got
+
+    boosting._grow_tree(binned, g, h, cfg, hist=both)
+    assert levels == [True] * depth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fit_on_the_card_equals_the_cpu_torch_program(weighted, monkeypatch):
+    """The fit on the card against the same program on the CPU
+    (``VCTPU_NATIVE_GBT=0``): features and thresholds equal, values to 1e-5,
+    scores to 1e-6; 6 launches a tree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from variantcalling_tpu_torch.models import boosting, gbt_hist
+
+    monkeypatch.setenv("VCTPU_NATIVE_GBT", "0")
+    x, y, w = _fit_inputs(7, 30_000, 19)
+    cfg = boosting.BoostConfig(n_trees=12)
+    before = gbt_hist.LAUNCHES
+    gpu = boosting.fit(x, y, sample_weight=w if weighted else None, cfg=cfg, device="cuda")
+    assert gbt_hist.LAUNCHES == before + 12 * 6
+    cpu = boosting.fit(x, y, sample_weight=w if weighted else None, cfg=cfg, device="cpu")
+    np.testing.assert_array_equal(gpu.feature, cpu.feature)
+    np.testing.assert_array_equal(gpu.threshold, cpu.threshold)
+    np.testing.assert_allclose(gpu.value, cpu.value, rtol=1e-5)
+    xt = torch.from_numpy(x)
+    sg = fmod.finalize_margin(fmod.predict_margin(gpu, xt).numpy(), gpu)
+    sc = fmod.finalize_margin(fmod.predict_margin(cpu, xt).numpy(), cpu)
+    np.testing.assert_allclose(sg, sc, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_threshold_fit_on_the_card_equals_the_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from variantcalling_tpu_torch.models import threshold
+
+    x, y, w = _fit_inputs(9, 80_000, 5)
+    names = ["qual", "sor", "a", "b", "c"]
+    gpu = threshold.fit_threshold_model(x, y, names, candidate_features=["qual", "sor"], sample_weight=w,
+                                        device="cuda")
+    cpu = threshold.fit_threshold_model(x, y, names, candidate_features=["qual", "sor"], sample_weight=w,
+                                        device="cpu")
+    for field in ("thresholds", "signs", "scales"):
+        np.testing.assert_array_equal(getattr(gpu, field), getattr(cpu, field))

@@ -19,6 +19,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,6 +59,15 @@ def test_the_streaming_modules_are_scanned():
     assert {f"variantcalling_tpu_torch/{m}.py" for m in (
         "utils/faults", "utils/degrade", "parallel/pipeline", "io/identity", "io/journal", "io/chunk_cache",
         "io/bgzf", "io/vcf", "pipelines/filter_variants")} <= scanned
+
+
+def test_the_training_modules_are_scanned():
+    """The training slice's modules are among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "models/boosting", "models/gbt_hist", "models/threshold", "models/registry", "io/hdf5", "utils/h5_utils",
+        "concordance/concordance_utils", "ops/concordance", "featurize", "pipelines/train_models",
+        "pipelines/training_prep")} <= scanned
 
 
 def _run_cli(args: list[str], tmp_path: Path) -> subprocess.CompletedProcess:
@@ -106,6 +116,32 @@ def test_cli_without_cuda_exits_2_and_never_falls_back(small_world, tmp_path):
     assert not out.exists()
 
 
+@pytest.fixture(scope="module")
+def train_world(tmp_path_factory):
+    from variantcalling_tpu_torch import synthetic
+    from variantcalling_tpu_torch.utils.h5_utils import write_frames
+
+    path = tmp_path_factory.mktemp("iso_train") / "concordance.h5"
+    write_frames(str(path), synthetic.train_world(4, 400, contigs=(("chr1", 10_000), ("chr20", 5_000))))
+    return str(path)
+
+
+def test_training_cli_cpu_runs_load_neither_jax_nor_reference(train_world, tmp_path):
+    prep = _run_cli(["training_prep_pipeline", "--input_file", train_world, "--output_prefix", "p"], tmp_path)
+    train = _run_cli(["train_models_pipeline", "--input_file", train_world, "--output_file_prefix", "m",
+                      "--n_trees", "2", "--tree_depth", "2", "--evaluate_concordance", "--backend", "cpu"], tmp_path)
+    for proc in (prep, train):
+        assert proc.returncode == 0, proc.stderr
+        assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}
+    assert (tmp_path / "p.labels.h5").exists() and (tmp_path / "m.pkl").exists() and (tmp_path / "m.h5").exists()
+
+
+def test_training_cli_without_cuda_exits_2_and_never_falls_back(train_world, tmp_path):
+    proc = _run_cli(["train_models_pipeline", "--input_file", train_world, "--output_file_prefix", "m"], tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
+    assert "no CUDA device" in proc.stderr and not (tmp_path / "m.pkl").exists()
+
+
 def test_api_defaults_to_the_card_and_never_falls_back(small_world, monkeypatch):
     """``materialize_features`` without a device asks for the card: on a host
     without one it raises instead of running on the CPU."""
@@ -119,6 +155,13 @@ def test_api_defaults_to_the_card_and_never_falls_back(small_world, monkeypatch)
     hf = featurize.host_featurize(read_vcf(small_world["vcf"]), FastaReader(small_world["fasta"]))
     with pytest.raises(device.DeviceUnavailable):
         featurize.materialize_features(hf)
+    from variantcalling_tpu_torch.models import boosting, threshold
+
+    x, y = np.zeros((20, 2), np.float32), (np.arange(20) % 2).astype(np.float32)
+    with pytest.raises(device.DeviceUnavailable):
+        boosting.fit(x, y, cfg=boosting.BoostConfig(n_trees=1, depth=1, n_bins=4))
+    with pytest.raises(device.DeviceUnavailable):
+        threshold.fit_threshold_model(x, y, ["qual", "sor"], candidate_features=["qual", "sor"])
     assert featurize.materialize_features(hf, device="cpu").matrix().shape == (300, len(hf.names))
 
 

@@ -13,6 +13,11 @@
   scale) drawn with seed ``BLACKLIST_SEED``. Rewrite them with
   ``python -m tests.torch_worlds`` (needs h5py and pandas).
 
+- :func:`write_training_vcf_world` and :func:`write_training_h5_world`:
+  the inputs of ``training_prep_pipeline`` and ``train_models_pipeline``, a
+  callset with dbSNP IDs, a blacklist, hpol runs and an annotation, and a
+  labeled concordance h5 (both written by the port alone).
+
 h5py, pandas and the JAX package are imported only by the writers, so that
 the smoke run on a machine without them can read the constants.
 """
@@ -191,6 +196,48 @@ def write_gatk_world(d: Path, seed: int = 31) -> dict:
     write_hdf(pd.DataFrame({"chrom": chrom, "pos": pos}), str(d / "blacklist_vctpu.h5"), "loci")
     write_pytables_frame(str(d / "blacklist_pytables.h5"), "loci", {"chrom": chrom, "pos": pos})
     return {"dir": d, "n_records": len(recs), "blacklisted": len(pick)}
+
+
+def write_training_vcf_world(d: Path, seed: int, n_variants: int = 3000,
+                             contigs=(("chr19", 150_000), ("chr20", 100_000)), **world) -> dict:
+    """A ``synthetic.write_world`` callset (``ref.fa``, ``calls.vcf``) for
+    approximate-GT training: 60 % of the records with a dbSNP ID, 10 % of
+    the loci in ``blacklist.bed`` (some of them also in dbSNP), every 97th
+    base run of ``runs.bed`` around a record, and ``LCR-test.bed`` over the
+    first third of each contig. Returns the paths."""
+    from variantcalling_tpu_torch import synthetic
+
+    w = synthetic.write_world(str(d), seed, n_variants=n_variants, contigs=list(contigs), **world)
+    synthetic.add_dbsnp_ids(w["vcf"], seed)
+    rng = np.random.default_rng(seed)
+    recs = [line.split("\t", 2)[:2] for line in Path(w["vcf"]).read_text().splitlines()
+            if line and not line.startswith("#")]
+    pick = np.sort(rng.choice(len(recs), size=max(1, len(recs) // 10), replace=False))
+    (d / "blacklist.bed").write_text("".join(f"{recs[i][0]}\t{int(recs[i][1]) - 1}\t{recs[i][1]}\n" for i in pick))
+    (d / "runs.bed").write_text("".join(f"{recs[i][0]}\t{int(recs[i][1]) - 5}\t{int(recs[i][1]) + 8}\n"
+                                        for i in range(0, len(recs), 97)))
+    (d / "LCR-test.bed").write_text("".join(f"{c}\t0\t{n // 3}\n" for c, n in contigs))
+    return {**w, "blacklist": str(d / "blacklist.bed"), "runs": str(d / "runs.bed"),
+            "annotate": str(d / "LCR-test.bed")}
+
+
+def write_training_h5_world(path: Path, seed: int, n_rows: int, chr20_rows: int, mutect: bool = False) -> str:
+    """``synthetic.train_world`` over chr1, chr2 and chr20 (``chr20_rows`` of
+    them), with an ``exome_target`` column (a feature, for
+    ``--exome_weight``) and with ``mutect`` a ``tlod`` column, one key a
+    contig, written by the port's ``write_frames``."""
+    from variantcalling_tpu_torch import synthetic
+    from variantcalling_tpu_torch.utils.h5_utils import write_frames
+
+    contigs = (("chr1", 248_956_422), ("chr2", 242_193_529), ("chr20", 64_444_167))
+    frames = synthetic.train_world(seed, n_rows, contigs=contigs, chr20_rows=chr20_rows)
+    rng = np.random.default_rng(seed + 1)
+    for f in frames.values():
+        f.data["exome_target"] = rng.random(len(f)) < 0.3
+        if mutect:
+            f.data["tlod"] = rng.uniform(0, 40, len(f)).astype(np.float32)
+    write_frames(str(path), frames)
+    return str(path)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """CLI dispatch: ``python -m variantcalling_tpu_torch <tool> <args>``.
 
-Counterpart of ``variantcalling_tpu/__main__.py``; the port serves one tool
-so far, ``filter_variants_pipeline``. Each tool is a module exposing
-``run(argv)``, imported when called.
+Counterpart of ``variantcalling_tpu/__main__.py``; the port serves three
+tools so far: ``filter_variants_pipeline``, ``train_models_pipeline`` and
+``training_prep_pipeline``. Each tool is a module exposing ``run(argv)``,
+imported when called.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import sys
 
 TOOLS: dict[str, str] = {
     "filter_variants_pipeline": "variantcalling_tpu_torch.pipelines.filter_variants",
+    "train_models_pipeline": "variantcalling_tpu_torch.pipelines.train_models",
+    "training_prep_pipeline": "variantcalling_tpu_torch.pipelines.training_prep",
 }
 
 

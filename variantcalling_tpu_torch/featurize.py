@@ -527,3 +527,30 @@ def materialize_features(hf: HostFeatures, flow_order: str = fops.DEFAULT_FLOW_O
     cols = dict(hf.cols)
     cols.update({k: v.cpu().numpy() for k, v in dev.items()})
     return FeatureSet(columns=cols, feature_names=hf.names)
+
+
+def featurize(table: VariantTable, fasta: FastaReader,
+              annotate_intervals: dict[str, IntervalSet] | None = None,
+              flow_order: str = fops.DEFAULT_FLOW_ORDER,
+              extra_info_fields: list[str] | None = None,
+              device: torch.device | str = "gpu") -> FeatureSet:
+    """The whole table's features (the reference's ``featurize``, which
+    ``train_models_pipeline`` calls on a VCF): the host columns, then the
+    window features on ``device`` (the card unless the caller asks for the
+    CPU), their windows gathered from the genome resident there where the
+    genome packs and the table is large enough
+    (:func:`_genome_resident_worthwhile`), else on the host."""
+    dev = device_mod.as_device(device)
+    resident = genome_packable(fasta) and _genome_resident_worthwhile(table, fasta, dev)
+    hf = host_featurize(table, fasta, annotate_intervals=annotate_intervals, extra_info_fields=extra_info_fields,
+                        compute_windows=not resident)
+    if not resident:
+        return materialize_features(hf, flow_order=flow_order, device=dev)
+    genome = device_genome(fasta, dev)
+    gpos = pack_global_positions(globalize_positions(table, genome), genome)
+    windows = windows_from_packed(genome.codes, torch.from_numpy(gpos.view(np.int32)).to(dev), genome.radius)
+    dev_cols = device_feature_dict(windows, *allele_inputs(hf.alle, 0, len(table), dev), center=CENTER,
+                                   flow_order=flow_order)
+    cols = dict(hf.cols)
+    cols.update({k: v.cpu().numpy() for k, v in dev_cols.items()})
+    return FeatureSet(columns=cols, feature_names=hf.names)

@@ -1,8 +1,8 @@
-"""A read-only HDF5 parser in numpy, for the files the filter pipeline reads.
+"""An HDF5 parser and writer in numpy, for the frames the pipelines read and write.
 
-The reference reads HDF5 through h5py; the port may not depend on h5py (nor
-on pandas), so this module reads the file format itself, as far as the
-frames of ``utils/h5_utils`` need and no further:
+The reference reads and writes HDF5 through h5py; the port may not depend on
+h5py (nor on pandas), so this module reads the file format itself, as far
+as the frames of ``utils/h5_utils`` need and no further:
 
 - superblock versions 0 and 1;
 - version 1 object headers, with continuation messages;
@@ -24,11 +24,23 @@ Anything else raises :class:`H5Unsupported`, naming the feature (superblock
 version 2 or 3 as written by ``libver="latest"``, version 2 object headers,
 new-style and dense link storage, dense attribute storage, another filter,
 a compound type, ...): the reader never returns values it did not decode.
+
+The write half (:func:`write_file`) emits only what the reader parses, in
+the layout h5py writes by default: superblock 0, version 1 object headers,
+symbol-table groups (a version 1 B-tree of ``SNOD`` nodes over a local
+heap of names, more levels past 256 members), contiguous datasets of
+fixed-point, IEEE float, fixed-length and variable-length UTF-8 string
+types, and version 1 attributes (scalars and arrays of those types), the
+variable-length strings in global heap collections. A file is written
+whole (a temporary name and ``os.replace``); :func:`read_tree` reads one
+back as the writer's nodes, so that a key can be added to it.
 """
 
 from __future__ import annotations
 
 import mmap
+import os
+import struct
 import zlib
 
 import numpy as np
@@ -502,3 +514,238 @@ class Dataset:
             return self.read()
         return self.read()[key]
 
+
+
+# -- the write half -------------------------------------------------------
+
+_UNDEF = (1 << 64) - 1  # the undefined address
+_LEAF_K, _NODE_K = 4, 16  # the superblock's group leaf and internal node K (h5py's defaults)
+_GCOL_MIN = 4096  # the smallest global heap collection the library allocates
+_GCOL_MAX_OBJECTS = 65_535  # object indices are 16 bits; 0 is the free space
+
+
+class WDataset:
+    """A dataset to write: ``data`` a numpy array of fixed-point, IEEE
+    float or fixed-length bytes (``S``) elements, or an object array of
+    ``str``/``bytes`` (variable-length UTF-8 strings); ``attrs`` as for
+    :class:`WGroup`."""
+
+    def __init__(self, data: np.ndarray, attrs: dict | None = None):
+        self.data = data
+        self.attrs = dict(attrs or {})
+
+
+class WGroup:
+    """A group to write: ``members`` maps link names to :class:`WGroup` and
+    :class:`WDataset`; ``attrs`` maps names to ``int``, ``float``, ``str``,
+    ``bytes``, numpy scalars or arrays."""
+
+    def __init__(self, attrs: dict | None = None, members: dict | None = None):
+        self.attrs = dict(attrs or {})
+        self.members = dict(members or {})
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + b"\0" * (-len(b) % 8)
+
+
+def _dtype_message(dt: np.dtype | None) -> bytes:
+    """The datatype message of a numpy dtype; None: a variable-length UTF-8
+    string (of unsigned bytes)."""
+    if dt is None:
+        return bytes([0x19, 0x01, 0x01, 0x00]) + struct.pack("<I", 16) + _dtype_message(np.dtype(np.uint8))
+    if dt.kind in "iu":
+        return bytes([0x10, 0x08 if dt.kind == "i" else 0, 0, 0]) + struct.pack("<IHH", dt.itemsize, 0,
+                                                                                 8 * dt.itemsize)
+    if dt.kind == "f" and dt.itemsize in _IEEE:
+        exp, mant = _IEEE[dt.itemsize]
+        bits = 8 * dt.itemsize
+        return bytes([0x11, 0x20, bits - 1, 0]) + struct.pack("<IHHBBBBI", dt.itemsize, 0, bits, mant, exp, 0, mant,
+                                                              (1 << (exp - 1)) - 1)
+    if dt.kind == "S":
+        return bytes([0x13, 0x01, 0, 0]) + struct.pack("<I", dt.itemsize)  # null-padded ASCII, as h5py
+    raise H5Unsupported(f"writing {dt} data (the writer takes integers, IEEE floats and strings)")
+
+
+def _dataspace_message(shape: tuple[int, ...]) -> bytes:
+    return bytes([1, len(shape), 0, 0, 0, 0, 0, 0]) + b"".join(struct.pack("<Q", d) for d in shape)
+
+
+class _Writer:
+    """Lays a file out front to back: every block is appended once, after
+    the blocks it points at, and the superblock is patched last."""
+
+    def __init__(self):
+        self.buf = bytearray(96)
+
+    def put(self, block: bytes) -> int:
+        self.buf += b"\0" * (-len(self.buf) % 8)
+        addr = len(self.buf)
+        self.buf += block
+        return addr
+
+    # -- variable-length strings ------------------------------------------
+
+    def vlen_elements(self, values) -> bytes:
+        """The (length, collection, index) heap IDs of ``values``' strings,
+        their bytes stored in global heap collections."""
+        raw = [v if isinstance(v, bytes) else str(v).encode("utf-8") for v in values]
+        ids = bytearray()
+        for lo in range(0, len(raw), _GCOL_MAX_OBJECTS):
+            part = raw[lo: lo + _GCOL_MAX_OBJECTS]
+            objs = bytearray()
+            for i, data in enumerate(part, start=1):
+                objs += struct.pack("<HHIQ", i, 0, 0, len(data)) + _pad8(data)
+            used = 16 + len(objs)
+            size = max(_GCOL_MIN, used + 16)
+            free = struct.pack("<HHIQ", 0, 0, 0, size - used)
+            addr = self.put(b"GCOL" + bytes([1, 0, 0, 0]) + struct.pack("<Q", size) + objs + free
+                            + b"\0" * (size - used - 16))
+            for i, data in enumerate(part, start=1):
+                ids += struct.pack("<IQI", len(data), addr, i)
+        return bytes(ids)
+
+    def encode(self, value) -> tuple[bytes, bytes, tuple[int, ...]]:
+        """(datatype message, element bytes, shape) of an attribute or dataset value."""
+        if isinstance(value, (str, bytes)) and not isinstance(value, np.bytes_):
+            value = np.asarray([value], dtype=object).reshape(())
+        elif isinstance(value, bool):
+            raise H5Unsupported("writing a bool attribute")
+        elif not isinstance(value, np.ndarray):
+            value = np.asarray(value)
+        if value.dtype == object:
+            return _dtype_message(None), self.vlen_elements(value.reshape(-1)), value.shape
+        if value.dtype.kind == "b":
+            raise H5Unsupported("writing bool data (the frames store booleans as uint8)")
+        dt = value.dtype.newbyteorder("<") if value.dtype.kind in "iuf" else value.dtype
+        return _dtype_message(dt), np.ascontiguousarray(value, dtype=dt).tobytes(), value.shape
+
+    # -- object headers ---------------------------------------------------
+
+    def header(self, messages: list[tuple[int, int, bytes]], attrs: dict) -> int:
+        """A version 1 object header of ``messages`` (type, flags, data) and
+        one attribute message per attribute."""
+        msgs = list(messages)
+        for name, value in attrs.items():
+            dtm, data, shape = self.encode(value)
+            nm = name.encode("utf-8") + b"\0"
+            dsm = _dataspace_message(shape)
+            body = struct.pack("<BBHHH", 1, 0, len(nm), len(dtm), len(dsm)) + _pad8(nm) + _pad8(dtm) + _pad8(dsm) \
+                + data
+            msgs.append((_ATTRIBUTE, 0, body))
+        out = bytearray()
+        for mtype, flags, data in msgs:
+            data = _pad8(data)
+            out += struct.pack("<HHB3x", mtype, len(data), flags) + data
+        return self.put(struct.pack("<BBHII4x", 1, 0, len(msgs), 1, len(out)) + out)
+
+    def dataset(self, ds: WDataset) -> int:
+        dtm, data, shape = self.encode(ds.data)
+        addr = self.put(data) if data else _UNDEF
+        fill = bytes([2, 2, 0 if ds.data.dtype == object else 2, 1, 0, 0, 0, 0])
+        layout = bytes([3, 1]) + struct.pack("<QQ", addr, len(data))
+        return self.header([(_DATASPACE, 0, _dataspace_message(shape)), (_DATATYPE, 1, dtm), (_FILL, 1, fill),
+                            (_LAYOUT, 0, layout)], ds.attrs)
+
+    # -- groups -----------------------------------------------------------
+
+    def group(self, g: WGroup) -> tuple[int, int, int]:
+        """(object header, B-tree, local heap) addresses of a symbol-table group."""
+        names = sorted(g.members, key=lambda k: k.encode("utf-8"))
+        for name in names:
+            if not name or "/" in name or name == ".":
+                raise H5Unsupported(f"writing a member named {name!r}")
+        children = {}
+        for name in names:
+            m = g.members[name]
+            children[name] = self.group(m)[0] if isinstance(m, WGroup) else self.dataset(m)
+        seg, offset = bytearray(8), {}  # offset 0: the empty name
+        for name in names:
+            offset[name] = len(seg)
+            seg += _pad8(name.encode("utf-8") + b"\0")
+        heap = self.put(b"HEAP" + bytes(4) + struct.pack("<QQQ", len(seg), 1, 0))  # free list: none (1)
+        seg_addr = self.put(bytes(seg))
+        self.buf[heap + 24: heap + 32] = struct.pack("<Q", seg_addr)
+        # level 0: SNODs of up to 2*leaf-K entries; each B-tree level groups up
+        # to 2*node-K children (an empty group: a B-tree node with no child)
+        nodes = []  # (address, offsets of the names it holds)
+        for lo in range(0, len(names), 2 * _LEAF_K):
+            part = names[lo: lo + 2 * _LEAF_K]
+            ents = b"".join(struct.pack("<QQII16x", offset[n], children[n], 0, 0) for n in part)
+            snod = b"SNOD" + bytes([1, 0]) + struct.pack("<H", len(part)) + ents
+            nodes.append((self.put(snod + bytes(8 + 2 * _LEAF_K * 40 - len(snod))), [offset[n] for n in part]))
+        level = 0
+        while True:
+            parents = []
+            for lo in range(0, max(len(nodes), 1), 2 * _NODE_K):
+                part = nodes[lo: lo + 2 * _NODE_K]
+                body = bytearray(struct.pack("<Q", 0))
+                for addr, offs in part:
+                    body += struct.pack("<QQ", addr, offs[-1] if offs else 0)
+                node = b"TREE" + bytes([0, level]) + struct.pack("<HQQ", len(part), _UNDEF, _UNDEF) + body
+                size = 24 + (2 * _NODE_K + 1) * 8 + 2 * _NODE_K * 8
+                parents.append((self.put(bytes(node) + bytes(size - len(node))), [o for _, offs in part for o in offs]))
+            if len(parents) == 1:
+                btree = parents[0][0]
+                break
+            nodes, level = parents, level + 1
+        obj = self.header([(_SYMBOL_TABLE, 0, struct.pack("<QQ", btree, heap))], g.attrs)
+        return obj, btree, heap
+
+    def finish(self, root: WGroup) -> bytes:
+        obj, btree, heap = self.group(root)
+        eof = len(self.buf)
+        self.buf[0:96] = (_SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0]) + struct.pack("<HHI", _LEAF_K, _NODE_K, 0)
+                          + struct.pack("<QQQQ", 0, _UNDEF, eof, _UNDEF)
+                          + struct.pack("<QQII", 0, obj, 1, 0) + struct.pack("<QQ", btree, heap))
+        return bytes(self.buf)
+
+
+def write_file(path: str, root: WGroup) -> None:
+    """Write the tree under ``root`` as a new HDF5 file at ``path`` (a
+    temporary name, then ``os.replace``: a failed write leaves ``path`` as
+    it was)."""
+    data = _Writer().finish(root)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _as_written(value, what: str):
+    """An attribute or dataset value as read, in the form the writer takes;
+    raises H5Unsupported for what the writer does not emit."""
+    if isinstance(value, np.ndarray) and value.dtype.kind == "b" or isinstance(value, np.bool_):
+        raise H5Unsupported(f"{what}: a boolean enumeration, which the writer does not emit")
+    if isinstance(value, np.ndarray) and value.dtype == object and any(isinstance(v, np.ndarray) for v in value.flat):
+        raise H5Unsupported(f"{what}: variable-length sequences, which the writer does not emit")
+    return value
+
+
+def read_tree(path: str) -> WGroup:
+    """The whole file at ``path`` as writer nodes (every dataset read), to
+    write it again with changes; raises :class:`H5Unsupported`, naming the
+    feature, where the reader refuses the file or the writer could not emit
+    what it holds."""
+
+    def walk(g: Group) -> WGroup:
+        members = {}
+        for name in g.keys():
+            node = g[name]
+            if isinstance(node, Group):
+                members[name] = walk(node)
+                continue
+            if node._type.kind == "vseq":
+                raise H5Unsupported(f"{path}: dataset {node.name} holds variable-length sequences, which the "
+                                    "writer does not emit")
+            members[name] = WDataset(_as_written(node.read(), f"{path}: dataset {node.name}"),
+                                     {k: _as_written(v, f"{path}: attribute {k} of {node.name}")
+                                      for k, v in node.attrs.items()})
+        return WGroup({k: _as_written(v, f"{path}: attribute {k} of {g.name}") for k, v in g.attrs.items()}, members)
+
+    with H5File(path) as f:
+        return walk(f.root)

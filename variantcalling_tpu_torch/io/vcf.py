@@ -273,6 +273,18 @@ class VariantTable:
             (0 if a in (MISSING, "") else a.count(",") + 1 for a in self.alt),
             dtype=np.int32, count=len(self))
 
+    def info_flag(self, name: str) -> np.ndarray:
+        """True where INFO holds ``name`` as a flag or a key."""
+        out = np.zeros(len(self), dtype=bool)
+        for i, s in enumerate(self.info):
+            if s is None or s == MISSING:
+                continue
+            for part in s.split(";"):
+                if part == name or part.startswith(name + "="):
+                    out[i] = True
+                    break
+        return out
+
     def info_field(self, name: str, dtype=np.float64, missing=np.nan, index: int = 0) -> np.ndarray:
         """One INFO key per record (scalar, or the ``index``-th list element);
         a hot key of a scanned table comes from the scan (a bare flag: 1)."""

@@ -363,6 +363,8 @@ HONOURED = frozenset({
     "VCTPU_STAGE_TIMEOUT_S", "VCTPU_IO_RETRIES", "VCTPU_IO_BACKOFF_S", "VCTPU_CHUNK_RETRIES",
     "VCTPU_QUARANTINE", "VCTPU_RESUME", "VCTPU_RESUME_VERIFY", "VCTPU_JOURNAL_FSYNC", "VCTPU_CACHE",
     "VCTPU_CACHE_DIR", "VCTPU_CACHE_MAX_MB", "VCTPU_FAULTS",
+    # the boosted-forest fit
+    "VCTPU_NATIVE_GBT",
 })
 
 

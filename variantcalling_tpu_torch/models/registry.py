@@ -16,6 +16,9 @@ which the loaded model must be of (:func:`resolve_family`).
 
 from __future__ import annotations
 
+import copyreg
+import dataclasses
+import io
 import os
 import pickle
 
@@ -90,6 +93,51 @@ def resolve_family(model: object, requested: str) -> str:
     return fam
 
 
+#: the port's model classes -> the reference's (module, name) a pickle names them by
+_PORT_TO_REFERENCE = {cls: key for key, cls in _REFERENCE_CLASSES.items()}
+
+
+class _ReferencePickler(pickle._Pickler):
+    """A plain pickle whose model classes are the reference's.
+
+    A port model is written as ``copyreg.__newobj__`` of the reference's
+    class (``variantcalling_tpu.models.forest.FlatForest``, ...) with the
+    dataclass's field dict as its state, which is what the reference's own
+    dataclasses pickle to. The standard picklers check a class reference by
+    importing its module; the port may not import the reference (and the
+    card's machine does not have it), so these four names are written
+    without that check. Everything else pickles as ``pickle.dump`` does."""
+
+    def reducer_override(self, obj):
+        if type(obj) not in _PORT_TO_REFERENCE:
+            return NotImplemented
+        state = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+        for name, value in state.items():
+            arrays = value.values() if isinstance(value, dict) else (value,)
+            if any(type(a).__module__.split(".")[0] == "torch" for a in arrays):
+                raise TypeError(f"{type(obj).__name__}.{name} holds a torch object; a model pickle "
+                                "holds numpy arrays only")
+        return copyreg.__newobj__, (type(obj),), state
+
+    def save_global(self, obj, name=None):
+        ref = _PORT_TO_REFERENCE.get(obj) if isinstance(obj, type) else None
+        if ref is None:
+            return super().save_global(obj, name)
+        module, qualname = ref
+        self.save(module)
+        self.save(qualname)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def dumps_models(models: dict[str, object]) -> bytes:
+    """The pickle bytes of a ``{name: model}`` dict, classes named as the
+    reference names them (:class:`_ReferencePickler`)."""
+    buf = io.BytesIO()
+    _ReferencePickler(buf, protocol=pickle.DEFAULT_PROTOCOL).dump(models)
+    return buf.getvalue()
+
+
 class _Unpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         hit = _REFERENCE_CLASSES.get((module, name))
@@ -112,10 +160,12 @@ class _Unpickler(pickle.Unpickler):
 
 
 def save_models(path: str, models: dict[str, object]) -> None:
-    """Atomic write (tmp + rename) of a ``{name: model}`` pickle."""
+    """Atomic write (tmp + rename) of a ``{name: model}`` pickle that the
+    reference's ``load_models`` reads into its own classes (:func:`dumps_models`)."""
+    data = dumps_models(models)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as fh:
-        pickle.dump(models, fh)
+        fh.write(data)
     os.replace(tmp, path)
 
 

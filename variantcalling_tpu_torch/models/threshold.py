@@ -5,7 +5,8 @@ model's features contributes ``sigmoid((x - thr) * sign / scale)`` and
 TREE_SCORE is the product, 0.5 at a feature's threshold, PASS at
 ``score >= pass_threshold``. The field names are the reference's, so its
 pickles unpickle into :class:`ThresholdModel` (``models/registry.py``).
-Fitting (``fit_threshold_model``) waits for the training slice.
+:func:`fit_threshold_model` is the reference's grid fit, its sweep a torch
+program on the run's device.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from variantcalling_tpu_torch import device as device_mod
 from variantcalling_tpu_torch.engine import EngineError
 
 
@@ -59,6 +61,94 @@ def make_score_predictor(model: ThresholdModel, feature_names: list[str], device
         return torch.prod(torch.sigmoid(margins), dim=1)
 
     return program
+
+
+#: rows of one step of the grid sweep: its (rows, combos, features) compare stays near 150 MB
+_SWEEP_ROWS = 1 << 16
+
+
+def fit_threshold_model(
+    x: np.ndarray,
+    y: np.ndarray,
+    feature_names: list[str],
+    candidate_features: list[str] | None = None,
+    sample_weight: np.ndarray | None = None,
+    n_grid: int = 24,
+    pass_threshold: float = 0.25,
+    device: torch.device | str = "gpu",
+) -> ThresholdModel:
+    """Fit thresholds by exhaustive grid search, as the reference does: the
+    same 500,000-row subsample past that size (``default_rng(0)``), signs
+    from the class means, per-feature candidates at the 2 %..98 % quantiles,
+    and the joint grid scored on ``device`` (the card unless the caller asks
+    for the CPU): every row passes a combination when each feature is on its
+    good side, and the combination of highest F1 wins, the first on a tie.
+
+    tp and fp are summed in float64, which is exact (and so independent of
+    the order of the sum) for the integer-valued weights the tools pass;
+    F1 is then formed in float32 as the reference forms it, so that
+    ``argmax`` picks the reference's cell."""
+    dev = device_mod.as_device(device)
+    cand = [f for f in (candidate_features or ["tlod", "sor"]) if f in feature_names]
+    if not cand:  # fall back to the two strongest features by |corr|
+        corr = [abs(float(np.corrcoef(x[:, i], y)[0, 1])) if np.std(x[:, i]) > 0 else 0.0 for i in range(x.shape[1])]
+        cand = [feature_names[i] for i in np.argsort(corr)[::-1][:2]]
+    cols = [feature_names.index(f) for f in cand]
+    xs = np.asarray(x[:, cols], dtype=np.float32)  # (N, F)
+    yv = np.asarray(y, dtype=np.float32)
+    wv = np.ones(len(y), np.float32) if sample_weight is None else np.asarray(sample_weight, np.float32)
+    if len(xs) > 500_000:  # the reference's subsample
+        sel = np.random.default_rng(0).choice(len(xs), 500_000, replace=False)
+        xs, yv, wv = xs[sel], yv[sel], wv[sel]
+
+    pos, neg = yv > 0.5, yv <= 0.5
+    if not pos.any() or not neg.any():
+        signs = np.ones(xs.shape[1], dtype=np.float32)
+    else:
+        signs = np.array(
+            [1.0 if xs[pos, j].mean() >= xs[neg, j].mean() else -1.0 for j in range(xs.shape[1])],
+            dtype=np.float32,
+        )
+    qs = np.linspace(0.02, 0.98, n_grid)
+    cand_thr = np.quantile(xs, qs, axis=0).astype(np.float32)  # (G, F)
+    grids = np.meshgrid(*[cand_thr[:, j] for j in range(xs.shape[1])], indexing="ij")
+    combos = np.stack([g.ravel() for g in grids], axis=1)  # (G^F, F)
+    idx = int(best_combo(xs, yv, wv, combos, signs, dev))
+    thr = combos[idx]
+    scales = np.maximum(np.std(xs, axis=0) * 0.05, 1e-3).astype(np.float32)
+    return ThresholdModel(
+        feature_names=cand,
+        thresholds=thr.astype(np.float32),
+        signs=signs,
+        scales=scales,
+        pass_threshold=pass_threshold,
+        all_feature_names=list(feature_names),
+    )
+
+
+def best_combo(xs: np.ndarray, y: np.ndarray, w: np.ndarray, combos: np.ndarray, signs: np.ndarray,
+               device: torch.device) -> torch.Tensor:
+    """Index (a 0-d tensor on ``device``) of the max-F1 row of ``combos``
+    (C, F): a row of ``xs`` passes a combination when ``(x - thr) * sign >=
+    0`` for every feature; tp and fp in float64 over row steps, F1 in
+    float32."""
+    xs_d = torch.from_numpy(xs).to(device)
+    c = torch.from_numpy(combos).to(device)
+    s = torch.from_numpy(signs).to(device)
+    wy = torch.from_numpy(w * y).to(device)
+    wn = torch.from_numpy(w * (1 - y)).to(device)
+    tp = torch.zeros(len(combos), dtype=torch.float64, device=device)
+    fp = torch.zeros_like(tp)
+    for lo in range(0, len(xs), _SWEEP_ROWS):
+        hi = min(len(xs), lo + _SWEEP_ROWS)
+        ok = (xs_d[lo:hi, None, :] - c[None, :, :]) * s[None, None, :] >= 0  # (rows, C, F)
+        pred = ok.all(dim=2).double()  # (rows, C)
+        tp += wy[lo:hi].double() @ pred
+        fp += wn[lo:hi].double() @ pred
+    tp32, fp32 = tp.float(), fp.float()
+    fn = wy.double().sum().float() - tp32
+    f1 = 2 * tp32 / torch.clamp(2 * tp32 + fp32 + fn, min=1e-9)
+    return torch.argmax(f1)
 
 
 def default_somatic_model(all_feature_names: list[str]) -> ThresholdModel:

@@ -1,8 +1,9 @@
-"""Native (C++) host engine: VCF scan, verbatim writeback, BGZF, FASTA encode, host gather.
+"""Native (C++) host engine: VCF scan, verbatim writeback, BGZF, FASTA encode, host gather, GBT fit.
 
 Counterpart of the JAX package's ``native`` module, with the same function
 names, over a trimmed copy of its C++ sources (``src/``): only the entry
-points of the filter pipeline's host stages. The library is built
+points of the filter pipeline's host stages, and the quantile binning and
+CPU trainer of the boosted-forest fit (``bin_features``, ``gbt_fit``). The library is built
 with g++ at first use into ``libvctpu_native-<hash>.so`` in the kernels'
 build directory (``csrc/build.BUILD_DIR``: the checkout's ``build/``),
 keyed by the sources, the flags and the CPU's ``flags`` line, under a file
@@ -40,14 +41,15 @@ from variantcalling_tpu_torch.csrc.build import BUILD_DIR
 log = logging.getLogger(__name__)
 
 SRC_DIR = Path(__file__).resolve().parent / "src"
-SOURCES = ("vctpu_native.cc", "vctpu_features.cc")
+SOURCES = ("vctpu_native.cc", "vctpu_features.cc", "vctpu_gbt.cc")
 #: included by the sources: hashed into the build key, not compiled alone
 HEADERS = ("vctpu_threads.h",)
 CXXFLAGS = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC", "-std=c++17"]
 
-#: the entry points, in the order of the pipeline's stages
+#: the entry points, in the order of the pipeline's stages, then the fit's
 ENTRY_POINTS = ("bgzf_decompress_array", "vcf_parse", "interval_membership", "fasta_encode",
-                "gather_windows_contig", "format_float_info", "vcf_assemble", "bgzf_compress")
+                "gather_windows_contig", "format_float_info", "vcf_assemble", "bgzf_compress",
+                "bin_features", "gbt_fit")
 #: per entry point: calls served natively, their seconds, and calls left to the plain version
 CALLS: dict[str, dict] = {}
 #: guards CALLS: the streaming executor's workers call the engine concurrently
@@ -154,6 +156,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         "vctpu_fasta_encode": (_i64, [_u8p, _i64, _i64, _i64, _i64, _u8p]),
         "vctpu_gather_windows": (_i64, [_u8p, _i64, _i64p, _i64, _i32, _u8p]),
         "vctpu_format_float_info": (_i64, [_f64p, _i64, _u8p, _i64, _u8p, _i64, _i64p]),
+        "vctpu_bin_features": (_i64, [_f32p, _i64, _i32, _f32p, _i32, _u8p]),
+        "vctpu_gbt_fit": (_i64, [_u8p, _f32p, _f32p, _i64, _i32, _i32, _i32, _i32,
+                                 ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                                 _i32p, _i32p, _f32p]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -391,3 +397,36 @@ def fasta_encode(lib, raw, line_bases: int, line_width: int, length: int,
     rc = lib.vctpu_fasta_encode(_p(src, _u8p), len(src), int(line_bases), int(line_width), int(length),
                                 _p(out, _u8p))
     return out if rc == 0 else None
+
+
+@_entry
+def bin_features(lib, x: np.ndarray, edges: np.ndarray) -> np.ndarray | None:
+    """searchsorted-left quantile binning at float32 (NaN in the last bin),
+    uint8 out; None past 255 edges."""
+    if edges.shape[1] > 255:
+        return None
+    xx = np.ascontiguousarray(x, dtype=np.float32)
+    ee = np.ascontiguousarray(edges, dtype=np.float32)
+    n, f = xx.shape
+    out = np.empty((n, f), dtype=np.uint8)
+    rc = lib.vctpu_bin_features(_p(xx, _f32p), n, f, _p(ee, _f32p), ee.shape[1], _p(out, _u8p))
+    return out if rc == 0 else None
+
+
+@_entry
+def gbt_fit(lib, binned: np.ndarray, y: np.ndarray, w: np.ndarray | None, n_trees: int, depth: int, n_bins: int,
+            learning_rate: float, reg_lambda: float, min_child_weight: float, base_score: float):
+    """The native histogram-GBT fit (``src/vctpu_gbt.cc``): (feats, bins,
+    leaves) shaped as ``models.boosting._train``'s, or None on bad arguments."""
+    bn = np.ascontiguousarray(binned, dtype=np.uint8)
+    yy = np.ascontiguousarray(y, dtype=np.float32)
+    ww = None if w is None else np.ascontiguousarray(w, dtype=np.float32)
+    n, f = bn.shape
+    leaves = 1 << depth
+    feats = np.empty((n_trees, depth, leaves), dtype=np.int32)
+    bins = np.empty((n_trees, depth, leaves), dtype=np.int32)
+    vals = np.empty((n_trees, leaves), dtype=np.float32)
+    rc = lib.vctpu_gbt_fit(_p(bn, _u8p), _p(yy, _f32p), None if ww is None else _p(ww, _f32p),
+                           n, f, n_bins, n_trees, depth, learning_rate, reg_lambda, min_child_weight, base_score,
+                           _p(feats, _i32p), _p(bins, _i32p), _p(vals, _f32p))
+    return None if rc != 0 else (feats, bins, vals)

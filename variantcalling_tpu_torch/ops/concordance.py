@@ -1,0 +1,44 @@
+"""Concordance tallies: per-category tp/fp/fn counts and their accuracy.
+
+Counterpart of ``variantcalling_tpu/ops/concordance.py``. Each variant
+contributes a one-hot effective class (after the filter), each (possibly
+overlapping) category a mask, and the counts are one product of the two.
+The reference runs it as a float32 matmul; here the counts are int64 sums
+(exact), and the accuracy is formed in float32 from them as the reference
+forms it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+def effective_classes(is_tp: torch.Tensor, is_fp: torch.Tensor, is_fn: torch.Tensor,
+                      passes_filter: torch.Tensor) -> torch.Tensor:
+    """(N, 3) one-hot effective class per variant: a filtered tp becomes a
+    fn, a filtered fp is removed, fns are unaffected by filters."""
+    tp_eff = is_tp & passes_filter
+    fp_eff = is_fp & passes_filter
+    fn_eff = is_fn | (is_tp & ~passes_filter)
+    return torch.stack([tp_eff, fp_eff, fn_eff], dim=-1)
+
+
+def grouped_confusion(group_masks: torch.Tensor, is_tp: torch.Tensor, is_fp: torch.Tensor,
+                      is_fn: torch.Tensor, passes_filter: torch.Tensor) -> torch.Tensor:
+    """(G, 3) int64 [tp, fp, fn] counts per (overlapping) group."""
+    cls = effective_classes(is_tp, is_fp, is_fn, passes_filter).to(torch.int64)
+    return group_masks.to(torch.int64) @ cls
+
+
+def accuracy_from_counts(counts: np.ndarray) -> np.ndarray:
+    """(G, 3) counts -> (G, 3) float32 [precision, recall, f1]; an empty
+    denominator gives 1 (precision, recall) or 0 (f1)."""
+    c = np.asarray(counts, dtype=np.float32)
+    tp, fp, fn = c[:, 0], c[:, 1], c[:, 2]
+    one = np.float32(1.0)
+    precision = np.where(tp + fp > 0, tp / np.maximum(tp + fp, one), one).astype(np.float32)
+    recall = np.where(tp + fn > 0, tp / np.maximum(tp + fn, one), one).astype(np.float32)
+    f1 = np.where(precision + recall > 0,
+                  np.float32(2) * precision * recall / np.maximum(precision + recall, np.float32(1e-30)),
+                  np.float32(0)).astype(np.float32)
+    return np.stack([precision, recall, f1], axis=-1)

@@ -9,6 +9,9 @@ with missing-value routing over a callset where some records lack SOR and
 GQ — all from one ``numpy`` seed. :func:`add_family_models` adds a
 threshold model and a DAN to a world's pickle, as the reference's
 ``train_models_pipeline`` writes several families into one file.
+:func:`train_world` makes the labeled concordance frames
+``train_models_pipeline`` trains on, and :func:`add_dbsnp_ids` marks a
+world's callset for approximate-GT labels.
 """
 
 from __future__ import annotations
@@ -358,3 +361,88 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
         model = os.path.join(d, "model.pkl")
         save_models(model, {model_name: filter_forest(rng, n_trees, depth, aggregation)})
     return {"fasta": fasta, "vcf": vcf, "model": model, "model_name": model_name}
+
+
+#: GRCh38's autosomes (name, length in bases)
+GRCH38_AUTOSOMES = (
+    ("chr1", 248_956_422), ("chr2", 242_193_529), ("chr3", 198_295_559), ("chr4", 190_214_555),
+    ("chr5", 181_538_259), ("chr6", 170_805_979), ("chr7", 159_345_973), ("chr8", 145_138_636),
+    ("chr9", 138_394_717), ("chr10", 133_797_422), ("chr11", 135_086_622), ("chr12", 133_275_309),
+    ("chr13", 114_364_328), ("chr14", 107_043_718), ("chr15", 101_991_189), ("chr16", 90_338_345),
+    ("chr17", 83_257_441), ("chr18", 80_373_285), ("chr19", 58_617_616), ("chr20", 64_444_167),
+    ("chr21", 46_709_983), ("chr22", 50_818_468))
+_TRAIN_INT_FEATURES = {"indel_length", "hmer_indel_length", "hmer_indel_nuc", "cycleskip_status", "left_motif",
+                       "right_motif", "ref_code", "alt_code", "n_alts"}
+_TRAIN_BOOL_FEATURES = {"is_het", "is_snp", "is_indel", "is_ins"}
+
+
+def train_world(seed: int, n_rows: int, contigs=GRCH38_AUTOSOMES, chr20_rows: int | None = None,
+                fn_share: float = 0.02, gt_flip: float = 0.03) -> dict:
+    """Labeled concordance frames of a callset, one per contig (name ->
+    :class:`utils.h5_utils.Frame`), as ``run_comparison`` writes them and
+    ``train_models_pipeline`` reads them: ``chrom``, sorted ``pos``, the 19
+    non-somatic features of ``BASE_FEATURES`` (floats, bools and ints within
+    :data:`FEATURE_RANGES`), ``hpol_run``, and ``classify``/``classify_gt``:
+    tp with the probability of a seeded logistic model of the features, else
+    fp; ``fn_share`` of the rows fn; ``classify_gt`` differing from
+    ``classify`` on ``gt_flip`` of the tp/fp rows. ``chr20_rows`` pins chr20's
+    share; the other contigs share the rest by length."""
+    from variantcalling_tpu_torch.utils.h5_utils import Frame
+
+    rng = np.random.default_rng(seed)
+    names = list(contigs)
+    rest = [c for c in names if c[0] != "chr20"] if chr20_rows is not None else names
+    left = n_rows - (chr20_rows or 0)
+    total = sum(ln for _, ln in rest)
+    counts = {c: left * ln // total for c, ln in rest}
+    counts[rest[-1][0]] += left - sum(counts.values())
+    if chr20_rows is not None:
+        counts["chr20"] = chr20_rows
+    n = n_rows
+    cols: dict[str, np.ndarray] = {}
+    for f in BASE_FEATURES:
+        lo, hi = FEATURE_RANGES[f]
+        if f in _TRAIN_BOOL_FEATURES:
+            cols[f] = rng.random(n) < 0.5
+        elif f in _TRAIN_INT_FEATURES:
+            cols[f] = rng.integers(lo, hi + 1, n).astype(np.int64 if f.endswith("motif") else np.int32)
+        else:
+            cols[f] = (lo + rng.random(n) * (hi - lo)).astype(np.float32)
+    coef = rng.normal(0, 1, len(BASE_FEATURES)) * 3
+    z = sum(c * (np.asarray(cols[f], dtype=np.float64) - FEATURE_RANGES[f][0])
+            / (FEATURE_RANGES[f][1] - FEATURE_RANGES[f][0]) for c, f in zip(coef, BASE_FEATURES))
+    z = z - np.median(z) + 0.8
+    tp = rng.random(n) < 1.0 / (1.0 + np.exp(-z))
+    classify = np.where(tp, "tp", "fp").astype(object)
+    fn = rng.random(n) < fn_share
+    classify[fn] = "fn"
+    flip = ~fn & (rng.random(n) < gt_flip)
+    classify_gt = classify.copy()
+    classify_gt[flip] = np.where(classify[flip] == "tp", "fp", "tp")
+    hpol = rng.random(n) < 0.1
+    frames, lo = {}, 0
+    for name, _ in names:
+        k = counts[name]
+        sl = slice(lo, lo + k)
+        lo += k
+        chrom = np.empty(k, dtype=object)
+        chrom[:] = name
+        pos = np.sort(rng.choice(dict(names)[name] - 1, size=k, replace=False)).astype(np.int64) + 1
+        frames[name] = Frame({"chrom": chrom, "pos": pos, **{f: cols[f][sl] for f in BASE_FEATURES},
+                              "hpol_run": hpol[sl], "classify": classify[sl], "classify_gt": classify_gt[sl]})
+    return frames
+
+
+def add_dbsnp_ids(vcf: str, seed: int, share: float = 0.6) -> None:
+    """Give ``share`` of the records of a world's ``calls.vcf`` an ``rs`` ID
+    (dbSNP members, label 1 under approximate-GT labeling), in place."""
+    with open(vcf, "rb") as fh:
+        lines = fh.read().split(b"\n")
+    body = [i for i, line in enumerate(lines) if line and not line.startswith(b"#")]
+    rng = np.random.default_rng(seed)
+    for i in np.asarray(body)[rng.random(len(body)) < share]:
+        parts = lines[i].split(b"\t", 3)
+        parts[2] = b"rs%d" % (1000 + i)
+        lines[i] = b"\t".join(parts)
+    with open(vcf, "wb") as fh:
+        fh.write(b"\n".join(lines))

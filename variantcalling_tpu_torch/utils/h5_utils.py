@@ -1,8 +1,8 @@
-"""Frames stored in HDF5, read without h5py or pandas (the read half).
+"""Frames stored in HDF5, read and written without h5py or pandas.
 
-Counterpart of ``variantcalling_tpu/utils/h5_utils.py`` (its ``list_keys``
-and ``read_hdf``) over the port's own parser (:mod:`io.hdf5`). It reads the
-same two layouts:
+Counterpart of ``variantcalling_tpu/utils/h5_utils.py`` (its ``list_keys``,
+``read_hdf`` and ``write_hdf``) over the port's own parser and writer
+(:mod:`io.hdf5`). It reads the same two layouts:
 
 - the JAX package's own: one group per key with a ``vctpu_frame``
   attribute, one dataset per column, the column order and each column's
@@ -16,13 +16,16 @@ same two layouts:
   frame as (1, 1) placeholders.
 
 With no pandas, a frame is a :class:`Frame`: an ordered mapping of numpy
-columns and an optional index. The write half (``write_hdf``) is not
-ported.
+columns and an index. It writes the first layout (:func:`write_hdf`), the
+column kinds chosen by the reference's rules, and its index where pandas
+would hold one that is not ``RangeIndex(0, n, 1)``: :class:`Frame` follows
+pandas' rules for the index of a row subset and of a concatenation.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import pickle
 
 import numpy as np
@@ -35,10 +38,11 @@ _NULL = "\x01null\x01"
 
 
 class Frame:
-    """Named numpy columns of equal length, in order, and an optional index
-    (None: the rows are numbered from 0)."""
+    """Named numpy columns of equal length, in order, and an index: None
+    (the rows numbered from 0), a ``range`` (a pandas ``RangeIndex``) or an
+    array (any other pandas index)."""
 
-    def __init__(self, columns: dict[str, np.ndarray], index: np.ndarray | None = None):
+    def __init__(self, columns: dict[str, np.ndarray], index: np.ndarray | range | None = None):
         self.data = dict(columns)
         self.index = index
 
@@ -61,6 +65,69 @@ class Frame:
         """The columns of ``names`` that this frame has, in that order."""
         return Frame({n: self.data[n] for n in names if n in self.data}, self.index)
 
+    def take(self, keep: np.ndarray) -> "Frame":
+        """The rows of ``keep`` (a boolean mask or ascending positions), with
+        the index pandas gives such a subset (:func:`_take_index`)."""
+        keep = np.asarray(keep)
+        pos = np.flatnonzero(keep) if keep.dtype == bool else keep.astype(np.int64)
+        return Frame({n: c[pos] for n, c in self.data.items()}, _take_index(self.index, len(self), pos))
+
+
+def _take_index(index, n: int, pos: np.ndarray):
+    """The index of rows ``pos`` of a frame of ``n`` rows with ``index``, as
+    pandas builds it: a range stays a range where the kept rows are equally
+    spaced (one row: a range of one step; none: ``range(0, 0)``), an array
+    index is subset."""
+    if index is None:
+        index = range(n)
+    if not isinstance(index, range):
+        return np.asarray(index)[pos]
+    if len(pos) == 0:
+        return range(0, 0)
+    start = index[int(pos[0])]
+    if len(pos) == 1:
+        return range(start, start + index.step, index.step)
+    gaps = np.diff(pos)
+    if (gaps == gaps[0]).all():
+        step = index.step * int(gaps[0])
+        return range(start, index[int(pos[-1])] + step, step)
+    return np.asarray(index)[pos]
+
+
+def _index_values(index, n: int) -> np.ndarray:
+    return np.arange(n) if index is None else np.asarray(index)
+
+
+def _concat_index(frames: list["Frame"]):
+    """The index ``pd.concat`` gives frames stacked: a range where every
+    frame's index is a range and the non-empty ones continue each other
+    with one step, else the values one after the other."""
+    ranges = [range(len(f)) if f.index is None else f.index for f in frames]
+    values = np.concatenate([_index_values(f.index, len(f)) for f in frames]) if frames else np.arange(0)
+    if not all(isinstance(r, range) for r in ranges):
+        return values
+    start = step = nxt = None
+    full = [r for r in ranges if len(r)]
+    for r in full:
+        if start is None:
+            start = r.start
+            if len(r) > 1:
+                step = r.step
+        elif step is None:
+            if r.start == start:
+                return values
+            step = r.start - start
+        if (step != r.step and len(r) > 1) or (nxt is not None and r.start != nxt):
+            return values
+        if step is not None:
+            nxt = r[-1] + step
+    if not full:
+        return range(0, 0)
+    stop = full[-1].stop if nxt is None else nxt
+    if len(full) == 1:
+        step = full[0].step
+    return range(start, stop, step)
+
 
 def _obj(values) -> np.ndarray:
     out = np.empty(len(values), dtype=object)
@@ -74,8 +141,13 @@ def _decode_column(node, kind: str) -> np.ndarray:
         return _obj([flat[offsets[i]: offsets[i + 1]] for i in range(len(offsets) - 1)])
     data = node[()]
     if kind == "fstr":
-        out = np.char.decode(data, "utf-8").astype(object)
-        return np.where(out == _NULL, None, out)
+        try:  # ASCII bytes (the common case) widen to str in one C cast
+            text = data.astype(f"U{max(data.dtype.itemsize, 1)}")
+        except UnicodeDecodeError:
+            text = np.char.decode(data, "utf-8")
+        out = text.astype(object)
+        out[text == _NULL] = None
+        return out
     if kind == "str":
         out = _obj([v.decode() if isinstance(v, bytes) else str(v) for v in data])
         return np.where(out == _NULL, None, out)
@@ -151,8 +223,8 @@ def _read_frame(g: hdf5.Group) -> Frame:
 def _concat(frames: list[Frame]) -> Frame:
     """Frames one after the other, as ``pd.concat`` stacks them: the union of
     their columns in order of first appearance, a column that a frame lacks
-    filled with NaN there (None in a column of strings or objects), and each
-    frame's own index (its row numbers where it has none)."""
+    filled with NaN there (None in a column of strings or objects), and the
+    index pandas builds (:func:`_concat_index`)."""
     names = list(dict.fromkeys(n for f in frames for n in f.columns))
     cols = {}
     for name in names:
@@ -165,10 +237,7 @@ def _concat(frames: list[Frame]) -> Frame:
                 fill = np.full(len(f), np.nan) if like.dtype.kind in "biuf" else _obj([None] * len(f))
                 parts.append(fill)
         cols[name] = np.concatenate(parts)
-    index = None
-    if any(f.index is not None for f in frames):
-        index = np.concatenate([np.arange(len(f)) if f.index is None else f.index for f in frames])
-    return Frame(cols, index)
+    return Frame(cols, _concat_index(frames))
 
 
 def list_keys(path: str) -> list[str]:
@@ -196,3 +265,87 @@ def read_hdf(path: str, key: str = "all", skip_keys: list[str] | None = None, co
     if columns_subset is not None:
         frame = frame.select(columns_subset)
     return frame
+
+
+# -- the write half -----------------------------------------------------------
+
+
+def _missing(v) -> bool:
+    return v is None or (isinstance(v, (float, np.floating)) and v != v)
+
+
+def _encode_column(vals: np.ndarray):
+    """(data, kind) of one column, by the reference's rules: array-valued
+    objects -> ``ragged`` (float64 values, int64 offsets); strings -> the
+    ``\x01null\x01`` sentinel for a missing value, then ``fstr``
+    (fixed-width UTF-8) unless one outlier would blow up the width, else
+    ``str`` (variable-length); booleans -> uint8 ``bool``; numbers as they
+    are, under their numpy kind letter."""
+    if vals.dtype == object and len(vals) and isinstance(vals[0], (np.ndarray, list)):
+        arrays = [np.asarray(v, dtype=np.float64).ravel() for v in vals]
+        offsets = np.zeros(len(arrays) + 1, dtype=np.int64)
+        np.cumsum([len(a) for a in arrays], out=offsets[1:])
+        flat = np.concatenate(arrays) if arrays else np.array([], dtype=np.float64)
+        return (flat, offsets), "ragged"
+    if vals.dtype == object or vals.dtype.kind in ("U", "S"):
+        strs = [_NULL if _missing(v) else str(v) for v in vals]
+        lens = [len(v) for v in strs]
+        n = max(len(strs), 1)
+        max_len = max(lens) if lens else 1
+        if max_len <= 64 or max_len * n <= 4 * (sum(lens) + n):
+            if any("\x00" in v for v in strs):
+                raise ValueError("NUL bytes in string column are not storable")
+            return np.char.encode(np.asarray(strs, dtype="U"), "utf-8"), "fstr"
+        return _obj(strs), "str"
+    if vals.dtype.kind == "b":
+        return vals.astype(np.uint8), "bool"
+    return vals, vals.dtype.kind
+
+
+def _frame_group(frame: Frame) -> hdf5.WGroup:
+    """The reference's ``vctpu_frame`` group of a frame: one dataset a
+    column (a ``ragged`` one a group of ``values`` and ``offsets``), the
+    index as ``__index__`` unless it is ``RangeIndex(0, n, 1)``, the column
+    order and kinds as JSON attributes."""
+    names = [str(c) for c in frame.columns]
+    kinds: dict[str, str] = {}
+    members: dict = {}
+
+    def put(name: str, data) -> None:
+        if isinstance(data, tuple):
+            members[name] = hdf5.WGroup(members={"values": hdf5.WDataset(data[0]),
+                                                 "offsets": hdf5.WDataset(data[1])})
+        else:
+            members[name] = hdf5.WDataset(data)
+
+    idx = frame.index
+    if not (idx is None or (isinstance(idx, range) and idx.start == 0 and idx.step == 1)):
+        raw = np.asarray(idx)
+        if raw.dtype.kind not in "biufc":
+            raw = raw.astype(object)
+        data, kinds["__index__"] = _encode_column(raw)
+        put("__index__", data)
+    for col, name in zip(frame.columns, names):
+        data, kinds[name] = _encode_column(np.asarray(frame[col]))
+        put(name, data)
+    return hdf5.WGroup({_FORMAT_ATTR: 1, "columns": json.dumps(names), "kinds": json.dumps(kinds)}, members)
+
+
+def write_hdf(frame: Frame, path: str, key: str, mode: str = "a") -> None:
+    """Write ``frame`` under ``key`` (``mode="w"``: a new file; ``"a"``: the
+    file's other keys kept, ``key`` added or replaced). The file is written
+    whole: ``"a"`` reads the existing file back first (:func:`hdf5.read_tree`),
+    so a file the reader refuses raises :class:`hdf5.H5Unsupported` and is
+    left as it was."""
+    if mode not in ("w", "a"):
+        raise ValueError(f"mode {mode!r} (expected 'w' or 'a')")
+    root = hdf5.read_tree(path) if mode == "a" and os.path.exists(path) else hdf5.WGroup()
+    root.members[key] = _frame_group(frame)
+    hdf5.write_file(path, root)
+
+
+def write_frames(path: str, frames: dict[str, Frame]) -> None:
+    """A new file holding each frame under its key: the file ``write_hdf``
+    gives for the keys one after the other (``"w"``, then ``"a"``), written
+    once."""
+    hdf5.write_file(path, hdf5.WGroup(members={key: _frame_group(f) for key, f in frames.items()}))
