@@ -127,7 +127,25 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    ``train_models_pipeline`` in VCF mode on the 104,000-variant chr20 world
    with dbSNP IDs, a blacklist, hpol runs and an annotation, the trained
    forest then filtering it on ``cuda-wide`` to the CPU run's bytes, its
-   pickle naming only the reference's classes, numpy and builtins.
+   pickle naming only the reference's classes, numpy and builtins;
+10. the DAN trainer and the evaluation (``phase_dan_eval``), each run with
+   every kernel's count set to 0 just before it and read just after (no
+   kernel lies on these paths: none may launch): ``train_dan`` at its
+   defaults (hidden 256, 2 layers, embed 16, 2,000 steps of 16,384 rows)
+   on ``TRAIN_WORLD`` (22 keys: 22 journaled ingest chunks), twice, each in
+   a process of its own, byte-equal pickles; two pairs of ``--n_steps 1000``
+   then ``--n_steps 2000`` on one checkpoint directory, the second run of
+   each resuming 22 of 22 chunks and step 999, the pairs byte-equal
+   (``DAN_TRAIN_DETAIL``: wall, stages, steps and rows a second, peaks, the
+   logged losses); one step at those widths timed, and profiled for its
+   kernels and the card's busy share (``DAN_STEP_DETAIL``); 200 steps on 200,000 of its rows on the card and on the
+   CPU, losses within 1 % and scores within 5e-3 (``DAN_CPU_DETAIL``); a
+   DAN trained on the 104,000-variant world's labels (its own features)
+   filtering that world with ``VCTPU_MODEL_FAMILY=dan``, card against CPU
+   to the DAN rule, the pickle naming only ``variantcalling_tpu.models.dan``
+   classes, numpy and builtins; ``evaluate_concordance --output_bed`` on
+   the 5 M rows scored by the trained DAN, card and CPU, every file
+   byte-equal (``EVAL_DETAIL``).
 
 The last two lines of standard output are a JSON object with the kernel
 numbers and the device line ``{"ok": true, "device": {...}}``.
@@ -162,6 +180,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1.979e15  # dense, tensor cores
+BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
 
 KERNEL_ROWS = 262_144  # one pipeline CHUNK
 HOST_ENGINE = "host_engine"  # the native (g++) host engine, in phase_build beside the kernels
@@ -1533,6 +1552,347 @@ def phase_training(tmp: Path, card: str) -> dict:
           f"{run['seconds']:.1f} s, filtered on cuda-wide to the CPU run's bytes; pickle globals "
           f"{sorted(modules)}", flush=True)
     out["train_vcf"] = {"seconds": run["seconds"], "launches": run["launches"]}
+    # the inputs phase 10 trains and evaluates on
+    out["files"] = {"world": str(world), "small": str(small_path), "vcf_world": w, "labels": str(d / "prep.labels.h5")}
+    return out
+
+
+#: train_dan's defaults, at which phase 10 trains on TRAIN_WORLD: 2,000 steps of 16,384 rows
+DAN_STEPS, DAN_BATCH = 2000, 1 << 14
+#: GPU against CPU: steps on TRAIN_CPU_ROWS, a loss logged every DAN_CPU_LOG of them
+DAN_CPU_STEPS, DAN_CPU_LOG = 200, 10
+#: the CPU tests' bf16 bar (tests/test_torch_dan_train.py): each logged loss within 1 %, scores within 5e-3
+DAN_LOSS_RTOL, DAN_SCORE_ATOL = 1e-2, 5e-3
+
+
+class _DanLog(_RunLog):
+    """:class:`_RunLog` plus a ``train_dan`` run's logged losses (``STEP_LOG``),
+    its ingest resume (``RESUMED_LOG``: chunks read back, chunks) and its
+    checkpoint resume (``RESUME_STEP_LOG``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses: list[list] = []
+        self.resumed_chunks = None
+        self.resume_step = None
+
+    def emit(self, record: logging.LogRecord) -> None:
+        from variantcalling_tpu_torch.pipelines import train_dan
+
+        if record.msg == train_dan.STEP_LOG:
+            self.losses.append([record.args[0], record.args[1]])
+        elif record.msg == train_dan.RESUMED_LOG:
+            self.resumed_chunks = list(record.args)
+        elif record.msg == train_dan.RESUME_STEP_LOG:
+            self.resume_step = record.args[0]
+        else:
+            super().emit(record)
+
+
+def _tool_run(tool: str, argv: list[str], env: dict[str, str] | None = None) -> dict:
+    """One ``train_dan`` or ``evaluate_concordance`` run through ``run(argv)``
+    in this process: every kernel's launch count set to 0 just before it and
+    read just after (no kernel lies on these paths), its stages and logged
+    losses (:class:`_DanLog`), wall seconds and peak card memory."""
+    from variantcalling_tpu_torch.models import forest_cuda, gbt_hist
+    from variantcalling_tpu_torch.pipelines import evaluate_concordance, train_dan
+
+    module = {"train_dan": train_dan, "evaluate_concordance": evaluate_concordance}[tool]
+    os.environ.update(env or {})
+    plog = logging.getLogger("variantcalling_tpu_torch")
+    plog.setLevel(logging.INFO)
+    log = _DanLog()
+    plog.addHandler(log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gbt_hist.LAUNCHES = forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        rc = module.run(argv)
+    finally:
+        plog.removeHandler(log)
+    return {"rc": rc, "seconds": time.perf_counter() - t0, "stages": log.stages, "losses": log.losses,
+            "resumed_chunks": log.resumed_chunks, "resume_step": log.resume_step,
+            "launches": {"gbt_hist": gbt_hist.LAUNCHES, "forest_wide": forest_cuda.LAUNCHES,
+                         "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES},
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _dan_child(spec: dict, results) -> None:
+    """:func:`_tool_run` of ``train_dan`` in a process of its own, for its peak RSS."""
+    import resource
+
+    torch.cuda.init()
+    run = _tool_run("train_dan", spec["argv"], spec["env"])
+    results.put({**run, "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024})
+
+
+def _dan_train(tmp: Path, label: str, card: str, argv: list[str], steps: int, rows: int) -> dict:
+    """``train_dan`` with ``argv`` in a forked process: exit 0, no kernel
+    launched; a ``DAN_TRAIN_DETAIL`` line (wall, stages, steps and rows a
+    second through the train stage, peaks, the logged losses)."""
+    run = _forked({"argv": [*argv, "--output_file_prefix", str(tmp / label)], "env": {}}, label, _dan_child)
+    check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+    check(not any(run["launches"].values()), f"{label}: a kernel was launched ({run['launches']})")
+    train_s = run["stages"].get("train", float("nan"))
+    detail = {"run": label, "card": card, "wall_s": run["seconds"], "stages": run["stages"], "steps": steps,
+              "rows_per_step": rows, "steps_per_s": steps / train_s, "rows_per_s": steps * rows / train_s,
+              "peak_device_bytes": run["peak_device_bytes"], "peak_rss_bytes": run["peak_rss_bytes"],
+              "resumed_chunks": run["resumed_chunks"], "resume_step": run["resume_step"], "losses": run["losses"]}
+    print("DAN_TRAIN_DETAIL " + json.dumps(detail), flush=True)
+    return detail
+
+
+def _dan_step_profile(card: str, n_numeric: int, steps: int = 50) -> dict:
+    """``train_step`` at ``train_dan``'s defaults (16,384 rows, hidden 256, 2
+    layers, embed 16, bf16) on random inputs on the card: the host clock a
+    step (synchronized), and under ``torch.profiler`` the CUDA kernels a step
+    and their summed time, whose share of the step is the card's busy share;
+    beside them the step's bf16 FLOP count and its time at the dense bf16
+    peak (the profile is ``None`` where the profiler records no kernel)."""
+    from torch.autograd import DeviceType
+
+    from variantcalling_tpu_torch.models import dan
+
+    cfg = dan.DanConfig(n_numeric=n_numeric)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n = 1 << 20
+    data = {"numeric": torch.randn(n, n_numeric, device="cuda", generator=g),
+            "motif_left": torch.randint(0, dan.MOTIF_VOCAB, (n,), device="cuda", generator=g),
+            "motif_right": torch.randint(0, dan.MOTIF_VOCAB, (n,), device="cuda", generator=g),
+            "label": (torch.rand(n, device="cuda", generator=g) < 0.6).float(), "weight": torch.ones(n, device="cuda")}
+    idx = torch.randint(0, n, (steps, DAN_BATCH), device="cuda", generator=g)
+    params = dan.init_params(cfg, seed=0, device="cuda")
+    state = dan.adamw_init(params)
+
+    def run(k: int):
+        nonlocal params, state
+        for j in range(k):
+            batch = {key: v.index_select(0, idx[j % steps]) for key, v in data.items()}
+            params, state, _ = dan.train_step(cfg, params, state, batch)
+
+    run(20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    in_dim = n_numeric + 2 * cfg.embed_dim
+    flops = 3 * 2 * DAN_BATCH * (in_dim * cfg.hidden + cfg.hidden * cfg.hidden + cfg.hidden)
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps if kernels else None
+    detail = {"card": card, "rows": DAN_BATCH, "step_ms": step_ms, "flops": flops,
+              "bf16_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+              "device_events_per_step": len(kernels) / steps if kernels else None, "device_ms_per_step": device_ms,
+              "device_busy_share": device_ms / step_ms if device_ms is not None else None}
+    print("DAN_STEP_DETAIL " + json.dumps(detail), flush=True)
+    return detail
+
+
+def _scored_eval_world(world: str, model, out: Path) -> int:
+    """``world``'s frames with the DAN's TREE_SCORE (scored on the card in f32,
+    the filter's scorer), ``indel`` (from ``is_indel``) and FILTER at the
+    model's pass threshold, one key a contig as there; the row count."""
+    from variantcalling_tpu_torch.models import dan
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    scorer = dan.make_score_predictor(model, model.feature_names, "cuda")
+    frames = {}
+    for key in h5_utils.list_keys(world):
+        f = h5_utils.read_hdf(world, key)
+        x = np.stack([np.nan_to_num(np.asarray(f[c], dtype=np.float32)) for c in model.feature_names], axis=1)
+        score = scorer(torch.from_numpy(x).cuda()).cpu().numpy()
+        f["tree_score"] = score
+        f["indel"] = np.asarray(f["is_indel"], dtype=bool)
+        f["filter"] = np.where(score >= model.pass_threshold, "PASS", "LOW_SCORE").astype(object)
+        frames[key] = f
+    h5_utils.write_frames(str(out), frames)
+    return sum(len(f) for f in frames.values())
+
+
+def _vcf_concordance(w: dict, labels_path: str, out: Path) -> int:
+    """A concordance h5 of the 104,000-variant world's labeled records: the
+    filter's own features of each (``featurize.featurize`` on the card, the
+    world's annotation), ``classify`` tp where ``training_prep_pipeline``
+    labeled 1, else fp; the row count."""
+    from variantcalling_tpu_torch.featurize import featurize
+    from variantcalling_tpu_torch.io import bed as bedio
+    from variantcalling_tpu_torch.io.fasta import FastaReader
+    from variantcalling_tpu_torch.io.vcf import read_vcf
+    from variantcalling_tpu_torch.pipelines.filter_variants import _interval_name
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    table = read_vcf(w["vcf"])
+    annotate = {_interval_name(w["annotate"]): bedio.read_intervals(w["annotate"])}
+    with FastaReader(w["fasta"]) as fasta:
+        fs = featurize(table, fasta, annotate_intervals=annotate, device=torch.device("cuda"))
+    labels = h5_utils.read_hdf(labels_path, WORLD["contig"])
+    keep = np.isin(table.pos, labels["pos"])
+    check(np.array_equal(table.pos[keep], labels["pos"]), "labels and records do not line up")
+    x = fs.matrix()[keep]
+    chrom = np.empty(int(keep.sum()), dtype=object)
+    chrom[:] = WORLD["contig"]
+    cols = {"chrom": chrom, "pos": table.pos[keep], **{n: x[:, i] for i, n in enumerate(fs.feature_names)},
+            "classify": np.where(np.asarray(labels["label"]) == 1, "tp", "fp").astype(object)}
+    h5_utils.write_frames(str(out), {WORLD["contig"]: h5_utils.Frame(cols)})
+    return len(chrom)
+
+
+def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
+    """``train_dan`` and ``evaluate_concordance`` on the card.
+
+    1. ``TRAIN_WORLD`` (5 M rows, 22 keys: the ingest's ``keys`` mode, 22
+       journaled chunks) through ``train_dan`` at its defaults (hidden 256,
+       2 layers, embed 16, 2,000 steps of 16,384 rows, learning rate 1e-3)
+       with ``--checkpoint_every 200``, twice, each in a process of its own:
+       byte-equal pickles, the newest two checkpoints kept. Then ``--n_steps
+       1000`` and ``--n_steps 2000`` on one checkpoint directory, twice: the
+       second run of a pair resumes 22 of 22 chunks from the ingest cache and
+       from step 999, and the two pairs' pickles are byte-equal. One step at
+       those widths timed and profiled (:func:`_dan_step_profile`).
+    2. ``TRAIN_CPU_ROWS`` of the world, 200 steps on the card and with
+       ``--backend cpu``: each logged loss within 1 %, the two models' scores
+       of those rows within 5e-3 (the CPU tests' bf16 bar); the largest gaps.
+    3. Train -> filter: a DAN trained on the 104,000-variant chr20 world's
+       ``training_prep_pipeline`` labels (the filter's own features), then
+       that world's VCF filtered with ``VCTPU_MODEL_FAMILY=dan`` on the card
+       and on the CPU, held to the DAN rule (``tests/torch_vcf_compare.py``,
+       1e-5); the pickle names only ``variantcalling_tpu.models.dan``'s
+       classes, numpy and builtins.
+    4. ``evaluate_concordance --output_bed`` on ``TRAIN_WORLD`` scored by the
+       5 M-row DAN, on the card and on the CPU: every output file
+       byte-equal (``EVAL_DETAIL``).
+    """
+    from tests.torch_vcf_compare import differing_records
+    from variantcalling_tpu_torch.io import checkpoint
+    from variantcalling_tpu_torch.models import dan, registry
+    from variantcalling_tpu_torch.pipelines import train_dan
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    out: dict = {}
+    world = files["world"]
+    n_keys = len(h5_utils.list_keys(world))
+    # -- 1. the 5 M world at train_dan's defaults, twice, and two resumed pairs ------
+    base = ["--input_file", world, "--checkpoint_every", "200", "--backend", "gpu"]
+    runs = {}
+    for label in ("dan_5m_gpu", "dan_5m_gpu_again"):
+        ck = tmp / f"{label}_ck"
+        runs[label] = _dan_train(tmp, label, card, [*base, "--checkpoint_dir", str(ck)], DAN_STEPS, DAN_BATCH)
+        check(checkpoint.steps(str(ck)) == [DAN_STEPS - 201, DAN_STEPS - 1], f"{label}: checkpoints "
+              f"{checkpoint.steps(str(ck))}")
+        check(runs[label]["resumed_chunks"] is None, f"{label}: a fresh run read a cache")
+    pkl = [(tmp / f"{label}.pkl").read_bytes() for label in runs]
+    check(pkl[0] == pkl[1], "two train_dan runs on the card wrote different pickles")
+    pairs = []
+    for pair in ("a", "b"):
+        ck = ["--checkpoint_dir", str(tmp / f"dan_resume_{pair}_ck")]
+        first = _dan_train(tmp, f"dan_resume_{pair}_1000", card, [*base, *ck, "--n_steps", "1000"], 1000,
+                           DAN_BATCH)
+        second = _dan_train(tmp, f"dan_resume_{pair}_2000", card, [*base, *ck, "--n_steps", "2000"], 1000,
+                            DAN_BATCH)
+        check(first["resume_step"] is None and second["resume_step"] == 999
+              and second["resumed_chunks"] == [n_keys, n_keys],
+              f"pair {pair}: resumed from step {second['resume_step']}, chunks {second['resumed_chunks']}")
+        pairs.append((tmp / f"dan_resume_{pair}_2000.pkl").read_bytes())
+    check(pairs[0] == pairs[1], "two resumed train_dan pairs wrote different pickles")
+    model = registry.load_model(str(tmp / "dan_5m_gpu.pkl"), train_dan.MODEL_NAME)
+    losses = runs["dan_5m_gpu"]["losses"]
+    check(losses[-1][1] < losses[0][1], f"the loss did not fall: {losses}")
+    print(f"train_dan 5M: two runs wrote equal pickles ({len(pkl[0])} bytes), two resumed pairs (1000 + 1000 "
+          f"steps, {n_keys} of {n_keys} chunks from the cache) equal too; loss {losses[0][1]:.4f} -> "
+          f"{losses[-1][1]:.4f}; {runs['dan_5m_gpu']['steps_per_s']:.1f} steps/s ({card})", flush=True)
+    out["dan_5m"] = {**runs, "resumed": pairs[0] == pairs[1]}
+    out["dan_step"] = _dan_step_profile(card, len(model.numeric_features))
+
+    # -- 2. the card against the CPU on 200,000 rows -----------------------------------
+    pair = {}
+    for backend in ("gpu", "cpu"):
+        label = f"dan_200k_{backend}"
+        argv = ["--input_file", files["small"], "--n_steps", str(DAN_CPU_STEPS), "--log_every", str(DAN_CPU_LOG),
+                "--backend", backend]
+        pair[backend] = _dan_train(tmp, label, card, argv, DAN_CPU_STEPS, DAN_BATCH)
+    lg, lc = (np.asarray([v for _, v in pair[b]["losses"]]) for b in ("gpu", "cpu"))
+    check(len(lg) == len(lc) == DAN_CPU_STEPS // DAN_CPU_LOG, f"logged losses {len(lg)} / {len(lc)}")
+    loss_gap = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    args = train_dan.parse_args(["--input_file", files["small"], "--output_file_prefix", "unused"])
+    x, names, _, _ = train_dan.ingest_streaming(args)
+    xt = torch.from_numpy(x).cuda()
+    scores = {b: dan.make_score_predictor(registry.load_model(str(tmp / f"dan_200k_{b}.pkl"), train_dan.MODEL_NAME),
+                                          names, "cuda")(xt).cpu().numpy() for b in ("gpu", "cpu")}
+    gap = np.abs(scores["gpu"] - scores["cpu"])
+    detail = {"rows": len(x), "steps": DAN_CPU_STEPS, "card": card, "max_loss_rel_gap": loss_gap,
+              "max_score_gap": float(gap.max()), "mean_score_gap": float(gap.mean()),
+              "gpu_train_s": pair["gpu"]["stages"]["train"], "cpu_train_s": pair["cpu"]["stages"]["train"]}
+    print("DAN_CPU_DETAIL " + json.dumps(detail), flush=True)
+    check(loss_gap <= DAN_LOSS_RTOL, f"GPU and CPU losses part by {loss_gap:.4g} (relative)")
+    check(float(gap.max()) <= DAN_SCORE_ATOL, f"GPU and CPU DAN scores part by {float(gap.max()):.4g}")
+    out["dan_200k"] = detail
+    del xt
+    torch.cuda.empty_cache()
+
+    # -- 3. train -> filter on the 104,000-variant chr20 world ---------------------------
+    w = files["vcf_world"]
+    d = tmp / "dan_vcf"
+    d.mkdir()
+    n_labeled = _vcf_concordance(w, files["labels"], d / "concordance.h5")
+    run = _tool_run("train_dan", ["--input_file", str(d / "concordance.h5"), "--output_file_prefix", str(d / "dan"),
+                                  "--checkpoint_dir", str(d / "ck"), "--backend", "gpu"])
+    check(run["rc"] == 0 and not any(run["launches"].values()), f"train_dan on the VCF world: exit {run['rc']}, "
+          f"launches {run['launches']}")
+    globs = _pickle_globals((d / "dan.pkl").read_bytes())
+    modules = {m for m, _ in globs}
+    check(modules <= {"variantcalling_tpu.models.dan", "numpy", "numpy._core.multiarray", "numpy.core.multiarray",
+                      "builtins"} and ("variantcalling_tpu.models.dan", "DanModel") in globs,
+          f"pickle globals {sorted(globs)}")
+    trained = {"vcf": w["vcf"], "fasta": w["fasta"], "model": str(d / "dan.pkl"), "model_name": train_dan.MODEL_NAME}
+    extra = ["--annotate_intervals", w["annotate"], "--runs_file", w["runs"]]
+    family = {"VCTPU_MODEL_FAMILY": "dan"}
+    gpu = _drive(trained, d / "filtered_gpu.vcf", "gpu", card, "trained_dan", extra=extra, env=family)
+    cpu = _drive(trained, d / "filtered_cpu.vcf", "cpu", card, "trained_dan", extra=extra, env=family)
+    check(not any(gpu["launches"].values()), f"trained_dan: a forest kernel was launched ({gpu['launches']})")
+    lines = gpu["bytes"].decode().splitlines()
+    check("##vctpu_model_family=dan" in lines, "trained_dan: the output does not record the dan family")
+    n_diff = differing_records(gpu["bytes"], cpu["bytes"], 0.5, 1e-5)
+    records = [ln for ln in lines if not ln.startswith("#")]
+    n_pass = sum(ln.split("\t")[6] in ("PASS", "HPOL_RUN") for ln in records)
+    check(0 < n_pass < len(records), f"trained_dan: {n_pass} of {len(records)} PASS")
+    print("DAN_TRAIN_DETAIL " + json.dumps({"run": "dan_vcf_104k", "card": card, "wall_s": run["seconds"],
+                                            "stages": run["stages"], "rows": n_labeled, "losses": run["losses"],
+                                            "peak_device_bytes": run["peak_device_bytes"]}), flush=True)
+    print(f"train_dan -> filter: {n_labeled} labeled variants, trained on the card in {run['seconds']:.1f} s; "
+          f"GPU and CPU filter outputs: {n_diff} of {len(records)} records differ within 1e-5 of the DAN rule, "
+          f"{n_pass} PASS; pickle globals {sorted(modules)}", flush=True)
+    out["dan_vcf"] = {"seconds": run["seconds"], "differing_records": n_diff, "pass": n_pass}
+
+    # -- 4. evaluate_concordance at full width -------------------------------------------
+    t0 = time.perf_counter()
+    n_rows = _scored_eval_world(world, model, tmp / "eval_5m.h5")
+    build_s = time.perf_counter() - t0
+    evals = {}
+    for backend in ("gpu", "cpu"):
+        prefix = tmp / f"eval_5m_{backend}"
+        run = _tool_run("evaluate_concordance", ["--input_file", str(tmp / "eval_5m.h5"), "--output_prefix",
+                                                 str(prefix), "--output_bed", "--backend", backend])
+        check(run["rc"] == 0 and not any(run["launches"].values()), f"evaluate_concordance {backend}: exit "
+              f"{run['rc']}, launches {run['launches']}")
+        evals[backend] = run
+        print("EVAL_DETAIL " + json.dumps({"backend": backend, "rows": n_rows, "card": card,
+                                           "wall_s": run["seconds"], "stages": run["stages"],
+                                           "peak_device_bytes": run["peak_device_bytes"],
+                                           "world_build_s": build_s}), flush=True)
+    suffixes = (".h5", ".stats.csv", ".thresholds.csv", "_fp.bed", "_fn.bed", "_tp.bed")
+    for suffix in suffixes:
+        a, b = (_sha256(Path(f"{tmp / f'eval_5m_{backend}'}{suffix}")) for backend in ("gpu", "cpu"))
+        check(a == b, f"evaluate_concordance: {suffix} differs between the card and the CPU")
+    stats = (tmp / "eval_5m_gpu.stats.csv").read_text().splitlines()
+    check(len(stats) == 9 and stats[0] == "group;tp;fp;fn;precision;recall;f1", f"stats.csv {stats[:2]}")
+    print(f"evaluate_concordance 5M: {n_rows} rows, card and CPU outputs byte-equal ({', '.join(suffixes)}); "
+          f"{stats[1]} ({card})", flush=True)
+    out["eval_5m"] = {b: {"seconds": r["seconds"], "stages": r["stages"]} for b, r in evals.items()}
     return out
 
 
@@ -1585,6 +1945,7 @@ def main() -> int:
         phase_sidecar(pipe["forest_pickle"]["world"], Path(tmp), card)
         stream = phase_streaming(Path(tmp), card, pipe["forest_pickle"]["world"])
         train = phase_training(Path(tmp), card)
+        phase_dan_eval(Path(tmp), card, train["files"])
     n = WORLD["n_variants"]
     rows = {  # each kernel's numbers at the main path's shape, on the production (xgboost) forest
         "forest_wide": kern["forest_wide"]["results"]["xgboost_default_left_100x64"][n],

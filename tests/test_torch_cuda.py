@@ -2,7 +2,10 @@
 
 The forest kernels, and the boosted-forest fit's histogram kernel
 (``gbt_hist``) at every level of a fit, with the fit on the card against
-the same torch program on the CPU.
+the same torch program on the CPU. Also the card's own torch programs that
+must be exact or reproducible: the concordance tally (int64 counts with no
+integer matrix product, which CUDA lacks) against the CPU's, and DAN
+training steps twice on the card, bit for bit.
 
 Needs a CUDA device, nvcc and the kernel's build; skips without a device.
 Imports only the port (no JAX), so it runs on the machine with the card:
@@ -183,3 +186,56 @@ def test_threshold_fit_on_the_card_equals_the_cpu():
                                         device="cpu")
     for field in ("thresholds", "signs", "scales"):
         np.testing.assert_array_equal(getattr(gpu, field), getattr(cpu, field))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,groups", [(1, 8), (70_001, 8), (5_000_000, 8), (100_000, 300)])
+def test_concordance_tally_on_card_equals_cpu(n, groups):
+    """``grouped_confusion`` on CUDA tensors: int64 counts equal to the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from variantcalling_tpu_torch.ops import concordance as oc
+
+    rng = np.random.default_rng(n + groups)
+    masks = torch.from_numpy(rng.random((groups, n)) < 0.4)
+    tp = torch.from_numpy(rng.random(n) < 0.5)
+    fp = ~tp & torch.from_numpy(rng.random(n) < 0.5)
+    fn = ~tp & ~fp
+    pf = torch.from_numpy(rng.random(n) < 0.9)
+    got = oc.grouped_confusion(*(t.cuda() for t in (masks, tp, fp, fn, pf)))
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert torch.equal(got.cpu(), oc.grouped_confusion(masks, tp, fp, fn, pf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dan_train_steps_on_card_are_reproducible(dtype):
+    """30 ``train_step``s at ``train_dan``'s widths, twice on the card from the
+    same weights and batches: bit-equal parameters, Adam state and losses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from variantcalling_tpu_torch.models import dan
+
+    cfg = dan.DanConfig(n_numeric=20, dtype=dtype)
+    rng = np.random.default_rng(7)
+    n = 50_000
+    data = {"numeric": torch.from_numpy(rng.normal(size=(n, 20)).astype(np.float32)).cuda(),
+            "motif_left": torch.from_numpy(rng.integers(0, dan.MOTIF_VOCAB, n)).cuda(),
+            "motif_right": torch.from_numpy(rng.integers(0, dan.MOTIF_VOCAB, n)).cuda(),
+            "label": torch.from_numpy((rng.random(n) < 0.6).astype(np.float32)).cuda(),
+            "weight": torch.ones(n, device="cuda")}
+    idx = torch.from_numpy(rng.integers(0, n, (30, 16_384))).cuda()
+    runs = []
+    for _ in range(2):
+        params = dan.init_params(cfg, seed=0, device="cuda")
+        state = dan.adamw_init(params)
+        losses = []
+        for j in range(len(idx)):
+            batch = {k: v.index_select(0, idx[j]) for k, v in data.items()}
+            params, state, loss = dan.train_step(cfg, params, state, batch)
+            losses.append(loss)
+        runs.append((params, state, torch.stack(losses)))
+    (p1, s1, l1), (p2, s2, l2) = runs
+    assert torch.equal(l1, l2) and int(s1.count) == int(s2.count) == 30
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]) and torch.equal(s1.mu[k], s2.mu[k]) and torch.equal(s1.nu[k], s2.nu[k]), k

@@ -1,8 +1,9 @@
 """The port stands alone: no ``jax``, nothing of ``variantcalling_tpu``; no silent CPU.
 
 - an AST scan of ``variantcalling_tpu_torch/`` and ``chip_smoke.py`` finds
-  no import of either, nor of pandas or h5py, which the card's machine does
-  not have (the registry's pickle name mapping is a string);
+  no import of either, nor of optax, orbax, pandas or h5py, which the
+  card's machine does not have (the registry's pickle name mapping is a
+  string);
 - a subprocess run of the port's CLI with ``--backend cpu`` ends with none
   of those packages in ``sys.modules``;
 - without a CUDA device and without ``--backend cpu`` the CLI exits 2
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "variantcalling_tpu", "pandas", "h5py")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "variantcalling_tpu", "pandas", "h5py")
 
 
 def _port_sources() -> list[Path]:
@@ -68,6 +69,16 @@ def test_the_training_modules_are_scanned():
         "models/boosting", "models/gbt_hist", "models/threshold", "models/registry", "io/hdf5", "utils/h5_utils",
         "concordance/concordance_utils", "ops/concordance", "featurize", "pipelines/train_models",
         "pipelines/training_prep")} <= scanned
+
+
+def test_the_dan_training_and_evaluation_modules_are_scanned():
+    """The modules of ``train_dan`` and ``evaluate_concordance`` are among the
+    sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "models/dan", "models/convert", "io/checkpoint", "io/bed", "utils/stats_utils",
+        "concordance/concordance_utils", "ops/concordance", "pipelines/train_dan",
+        "pipelines/evaluate_concordance")} <= scanned
 
 
 def _run_cli(args: list[str], tmp_path: Path) -> subprocess.CompletedProcess:
@@ -140,6 +151,32 @@ def test_training_cli_without_cuda_exits_2_and_never_falls_back(train_world, tmp
     proc = _run_cli(["train_models_pipeline", "--input_file", train_world, "--output_file_prefix", "m"], tmp_path)
     assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
     assert "no CUDA device" in proc.stderr and not (tmp_path / "m.pkl").exists()
+
+
+def test_dan_and_evaluation_cli_cpu_runs_load_neither_jax_nor_reference(train_world, tmp_path):
+    from variantcalling_tpu_torch.utils.h5_utils import read_hdf, write_hdf
+
+    scored = read_hdf(train_world, "chr20")  # a scored concordance frame: indel flags and a tree_score
+    scored["indel"] = np.asarray(scored["is_indel"], dtype=bool)
+    scored["tree_score"] = np.linspace(0, 1, len(scored))
+    write_hdf(scored, str(tmp_path / "scored.h5"), "all", mode="w")
+    dan = _run_cli(["train_dan", "--input_file", train_world, "--output_file_prefix", "d", "--n_steps", "3",
+                    "--hidden", "8", "--embed_dim", "2", "--checkpoint_dir", "ck", "--checkpoint_every", "2",
+                    "--backend", "cpu"], tmp_path)
+    ev = _run_cli(["evaluate_concordance", "--input_file", "scored.h5", "--output_prefix", "e", "--output_bed",
+                   "--backend", "cpu"], tmp_path)
+    for proc in (dan, ev):
+        assert proc.returncode == 0, proc.stderr
+        assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}
+    assert (tmp_path / "d.pkl").exists() and (tmp_path / "e.h5").exists() and (tmp_path / "e_tp.bed").exists()
+
+
+@pytest.mark.parametrize("tool", ["train_dan", "evaluate_concordance"])
+def test_dan_and_evaluation_cli_without_cuda_exit_2(tool, train_world, tmp_path):
+    out = "--output_file_prefix" if tool == "train_dan" else "--output_prefix"
+    proc = _run_cli([tool, "--input_file", train_world, out, "x"], tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
+    assert "no CUDA device" in proc.stderr and not list(tmp_path.glob("x*"))
 
 
 def test_api_defaults_to_the_card_and_never_falls_back(small_world, monkeypatch):

@@ -308,11 +308,72 @@ def test_accuracy_metrics_equal_the_reference(group_column, ignored):
             "grp": rng.choice(["a", "b", "c"], n).astype(object)}
     cols["classify_gt"][::97] = None
     want = jcu.calc_accuracy_metrics(pd.DataFrame(cols), "classify_gt", ignored, group_column)
-    got = tcu.calc_accuracy_metrics(Frame(cols), "classify_gt", ignored, group_column)
+    got = tcu.calc_accuracy_metrics(Frame(cols), "classify_gt", ignored, group_column, device="cpu")
     assert got.columns == list(want.columns)
     for c in want.columns:
         w = want[c].to_numpy()
         assert (c == "group" or got[c].dtype == w.dtype) and list(got[c]) == list(w), c
+
+
+@pytest.mark.parametrize("device", ["cpu", "torch.device"])
+def test_accuracy_metrics_tally_on_the_device_they_are_given(device, monkeypatch):
+    """``calc_accuracy_metrics`` hands every input of the tally to the device it
+    is given (a backend name or a ``torch.device``) and gets the JAX package's
+    counts back; the tally is masked int64 sums, no matrix product."""
+    import torch
+
+    from variantcalling_tpu.concordance import concordance_utils as jcu
+    from variantcalling_tpu_torch.concordance import concordance_utils as tcu
+    from variantcalling_tpu_torch.ops import concordance as tops
+    from variantcalling_tpu_torch.utils.h5_utils import Frame
+
+    rng = np.random.default_rng(12)
+    n = 5000
+    cols = {"indel": rng.random(n) < 0.3, "hmer_indel_length": rng.integers(0, 15, n),
+            "classify_gt": rng.choice(["tp", "fp", "fn"], n).astype(object),
+            "filter": rng.choice(["PASS", "LOW_SCORE", "HPOL_RUN"], n).astype(object)}
+    seen = []
+    tally = tops.grouped_confusion
+
+    def spy(*tensors):
+        seen.extend(t.device for t in tensors)
+        out = tally(*tensors)
+        seen.append(out.device)
+        assert out.dtype == torch.int64
+        return out
+
+    def no_matmul(*a, **k):
+        raise AssertionError("the tally ran a matrix product")
+
+    monkeypatch.setattr(tcu, "grouped_confusion", spy)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", no_matmul)
+    monkeypatch.setattr(torch, "matmul", no_matmul)
+    dev = torch.device("cpu") if device == "torch.device" else device
+    got = tcu.calc_accuracy_metrics(Frame(cols), "classify_gt", ["HPOL_RUN"], device=dev)
+    assert len(seen) == 6 and all(d == torch.device("cpu") for d in seen)
+    want = jcu.calc_accuracy_metrics(pd.DataFrame(cols), "classify_gt", ["HPOL_RUN"])
+    for c in ("tp", "fp", "fn"):
+        assert got[c].dtype == np.int64 and list(got[c]) == list(want[c]), c
+
+
+def test_grouped_confusion_counts_are_exact_int64():
+    """Overlapping groups, filtered tps turned fns: the counts equal a float64
+    product of the one-hot classes, as int64."""
+    import torch
+
+    from variantcalling_tpu_torch.ops import concordance as tops
+
+    rng = np.random.default_rng(13)
+    n = 20_000
+    masks = torch.from_numpy(rng.random((5, n)) < 0.4)
+    tp = torch.from_numpy(rng.random(n) < 0.5)
+    fp = ~tp & torch.from_numpy(rng.random(n) < 0.5)
+    fn = ~tp & ~fp
+    pf = torch.from_numpy(rng.random(n) < 0.8)
+    got = tops.grouped_confusion(masks, tp, fp, fn, pf)
+    want = masks.double() @ tops.effective_classes(tp, fp, fn, pf).double()
+    assert got.dtype == torch.int64 and torch.equal(got, want.long())
+    assert tops.grouped_confusion(masks[:0], tp, fp, fn, pf).shape == (0, 3)
 
 
 @pytest.mark.parametrize("resident", [False, True])

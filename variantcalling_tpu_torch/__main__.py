@@ -1,9 +1,9 @@
 """CLI dispatch: ``python -m variantcalling_tpu_torch <tool> <args>``.
 
-Counterpart of ``variantcalling_tpu/__main__.py``; the port serves three
-tools so far: ``filter_variants_pipeline``, ``train_models_pipeline`` and
-``training_prep_pipeline``. Each tool is a module exposing ``run(argv)``,
-imported when called.
+Counterpart of ``variantcalling_tpu/__main__.py``; the port serves five
+tools so far: ``filter_variants_pipeline``, ``train_models_pipeline``,
+``training_prep_pipeline``, ``train_dan`` and ``evaluate_concordance``. Each
+tool is a module exposing ``run(argv)``, imported when called.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ TOOLS: dict[str, str] = {
     "filter_variants_pipeline": "variantcalling_tpu_torch.pipelines.filter_variants",
     "train_models_pipeline": "variantcalling_tpu_torch.pipelines.train_models",
     "training_prep_pipeline": "variantcalling_tpu_torch.pipelines.training_prep",
+    "train_dan": "variantcalling_tpu_torch.pipelines.train_dan",
+    "evaluate_concordance": "variantcalling_tpu_torch.pipelines.evaluate_concordance",
 }
 
 

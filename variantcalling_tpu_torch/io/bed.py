@@ -1,8 +1,9 @@
 """BED / Picard interval_list parsing and the interval algebra the filter needs.
 
 Counterpart of ``variantcalling_tpu/io/bed.py`` (the parts that serve
-``--annotate_intervals`` and ``--runs_file``). Intervals are half-open
-0-based [start, end) as in BED.
+``--annotate_intervals`` and ``--runs_file``, and the ``BedWriter`` of
+``evaluate_concordance --output_bed``). Intervals are half-open 0-based
+[start, end) as in BED.
 """
 
 from __future__ import annotations
@@ -112,3 +113,23 @@ def read_intervals(path: str) -> IntervalSet:
     if str(path).endswith(".interval_list"):
         return read_interval_list(path)
     return read_bed(path)
+
+
+class BedWriter:
+    """Streaming BED writer: one tab-separated line a ``write`` (gzip for a
+    ``.gz`` path), as the reference's ``BedWriter`` writes it."""
+
+    def __init__(self, path: str):
+        self._fh = (gzip.open if str(path).endswith(".gz") else open)(path, "wt")
+
+    def write(self, chrom: str, start: int, end: int, *extra) -> None:
+        self._fh.write("\t".join([chrom, str(start), str(end), *map(str, extra)]) + "\n")
+
+    def close(self) -> None:
+        self._fh.close()
+
+    def __enter__(self) -> "BedWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

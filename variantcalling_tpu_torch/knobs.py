@@ -365,6 +365,8 @@ HONOURED = frozenset({
     "VCTPU_CACHE_DIR", "VCTPU_CACHE_MAX_MB", "VCTPU_FAULTS",
     # the boosted-forest fit
     "VCTPU_NATIVE_GBT",
+    # train_dan's rank check: a launch of more than one rank exits 2 (multi-GPU waits for A7)
+    "VCTPU_RANK", "VCTPU_NUM_PROCESSES", "VCTPU_SPAN",
 })
 
 

@@ -11,13 +11,23 @@ numpy arrays and metadata, e.g.::
     ref = <variantcalling_tpu DanModel>
     dan = dan_from_reference(ref.params_np, dataclasses.asdict(ref.cfg),
                              feature_names=ref.feature_names, ...)
+
+and a DAN training run's state (numpy in, the port's tensors out)::
+
+    params = dan_params_from_reference({k: np.asarray(v) for k, v in jax_params.items()})
+    adam, *_ = jax_opt_state                      # optax.adamw: (ScaleByAdamState, ...)
+    state = adam_state_from_reference(np.asarray(adam.count),
+                                      {k: np.asarray(v) for k, v in adam.mu.items()},
+                                      {k: np.asarray(v) for k, v in adam.nu.items()})
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from variantcalling_tpu_torch.models.dan import DanConfig, DanModel
+import torch
+
+from variantcalling_tpu_torch.models.dan import AdamState, DanConfig, DanModel, param_names
 from variantcalling_tpu_torch.models.forest import FlatForest
 from variantcalling_tpu_torch.models.threshold import ThresholdModel
 
@@ -55,10 +65,8 @@ def dan_from_reference(params_np: dict[str, np.ndarray], cfg_fields: dict, featu
     """``params_np``: the reference DAN's parameters (motif_embed, w_in, b_in,
     w_i/b_i, w_out, b_out) as numpy; ``cfg_fields``: its DanConfig's fields."""
     cfg = DanConfig(**cfg_fields)
-    expected = {"motif_embed", "w_in", "b_in", "w_out", "b_out",
-                *(f"{p}_{i}" for i in range(cfg.n_layers - 1) for p in "wb")}
-    if set(params_np) != expected:
-        raise KeyError(f"DAN parameters {sorted(params_np)} are not {sorted(expected)}")
+    if set(params_np) != set(param_names(cfg.n_layers)):
+        raise KeyError(f"DAN parameters {sorted(params_np)} are not {param_names(cfg.n_layers)}")
     in_dim = cfg.n_numeric + 2 * cfg.embed_dim
     if np.shape(params_np["w_in"]) != (in_dim, cfg.hidden) or len(numeric_features) != cfg.n_numeric:
         raise ValueError(f"w_in {np.shape(params_np['w_in'])} and {len(numeric_features)} numeric features "
@@ -70,6 +78,24 @@ def dan_from_reference(params_np: dict[str, np.ndarray], cfg_fields: dict, featu
     return DanModel(cfg=cfg, params_np={k: f32(v) for k, v in params_np.items()},
                     feature_names=list(feature_names), numeric_features=list(numeric_features),
                     pass_threshold=float(pass_threshold), norm_mu=f32(norm_mu), norm_sd=f32(norm_sd))
+
+
+def dan_params_from_reference(params_np: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """The reference DAN's parameters (numpy) as the port's float32 CPU
+    tensors, in the reference's order (``init_params``'s)."""
+    order = param_names(1 + sum(k.startswith("w_") and k[2:].isdigit() for k in params_np))
+    if set(params_np) != set(order):
+        raise KeyError(f"DAN parameters {sorted(params_np)} are not the reference's {order}")
+    return {k: torch.from_numpy(np.array(params_np[k], dtype=np.float32)) for k in order}
+
+
+def adam_state_from_reference(count, mu: dict[str, np.ndarray], nu: dict[str, np.ndarray]) -> AdamState:
+    """optax's ``ScaleByAdamState`` (count, mu, nu as numpy) as the port's
+    :class:`~variantcalling_tpu_torch.models.dan.AdamState`."""
+    if set(mu) != set(nu):
+        raise KeyError(f"mu {sorted(mu)} and nu {sorted(nu)} name different parameters")
+    return AdamState(torch.tensor(int(np.asarray(count)), dtype=torch.int32),
+                     dan_params_from_reference(mu), dan_params_from_reference(nu))
 
 
 def threshold_from_reference(feature_names: list[str], thresholds, signs, scales,

@@ -2,16 +2,18 @@
 
 Counterpart of ``variantcalling_tpu/ops/concordance.py``. Each variant
 contributes a one-hot effective class (after the filter), each (possibly
-overlapping) category a mask, and the counts are one product of the two.
-The reference runs it as a float32 matmul; here the counts are int64 sums
-(exact), and the accuracy is formed in float32 from them as the reference
-forms it.
+overlapping) category a mask. The reference tallies them as one float32
+matmul on its device; here each category's counts are a sum of masked
+booleans into int64 on the tensors' device (exact at any row count, and no
+integer matrix product, which CUDA does not have), and the accuracy is
+formed in float32 from them as the reference forms it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
 
 def effective_classes(is_tp: torch.Tensor, is_fp: torch.Tensor, is_fn: torch.Tensor,
                       passes_filter: torch.Tensor) -> torch.Tensor:
@@ -25,9 +27,12 @@ def effective_classes(is_tp: torch.Tensor, is_fp: torch.Tensor, is_fn: torch.Ten
 
 def grouped_confusion(group_masks: torch.Tensor, is_tp: torch.Tensor, is_fp: torch.Tensor,
                       is_fn: torch.Tensor, passes_filter: torch.Tensor) -> torch.Tensor:
-    """(G, 3) int64 [tp, fp, fn] counts per (overlapping) group."""
-    cls = effective_classes(is_tp, is_fp, is_fn, passes_filter).to(torch.int64)
-    return group_masks.to(torch.int64) @ cls
+    """(G, 3) int64 [tp, fp, fn] counts per (overlapping) group, on the
+    inputs' device: one masked sum a group."""
+    cls = effective_classes(is_tp, is_fp, is_fn, passes_filter)
+    if len(group_masks) == 0:
+        return torch.zeros((0, 3), dtype=torch.int64, device=cls.device)
+    return torch.stack([(cls & m.unsqueeze(-1)).sum(dim=0) for m in group_masks.to(torch.bool)])
 
 
 def accuracy_from_counts(counts: np.ndarray) -> np.ndarray:

@@ -50,7 +50,7 @@ from variantcalling_tpu_torch.pipelines.training_prep import (
     labels_from_approximate_gt,
     read_blacklist_loci,
 )
-from variantcalling_tpu_torch.utils.h5_utils import Frame, read_hdf, write_hdf
+from variantcalling_tpu_torch.utils.h5_utils import CONCORDANCE_SKIP_KEYS, Frame, read_hdf, write_hdf
 
 log = logging.getLogger(__name__)
 
@@ -96,7 +96,7 @@ def _ingest(args, device: torch.device):
     """-> (x, feature_names, label, label_gt, weight, in_hpol, contig)."""
     if args.input_file.endswith((".h5", ".hdf", ".hdf5")):
         df = read_hdf(args.input_file, key="all",
-                      skip_keys=["concordance", "scored_concordance", "input_args", "comparison_result"])
+                      skip_keys=CONCORDANCE_SKIP_KEYS)
         if args.list_of_contigs_to_read:
             df = df.take(np.isin(np.asarray(df["chrom"], dtype=object), args.list_of_contigs_to_read))
         cls = df["classify"]  # strings, None where missing (equal to no label)
@@ -293,7 +293,7 @@ def _run(args, device: torch.device) -> int:
                 "classify_gt": np.where(label_gt[holdout] > 0, "tp", "fp").astype(object),
                 "filter": np.where(score >= getattr(mdl, "pass_threshold", 0.5), "PASS", "LOW_SCORE").astype(object),
             })
-            acc = calc_accuracy_metrics(eval_df, "classify_gt", ["HPOL_RUN"])
+            acc = calc_accuracy_metrics(eval_df, "classify_gt", ["HPOL_RUN"], device=device)
         with _stage("writes"):
             write_hdf(acc, out_h5, key="optimal_recall_precision", mode="a")
         log.info("held-out (%s) accuracy: %s", args.evaluate_concordance_contig,

@@ -27,7 +27,7 @@ import numpy as np
 from variantcalling_tpu_torch.io import hdf5
 from variantcalling_tpu_torch.io.vcf import read_vcf
 from variantcalling_tpu_torch.pipelines.filter_variants import BlacklistError, read_blacklist
-from variantcalling_tpu_torch.utils.h5_utils import Frame, read_hdf, write_frames
+from variantcalling_tpu_torch.utils.h5_utils import CONCORDANCE_SKIP_KEYS, Frame, read_hdf, write_frames
 
 log = logging.getLogger(__name__)
 
@@ -98,7 +98,7 @@ def run(argv: list[str]) -> int:
     try:
         if args.input_file.endswith((".h5", ".hdf", ".hdf5")):
             df = read_hdf(args.input_file, key=args.dataset_key,
-                          skip_keys=["concordance", "scored_concordance", "input_args", "comparison_result"])
+                          skip_keys=CONCORDANCE_SKIP_KEYS)
             labeled = labels_from_concordance(df)
         else:
             table = read_vcf(args.input_file)

@@ -24,6 +24,7 @@ pandas' rules for the index of a row subset and of a concatenation.
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import pickle
@@ -33,6 +34,8 @@ import numpy as np
 from variantcalling_tpu_torch.io import hdf5
 
 _FORMAT_ATTR = "vctpu_frame"
+#: keys of a ``run_comparison`` h5 that hold no callset rows: ``key="all"`` readers skip them
+CONCORDANCE_SKIP_KEYS = ["concordance", "scored_concordance", "input_args", "comparison_result"]
 # the JAX package's sentinel of a missing string (h5py strings reject NUL)
 _NULL = "\x01null\x01"
 
@@ -53,6 +56,12 @@ class Frame:
     def __getitem__(self, name: str) -> np.ndarray:
         return self.data[name]
 
+    def __setitem__(self, name: str, values) -> None:
+        """Set a column: an array of the frame's length, or a scalar broadcast
+        to it (pandas' ``df[name] = 1`` gives an int64 column)."""
+        values = np.asarray(values)
+        self.data[name] = np.full(len(self), values) if values.ndim == 0 else values
+
     def __contains__(self, name: str) -> bool:
         return name in self.data
 
@@ -71,6 +80,29 @@ class Frame:
         keep = np.asarray(keep)
         pos = np.flatnonzero(keep) if keep.dtype == bool else keep.astype(np.int64)
         return Frame({n: c[pos] for n, c in self.data.items()}, _take_index(self.index, len(self), pos))
+
+    def to_csv(self, path: str, sep: str = ",") -> None:
+        """The file pandas' ``to_csv(path, sep=sep, index=False)`` writes: a
+        header of the column names, then the rows through :mod:`csv` with
+        pandas' dialect (minimal quoting, ``os.linesep``). Values as pandas
+        renders them: floats (float64 and float32 alike) by numpy's
+        ``astype(str)``, the shortest text that reads back to the same
+        value; ints and ``True``/``False`` as Python prints them; an empty
+        field for NaN and for a missing object."""
+
+        def text(col: np.ndarray) -> list:
+            if col.dtype.kind == "f":
+                out = col.astype(str).astype(object)
+                out[np.isnan(col)] = ""
+                return out.tolist()
+            if col.dtype.kind in "biu":
+                return col.tolist()
+            return ["" if _missing(v) else v for v in col]
+
+        with open(path, "w", encoding="utf-8", newline="") as fh:
+            writer = csv.writer(fh, delimiter=sep, lineterminator=os.linesep, quoting=csv.QUOTE_MINIMAL)
+            writer.writerow(self.columns)
+            writer.writerows(zip(*(text(np.asarray(self.data[n])) for n in self.columns)))
 
 
 def _take_index(index, n: int, pos: np.ndarray):
