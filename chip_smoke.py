@@ -6,10 +6,10 @@ Phases (any failure exits non-zero, and the final result line is not printed):
 
 1. card: name and power limit (nvidia-smi), torch/CUDA versions; fails
    without a CUDA device;
-2. build: compiles the three kernel sources, ``variantcalling_tpu_torch/
-   csrc/forest_wide.cu``, ``forest_tree_step.cu`` and ``gbt_hist.cu``, with
-   nvcc for sm_90a, and the native host engine
-   (``variantcalling_tpu_torch/native/src``) with g++, the four builds
+2. build: compiles the four kernel sources, ``variantcalling_tpu_torch/
+   csrc/forest_wide.cu``, ``forest_tree_step.cu``, ``gbt_hist.cu`` and
+   ``cnv_viterbi.cu``, with nvcc for sm_90a, and the native host engine
+   (``variantcalling_tpu_torch/native/src``) with g++, the five builds
    started together, and prints each build's seconds;
 3. kernels, each against its plain torch version on the card, bit for bit
    (``torch.equal``), timed with CUDA events beside its bound (``ms``:
@@ -145,7 +145,27 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    to the DAN rule, the pickle naming only ``variantcalling_tpu.models.dan``
    classes, numpy and builtins; ``evaluate_concordance --output_bed`` on
    the 5 M rows scored by the trained DAN, card and CPU, every file
-   byte-equal (``EVAL_DETAIL``).
+   byte-equal (``EVAL_DETAIL``);
+11. coverage and CNV calling (``phase_coverage``) on ``COVERAGE_WORLD``:
+   the filter world's synthetic chr20 and chrM at 30x of 150-bp reads
+   (about 12.9 M records with SEQ and QUAL, 3 % duplicates, 1 % secondary,
+   4 % MAPQ 0, I/D/S CIGARs) with planted events at 15x, 45x and 0x,
+   written by ``synthetic.write_coverage_world``; each run a process of its
+   own, the counts set to 0 just before it and read just after:
+   ``full_analysis`` (default windows, ``-c`` with a 20,000-interval
+   exome-like BED and the events) and ``full_analysis -q 20 -Q 20 -l 100``
+   on the card and the CPU (parquets sha256-equal, histograms and
+   percentiles equal, near-ties counted, stats to 1e-6), ``collect_coverage``
+   (the inflated bedGraph and the ``.bw`` bytes equal), a
+   ``VCTPU_NO_NATIVE=1`` twin on a 500 kbp cut and a CRAM twin of a 200 kbp
+   cut (equal outputs), ``cnv_calling --reference`` card against CPU (BED and
+   VCF bytes equal, every planted event called with its copy number, one
+   ``cnv_viterbi`` launch), and the Viterbi kernel alone at chr20 and
+   GRCh38 at 1 kb, ``torch.equal`` to its plain version, beside its latency
+   bound (``COVERAGE_DETAIL``, ``CNV_DETAIL``, ``CNV_KERNEL_DETAIL``,
+   ``HOST_ENGINE`` lines). Phase 9's ``TRAIN_NATIVE_DETAIL`` holds the card's
+   forests to the native trainer's on the held-out chr20 rows
+   (``tests/torch_worlds.forest_bar``).
 
 The last two lines of standard output are a JSON object with the kernel
 numbers and the device line ``{"ok": true, "device": {...}}``.
@@ -1479,19 +1499,22 @@ def phase_training(tmp: Path, card: str) -> dict:
                                             "launches": run["launches"]}), flush=True)
         pair[backend] = registry.load_models(str(tmp / f"{label}.pkl"))
     args = train_models.parse_args(["--input_file", str(small_path), "--output_file_prefix", "unused"])
-    x, names, label_, _, weight, _, _ = train_models._ingest(args, torch.device("cpu"))
+    x, names, label_, _, weight, _, contig = train_models._ingest(args, torch.device("cpu"))
     native = {}
     for name, want in pair["cpu"].items():
         got = pair["gpu"][name]
         if name.startswith("rf"):
-            native[name] = _native_agreement(got, want, x)
+            # the bar held: the held-out chr20 rows' TREE_SCORE and FILTER (tests/torch_worlds.forest_bar)
+            bar = torch_worlds.forest_bar(got, want, x[contig == "chr20"])
+            native[name] = {**_native_agreement(got, want, x), "heldout_bar": bar}
             print("TRAIN_NATIVE_DETAIL " + json.dumps({"model": name, "card": card, **native[name]}), flush=True)
+            check(bar["held"], f"{name}: the card's forest misses the forest bar against the native trainer: {bar}")
         else:
             check(all(np.array_equal(getattr(got, k), getattr(want, k)) for k in ("thresholds", "signs", "scales"))
                   and got.feature_names == want.feature_names, f"{name}: GPU and CPU threshold fits differ")
     print(f"training 200k: the CLI on the card against --backend cpu (native float32 trainer): split features "
-          f"equal in {sum(v['features_equal'] for v in native.values())} of {len(native)} forests; threshold "
-          f"models equal ({card})", flush=True)
+          f"equal in {sum(v['features_equal'] for v in native.values())} of {len(native)} forests, the held-out "
+          f"forest bar held by all; threshold models equal ({card})", flush=True)
     cfg = boosting.BoostConfig()
     t0 = time.perf_counter()
     gpu_fit = boosting.fit(x, label_, sample_weight=weight, cfg=cfg, feature_names=names, device="cuda")
@@ -1896,6 +1919,306 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
     return out
 
 
+#: phase 11's world (BASELINE config 4, "30x WGS CRAM, 1kb windows", cut to one contig): the filter
+#: world's synthetic chr20 (seed 2026) and chrM at GRCh38's lengths, 30x of 150-bp reads with the planted
+#: events of synthetic.COVERAGE_EVENTS; the no-native twin's and the CRAM twin's cuts of chr20
+COVERAGE_WORLD = dict(seed=2026, contigs=(("chr20", 64_444_167), ("chrM", 16_569)), depth=30.0,
+                      plain_cut=500_000, cram_cut=200_000)
+#: copy numbers the planted events must be called with (15x, 45x and 0x of a 30x genome)
+COVERAGE_EVENT_CN = (1, 3, 0)
+#: the Viterbi kernel alone: chr20 at 1 kb, and GRCh38's 24 chromosomes at 1 kb (3,088,269 bins)
+CNV_CHR20_BINS = 64_444
+GRCH38_MB = (248.956422, 242.193529, 198.295559, 190.214555, 181.538259, 170.805979, 159.345973, 145.138636,
+             138.394717, 133.797422, 135.086622, 133.275309, 114.364328, 107.043718, 101.991189, 90.338345,
+             83.257441, 80.373285, 58.617616, 64.444167, 46.709983, 50.818468, 156.040895, 57.227415)
+#: dependent FP32 operations a Viterbi step chains (an add, the 5-way max's compare, an add), 4 cycles each
+CNV_STEP_CYCLES = 3 * 4
+
+
+def _cov_child(spec: dict, results) -> None:
+    """One ``coverage_analysis`` or ``cnv_calling`` run in a process of its
+    own: every kernel's count and every host engine entry point's count set
+    to 0 just before it and read just after; stages, wall seconds, peak RSS
+    and peak card memory to ``results``."""
+    import resource
+
+    from variantcalling_tpu_torch import native
+    from variantcalling_tpu_torch.cnv import viterbi_cuda
+    from variantcalling_tpu_torch.models import forest_cuda, gbt_hist
+    from variantcalling_tpu_torch.pipelines import cnv_calling, coverage_analysis
+
+    os.environ.update(spec["env"])
+    plog = logging.getLogger("variantcalling_tpu_torch")
+    plog.setLevel(logging.INFO)
+    times = _RunLog()
+    plog.addHandler(times)
+    if "gpu" in spec["argv"]:
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats()
+    viterbi_cuda.LAUNCHES = gbt_hist.LAUNCHES = forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
+    native.reset_calls()
+    module = {"coverage_analysis": coverage_analysis, "cnv_calling": cnv_calling}[spec["tool"]]
+    t0 = time.perf_counter()
+    rc = module.run(spec["argv"])
+    seconds = time.perf_counter() - t0
+    results.put({
+        "rc": rc, "seconds": seconds, "stages": times.stages,
+        "launches": {"cnv_viterbi": viterbi_cuda.LAUNCHES, "gbt_hist": gbt_hist.LAUNCHES,
+                     "forest_wide": forest_cuda.LAUNCHES, "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES},
+        "host": {k: dict(v) for k, v in native.CALLS.items() if v["native"] or v["plain"]},
+        "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "peak_device_bytes": torch.cuda.max_memory_allocated() if "gpu" in spec["argv"] else None})
+
+
+def _cov_run(tool: str, argv: list[str], label: str, card: str, positions: int, env: dict | None = None,
+             served_by: str | None = "bam_depth") -> dict:
+    """``tool`` with ``argv`` in a forked process (:func:`_forked`): exit 0;
+    on the card, served by the host engine's ``served_by`` walk and no plain
+    version; a ``COVERAGE_DETAIL`` line (or ``CNV_DETAIL`` for
+    ``cnv_calling``) with stages, wall, positions a second and peaks, and a
+    ``HOST_ENGINE`` line."""
+    run = _forked({"tool": tool, "argv": argv, "env": env or {}}, label, _cov_child)
+    check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+    host = run["host"]
+    if served_by and "gpu" in argv:
+        plain = [k for k, v in host.items() if v["plain"]]
+        check(host.get(served_by, {}).get("native", 0) >= 1 and not plain,
+              f"{label}: the host engine did not serve {served_by}; plain: {plain}")
+    others = {k: v for k, v in run["launches"].items() if k != "cnv_viterbi"}
+    check(not any(others.values()), f"{label}: a kernel of another path was launched ({others})")
+    detail = {"run": label, "card": card, "wall_s": run["seconds"], "stages": run["stages"],
+              "positions": positions, "positions_per_s": positions / run["seconds"],
+              "launches": run["launches"], "peak_rss_bytes": run["peak_rss_bytes"],
+              "peak_device_bytes": run["peak_device_bytes"]}
+    print(("CNV_DETAIL " if tool == "cnv_calling" else "COVERAGE_DETAIL ") + json.dumps(detail), flush=True)
+    print("HOST_ENGINE " + json.dumps({"run": label, "calls": host}), flush=True)
+    return run
+
+
+def _full_outputs(prefix: str, windows=(100, 1000, 10000, 100000)) -> dict:
+    """The sha256 of each parquet, and the h5 frames read back by the port's ``read_hdf``."""
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    h5 = f"{prefix}.coverage_stats.h5"
+    return {"parquet": {w: _sha256(Path(f"{prefix}.w{w}.parquet")) for w in windows},
+            "frames": {k: h5_utils.read_hdf(h5, k) for k in ("histogram", "stats", "percentiles")}}
+
+
+def _check_full_same(a: dict, b: dict, label: str) -> dict:
+    """Parquets sha256-equal, ``histogram`` equal, ``percentiles`` equal but
+    where the histogram's cdf lies within 1e-6 of the backed-off q (counted),
+    ``stats`` to 1e-6 relative; returns the largest stat gap and the count."""
+    check(a["parquet"] == b["parquet"], f"{label}: parquets differ")
+    ha, hb = a["frames"]["histogram"], b["frames"]["histogram"]
+    check(ha.columns == hb.columns and all(np.array_equal(ha[c], hb[c]) for c in ha.columns),
+          f"{label}: histograms differ")
+    sa, sb = a["frames"]["stats"], b["frames"]["stats"]
+    check(list(sa["stat"]) == list(sb["stat"]) and sa.columns == sb.columns, f"{label}: stats frames differ in shape")
+    gap = max(float(np.max(np.abs(sa[c] - sb[c]) / np.maximum(np.abs(sb[c]), 1e-30))) for c in sa.columns[1:])
+    check(gap <= 1e-6, f"{label}: stats differ by {gap} relative")
+    pa, pb = a["frames"]["percentiles"], b["frames"]["percentiles"]
+    # the quantiles as percentiles_from_histogram backs them off: q (1 - 1e-6) in float32, at least 1e-9
+    qs = np.maximum(np.float32(np.arange(0, 101, 5) / 100.0) * np.float32(1.0 - 1e-6), np.float32(1e-9))
+    near = 0
+    for c in pa.columns[1:]:
+        cdf = np.cumsum(ha[c]) / max(float(np.sum(ha[c])), 1.0)
+        for q, x, y in zip(qs.astype(np.float64), pa[c], pb[c]):
+            if x != y:
+                lo, hi = int(min(x, y)), int(max(x, y))
+                check(min(abs(cdf[lo] - q), abs(cdf[hi - 1] - q)) <= 1e-6, f"{label}: {c} Q{q} {x} != {y}")
+                near += 1
+    return {"max_stats_rel_gap": gap, "percentile_near_ties": near}
+
+
+def _inflated_sha256(path: Path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with gzip.open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(16 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _viterbi_alone(card: str, sm_clock_hz: float, run_launches: int) -> dict:
+    """The Viterbi kernel alone: chr20 at 1 kb (one sequence) and GRCh38 at
+    1 kb (24 sequences, one launch), ``torch.equal`` to its plain version on
+    the same card tensors; timed (``ms`` single launch, ``device_ms``,
+    ``host_ms``, the plain version's ms once) beside its bound: the larger of
+    the bytes (obs in, states out, at HBM rate) and the latency of the
+    longest sequence's dependent steps (:data:`CNV_STEP_CYCLES` at the SM's
+    top clock). ``CNV_KERNEL_DETAIL`` lines, with ``run_launches``, the
+    launches of the ``cnv_calling`` run on the card."""
+    from variantcalling_tpu_torch.cnv import viterbi_cuda
+
+    out = {}
+    params = viterbi_cuda.hmm_params()
+    for label, lens in (("chr20_1kb", [CNV_CHR20_BINS]), ("grch38_1kb", [int(mb * 1000) for mb in GRCH38_MB])):
+        rng = np.random.default_rng(len(lens))
+        total = sum(lens)
+        obs = rng.normal(0.0, 0.15, total).astype(np.float32)
+        for s in rng.integers(0, total - 2000, 40):
+            obs[s: s + int(rng.integers(5, 2000))] += np.float32(rng.choice([-3.0, -1.0, 0.585, 1.0]))
+        offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]).astype(np.int64))
+        x = torch.from_numpy(obs).cuda()
+        launches = viterbi_cuda.LAUNCHES
+        got = viterbi_cuda.viterbi_launch(x, offsets, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = viterbi_cuda.viterbi_plain(x, offsets, params)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = torch.equal(got, want)
+        check(equal, f"cnv_viterbi {label}: kernel != plain ({int((got != want).sum())} bins)")
+        run = lambda: viterbi_cuda.viterbi_launch(x, offsets, params)  # noqa: E731
+        ms, dev_ms, h_ms = cuda_ms(run, reps=5, warmup=1), device_ms(run, reps=5, warmup=1), host_ms(run, reps=5,
+                                                                                                       warmup=1)
+        viterbi_cuda.LAUNCHES = launches  # the comparison's launches do not count
+        bytes_ms = 8 * total / HBM_BYTES_PER_S * 1e3
+        latency_ms = max(lens) * CNV_STEP_CYCLES / sm_clock_hz * 1e3
+        ops_ms = total * (2 * 25 + 5 * 5) / FP32_OPS_PER_S * 1e3  # cand adds and compares, emission and add
+        bound = max(bytes_ms, latency_ms, ops_ms)
+        detail = {"kernel": "cnv_viterbi", "case": label, "card": card, "bins": total, "sequences": len(lens),
+                  "longest": max(lens), "ms": ms, "device_ms": dev_ms, "host_ms": h_ms, "plain_ms": plain_ms,
+                  "bound_ms": bound, "bound_by": "operations" if latency_ms >= bytes_ms else "bytes",
+                  "bytes_bound_ms": bytes_ms, "latency_bound_ms": latency_ms, "sm_clock_mhz": sm_clock_hz / 1e6,
+                  "bound_share": bound / ms, "states_equal": equal, "cnv_calling_launches": run_launches}
+        print("CNV_KERNEL_DETAIL " + json.dumps(detail), flush=True)
+        out[label] = {**detail, "max_abs_err": 0.0}
+    return out
+
+
+def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> dict:
+    """``coverage_analysis`` and ``cnv_calling`` on the card (phase 11).
+
+    ``COVERAGE_WORLD`` written by ``synthetic.write_coverage_world`` (the
+    port's native ``bgzf_compress``), then, each run a process of its own:
+    1. ``full_analysis`` at the default windows with ``-c`` (an exome-like
+       BED of 20,000 intervals and the planted events), ``--backend gpu``
+       and ``cpu``: the four parquets sha256-equal, ``histogram`` and
+       ``percentiles`` equal (near-ties counted), ``stats`` to 1e-6;
+    2. ``collect_coverage`` to ``.bedgraph.gz`` and its ``.bw``, GPU against
+       CPU: the inflated bedGraph and the ``.bw`` bytes equal;
+    3. ``full_analysis -q 20 -Q 20 -l 100``, GPU against CPU: equal outputs;
+    4. the twins: ``VCTPU_NO_NATIVE=1`` (the pure-Python ``BamReader``) on a
+       500 kbp cut against the native run, and a CRAM of a 200 kbp cut
+       (``tests/cram_fixtures.write_cram``) against the BAM of the same
+       reads: equal outputs;
+    5. ``cnv_calling --reference`` on the full world, GPU against CPU: BED and
+       VCF bytes equal, each planted event called with its copy number, one
+       ``cnv_viterbi`` launch on the card;
+    6. the Viterbi kernel alone (:func:`_viterbi_alone`).
+    """
+    from tests import cram_fixtures
+    from variantcalling_tpu_torch import synthetic
+
+    out: dict = {}
+    seed, contigs = world_spec["seed"], [tuple(c) for c in world_spec["contigs"]]
+    length = sum(n for _, n in contigs)
+    events = tuple(e for e in synthetic.COVERAGE_EVENTS if e[1] <= contigs[0][1])
+    t0 = time.perf_counter()
+    w = synthetic.write_coverage_world(str(tmp / "coverage"), seed, contigs, world_spec["depth"], events)
+    n_reads = len(w["reads"]["pos"])
+    print(f"world coverage: {n_reads} reads of 150 bp on {contigs} at {world_spec['depth']}x, events {events}; "
+          f"BAM {os.path.getsize(w['bam'])} bytes ({w['bam_bytes']} inflated), written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["world"] = {"reads": n_reads, "bam_bytes": os.path.getsize(w["bam"]), "write_s": time.perf_counter() - t0}
+
+    # -- 1. and 3. full_analysis, GPU against CPU --------------------------------------------
+    d = tmp / "cov_out"
+    d.mkdir()
+    for tag, extra in (("full", ["-c", w["categories"]]), ("full_q20", ["-q", "20", "-Q", "20", "-l", "100"])):
+        res = {}
+        for backend in ("gpu", "cpu"):
+            label = f"{tag}_{backend}"
+            run = _cov_run("coverage_analysis", ["full_analysis", "-i", w["bam"], "-o", str(d / label), *extra,
+                                                 "--backend", backend], label, card, length)
+            res[backend] = {**_full_outputs(str(d / label)), "run": run}
+        same = _check_full_same(res["gpu"], res["cpu"], tag)
+        print(f"{tag}: GPU and CPU wrote equal parquets and histograms; stats within {same['max_stats_rel_gap']:.3g} "
+              f"relative, {same['percentile_near_ties']} percentile near-ties ({card})", flush=True)
+        out[tag] = {**same, "gpu_s": res["gpu"]["run"]["seconds"], "cpu_s": res["cpu"]["run"]["seconds"],
+                    "peak_device_bytes": res["gpu"]["run"]["peak_device_bytes"]}
+    del res
+
+    # -- 2. collect_coverage, GPU against CPU --------------------------------------------------
+    sums = {}
+    for backend in ("gpu", "cpu"):
+        label = f"collect_{backend}"
+        _cov_run("coverage_analysis", ["collect_coverage", "-i", w["bam"], "-o", str(d / f"{label}.bedgraph.gz"),
+                                       "--backend", backend], label, card, length)
+        sums[backend] = (_inflated_sha256(d / f"{label}.bedgraph.gz"), _sha256(d / f"{label}.bw"))
+    check(sums["gpu"] == sums["cpu"], f"collect_coverage: GPU and CPU outputs differ {sums}")
+    print(f"collect_coverage: GPU and CPU bedGraph (inflated) and .bw bytes equal ({card})", flush=True)
+
+    # -- 4. the twins -----------------------------------------------------------------------------
+    plain_contigs = [(contigs[0][0], world_spec["plain_cut"]), contigs[-1]]
+    pw = synthetic.write_coverage_world(str(tmp / "cov_plain"), seed + 1, plain_contigs, world_spec["depth"], (),
+                                        n_exome=500)
+    twins = {}
+    for label, env, served in (("plain_cut_native", {}, "bam_depth"),
+                               ("plain_cut_no_native", {"VCTPU_NO_NATIVE": "1"}, None)):
+        run = _cov_run("coverage_analysis", ["full_analysis", "-i", pw["bam"], "-o", str(d / label), "-c",
+                                             pw["categories"], "--backend", "gpu"], label, card,
+                       sum(n for _, n in plain_contigs), env, served)
+        twins[label] = _full_outputs(str(d / label))
+        if not served:
+            check(run["host"].get("bam_depth", {}).get("plain", 0) == 1, f"{label}: the plain reader did not serve")
+    _check_full_same(twins["plain_cut_native"], twins["plain_cut_no_native"], "no-native twin")
+    cram_reads = synthetic.coverage_reads(seed + 2, [(contigs[0][0], world_spec["cram_cut"])], world_spec["depth"], ())
+    cw = tmp / "cov_cram"
+    cw.mkdir()
+    synthetic.write_coverage_bam(str(cw / "reads.bam"), cram_reads)
+    t0 = time.perf_counter()
+    header = f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:{contigs[0][0]}\tLN:{world_spec['cram_cut']}\n"
+    cram_fixtures.write_cram(str(cw / "reads.cram"), header, synthetic.coverage_cram_records(cram_reads),
+                             method=cram_fixtures.GZIP)
+    cram_write_s = time.perf_counter() - t0
+    for label, src, served in (("cram_cut_bam", "reads.bam", "bam_depth"), ("cram_cut_cram", "reads.cram",
+                                                                             "cram_depth")):
+        _cov_run("coverage_analysis", ["full_analysis", "-i", str(cw / src), "-o", str(d / label), "-q", "20",
+                                       "--backend", "gpu"], label, card, world_spec["cram_cut"], None, served)
+        twins[label] = _full_outputs(str(d / label))
+    _check_full_same(twins["cram_cut_bam"], twins["cram_cut_cram"], "CRAM twin")
+    print(f"twins: VCTPU_NO_NATIVE=1 on {len(pw['reads']['pos'])} reads and a CRAM of {len(cram_reads['pos'])} reads "
+          f"(written in {cram_write_s:.1f} s) gave the native BAM runs' outputs ({card})", flush=True)
+    del twins
+
+    # -- 5. cnv_calling, GPU against CPU --------------------------------------------------------
+    cnv = {}
+    for backend in ("gpu", "cpu"):
+        label = f"cnv_{backend}"
+        run = _cov_run("cnv_calling", ["--input_bam", w["bam"], "--output_bed", str(d / f"{label}.bed"),
+                                       "--output_vcf", str(d / f"{label}.vcf"), "--reference", w["fasta"],
+                                       "--backend", backend], label, card, length)
+        cnv[backend] = {"run": run, "bed": (d / f"{label}.bed").read_bytes(), "vcf": (d / f"{label}.vcf").read_bytes()}
+    check(cnv["gpu"]["bed"] == cnv["cpu"]["bed"] and cnv["gpu"]["vcf"] == cnv["cpu"]["vcf"],
+          "cnv_calling: GPU and CPU BED/VCF bytes differ")
+    launches = cnv["gpu"]["run"]["launches"]["cnv_viterbi"]
+    check(launches == 1 and cnv["cpu"]["run"]["launches"]["cnv_viterbi"] == 0, f"cnv_viterbi launches {launches}")
+    segs = [line.split("\t") for line in cnv["gpu"]["bed"].decode().splitlines()]
+    called = []
+    for (s, e, _), cn in zip(events, COVERAGE_EVENT_CN):
+        hits = [g for g in segs if g[0] == contigs[0][0] and int(g[1]) < e and int(g[2]) > s
+                and g[3] == f"CN{cn}" and min(int(g[2]), e) - max(int(g[1]), s) >= 0.8 * (e - s)]
+        check(hits, f"cnv_calling: the planted event {s}-{e} was not called as CN{cn}; segments {segs}")
+        called.append({"event": [s, e], "cn": cn, "segment": hits[0][:4]})
+    print(f"cnv_calling: GPU and CPU BED and VCF bytes equal, {len(segs)} segments, every planted event called "
+          f"{called} ({card})", flush=True)
+    out["cnv"] = {"segments": len(segs), "called": called, "launches": launches,
+                  "gpu_s": cnv["gpu"]["run"]["seconds"], "cpu_s": cnv["cpu"]["run"]["seconds"]}
+
+    # -- 6. the kernel alone ------------------------------------------------------------------------
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60)
+        clock = float(smi.stdout.strip().splitlines()[0]) * 1e6
+    except (OSError, ValueError, IndexError):
+        clock = 1.98e9  # the H100 SXM's top SM clock
+    out["viterbi"] = _viterbi_alone(card, clock, launches)
+    return out
+
+
 def time_kernel(kind: str, root: str) -> int:
     """``--time-kernel {wide,tree_step} ROOT``: one kernel of the checkout at
     ROOT (this one, or an older one unpacked beside it) on phase 3's forests
@@ -1946,6 +2269,7 @@ def main() -> int:
         stream = phase_streaming(Path(tmp), card, pipe["forest_pickle"]["world"])
         train = phase_training(Path(tmp), card)
         phase_dan_eval(Path(tmp), card, train["files"])
+        cov = phase_coverage(Path(tmp), card)
     n = WORLD["n_variants"]
     rows = {  # each kernel's numbers at the main path's shape, on the production (xgboost) forest
         "forest_wide": kern["forest_wide"]["results"]["xgboost_default_left_100x64"][n],
@@ -1982,6 +2306,17 @@ def main() -> int:
         "device_ms": hist["device_ms"], "host_ms": hist["host_ms"],
         # the bf16 one-hot product of the reference's accelerator formulation (not bit-equal)
         "library_ms": hist["library_ms"], "build_s": build_s["gbt_hist"],
+    })
+    # the CNV Viterbi, not a TPU kernel: it replaces the XLA lax.scan; its numbers on chr20 at 1 kb (the
+    # shape of phase 11's cnv_calling run), its launches from that run
+    vit = cov["viterbi"]["chr20_1kb"]
+    kernels.append({
+        "name": "cnv_viterbi", "route": "cuda", "source": "variantcalling_tpu_torch/csrc/cnv_viterbi.cu",
+        "replaces": "variantcalling_tpu/cnv/caller.py:57", "launches": cov["cnv"]["launches"],
+        "max_abs_err": vit["max_abs_err"], "ms": vit["ms"], "plain_ms": vit["plain_ms"], "bound_ms": vit["bound_ms"],
+        "bound_by": vit["bound_by"], "device_ms": vit["device_ms"], "host_ms": vit["host_ms"],
+        # no single PyTorch call computes a Viterbi path
+        "library_ms": None, "build_s": build_s["cnv_viterbi"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

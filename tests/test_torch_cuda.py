@@ -239,3 +239,62 @@ def test_dan_train_steps_on_card_are_reproducible(dtype):
     assert torch.equal(l1, l2) and int(s1.count) == int(s2.count) == 30
     for k in p1:
         assert torch.equal(p1[k], p2[k]) and torch.equal(s1.mu[k], s2.mu[k]) and torch.equal(s1.nu[k], s2.nu[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [(1,), (2,), (33, 0, 4097), (64_444,), (3000,) * 24, (9000, 1, 70_001)])
+@pytest.mark.parametrize("sigma", [0.35, 0.2])
+def test_cnv_viterbi_kernel_matches_plain_version(lens, sigma):
+    """The Viterbi kernel: one block a sequence (empty ones included, tiles
+    of the backtrace cut inside a sequence), states ``torch.equal`` to the
+    plain version on the same card tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from variantcalling_tpu_torch.cnv import viterbi_cuda
+
+    rng = np.random.default_rng(sum(lens))
+    obs = rng.normal(0, 0.5, sum(lens)).astype(np.float32)
+    obs[rng.random(len(obs)) < 0.01] = -3.0
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]).astype(np.int64))
+    params = viterbi_cuda.hmm_params(sigma)
+    x = torch.from_numpy(obs).cuda()
+    before = viterbi_cuda.LAUNCHES
+    got = viterbi_cuda.viterbi_states(x, offsets, params)
+    torch.cuda.synchronize()
+    assert viterbi_cuda.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), viterbi_cuda.viterbi_plain(x, offsets, params).cpu())
+    assert torch.equal(got.cpu(), viterbi_cuda.viterbi_plain(x.cpu(), offsets, params))
+
+
+@pytest.mark.cuda
+def test_coverage_and_cnv_on_the_card_equal_the_cpu(tmp_path):
+    """``coverage_analysis`` (both subcommands) and ``cnv_calling`` on a small
+    BAM, ``--backend gpu`` against ``--backend cpu``: equal files; the CNV
+    run launches the Viterbi kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import hashlib
+
+    from variantcalling_tpu_torch import synthetic
+    from variantcalling_tpu_torch.cnv import viterbi_cuda
+    from variantcalling_tpu_torch.pipelines import cnv_calling, coverage_analysis
+
+    w = synthetic.write_coverage_world(str(tmp_path / "w"), seed=4, contigs=[("chr20", 1_500_000), ("chrM", 16_569)],
+                                       events=((200_000, 400_000, 15), (600_000, 900_000, 45), (1_100_000, 1_150_000, 0)),
+                                       n_exome=300)
+    digest = {}
+    for backend in ("gpu", "cpu"):
+        out = tmp_path / backend
+        out.mkdir()
+        assert coverage_analysis.run(["full_analysis", "-i", w["bam"], "-o", str(out / "f"), "-c", w["categories"],
+                                      "--backend", backend]) == 0
+        assert coverage_analysis.run(["collect_coverage", "-i", w["bam"], "-o", str(out / "c.bedgraph.gz"),
+                                      "--backend", backend]) == 0
+        before = viterbi_cuda.LAUNCHES
+        assert cnv_calling.run(["--input_bam", w["bam"], "--output_bed", str(out / "cnv.bed"), "--output_vcf",
+                                str(out / "cnv.vcf"), "--reference", w["fasta"], "--backend", backend]) == 0
+        assert viterbi_cuda.LAUNCHES - before == (1 if backend == "gpu" else 0)
+        digest[backend] = {p.name: hashlib.sha256(p.read_bytes()).hexdigest() for p in sorted(out.iterdir())
+                           if not p.name.endswith((".h5", ".gz"))}
+    assert digest["gpu"] == digest["cpu"] and len(digest["gpu"]) == 7
+    assert (tmp_path / "gpu" / "cnv.bed").read_text().count("\n") >= 3

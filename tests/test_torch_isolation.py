@@ -1,8 +1,8 @@
 """The port stands alone: no ``jax``, nothing of ``variantcalling_tpu``; no silent CPU.
 
 - an AST scan of ``variantcalling_tpu_torch/`` and ``chip_smoke.py`` finds
-  no import of either, nor of optax, orbax, pandas or h5py, which the
-  card's machine does not have (the registry's pickle name mapping is a
+  no import of either, nor of optax, orbax, pandas, h5py, pyarrow or
+  matplotlib, which the card's machine does not have (the registry's pickle name mapping is a
   string);
 - a subprocess run of the port's CLI with ``--backend cpu`` ends with none
   of those packages in ``sys.modules``;
@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "variantcalling_tpu", "pandas", "h5py")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "variantcalling_tpu", "pandas", "h5py", "pyarrow", "matplotlib")
 
 
 def _port_sources() -> list[Path]:
@@ -79,6 +79,15 @@ def test_the_dan_training_and_evaluation_modules_are_scanned():
         "models/dan", "models/convert", "io/checkpoint", "io/bed", "utils/stats_utils",
         "concordance/concordance_utils", "ops/concordance", "pipelines/train_dan",
         "pipelines/evaluate_concordance")} <= scanned
+
+
+def test_the_coverage_and_cnv_modules_are_scanned():
+    """The modules of ``coverage_analysis`` and ``cnv_calling`` are among the
+    sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "io/bam", "io/cram", "io/bigwig", "io/parquet", "ops/coverage", "cnv/caller", "cnv/viterbi_cuda",
+        "pipelines/coverage_analysis", "pipelines/cnv_calling", "synthetic")} <= scanned
 
 
 def _run_cli(args: list[str], tmp_path: Path) -> subprocess.CompletedProcess:
@@ -175,6 +184,38 @@ def test_dan_and_evaluation_cli_cpu_runs_load_neither_jax_nor_reference(train_wo
 def test_dan_and_evaluation_cli_without_cuda_exit_2(tool, train_world, tmp_path):
     out = "--output_file_prefix" if tool == "train_dan" else "--output_prefix"
     proc = _run_cli([tool, "--input_file", train_world, out, "x"], tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
+    assert "no CUDA device" in proc.stderr and not list(tmp_path.glob("x*"))
+
+
+@pytest.fixture(scope="module")
+def coverage_bam(tmp_path_factory):
+    from tests import torch_worlds
+
+    path = tmp_path_factory.mktemp("iso_cov") / "reads.bam"
+    return torch_worlds.write_alignment_world(str(path), seed=3, contigs={"chr1": 5000, "chr2": 2000}, n_reads=300)
+
+
+def test_coverage_and_cnv_cli_cpu_runs_load_none_of_them(coverage_bam, tmp_path):
+    runs = [_run_cli(["coverage_analysis", "full_analysis", "-i", coverage_bam, "-o", "f", "--backend", "cpu"],
+                     tmp_path),
+            _run_cli(["coverage_analysis", "collect_coverage", "-i", coverage_bam, "-o", "c", "--backend", "cpu"],
+                     tmp_path),
+            _run_cli(["cnv_calling", "--input_bam", coverage_bam, "--output_bed", "x.bed", "--output_vcf", "x.vcf",
+                      "--min_contig_length", "1000", "--bin_size", "100", "--backend", "cpu"], tmp_path)]
+    for proc in runs:
+        assert proc.returncode == 0, proc.stderr
+        assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}
+    assert {"f.w100.parquet", "f.coverage_stats.h5", "c.bedgraph.gz", "c.bw", "x.bed", "x.vcf"} <= \
+        {p.name for p in tmp_path.iterdir()}
+
+
+@pytest.mark.parametrize("argv", [["coverage_analysis", "full_analysis"], ["coverage_analysis", "collect_coverage"],
+                                  ["cnv_calling"]], ids=["full_analysis", "collect_coverage", "cnv_calling"])
+def test_coverage_and_cnv_cli_without_cuda_exit_2(coverage_bam, tmp_path, argv):
+    io = ["--input_bam", coverage_bam, "--output_bed", "x.bed"] if argv[0] == "cnv_calling" else \
+        ["-i", coverage_bam, "-o", "x"]
+    proc = _run_cli([*argv, *io], tmp_path)
     assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
     assert "no CUDA device" in proc.stderr and not list(tmp_path.glob("x*"))
 

@@ -115,6 +115,35 @@ def test_torch_program_meets_the_native_vs_jit_bar(h5_world, tmp_path, monkeypat
     _assert_frames(port, ref, ("optimal_recall_precision", "training_results"))
 
 
+@pytest.fixture(scope="module")
+def bar_world(tmp_path_factory):
+    """A world where one forest of the default grid parts from the native
+    trainer's at a near-tie (30,000 rows, chr20 held out)."""
+    return torch_worlds.write_training_h5_world(tmp_path_factory.mktemp("tm_bar") / "c.h5", seed=6, n_rows=30_000,
+                                                chr20_rows=5000)
+
+
+def test_the_card_program_meets_the_forest_bar_against_the_native_trainer(bar_world, tmp_path, monkeypatch):
+    """The torch program the card runs (``VCTPU_NATIVE_GBT=0`` on the CPU)
+    against the JAX package's default CPU fit, its native float32 trainer,
+    at the default grid: every forest meets ``torch_worlds.forest_bar`` on
+    the held-out chr20 rows (TREE_SCORE to one unit of its fourth decimal
+    where the splits are equal; mean gap and FILTER share where a forest
+    parts at a near-tie, as the JAX package's own jit fit parts from its
+    native trainer)."""
+    argv = ["--input_file", bar_world, "--evaluate_concordance"]
+    port, ref = _run_both(tmp_path, argv, env={"VCTPU_NATIVE_GBT": "0"}, monkeypatch=monkeypatch)
+    got, want = treg.load_models(port + ".pkl"), treg.load_models(ref + ".pkl")
+    import torch
+
+    x, _, _, _, _, _, contig = ttm._ingest(ttm.parse_args([*argv, "--output_file_prefix", "x"]), torch.device("cpu"))
+    held = x[contig == "chr20"]
+    bars = {name: torch_worlds.forest_bar(got[name], want[name], held) for name in want if name.startswith("rf")}
+    assert len(bars) == 4 and all(b["held"] for b in bars.values()), bars
+    assert not all(b["splits_equal"] for b in bars.values()), "the world no longer parts at a near-tie"
+    assert all(b["rows"] == len(held) > 4000 for b in bars.values())
+
+
 def test_vcf_mode_equals_the_reference(vcf_world, tmp_path):
     port, ref = _run_both(tmp_path, [*_vcf_args(vcf_world), *SMALL, "--evaluate_concordance",
                                      "--evaluate_concordance_contig", "chr20"])

@@ -17,6 +17,10 @@
   the inputs of ``training_prep_pipeline`` and ``train_models_pipeline``, a
   callset with dbSNP IDs, a blacklist, hpol runs and an annotation, and a
   labeled concordance h5 (both written by the port alone).
+- :func:`write_alignment_world`: a small BAM of mixed reads (every CIGAR
+  op, flags, MAPQ, mixed base qualities, several contigs) through
+  ``tests/fixtures.write_bam``, and :func:`forest_bar`, the bar between two
+  trained forests on a held-out callset.
 
 h5py, pandas and the JAX package are imported only by the writers, so that
 the smoke run on a machine without them can read the constants.
@@ -244,3 +248,63 @@ if __name__ == "__main__":
     write_blacklist_fixtures()
     for p in BLACKLIST_FILES.values():
         print(p, p.stat().st_size, "bytes")
+
+
+#: CIGARs of :func:`write_alignment_world`'s reads (every op the depth walk reads)
+ALIGNMENT_CIGARS = ([("M", 50)], [("M", 20), ("D", 4), ("M", 30)], [("S", 5), ("M", 30), ("I", 3), ("M", 12)],
+                    [("M", 10), ("N", 40), ("M", 25)], [("=", 15), ("X", 2), ("=", 20), ("H", 5)],
+                    [("M", 12), ("P", 2), ("D", 1), ("M", 9), ("S", 4)])
+
+
+def write_alignment_world(path: str, seed: int, contigs: dict[str, int], n_reads: int = 600,
+                          flags: tuple = (0, 0, 0, 0x10, 0x400, 0x100, 0x200, 0x4), overhang: bool = False) -> str:
+    """A BAM of ``n_reads`` reads on ``contigs``, in coordinate order:
+    CIGARs drawn from :data:`ALIGNMENT_CIGARS`, flags from ``flags``, MAPQ
+    0-60, base qualities 2-40; every read within its contig, or with
+    ``overhang`` some running past the contig's end."""
+    rng = np.random.default_rng(seed)
+    names = list(contigs)
+    reads = []
+    for i in range(n_reads):
+        c = names[int(rng.integers(len(names)))]
+        cigar = ALIGNMENT_CIGARS[int(rng.integers(len(ALIGNMENT_CIGARS)))]
+        read_len = sum(n for op, n in cigar if op in "MIS=X")
+        last = contigs[c] - (20 if overhang else 80)
+        reads.append({"contig": c, "pos": int(rng.integers(0, max(1, last))), "cigar": cigar,
+                      "mapq": int(rng.integers(0, 61)), "flag": int(flags[int(rng.integers(len(flags)))]),
+                      "quals": rng.integers(2, 41, read_len).tolist(), "name": f"q{i}"})
+    reads.sort(key=lambda r: (names.index(r["contig"]), r["pos"]))
+    fixtures.write_bam(path, contigs, reads)
+    return path
+
+
+#: the bar between two trained forests on a held-out callset: TREE_SCORE as written (4 decimals) within
+#: FOREST_SCORE_ULP (one unit of the fourth decimal, as float32 holds it) where the forests split alike;
+#: where they part at a near-tie of two splits' gains (as the JAX package's own jit fit and native trainer
+#: part), the mean TREE_SCORE gap within FOREST_MEAN_GAP and FILTER equal on at least
+#: FOREST_FILTER_SHARE of the records
+FOREST_SCORE_ULP, FOREST_MEAN_GAP, FOREST_FILTER_SHARE = 1.5e-4, 0.05, 0.95
+
+
+def forest_bar(got, want, x: np.ndarray) -> dict:
+    """How forest ``got`` agrees with ``want`` (two port ``FlatForest``s) on
+    the held-out rows ``x``: TREE_SCORE as the filter writes it
+    (``np.round(score, 4)``), FILTER as PASS at ``pass_threshold``; whether
+    the bar above holds (``held``)."""
+    import torch
+
+    from variantcalling_tpu_torch.models import forest as fmod
+
+    xt = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    sg, sw = (np.round(fmod.finalize_margin(fmod.predict_margin(f, xt).numpy(), f), 4) for f in (got, want))
+    gap = np.abs(sg - sw)
+    same_filter = (sg >= got.pass_threshold) == (sw >= want.pass_threshold)
+    splits_equal = bool(np.array_equal(got.feature, want.feature))
+    out = {"rows": len(x), "splits_equal": splits_equal, "max_score_gap": float(gap.max()) if len(x) else 0.0,
+           "mean_score_gap": float(gap.mean()) if len(x) else 0.0,
+           "filter_equal_share": float(same_filter.mean()) if len(x) else 1.0}
+    if splits_equal:
+        out["held"] = out["max_score_gap"] <= FOREST_SCORE_ULP
+    else:
+        out["held"] = out["mean_score_gap"] <= FOREST_MEAN_GAP and out["filter_equal_share"] >= FOREST_FILTER_SHARE
+    return out

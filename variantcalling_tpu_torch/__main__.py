@@ -1,9 +1,10 @@
 """CLI dispatch: ``python -m variantcalling_tpu_torch <tool> <args>``.
 
-Counterpart of ``variantcalling_tpu/__main__.py``; the port serves five
+Counterpart of ``variantcalling_tpu/__main__.py``; the port serves seven
 tools so far: ``filter_variants_pipeline``, ``train_models_pipeline``,
-``training_prep_pipeline``, ``train_dan`` and ``evaluate_concordance``. Each
-tool is a module exposing ``run(argv)``, imported when called.
+``training_prep_pipeline``, ``train_dan``, ``evaluate_concordance``,
+``coverage_analysis`` and ``cnv_calling``. Each tool is a module exposing
+``run(argv)``, imported when called.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ TOOLS: dict[str, str] = {
     "training_prep_pipeline": "variantcalling_tpu_torch.pipelines.training_prep",
     "train_dan": "variantcalling_tpu_torch.pipelines.train_dan",
     "evaluate_concordance": "variantcalling_tpu_torch.pipelines.evaluate_concordance",
+    "coverage_analysis": "variantcalling_tpu_torch.pipelines.coverage_analysis",
+    "cnv_calling": "variantcalling_tpu_torch.pipelines.cnv_calling",
 }
 
 

@@ -27,7 +27,7 @@ else:
     BUILD_DIR = Path(os.environ.get("TORCH_EXTENSIONS_DIR") or Path.home() / ".cache") \
         / "variantcalling_tpu_torch"
 #: the kernel sources of this directory, by name
-KERNELS = ("forest_wide", "forest_tree_step", "gbt_hist")
+KERNELS = ("forest_wide", "forest_tree_step", "gbt_hist", "cnv_viterbi")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

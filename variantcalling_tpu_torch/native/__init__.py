@@ -1,9 +1,13 @@
-"""Native (C++) host engine: VCF scan, verbatim writeback, BGZF, FASTA encode, host gather, GBT fit.
+"""Native (C++) host engine: VCF scan, verbatim writeback, BGZF, FASTA encode, host gather, GBT fit, BAM/CRAM depth.
 
 Counterpart of the JAX package's ``native`` module, with the same function
 names, over a trimmed copy of its C++ sources (``src/``): only the entry
-points of the filter pipeline's host stages, and the quantile binning and
-CPU trainer of the boosted-forest fit (``bin_features``, ``gbt_fit``). The library is built
+points of the filter pipeline's host stages, the quantile binning and
+CPU trainer of the boosted-forest fit (``bin_features``, ``gbt_fit``), and
+the depth walkers of the coverage and CNV tools (``bam_depth``; the CRAM
+3.0 decoder ``cram_header``, ``cram_count``, ``cram_scan``,
+``cram_depth``, which have no plain version: ``io/cram`` raises without
+them) and ``coverage_analysis``'s bedGraph text (``bedgraph_lines``). The library is built
 with g++ at first use into ``libvctpu_native-<hash>.so`` in the kernels'
 build directory (``csrc/build.BUILD_DIR``: the checkout's ``build/``),
 keyed by the sources, the flags and the CPU's ``flags`` line, under a file
@@ -41,15 +45,16 @@ from variantcalling_tpu_torch.csrc.build import BUILD_DIR
 log = logging.getLogger(__name__)
 
 SRC_DIR = Path(__file__).resolve().parent / "src"
-SOURCES = ("vctpu_native.cc", "vctpu_features.cc", "vctpu_gbt.cc")
+SOURCES = ("vctpu_native.cc", "vctpu_features.cc", "vctpu_gbt.cc", "vctpu_cram.cc")
 #: included by the sources: hashed into the build key, not compiled alone
 HEADERS = ("vctpu_threads.h",)
 CXXFLAGS = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC", "-std=c++17"]
 
-#: the entry points, in the order of the pipeline's stages, then the fit's
+#: the entry points, in the order of the pipeline's stages, then the fit's, then the depth walkers
 ENTRY_POINTS = ("bgzf_decompress_array", "vcf_parse", "interval_membership", "fasta_encode",
                 "gather_windows_contig", "format_float_info", "vcf_assemble", "bgzf_compress",
-                "bin_features", "gbt_fit")
+                "bin_features", "gbt_fit", "bam_depth", "cram_header", "cram_count", "cram_scan", "cram_depth",
+                "bedgraph_lines")
 #: per entry point: calls served natively, their seconds, and calls left to the plain version
 CALLS: dict[str, dict] = {}
 #: guards CALLS: the streaming executor's workers call the engine concurrently
@@ -67,6 +72,8 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _f32p = ctypes.POINTER(ctypes.c_float)
 _f64p = ctypes.POINTER(ctypes.c_double)
+#: (buf, n, contig_starts, contig_lens, n_refs, diff_flat, min_bq, min_mapq, min_len, include_del, exclude_flags)
+_DEPTH_ARGS = [_u8p, _i64, _i64p, _i64p, _i32, _i32p, _i32, _i32, _i32, _i32, ctypes.c_uint32]
 
 
 def reset_calls() -> None:
@@ -160,6 +167,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         "vctpu_gbt_fit": (_i64, [_u8p, _f32p, _f32p, _i64, _i32, _i32, _i32, _i32,
                                  ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
                                  _i32p, _i32p, _f32p]),
+        "vctpu_bam_depth": (_i64, _DEPTH_ARGS),
+        "vctpu_cram_header": (_i64, [_u8p, _i64, _u8p, _i64]),
+        "vctpu_cram_count": (_i64, [_u8p, _i64]),
+        "vctpu_cram_scan": (_i64, [_u8p, _i64, _i64, _i32p, _i64p, _i32p, _i32p, _i32p, _i32p]),
+        "vctpu_cram_depth": (_i64, _DEPTH_ARGS),
+        "vctpu_bedgraph_lines": (_i64, [_u8p, _i64, _i64p, _i64p, _i64p, _i64, _u8p, _i64]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -430,3 +443,97 @@ def gbt_fit(lib, binned: np.ndarray, y: np.ndarray, w: np.ndarray | None, n_tree
                            n, f, n_bins, n_trees, depth, learning_rate, reg_lambda, min_child_weight, base_score,
                            _p(feats, _i32p), _p(bins, _i32p), _p(vals, _f32p))
     return None if rc != 0 else (feats, bins, vals)
+
+
+def _depth_args(buf, contig_starts, contig_lens, diff_flat, min_bq, min_mapq, min_read_length, include_deletions,
+                exclude_flags) -> tuple:
+    """The ctypes arguments of ``vctpu_bam_depth`` / ``vctpu_cram_depth``, and
+    the arrays they point into (kept alive by the caller)."""
+    if diff_flat.dtype != np.int32 or not diff_flat.flags["C_CONTIGUOUS"]:
+        raise ValueError(f"diff_flat must be contiguous int32, got {diff_flat.dtype}")
+    starts = np.ascontiguousarray(contig_starts, dtype=np.int64)
+    lens = np.ascontiguousarray(contig_lens, dtype=np.int64)
+    if len(starts) != len(lens):
+        raise ValueError(f"{len(starts)} contig starts but {len(lens)} lengths")
+    src = np.ascontiguousarray(_u8view(buf))
+    args = (_p(src, _u8p), len(src), _p(starts, _i64p), _p(lens, _i64p), len(starts), _p(diff_flat, _i32p),
+            int(min_bq), int(min_mapq), int(min_read_length), int(include_deletions), int(exclude_flags))
+    return args, (src, starts, lens)
+
+
+@_entry
+def bam_depth(lib, records, contig_starts: np.ndarray, contig_lens: np.ndarray, diff_flat: np.ndarray, *,
+              min_bq: int = 0, min_mapq: int = 0, min_read_length: int = 0, include_deletions: bool = True,
+              exclude_flags: int = 0x704) -> int | None:
+    """Add samtools-depth difference updates (``-a -J -q -Q -l``) of the raw
+    BAM records (the inflated stream past the reference list) into
+    ``diff_flat``, where contig ``i``'s (length + 1) diffs start at
+    ``contig_starts[i]`` (-1: skipped). The records seen, or None on a
+    malformed stream (the plain reader serves)."""
+    args, _keep = _depth_args(records, contig_starts, contig_lens, diff_flat, min_bq, min_mapq, min_read_length,
+                              include_deletions, exclude_flags)
+    n = lib.vctpu_bam_depth(*args)
+    return None if n < 0 else int(n)
+
+
+@_entry
+def cram_header(lib, buf) -> str | None:
+    """SAM header text of a CRAM 3.0 buffer; None when unsupported."""
+    src = np.ascontiguousarray(_u8view(buf))
+    cap = 1 << 20
+    for _ in range(4):
+        out = np.empty(cap, dtype=np.uint8)
+        n = lib.vctpu_cram_header(_p(src, _u8p), len(src), _p(out, _u8p), cap)
+        if n == -3:  # the text is longer than ``cap``
+            cap *= 8
+            continue
+        return None if n < 0 else out[:n].tobytes().decode("utf-8", "replace")
+    return None
+
+
+@_entry
+def cram_count(lib, buf) -> int | None:
+    """The record count from the container headers (no block decode)."""
+    src = np.ascontiguousarray(_u8view(buf))
+    n = lib.vctpu_cram_count(_p(src, _u8p), len(src))
+    return None if n < 0 else int(n)
+
+
+@_entry
+def cram_scan(lib, buf, max_records: int) -> dict | str | None:
+    """Per-record arrays of a CRAM 3.0 buffer: ref_id, pos (1-based), span,
+    mapq, flags, read_len; ``"grow"`` past ``max_records``; None when
+    unsupported."""
+    src = np.ascontiguousarray(_u8view(buf))
+    out = {"ref_id": np.empty(max_records, dtype=np.int32), "pos": np.empty(max_records, dtype=np.int64),
+           **{k: np.empty(max_records, dtype=np.int32) for k in ("span", "mapq", "flags", "read_len")}}
+    n = lib.vctpu_cram_scan(_p(src, _u8p), len(src), max_records, _p(out["ref_id"], _i32p), _p(out["pos"], _i64p),
+                            *(_p(out[k], _i32p) for k in ("span", "mapq", "flags", "read_len")))
+    if n == -4:
+        return "grow"
+    return None if n < 0 else {k: v[:n] for k, v in out.items()}
+
+
+@_entry
+def cram_depth(lib, buf, contig_starts: np.ndarray, contig_lens: np.ndarray, diff_flat: np.ndarray, *,
+               min_bq: int = 0, min_mapq: int = 0, min_read_length: int = 0, include_deletions: bool = True,
+               exclude_flags: int = 0x704) -> int | None:
+    """The CRAM twin of :func:`bam_depth` over a whole CRAM 3.0 file's bytes,
+    the ``-q`` filter included: the records seen, negative when the stream
+    is malformed or uses an unsupported codec (the caller raises)."""
+    args, _keep = _depth_args(buf, contig_starts, contig_lens, diff_flat, min_bq, min_mapq, min_read_length,
+                              include_deletions, exclude_flags)
+    return int(lib.vctpu_cram_depth(*args))
+
+
+@_entry
+def bedgraph_lines(lib, contig: str, starts: np.ndarray, ends: np.ndarray, vals: np.ndarray) -> bytes | None:
+    """``f"{contig}\\t{start}\\t{end}\\t{value}\\n"`` for each run (integers)."""
+    name = np.frombuffer(contig.encode(), dtype=np.uint8) if contig else np.zeros(1, np.uint8)
+    cols = [np.ascontiguousarray(a, dtype=np.int64) for a in (starts, ends, vals)]
+    n = len(cols[0])
+    cap = n * (len(contig) + 3 * 21 + 4) + 1
+    out = np.empty(cap, dtype=np.uint8)
+    w = lib.vctpu_bedgraph_lines(_p(name, _u8p), len(contig.encode()), *(_p(c, _i64p) for c in cols), n,
+                                 _p(out, _u8p), cap)
+    return None if w < 0 else out[:w].tobytes()

@@ -1,5 +1,6 @@
 // Native host engine of the port: BGZF codec, VCF record scanner, verbatim
-// record assembly for writeback, FASTA body encode, interval membership.
+// record assembly for writeback, FASTA body encode, interval membership,
+// BAM depth walker and bedGraph text (the CRAM decoder is vctpu_cram.cc).
 //
 // A copy of the JAX package's native engine, trimmed to the entry points
 // the filter pipeline's GPU path calls, so the port builds and loads it on
@@ -21,6 +22,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <charconv>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
@@ -244,6 +246,106 @@ int64_t vctpu_bgzf_compress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t
 // The shard count the engine uses (VCTPU_NATIVE_THREADS, else the
 // hardware concurrency), so callers can see the knob taken.
 int32_t vctpu_native_threads() { return vctpu::nthreads(); }
+
+// Walk uncompressed BAM alignment records (buf starts at the first record,
+// i.e. after the header + reference list) and accumulate per-contig depth
+// difference arrays with samtools-depth semantics (-a -J -q -Q -l), the
+// depth of the coverage_analysis and cnv_calling tools (io/bam.py).
+//
+// diff_flat holds all selected contigs back to back; contig_starts[ref_id]
+// is the offset of that contig's (length+1)-long diff region, or -1 to skip.
+// Returns records seen, or -1 on malformed input.
+int64_t vctpu_bam_depth(const uint8_t* buf, int64_t n, const int64_t* contig_starts,
+                        const int64_t* contig_lens, int32_t n_refs, int32_t* diff_flat,
+                        int32_t min_bq, int32_t min_mapq, int32_t min_len, int32_t include_del,
+                        uint32_t exclude_flags) {
+    int64_t off = 0, count = 0;
+    while (off + 4 <= n) {
+        int32_t bs;
+        std::memcpy(&bs, buf + off, 4);
+        if (bs < 32 || off + 4 + bs > n) return -1;
+        const uint8_t* r = buf + off + 4;
+        off += 4 + bs;
+        count++;
+        int32_t ref_id, pos, l_seq;
+        uint32_t lrn, flag_nc;
+        std::memcpy(&ref_id, r, 4);
+        std::memcpy(&pos, r + 4, 4);
+        std::memcpy(&lrn, r + 8, 4);
+        std::memcpy(&flag_nc, r + 12, 4);
+        std::memcpy(&l_seq, r + 16, 4);
+        uint32_t l_read_name = lrn & 0xff;
+        int32_t mapq = (int32_t)((lrn >> 8) & 0xff);
+        uint32_t n_cigar = flag_nc & 0xffff;
+        uint32_t flag = flag_nc >> 16;
+        if ((flag & exclude_flags) || ref_id < 0 || ref_id >= n_refs || pos < 0) continue;
+        if (mapq < min_mapq || l_seq < min_len) continue;
+        int64_t base = contig_starts[ref_id];
+        if (base < 0) continue;
+        int64_t clen = contig_lens[ref_id];
+        const uint8_t* cig = r + 32 + l_read_name;
+        const uint8_t* qual = cig + 4 * (int64_t)n_cigar + (l_seq + 1) / 2;
+        if (cig + 4 * (int64_t)n_cigar > buf + off || qual + l_seq > buf + off) return -1;
+        int64_t ref_pos = pos, read_pos = 0;
+        for (uint32_t i = 0; i < n_cigar; i++) {
+            uint32_t c;
+            std::memcpy(&c, cig + 4 * (int64_t)i, 4);
+            uint32_t op = c & 0xf;
+            int64_t len = c >> 4;
+            bool match_like = (op == 0 || op == 7 || op == 8);  // M, =, X
+            bool covers = match_like || (include_del && op == 2);
+            if (covers && ref_pos < clen) {
+                if (!match_like || min_bq <= 0) {
+                    int64_t s = ref_pos, e = std::min(ref_pos + len, clen);
+                    diff_flat[base + s] += 1;
+                    diff_flat[base + e] -= 1;
+                } else {
+                    // run-length encode (qual >= min_bq) into diff updates;
+                    // clamp by l_seq too in case the CIGAR overruns the quals
+                    int64_t s = -1;
+                    int64_t max_j = std::min({len, clen - ref_pos, (int64_t)l_seq - read_pos});
+                    for (int64_t j = 0; j <= max_j; j++) {
+                        bool ok = (j < max_j) && ((int32_t)qual[read_pos + j] >= min_bq);
+                        if (ok && s < 0) {
+                            s = j;
+                        } else if (!ok && s >= 0) {
+                            diff_flat[base + ref_pos + s] += 1;
+                            diff_flat[base + ref_pos + j] -= 1;
+                            s = -1;
+                        }
+                    }
+                }
+            }
+            if (op == 0 || op == 2 || op == 3 || op == 7 || op == 8) ref_pos += len;  // ref-consuming
+            if (op == 0 || op == 1 || op == 4 || op == 7 || op == 8) read_pos += len;  // read-consuming
+        }
+    }
+    return count;
+}
+
+// bedGraph lines of one contig's runs of equal depth:
+// "<contig>\t<start>\t<end>\t<value>\n" each, integers in decimal (the
+// reference's write_bedgraph text). Returns the bytes written, or -1 when
+// out_cap is too small.
+int64_t vctpu_bedgraph_lines(const uint8_t* contig, int64_t contig_len, const int64_t* starts,
+                             const int64_t* ends, const int64_t* vals, int64_t n, uint8_t* out,
+                             int64_t out_cap) {
+    char* p = (char*)out;
+    char* const end = p + out_cap;
+    for (int64_t i = 0; i < n; i++) {
+        if (end - p < contig_len + 3 * 21 + 4) return -1;
+        std::memcpy(p, contig, (size_t)contig_len);
+        p += contig_len;
+        *p++ = '\t';
+        p = std::to_chars(p, end, (long long)starts[i]).ptr;
+        *p++ = '\t';
+        p = std::to_chars(p, end, (long long)ends[i]).ptr;
+        *p++ = '\t';
+        p = std::to_chars(p, end, (long long)vals[i]).ptr;
+        *p++ = '\n';
+    }
+    return (int64_t)(p - (char*)out);
+}
 
 }  // extern "C"
 

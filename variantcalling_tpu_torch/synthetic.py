@@ -446,3 +446,201 @@ def add_dbsnp_ids(vcf: str, seed: int, share: float = 0.6) -> None:
         lines[i] = b"\t".join(parts)
     with open(vcf, "wb") as fh:
         fh.write(b"\n".join(lines))
+
+
+# -- the coverage world: an aligned BAM of a 30x chr20 ------------------------------------------------
+
+#: read shapes of the coverage world, 150 read bases each: (name, CIGAR as (op code, length)); the
+#: records cycle through :data:`COVERAGE_SHAPE_CYCLE` in coordinate order
+COVERAGE_SHAPES = (
+    ("150M", ((0, 150),)),
+    ("70M2I78M", ((0, 70), (1, 2), (0, 78))),
+    ("60M3D90M", ((0, 60), (2, 3), (0, 90))),
+    ("5S145M", ((4, 5), (0, 145))),
+    ("8S90M2D52M", ((4, 8), (0, 90), (2, 2), (0, 52))),
+)
+COVERAGE_SHAPE_CYCLE = (0,) * 26 + (1, 1, 2, 2, 3, 4)
+COVERAGE_READ_LEN = 150
+#: binned base qualities (as Illumina's binned scale), in 256ths: 2 %, 6 %, 12 % and 80 %
+#: (-q 20 drops 8 % of the bases)
+COVERAGE_QUALS = np.repeat(np.array([2, 12, 23, 37], np.uint8), (5, 15, 31, 205))
+#: planted copy-number events of chr20: (start, end, depth); the rest at the world's depth
+COVERAGE_EVENTS = ((20_000_000, 20_500_000, 15), (35_000_000, 36_000_000, 45), (50_000_000, 50_100_000, 0))
+_BAM_NIBBLE = np.array([1, 2, 4, 8, 15], np.uint8)  # codes A C G T N -> BAM 4-bit bases
+#: records a chunk of the writer (a multiple of the shape cycle)
+_COVERAGE_CHUNK = 1 << 20
+
+
+def coverage_reads(seed: int, contigs: list[tuple[str, int]], depth: float = 30.0,
+                   events: tuple = COVERAGE_EVENTS, chrm_depth: float = 300.0) -> dict:
+    """The coverage world's alignments, sorted by contig and position: read
+    starts drawn uniformly over each stretch of constant depth (the events
+    cut the first contig; a contig named chrM at ``chrm_depth``), 3 %
+    duplicates (0x400), 1 % secondary (0x100), a quarter of the rest
+    reverse (0x10), MAPQ 0 on 4 %, else 60, and a shape from
+    :data:`COVERAGE_SHAPES` by the record's place in the cycle (the last
+    records dropped to whole cycles). Also each contig's genome codes
+    (:func:`_genome`, the first draws of the seed)."""
+    rng = np.random.default_rng(seed)
+    genomes = [_genome(rng, ln) for _, ln in contigs]
+    ref_id, pos = [], []
+    span = 160  # a read's reference span is at most 153
+    for rid, (name, ln) in enumerate(contigs):
+        d = chrm_depth if name == "chrM" else depth
+        cuts = [(0, ln, d)] if rid or not events else []
+        if rid == 0 and events:
+            edge = 0
+            for s, e, dd in events:
+                cuts += [(edge, s, depth), (s, e, dd)]
+                edge = e
+            cuts.append((edge, ln, depth))
+        for s, e, dd in cuts:
+            hi = min(e, ln - span)
+            n = int(round(dd * (hi - s) / COVERAGE_READ_LEN)) if hi > s else 0
+            pos.append(rng.integers(s, hi, n))
+            ref_id.append(np.full(n, rid, np.int32))
+    ref_id, pos = np.concatenate(ref_id), np.concatenate(pos)
+    order = np.lexsort((pos, ref_id))
+    order = order[: len(order) - len(order) % len(COVERAGE_SHAPE_CYCLE)]  # whole cycles of shapes
+    ref_id, pos = ref_id[order], pos[order].astype(np.int32)
+    n = len(pos)
+    kind = rng.random(n)
+    flag = np.where(kind < 0.03, 0x400, np.where(kind < 0.04, 0x100, 0)).astype(np.uint16)
+    flag[(flag == 0) & (rng.random(n) < 0.25)] = 0x10
+    mapq = np.where(rng.random(n) < 0.04, 0, 60).astype(np.uint8)
+    shape = np.asarray(COVERAGE_SHAPE_CYCLE, np.uint8)[np.arange(n) % len(COVERAGE_SHAPE_CYCLE)]
+    return {"seed": seed, "contigs": list(contigs), "genomes": genomes, "ref_id": ref_id, "pos": pos,
+            "flag": flag, "mapq": mapq, "shape": shape}
+
+
+def coverage_quals(reads: dict, lo: int, hi: int) -> np.ndarray:
+    """(hi - lo, 150) base qualities of records [lo, hi); ``lo`` a multiple of
+    the writer's chunk, so that every writer draws the same values."""
+    rng = np.random.default_rng((reads["seed"], lo // _COVERAGE_CHUNK))
+    draws = np.frombuffer(rng.bytes((hi - lo) * COVERAGE_READ_LEN), np.uint8)
+    return COVERAGE_QUALS[draws].reshape(hi - lo, COVERAGE_READ_LEN)
+
+
+def _put(buf: np.ndarray, col: int, values: np.ndarray, dtype: str) -> int:
+    """Little-endian ``values`` into columns ``col..`` of the byte matrix; the next column."""
+    raw = np.ascontiguousarray(values, dtype=dtype).view(np.uint8).reshape(len(values), -1)
+    buf[:, col: col + raw.shape[1]] = raw
+    return col + raw.shape[1]
+
+
+def _bam_records(reads: dict, lo: int, hi: int) -> np.ndarray:
+    """The BAM records [lo, hi) (``hi - lo`` a multiple of the shape cycle):
+    one byte row a cycle of records, each field written as a column."""
+    cyc = len(COVERAGE_SHAPE_CYCLE)
+    quals = coverage_quals(reads, lo, hi)
+    sizes = [4 + 32 + 12 + 4 * len(COVERAGE_SHAPES[s][1]) + COVERAGE_READ_LEN // 2 + COVERAGE_READ_LEN
+             for s in COVERAGE_SHAPE_CYCLE]
+    rows = (hi - lo) // cyc
+    buf = np.empty((rows, sum(sizes)), np.uint8)
+    col = 0
+    windows = [np.lib.stride_tricks.sliding_window_view(_BAM_NIBBLE[g], COVERAGE_READ_LEN) for g in reads["genomes"]]
+    for slot, (s, size) in enumerate(zip(COVERAGE_SHAPE_CYCLE, sizes)):
+        idx = np.arange(lo + slot, hi, cyc)
+        ops = COVERAGE_SHAPES[s][1]
+        col = _put(buf, col, np.full(rows, size - 4), "<i4")
+        col = _put(buf, col, reads["ref_id"][idx], "<i4")
+        col = _put(buf, col, reads["pos"][idx], "<i4")
+        # bin 4680 for every record (the depth walks do not read it), MAPQ, a 12-byte name
+        col = _put(buf, col, (4680 << 16) | (reads["mapq"][idx].astype(np.uint32) << 8) | 12, "<u4")
+        col = _put(buf, col, (reads["flag"][idx].astype(np.uint32) << 16) | len(ops), "<u4")
+        col = _put(buf, col, np.full(rows, COVERAGE_READ_LEN), "<i4")
+        col = _put(buf, col, np.tile(np.array([-1, -1, 0], np.int32), (rows, 1)), "<i4")
+        digits = (idx[:, None] // 10 ** np.arange(10, dtype=np.int64)[::-1]) % 10
+        buf[:, col] = ord("r")
+        buf[:, col + 1: col + 11] = digits + ord("0")
+        buf[:, col + 11] = 0
+        col += 12
+        cigar = np.array([(length << 4) | op for op, length in ops], np.uint32)
+        col = _put(buf, col, np.tile(cigar, (rows, 1)), "<u4")
+        seq = np.empty((rows, COVERAGE_READ_LEN), np.uint8)
+        for rid, win in enumerate(windows):
+            on = reads["ref_id"][idx] == rid
+            seq[on] = win[reads["pos"][idx][on]]
+        buf[:, col: col + COVERAGE_READ_LEN // 2] = (seq[:, 0::2] << 4) | seq[:, 1::2]
+        col += COVERAGE_READ_LEN // 2
+        buf[:, col: col + COVERAGE_READ_LEN] = quals[idx - lo]
+        col += COVERAGE_READ_LEN
+    return buf.reshape(-1)
+
+
+def write_coverage_bam(path: str, reads: dict, level: int = 1) -> int:
+    """Write the reads as a BGZF BAM (deflated at ``level`` by the native
+    engine where it serves); the uncompressed bytes."""
+    from variantcalling_tpu_torch.io.bgzf import BgzfWriter
+
+    contigs = reads["contigs"]
+    text = "@HD\tVN:1.6\tSO:coordinate\n" + "".join(f"@SQ\tSN:{c}\tLN:{ln}\n" for c, ln in contigs)
+    head = bytearray(b"BAM\x01") + np.int32(len(text)).tobytes() + text.encode() + np.int32(len(contigs)).tobytes()
+    for c, ln in contigs:
+        head += np.int32(len(c) + 1).tobytes() + c.encode() + b"\x00" + np.int32(ln).tobytes()
+    n = len(reads["pos"])
+    total = len(head)
+    with BgzfWriter(path, level=level) as out:
+        out.write(bytes(head))
+        for lo in range(0, n, _COVERAGE_CHUNK):
+            body = _bam_records(reads, lo, min(n, lo + _COVERAGE_CHUNK))
+            total += len(body)
+            out.write(memoryview(body))
+    return total
+
+
+def coverage_cram_records(reads: dict) -> list[dict]:
+    """The reads (of one contig, in coordinate order) as the records
+    ``tests/cram_fixtures.write_cram`` takes: 1-based positions, the CIGAR's
+    I, D and S ops as read features, full quality arrays."""
+    if len(set(reads["ref_id"].tolist())) > 1:
+        raise ValueError("a CRAM of the fixture writer holds one contig")
+    n = len(reads["pos"])
+    quals = np.concatenate([coverage_quals(reads, lo, min(n, lo + _COVERAGE_CHUNK))
+                            for lo in range(0, n, _COVERAGE_CHUNK)]) if n else np.zeros((0, COVERAGE_READ_LEN))
+    out = []
+    for i in range(n):
+        feats, rp = [], 1
+        for op, length in COVERAGE_SHAPES[reads["shape"][i]][1]:
+            if op == 1:
+                feats.append(("I", rp, b"A" * length))
+            elif op == 2:
+                feats.append(("D", rp, length))
+            elif op == 4:
+                feats.append(("S", rp, b"N" * length))
+            if op in (0, 1, 4):
+                rp += length
+        out.append({"flag": int(reads["flag"][i]), "pos": int(reads["pos"][i]) + 1, "read_len": COVERAGE_READ_LEN,
+                    "mapq": int(reads["mapq"][i]), "name": f"r{i:010d}", "features": feats,
+                    "quals": quals[i].tolist()})
+    return out
+
+
+def write_coverage_world(d: str, seed: int, contigs: list[tuple[str, int]] | None = None, depth: float = 30.0,
+                         events: tuple = COVERAGE_EVENTS, n_exome: int = 20_000) -> dict:
+    """Write the coverage world under ``d``: ``ref.fa`` (+ ``.fai``), the
+    aligned ``reads.bam`` (:func:`coverage_reads`), and for ``-c`` an
+    exome-like BED of ``n_exome`` intervals of 150-300 bp on the first
+    contig, a BED of the planted events, and ``categories.tsv`` naming both.
+    Returns the paths, the reads and the uncompressed BAM's bytes."""
+    os.makedirs(d, exist_ok=True)
+    contigs = list(contigs or [("chr20", 64_444_167), ("chrM", 16_569)])
+    reads = coverage_reads(seed, contigs, depth, events)
+    fasta = os.path.join(d, "ref.fa")
+    _write_fasta(fasta, [(c, g) for (c, _), g in zip(contigs, reads["genomes"])])
+    bam = os.path.join(d, "reads.bam")
+    nbytes = write_coverage_bam(bam, reads)
+    rng = np.random.default_rng(seed + 1)
+    first, ln = contigs[0]
+    starts = np.sort(rng.choice(ln - 400, size=min(n_exome, (ln - 400) // 400), replace=False))
+    ends = starts + rng.integers(150, 301, len(starts))
+    exome = os.path.join(d, "exome.bed")
+    with open(exome, "w") as fh:
+        fh.write("".join(f"{first}\t{s}\t{e}\n" for s, e in zip(starts, ends)))
+    planted = os.path.join(d, "events.bed")
+    with open(planted, "w") as fh:
+        fh.write("".join(f"{first}\t{s}\t{e}\n" for s, e, _ in events if e <= ln))
+    cats = os.path.join(d, "categories.tsv")
+    with open(cats, "w") as fh:
+        fh.write(f"exome\t{exome}\nplanted\t{planted}\n")
+    return {"fasta": fasta, "bam": bam, "categories": cats, "reads": reads, "bam_bytes": nbytes}
