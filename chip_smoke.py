@@ -111,10 +111,11 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    concordance rows on GRCh38's 22 autosomes (chr20 at 104,000), written by
    the port's own HDF5 writer, through ``train_models_pipeline
    --evaluate_concordance --evaluate_concordance_contig chr20`` at the
-   default 100 trees, depth 6, 64 bins, twice, each run in a process of its
-   own with the kernels' counts set to 0 just before it: 2,400 ``gbt_hist``
-   launches and 5 ``forest_wide`` launches a run, byte-equal pickles and
-   ``.h5`` frames (``TRAIN_DETAIL``: wall, seconds by stage, launches, peak
+   default 100 trees, depth 6, 64 bins, once, and a fifth of its rows (about
+   1 M) twice, each run in a process of its own with the kernels' counts
+   set to 0 just before it: 2,400 ``gbt_hist`` launches and 5
+   ``forest_wide`` launches a run, the pair's pickles and ``.h5`` frames
+   byte-equal (``TRAIN_DETAIL``: wall, seconds by stage, launches, peak
    RSS and card memory); 200,000 of its rows on the card against
    ``--backend cpu`` (the native float32 trainer; the threshold models
    equal, the forests' agreement reported: ``TRAIN_NATIVE_DETAIL``), and
@@ -144,28 +145,54 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    filtering that world with ``VCTPU_MODEL_FAMILY=dan``, card against CPU
    to the DAN rule, the pickle naming only ``variantcalling_tpu.models.dan``
    classes, numpy and builtins; ``evaluate_concordance --output_bed`` on
-   the 5 M rows scored by the trained DAN, card and CPU, every file
-   byte-equal (``EVAL_DETAIL``);
+   the 5 M rows scored by the trained DAN on the card, and on 200,000 of
+   them on the card and the CPU, every file byte-equal (``EVAL_DETAIL``);
 11. coverage and CNV calling (``phase_coverage``) on ``COVERAGE_WORLD``:
    the filter world's synthetic chr20 and chrM at 30x of 150-bp reads
    (about 12.9 M records with SEQ and QUAL, 3 % duplicates, 1 % secondary,
    4 % MAPQ 0, I/D/S CIGARs) with planted events at 15x, 45x and 0x,
    written by ``synthetic.write_coverage_world``; each run a process of its
-   own, the counts set to 0 just before it and read just after:
-   ``full_analysis`` (default windows, ``-c`` with a 20,000-interval
-   exome-like BED and the events) and ``full_analysis -q 20 -Q 20 -l 100``
-   on the card and the CPU (parquets sha256-equal, histograms and
-   percentiles equal, near-ties counted, stats to 1e-6), ``collect_coverage``
-   (the inflated bedGraph and the ``.bw`` bytes equal), a
-   ``VCTPU_NO_NATIVE=1`` twin on a 500 kbp cut and a CRAM twin of a 200 kbp
-   cut (equal outputs), ``cnv_calling --reference`` card against CPU (BED and
-   VCF bytes equal, every planted event called with its copy number, one
-   ``cnv_viterbi`` launch), and the Viterbi kernel alone at chr20 and
+   own, the counts set to 0 just before it and read just after: on the card
+   at full size ``full_analysis`` (default windows, ``-c`` with a
+   20,000-interval exome-like BED and the events), ``full_analysis -q 20 -Q
+   20 -l 100``, ``collect_coverage`` and ``cnv_calling --reference`` (every
+   planted event called with its copy number, one ``cnv_viterbi`` launch);
+   on a 500 kbp cut, the card against the CPU (parquets sha256-equal,
+   histograms and percentiles equal, near-ties counted, stats to 1e-6; the
+   inflated bedGraph and the ``.bw`` bytes equal; CNV BED and VCF bytes
+   equal), a ``VCTPU_NO_NATIVE=1`` twin on that cut and a CRAM twin of a
+   200 kbp cut (equal outputs), and the Viterbi kernel alone at chr20 and
    GRCh38 at 1 kb, ``torch.equal`` to its plain version, beside its latency
    bound (``COVERAGE_DETAIL``, ``CNV_DETAIL``, ``CNV_KERNEL_DETAIL``,
    ``HOST_ENGINE`` lines). Phase 9's ``TRAIN_NATIVE_DETAIL`` holds the card's
    forests to the native trainer's on the held-out chr20 rows
-   (``tests/torch_worlds.forest_bar``).
+   (``tests/torch_worlds.forest_bar``);
+12. SEC and the comparison (``phase_sec``) on ``SEC_WORLD``
+   (``synthetic.write_sec_world``: BASELINE config 5 cut to one contig, a
+   100-sample cohort of about 52,000 records each over a pool of 60,000
+   noise loci on the filter world's chr20, a 104,000-record held-out
+   callset and its truth with planted representation differences); each run
+   a process of its own, the counts set to 0 just before it and read just
+   after (no kernel lies on this path: none may launch): ``sec_training``
+   (``--use_mesh`` on the card, the host merge on the CPU: equal DBs;
+   ``--relevant_coords``), ``correct_systematic_errors`` and
+   ``sec_validation`` GPU against CPU (``tests/torch_sec_compare``; the
+   planted noise corrected, the planted real variants kept),
+   ``run_comparison_pipeline`` GPU against CPU (equal frames and BED, every
+   planted representation difference ``tp``, the native matcher serving; a
+   ``VCTPU_NO_NATIVE=1`` twin on a 2 Mbp cut; ``GC``),
+   ``assess_sec_concordance`` and ``vcfeval_flavors`` GPU against CPU, and
+   the LRT alone beside its bytes bound (``SEC_DETAIL``,
+   ``COMPARISON_DETAIL``, ``SEC_LRT_DETAIL``, ``HOST_ENGINE`` lines).
+
+A ``PHASE_SECONDS`` line follows every phase (wall seconds of the phase),
+and one for the whole run before the result lines.
+
+The script is a child subreaper, so a process that a child leaves behind
+becomes its own. Before the result lines it stops ``multiprocessing``'s
+forkserver and resource tracker, waits for them, and fails if any other
+process it started still runs; on every exit it kills and reaps what is left
+(:func:`stop_processes`).
 
 The last two lines of standard output are a JSON object with the kernel
 numbers and the device line ``{"ok": true, "device": {...}}``.
@@ -1052,14 +1079,25 @@ def _stream_child(spec: dict, results) -> None:
         "peak_device_bytes": torch.cuda.max_memory_allocated(), "stages": times.stages})
 
 
+#: modules the forkserver imports once, before it forks any child: a child then starts in milliseconds,
+#: where it took seconds to import torch and the port itself (none of them touches the card on import)
+FORKSERVER_PRELOAD = ["__main__", "torch", "numpy", *(f"variantcalling_tpu_torch.{m}" for m in (
+    "native", "featurize", "models.forest_cuda", "models.gbt_hist", "cnv.viterbi_cuda", "pipelines.filter_variants",
+    "pipelines.train_models", "pipelines.training_prep", "pipelines.train_dan", "pipelines.evaluate_concordance",
+    "pipelines.coverage_analysis", "pipelines.cnv_calling", "pipelines.sec.sec_training",
+    "pipelines.sec.correct_systematic_errors", "pipelines.sec.sec_validation",
+    "pipelines.sec.assess_sec_concordance", "pipelines.run_comparison", "pipelines.vcfeval_flavors"))]
+
+
 def _forked(spec: dict, label: str, target=None) -> dict:
     """``target`` (default :func:`_stream_child`) in a process forked by a
-    ``forkserver``: a child started otherwise keeps this process's peak in
-    its ``ru_maxrss``."""
+    ``forkserver`` (:data:`FORKSERVER_PRELOAD` imported in it once): a child
+    started otherwise keeps this process's peak in its ``ru_maxrss``."""
     import multiprocessing
     import queue
 
     ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(FORKSERVER_PRELOAD)
     results = ctx.Queue()
     proc = ctx.Process(target=target or _stream_child, args=(spec, results), name=label)
     proc.start()
@@ -1076,6 +1114,84 @@ def _forked(spec: dict, label: str, target=None) -> dict:
         proc.join()
     check(run is not None and proc.exitcode == 0, f"{label}: the run's process exited {proc.exitcode}")
     return run
+
+
+def _adopt_orphans() -> None:
+    """Make this process a child subreaper (Linux ``prctl``): a process that
+    a child leaves behind when it exits is then reparented to this one, where
+    :func:`stop_processes` finds it, and not to init."""
+    import ctypes
+
+    PR_SET_CHILD_SUBREAPER = 36
+    check(ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0,
+          f"prctl(PR_SET_CHILD_SUBREAPER) failed: errno {ctypes.get_errno()}")
+
+
+def _descendants() -> dict[int, str]:
+    """Every process below this one that is still running (not a zombie):
+    pid to command line, read from ``/proc``."""
+    parent, command = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{entry}/stat").read_text()
+            cmdline = Path(f"/proc/{entry}/cmdline").read_bytes()
+        except OSError:  # ended while it was read
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if state != "Z":
+            parent[int(entry)] = int(ppid)
+            command[int(entry)] = cmdline.replace(b"\0", b" ").decode(errors="replace").strip()[:200]
+    below, me = {}, os.getpid()
+    for pid in parent:
+        up = parent[pid]
+        while up not in (me, 0, 1) and up in parent:
+            up = parent[up]
+        if up == me:
+            below[pid] = command[pid]
+    return below
+
+
+def stop_processes(kill: bool = False) -> dict[int, str]:
+    """Stop every process this one started, and return those still running
+    (killed, and reaped, when ``kill``). ``multiprocessing``'s forkserver and
+    resource tracker end on the EOF of a pipe that closes only when this
+    process exits, so they would outlive it by a moment: each is closed and
+    waited for here, after any child left."""
+    if "multiprocessing" in sys.modules:
+        import multiprocessing
+
+        for proc in multiprocessing.active_children():
+            proc.kill()
+            proc.join()
+        for module, helper in (("multiprocessing.forkserver", "_forkserver"),
+                               ("multiprocessing.resource_tracker", "_resource_tracker")):
+            stop = getattr(getattr(sys.modules.get(module), helper, None), "_stop", None)
+            if stop is not None:
+                stop()
+    left = pending = _descendants()
+    deadline = time.monotonic() + 10
+    while kill and pending and time.monotonic() < deadline:
+        for pid in pending:
+            try:
+                os.kill(pid, 9)
+            except ProcessLookupError:
+                pass
+        time.sleep(0.05)
+        _reap()
+        pending = _descendants()  # a killed process's orphans are this one's now
+    return left
+
+
+def _reap() -> None:
+    """Wait for every child of this process that has ended, the adopted orphans among them."""
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                return
+        except ChildProcessError:
+            return
 
 
 def _stream_subprocess(world: dict, out: Path, card: str, label: str, env: dict[str, str]) -> dict:
@@ -1244,6 +1360,8 @@ def phase_streaming(tmp: Path, card: str, pickle_world: dict) -> dict:
 TRAIN_WORLD = dict(seed=2029, n_rows=5_000_000, chr20_rows=104_000)
 #: rows of the GPU-against-CPU comparison: chr1's first 96,000 and chr20's 104,000
 TRAIN_CPU_ROWS = 200_000
+#: the reproducibility pair trains on 1 / TRAIN_PAIR_SHARE of each contig's rows (about 1 M)
+TRAIN_PAIR_SHARE = 5
 #: gbt_hist launches of the default grid: 100 trees x depth 6 x the four rf cells
 TRAIN_GRID_LAUNCHES = 100 * 6 * 4
 
@@ -1415,9 +1533,10 @@ def phase_training(tmp: Path, card: str) -> dict:
     1. ``TRAIN_WORLD`` (5 M labeled rows, 22 autosomes, written by the port's
        own ``write_frames``) through ``train_models_pipeline
        --evaluate_concordance --evaluate_concordance_contig chr20`` at the
-       default 100 trees, depth 6, 64 bins, twice, each in a process of its
-       own: ``gbt_hist`` launched 2,400 times, ``forest_wide`` once a forest
-       scored; byte-equal pickles and ``.h5`` files.
+       default 100 trees, depth 6, 64 bins, in a process of its own, and a
+       fifth of each contig's rows (about 1 M) the same way twice:
+       ``gbt_hist`` launched 2,400 times and ``forest_wide`` once a forest
+       scored in each run; the pair's pickles and ``.h5`` files byte-equal.
     2. ``TRAIN_CPU_ROWS`` of the same world: the CLI on the card against
        ``--backend cpu`` (the native float32 trainer): the threshold models
        equal, the forests' agreement reported (:func:`_native_agreement`);
@@ -1450,25 +1569,30 @@ def phase_training(tmp: Path, card: str) -> dict:
           f"chr20), {os.path.getsize(world)} bytes of h5 written by the port in {time.perf_counter() - t0:.1f} s",
           flush=True)
     grid = ["--evaluate_concordance", "--evaluate_concordance_contig", "chr20"]
+    # the 5 M run, then a pair on a fifth of each contig's rows that proves two runs write the same files
+    pair_world = tmp / "train_1m.h5"
+    h5_utils.write_frames(str(pair_world), {k: f.take(np.arange(len(f)) < len(f) // TRAIN_PAIR_SHARE)
+                                            for k, f in frames.items()})
     runs = {}
-    for label in ("train_5m_gpu", "train_5m_gpu_again"):
-        argv = ["--input_file", str(world), "--output_file_prefix", str(tmp / label), *grid, "--backend", "gpu"]
+    for label, path in (("train_5m_gpu", world), ("train_1m_gpu", pair_world), ("train_1m_gpu_again", pair_world)):
+        argv = ["--input_file", str(path), "--output_file_prefix", str(tmp / label), *grid, "--backend", "gpu"]
         run = _forked({"argv": argv, "env": {}}, label, _train_child)
         check(run["rc"] == 0, f"{label}: exit {run['rc']}")
         check(run["launches"]["gbt_hist"] == TRAIN_GRID_LAUNCHES and run["launches"]["forest_wide"] == 5
               and run["launches"]["forest_tree_step"] == 0, f"{label}: launches {run['launches']}")
-        detail = {"world": "train_5m", "run": label, "card": card, "wall_s": run["seconds"],
+        detail = {"world": path.stem, "run": label, "card": card, "wall_s": run["seconds"],
                   "stages": run["stages"], "launches": run["launches"], "peak_rss_bytes": run["peak_rss_bytes"],
                   "peak_device_bytes": run["peak_device_bytes"]}
         print("TRAIN_DETAIL " + json.dumps(detail), flush=True)
         runs[label] = detail
-    pkl = [(tmp / f"{label}.pkl").read_bytes() for label in runs]
-    h5 = [(tmp / f"{label}.h5").read_bytes() for label in runs]
+    pair = ("train_1m_gpu", "train_1m_gpu_again")
+    pkl = [(tmp / f"{label}.pkl").read_bytes() for label in pair]
+    h5 = [(tmp / f"{label}.h5").read_bytes() for label in pair]
     check(pkl[0] == pkl[1], "two GPU training runs wrote different pickles")
     keys = h5_utils.list_keys(str(tmp / "train_5m_gpu.h5"))
     check(keys == ["optimal_recall_precision", "training_results"], f"h5 keys {keys}")
     for key in keys:
-        a, b = (h5_utils.read_hdf(str(tmp / f"{label}.h5"), key) for label in runs)
+        a, b = (h5_utils.read_hdf(str(tmp / f"{label}.h5"), key) for label in pair)
         check(a.columns == b.columns and all(np.array_equal(a[c], b[c]) for c in a.columns),
               f"two GPU training runs wrote different {key} frames")
     models = registry.load_models(str(tmp / "train_5m_gpu.pkl"))
@@ -1476,8 +1600,8 @@ def phase_training(tmp: Path, card: str) -> dict:
     results = h5_utils.read_hdf(str(tmp / "train_5m_gpu.h5"), "training_results")
     acc = h5_utils.read_hdf(str(tmp / "train_5m_gpu.h5"), "optimal_recall_precision")
     check(all(0.5 < v <= 1 for v in results["f1"][::2]), f"rf F1 {list(results['f1'])}")
-    print(f"training 5M: two GPU runs wrote equal pickles ({len(pkl[0])} bytes) and .h5 files "
-          f"(bytes equal: {h5[0] == h5[1]}); rf F1 {[float(v) for v in results['f1'][::2]]}, held-out chr20 SNP "
+    print(f"training 5M on the card; two GPU runs on a fifth of its rows wrote equal pickles ({len(pkl[0])} "
+          f"bytes) and .h5 files (bytes equal: {h5[0] == h5[1]}); rf F1 {[float(v) for v in results['f1'][::2]]}, held-out chr20 SNP "
           f"precision/recall {float(acc['precision'][0])}/{float(acc['recall'][0])} ({card})", flush=True)
     out["train_5m"] = runs
 
@@ -1787,8 +1911,8 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
        1e-5); the pickle names only ``variantcalling_tpu.models.dan``'s
        classes, numpy and builtins.
     4. ``evaluate_concordance --output_bed`` on ``TRAIN_WORLD`` scored by the
-       5 M-row DAN, on the card and on the CPU: every output file
-       byte-equal (``EVAL_DETAIL``).
+       5 M-row DAN on the card, and on ``TRAIN_CPU_ROWS`` of it on the card
+       and on the CPU: every output file byte-equal (``EVAL_DETAIL``).
     """
     from tests.torch_vcf_compare import differing_records
     from variantcalling_tpu_torch.io import checkpoint
@@ -1891,30 +2015,32 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
           f"{n_pass} PASS; pickle globals {sorted(modules)}", flush=True)
     out["dan_vcf"] = {"seconds": run["seconds"], "differing_records": n_diff, "pass": n_pass}
 
-    # -- 4. evaluate_concordance at full width -------------------------------------------
+    # -- 4. evaluate_concordance at full width on the card; card against CPU on 200,000 rows ------
     t0 = time.perf_counter()
     n_rows = _scored_eval_world(world, model, tmp / "eval_5m.h5")
     build_s = time.perf_counter() - t0
+    n_small = _scored_eval_world(files["small"], model, tmp / "eval_200k.h5")
     evals = {}
-    for backend in ("gpu", "cpu"):
-        prefix = tmp / f"eval_5m_{backend}"
-        run = _tool_run("evaluate_concordance", ["--input_file", str(tmp / "eval_5m.h5"), "--output_prefix",
-                                                 str(prefix), "--output_bed", "--backend", backend])
-        check(run["rc"] == 0 and not any(run["launches"].values()), f"evaluate_concordance {backend}: exit "
+    for label, backend, rows in (("eval_5m_gpu", "gpu", n_rows), ("eval_200k_gpu", "gpu", n_small),
+                                 ("eval_200k_cpu", "cpu", n_small)):
+        prefix = tmp / label
+        run = _tool_run("evaluate_concordance", ["--input_file", str(tmp / f"{label.rsplit('_', 1)[0]}.h5"),
+                                                 "--output_prefix", str(prefix), "--output_bed", "--backend", backend])
+        check(run["rc"] == 0 and not any(run["launches"].values()), f"evaluate_concordance {label}: exit "
               f"{run['rc']}, launches {run['launches']}")
-        evals[backend] = run
-        print("EVAL_DETAIL " + json.dumps({"backend": backend, "rows": n_rows, "card": card,
+        evals[label] = run
+        print("EVAL_DETAIL " + json.dumps({"run": label, "backend": backend, "rows": rows, "card": card,
                                            "wall_s": run["seconds"], "stages": run["stages"],
                                            "peak_device_bytes": run["peak_device_bytes"],
                                            "world_build_s": build_s}), flush=True)
     suffixes = (".h5", ".stats.csv", ".thresholds.csv", "_fp.bed", "_fn.bed", "_tp.bed")
     for suffix in suffixes:
-        a, b = (_sha256(Path(f"{tmp / f'eval_5m_{backend}'}{suffix}")) for backend in ("gpu", "cpu"))
+        a, b = (_sha256(Path(f"{tmp / label}{suffix}")) for label in ("eval_200k_gpu", "eval_200k_cpu"))
         check(a == b, f"evaluate_concordance: {suffix} differs between the card and the CPU")
     stats = (tmp / "eval_5m_gpu.stats.csv").read_text().splitlines()
     check(len(stats) == 9 and stats[0] == "group;tp;fp;fn;precision;recall;f1", f"stats.csv {stats[:2]}")
-    print(f"evaluate_concordance 5M: {n_rows} rows, card and CPU outputs byte-equal ({', '.join(suffixes)}); "
-          f"{stats[1]} ({card})", flush=True)
+    print(f"evaluate_concordance: {n_rows} rows on the card; {n_small} rows, card and CPU outputs byte-equal "
+          f"({', '.join(suffixes)}); {stats[1]} ({card})", flush=True)
     out["eval_5m"] = {b: {"seconds": r["seconds"], "stages": r["stages"]} for b, r in evals.items()}
     return out
 
@@ -1926,6 +2052,10 @@ COVERAGE_WORLD = dict(seed=2026, contigs=(("chr20", 64_444_167), ("chrM", 16_569
                       plain_cut=500_000, cram_cut=200_000)
 #: copy numbers the planted events must be called with (15x, 45x and 0x of a 30x genome)
 COVERAGE_EVENT_CN = (1, 3, 0)
+#: cnv_calling's --min_contig_length on the cut, whose chr20 is shorter than the default 1 Mbp
+COVERAGE_CUT_MIN_CONTIG = 100_000
+#: the cut's planted event: 45x over 100 kbp of its 500 kbp chr20 (called CN3)
+COVERAGE_CUT_EVENT = (200_000, 300_000, 45)
 #: the Viterbi kernel alone: chr20 at 1 kb, and GRCh38's 24 chromosomes at 1 kb (3,088,269 bins)
 CNV_CHR20_BINS = 64_444
 GRCH38_MB = (248.956422, 242.193529, 198.295559, 190.214555, 181.538259, 170.805979, 159.345973, 145.138636,
@@ -1935,39 +2065,41 @@ GRCH38_MB = (248.956422, 242.193529, 198.295559, 190.214555, 181.538259, 170.805
 CNV_STEP_CYCLES = 3 * 4
 
 
-def _cov_child(spec: dict, results) -> None:
-    """One ``coverage_analysis`` or ``cnv_calling`` run in a process of its
-    own: every kernel's count and every host engine entry point's count set
-    to 0 just before it and read just after; stages, wall seconds, peak RSS
-    and peak card memory to ``results``."""
+def _tool_child(spec: dict, results) -> None:
+    """One tool of phases 11 and 12 (``spec["tool"]``, a name of the port's
+    CLI) in a process of its own: every kernel's count and every host engine entry
+    point's count set to 0 just before it and read just after; stages, wall
+    seconds, peak RSS and peak card memory to ``results``."""
+    import importlib
     import resource
 
     from variantcalling_tpu_torch import native
+    from variantcalling_tpu_torch.__main__ import TOOLS
     from variantcalling_tpu_torch.cnv import viterbi_cuda
     from variantcalling_tpu_torch.models import forest_cuda, gbt_hist
-    from variantcalling_tpu_torch.pipelines import cnv_calling, coverage_analysis
 
     os.environ.update(spec["env"])
     plog = logging.getLogger("variantcalling_tpu_torch")
     plog.setLevel(logging.INFO)
     times = _RunLog()
     plog.addHandler(times)
-    if "gpu" in spec["argv"]:
+    module = importlib.import_module(TOOLS[spec["tool"]])
+    gpu = "gpu" in spec["argv"]
+    if gpu:
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats()
     viterbi_cuda.LAUNCHES = gbt_hist.LAUNCHES = forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
     native.reset_calls()
-    module = {"coverage_analysis": coverage_analysis, "cnv_calling": cnv_calling}[spec["tool"]]
     t0 = time.perf_counter()
     rc = module.run(spec["argv"])
     seconds = time.perf_counter() - t0
     results.put({
-        "rc": rc, "seconds": seconds, "stages": times.stages,
+        "rc": rc if isinstance(rc, int) else 0, "seconds": seconds, "stages": times.stages,
         "launches": {"cnv_viterbi": viterbi_cuda.LAUNCHES, "gbt_hist": gbt_hist.LAUNCHES,
                      "forest_wide": forest_cuda.LAUNCHES, "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES},
         "host": {k: dict(v) for k, v in native.CALLS.items() if v["native"] or v["plain"]},
         "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
-        "peak_device_bytes": torch.cuda.max_memory_allocated() if "gpu" in spec["argv"] else None})
+        "peak_device_bytes": torch.cuda.max_memory_allocated() if gpu else None})
 
 
 def _cov_run(tool: str, argv: list[str], label: str, card: str, positions: int, env: dict | None = None,
@@ -1977,7 +2109,7 @@ def _cov_run(tool: str, argv: list[str], label: str, card: str, positions: int, 
     version; a ``COVERAGE_DETAIL`` line (or ``CNV_DETAIL`` for
     ``cnv_calling``) with stages, wall, positions a second and peaks, and a
     ``HOST_ENGINE`` line."""
-    run = _forked({"tool": tool, "argv": argv, "env": env or {}}, label, _cov_child)
+    run = _forked({"tool": tool, "argv": argv, "env": env or {}}, label, _tool_child)
     check(run["rc"] == 0, f"{label}: exit {run['rc']}")
     host = run["host"]
     if served_by and "gpu" in argv:
@@ -2093,21 +2225,24 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
 
     ``COVERAGE_WORLD`` written by ``synthetic.write_coverage_world`` (the
     port's native ``bgzf_compress``), then, each run a process of its own:
-    1. ``full_analysis`` at the default windows with ``-c`` (an exome-like
-       BED of 20,000 intervals and the planted events), ``--backend gpu``
-       and ``cpu``: the four parquets sha256-equal, ``histogram`` and
-       ``percentiles`` equal (near-ties counted), ``stats`` to 1e-6;
-    2. ``collect_coverage`` to ``.bedgraph.gz`` and its ``.bw``, GPU against
-       CPU: the inflated bedGraph and the ``.bw`` bytes equal;
-    3. ``full_analysis -q 20 -Q 20 -l 100``, GPU against CPU: equal outputs;
-    4. the twins: ``VCTPU_NO_NATIVE=1`` (the pure-Python ``BamReader``) on a
-       500 kbp cut against the native run, and a CRAM of a 200 kbp cut
+    1. on the card at full size: ``full_analysis`` at the default windows
+       with ``-c`` (an exome-like BED of 20,000 intervals and the planted
+       events) and with ``-q 20 -Q 20 -l 100``, ``collect_coverage`` to
+       ``.bedgraph.gz`` and its ``.bw``, and ``cnv_calling --reference``:
+       each planted event called with its copy number, one ``cnv_viterbi``
+       launch;
+    2. on a 500 kbp cut (a world of its own), the card against the CPU:
+       both ``full_analysis`` runs (the four parquets sha256-equal,
+       ``histogram`` and ``percentiles`` equal, near-ties counted, ``stats``
+       to 1e-6), ``collect_coverage`` (the inflated bedGraph and the ``.bw``
+       bytes equal) and ``cnv_calling`` (BED and VCF bytes equal, the cut's
+       planted 45x event called CN3, one launch on the card, none on the
+       CPU);
+    3. the twins: ``VCTPU_NO_NATIVE=1`` (the pure-Python ``BamReader``) on
+       the 500 kbp cut against the native run, and a CRAM of a 200 kbp cut
        (``tests/cram_fixtures.write_cram``) against the BAM of the same
        reads: equal outputs;
-    5. ``cnv_calling --reference`` on the full world, GPU against CPU: BED and
-       VCF bytes equal, each planted event called with its copy number, one
-       ``cnv_viterbi`` launch on the card;
-    6. the Viterbi kernel alone (:func:`_viterbi_alone`).
+    4. the Viterbi kernel alone (:func:`_viterbi_alone`).
     """
     from tests import cram_fixtures
     from variantcalling_tpu_torch import synthetic
@@ -2124,47 +2259,80 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     out["world"] = {"reads": n_reads, "bam_bytes": os.path.getsize(w["bam"]), "write_s": time.perf_counter() - t0}
 
-    # -- 1. and 3. full_analysis, GPU against CPU --------------------------------------------
+    # -- full_analysis, collect_coverage and cnv_calling at full size on the card ----------------
     d = tmp / "cov_out"
     d.mkdir()
-    for tag, extra in (("full", ["-c", w["categories"]]), ("full_q20", ["-q", "20", "-Q", "20", "-l", "100"])):
-        res = {}
-        for backend in ("gpu", "cpu"):
-            label = f"{tag}_{backend}"
-            run = _cov_run("coverage_analysis", ["full_analysis", "-i", w["bam"], "-o", str(d / label), *extra,
-                                                 "--backend", backend], label, card, length)
-            res[backend] = {**_full_outputs(str(d / label)), "run": run}
-        same = _check_full_same(res["gpu"], res["cpu"], tag)
-        print(f"{tag}: GPU and CPU wrote equal parquets and histograms; stats within {same['max_stats_rel_gap']:.3g} "
-              f"relative, {same['percentile_near_ties']} percentile near-ties ({card})", flush=True)
-        out[tag] = {**same, "gpu_s": res["gpu"]["run"]["seconds"], "cpu_s": res["cpu"]["run"]["seconds"],
-                    "peak_device_bytes": res["gpu"]["run"]["peak_device_bytes"]}
-    del res
+    full_args = {"full": ["-c", w["categories"]], "full_q20": ["-q", "20", "-Q", "20", "-l", "100"]}
+    for tag, extra in full_args.items():
+        run = _cov_run("coverage_analysis", ["full_analysis", "-i", w["bam"], "-o", str(d / f"{tag}_gpu"), *extra,
+                                             "--backend", "gpu"], f"{tag}_gpu", card, length)
+        out[tag] = {"gpu_s": run["seconds"], "peak_device_bytes": run["peak_device_bytes"]}
+    _cov_run("coverage_analysis", ["collect_coverage", "-i", w["bam"], "-o", str(d / "collect_gpu.bedgraph.gz"),
+                                   "--backend", "gpu"], "collect_gpu", card, length)
+    run = _cov_run("cnv_calling", ["--input_bam", w["bam"], "--output_bed", str(d / "cnv_gpu.bed"), "--output_vcf",
+                                   str(d / "cnv_gpu.vcf"), "--reference", w["fasta"], "--backend", "gpu"],
+                   "cnv_gpu", card, length)
+    launches = run["launches"]["cnv_viterbi"]
+    check(launches == 1, f"cnv_viterbi launches {launches}")
+    segs = [line.split("\t") for line in (d / "cnv_gpu.bed").read_text().splitlines()]
+    called = []
+    for (s, e, _), cn in zip(events, COVERAGE_EVENT_CN):
+        hits = [g for g in segs if g[0] == contigs[0][0] and int(g[1]) < e and int(g[2]) > s
+                and g[3] == f"CN{cn}" and min(int(g[2]), e) - max(int(g[1]), s) >= 0.8 * (e - s)]
+        check(hits, f"cnv_calling: the planted event {s}-{e} was not called as CN{cn}; segments {segs}")
+        called.append({"event": [s, e], "cn": cn, "segment": hits[0][:4]})
+    print(f"cnv_calling: {len(segs)} segments on the card, every planted event called {called} ({card})", flush=True)
+    out["cnv"] = {"segments": len(segs), "called": called, "launches": launches, "gpu_s": run["seconds"]}
 
-    # -- 2. collect_coverage, GPU against CPU --------------------------------------------------
-    sums = {}
-    for backend in ("gpu", "cpu"):
-        label = f"collect_{backend}"
-        _cov_run("coverage_analysis", ["collect_coverage", "-i", w["bam"], "-o", str(d / f"{label}.bedgraph.gz"),
-                                       "--backend", backend], label, card, length)
-        sums[backend] = (_inflated_sha256(d / f"{label}.bedgraph.gz"), _sha256(d / f"{label}.bw"))
-    check(sums["gpu"] == sums["cpu"], f"collect_coverage: GPU and CPU outputs differ {sums}")
-    print(f"collect_coverage: GPU and CPU bedGraph (inflated) and .bw bytes equal ({card})", flush=True)
-
-    # -- 4. the twins -----------------------------------------------------------------------------
+    # -- the card against the CPU, and the twins, on cuts of the world --------------------------------
     plain_contigs = [(contigs[0][0], world_spec["plain_cut"]), contigs[-1]]
-    pw = synthetic.write_coverage_world(str(tmp / "cov_plain"), seed + 1, plain_contigs, world_spec["depth"], (),
-                                        n_exome=500)
+    pw = synthetic.write_coverage_world(str(tmp / "cov_plain"), seed + 1, plain_contigs, world_spec["depth"],
+                                        (COVERAGE_CUT_EVENT,), n_exome=500)
+    cut_len = sum(n for _, n in plain_contigs)
     twins = {}
-    for label, env, served in (("plain_cut_native", {}, "bam_depth"),
-                               ("plain_cut_no_native", {"VCTPU_NO_NATIVE": "1"}, None)):
-        run = _cov_run("coverage_analysis", ["full_analysis", "-i", pw["bam"], "-o", str(d / label), "-c",
-                                             pw["categories"], "--backend", "gpu"], label, card,
-                       sum(n for _, n in plain_contigs), env, served)
+    for label, extra, backend, env, served in (
+            ("plain_cut_native", ["-c", pw["categories"]], "gpu", {}, "bam_depth"),
+            ("plain_cut_no_native", ["-c", pw["categories"]], "gpu", {"VCTPU_NO_NATIVE": "1"}, None),
+            ("plain_cut_cpu", ["-c", pw["categories"]], "cpu", {}, "bam_depth"),
+            ("plain_cut_q20_gpu", full_args["full_q20"], "gpu", {}, "bam_depth"),
+            ("plain_cut_q20_cpu", full_args["full_q20"], "cpu", {}, "bam_depth")):
+        run = _cov_run("coverage_analysis", ["full_analysis", "-i", pw["bam"], "-o", str(d / label), *extra,
+                                             "--backend", backend], label, card, cut_len, env, served)
         twins[label] = _full_outputs(str(d / label))
         if not served:
             check(run["host"].get("bam_depth", {}).get("plain", 0) == 1, f"{label}: the plain reader did not serve")
     _check_full_same(twins["plain_cut_native"], twins["plain_cut_no_native"], "no-native twin")
+    for tag, gpu_label, cpu_label in (("full", "plain_cut_native", "plain_cut_cpu"),
+                                      ("full_q20", "plain_cut_q20_gpu", "plain_cut_q20_cpu")):
+        same = _check_full_same(twins[gpu_label], twins[cpu_label], f"{tag} GPU vs CPU on the cut")
+        print(f"{tag} on the {world_spec['plain_cut']} bp cut: GPU and CPU wrote equal parquets and histograms; "
+              f"stats within {same['max_stats_rel_gap']:.3g} relative, {same['percentile_near_ties']} percentile "
+              f"near-ties ({card})", flush=True)
+        out[tag].update(same)
+    sums = {}
+    for backend in ("gpu", "cpu"):
+        label = f"plain_cut_collect_{backend}"
+        _cov_run("coverage_analysis", ["collect_coverage", "-i", pw["bam"], "-o", str(d / f"{label}.bedgraph.gz"),
+                                       "--backend", backend], label, card, cut_len)
+        sums[backend] = (_inflated_sha256(d / f"{label}.bedgraph.gz"), _sha256(d / f"{label}.bw"))
+    check(sums["gpu"] == sums["cpu"], f"collect_coverage: GPU and CPU outputs differ {sums}")
+    cnv = {}
+    for backend in ("gpu", "cpu"):
+        label = f"plain_cut_cnv_{backend}"
+        run = _cov_run("cnv_calling", ["--input_bam", pw["bam"], "--output_bed", str(d / f"{label}.bed"),
+                                       "--output_vcf", str(d / f"{label}.vcf"), "--reference", pw["fasta"],
+                                       "--min_contig_length", str(COVERAGE_CUT_MIN_CONTIG), "--backend", backend],
+                       label, card, cut_len)
+        cnv[backend] = {"launches": run["launches"]["cnv_viterbi"], "bed": (d / f"{label}.bed").read_bytes(),
+                        "vcf": (d / f"{label}.vcf").read_bytes()}
+    check(cnv["gpu"]["bed"] == cnv["cpu"]["bed"] and cnv["gpu"]["vcf"] == cnv["cpu"]["vcf"],
+          "cnv_calling: GPU and CPU BED/VCF bytes differ on the cut")
+    start, end, _ = COVERAGE_CUT_EVENT
+    check(cnv["gpu"]["bed"].decode().startswith(f"{contigs[0][0]}\t{start}\t{end}\tCN3\t"),
+          f"cnv_calling: the cut's planted event was not called as CN3: {cnv['gpu']['bed'][:200]!r}")
+    check(cnv["gpu"]["launches"] == 1 and cnv["cpu"]["launches"] == 0, f"cnv_viterbi launches on the cut {cnv}")
+    print(f"collect_coverage and cnv_calling on the {world_spec['plain_cut']} bp cut: GPU and CPU bedGraph "
+          f"(inflated), .bw, BED and VCF bytes equal ({card})", flush=True)
     cram_reads = synthetic.coverage_reads(seed + 2, [(contigs[0][0], world_spec["cram_cut"])], world_spec["depth"], ())
     cw = tmp / "cov_cram"
     cw.mkdir()
@@ -2184,30 +2352,6 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
           f"(written in {cram_write_s:.1f} s) gave the native BAM runs' outputs ({card})", flush=True)
     del twins
 
-    # -- 5. cnv_calling, GPU against CPU --------------------------------------------------------
-    cnv = {}
-    for backend in ("gpu", "cpu"):
-        label = f"cnv_{backend}"
-        run = _cov_run("cnv_calling", ["--input_bam", w["bam"], "--output_bed", str(d / f"{label}.bed"),
-                                       "--output_vcf", str(d / f"{label}.vcf"), "--reference", w["fasta"],
-                                       "--backend", backend], label, card, length)
-        cnv[backend] = {"run": run, "bed": (d / f"{label}.bed").read_bytes(), "vcf": (d / f"{label}.vcf").read_bytes()}
-    check(cnv["gpu"]["bed"] == cnv["cpu"]["bed"] and cnv["gpu"]["vcf"] == cnv["cpu"]["vcf"],
-          "cnv_calling: GPU and CPU BED/VCF bytes differ")
-    launches = cnv["gpu"]["run"]["launches"]["cnv_viterbi"]
-    check(launches == 1 and cnv["cpu"]["run"]["launches"]["cnv_viterbi"] == 0, f"cnv_viterbi launches {launches}")
-    segs = [line.split("\t") for line in cnv["gpu"]["bed"].decode().splitlines()]
-    called = []
-    for (s, e, _), cn in zip(events, COVERAGE_EVENT_CN):
-        hits = [g for g in segs if g[0] == contigs[0][0] and int(g[1]) < e and int(g[2]) > s
-                and g[3] == f"CN{cn}" and min(int(g[2]), e) - max(int(g[1]), s) >= 0.8 * (e - s)]
-        check(hits, f"cnv_calling: the planted event {s}-{e} was not called as CN{cn}; segments {segs}")
-        called.append({"event": [s, e], "cn": cn, "segment": hits[0][:4]})
-    print(f"cnv_calling: GPU and CPU BED and VCF bytes equal, {len(segs)} segments, every planted event called "
-          f"{called} ({card})", flush=True)
-    out["cnv"] = {"segments": len(segs), "called": called, "launches": launches,
-                  "gpu_s": cnv["gpu"]["run"]["seconds"], "cpu_s": cnv["cpu"]["run"]["seconds"]}
-
     # -- 6. the kernel alone ------------------------------------------------------------------------
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -2216,6 +2360,262 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
     except (OSError, ValueError, IndexError):
         clock = 1.98e9  # the H100 SXM's top SM clock
     out["viterbi"] = _viterbi_alone(card, clock, launches)
+    return out
+
+
+#: phase 12's cut of the comparison for its VCTPU_NO_NATIVE=1 twin (bp of chr20 from its start)
+SEC_PLAIN_CUT = 2_000_000
+#: the SEC LRT's bytes a row: observed and noise counts (5 float32 each) in, the float32 ratio out
+SEC_LRT_ROW_BYTES = 44
+
+
+def _sec_run(tool: str, argv: list[str], label: str, card: str, env: dict | None = None,
+             served_by: tuple[str, ...] = ("vcf_parse",)) -> dict:
+    """``tool`` with ``argv`` in a forked process (:func:`_forked`): exit 0, no
+    kernel launched (none lies on these paths); on the card served by the
+    host engine's ``served_by`` entry points and no plain version (unless
+    ``env`` turns the engine off); a ``SEC_DETAIL`` line (``COMPARISON_DETAIL``
+    for ``run_comparison_pipeline`` and ``vcfeval_flavors``) and a
+    ``HOST_ENGINE`` line."""
+    run = _forked({"tool": tool, "argv": argv, "env": env or {}}, label, _tool_child)
+    check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+    check(not any(run["launches"].values()), f"{label}: a kernel was launched ({run['launches']})")
+    host = run["host"]
+    if "gpu" in argv and not (env or {}).get("VCTPU_NO_NATIVE"):
+        plain = [k for k, v in host.items() if v["plain"]]
+        missed = [k for k in served_by if host.get(k, {}).get("native", 0) == 0]
+        check(not missed and not plain, f"{label}: the host engine did not serve {missed}; plain: {plain}")
+    detail = {"run": label, "tool": tool, "card": card, "wall_s": run["seconds"], "stages": run["stages"],
+              "peak_rss_bytes": run["peak_rss_bytes"], "peak_device_bytes": run["peak_device_bytes"]}
+    name = "COMPARISON_DETAIL " if tool in ("run_comparison_pipeline", "vcfeval_flavors") else "SEC_DETAIL "
+    print(name + json.dumps(detail), flush=True)
+    print("HOST_ENGINE " + json.dumps({"run": label, "calls": host}), flush=True)
+    return run
+
+
+def _same_frames(a: str, b: str, label: str) -> int:
+    """Every key of two h5 files equal, column for column (floats exactly,
+    NaN where NaN); returns the rows compared."""
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    keys = h5_utils.list_keys(a)
+    check(keys and keys == h5_utils.list_keys(b), f"{label}: keys {keys} != {h5_utils.list_keys(b)}")
+    rows = 0
+    for key in keys:
+        x, y = h5_utils.read_hdf(a, key), h5_utils.read_hdf(b, key)
+        check(x.columns == y.columns and len(x) == len(y), f"{label}: {key} differs in shape")
+        for c in x.columns:
+            u, v = np.asarray(x[c]), np.asarray(y[c])
+            same = u.dtype == v.dtype and (np.array_equal(u, v, equal_nan=True) if u.dtype.kind == "f"
+                                           else np.array_equal(u, v))
+            check(same, f"{label}: {key}.{c} differs")
+        rows += len(x)
+    return rows
+
+
+def _hbm_rate() -> float:
+    """The card's copy rate in bytes a second: a 1 GiB device-to-device copy
+    (read and write counted), median of 5, by CUDA events."""
+    src = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src), reps=5, warmup=2)
+    del src, dst
+    return 2 * (1 << 30) / (ms * 1e-3)
+
+
+def phase_sec(tmp: Path, card: str) -> dict:
+    """SEC and the comparison on the card (phase 12), each run a process of its own.
+
+    ``SEC_WORLD`` written by ``synthetic.write_sec_world``: BASELINE config 5
+    (a 100-sample cohort's noise DB) cut to one contig, the filter world's
+    chr20; a held-out callset of 104,000 records and its truth. Then:
+    1. ``sec_training``: ``--backend gpu --use_mesh`` (the dense (S, L, A)
+       sum on the card), ``--backend cpu`` (the host merge), and ``--backend
+       gpu --relevant_coords`` (the pool's loci): the card's DB equal to the
+       CPU's (keys, counts, ``n_samples``), the pool DB equal to the CPU DB's
+       rows at the pool's loci;
+    2. ``correct_systematic_errors`` on the held-out callset, GPU and CPU:
+       records differ only as ``tests/torch_sec_compare`` allows (counted);
+       at least 90 % of the planted noise records carry SEC, at most 5 % of
+       the planted real variants at pool loci do;
+    3. ``sec_validation``, GPU and CPU: sweep rows equal but where a ratio
+       lies within the tolerance of the row's threshold (counted);
+    4. ``run_comparison_pipeline`` against the truth, GPU and CPU: every h5
+       key equal column for column, the BED bytes equal, every planted
+       representation difference ``tp``, the matcher served by the native
+       engine; a ``VCTPU_NO_NATIVE=1`` twin on a 2 Mbp cut equal to the
+       native run on the same cut; one ``--concordance_tool GC`` run;
+    5. ``assess_sec_concordance`` on step 4's h5 and step 2's VCF, GPU and
+       CPU: equal frames;
+    6. ``vcfeval_flavors``, GPU and CPU: equal result files;
+    7. the LRT alone on the card at the dense run's locus union, by CUDA
+       events, beside its bytes bound at the published and the measured
+       HBM rates (``SEC_LRT_DETAIL``).
+    """
+    from tests import torch_sec_compare
+    from variantcalling_tpu_torch import synthetic
+    from variantcalling_tpu_torch.io.vcf import read_vcf
+    from variantcalling_tpu_torch.sec import caller
+    from variantcalling_tpu_torch.sec.db import SecDb
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    out: dict = {}
+    spec = synthetic.SEC_WORLD
+    t0 = time.perf_counter()
+    w = synthetic.write_sec_world(str(tmp / "sec"), **spec)
+    n_cohort = sum(int(np.count_nonzero(np.frombuffer(Path(p).read_bytes(), np.uint8) == 10)) for p in w["samples"])
+    write_s = time.perf_counter() - t0
+    print(f"world sec: {spec['n_samples']} cohort callsets ({n_cohort} lines with headers) over a pool of "
+          f"{spec['n_pool']} noise loci on chr20 ({spec['length']} bp), a held-out callset of {spec['n_heldout']} "
+          f"records, written in {write_s:.1f} s", flush=True)
+    out["world"] = {"write_s": write_s, "cohort_lines": n_cohort}
+    d = tmp / "sec_out"
+    d.mkdir()
+
+    # -- 1. sec_training --------------------------------------------------------------------
+    train = {}
+    for label, backend, extra in (("train_mesh_gpu", "gpu", ["--use_mesh"]), ("train_cpu", "cpu", []),
+                                  ("train_pool_gpu", "gpu", ["--relevant_coords", w["pool"]])):
+        run = _sec_run("sec_training", ["--inputs", *w["samples"], "--output_file", str(d / f"{label}.h5"), *extra,
+                                        "--backend", backend], label, card)
+        train[label] = {"run": run, "db": SecDb.load(str(d / f"{label}.h5"))}
+    gpu_db, cpu_db, pool_db = (train[k]["db"] for k in ("train_mesh_gpu", "train_cpu", "train_pool_gpu"))
+    check(np.array_equal(gpu_db.keys, cpu_db.keys) and np.array_equal(gpu_db.counts, cpu_db.counts)
+          and gpu_db.n_samples == cpu_db.n_samples == spec["n_samples"] and gpu_db.contigs == cpu_db.contigs,
+          "sec_training: the card's DB (--use_mesh) differs from the CPU's")
+    at_pool = np.isin(cpu_db.keys, pool_db.keys)
+    check(len(pool_db) > 0 and np.array_equal(cpu_db.keys[at_pool], pool_db.keys)
+          and np.array_equal(cpu_db.counts[at_pool], pool_db.counts),
+          "sec_training: the --relevant_coords DB is not the cohort DB at the pool's loci")
+    print(f"sec_training: the card's dense sum and the CPU's host merge wrote equal DBs ({len(gpu_db)} loci of "
+          f"{gpu_db.n_samples} samples); the pool DB holds {len(pool_db)} of them ({card})", flush=True)
+    out["train"] = {k: {"seconds": v["run"]["seconds"], "loci": len(v["db"]),
+                        "peak_device_bytes": v["run"]["peak_device_bytes"]} for k, v in train.items()}
+    db_path = str(d / "train_mesh_gpu.h5")
+
+    # -- 2. correct_systematic_errors -------------------------------------------------------------
+    for backend in ("gpu", "cpu"):
+        _sec_run("correct_systematic_errors", ["--model", db_path, "--gvcf", w["heldout"], "--output_file",
+                                               str(d / f"corrected_{backend}.vcf"), "--backend", backend],
+                 f"correct_{backend}", card, served_by=("vcf_parse",))
+    corrected = {b: (d / f"corrected_{b}.vcf").read_bytes() for b in ("gpu", "cpu")}
+    n_diff = torch_sec_compare.differing_records(corrected["gpu"], corrected["cpu"], caller.DEFAULT_NOISE_RATIO)
+    table = read_vcf(str(d / "corrected_gpu.vcf"))
+    sec = np.asarray(["SEC" in str(f).split(";") for f in table.filters])
+    noise_share = float(sec[np.isin(table.pos, w["noise_pos"])].mean())
+    real_share = float(sec[np.isin(table.pos, w["real_pool_pos"])].mean())
+    check(noise_share >= 0.9 and real_share <= 0.05,
+          f"correct_systematic_errors: {noise_share:.4f} of the planted noise and {real_share:.4f} of the planted "
+          "real variants at noise loci carry SEC")
+    print(f"correct_systematic_errors: {int(sec.sum())} of {len(table)} records SEC; planted noise {noise_share:.4f}, "
+          f"planted real variants at noise loci {real_share:.4f}; GPU and CPU: {n_diff} records differ within "
+          f"{torch_sec_compare.RTOL} of the ratio ({card})", flush=True)
+    out["correct"] = {"differing_records": n_diff, "noise_share": noise_share, "real_share": real_share}
+
+    # -- 3. sec_validation -----------------------------------------------------------------------
+    for backend in ("gpu", "cpu"):
+        _sec_run("sec_validation", ["--model", db_path, "--sample_vcf", w["heldout"], "--truth_vcf", w["truth"],
+                                    "--output_file", str(d / f"sweep_{backend}.csv"), "--backend", backend],
+                 f"validation_{backend}", card)
+    held = read_vcf(w["heldout"])
+    hit, rows = gpu_db.lookup(held.chrom, held.pos)
+    ratios = caller.hit_ratios(held, gpu_db, hit, rows, "cpu")
+    n_rows = torch_sec_compare.differing_sweep_rows((d / "sweep_gpu.csv").read_text(),
+                                                    (d / "sweep_cpu.csv").read_text(), ratios)
+    print(f"sec_validation: GPU and CPU sweeps, {n_rows} rows differ within the tolerance of their threshold; "
+          f"{(d / 'sweep_gpu.csv').read_text().splitlines()[4]} ({card})", flush=True)
+    out["validation"] = {"differing_rows": n_rows}
+
+    # -- 4. run_comparison_pipeline ----------------------------------------------------------------
+    base = ["--input_prefix", w["heldout"], "--gtr_vcf", w["truth"], "--highconf_intervals", w["hcr"],
+            "--reference", w["fasta"], "--annotate_intervals", w["exome"]]
+    for backend in ("gpu", "cpu"):
+        _sec_run("run_comparison_pipeline", [*base, "--output_file", str(d / f"cmp_{backend}.h5"),
+                                             "--output_interval", str(d / f"cmp_{backend}.bed"), "--backend",
+                                             backend], f"comparison_{backend}", card,
+                 served_by=("vcf_parse", "match_contig_native"))
+    n_cmp = _same_frames(str(d / "cmp_gpu.h5"), str(d / "cmp_cpu.h5"), "run_comparison_pipeline GPU vs CPU")
+    check((d / "cmp_gpu.bed").read_bytes() == (d / "cmp_cpu.bed").read_bytes(), "run_comparison: BEDs differ")
+    frame = h5_utils.read_hdf(str(d / "cmp_gpu.h5"), "all")
+    cls = np.asarray(frame["classify"], dtype=object)
+    planted = np.isin(frame["pos"], w["repr_pos"]) & (np.asarray(frame["call"], dtype=object) != "NA")
+    check(planted.sum() == len(w["repr_pos"]) and (cls[planted] == "tp").all(),
+          f"run_comparison: {int((cls[planted] == 'tp').sum())} of {len(w['repr_pos'])} planted representation "
+          "differences classified tp")
+    counts = {c: int((cls == c).sum()) for c in ("tp", "fp", "fn")}
+    with open(d / "cut.bed", "w") as fh:
+        fh.write(f"chr20\t0\t{SEC_PLAIN_CUT}\n")
+    for label, env, served in (("comparison_cut_native", {}, ("vcf_parse", "match_contig_native")),
+                               ("comparison_cut_no_native", {"VCTPU_NO_NATIVE": "1"}, ())):
+        run = _sec_run("run_comparison_pipeline", [*base, "--cmp_intervals", str(d / "cut.bed"), "--output_file",
+                                                   str(d / f"{label}.h5"), "--output_interval",
+                                                   str(d / f"{label}.bed"), "--backend", "gpu"],
+                       label, card, env=env, served_by=served)
+        if env:
+            check(run["host"].get("match_contig_native", {}).get("plain", 0) >= 1,
+                  f"{label}: the Python matcher did not serve")
+    n_cut = _same_frames(str(d / "comparison_cut_native.h5"), str(d / "comparison_cut_no_native.h5"),
+                         "run_comparison no-native twin")
+    _sec_run("run_comparison_pipeline", [*base, "--concordance_tool", "GC", "--output_file", str(d / "cmp_gc.h5"),
+                                         "--output_interval", str(d / "cmp_gc.bed"), "--backend", "gpu"],
+             "comparison_gc_gpu", card)
+    gc = np.asarray(h5_utils.read_hdf(str(d / "cmp_gc.h5"), "all")["classify"], dtype=object)
+    gc_counts = {c: int((gc == c).sum()) for c in ("tp", "fp", "fn")}
+    print(f"run_comparison_pipeline: GPU and CPU wrote equal frames ({n_cmp} rows, {counts}) and BEDs; "
+          f"{int(planted.sum())} of {len(w['repr_pos'])} planted representation differences tp; the no-native twin "
+          f"equal on the {SEC_PLAIN_CUT} bp cut ({n_cut} rows); GC {gc_counts} ({card})", flush=True)
+    out["comparison"] = {"rows": n_cmp, "classes": counts, "planted_tp": int(planted.sum()), "cut_rows": n_cut,
+                         "gc_classes": gc_counts}
+
+    # -- 5. assess_sec_concordance -----------------------------------------------------------------
+    for backend in ("gpu", "cpu"):
+        _sec_run("assess_sec_concordance", ["--concordance_h5", str(d / "cmp_gpu.h5"), "--corrected_vcf",
+                                            str(d / "corrected_gpu.vcf"), "--output_file",
+                                            str(d / f"assess_{backend}.h5"), "--backend", backend],
+                 f"assess_{backend}", card)
+    _same_frames(str(d / "assess_gpu.h5"), str(d / "assess_cpu.h5"), "assess_sec_concordance GPU vs CPU")
+    delta = h5_utils.read_hdf(str(d / "assess_gpu.h5"), "delta")
+    fp_removed, tp_lost = int(delta["fp_removed"][0]), int(delta["tp_lost"][0])
+    print(f"assess_sec_concordance: GPU and CPU frames equal; SNP: {fp_removed} fps removed, {tp_lost} tps lost "
+          f"({card})", flush=True)
+    out["assess"] = {"snp_fp_removed": fp_removed, "snp_tp_lost": tp_lost}
+
+    # -- 6. vcfeval_flavors ----------------------------------------------------------------------------
+    for backend in ("gpu", "cpu"):
+        _sec_run("vcfeval_flavors", ["-b", w["truth"], "-c", w["heldout"], "-t", w["fasta"], "-e", w["hcr"],
+                                     "-o", str(d / f"flavors_{backend}"), "--backend", backend],
+                 f"flavors_{backend}", card, served_by=("vcf_parse", "match_contig_native"))
+    res = [(d / f"flavors_{b}" / "vcfeval_flavors_results.txt").read_bytes() for b in ("gpu", "cpu")]
+    check(res[0] == res[1], "vcfeval_flavors: GPU and CPU results differ")
+    print(f"vcfeval_flavors: GPU and CPU results equal: {res[0].decode().strip().splitlines()} ({card})", flush=True)
+
+    # -- 7. the LRT alone at the dense run's locus union ---------------------------------------------
+    n = w["cohort_loci"]
+    rng = np.random.default_rng(spec["seed"])
+    depth = rng.integers(8, 60, n)
+    obs = np.zeros((n, 5), np.float32)
+    obs[:, 1] = rng.binomial(depth, 0.05)
+    obs[:, 0] = depth - obs[:, 1]
+    noise = rng.integers(0, 3000, (n, 5)).astype(np.float32)
+    o, z = torch.from_numpy(obs).cuda(), torch.from_numpy(noise).cuda()
+    got = caller.noise_likelihood_ratio(o, z).cpu().numpy()
+    want = caller.noise_likelihood_ratio(torch.from_numpy(obs), torch.from_numpy(noise)).numpy()
+    live = want > 1e-30
+    rel = float((np.abs(got - want)[live] / want[live]).max(initial=0))
+    check(rel <= torch_sec_compare.RTOL, f"SEC LRT: card and CPU ratios part by {rel:.3g} (relative)")
+    ms = cuda_ms(lambda: caller.noise_likelihood_ratio(o, z), reps=20, warmup=3)
+    t0 = time.perf_counter()
+    caller.noise_likelihood_ratio(torch.from_numpy(obs), torch.from_numpy(noise))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    rate = _hbm_rate()
+    detail = {"rows": n, "card": card, "ms": ms, "cpu_ms": cpu_ms, "bytes": SEC_LRT_ROW_BYTES * n,
+              "bound_ms": SEC_LRT_ROW_BYTES * n / HBM_BYTES_PER_S * 1e3,
+              "measured_hbm_bytes_per_s": rate, "measured_bound_ms": SEC_LRT_ROW_BYTES * n / rate * 1e3,
+              "bound_share": SEC_LRT_ROW_BYTES * n / rate * 1e3 / ms, "max_rel_err_vs_cpu": rel}
+    print("SEC_LRT_DETAIL " + json.dumps(detail), flush=True)
+    out["lrt"] = detail
+    del o, z
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2257,19 +2657,33 @@ def time_kernel(kind: str, root: str) -> int:
     return 0
 
 
+def _phase(name: str, card: str, fn, *args):
+    """``fn(*args)``, then a ``PHASE_SECONDS`` line with its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print("PHASE_SECONDS " + json.dumps({"phase": name, "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    return out
+
+
 def main() -> int:
+    t0 = time.perf_counter()
     card = phase_card()
-    build_s = phase_build()
-    kern = phase_kernel(main_rows=WORLD["n_variants"])
+    build_s = _phase("build", card, phase_build)
+    kern = _phase("kernel", card, phase_kernel, WORLD["n_variants"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        pipe = phase_pipeline(Path(tmp), card)
-        phase_families(pipe["forest_pickle"]["world"], Path(tmp), card)
-        phase_blacklists(pipe["forest_pickle"]["world"], Path(tmp), card)
-        phase_sidecar(pipe["forest_pickle"]["world"], Path(tmp), card)
-        stream = phase_streaming(Path(tmp), card, pipe["forest_pickle"]["world"])
-        train = phase_training(Path(tmp), card)
-        phase_dan_eval(Path(tmp), card, train["files"])
-        cov = phase_coverage(Path(tmp), card)
+        pipe = _phase("pipeline", card, phase_pipeline, Path(tmp), card)
+        world = pipe["forest_pickle"]["world"]
+        _phase("families", card, phase_families, world, Path(tmp), card)
+        _phase("blacklists", card, phase_blacklists, world, Path(tmp), card)
+        _phase("sidecar", card, phase_sidecar, world, Path(tmp), card)
+        stream = _phase("streaming", card, phase_streaming, Path(tmp), card, world)
+        train = _phase("training", card, phase_training, Path(tmp), card)
+        _phase("dan_eval", card, phase_dan_eval, Path(tmp), card, train["files"])
+        cov = _phase("coverage", card, phase_coverage, Path(tmp), card)
+        _phase("sec", card, phase_sec, Path(tmp), card)
+    print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
     n = WORLD["n_variants"]
     rows = {  # each kernel's numbers at the main path's shape, on the production (xgboost) forest
         "forest_wide": kern["forest_wide"]["results"]["xgboost_default_left_100x64"][n],
@@ -2318,6 +2732,8 @@ def main() -> int:
         # no single PyTorch call computes a Viterbi path
         "library_ms": None, "build_s": build_s["cnv_viterbi"],
     })
+    left = stop_processes()
+    check(not left, f"processes left running by the phases: {left}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -2328,4 +2744,9 @@ if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--time-kernel" and sys.argv[2] in ("wide", "tree_step"):
         sys.exit(time_kernel(sys.argv[2], sys.argv[3]))
     check(len(sys.argv) == 1, "usage: python3 chip_smoke.py [--time-kernel {wide,tree_step} CHECKOUT_ROOT]")
-    sys.exit(main())
+    _adopt_orphans()
+    try:
+        rc = main()
+    finally:  # also when a phase failed
+        stop_processes(kill=True)
+    sys.exit(rc)

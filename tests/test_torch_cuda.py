@@ -5,7 +5,8 @@ The forest kernels, and the boosted-forest fit's histogram kernel
 the same torch program on the CPU. Also the card's own torch programs that
 must be exact or reproducible: the concordance tally (int64 counts with no
 integer matrix product, which CUDA lacks) against the CPU's, and DAN
-training steps twice on the card, bit for bit.
+training steps twice on the card, bit for bit; and the SEC likelihood
+ratio on the card against the CPU's, within its stated tolerance.
 
 Needs a CUDA device, nvcc and the kernel's build; skips without a device.
 Imports only the port (no JAX), so it runs on the machine with the card:
@@ -298,3 +299,30 @@ def test_coverage_and_cnv_on_the_card_equal_the_cpu(tmp_path):
                            if not p.name.endswith((".h5", ".gz"))}
     assert digest["gpu"] == digest["cpu"] and len(digest["gpu"]) == 7
     assert (tmp_path / "gpu" / "cnv.bed").read_text().count("\n") >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4_097, 1_000_000])
+def test_sec_lrt_on_the_card_equals_the_cpu(n):
+    """The SEC likelihood ratio (``sec.caller.noise_likelihood_ratio``: CUDA's
+    ``lgammaf``) on the card against the CPU's, within the stated relative
+    tolerance; the cohort's dense sum on the card equal to numpy's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tests.torch_sec_compare import RTOL
+    from variantcalling_tpu_torch.sec import aggregate, caller
+
+    rng = np.random.default_rng(n)
+    depth = rng.integers(1, 2001, n)
+    obs = np.zeros((n, 5), np.float32)
+    obs[:, 1] = rng.binomial(depth, rng.uniform(0, 1, n))
+    obs[:, 0] = depth - obs[:, 1]
+    obs[:, 2:] = rng.binomial(depth[:, None] // 10, 0.1, (n, 3))
+    noise = (rng.integers(0, 200_001, (n, 5)) * (rng.random((n, 5)) < 0.8)).astype(np.float32)
+    got = caller.noise_likelihood_ratio(torch.from_numpy(obs).cuda(), torch.from_numpy(noise).cuda()).cpu().numpy()
+    want = caller.noise_likelihood_ratio(torch.from_numpy(obs), torch.from_numpy(noise)).numpy()
+    live = want > 1e-30
+    assert (np.abs(got - want)[live] / want[live]).max(initial=0) <= RTOL
+    assert np.abs(got - want)[~live].max(initial=0) <= 1e-30
+    dense = rng.integers(0, 3000, (9, min(n, 50_000), 5)).astype(np.float32)
+    assert np.array_equal(aggregate.aggregate_on_device(dense, torch.device("cuda")), dense.sum(axis=0))

@@ -90,6 +90,17 @@ def test_the_coverage_and_cnv_modules_are_scanned():
         "pipelines/coverage_analysis", "pipelines/cnv_calling", "synthetic")} <= scanned
 
 
+def test_the_sec_and_comparison_modules_are_scanned():
+    """The modules of the SEC tools, ``run_comparison_pipeline`` and
+    ``vcfeval_flavors`` are among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "ops/stats", "sec/db", "sec/caller", "sec/aggregate", "pipelines/sec/sec_training",
+        "pipelines/sec/correct_systematic_errors", "pipelines/sec/sec_validation",
+        "pipelines/sec/assess_sec_concordance", "comparison/matcher", "pipelines/run_comparison",
+        "pipelines/vcfeval_flavors")} <= scanned
+
+
 def _run_cli(args: list[str], tmp_path: Path) -> subprocess.CompletedProcess:
     code = (
         "import json, sys\n"
@@ -269,3 +280,53 @@ def test_native_build_reads_only_files_of_the_port(tmp_path):
         for line in src.read_text().splitlines():
             if line.startswith("#include \""):
                 assert (NATIVE / "src" / line.split('"')[1]).exists(), line
+
+
+
+@pytest.fixture(scope="module")
+def sec_world(tmp_path_factory):
+    from variantcalling_tpu_torch import synthetic
+
+    d = tmp_path_factory.mktemp("iso_sec")
+    return synthetic.write_sec_world(str(d), seed=3, length=1_000_000, n_pool=800, n_samples=3, n_private=60,
+                                     n_heldout=1_000)
+
+
+def _sec_tools(w: dict, out: str) -> list[list[str]]:
+    """Each new tool's arguments, its outputs named ``out``-something."""
+    return [
+        ["sec_training", "--inputs", *w["samples"], "--output_file", f"{out}.db.h5", "--use_mesh"],
+        ["correct_systematic_errors", "--model", f"{out}.db.h5", "--gvcf", w["heldout"], "--output_file",
+         f"{out}.cor.vcf"],
+        ["sec_validation", "--model", f"{out}.db.h5", "--sample_vcf", w["heldout"], "--truth_vcf", w["truth"],
+         "--output_file", f"{out}.val.csv"],
+        ["run_comparison_pipeline", "--input_prefix", w["heldout"], "--gtr_vcf", w["truth"], "--highconf_intervals",
+         w["hcr"], "--reference", w["fasta"], "--output_file", f"{out}.cmp.h5", "--output_interval", f"{out}.cmp.bed"],
+        ["assess_sec_concordance", "--concordance_h5", f"{out}.cmp.h5", "--corrected_vcf", f"{out}.cor.vcf",
+         "--output_file", f"{out}.as.h5"],
+        ["vcfeval_flavors", "-b", w["truth"], "-c", w["heldout"], "-t", w["fasta"], "-o", f"{out}.flavors"],
+    ]
+
+
+def test_sec_and_comparison_cli_cpu_runs_load_none_of_them(sec_world, tmp_path):
+    for argv in _sec_tools(sec_world, "o"):
+        proc = _run_cli([*argv, "--backend", "cpu"], tmp_path)
+        assert proc.returncode == 0, proc.stderr
+        assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}, argv[0]
+    assert {"o.db.h5", "o.cor.vcf", "o.val.csv", "o.cmp.h5", "o.cmp.bed", "o.as.h5", "o.flavors"} <= \
+        {p.name for p in tmp_path.iterdir()}
+
+
+@pytest.mark.parametrize("tool", ["sec_training", "correct_systematic_errors", "sec_validation",
+                                  "run_comparison_pipeline", "assess_sec_concordance", "vcfeval_flavors"])
+def test_sec_and_comparison_cli_without_cuda_exit_2(sec_world, tmp_path, tool):
+    from variantcalling_tpu_torch.sec.db import SecDb
+
+    SecDb(["chr20"], np.zeros(0, np.int64), np.zeros((0, 5), np.float32), 1).save(str(tmp_path / "x.db.h5"))
+    (tmp_path / "x.cor.vcf").write_bytes(open(sec_world["heldout"], "rb").read())
+    argv = next(a for a in _sec_tools(sec_world, "x") if a[0] == tool)
+    before = {p.name for p in tmp_path.iterdir()}
+    proc = _run_cli(argv, tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
+    assert "no CUDA device" in proc.stderr
+    assert {p.name for p in tmp_path.iterdir()} == before

@@ -71,7 +71,7 @@ def test_exact_gt_from_an_all_key(tmp_path):
     from variantcalling_tpu_torch import synthetic
 
     frames = synthetic.train_world(8, 600, contigs=(("chr3", 1000), ("chr1", 900)))
-    th5.write_frames(str(tmp_path / "all.h5"), {"all": th5._concat(list(frames.values())),
+    th5.write_frames(str(tmp_path / "all.h5"), {"all": th5.concat_frames(list(frames.values())),
                                                "concordance": frames["chr1"]})
     port, ref = _run_both(tmp_path, ["--input_file", str(tmp_path / "all.h5")])
     assert _assert_same_labels(port, ref) == ["chr1", "chr3"]

@@ -1,10 +1,13 @@
 """CLI dispatch: ``python -m variantcalling_tpu_torch <tool> <args>``.
 
-Counterpart of ``variantcalling_tpu/__main__.py``; the port serves seven
+Counterpart of ``variantcalling_tpu/__main__.py``; the port serves 13
 tools so far: ``filter_variants_pipeline``, ``train_models_pipeline``,
 ``training_prep_pipeline``, ``train_dan``, ``evaluate_concordance``,
-``coverage_analysis`` and ``cnv_calling``. Each tool is a module exposing
-``run(argv)``, imported when called.
+``coverage_analysis``, ``cnv_calling``, the four SEC tools
+(``sec_training``, ``correct_systematic_errors``, ``sec_validation``,
+``assess_sec_concordance``), ``run_comparison_pipeline`` and
+``vcfeval_flavors``. Each tool is a module exposing ``run(argv)``,
+imported when called.
 """
 
 from __future__ import annotations
@@ -21,6 +24,12 @@ TOOLS: dict[str, str] = {
     "evaluate_concordance": "variantcalling_tpu_torch.pipelines.evaluate_concordance",
     "coverage_analysis": "variantcalling_tpu_torch.pipelines.coverage_analysis",
     "cnv_calling": "variantcalling_tpu_torch.pipelines.cnv_calling",
+    "sec_training": "variantcalling_tpu_torch.pipelines.sec.sec_training",
+    "correct_systematic_errors": "variantcalling_tpu_torch.pipelines.sec.correct_systematic_errors",
+    "sec_validation": "variantcalling_tpu_torch.pipelines.sec.sec_validation",
+    "assess_sec_concordance": "variantcalling_tpu_torch.pipelines.sec.assess_sec_concordance",
+    "run_comparison_pipeline": "variantcalling_tpu_torch.pipelines.run_comparison",
+    "vcfeval_flavors": "variantcalling_tpu_torch.pipelines.vcfeval_flavors",
 }
 
 

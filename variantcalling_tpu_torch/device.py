@@ -2,7 +2,8 @@
 
 Resolved once per run by the entry point and passed down explicitly.
 Asking for the card when there is none is an error — a run never carries
-on on the CPU by itself.
+on on the CPU by itself. A run is one process on one device:
+:func:`multi_rank` names the knobs of a launch that asks for more.
 """
 
 from __future__ import annotations
@@ -30,3 +31,17 @@ def resolve(backend: str = "gpu") -> torch.device:
 def as_device(device: torch.device | str) -> torch.device:
     """A ``torch.device`` as given, or a backend name through :func:`resolve`."""
     return resolve(device) if isinstance(device, str) else device
+
+
+def multi_rank() -> str | None:
+    """The knobs that ask for more than one rank, as text for a message, if
+    any: the tools that run one process on the whole input refuse them
+    (multi-GPU runs are ``ROADMAP.md`` A7)."""
+    from variantcalling_tpu_torch import knobs
+
+    span, rank, ranks = knobs.get_str("VCTPU_SPAN"), knobs.get_int("VCTPU_RANK"), knobs.get_int("VCTPU_NUM_PROCESSES")
+    if span:
+        return f"VCTPU_SPAN={span}"
+    if (ranks or 1) > 1 or (rank or 0) > 0:
+        return f"VCTPU_RANK={rank} VCTPU_NUM_PROCESSES={ranks}"
+    return None

@@ -1,9 +1,10 @@
 """BED / Picard interval_list parsing and the interval algebra the filter needs.
 
 Counterpart of ``variantcalling_tpu/io/bed.py`` (the parts that serve
-``--annotate_intervals`` and ``--runs_file``, and the ``BedWriter`` of
-``evaluate_concordance --output_bed``). Intervals are half-open 0-based
-[start, end) as in BED.
+``--annotate_intervals`` and ``--runs_file``, the ``BedWriter`` of
+``evaluate_concordance --output_bed``, and the membership, intersection
+and ``write_bed`` of the comparison and SEC tools). Intervals are
+half-open 0-based [start, end) as in BED.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ class IntervalSet:
     chrom: np.ndarray  # object (str)
     start: np.ndarray  # int64
     end: np.ndarray  # int64
+    name: np.ndarray | None = None  # object (str): a BED's 4th column, "" where it has none
 
     def __len__(self) -> int:
         return len(self.start)
@@ -65,6 +67,48 @@ class IntervalSet:
         return IntervalSet(_obj(chroms), np.asarray(starts, dtype=np.int64),
                            np.asarray(ends, dtype=np.int64))
 
+    def intersect(self, other: "IntervalSet") -> "IntervalSet":
+        """Pairwise intersection (bedtools intersect), by merged sweeps a chrom."""
+        a = self.merged().by_chrom()
+        b = other.merged().by_chrom()
+        chroms: list[str] = []
+        starts: list[int] = []
+        ends: list[int] = []
+        for c in a:
+            if c not in b:
+                continue
+            sa, ea = a[c]
+            sb, eb = b[c]
+            i = j = 0
+            while i < len(sa) and j < len(sb):
+                lo = max(sa[i], sb[j])
+                hi = min(ea[i], eb[j])
+                if lo < hi:
+                    chroms.append(c)
+                    starts.append(int(lo))
+                    ends.append(int(hi))
+                if ea[i] < eb[j]:
+                    i += 1
+                else:
+                    j += 1
+        return IntervalSet(_obj(chroms), np.asarray(starts, dtype=np.int64), np.asarray(ends, dtype=np.int64))
+
+    def contains(self, chrom: np.ndarray, pos0: np.ndarray) -> np.ndarray:
+        """Membership of 0-based positions, a sorted search a chrom."""
+        pos0 = np.asarray(pos0)
+        out = np.zeros(len(pos0), dtype=bool)
+        chrom = np.asarray(chrom)
+        for c, (s, e) in self.merged().by_chrom().items():
+            m = chrom == c
+            if not m.any():
+                continue
+            idx = np.searchsorted(s, pos0[m], side="right") - 1
+            ok = idx >= 0
+            hit = np.zeros(m.sum(), dtype=bool)
+            hit[ok] = pos0[m][ok] < e[idx[ok]]
+            out[m] = hit
+        return out
+
 
 def _open_text(path: str):
     if str(path).endswith((".gz", ".bgz")):
@@ -77,6 +121,7 @@ def read_bed(path: str) -> IntervalSet:
     chroms: list[str] = []
     starts: list[int] = []
     ends: list[int] = []
+    names: list[str] = []
     with _open_text(path) as fh:
         for line in fh:
             line = line.rstrip("\n")
@@ -86,8 +131,9 @@ def read_bed(path: str) -> IntervalSet:
             chroms.append(p[0])
             starts.append(int(p[1]))
             ends.append(int(p[2]))
+            names.append(p[3] if len(p) > 3 else "")
     return IntervalSet(_obj(chroms), np.asarray(starts, dtype=np.int64),
-                       np.asarray(ends, dtype=np.int64))
+                       np.asarray(ends, dtype=np.int64), name=_obj(names))
 
 
 def read_interval_list(path: str) -> IntervalSet:
@@ -113,6 +159,17 @@ def read_intervals(path: str) -> IntervalSet:
     if str(path).endswith(".interval_list"):
         return read_interval_list(path)
     return read_bed(path)
+
+
+def write_bed(path: str, intervals: IntervalSet) -> None:
+    """One line an interval: chrom, start, end, and its name where it has one."""
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "wt") as out:
+        for i in range(len(intervals)):
+            cols = [str(intervals.chrom[i]), str(int(intervals.start[i])), str(int(intervals.end[i]))]
+            if intervals.name is not None and intervals.name[i]:
+                cols.append(str(intervals.name[i]))
+            out.write("\t".join(cols) + "\n")
 
 
 class BedWriter:

@@ -112,7 +112,8 @@ def encode_seq(seq: str) -> np.ndarray:
 
 
 class FastaReader:
-    """Indexed FASTA whose contigs are read whole as uint8 codes (:meth:`fetch_encoded`)."""
+    """Indexed FASTA whose contigs are read whole as uint8 codes (:meth:`fetch_encoded`),
+    or as text (:meth:`fetch`, for the comparison's haplotype matcher)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -292,6 +293,22 @@ class FastaReader:
         body = _CODE[raw[: full * e.line_width].reshape(full, e.line_width)[:, : e.line_bases]]
         tail = _CODE[raw[full * e.line_width:][: e.line_bases]]
         return np.concatenate([body.reshape(-1), tail])[: e.length]
+
+    def fetch(self, chrom: str, start: int, end: int) -> str:
+        """Uppercased sequence text of [start, end), clamped to the contig's bounds."""
+        e = self._index[chrom]
+        start = max(0, int(start))
+        end = min(e.length, int(end))
+        if end <= start:
+            return ""
+        first_line = start // e.line_bases
+        byte_start = e.offset + first_line * e.line_width + (start - first_line * e.line_bases)
+        last_line = (end - 1) // e.line_bases
+        byte_end = e.offset + last_line * e.line_width + ((end - 1) - last_line * e.line_bases) + 1
+        with self._io_lock:
+            self._fh.seek(byte_start)
+            data = self._fh.read(byte_end - byte_start)
+        return data.replace(b"\n", b"").replace(b"\r", b"").decode().upper()
 
     def close(self) -> None:
         self._fh.close()

@@ -573,7 +573,7 @@ def _format_extra_info(n: int, extra_info: dict) -> list[str]:
 
 def write_vcf(path: str, table: VariantTable, new_filters=None,
               extra_info: dict[str, np.ndarray] | None = None, index: bool = True,
-              verbatim_core: bool = False) -> None:
+              verbatim_core: bool = False, qual_as_read: bool = True) -> None:
     """Write a VariantTable back to VCF (``.gz`` -> BGZF), rewriting FILTER and
     appending ``extra_info`` keys to INFO; FORMAT/sample tails are verbatim,
     and so is the QUAL text of every record whose QUAL was not edited.
@@ -585,7 +585,12 @@ def write_vcf(path: str, table: VariantTable, new_filters=None,
 
     ``index``: a ``.gz`` output also gets its ``.tbi`` (``io/tabix``), as the
     reference's does; unsorted records leave the VCF valid and write no
-    index (a stale one beside it is removed)."""
+    index (a stale one beside it is removed).
+
+    ``qual_as_read=False``: every QUAL is written as :func:`format_qual` of
+    its value (``34.30`` as ``34.3``), as the reference's ``write_vcf``
+    writes it outside its native splice (its SEC correction's output);
+    the records are then rendered by the plain writer."""
     if str(path).endswith(".gz"):
         from variantcalling_tpu_torch.io.bgzf import BgzfWriter
 
@@ -595,8 +600,8 @@ def write_vcf(path: str, table: VariantTable, new_filters=None,
     with out:
         head = [*table.header.lines, table.header.column_header()]
         out.write(("\n".join(head) + "\n").encode())
-        if not (verbatim_core and _write_assembled_native(out, table, new_filters, extra_info)):
-            _write_records(out, table, new_filters, extra_info)
+        if not (verbatim_core and qual_as_read and _write_assembled_native(out, table, new_filters, extra_info)):
+            _write_records(out, table, new_filters, extra_info, qual_as_read)
     if index and str(path).endswith(".gz"):
         write_tabix(str(path))
 
@@ -614,7 +619,7 @@ def write_tabix(path: str) -> None:
             os.remove(f"{path}.tbi")
 
 
-def _write_records(out, table: VariantTable, new_filters, extra_info) -> None:
+def _write_records(out, table: VariantTable, new_filters, extra_info, qual_as_read: bool = True) -> None:
     """The plain writer: each record rendered from the columns."""
     n = len(table)
     suffix = _format_extra_info(n, extra_info) if extra_info else None
@@ -622,7 +627,7 @@ def _write_records(out, table: VariantTable, new_filters, extra_info) -> None:
     if isinstance(filters, FactorizedColumn):
         filters = filters.to_object()
     pos_s = np.char.mod("%d", table.pos)
-    qual_s = _qual_column(table)
+    qual_s = _qual_column(table) if qual_as_read else _format_qual_column(table.qual)
     chunk: list[str] = []
     for i in range(n):
         info = table.info[i]

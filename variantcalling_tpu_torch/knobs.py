@@ -365,7 +365,7 @@ HONOURED = frozenset({
     "VCTPU_CACHE_DIR", "VCTPU_CACHE_MAX_MB", "VCTPU_FAULTS",
     # the boosted-forest fit
     "VCTPU_NATIVE_GBT",
-    # train_dan's rank check: a launch of more than one rank exits 2 (multi-GPU waits for A7)
+    # the rank check of train_dan and sec_training: a launch of more than one rank exits 2 (A7)
     "VCTPU_RANK", "VCTPU_NUM_PROCESSES", "VCTPU_SPAN",
 })
 

@@ -7,7 +7,10 @@ CPU trainer of the boosted-forest fit (``bin_features``, ``gbt_fit``), and
 the depth walkers of the coverage and CNV tools (``bam_depth``; the CRAM
 3.0 decoder ``cram_header``, ``cram_count``, ``cram_scan``,
 ``cram_depth``, which have no plain version: ``io/cram`` raises without
-them) and ``coverage_analysis``'s bedGraph text (``bedgraph_lines``). The library is built
+them), ``coverage_analysis``'s bedGraph text (``bedgraph_lines``) and the
+comparison's haplotype matcher (``match_contig_native``, a verbatim copy of
+the reference's ``vctpu_match.cc``, which ``comparison/matcher`` holds to its
+Python specification). The library is built
 with g++ at first use into ``libvctpu_native-<hash>.so`` in the kernels'
 build directory (``csrc/build.BUILD_DIR``: the checkout's ``build/``),
 keyed by the sources, the flags and the CPU's ``flags`` line, under a file
@@ -45,7 +48,7 @@ from variantcalling_tpu_torch.csrc.build import BUILD_DIR
 log = logging.getLogger(__name__)
 
 SRC_DIR = Path(__file__).resolve().parent / "src"
-SOURCES = ("vctpu_native.cc", "vctpu_features.cc", "vctpu_gbt.cc", "vctpu_cram.cc")
+SOURCES = ("vctpu_native.cc", "vctpu_features.cc", "vctpu_gbt.cc", "vctpu_cram.cc", "vctpu_match.cc")
 #: included by the sources: hashed into the build key, not compiled alone
 HEADERS = ("vctpu_threads.h",)
 CXXFLAGS = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC", "-std=c++17"]
@@ -54,7 +57,7 @@ CXXFLAGS = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC", "-std=
 ENTRY_POINTS = ("bgzf_decompress_array", "vcf_parse", "interval_membership", "fasta_encode",
                 "gather_windows_contig", "format_float_info", "vcf_assemble", "bgzf_compress",
                 "bin_features", "gbt_fit", "bam_depth", "cram_header", "cram_count", "cram_scan", "cram_depth",
-                "bedgraph_lines")
+                "bedgraph_lines", "match_contig_native")
 #: per entry point: calls served natively, their seconds, and calls left to the plain version
 CALLS: dict[str, dict] = {}
 #: guards CALLS: the streaming executor's workers call the engine concurrently
@@ -173,6 +176,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         "vctpu_cram_scan": (_i64, [_u8p, _i64, _i64, _i32p, _i64p, _i32p, _i32p, _i32p, _i32p]),
         "vctpu_cram_depth": (_i64, _DEPTH_ARGS),
         "vctpu_bedgraph_lines": (_i64, [_u8p, _i64, _i64p, _i64p, _i64p, _i64, _u8p, _i64]),
+        "vctpu_match_contig": (_i64, [_u8p, _i64,
+                                      _i64, _i64p, _u8p, _i64p, _u8p, _i64p, _i8p,
+                                      _i64, _i64p, _u8p, _i64p, _u8p, _i64p, _i8p,
+                                      _i32, _u8p, _u8p, _u8p, _u8p, _i64p, _i64p]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -537,3 +544,46 @@ def bedgraph_lines(lib, contig: str, starts: np.ndarray, ends: np.ndarray, vals:
     w = lib.vctpu_bedgraph_lines(_p(name, _u8p), len(contig.encode()), *(_p(c, _i64p) for c in cols), n,
                                  _p(out, _u8p), cap)
     return None if w < 0 else out[:w].tobytes()
+
+
+def _pack(items) -> tuple[np.ndarray, np.ndarray]:
+    """(uint8 blob, (n + 1,) int64 offsets) over the concatenated strings."""
+    blob = "".join(items).encode("latin-1")
+    offs = np.zeros(len(items) + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, items), dtype=np.int64, count=len(items)), out=offs[1:])
+    return np.frombuffer(blob or b"\x00", dtype=np.uint8), offs
+
+
+@_entry
+def match_contig_native(lib, ref_seq: str, c_pos, c_ref, c_alt, c_gt, t_pos, t_ref, t_alt, t_gt,
+                        haplotype_rescue: bool = True):
+    """The haplotype matcher of one contig: ``c_ref``/``t_ref`` each record's
+    REF, ``c_alt``/``t_alt`` its comma-joined ALTs; (call_tp, call_tp_gt,
+    truth_tp, truth_tp_gt, call_truth_idx, (capped clusters, variants in
+    them)) as ``comparison.matcher`` returns them; None where the engine
+    throws."""
+    nc, nt = len(c_pos), len(t_pos)
+    seq = np.frombuffer(ref_seq.encode("latin-1") or b"\x00", dtype=np.uint8)
+    crb, cro = _pack(list(c_ref))
+    cab, cao = _pack(list(c_alt))
+    trb, tro = _pack(list(t_ref))
+    tab, tao = _pack(list(t_alt))
+    cp = np.ascontiguousarray(c_pos, dtype=np.int64)
+    tp = np.ascontiguousarray(t_pos, dtype=np.int64)
+    cg = np.ascontiguousarray(c_gt, dtype=np.int8)
+    tg = np.ascontiguousarray(t_gt, dtype=np.int8)
+    call_tp, call_tp_gt = np.zeros(max(nc, 1), dtype=np.uint8), np.zeros(max(nc, 1), dtype=np.uint8)
+    truth_tp, truth_tp_gt = np.zeros(max(nt, 1), dtype=np.uint8), np.zeros(max(nt, 1), dtype=np.uint8)
+    idx = np.full(max(nc, 1), -1, dtype=np.int64)
+    stats = np.zeros(2, dtype=np.int64)
+    rc = lib.vctpu_match_contig(
+        _p(seq, _u8p), len(ref_seq),
+        nc, _p(cp, _i64p), _p(crb, _u8p), _p(cro, _i64p), _p(cab, _u8p), _p(cao, _i64p), _p(cg, _i8p),
+        nt, _p(tp, _i64p), _p(trb, _u8p), _p(tro, _i64p), _p(tab, _u8p), _p(tao, _i64p), _p(tg, _i8p),
+        1 if haplotype_rescue else 0,
+        _p(call_tp, _u8p), _p(call_tp_gt, _u8p), _p(truth_tp, _u8p), _p(truth_tp_gt, _u8p),
+        _p(idx, _i64p), _p(stats, _i64p))
+    if rc != 0:
+        return None
+    return (call_tp[:nc].astype(bool), call_tp_gt[:nc].astype(bool),
+            truth_tp[:nt].astype(bool), truth_tp_gt[:nt].astype(bool), idx[:nc], stats)

@@ -260,16 +260,6 @@ def ingest_streaming(args):
 # -- the run ---------------------------------------------------------------------------
 
 
-def _multi_rank() -> str | None:
-    """The env that asks for more than one rank, if any."""
-    span, rank, ranks = knobs.get_str("VCTPU_SPAN"), knobs.get_int("VCTPU_RANK"), knobs.get_int("VCTPU_NUM_PROCESSES")
-    if span:
-        return f"VCTPU_SPAN={span}"
-    if (ranks or 1) > 1 or (rank or 0) > 0:
-        return f"VCTPU_RANK={rank} VCTPU_NUM_PROCESSES={ranks}"
-    return None
-
-
 def run(argv) -> int:
     """Train the DAN variant filter with checkpoint/resume and a journaled streaming ingest."""
     args = parse_args(argv)
@@ -280,7 +270,7 @@ def run(argv) -> int:
     except (engine_mod.EngineError, device_mod.DeviceUnavailable) as e:
         log.error("%s", e)
         return 2
-    ranks = _multi_rank()
+    ranks = device_mod.multi_rank()
     if ranks:
         log.error("train_dan: %s asks for more than one rank; the port trains on one (multi-GPU training is "
                   "ROADMAP A7) and never trains one rank on the whole input: unset them", ranks)

@@ -16,6 +16,7 @@ world's callset for approximate-GT labels.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 
@@ -644,3 +645,300 @@ def write_coverage_world(d: str, seed: int, contigs: list[tuple[str, int]] | Non
     with open(cats, "w") as fh:
         fh.write(f"exome\t{exome}\nplanted\t{planted}\n")
     return {"fasta": fasta, "bam": bam, "categories": cats, "reads": reads, "bam_bytes": nbytes}
+
+
+#: the SEC world of ``chip_smoke.py`` phase 12: BASELINE config 5 (a 100-sample cohort's
+#: noise DB) cut to one contig, the filter world's chr20
+SEC_WORLD = dict(seed=2031, length=64_444_167, n_pool=60_000, n_samples=100, n_private=10_000, n_heldout=104_000)
+#: of the held-out callset: noise records at pool loci, real variants at pool loci
+SEC_NOISE_SHARE, SEC_REAL_POOL_SHARE = 34 / 104, 6 / 104
+SEC_MULTI_SHARE = 0.05  # records with 2-4 alts
+SEC_REPR_SHARE = 0.02  # truth variants written in another form
+SEC_ISOLATION = 200  # bp between a planted representation difference and any other variant
+
+
+def _distinct_positions(rng: np.random.Generator, lo: int, hi: int, n: int, taken: np.ndarray) -> np.ndarray:
+    """``n`` sorted distinct positions in [lo, hi), none of them in ``taken`` (sorted)."""
+    out = np.zeros(0, dtype=np.int64)
+    while len(out) < n:
+        cand = np.unique(np.concatenate([out, rng.integers(lo, hi, size=n + n // 8 + 16)]))
+        out = cand[~np.isin(cand, taken)]
+    return np.sort(rng.choice(out, size=n, replace=False))
+
+
+def _snv_alt(codes: np.ndarray, shift) -> np.ndarray:
+    return _BASES[(codes + shift) % 4]
+
+
+@functools.cache
+def _text_tables() -> tuple[np.ndarray, np.ndarray]:
+    """Decimal text of 0..999 and the two-digit fractions 00..99: counts and QUALs by table lookup."""
+    return np.char.mod(b"%d", np.arange(1000)), np.char.mod(b"%02d", np.arange(100))
+
+
+def _int_text(values: np.ndarray) -> np.ndarray:
+    """Decimal text of non-negative integers below 1,000."""
+    return _text_tables()[0][values]
+
+
+def _ad_text(ad: np.ndarray, n_alts: np.ndarray) -> np.ndarray:
+    """``ref,alt1[,alt2...]`` of each row of ``ad`` (n, 5), ``n_alts`` alts a row."""
+    out = _cat(_int_text(ad[:, 0]), b",", _int_text(ad[:, 1])).astype("S40")
+    for j in range(2, 5):
+        m = n_alts >= j
+        if m.any():
+            out[m] = _cat(out[m], b",", _int_text(ad[m, j]))
+    return out
+
+
+def _sec_records(rng: np.random.Generator, genome: np.ndarray, pos0: np.ndarray, ref: np.ndarray, alt: np.ndarray,
+                 noise_af: np.ndarray | None, hom: np.ndarray, contig: bytes,
+                 multi_share: float = SEC_MULTI_SHARE, pos_text: np.ndarray | None = None) -> np.ndarray:
+    """VCF record lines (``GT:AD:DP``, about 30x) at ``pos0`` (``pos_text``:
+    their 1-based text, where the caller has it): noise where ``noise_af``
+    is given (ref-dominant AD, an alt trickle at that AF, GT 0/1), else real
+    variants (het or, where ``hom``, hom-alt AD); ``multi_share`` of them
+    with 2-4 alts (SNV alts, the fourth an insertion), ``1/2``."""
+    n = len(pos0)
+    depth = np.clip(rng.poisson(30, n), 8, 999)
+    n_alts = np.ones(n, dtype=np.int64)
+    multi = rng.random(n) < multi_share
+    n_alts[multi] = rng.integers(2, 5, int(multi.sum()))
+    ad = np.zeros((n, 5), dtype=np.int64)
+    if noise_af is not None:
+        ad[:, 1] = np.maximum(rng.binomial(depth, noise_af), 1)
+        for j in range(2, 5):
+            ad[:, j] = np.where(n_alts >= j, rng.binomial(depth, noise_af / 2), 0)
+        gt = np.full(n, b"0/1", dtype="S3")
+    else:
+        ad[:, 1] = np.where(hom, depth - rng.binomial(depth, 0.02), np.clip(rng.binomial(depth, 0.5), 3, None))
+        for j in range(2, 5):
+            ad[:, j] = np.where(n_alts >= j, rng.binomial(depth, 0.5 if j == 2 else 0.03), 0)
+        gt = np.where(hom, b"1/1", b"0/1").astype("S3")
+    ad[:, 0] = np.maximum(depth - ad[:, 1:].sum(axis=1), 0)
+    gt[multi] = b"1/2"
+    ref, alt = ref.copy(), alt.copy()
+    if multi.any():
+        base = genome[pos0[multi]]
+        ref[multi] = _BASES[base]
+        m_alt = _cat(_snv_alt(base, 1), b",", _snv_alt(base, 2))
+        k = n_alts[multi]
+        m_alt = np.where(k >= 3, _cat(m_alt, b",", _snv_alt(base, 3)), m_alt)
+        m_alt = np.where(k >= 4, _cat(m_alt, b",", _BASES[base], _snv_alt(base, 1)), m_alt)
+        alt = alt.astype("S16")
+        alt[multi] = m_alt
+    hundredths = rng.integers(500, 4000, n) if noise_af is not None else rng.integers(3000, 9000, n)
+    qual = _cat(_int_text(hundredths // 100), b".", _text_tables()[1][hundredths % 100])  # GATK's two decimals
+    dp = _int_text(depth)
+    tab = b"\t"
+    if pos_text is None:
+        pos_text = np.char.mod(b"%d", pos0 + 1)
+    return _cat(contig, tab, pos_text, tab, b".", tab, ref, tab, alt, tab, qual, tab, b"PASS",
+                tab, b"DP=", dp, tab, b"GT:AD:DP", tab, gt, b":", _ad_text(ad, n_alts), b":", dp)
+
+
+def _sec_header(contig: str, length: int, sample: str, fmt: bool = True) -> bytes:
+    lines = ["##fileformat=VCFv4.2", '##FILTER=<ID=PASS,Description="All filters passed">',
+             '##INFO=<ID=DP,Number=1,Type=Integer,Description="Depth">',
+             '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">']
+    if fmt:
+        lines += ['##FORMAT=<ID=AD,Number=R,Type=Integer,Description="Allele depths">',
+                  '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read depth">']
+    lines += [f"##contig=<ID={contig},length={length}>", f"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t{sample}"]
+    return ("\n".join(lines) + "\n").encode()
+
+
+def _write_lines(path: str, header: bytes, pos0: np.ndarray, lines: np.ndarray) -> None:
+    order = np.argsort(pos0, kind="stable")
+    with open(path, "wb") as fh:
+        fh.write(header)
+        if len(lines):
+            fh.write(b"\n".join(lines[order].tolist()) + b"\n")
+
+
+def _pool_alleles(rng: np.random.Generator, genome: np.ndarray, pos0: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """REF and ALT of SNVs (75 %) and 1-bp insertions and deletions (12.5 % each)."""
+    n = len(pos0)
+    kind = rng.random(n)
+    base = genome[pos0]
+    ref = _BASES[base].astype("S2")
+    alt = _snv_alt(base, rng.integers(1, 4, n)).astype("S2")
+    ins, dele = (kind >= 0.75) & (kind < 0.875), kind >= 0.875
+    alt[ins] = _cat(_BASES[base[ins]], _BASES[rng.integers(0, 4, int(ins.sum()))])
+    ref[dele] = _cat(_BASES[base[dele]], _BASES[genome[pos0[dele] + 1]])
+    alt[dele] = _BASES[base[dele]]
+    return ref, alt
+
+
+def write_sec_world(d: str, seed: int, length: int = 64_444_167, n_pool: int = 60_000, n_samples: int = 100,
+                    n_private: int = 10_000, n_heldout: int = 104_000, contig: str = "chr20") -> dict:
+    """Write the SEC world under ``d``: ``ref.fa`` (+ ``.fai``), a cohort of
+    ``n_samples`` callsets ``cohort_NNN.vcf`` (``GT:AD:DP`` at about 30x),
+    each holding about 70 % of a pool of ``n_pool`` noise loci (SNVs and
+    1-bp indels, each locus with its own noise AF of 2-8 %: ref-dominant AD
+    and an alt trickle) and ``n_private`` real variants of its own (het or
+    hom AD), 5 % of all records with 2-4 alts; a held-out callset
+    ``heldout.vcf`` of ``n_heldout`` records (34/104 noise at pool loci,
+    6/104 real variants at other pool loci, the rest real variants
+    elsewhere) and its truth ``truth.vcf``: the held-out sample's real
+    variants, 2 % of them written in another form (a deletion or insertion
+    shifted along its homopolymer run, a two-alt record split into two
+    records, an MNP split into SNVs: each at least ``SEC_ISOLATION`` bp from
+    any other variant), and 3 % more that the callset misses; ``hcr.bed``
+    (95 % of the contig), ``exome.bed`` (intervals to annotate) and
+    ``pool.bed`` (the pool's loci, for ``--relevant_coords``).
+
+    Returns the paths, the cohort's count of distinct loci, and, 1-based,
+    the positions of the planted noise records, the planted real variants
+    at pool loci and the planted representation differences (their call
+    records' positions)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    genome = _genome(rng, length)
+    fasta = os.path.join(d, "ref.fa")
+    _write_fasta(fasta, [(contig, genome)])
+    cb = contig.encode()
+    lo, hi = 100, length - 100
+
+    pool = _distinct_positions(rng, lo, hi, n_pool, np.zeros(0, np.int64))
+    pool_ref, pool_alt = _pool_alleles(rng, genome, pool)
+    pool_af = rng.uniform(0.02, 0.08, n_pool)
+    pool_text = np.char.mod(b"%d", pool + 1)
+
+    samples, loci = [], [pool]
+    for s in range(n_samples):
+        sel = np.flatnonzero(rng.random(n_pool) < 0.7)
+        priv = _distinct_positions(rng, lo, hi, n_private, pool)
+        p_ref, p_alt = _pool_alleles(rng, genome, priv)
+        noise = _sec_records(rng, genome, pool[sel], pool_ref[sel], pool_alt[sel], pool_af[sel],
+                             np.zeros(len(sel), bool), cb, pos_text=pool_text[sel])
+        real = _sec_records(rng, genome, priv, p_ref, p_alt, None, rng.random(n_private) < 0.4, cb)
+        path = os.path.join(d, f"cohort_{s:03d}.vcf")
+        _write_lines(path, _sec_header(contig, length, f"S{s:03d}"), np.concatenate([pool[sel], priv]),
+                     np.concatenate([noise, real]))
+        samples.append(path)
+        loci.append(priv)
+
+    # the held-out sample
+    n_noise, n_real_pool = int(round(n_heldout * SEC_NOISE_SHARE)), int(round(n_heldout * SEC_REAL_POOL_SHARE))
+    if n_noise + n_real_pool > n_pool:
+        raise ValueError(f"a held-out callset of {n_heldout} records needs a pool of {n_noise + n_real_pool} loci")
+    at_pool = rng.permutation(n_pool)[: n_noise + n_real_pool]
+    noise_i, real_i = np.sort(at_pool[:n_noise]), np.sort(at_pool[n_noise:])
+    n_priv = n_heldout - n_noise - n_real_pool
+    n_repr = max(3, int(round((n_real_pool + n_priv) * SEC_REPR_SHARE)))
+    priv = _distinct_positions(rng, lo, hi, n_priv - n_repr, pool)
+    n_fn = int(round((n_real_pool + n_priv) * 0.03))
+    fn_pos = _distinct_positions(rng, lo, hi, n_fn, np.union1d(pool, priv))
+
+    # hcr: 95 % of the contig, a gap of 5 % in each of its segments
+    n_seg = max(1, length // 64_000)
+    edges = np.linspace(0, length, n_seg + 1).astype(np.int64)
+    gap_len = (np.diff(edges) * 0.05).astype(np.int64)
+    gap_start = edges[:-1] + (rng.random(n_seg) * (np.diff(edges) - gap_len)).astype(np.int64)
+    hcr = np.stack([np.concatenate([edges[:-1], gap_start + gap_len]),
+                    np.concatenate([gap_start, edges[1:]])], axis=1)
+    hcr = hcr[np.argsort(hcr[:, 0])]
+    hcr = hcr[hcr[:, 1] > hcr[:, 0]]
+
+    # the planted representation differences: isolated, inside the hcr
+    taken = np.unique(np.concatenate([pool, priv, fn_pos]))
+    runs = np.flatnonzero((genome[1:-3] != genome[:-4]) & (genome[1:-3] == genome[2:-2])
+                          & (genome[1:-3] == genome[3:-1]) & (genome[1:-3] == genome[4:])) + 1  # run starts, length >= 4
+    runs = runs[(runs > lo + 1) & (runs < hi - 8)]
+
+    def isolated(cand: np.ndarray) -> np.ndarray:
+        at = np.searchsorted(taken, cand)
+        near = np.minimum(np.abs(cand - taken[np.clip(at - 1, 0, len(taken) - 1)]),
+                          np.abs(taken[np.clip(at, 0, len(taken) - 1)] - cand))
+        h = np.searchsorted(hcr[:, 0], cand, side="right") - 1
+        in_hcr = (h >= 0) & (cand + 4 < hcr[np.maximum(h, 0), 1]) & (cand - 1 >= hcr[np.maximum(h, 0), 0])
+        return cand[(near >= SEC_ISOLATION) & in_hcr]
+
+    k_shift = n_repr // 3
+    shift_at = np.sort(rng.choice(isolated(runs - 1), size=k_shift, replace=False))  # the base before the run
+    taken = np.union1d(taken, shift_at)
+    rest = np.zeros(0, dtype=np.int64)
+    for _ in range(64):  # isolated draws, pairwise too
+        rest = np.unique(np.concatenate([rest, isolated(rng.integers(lo, hi - 8, size=8 * n_repr + 64))]))
+        gaps = np.diff(rest)
+        rest = rest[np.concatenate([[True], gaps >= SEC_ISOLATION]) & np.concatenate([gaps >= SEC_ISOLATION, [True]])]
+        if len(rest) >= n_repr - k_shift:
+            break
+    k_split = (n_repr - k_shift) // 2
+    pick = rng.choice(len(rest), size=n_repr - k_shift, replace=False)
+    split_at, mnp_at = np.sort(rest[pick[:k_split]]), np.sort(rest[pick[k_split:]])
+
+    # the held-out callset's records
+    h_lines, h_pos = [], []
+    h_lines.append(_sec_records(rng, genome, pool[noise_i], pool_ref[noise_i], pool_alt[noise_i], pool_af[noise_i],
+                                np.zeros(n_noise, bool), cb))
+    h_pos.append(pool[noise_i])
+    real_hom = rng.random(n_real_pool) < 0.4
+    h_lines.append(_sec_records(rng, genome, pool[real_i], pool_ref[real_i], pool_alt[real_i], None, real_hom, cb,
+                                multi_share=0.0))
+    h_pos.append(pool[real_i])
+    p_ref, p_alt = _pool_alleles(rng, genome, priv)
+    p_hom = rng.random(len(priv)) < 0.4
+    h_lines.append(_sec_records(rng, genome, priv, p_ref, p_alt, None, p_hom, cb, multi_share=0.0))
+    h_pos.append(priv)
+    # planted: a deletion of one run base anchored before the run (call) and inside it (truth); an
+    # insertion of the run base the same way for every other one
+    shift_ins = np.arange(k_shift) % 2 == 1
+    a, run_base = genome[shift_at], genome[shift_at + 1]
+    s_ref = np.where(shift_ins, _BASES[a], _cat(_BASES[a], _BASES[run_base]))
+    s_alt = np.where(shift_ins, _cat(_BASES[a], _BASES[run_base]), _BASES[a])
+    t_ref = np.where(shift_ins, _BASES[run_base], _cat(_BASES[run_base], _BASES[run_base]))
+    t_alt = np.where(shift_ins, _cat(_BASES[run_base], _BASES[run_base]), _BASES[run_base])
+    s_hom = rng.random(k_shift) < 0.4
+    h_lines.append(_sec_records(rng, genome, shift_at, s_ref, s_alt, None, s_hom, cb, multi_share=0.0))
+    h_pos.append(shift_at)
+    sb = genome[split_at]
+    split_rec = _cat(cb, b"\t", np.char.mod(b"%d", split_at + 1), b"\t.\t", _BASES[sb], b"\t",
+                     _snv_alt(sb, 1), b",", _snv_alt(sb, 2), b"\t50.00\tPASS\tDP=30\tGT:AD:DP\t1/2:2,14,14:30")
+    h_lines.append(split_rec)
+    h_pos.append(split_at)
+    mb0, mb1 = genome[mnp_at], genome[mnp_at + 1]
+    mnp_rec = _cat(cb, b"\t", np.char.mod(b"%d", mnp_at + 1), b"\t.\t", _BASES[mb0], _BASES[mb1], b"\t",
+                   _snv_alt(mb0, 1), _snv_alt(mb1, 2), b"\t50.00\tPASS\tDP=30\tGT:AD:DP\t1/1:1,29:30")
+    h_lines.append(mnp_rec)
+    h_pos.append(mnp_at)
+    heldout = os.path.join(d, "heldout.vcf")
+    _write_lines(heldout, _sec_header(contig, length, "HG001"), np.concatenate(h_pos), np.concatenate(h_lines))
+
+    # its truth: the real variants as called (GT only), the planted ones in their other form, and the misses
+    def truth_lines(pos0, ref, alt, gt):
+        return _cat(cb, b"\t", np.char.mod(b"%d", pos0 + 1), b"\t.\t", ref, b"\t", alt, b"\t50\tPASS\t.\tGT\t", gt)
+
+    hom_gt = lambda hom: np.where(hom, b"1/1", b"0/1")  # noqa: E731
+    t_pos, t_lines = [pool[real_i], priv], []
+    t_lines.append(truth_lines(pool[real_i], pool_ref[real_i], pool_alt[real_i], hom_gt(real_hom)))
+    t_lines.append(truth_lines(priv, p_ref, p_alt, hom_gt(p_hom)))
+    t_pos.append(shift_at + 1)
+    t_lines.append(truth_lines(shift_at + 1, t_ref, t_alt, hom_gt(s_hom)))
+    for j in (1, 2):
+        t_pos.append(split_at)
+        t_lines.append(truth_lines(split_at, _BASES[sb], _snv_alt(sb, j), np.full(len(sb), b"0/1")))
+    for off, code, j in ((0, mb0, 1), (1, mb1, 2)):
+        t_pos.append(mnp_at + off)
+        t_lines.append(truth_lines(mnp_at + off, _BASES[code], _snv_alt(code, j), np.full(len(mnp_at), b"1/1")))
+    f_ref, f_alt = _pool_alleles(rng, genome, fn_pos)
+    t_pos.append(fn_pos)
+    t_lines.append(truth_lines(fn_pos, f_ref, f_alt, hom_gt(rng.random(n_fn) < 0.4)))
+    truth = os.path.join(d, "truth.vcf")
+    _write_lines(truth, _sec_header(contig, length, "HG001", fmt=False), np.concatenate(t_pos),
+                 np.concatenate(t_lines))
+
+    paths = {name: os.path.join(d, f"{name}.bed") for name in ("hcr", "exome", "pool")}
+    with open(paths["hcr"], "w") as fh:
+        fh.write("".join(f"{contig}\t{s}\t{e}\n" for s, e in hcr.tolist()))
+    starts = np.sort(rng.choice(length - 400, size=min(20_000, (length - 400) // 400), replace=False))
+    with open(paths["exome"], "w") as fh:
+        fh.write("".join(f"{contig}\t{s}\t{e}\n" for s, e in zip(starts.tolist(),
+                                                                (starts + rng.integers(150, 301, len(starts))).tolist())))
+    with open(paths["pool"], "w") as fh:
+        fh.write("".join(f"{contig}\t{p}\t{p + 1}\n" for p in pool.tolist()))
+    return {"fasta": fasta, "samples": samples, "heldout": heldout, "truth": truth, **paths,
+            "noise_pos": pool[noise_i] + 1, "real_pool_pos": pool[real_i] + 1,
+            "repr_pos": np.sort(np.concatenate([shift_at, split_at, mnp_at])) + 1,
+            "cohort_loci": len(np.unique(np.concatenate(loci)))}

@@ -252,7 +252,7 @@ def _read_frame(g: hdf5.Group) -> Frame:
     return frame
 
 
-def _concat(frames: list[Frame]) -> Frame:
+def concat_frames(frames: list[Frame]) -> Frame:
     """Frames one after the other, as ``pd.concat`` stacks them: the union of
     their columns in order of first appearance, a column that a frame lacks
     filled with NaN there (None in a column of strings or objects), and the
@@ -291,7 +291,7 @@ def read_hdf(path: str, key: str = "all", skip_keys: list[str] | None = None, co
                       if k not in skip and _is_frame_group(root[k])]
             if not frames:
                 raise KeyError(f"no frames in {path}")
-            frame = _concat(frames)
+            frame = concat_frames(frames)
         else:
             raise KeyError(f"key {key!r} not in {path}")
     if columns_subset is not None:

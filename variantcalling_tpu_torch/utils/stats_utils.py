@@ -1,12 +1,12 @@
-"""The precision/recall curve of a scored callset, on the host in numpy.
+"""Precision, recall and the precision/recall curve of a scored callset, on the host.
 
-Counterpart of the curve half of ``variantcalling_tpu/utils/stats_utils.py``
-(``binary_clf_curve``, ``_precision_recall_points``,
-``precision_recall_curve``) and of ``utils/math_utils.safe_divide``: the
+Counterpart of ``variantcalling_tpu/utils/stats_utils.py``'s
+``get_precision``, ``get_recall``, ``get_f1`` (``vcfeval_flavors``) and its
+curve half (``binary_clf_curve``, ``_precision_recall_points``,
+``precision_recall_curve``), and of ``utils/math_utils.safe_divide``: the
 same numpy calls in the same order, so the same inputs give the same
-float64 arrays bit for bit. The reference's multinomial helpers and
-``get_precision``/``get_recall``/``get_f1`` serve other tools and are not
-ported.
+float64 arrays bit for bit. The reference's host multinomial helpers are
+not ported: the SEC test runs on the device (``ops/stats``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,25 @@ def safe_divide(numerator: float, denominator: float, return_if_denominator_is_0
     if denominator == 0:
         return return_if_denominator_is_0
     return numerator / denominator
+
+
+def get_precision(false_positives: int, true_positives: int, return_if_denominator_is_0=1) -> float:
+    """Precision from fp and tp counts."""
+    called = false_positives + true_positives
+    return true_positives / called if called else return_if_denominator_is_0
+
+
+def get_recall(false_negatives: int, true_positives: int, return_if_denominator_is_0=1) -> float:
+    """Recall from fn and tp counts."""
+    truth = false_negatives + true_positives
+    return true_positives / truth if truth else return_if_denominator_is_0
+
+
+def get_f1(precision: float, recall: float, null_value=np.nan) -> float:
+    """Harmonic mean of precision and recall; ``null_value`` where either is it."""
+    if {precision, recall} & {null_value}:
+        return null_value
+    return safe_divide(2 * precision * recall, precision + recall)
 
 
 def binary_clf_curve(y_true: np.ndarray, y_score: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
