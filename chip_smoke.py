@@ -183,7 +183,29 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    ``VCTPU_NO_NATIVE=1`` twin on a 2 Mbp cut; ``GC``),
    ``assess_sec_concordance`` and ``vcfeval_flavors`` GPU against CPU, and
    the LRT alone beside its bytes bound (``SEC_DETAIL``,
-   ``COMPARISON_DETAIL``, ``SEC_LRT_DETAIL``, ``HOST_ENGINE`` lines).
+   ``COMPARISON_DETAIL``, ``SEC_LRT_DETAIL``, ``HOST_ENGINE`` lines);
+13. genotypes, imputation, the gVCF tools and the runs scan
+   (``phase_genotypes_gvcf``), each run a process of its own, the counts set
+   to 0 just before it and read just after (no kernel lies on these paths:
+   none may launch), one run after another, so each wall is its own:
+   ``IMPUTE_WORLD`` (a beagle-annotated 30x chr20 callset of 104,000
+   records, 1-3 alts, PL spans to 2,000, planted flips) through
+   ``correct_genotypes_by_imputation`` on the card and the CPU (records
+   differing only as ``tests/torch_genotype_compare`` admits, counted;
+   ``changed_gt`` equal to the planted flips), a rerun on the card's output
+   (no genotype changed), and the ``--input_vcf`` stage chain with a stub
+   of beagle on a two-contig cut; ``HAPLOID_WORLD`` (155,000 chrX/chrY
+   records) through ``convert_haploid_regions`` with ``hg38_non_par`` and a
+   BED, card against CPU, every record outside the regions as the input has
+   it; ``GVCF_WORLD`` (a 30x chr20 gVCF of about 1.7 M records) through
+   ``compress_gvcf``, ``cleanup_gvcf_before_calling`` (the planted drops)
+   and ``gvcf_hcr`` (both ``--below`` settings), each byte-equal to its
+   ``VCTPU_NO_NATIVE=1`` twin on a 2 Mbp cut; ``TRIO_WORLD`` through
+   ``denovo_recalibrated_qualities`` (every planted ``DENOVO_QUAL``);
+   ``RUNS_WORLD`` (chr20's length and chrM) through ``find_runs_bed`` on the
+   card and the CPU, equal to the planted runs and a numpy walk, and the
+   scan alone (``GENOTYPE_DETAIL``, ``GVCF_DETAIL``, ``RUNS_DETAIL``,
+   ``RUNS_KERNEL_DETAIL``, ``HOST_ENGINE`` lines).
 
 A ``PHASE_SECONDS`` line follows every phase (wall seconds of the phase),
 and one for the whole run before the result lines.
@@ -584,8 +606,9 @@ class _RunLog(logging.Handler):
     def emit(self, record: logging.LogRecord) -> None:
         from variantcalling_tpu_torch import featurize
         from variantcalling_tpu_torch.pipelines import filter_variants as fv
+        from variantcalling_tpu_torch.utils.stages import STAGE_LOG
 
-        if record.msg == fv.STAGE_LOG:
+        if record.msg == STAGE_LOG:
             name, seconds = record.args
             self.stages[name] = self.stages.get(name, 0.0) + seconds
         elif record.msg == fv.WINDOW_LOG:
@@ -1086,7 +1109,10 @@ FORKSERVER_PRELOAD = ["__main__", "torch", "numpy", *(f"variantcalling_tpu_torch
     "pipelines.train_models", "pipelines.training_prep", "pipelines.train_dan", "pipelines.evaluate_concordance",
     "pipelines.coverage_analysis", "pipelines.cnv_calling", "pipelines.sec.sec_training",
     "pipelines.sec.correct_systematic_errors", "pipelines.sec.sec_validation",
-    "pipelines.sec.assess_sec_concordance", "pipelines.run_comparison", "pipelines.vcfeval_flavors"))]
+    "pipelines.sec.assess_sec_concordance", "pipelines.run_comparison", "pipelines.vcfeval_flavors",
+    "pipelines.correct_genotypes_by_imputation", "pipelines.imputation_stages", "pipelines.convert_haploid_regions",
+    "pipelines.compress_gvcf", "pipelines.cleanup_gvcf_before_calling", "pipelines.gvcf_hcr",
+    "pipelines.denovo_recalibrated_qualities", "pipelines.misc.find_runs_bed"))]
 
 
 def _forked(spec: dict, label: str, target=None) -> dict:
@@ -2619,6 +2645,282 @@ def phase_sec(tmp: Path, card: str) -> dict:
     return out
 
 
+#: phase 13: the gVCF twins' cut (bp of chr20), the runs' minimum length
+GVCF_PLAIN_CUT = 2_000_000
+RUNS_MIN_LENGTH = 10
+#: bytes of code each base of the runs scan reads, and of the (start, length) int64 pair each selected run writes
+RUNS_SCAN_BYTES = (1, 16)
+
+
+def _geno_jobs(jobs: list[tuple[str, list[str], str, dict | None]], card: str, kind: str,
+               served_by: tuple[str, ...] = ("vcf_parse",), plain_ok: tuple[str, ...] = ()) -> dict[str, dict]:
+    """Phase 13's runs ``(tool, argv, label, env)``, each in a process of its
+    own (:func:`_forked`), one after another: exit 0, no
+    kernel launched (none lies on these paths); served by the host engine's
+    ``served_by`` entry points and no plain version, but in a run whose env
+    turns the engine off and for ``plain_ok`` (the stub of beagle writes plain
+    gzip); a ``GENOTYPE_DETAIL``, ``GVCF_DETAIL`` or ``RUNS_DETAIL`` line
+    (``kind``) and a ``HOST_ENGINE`` line for each."""
+    out = {}
+    for tool, argv, label, env in jobs:
+        run = _forked({"tool": tool, "argv": argv, "env": env or {}}, label, _tool_child)
+        check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+        check(not any(run["launches"].values()), f"{label}: a kernel was launched ({run['launches']})")
+        host = run["host"]
+        if not (env or {}).get("VCTPU_NO_NATIVE"):
+            plain = [k for k, v in host.items() if v["plain"] and k not in plain_ok]
+            missed = [k for k in served_by if host.get(k, {}).get("native", 0) == 0]
+            check(not missed and not plain, f"{label}: the host engine did not serve {missed}; plain: {plain}")
+        detail = {"run": label, "tool": tool, "card": card, "wall_s": run["seconds"], "stages": run["stages"],
+                  "peak_rss_bytes": run["peak_rss_bytes"], "peak_device_bytes": run["peak_device_bytes"]}
+        print(f"{kind}_DETAIL " + json.dumps(detail), flush=True)
+        print("HOST_ENGINE " + json.dumps({"run": label, "calls": host}), flush=True)
+        out[label] = run
+    return out
+
+
+def _records(path: Path) -> list[bytes]:
+    data = path.read_bytes()
+    if data[:2] == b"\x1f\x8b":
+        data = gzip.decompress(data)
+    return [ln for ln in data.split(b"\n") if ln and not ln.startswith(b"#")]
+
+
+def _csv_column(path: Path, name: str) -> int:
+    rows = path.read_text().splitlines()
+    col = rows[0].split(",").index(name)
+    return sum(int(r.split(",")[col]) for r in rows[1:])
+
+
+def _fasta_codes(path: str) -> dict[str, np.ndarray]:
+    """Each contig's uint8 codes (A C G T either case 0-3, anything else 4),
+    read with numpy alone: the runs world's independent check."""
+    data = np.frombuffer(Path(path).read_bytes(), dtype=np.uint8)
+    table = np.full(256, 4, dtype=np.uint8)
+    for i, b in enumerate(b"ACGT"):
+        table[b] = table[b + 32] = i
+    heads = np.flatnonzero((data == ord(">")) & np.concatenate([[True], data[:-1] == ord("\n")]))
+    out = {}
+    for k, h in enumerate(heads.tolist()):
+        eol = h + int(np.argmax(data[h:] == ord("\n")))
+        body = data[eol + 1: heads[k + 1] if k + 1 < len(heads) else len(data)]
+        out[bytes(data[h + 1: eol]).decode().split()[0]] = table[body[body != ord("\n")]]
+    return out
+
+
+def _walk_runs(codes: np.ndarray, min_length: int) -> tuple[np.ndarray, np.ndarray]:
+    """(starts, lengths) of the runs of one real base of at least ``min_length``, by numpy."""
+    edges = np.concatenate([[0], np.flatnonzero(np.diff(codes.astype(np.int16)) != 0) + 1, [len(codes)]])
+    starts, lengths = edges[:-1], np.diff(edges)
+    keep = (lengths >= min_length) & (codes[starts] < 4)
+    return starts[keep], lengths[keep]
+
+
+def _runs_scan_alone(codes: np.ndarray, card: str) -> dict:
+    """The runs scan of one contig alone on the card (``ops/runs``, by CUDA
+    events), its peak card memory, and the bytes the function must move (its
+    codes read once, its selected runs written once) against the card's
+    published rate. ``intermediate_bytes`` counts, apart from the bound, the
+    (start, length) pairs of every run of equal codes that this
+    implementation writes on the way."""
+    from variantcalling_tpu_torch.ops import runs as truns
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = torch.from_numpy(codes).cuda()
+    scan = lambda: truns.select_runs(t, *truns.run_starts_lengths(t), RUNS_MIN_LENGTH)  # noqa: E731
+    n_runs = len(truns.run_starts_lengths(t)[0])
+    n_selected = len(scan()[0])
+    ms = cuda_ms(scan, reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() - before
+    nbytes = RUNS_SCAN_BYTES[0] * len(codes) + RUNS_SCAN_BYTES[1] * n_selected
+    detail = {"bases": len(codes), "runs_all": n_runs, "runs_selected": n_selected, "card": card, "ms": ms,
+              "peak_device_bytes": peak, "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / ms, "intermediate_bytes": RUNS_SCAN_BYTES[1] * n_runs}
+    del t
+    torch.cuda.empty_cache()
+    return detail
+
+
+def phase_genotypes_gvcf(tmp: Path, card: str, worlds: dict | None = None) -> dict:
+    """Genotypes, imputation, the gVCF tools and the runs scan (phase 13),
+    each run a process of its own, one after another.
+
+    The worlds (``synthetic``; ``worlds`` overrides their sizes):
+    1. ``IMPUTE_WORLD``: ``correct_genotypes_by_imputation
+       --beagle_annotated_vcf`` GPU and CPU (records differing only as
+       ``tests/torch_genotype_compare`` admits, counted; counters equal;
+       ``changed_gt`` equal to the planted flips), a rerun on the card's
+       output (no GT changed, no key or header line repeated), and the
+       ``--input_vcf`` stage chain on the two-contig cut with the stub of
+       beagle, GPU against CPU;
+    2. ``HAPLOID_WORLD``: ``convert_haploid_regions`` with ``hg38_non_par``
+       and with a BED, GPU against CPU under the bar, every record outside
+       the regions byte-equal to the input;
+    3. ``GVCF_WORLD``: ``compress_gvcf``, ``cleanup_gvcf_before_calling``
+       (the planted drops, exactly) and ``gvcf_hcr`` (both ``--below``
+       settings); each of them on a ``GVCF_PLAIN_CUT`` bp cut with the native
+       engine and with ``VCTPU_NO_NATIVE=1``, equal bytes;
+    4. ``TRIO_WORLD``: ``denovo_recalibrated_qualities``, every planted de
+       novo record's ``DENOVO_QUAL`` the world's minimum;
+    5. ``RUNS_WORLD``: ``find_runs_bed`` GPU and CPU, equal bytes, equal to
+       the planted runs and to a numpy walk of the FASTA; the scan of chr20
+       alone on the card (``RUNS_KERNEL_DETAIL``).
+    """
+    from tests import torch_genotype_compare as gcmp
+    from variantcalling_tpu_torch import synthetic
+    from variantcalling_tpu_torch.pipelines.convert_haploid_regions import HG38_NON_PAR, in_regions_mask
+
+    spec = {"impute": synthetic.IMPUTE_WORLD, "haploid": synthetic.HAPLOID_WORLD, "gvcf": synthetic.GVCF_WORLD,
+            "trio": synthetic.TRIO_WORLD, "runs": synthetic.RUNS_WORLD, **(worlds or {})}
+    d = tmp / "geno"
+    t0 = time.perf_counter()
+    imp = synthetic.write_impute_world(str(d / "impute"), **spec["impute"])
+    hap = synthetic.write_haploid_world(str(d / "haploid"), **spec["haploid"])
+    gv = synthetic.write_gvcf_world(str(d / "gvcf"), **spec["gvcf"])
+    trio = synthetic.write_trio_world(str(d / "trio"), **spec["trio"])
+    rw = synthetic.write_runs_world(str(d / "runs"), **spec["runs"])
+    write_s = time.perf_counter() - t0
+    print(f"worlds genotypes and gVCF: {imp['n_records']} annotated records ({imp['flips']} planted flips), "
+          f"{hap['n']} chrX/chrY records, a gVCF of {gv['n_records']} records ({gv['n_blocks']} blocks, "
+          f"{gv['planted_drops']} planted drops), a trio of {spec['trio']['n_sites']} sites, a FASTA of "
+          f"{sum(n for _, n in spec['runs']['contigs'])} bp with {len(rw['planted'])} planted runs; written in "
+          f"{write_s:.1f} s", flush=True)
+    out: dict = {"world": {"write_s": write_s}}
+    o = d / "out"
+    o.mkdir()
+
+    # -- 1 and 2, the device tools: imputation and haploid, GPU and CPU runs together ------------------------------
+    chain = ["--input_vcf", imp["chain"], "--chrom_to_cohort_vcfs_json", imp["cohort_json"], "--chrom_to_plink_json",
+             imp["plink_json"], "--beagle_cmd", f"{sys.executable} {imp['beagle_stub']}"]
+    jobs = []
+    for b in ("gpu", "cpu"):
+        jobs.append(("correct_genotypes_by_imputation", ["--beagle_annotated_vcf", imp["annotated"], "--output_vcf",
+                                                        str(o / f"imp_{b}.vcf"), "--backend", b], f"impute_{b}", None))
+        for label, regions in (("non_par", "hg38_non_par"), ("bed", hap["bed"])):
+            jobs.append(("convert_haploid_regions", ["--input_vcf", hap["vcf"], "--output_vcf",
+                                                     str(o / f"hap_{label}_{b}.vcf"), "--haploid_regions", regions,
+                                                     "--backend", b], f"haploid_{label}_{b}", None))
+    runs = _geno_jobs(jobs, card, "GENOTYPE")
+    n_imp = gcmp.differing_imputation_records((o / "imp_gpu.vcf").read_bytes(), (o / "imp_cpu.vcf").read_bytes(),
+                                              imp["annotated"])
+    gcmp.same_counters((o / "imp_gpu_counts.csv").read_bytes(), (o / "imp_cpu_counts.csv").read_bytes())
+    changed = _csv_column(o / "imp_gpu_counts.csv", "changed_gt")
+    check(changed == imp["flips"], f"imputation: {changed} genotypes changed, {imp['flips']} flips planted")
+    chain_runs = _geno_jobs(
+        [("correct_genotypes_by_imputation", ["--beagle_annotated_vcf", str(o / "imp_gpu.vcf"), "--output_vcf",
+                                              str(o / "rerun_gpu.vcf"), "--backend", "gpu"], "impute_rerun_gpu", None)]
+        + [("correct_genotypes_by_imputation", [*chain, "--temp_dir", str(o / f"chain_{b}"), "--output_vcf",
+                                                str(o / f"chain_{b}.vcf.gz"), "--backend", b], f"impute_chain_{b}",
+            None) for b in ("gpu", "cpu")], card, "GENOTYPE", plain_ok=("vcf_parse", "bgzf_decompress_array"))
+    runs.update(chain_runs)
+    check(_csv_column(o / "rerun_gpu_counts.csv", "changed_gt") == 0, "imputation rerun: a genotype changed")
+    first, second = (o / "imp_gpu.vcf").read_bytes(), (o / "rerun_gpu.vcf").read_bytes()
+    heads = [[ln for ln in x.split(b"\n") if ln.startswith(b"#")] for x in (first, second)]
+    check(heads[0] == heads[1], "imputation rerun: the header changed")
+    check(all(ln.split(b"\t")[8].split(b":").count(b"GT0") <= 1 for ln in _records(o / "rerun_gpu.vcf")),
+          "imputation rerun: GT0 repeated")
+    parts = sorted(str(p) for p in (o / "chain_gpu").glob("beagle_anno.*.vcf.gz"))
+    n_chain = gcmp.differing_imputation_records((o / "chain_gpu.vcf.gz").read_bytes(),
+                                                (o / "chain_cpu.vcf.gz").read_bytes(), parts)
+    gcmp.same_counters((o / "chain_gpu_counts.csv").read_bytes(), (o / "chain_cpu_counts.csv").read_bytes())
+    print(f"correct_genotypes_by_imputation: GPU and CPU {n_imp} records differ within the bar; {changed} genotypes "
+          f"changed of {imp['flips']} planted flips; the rerun changed none; the stage chain on "
+          f"{2 * spec['impute']['chain_records']} records GPU and CPU, {n_chain} differ "
+          f"({_csv_column(o / 'chain_gpu_counts.csv', 'has_non_ref_imp')} rewritten) ({card})", flush=True)
+    out["impute"] = {"differing": n_imp, "changed_gt": changed, "chain_differing": n_chain}
+
+    src = _records(Path(hap["vcf"]))
+    src_f = [ln.split(b"\t", 2) for ln in src]
+    chrom = np.asarray([f[0].decode() for f in src_f], dtype=object)
+    pos = np.asarray([int(f[1]) for f in src_f], dtype=np.int64)
+    from variantcalling_tpu_torch.io.bed import read_bed
+
+    bed = read_bed(hap["bed"])
+    hap_out = {}
+    for label, regions in (("non_par", HG38_NON_PAR),
+                           ("bed", [(str(c), int(s), int(e)) for c, s, e in zip(bed.chrom, bed.start, bed.end)])):
+        n_diff = gcmp.differing_haploid_records((o / f"hap_{label}_gpu.vcf").read_bytes(),
+                                                (o / f"hap_{label}_cpu.vcf").read_bytes(), hap["vcf"])
+        inside = in_regions_mask(chrom, pos, regions)
+        got = _records(o / f"hap_{label}_gpu.vcf")
+        check(len(got) == len(src) and all(got[i] == src[i] for i in np.flatnonzero(~inside).tolist()),
+              f"convert_haploid_regions {label}: a record outside the regions changed")
+        n_conv = sum(got[i] != src[i] for i in np.flatnonzero(inside).tolist())
+        hap_out[label] = {"differing": n_diff, "in_regions": int(inside.sum()), "rewritten": n_conv}
+    print(f"convert_haploid_regions: GPU and CPU within the bar {hap_out}; every record outside the regions "
+          f"byte-equal to the input ({card})", flush=True)
+    out["haploid"] = hap_out
+
+    # -- 3 and 4, the host tools: the gVCF at full size and its cut with and without the engine; the trio -----------
+    cut = d / "gvcf_cut.g.vcf"
+    with open(gv["gvcf"], "rb") as fh, open(cut, "wb") as dst:
+        for line in fh:
+            if not line.startswith(b"#") and int(line.split(b"\t", 2)[1]) > GVCF_PLAIN_CUT:
+                break
+            dst.write(line)
+
+    def gvcf_jobs(src: str, tag: str, env: dict | None) -> list:
+        return [("compress_gvcf", ["--input_path", src, "--output_path", str(o / f"{tag}_compress.g.vcf")],
+                 f"{tag}_compress", env),
+                ("cleanup_gvcf_before_calling", [src, str(o / f"{tag}_cleanup.g.vcf")], f"{tag}_cleanup", env),
+                ("gvcf_hcr", ["--gvcf", src, "--output_bed", str(o / f"{tag}_hcr.bed")], f"{tag}_hcr", env),
+                ("gvcf_hcr", ["--gvcf", src, "--output_bed", str(o / f"{tag}_hcr_below.bed"), "--below"],
+                 f"{tag}_hcr_below", env)]
+
+    dn = ("denovo_recalibrated_qualities", [trio["trio"], str(o / "denovo.vcf"), trio["maternal_json"],
+                                             trio["paternal_json"]], "denovo", None)
+    runs.update(_geno_jobs([*gvcf_jobs(gv["gvcf"], "gvcf", None), dn], card, "GVCF"))
+    runs.update(_geno_jobs([*gvcf_jobs(str(cut), "cut", None), *gvcf_jobs(str(cut), "cut_plain",
+                                                                             {"VCTPU_NO_NATIVE": "1"})], card, "GVCF"))
+    n_in = len(_records(Path(gv["gvcf"])))
+    kept = len(_records(o / "gvcf_cleanup.g.vcf"))
+    check(n_in - kept == gv["planted_drops"], f"cleanup: {n_in - kept} dropped, {gv['planted_drops']} planted")
+    n_comp = len(_records(o / "gvcf_compress.g.vcf"))
+    check(0 < n_comp < n_in, f"compress_gvcf: {n_comp} records of {n_in}")
+    beds = {k: (o / f"gvcf_{k}.bed").read_bytes().count(b"\n") for k in ("hcr", "hcr_below")}
+    check(min(beds.values()) > 0, f"gvcf_hcr: empty BED {beds}")
+    for name in ("compress.g.vcf", "cleanup.g.vcf", "hcr.bed", "hcr_below.bed"):
+        check((o / f"cut_{name}").read_bytes() == (o / f"cut_plain_{name}").read_bytes(),
+              f"{name}: the VCTPU_NO_NATIVE=1 twin differs on the cut")
+    print(f"gVCF tools: {n_in} records compressed to {n_comp}; cleanup dropped {n_in - kept} of "
+          f"{gv['planted_drops']} planted; gvcf_hcr {beds['hcr']} intervals at GQ >= 20 and {beds['hcr_below']} "
+          f"below; the {GVCF_PLAIN_CUT} bp cut byte-equal native and VCTPU_NO_NATIVE=1 ({card})", flush=True)
+    out["gvcf"] = {"records": n_in, "compressed": n_comp, "dropped": n_in - kept, "hcr_intervals": beds}
+
+    got = {}
+    for ln in _records(o / "denovo.vcf"):
+        f = ln.decode().split("\t")
+        if "DENOVO_QUAL=" in f[7]:
+            got[int(f[1])] = float(f[7].split("DENOVO_QUAL=")[1].split(";")[0])
+    want = dict(zip(trio["denovo_pos"].tolist(), (float(f"{q:g}") for q in trio["denovo_qual"])))
+    check(got == want, f"denovo: {len(got)} DENOVO_QUAL values against {len(want)} planted, or values differ")
+    print(f"denovo_recalibrated_qualities: {len(got)} DENOVO_QUAL values, each the planted minimum ({card})",
+          flush=True)
+    out["denovo"] = {"annotated": len(got)}
+
+    # -- 5, the runs scan ------------------------------------------------------------------------------------------
+    runs.update(_geno_jobs([("find_runs_bed", ["--reference", rw["fasta"], "--output_bed", str(o / f"runs_{b}.bed"),
+                                               "--backend", b], f"runs_{b}", None) for b in ("gpu", "cpu")],
+                           card, "RUNS", served_by=("fasta_encode",)))
+    bed_gpu = (o / "runs_gpu.bed").read_bytes()
+    check(bed_gpu == (o / "runs_cpu.bed").read_bytes(), "find_runs_bed: GPU and CPU BEDs differ")
+    codes = _fasta_codes(rw["fasta"])
+    walk = "".join(f"{c}\t{s}\t{s + n}\n" for c, v in codes.items()
+                   for s, n in zip(*(x.tolist() for x in _walk_runs(v, RUNS_MIN_LENGTH))))
+    planted = "".join(f"{c}\t{s}\t{s + n}\n" for c, s, n in rw["planted"] if n >= RUNS_MIN_LENGTH)
+    check(bed_gpu.decode() == walk == planted, "find_runs_bed: the BED differs from the planted runs or the walk")
+    scan = _runs_scan_alone(codes[spec["runs"]["contigs"][0][0]], card)
+    print("RUNS_KERNEL_DETAIL " + json.dumps(scan), flush=True)
+    print(f"find_runs_bed: GPU and CPU BEDs equal, {planted.count(chr(10))} runs of {RUNS_MIN_LENGTH} bp and more, "
+          f"as planted and as a numpy walk finds them; the scan of {scan['bases']} bases alone {scan['ms']:.3f} ms, "
+          f"peak card memory {scan['peak_device_bytes']} bytes ({card})", flush=True)
+    out["runs"] = {"runs": planted.count("\n"), "scan": scan}
+    out["walls"] = {k: v["seconds"] for k, v in runs.items()}
+    return out
+
+
 def time_kernel(kind: str, root: str) -> int:
     """``--time-kernel {wide,tree_step} ROOT``: one kernel of the checkout at
     ROOT (this one, or an older one unpacked beside it) on phase 3's forests
@@ -2682,6 +2984,7 @@ def main() -> int:
         _phase("dan_eval", card, phase_dan_eval, Path(tmp), card, train["files"])
         cov = _phase("coverage", card, phase_coverage, Path(tmp), card)
         _phase("sec", card, phase_sec, Path(tmp), card)
+        _phase("genotypes_gvcf", card, phase_genotypes_gvcf, Path(tmp), card)
     print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     n = WORLD["n_variants"]

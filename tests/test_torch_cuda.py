@@ -6,7 +6,9 @@ the same torch program on the CPU. Also the card's own torch programs that
 must be exact or reproducible: the concordance tally (int64 counts with no
 integer matrix product, which CUDA lacks) against the CPU's, and DAN
 training steps twice on the card, bit for bit; and the SEC likelihood
-ratio on the card against the CPU's, within its stated tolerance.
+ratio on the card against the CPU's, within its stated tolerance; the genotype
+programs (haploid conversion, imputation update) and the runs scan on the
+card against the CPU, bit for bit.
 
 Needs a CUDA device, nvcc and the kernel's build; skips without a device.
 Imports only the port (no JAX), so it runs on the machine with the card:
@@ -326,3 +328,50 @@ def test_sec_lrt_on_the_card_equals_the_cpu(n):
     assert np.abs(got - want)[~live].max(initial=0) <= 1e-30
     dense = rng.integers(0, 3000, (9, min(n, 50_000), 5)).astype(np.float32)
     assert np.array_equal(aggregate.aggregate_on_device(dense, torch.device("cuda")), dense.sum(axis=0))
+
+
+def _pls(rng: np.random.Generator, num_alt: int, n: int, span: int) -> np.ndarray:
+    g = (num_alt + 1) * (num_alt + 2) // 2
+    pl = rng.integers(0, span, (n, g)).astype(np.float64)
+    pl[np.arange(n), rng.integers(0, g, n)] = 0
+    return pl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_alt", [1, 2, 3])
+@pytest.mark.parametrize("span", [40, 2_000])
+def test_genotype_programs_on_the_card_equal_the_cpu(num_alt, span):
+    """The haploid conversion and the imputation update on the card, bit for
+    bit the CPU's (``ops/math`` calls no library exp or log: its float32
+    steps and float64-emulated fused multiply-adds round alike on both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from variantcalling_tpu_torch.ops import genotypes, imputation
+
+    rng = np.random.default_rng(num_alt * 10 + span)
+    n = 200_000
+    pl = _pls(rng, num_alt, n, span)
+    ds = np.round(rng.uniform(0, 2, (n, num_alt)), 3)
+    ds[rng.random(ds.shape) < 0.1] = np.nan
+    cur = rng.integers(0, pl.shape[1], n).astype(np.int32)
+    t = [torch.from_numpy(a) for a in (pl, ds, cur)]
+    for fn, args in ((genotypes.diploid_pl_to_haploid, (t[0], num_alt)),
+                     (imputation.modify_stats_with_imp_batch, (*t, num_alt))):
+        want = fn(*args)
+        got = fn(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in args))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5_000, 3_000_000])
+def test_runs_scan_on_the_card_equals_the_cpu(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from variantcalling_tpu_torch.ops import runs
+
+    rng = np.random.default_rng(n)
+    codes = np.repeat(rng.integers(0, 5, n).astype(np.uint8), rng.integers(1, 20, n))
+    for min_length in (1, 10):
+        got, want = runs.find_runs(codes, min_length, "cuda"), runs.find_runs(codes, min_length, "cpu")
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))

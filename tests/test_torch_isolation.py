@@ -330,3 +330,74 @@ def test_sec_and_comparison_cli_without_cuda_exit_2(sec_world, tmp_path, tool):
     assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
     assert "no CUDA device" in proc.stderr
     assert {p.name for p in tmp_path.iterdir()} == before
+
+
+def test_the_genotype_gvcf_and_runs_modules_are_scanned():
+    """The modules of the genotype, imputation, gVCF and runs tools are among
+    the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "ops/math", "ops/genotypes", "ops/imputation", "ops/runs", "joint/__init__", "joint/gvcf",
+        "joint/denovo_refinement", "pipelines/imputation_stages", "pipelines/correct_genotypes_by_imputation",
+        "pipelines/convert_haploid_regions", "pipelines/compress_gvcf", "pipelines/cleanup_gvcf_before_calling",
+        "pipelines/gvcf_hcr", "pipelines/denovo_recalibrated_qualities", "pipelines/misc/__init__",
+        "pipelines/misc/find_runs_bed")} <= scanned
+
+
+@pytest.fixture(scope="module")
+def genotype_worlds(tmp_path_factory):
+    from variantcalling_tpu_torch import synthetic
+
+    d = tmp_path_factory.mktemp("iso_geno")
+    return {"impute": synthetic.write_impute_world(str(d / "imp"), seed=3, length=1_000_000, n_records=300,
+                                                   n_flips=10, chain_records=50),
+            "haploid": synthetic.write_haploid_world(str(d / "hap"), seed=3, n_x=300, n_y=30),
+            "gvcf": synthetic.write_gvcf_world(str(d / "gvcf"), seed=3, length=50_000, n_variants=100),
+            "trio": synthetic.write_trio_world(str(d / "trio"), seed=3, length=1_000_000, n_sites=1_000,
+                                               n_somatic=200),
+            "runs": synthetic.write_runs_world(str(d / "runs"), seed=3, contigs=(("c1", 20_000), ("c2", 3_000)),
+                                               n_runs=100, n_blocks=1)}
+
+
+def _genotype_tools(w: dict) -> list[list[str]]:
+    """Each new tool's arguments (the three device tools first), outputs named ``x``-something."""
+    return [
+        ["correct_genotypes_by_imputation", "--beagle_annotated_vcf", w["impute"]["annotated"], "--output_vcf",
+         "x.imp.vcf"],
+        ["convert_haploid_regions", "--input_vcf", w["haploid"]["vcf"], "--output_vcf", "x.hap.vcf",
+         "--haploid_regions", "hg38_non_par"],
+        ["find_runs_bed", "--reference", w["runs"]["fasta"], "--output_bed", "x.runs.bed"],
+        ["compress_gvcf", "--input_path", w["gvcf"]["gvcf"], "--output_path", "x.c.g.vcf"],
+        ["cleanup_gvcf_before_calling", w["gvcf"]["gvcf"], "x.k.g.vcf"],
+        ["gvcf_hcr", "--gvcf", w["gvcf"]["gvcf"], "--output_bed", "x.hcr.bed"],
+        ["denovo_recalibrated_qualities", w["trio"]["trio"], "x.dn.vcf", w["trio"]["maternal_json"],
+         w["trio"]["paternal_json"]],
+    ]
+
+
+def test_genotype_gvcf_and_runs_cli_cpu_runs_load_none_of_them(genotype_worlds, tmp_path):
+    """The three device tools with ``--backend cpu``, the four host tools as
+    the reference runs them: none loads JAX or the reference."""
+    for i, argv in enumerate(_genotype_tools(genotype_worlds)):
+        proc = _run_cli([*argv, "--backend", "cpu"] if i < 3 else argv, tmp_path)
+        assert proc.returncode == 0, proc.stderr
+        assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}, argv[0]
+    assert {"x.imp.vcf", "x.imp_counts.csv", "x.hap.vcf", "x.runs.bed", "x.c.g.vcf", "x.k.g.vcf", "x.hcr.bed",
+            "x.dn.vcf"} <= {p.name for p in tmp_path.iterdir()}
+
+
+@pytest.mark.parametrize("tool", ["correct_genotypes_by_imputation", "convert_haploid_regions", "find_runs_bed"])
+def test_genotype_device_tools_without_cuda_exit_2(genotype_worlds, tmp_path, tool):
+    argv = next(a for a in _genotype_tools(genotype_worlds) if a[0] == tool)
+    proc = _run_cli(argv, tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
+    assert "no CUDA device" in proc.stderr and not list(tmp_path.glob("x*"))
+
+
+@pytest.mark.parametrize("tool", ["compress_gvcf", "cleanup_gvcf_before_calling", "gvcf_hcr",
+                                  "denovo_recalibrated_qualities"])
+def test_host_genotype_tools_take_no_backend(genotype_worlds, tmp_path, tool):
+    """The host-only tools take exactly the reference's arguments: ``--backend`` is refused."""
+    argv = next(a for a in _genotype_tools(genotype_worlds) if a[0] == tool)
+    proc = _run_cli([*argv, "--backend", "cpu"], tmp_path)
+    assert proc.returncode == 2 and "unrecognized arguments: --backend" in proc.stderr

@@ -1,13 +1,16 @@
 """CLI dispatch: ``python -m variantcalling_tpu_torch <tool> <args>``.
 
-Counterpart of ``variantcalling_tpu/__main__.py``; the port serves 13
+Counterpart of ``variantcalling_tpu/__main__.py``; the port serves 20
 tools so far: ``filter_variants_pipeline``, ``train_models_pipeline``,
 ``training_prep_pipeline``, ``train_dan``, ``evaluate_concordance``,
 ``coverage_analysis``, ``cnv_calling``, the four SEC tools
 (``sec_training``, ``correct_systematic_errors``, ``sec_validation``,
-``assess_sec_concordance``), ``run_comparison_pipeline`` and
-``vcfeval_flavors``. Each tool is a module exposing ``run(argv)``,
-imported when called.
+``assess_sec_concordance``), ``run_comparison_pipeline``,
+``vcfeval_flavors``, the genotype tools ``correct_genotypes_by_imputation``
+and ``convert_haploid_regions``, the gVCF tools ``compress_gvcf``,
+``cleanup_gvcf_before_calling``, ``gvcf_hcr`` and
+``denovo_recalibrated_qualities``, and ``find_runs_bed``. Each tool is a
+module exposing ``run(argv)``, imported when called.
 """
 
 from __future__ import annotations
@@ -30,6 +33,13 @@ TOOLS: dict[str, str] = {
     "assess_sec_concordance": "variantcalling_tpu_torch.pipelines.sec.assess_sec_concordance",
     "run_comparison_pipeline": "variantcalling_tpu_torch.pipelines.run_comparison",
     "vcfeval_flavors": "variantcalling_tpu_torch.pipelines.vcfeval_flavors",
+    "correct_genotypes_by_imputation": "variantcalling_tpu_torch.pipelines.correct_genotypes_by_imputation",
+    "convert_haploid_regions": "variantcalling_tpu_torch.pipelines.convert_haploid_regions",
+    "compress_gvcf": "variantcalling_tpu_torch.pipelines.compress_gvcf",
+    "cleanup_gvcf_before_calling": "variantcalling_tpu_torch.pipelines.cleanup_gvcf_before_calling",
+    "gvcf_hcr": "variantcalling_tpu_torch.pipelines.gvcf_hcr",
+    "denovo_recalibrated_qualities": "variantcalling_tpu_torch.pipelines.denovo_recalibrated_qualities",
+    "find_runs_bed": "variantcalling_tpu_torch.pipelines.misc.find_runs_bed",
 }
 
 

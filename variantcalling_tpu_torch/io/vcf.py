@@ -117,6 +117,11 @@ class VcfHeader:
             self.add_meta_line(
                 f'##INFO=<ID={info_id},Number={number},Type={info_type},Description="{description}">')
 
+    def ensure_format(self, fmt_id: str, number: str, fmt_type: str, description: str) -> None:
+        if fmt_id not in self.formats:
+            self.add_meta_line(
+                f'##FORMAT=<ID={fmt_id},Number={number},Type={fmt_type},Description="{description}">')
+
     def ensure_filter(self, filter_id: str, description: str) -> None:
         if filter_id not in self.filters:
             self.add_meta_line(f'##FILTER=<ID={filter_id},Description="{description}">')
@@ -192,6 +197,17 @@ class _LazyCols:
         buf = memoryview(self.buf)  # bytes, or a chunk's uint8 array (a memory map's slice)
         return _obj([str(buf[a:b], "utf-8") for a, b in self.spans[name].tolist()])
 
+    def byte_matrix(self, name: str) -> tuple[np.ndarray, np.ndarray]:
+        """(n, W) uint8 of each record's bytes of column ``name``, 0-padded,
+        and the (n,) lengths: a short column compared or factorized in numpy."""
+        spans = self.spans[name]
+        lens = spans[:, 1] - spans[:, 0]
+        width = max(int(lens.max(initial=0)), 1)
+        buf = np.frombuffer(self.buf, dtype=np.uint8) if isinstance(self.buf, bytes) else np.asarray(self.buf)
+        cols = np.arange(width)
+        idx = np.minimum(spans[:, :1] + cols, max(len(buf) - 1, 0))
+        return np.where(cols < lens[:, None], buf[idx], 0).astype(np.uint8), lens
+
 
 #: the string columns a scanned table decodes only when they are read
 LAZY_COLUMNS = ("vid", "ref", "alt", "filters", "info", "tail", "qual_text")
@@ -265,6 +281,33 @@ class VariantTable:
                             aux=None if self.aux is None else self.aux.take(keep),
                             lazy=self._lazy.take(keep) if pending else None,
                             chrom_codes=sub(self.chrom_codes), chrom_names=self.chrom_names)
+
+    def factorize(self, name: str) -> tuple[np.ndarray, list[str]]:
+        """(int64 codes, distinct values) of a short string column (FILTER):
+        from the scan's bytes while the column is still unread, so that its
+        strings are never made one by one."""
+        if getattr(self, "_" + name) is None and self._lazy is not None and name in self._lazy.spans:
+            mat, _ = self._lazy.byte_matrix(name)
+            uniq, codes = np.unique(mat.view(f"S{mat.shape[1]}").ravel(), return_inverse=True)
+            return codes.astype(np.int64), [u.decode() for u in uniq.tolist()]
+        index: dict[str, int] = {}
+        codes = np.fromiter((index.setdefault(v, len(index)) for v in getattr(self, name)), dtype=np.int64,
+                            count=len(self))
+        return codes, list(index)
+
+    def alt_lists(self) -> list[list[str]]:
+        return [[] if a in (MISSING, "") else a.split(",") for a in self.alt]
+
+    def format_columns(self) -> tuple[np.ndarray, np.ndarray]:
+        """(FORMAT (n,), sample columns (n, n_samples)) as strings, split
+        from ``tail``; ``.`` where a record lacks one. :func:`join_tails`
+        puts them back together."""
+        rows = [t.split("\t") if t else [MISSING] for t in self.tail.tolist()]
+        fmt = _obj([r[0] for r in rows])
+        samples = np.empty((len(rows), self.n_samples), dtype=object)
+        for j in range(self.n_samples):
+            samples[:, j] = [r[1 + j] if len(r) > 1 + j else MISSING for r in rows]
+        return fmt, samples
 
     def n_alts(self) -> np.ndarray:
         if self.aux is not None:
@@ -375,6 +418,68 @@ def _obj(x: list) -> np.ndarray:
     return a
 
 
+def sample_fields(fmt, sample, names: tuple[str, ...]) -> dict[str, list]:
+    """For each FORMAT key of ``names``, its raw value in one sample column
+    per record (``fmt``, ``sample``: the records' FORMAT and that sample's
+    text), None where the record lacks it: what ``format_field`` reads, one
+    pass for all the keys."""
+    out: dict[str, list] = {name: [] for name in names}
+    cols = [out[name] for name in names]
+    key_index: dict[str, list] = {}
+    for keys, text in zip(fmt, sample):
+        if not keys or keys == MISSING:
+            for col in cols:
+                col.append(None)
+            continue
+        idx = key_index.get(keys)
+        if idx is None:
+            ks = keys.split(":")
+            idx = key_index[keys] = [ks.index(name) if name in ks else None for name in names]
+        vals = text.split(":")
+        for col, i in zip(cols, idx):
+            col.append(vals[i] if i is not None and i < len(vals) else None)
+    return out
+
+
+def number_lists(raw: list, width: int | None, missing: float) -> np.ndarray:
+    """(n, width) float64 of comma-listed FORMAT values (PL, DS) as
+    ``format_numeric`` parses them (``width`` None: the longest list),
+    ``missing`` in the slots a record lacks: all values joined and parsed at
+    once where every one is a number, else value by value."""
+    n = len(raw)
+    present = [r not in (None, MISSING, "") for r in raw]
+    texts = [r for r, p in zip(raw, present) if p]
+    lens = np.zeros(n, dtype=np.int64)
+    lens[np.asarray(present, dtype=bool)] = [t.count(",") + 1 for t in texts]
+    if width is None:
+        width = int(lens.max(initial=0))
+    out = np.full((n, width), missing, dtype=np.float64)
+    try:
+        values = np.asarray(",".join(texts).split(","), dtype=np.float64) if texts else np.zeros(0)
+    except ValueError:
+        for i, r in enumerate(raw):
+            if not present[i]:
+                continue
+            for j, v in enumerate(r.split(",")[:width]):
+                if v not in (MISSING, ""):
+                    try:
+                        out[i, j] = float(v)
+                    except ValueError:
+                        pass
+        return out
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.arange(len(values)) - np.repeat(np.cumsum(lens) - lens, lens)
+    keep = cols < width
+    out[rows[keep], cols[keep]] = values[keep]
+    return out
+
+
+def join_tails(fmt: np.ndarray, samples: np.ndarray) -> np.ndarray:
+    """Each record's FORMAT and sample columns as one tab-joined ``tail``
+    (the inverse of :meth:`VariantTable.format_columns`)."""
+    return _obj(["\t".join((f, *row)) for f, row in zip(fmt.tolist(), samples.tolist())])
+
+
 _READ_BYTES = 16 << 20
 
 
@@ -408,7 +513,7 @@ def _text_lines(path: str):
 NATIVE_INFLATE_MAX_BYTES = 512 << 20
 
 
-def read_vcf(path: str) -> VariantTable:
+def read_vcf(path: str, drop_format: bool = False) -> VariantTable:
     """Parse a VCF (``.vcf`` or ``.vcf.gz``) into a :class:`VariantTable`.
 
     Lines split on ``\n`` alone. ``##`` lines before the first record are
@@ -416,9 +521,17 @@ def read_vcf(path: str) -> VariantTable:
     lose one trailing ``\r``; empty lines and ``#`` lines among the records
     are skipped, as the reference's scanner skips them. The native scan
     (:func:`_read_vcf_native`) serves where it can, else the plain reader:
-    both give the same columns."""
+    both give the same columns.
+
+    ``drop_format``: keep no FORMAT or sample data (every ``tail`` empty,
+    genotypes missing) and no reference to the file's text, for a caller
+    that reads only the core columns of a large file."""
     table = _read_vcf_native(path)
-    return table if table is not None else _read_vcf_plain(path)
+    table = table if table is not None else _read_vcf_plain(path)
+    if not drop_format:
+        return table
+    return VariantTable(table.header, table.chrom, table.pos, table.vid, table.ref, table.alt, table.qual,
+                        table.filters, table.info, _obj([""] * len(table)), table.qual_text, table.qual_read)
 
 
 def parse_header_bytes(bufb: bytes) -> tuple[VcfHeader, int]:
@@ -543,6 +656,28 @@ def _format_qual_column(qual: np.ndarray) -> np.ndarray:
     return out
 
 
+def _qual_text_is_formatted(table: VariantTable) -> bool:
+    """Whether every record's QUAL text as read is :func:`format_qual` of its
+    value (``0``, ``50``, ``45.3``: not GATK's ``34.30``), compared in numpy
+    on the scan's bytes: then the text and the rendering write the same bytes."""
+    lazy = table._lazy
+    if table.qual_read is None or lazy is None or "qual_text" not in lazy.spans or table._qual_text is not None:
+        return False
+    q, was = np.asarray(table.qual, dtype=np.float64), table.qual_read
+    if not ((q == was) | (np.isnan(q) & np.isnan(was))).all():
+        return False
+    uniq, inv = np.unique(q, return_inverse=True)
+    want = [t.encode() for t in _format_qual_column(uniq).tolist()]
+    mat, lens = lazy.byte_matrix("qual_text")
+    want_lens = np.fromiter(map(len, want), dtype=np.int64, count=len(want))
+    if not np.array_equal(lens, want_lens[inv.ravel()]) or mat.shape[1] < want_lens.max(initial=0):
+        return False
+    table_u = np.zeros((len(want), mat.shape[1]), dtype=np.uint8)
+    for i, w in enumerate(want):
+        table_u[i, :len(w)] = np.frombuffer(w, dtype=np.uint8)
+    return bool(np.array_equal(mat, table_u[inv.ravel()]))
+
+
 def _qual_column(table: VariantTable) -> np.ndarray:
     """QUAL strings to write: the text as read wherever ``qual`` was not
     edited, :func:`format_qual` of the value elsewhere."""
@@ -559,24 +694,34 @@ def _qual_column(table: VariantTable) -> np.ndarray:
 
 def _format_extra_info(n: int, extra_info: dict) -> list[str]:
     """Per-record ";K=V" suffixes in dict key order; float columns render as
-    ``%g`` of their float64 value, NaN skips the record."""
+    ``%g`` of their float64 value, NaN skips the record; in an object column
+    None (or a float NaN) skips the record, ``True`` writes the bare flag
+    ``;K``, anything else ``;K=`` and its ``str``."""
     acc = np.full(n, "", dtype=object)
     for k, vals in (extra_info or {}).items():
         arr = np.asarray(vals)
-        if arr.dtype.kind != "f":
-            raise TypeError(f"extra INFO column {k!r} must be floating point")
-        f64 = arr.astype(np.float64)
-        ok = ~np.isnan(f64)
-        acc[ok] = acc[ok] + np.char.mod(f";{k}=%g", f64[ok]).astype(object)
+        if arr.dtype.kind == "f":
+            f64 = arr.astype(np.float64)
+            ok = ~np.isnan(f64)
+            acc[ok] = acc[ok] + np.char.mod(f";{k}=%g", f64[ok]).astype(object)
+            continue
+        for i, v in enumerate(arr.tolist()):
+            if v is None or (isinstance(v, float) and np.isnan(v)):
+                continue
+            acc[i] += f";{k}" if v is True else f";{k}={v}"
     return acc.tolist()
 
 
 def write_vcf(path: str, table: VariantTable, new_filters=None,
               extra_info: dict[str, np.ndarray] | None = None, index: bool = True,
-              verbatim_core: bool = False, qual_as_read: bool = True) -> None:
+              verbatim_core: bool = False, qual_as_read: bool = True, tails: np.ndarray | None = None) -> None:
     """Write a VariantTable back to VCF (``.gz`` -> BGZF), rewriting FILTER and
     appending ``extra_info`` keys to INFO; FORMAT/sample tails are verbatim,
     and so is the QUAL text of every record whose QUAL was not edited.
+
+    ``tails``: each record's FORMAT and sample columns to write instead of
+    its own (a rewritten FORMAT or sample, built with :func:`join_tails`);
+    the records are then rendered by the plain writer.
 
     ``verbatim_core``: the caller has edited none of CHROM..QUAL since the
     read, so a scanned table's records are assembled by the native engine
@@ -590,7 +735,11 @@ def write_vcf(path: str, table: VariantTable, new_filters=None,
     ``qual_as_read=False``: every QUAL is written as :func:`format_qual` of
     its value (``34.30`` as ``34.3``), as the reference's ``write_vcf``
     writes it outside its native splice (its SEC correction's output);
-    the records are then rendered by the plain writer."""
+    the records are then rendered by the plain writer, unless
+    ``verbatim_core`` holds and every QUAL text already is that rendering
+    (a gVCF's ``0``): then the native assembly writes the same bytes."""
+    if verbatim_core and not qual_as_read and tails is None and _qual_text_is_formatted(table):
+        qual_as_read = True  # the same bytes: the native assembly may serve
     if str(path).endswith(".gz"):
         from variantcalling_tpu_torch.io.bgzf import BgzfWriter
 
@@ -600,8 +749,9 @@ def write_vcf(path: str, table: VariantTable, new_filters=None,
     with out:
         head = [*table.header.lines, table.header.column_header()]
         out.write(("\n".join(head) + "\n").encode())
-        if not (verbatim_core and qual_as_read and _write_assembled_native(out, table, new_filters, extra_info)):
-            _write_records(out, table, new_filters, extra_info, qual_as_read)
+        if not (verbatim_core and qual_as_read and tails is None
+                and _write_assembled_native(out, table, new_filters, extra_info)):
+            _write_records(out, table, new_filters, extra_info, qual_as_read, tails)
     if index and str(path).endswith(".gz"):
         write_tabix(str(path))
 
@@ -619,29 +769,26 @@ def write_tabix(path: str) -> None:
             os.remove(f"{path}.tbi")
 
 
-def _write_records(out, table: VariantTable, new_filters, extra_info, qual_as_read: bool = True) -> None:
+def _write_records(out, table: VariantTable, new_filters, extra_info, qual_as_read: bool = True,
+                   tails: np.ndarray | None = None) -> None:
     """The plain writer: each record rendered from the columns."""
     n = len(table)
     suffix = _format_extra_info(n, extra_info) if extra_info else None
     filters = new_filters if new_filters is not None else table.filters
     if isinstance(filters, FactorizedColumn):
         filters = filters.to_object()
-    pos_s = np.char.mod("%d", table.pos)
-    qual_s = _qual_column(table) if qual_as_read else _format_qual_column(table.qual)
-    chunk: list[str] = []
-    for i in range(n):
-        info = table.info[i]
-        if suffix is not None and suffix[i]:
-            info = suffix[i][1:] if info == MISSING else info + suffix[i]
-        line = "\t".join((table.chrom[i], pos_s[i], table.vid[i], table.ref[i],
-                          table.alt[i], qual_s[i], filters[i], info))
-        t = table.tail[i]
-        chunk.append(line + "\t" + t if t else line)
-        if len(chunk) >= 16384:
-            out.write(("\n".join(chunk) + "\n").encode())
-            chunk.clear()
-    if chunk:
-        out.write(("\n".join(chunk) + "\n").encode())
+    pos_s = np.char.mod("%d", table.pos).tolist()
+    qual_s = (_qual_column(table) if qual_as_read else _format_qual_column(table.qual)).tolist()
+    info = table.info.tolist()
+    if suffix is not None:
+        info = [i if not x else (x[1:] if i == MISSING else i + x) for i, x in zip(info, suffix)]
+    tails = (table.tail if tails is None else tails).tolist()
+    cols = (table.chrom.tolist(), pos_s, table.vid.tolist(), table.ref.tolist(), table.alt.tolist(), qual_s,
+            list(filters), info)
+    for lo in range(0, n, 16384):
+        lines = ["\t".join(core) + "\t" + t if t else "\t".join(core)
+                 for *core, t in zip(*(c[lo: lo + 16384] for c in cols), tails[lo: lo + 16384])]
+        out.write(("\n".join(lines) + "\n").encode())
 
 
 def _single_float_info(extra_info) -> tuple[str, np.ndarray] | None:
@@ -684,7 +831,8 @@ def _filter_info_blobs(table: VariantTable, new_filters, extra_info):
     from variantcalling_tpu_torch import native
 
     n = len(table)
-    filt_buf, filt_offs = _encode_column_factorized(new_filters if new_filters is not None else table.filters, n)
+    filters = new_filters if new_filters is not None else FactorizedColumn(*table.factorize("filters"))
+    filt_buf, filt_offs = _encode_column_factorized(filters, n)
     one = _single_float_info(extra_info)
     sfx = native.format_float_info(one[1], f";{one[0]}=".encode()) if one is not None else None
     if sfx is None:

@@ -367,6 +367,8 @@ HONOURED = frozenset({
     "VCTPU_NATIVE_GBT",
     # the rank check of train_dan and sec_training: a launch of more than one rank exits 2 (A7)
     "VCTPU_RANK", "VCTPU_NUM_PROCESSES", "VCTPU_SPAN",
+    # the bound on the imputation chain's external beagle
+    "VCTPU_SUBPROC_TIMEOUT_S",
 })
 
 

@@ -13,15 +13,7 @@ from __future__ import annotations
 
 import torch
 
-
-def safe_divide(numerator: torch.Tensor, denominator: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    """Elementwise division, ``fill`` where the denominator is 0 (the
-    reference's ``ops/math.safe_divide``)."""
-    numerator, denominator = torch.as_tensor(numerator), torch.as_tensor(denominator)
-    ok = denominator != 0
-    safe = torch.where(ok, denominator, torch.ones_like(denominator))
-    return torch.where(ok, numerator / safe, torch.as_tensor(fill, dtype=torch.get_default_dtype(),
-                                                            device=numerator.device))
+from variantcalling_tpu_torch.ops.math import safe_divide
 
 
 def correct_multinomial_frequencies(counts: torch.Tensor) -> torch.Tensor:

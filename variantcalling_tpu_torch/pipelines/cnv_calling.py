@@ -29,7 +29,7 @@ from variantcalling_tpu_torch.io.bam import depth_diff_arrays
 from variantcalling_tpu_torch.io.bgzf import BgzfWriter
 from variantcalling_tpu_torch.io.fasta import FastaReader
 from variantcalling_tpu_torch.ops.coverage import depth_from_diff
-from variantcalling_tpu_torch.pipelines.coverage_analysis import _stage
+from variantcalling_tpu_torch.utils.stages import stage
 
 log = logging.getLogger(__name__)
 
@@ -83,12 +83,12 @@ def run(argv) -> int:
     except (engine_mod.EngineError, device_mod.DeviceUnavailable) as e:
         log.error("%s", e)
         return 2
-    with _stage("ingest", device):
+    with stage("ingest", device):
         header, diffs = depth_diff_arrays(args.input_bam, min_mapq=args.mapq)
     per_contig: dict[str, np.ndarray] = {}
     gc: dict[str, np.ndarray] | None = {} if args.reference else None
     fasta = FastaReader(args.reference) if args.reference else None
-    with _stage("bins", device):
+    with stage("bins", device):
         for name, diff in diffs.items():
             if header.lengths[name] < args.min_contig_length:
                 continue
@@ -98,9 +98,9 @@ def run(argv) -> int:
             per_contig[name] = b
             if fasta is not None:
                 gc[name] = gc_per_bin(fasta, name, len(b), args.bin_size)
-    with _stage("segment", device):
+    with stage("segment", device):
         segs = call_cnvs(per_contig, args.bin_size, gc, sigma=args.sigma, min_bins=args.min_bins, device=device)
-    with _stage("writes", device):
+    with stage("writes", device):
         with open(args.output_bed, "w") as fh:
             for s in segs:
                 fh.write(f"{s.chrom}\t{s.start}\t{s.end}\tCN{s.copy_number}\t{s.n_bins}\t{s.mean_log2:.3f}\n")

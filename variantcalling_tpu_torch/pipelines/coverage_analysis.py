@@ -33,11 +33,9 @@ them where matplotlib is missing (``degrade.record("coverage_analysis.plots")``)
 from __future__ import annotations
 
 import argparse
-import contextlib
 import logging
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -53,14 +51,13 @@ from variantcalling_tpu_torch.io.parquet import write_parquet
 from variantcalling_tpu_torch.ops import coverage as cops
 from variantcalling_tpu_torch.utils import degrade
 from variantcalling_tpu_torch.utils.h5_utils import Frame, write_hdf
+from variantcalling_tpu_torch.utils.stages import stage
 
 log = logging.getLogger(__name__)
 
 DEFAULT_WINDOWS = [100, 1000, 10000, 100000]
 MIN_CONTIG_LENGTH = 1_000_000  # contigs below this are skipped, unless there are at most 3
 PERCENTILE_QS = np.arange(0, 101, 5)
-#: log record of one stage's host seconds (the stages that touch the card synchronize it first)
-STAGE_LOG = "stage %s %.3f s"
 #: bedGraph lines rendered at once
 _TEXT_LINES = 1 << 20
 #: float32 holds every integer below this exactly
@@ -89,25 +86,15 @@ def parse_args(argv: list[str], command: str):
     return ap.parse_args(argv)
 
 
-@contextlib.contextmanager
-def _stage(name: str, device: torch.device):
-    """Log the host seconds of one stage; on the card, after synchronizing it."""
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    log.info(STAGE_LOG, name, time.perf_counter() - t0)
-
-
 def collect_depth(args, device: torch.device) -> dict[str, torch.Tensor]:
     """Each kept contig's int32 depth on ``device``: its difference array read
     on the host, uploaded once and integrated there. Kept: contigs of at
     least ``MIN_CONTIG_LENGTH``, or all when there are at most 3."""
-    with _stage("ingest", device):
+    with stage("ingest", device):
         _, diffs = depth_diff_arrays(args.input, min_bq=args.bq, min_mapq=args.mapq,
                                      min_read_length=args.min_read_length, regions=args.region)
     keep = {c: d for c, d in diffs.items() if len(d) - 1 >= MIN_CONTIG_LENGTH or len(diffs) <= 3}
-    with _stage("upload", device):
+    with stage("upload", device):
         return {c: cops.depth_from_diff(torch.from_numpy(d).to(device)) for c, d in keep.items()}
 
 
@@ -226,9 +213,9 @@ def full_analysis(args, device: torch.device) -> int:
     base = args.output
     windows = sorted(args.windows if args.windows else DEFAULT_WINDOWS)
 
-    with _stage("windows", device):
+    with stage("windows", device):
         means = {w: {c: cops.binned_mean(d, w).cpu().numpy() for c, d in depths.items()} for w in windows}
-    with _stage("histograms", device):
+    with stage("histograms", device):
         cats = _interval_categories(args, depths, device)
         hists: dict[str, torch.Tensor] = {}
         for cat, masks in cats.items():
@@ -245,7 +232,7 @@ def full_analysis(args, device: torch.device) -> int:
             stats_cols[cat] = np.asarray([float(v) for v in st.values()], dtype=np.float64)
             pct_cols[cat] = cops.percentiles_from_histogram(h32, PERCENTILE_QS / 100.0).cpu().numpy()
         hist_cols = {cat: h.cpu().numpy() for cat, h in hists.items()}
-    with _stage("writes", device):
+    with stage("writes", device):
         for w in windows:
             parts = []
             for contig, m in means[w].items():
@@ -270,11 +257,11 @@ def full_analysis(args, device: torch.device) -> int:
 
 def collect_coverage(args, device: torch.device) -> int:
     depths = collect_depth(args, device)
-    with _stage("runs", device):
+    with stage("runs", device):
         runs = {c: depth_runs(d) for c, d in depths.items()}
     sizes = {c: len(d) for c, d in depths.items()}
     out = args.output
-    with _stage("writes", device):
+    with stage("writes", device):
         if out.endswith((".bw", ".bigwig", ".bigWig")):
             write_bigwig_runs(out, {c: _bigwig_runs(*r) for c, r in runs.items()}, sizes)
             log.info("wrote %s", out)

@@ -16,7 +16,7 @@ card; asking for it without one exits 2). It reads a concordance frame
 The per-category tally runs on the run's device
 (:func:`concordance_utils.calc_accuracy_metrics`); the curves are host
 numpy, as in the reference. Each stage's host seconds are logged as the
-filter's are (``filter_variants.STAGE_LOG``).
+filter's are (``utils.stages.STAGE_LOG``).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from variantcalling_tpu_torch import knobs
 from variantcalling_tpu_torch.concordance.concordance_utils import calc_accuracy_metrics, calc_recall_precision_curve
 from variantcalling_tpu_torch.io import hdf5
 from variantcalling_tpu_torch.io.bed import BedWriter
-from variantcalling_tpu_torch.pipelines.filter_variants import _stage
+from variantcalling_tpu_torch.utils.stages import stage
 from variantcalling_tpu_torch.utils.h5_utils import CONCORDANCE_SKIP_KEYS, Frame, read_hdf, write_hdf
 
 log = logging.getLogger(__name__)
@@ -82,7 +82,7 @@ def run(argv: list[str]) -> int:
 
 
 def _run(args, device) -> int:
-    with _stage("ingest"):
+    with stage("ingest"):
         skip = CONCORDANCE_SKIP_KEYS if args.dataset_key == "all" else []
         df = read_hdf(args.input_file, key=args.dataset_key, skip_keys=skip)
     score_column = args.score_key.lower()
@@ -95,11 +95,11 @@ def _run(args, device) -> int:
         classify_column = "classify"
     ignored = args.ignore_filters.split(",")
 
-    with _stage("tally"):
+    with stage("tally"):
         accuracy = calc_accuracy_metrics(df, classify_column, ignored, args.use_for_group_testing, device=device)
-    with _stage("curve"):
+    with stage("curve"):
         curve = calc_recall_precision_curve(df, classify_column, ignored, args.use_for_group_testing)
-    with _stage("writes"):
+    with stage("writes"):
         write_hdf(accuracy, f"{args.output_prefix}.h5", key="optimal_recall_precision", mode="w")
         accuracy.to_csv(f"{args.output_prefix}.stats.csv", sep=";")
         write_hdf(curve, f"{args.output_prefix}.h5", key="recall_precision_curve", mode="a")

@@ -55,7 +55,6 @@ import os
 import pickle
 import sys
 import threading
-import time
 import zlib
 
 import numpy as np
@@ -81,6 +80,7 @@ from variantcalling_tpu_torch.models.forest import FlatForest
 from variantcalling_tpu_torch.ops import intervals as iops
 from variantcalling_tpu_torch.parallel import pipeline as pipeline_mod
 from variantcalling_tpu_torch.utils import degrade, faults, h5_utils
+from variantcalling_tpu_torch.utils.stages import stage
 
 log = logging.getLogger("variantcalling_tpu_torch")
 
@@ -99,8 +99,6 @@ _STALE_PROVENANCE = ("##vctpu_mesh=", "##vctpu_ranks=", "##vctpu_knobs=")
 #: through their torch program (the reference writes ``jit``)
 TORCH_PROGRAM = "torch"
 
-#: format of the per-stage timing log records (the stage name, then seconds)
-STAGE_LOG = "stage %s %.3f s"
 #: log record of the window path a table took: "genome-resident" or "host gather"
 WINDOW_LOG = "window path %s"
 #: log record of the bytes a table sent to the device, and its variants
@@ -131,16 +129,6 @@ def _sticky_device_error(e: BaseException) -> bool:
         return True
     text = str(e)
     return isinstance(e, RuntimeError) and ("CUDA error" in text or "cudaError_t" in text)
-
-
-@contextlib.contextmanager
-def _stage(name: str):
-    """Log the host wall seconds of one pipeline stage at INFO. Stages that
-    touch the device end in a device-to-host copy, so the time includes the
-    device work."""
-    t0 = time.perf_counter()
-    yield
-    log.info(STAGE_LOG, name, time.perf_counter() - t0)
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -427,15 +415,15 @@ class FilterContext:
     def score_table(self, table: VariantTable) -> tuple[np.ndarray, FactorizedColumn]:
         """(TREE_SCORE float32 array, FILTER column) of one table."""
         resident = self.genome_resident(table)
-        with _stage("host_featurize"):
+        with stage("host_featurize"):
             hf = self.host_features(table, compute_windows=not resident)
         genome = gpos = None
         if resident:
-            with _stage("genome"):
+            with stage("genome"):
                 genome = feat.device_genome(self.fasta, self.device)
                 gpos = feat.pack_global_positions(feat.globalize_positions(table, genome), genome)
         log.info(WINDOW_LOG, "genome-resident" if resident else "host gather")
-        with _stage("device_score"):
+        with stage("device_score"):
             scorer = self.scorer(hf.names)
             try:
                 with self._device_lock:
@@ -447,7 +435,7 @@ class FilterContext:
                     raise DeviceFault(f"the device failed scoring {len(table)} records: {e}") from e
                 raise
         log.info(TRANSFER_LOG, sent, len(table))
-        with _stage("filters"):
+        with stage("filters"):
             return score, self.assemble_filters(table, score, hf)
 
     def assemble_filters(self, table: VariantTable, score: np.ndarray, hf) -> FactorizedColumn:
@@ -917,13 +905,13 @@ def run_loaded(args, model, fasta: FastaReader, annotate, blacklist, device: tor
         log.info("wrote %s: %d variants, %d PASS", args.output_file, stats["n"], stats["n_pass"])
         return 0
     log.info("reading %s", args.input_file)
-    with _stage("ingest"):
+    with stage("ingest"):
         table = read_vcf(args.input_file)
     if args.limit_to_contig:
         table = table.subset(np.asarray(table.chrom) == args.limit_to_contig)
     score, filters = ctx.score_table(table)
     _ensure_output_header(table.header, ctx.engine, ctx.forest_strategy, ctx.model_family)
-    with _stage("writeback"):  # rounding stays in numpy, as in the reference
+    with stage("writeback"):  # rounding stays in numpy, as in the reference
         # this pipeline edits none of CHROM..QUAL: a scanned table's records
         # are spliced from its text by the native engine
         write_vcf(args.output_file, table, new_filters=filters,

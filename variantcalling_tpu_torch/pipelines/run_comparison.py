@@ -34,7 +34,7 @@ from variantcalling_tpu_torch.io import bed as bedio
 from variantcalling_tpu_torch.io.fasta import FastaReader
 from variantcalling_tpu_torch.io.vcf import VariantTable, read_vcf
 from variantcalling_tpu_torch.ops import intervals as iops
-from variantcalling_tpu_torch.pipelines.coverage_analysis import _stage
+from variantcalling_tpu_torch.utils.stages import stage
 from variantcalling_tpu_torch.utils.h5_utils import Frame, concat_frames, write_frames, write_hdf
 
 log = logging.getLogger(__name__)
@@ -241,12 +241,12 @@ def build_concordance_frame(
     ``reinterpret=False`` (``--disable_reinterpretation``) turns off the
     matcher's haplotype-rescue stage, leaving exact-representation joins.
     The annotation (``featurize``) runs on ``device``."""
-    with _stage("match", device_mod.as_device(device)):
+    with stage("match", device_mod.as_device(device)):
         call_tp, call_tp_gt, truth_tp, call_truth_gt = match_calls(calls, truth, fasta, reinterpret, tool)
     fn_truth = truth.subset(~truth_tp)
 
     frames = []
-    with _stage("annotate", device_mod.as_device(device)):
+    with stage("annotate", device_mod.as_device(device)):
         for table, is_call in ((calls, True), (fn_truth, False)):
             if len(table) == 0:
                 continue
@@ -384,7 +384,7 @@ def run(argv: list[str]) -> int:
         log.error("%s", e)
         return 2
 
-    with _stage("ingest", device):
+    with stage("ingest", device):
         paths = _input_path(args.input_prefix, args.n_parts)
         log.info("reading calls: %s", paths)
         calls = _concat_tables([read_vcf(p) for p in paths])
@@ -421,10 +421,10 @@ def run(argv: list[str]) -> int:
         )
 
     if len(df) and (args.coverage_bw_high_quality or args.coverage_bw_all_quality):
-        with _stage("coverage", device):
+        with stage("coverage", device):
             annotate_coverage(df, args.coverage_bw_high_quality, args.coverage_bw_all_quality)
 
-    with _stage("writes", device):
+    with stage("writes", device):
         if len(df):
             chrom = np.asarray(df["chrom"], dtype=object)
             write_frames(args.output_file, {str(c): df.take(chrom == c) for c in dict.fromkeys(chrom.tolist())})

@@ -25,7 +25,7 @@ from variantcalling_tpu_torch import knobs
 from variantcalling_tpu_torch.concordance.concordance_utils import calc_accuracy_metrics
 from variantcalling_tpu_torch.io import hdf5
 from variantcalling_tpu_torch.io.vcf import read_vcf
-from variantcalling_tpu_torch.pipelines.coverage_analysis import _stage
+from variantcalling_tpu_torch.utils.stages import stage
 from variantcalling_tpu_torch.utils.h5_utils import Frame, read_hdf, write_frames
 
 log = logging.getLogger(__name__)
@@ -101,7 +101,7 @@ def run(argv: list[str]) -> int:
     except (engine_mod.EngineError, device_mod.DeviceUnavailable, hdf5.H5Unsupported) as e:
         log.error("%s", e)
         return 2
-    with _stage("assess", device):
+    with stage("assess", device):
         is_sec = mark_sec_from_vcf(df, args.corrected_vcf)
         results = assess(df, is_sec, args.classify_column, args.ignore_filters, device)
     write_frames(args.output_file, results)

@@ -24,7 +24,7 @@ from variantcalling_tpu_torch import engine as engine_mod
 from variantcalling_tpu_torch import knobs
 from variantcalling_tpu_torch.io import hdf5
 from variantcalling_tpu_torch.io.vcf import read_vcf, write_vcf
-from variantcalling_tpu_torch.pipelines.coverage_analysis import _stage
+from variantcalling_tpu_torch.utils.stages import stage
 from variantcalling_tpu_torch.sec.caller import DEFAULT_NOISE_RATIO, correct_calls
 from variantcalling_tpu_torch.sec.db import SecDb
 
@@ -69,15 +69,15 @@ def run(argv: list[str]) -> int:
     except hdf5.H5Unsupported as e:
         log.error("%s", e)
         return 2
-    with _stage("ingest", device):
+    with stage("ingest", device):
         table = read_vcf(args.gvcf)
-    with _stage("score", device):
+    with stage("score", device):
         is_sec, ratios = correct_calls(table, db, args.noise_ratio_threshold, device)
 
     table.header.ensure_filter(SEC, "Matches cohort systematic-error (noise) distribution")
     table.header.ensure_info("SEC_RATIO", "1", "Float", "Noise-vs-best-fit multinomial likelihood ratio")
     extra = {"SEC_RATIO": np.where(is_sec, ratios.astype(np.float64), np.nan)}
-    with _stage("writeback", device):
+    with stage("writeback", device):
         write_vcf(args.output_file, table, new_filters=sec_filters(table.filters, is_sec), extra_info=extra,
                   qual_as_read=False)
     log.info("%d/%d records marked %s -> %s on %s", int(is_sec.sum()), len(table), SEC, args.output_file, device)

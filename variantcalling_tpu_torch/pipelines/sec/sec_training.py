@@ -30,7 +30,7 @@ from variantcalling_tpu_torch import engine as engine_mod
 from variantcalling_tpu_torch import knobs
 from variantcalling_tpu_torch.io import bed as bedio
 from variantcalling_tpu_torch.io.vcf import read_vcf
-from variantcalling_tpu_torch.pipelines.coverage_analysis import _stage
+from variantcalling_tpu_torch.utils.stages import stage
 from variantcalling_tpu_torch.sec.aggregate import aggregate_on_device
 from variantcalling_tpu_torch.sec.caller import observed_allele_counts
 from variantcalling_tpu_torch.sec.db import SecDb, merge_sample_counts, pack_keys
@@ -88,12 +88,12 @@ def run(argv: list[str]) -> int:
 
     contigs: list[str] = []
     per_sample = []
-    with _stage("ingest", device):
+    with stage("ingest", device):
         for path in args.inputs:
             per_sample.append(sample_counts(path, contigs, region))
             log.info("%s: %d loci", path, len(per_sample[-1][0]))
 
-    with _stage("aggregate", device):
+    with stage("aggregate", device):
         if args.use_mesh and per_sample:
             all_keys = np.unique(np.concatenate([k for k, _ in per_sample]))
             dense = np.zeros((len(per_sample), len(all_keys), per_sample[0][1].shape[1]), dtype=np.float32)
@@ -111,7 +111,7 @@ def run(argv: list[str]) -> int:
             np.zeros(0, dtype=bool)
         db = SecDb(contigs=db.contigs, keys=db.keys[keep], counts=db.counts[keep], n_samples=db.n_samples)
 
-    with _stage("writes", device):
+    with stage("writes", device):
         db.save(args.output_file)
     log.info("SEC DB: %d loci from %d samples -> %s on %s", len(db), db.n_samples, args.output_file, device)
     return 0

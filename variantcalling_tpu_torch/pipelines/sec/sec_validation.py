@@ -29,7 +29,7 @@ from variantcalling_tpu_torch import engine as engine_mod
 from variantcalling_tpu_torch import knobs
 from variantcalling_tpu_torch.io import hdf5
 from variantcalling_tpu_torch.io.vcf import read_vcf
-from variantcalling_tpu_torch.pipelines.coverage_analysis import _stage
+from variantcalling_tpu_torch.utils.stages import stage
 from variantcalling_tpu_torch.sec.caller import hit_ratios
 from variantcalling_tpu_torch.sec.db import SecDb, pack_keys
 from variantcalling_tpu_torch.utils.h5_utils import Frame
@@ -100,7 +100,7 @@ def run(argv: list[str]) -> int:
     except (engine_mod.EngineError, device_mod.DeviceUnavailable, hdf5.H5Unsupported) as e:
         log.error("%s", e)
         return 2
-    with _stage("sweep", device):
+    with stage("sweep", device):
         sweep = validate(db, args.sample_vcf, args.truth_vcf, args.thresholds, device)
     sweep.to_csv(args.output_file)
     log.info("SEC validation sweep (%d thresholds) -> %s on %s", len(sweep), args.output_file, device)

@@ -48,7 +48,7 @@ from variantcalling_tpu_torch.io import checkpoint, hdf5
 from variantcalling_tpu_torch.io import identity as identity_mod
 from variantcalling_tpu_torch.models import dan
 from variantcalling_tpu_torch.models.registry import save_models
-from variantcalling_tpu_torch.pipelines.filter_variants import _stage
+from variantcalling_tpu_torch.utils.stages import stage
 from variantcalling_tpu_torch.pipelines.train_models import H5_FEATURES, _exome_weight
 from variantcalling_tpu_torch.utils.h5_utils import CONCORDANCE_SKIP_KEYS, Frame, list_keys, read_hdf
 
@@ -305,11 +305,11 @@ def _restored(args, cfg: dan.DanConfig, params: dict, device: torch.device):
 
 
 def _run_impl(args, device: torch.device) -> int:
-    with _stage("ingest"):
+    with stage("ingest"):
         x, names, label, weight = ingest_streaming(args)
     if not len(label):
         raise engine_mod.EngineError(f"{args.input_file}: no tp/fp rows to train on")
-    with _stage("normalise"):
+    with stage("normalise"):
         numeric, left, right, numeric_names = _split_features(x, names)
         del x
         mu = numeric.mean(axis=0)
@@ -329,7 +329,7 @@ def _run_impl(args, device: torch.device) -> int:
     n = len(label)
     bs = min(args.batch_size, n)
     loss = torch.full((), float("nan"))
-    with _stage("train"):
+    with stage("train"):
         data = {"numeric": numeric, "motif_left": left.astype(np.int64), "motif_right": right.astype(np.int64),
                 "label": label, "weight": weight.astype(np.float32)}
         data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in data.items()}
@@ -353,7 +353,7 @@ def _run_impl(args, device: torch.device) -> int:
         final_loss = float(loss)
     log.info("trained %d steps of %d rows on %s", max(args.n_steps - start_step, 0), bs, device)
 
-    with _stage("save"):
+    with stage("save"):
         model = dan.DanModel.from_params(cfg, params_np, feature_names=names, numeric_features=numeric_names)
         model.norm_mu, model.norm_sd = mu, sd
         save_models(args.output_file_prefix + ".pkl", {MODEL_NAME: model})

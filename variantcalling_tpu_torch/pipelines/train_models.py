@@ -44,7 +44,7 @@ from variantcalling_tpu_torch.models import forest as forest_mod
 from variantcalling_tpu_torch.models import threshold as threshold_mod
 from variantcalling_tpu_torch.models.registry import MODEL_NAME_PATTERN, load_models, save_models
 from variantcalling_tpu_torch.ops import intervals as iops
-from variantcalling_tpu_torch.pipelines.filter_variants import _stage
+from variantcalling_tpu_torch.utils.stages import stage
 from variantcalling_tpu_torch.pipelines.training_prep import (
     blacklist_membership,
     labels_from_approximate_gt,
@@ -215,9 +215,9 @@ def run(argv: list[str]) -> int:
 
 def _run(args, device: torch.device) -> int:
     """The run; each stage's host seconds logged as the filter pipeline's are
-    (``filter_variants.STAGE_LOG``): stages that touch the card end in a copy
+    (``utils.stages.STAGE_LOG``): stages that touch the card end in a copy
     back, so their time holds the card's work."""
-    with _stage("ingest"):
+    with stage("ingest"):
         x, names, label, label_gt, weight, in_hpol, contig = _ingest(args, device)
     log.info("training set: %d variants, %d features (%s) on %s", len(x), len(names), ",".join(names[:8]), device)
 
@@ -234,13 +234,13 @@ def _run(args, device: torch.device) -> int:
     results = []
 
     def metrics(key: str, model, m: np.ndarray, lab: np.ndarray) -> None:
-        with _stage("train_metrics"):
+        with stage("train_metrics"):
             results.append(_train_metrics(key, model, x[m], lab[m], list(names), device))
 
     def checkpoint(key: str, model, m: np.ndarray, lab: np.ndarray) -> None:
         models[key] = model
         metrics(key, model, m, lab)
-        with _stage("writes"):
+        with stage("writes"):
             save_models(partial_pkl, models)
             with open(meta_path, "w") as fh:
                 json.dump(fingerprint, fh)
@@ -255,7 +255,7 @@ def _run(args, device: torch.device) -> int:
             if fkey in models:
                 metrics(fkey, models[fkey], m, lab)
             else:
-                with _stage(f"fit_{fkey}"):
+                with stage(f"fit_{fkey}"):
                     forest = boosting.fit(x[m], lab[m], sample_weight=weight[m], cfg=cfg, feature_names=list(names),
                                           device=device)
                 checkpoint(fkey, forest, m, lab)
@@ -264,14 +264,14 @@ def _run(args, device: torch.device) -> int:
                 metrics(tkey, models[tkey], m, lab)
             else:
                 cand = ["tlod", "sor"] if args.mutect else ["qual", "sor"]
-                with _stage("threshold_fits"):
+                with stage("threshold_fits"):
                     tmodel = threshold_mod.fit_threshold_model(x[m], lab[m], list(names), candidate_features=cand,
                                                                sample_weight=weight[m], device=device)
                 checkpoint(tkey, tmodel, m, lab)
 
     pkl = f"{args.output_file_prefix}.pkl"
     out_h5 = f"{args.output_file_prefix}.h5"
-    with _stage("writes"):
+    with stage("writes"):
         save_models(pkl, models)
         for stale in (partial_pkl, meta_path):
             if os.path.exists(stale):
@@ -284,7 +284,7 @@ def _run(args, device: torch.device) -> int:
 
         mdl = models[args.apply_model]
         xh = x[holdout]
-        with _stage("evaluate"):
+        with stage("evaluate"):
             score = _apply(mdl, xh, list(names), device)
             eval_df = Frame({
                 "indel": xh[:, names.index("is_indel")] > 0 if "is_indel" in names else np.zeros(len(xh), bool),
@@ -294,7 +294,7 @@ def _run(args, device: torch.device) -> int:
                 "filter": np.where(score >= getattr(mdl, "pass_threshold", 0.5), "PASS", "LOW_SCORE").astype(object),
             })
             acc = calc_accuracy_metrics(eval_df, "classify_gt", ["HPOL_RUN"], device=device)
-        with _stage("writes"):
+        with stage("writes"):
             write_hdf(acc, out_h5, key="optimal_recall_precision", mode="a")
         log.info("held-out (%s) accuracy: %s", args.evaluate_concordance_contig,
                  {g: (int(tp), int(fp), int(fn)) for g, tp, fp, fn in zip(acc["group"], acc["tp"], acc["fp"],

@@ -942,3 +942,535 @@ def write_sec_world(d: str, seed: int, length: int = 64_444_167, n_pool: int = 6
             "noise_pos": pool[noise_i] + 1, "real_pool_pos": pool[real_i] + 1,
             "repr_pos": np.sort(np.concatenate([shift_at, split_at, mnp_at])) + 1,
             "cohort_loci": len(np.unique(np.concatenate(loci)))}
+
+
+# -- the genotype, imputation, gVCF and runs worlds of ``chip_smoke.py`` phase 13 ---------------------------------
+
+#: a beagle-annotated 30x chr20 callset at the filter world's density, with planted imputation flips,
+#: and the two-contig cut of the ``--input_vcf`` stage chain
+IMPUTE_WORLD = dict(seed=2033, length=64_444_167, n_records=104_000, n_flips=2_000, chain_records=3_000)
+#: a male 30x callset: chrX and chrY records inside and outside hg38's non-PAR spans
+HAPLOID_WORLD = dict(seed=2034, n_x=150_000, n_y=5_000)
+#: a single-sample 30x gVCF of chr20: reference blocks of about 40 bp and the variant records
+GVCF_WORLD = dict(seed=2035, length=64_444_167, n_variants=104_000, mean_block=40)
+#: a joint trio callset of chr20, about 1 % de novo, and two child-against-parent somatic callsets
+TRIO_WORLD = dict(seed=2036, length=64_444_167, n_sites=104_000, n_somatic=20_000)
+#: a FASTA of chr20's length and a short second contig, with planted homopolymer runs
+RUNS_WORLD = dict(seed=2037, contigs=(("chr20", 64_444_167), ("chrM", 16_569)), n_runs=60_000)
+
+GRCH38_CHRX, GRCH38_CHRY = 156_040_895, 57_227_415
+_ACGTN = np.frombuffer(b"ACGTN", dtype="S1")
+
+
+def _text(values) -> np.ndarray:
+    """Decimal text of non-negative integers, by table lookup a group of three digits."""
+    v = np.asarray(values, dtype=np.int64)
+    out = _text_tables()[0][v % 1000].astype("S20")
+    big = v >= 1000
+    if big.any():
+        out[big] = _cat(_text(v[big] // 1000), _padded3()[v[big] % 1000])
+    return out
+
+
+@functools.cache
+def _padded3() -> np.ndarray:
+    return np.char.mod(b"%03d", np.arange(1000))
+
+
+def _join_ints(m: np.ndarray) -> np.ndarray:
+    """``a,b,c`` text of each row of an int matrix."""
+    out = _text(m[:, 0]).astype("S64")
+    for j in range(1, m.shape[1]):
+        out = _cat(out, b",", _text(m[:, j]))
+    return out
+
+
+def _genotype_pls(rng: np.random.Generator, n_alts: int, best: np.ndarray, span: int) -> np.ndarray:
+    """(n, G) integer PLs: 0 at each row's ``best`` genotype index, the others
+    drawn up to ``span`` (the second smallest at least 1)."""
+    g = (n_alts + 1) * (n_alts + 2) // 2
+    n = len(best)
+    pl = rng.integers(1, span + 1, (n, g))
+    near = rng.random(n) < 0.3  # a third of the calls with a close second genotype
+    pl[near] = rng.integers(1, 60, (int(near.sum()), g))
+    pl[np.arange(n), best] = 0
+    return pl
+
+
+def _gq_of(pl: np.ndarray) -> np.ndarray:
+    srt = np.sort(pl, axis=1)
+    return np.minimum(srt[:, 1] - srt[:, 0], 99)
+
+
+def _impute_records(rng: np.random.Generator, contig: bytes, pos0: np.ndarray, n_flips: int,
+                    with_ds: bool = True) -> tuple[np.ndarray, int]:
+    """Record lines (``GT:GQ:DP:AD:PL:DS``; ``GT:GQ:DP:AD:PL`` without DS) of
+    the imputation world, and how many planted flips they hold."""
+    n = len(pos0)
+    n_alts = np.where(rng.random(n) < 0.85, 1, np.where(rng.random(n) < 0.67, 2, 3))
+    ref_c = rng.integers(0, 4, n)
+    alt = _BASES[(ref_c + 1) % 4].astype("S8")
+    for j in (2, 3):
+        m = n_alts >= j
+        alt[m] = _cat(alt[m], b",", _BASES[(ref_c[m] + j) % 4])
+    kind = rng.random(n)
+    # genotypes: het 0/1 (or 1/2 with more alts), hom-alt, hom-ref, no-call, half-missing, haploid
+    gt = np.where(n_alts > 1, b"1/2", b"0/1").astype("S4")
+    gt[(kind >= 0.55) & (kind < 0.87)] = b"1/1"
+    gt[(kind >= 0.87) & (kind < 0.92)] = b"0/0"
+    gt[(kind >= 0.92) & (kind < 0.94)] = b"./."
+    gt[(kind >= 0.94) & (kind < 0.96)] = b"./1"
+    gt[(kind >= 0.96) & (kind < 0.98)] = b"1"
+    best = np.zeros(n, dtype=np.int64)  # genotype index of the smallest PL
+    best[gt == b"0/1"] = 1
+    best[gt == b"1/1"] = 2
+    best[gt == b"1/2"] = 4
+    ds = np.zeros((n, 3))
+    ds[:, 0] = np.where(gt == b"1/1", rng.uniform(1.9, 2.0, n), rng.uniform(0.9, 1.1, n))
+    ds[:, 1:] = rng.uniform(0.9, 1.1, (n, 2))
+    ds[gt == b"0/0", 0] = rng.uniform(0.0, 0.1, int((gt == b"0/0").sum()))
+    # planted flips: biallelic het calls whose hom-alt PL lies 1-12 above theirs and a hom dosage
+    het = np.flatnonzero((gt == b"0/1") & (n_alts == 1))
+    flips = np.sort(rng.choice(het, size=min(n_flips, len(het) // 4), replace=False)) if with_ds else het[:0]
+    # conflicting but strong: het calls with a hom dosage and a hom-alt margin of 60 or more
+    strong = np.setdiff1d(het, flips)[: len(flips)]
+    pl_text = np.empty(n, dtype="S64")
+    gq_text = np.empty(n, dtype="S4")
+    for a in (1, 2, 3):
+        m = np.flatnonzero(n_alts == a)
+        pl = _genotype_pls(rng, a, best[m], 2_000)
+        if a == 1:
+            in_m = np.searchsorted(m, flips)
+            pl[in_m, 2] = rng.integers(1, 13, len(flips))
+            pl[in_m, 0] = rng.integers(40, 2_000, len(flips))
+            in_s = np.searchsorted(m, strong)
+            pl[in_s, 2] = rng.integers(60, 2_000, len(strong))
+        pl_text[m] = _join_ints(pl)
+        gq_text[m] = _text(_gq_of(pl))
+    ds[flips, 0] = rng.uniform(1.97, 2.0, len(flips))
+    ds[strong, 0] = rng.uniform(1.97, 2.0, len(strong))
+    dp = rng.integers(15, 60, n)
+    ad_ref = rng.binomial(dp, 0.5)
+    ad = _cat(_text(ad_ref), b",", _text(dp - ad_ref)).astype("S32")
+    for j in (2, 3):
+        m = n_alts >= j
+        ad[m] = _cat(ad[m], b",", _text(rng.integers(0, 20, int(m.sum()))))
+    ds_text = np.char.mod(b"%.3f", ds[:, 0]).astype("S32")
+    for j in (2, 3):
+        m = n_alts >= j
+        ds_text[m] = _cat(ds_text[m], b",", np.char.mod(b"%.3f", ds[m, j - 1]))
+    no_ds = (rng.random(n) < 0.2) | (not with_ds)
+    no_ds[flips] = no_ds[strong] = False
+    fmt = np.where(no_ds, b"GT:GQ:DP:AD:PL", b"GT:GQ:DP:AD:PL:DS")
+    sample = _cat(gt, b":", gq_text, b":", _text(dp), b":", ad, b":", pl_text)
+    sample = np.where(no_ds, sample, _cat(sample, b":", ds_text))
+    filt = np.where(rng.random(n) < 0.05, b"LowQual", b"PASS")
+    filt[flips] = filt[strong] = b"PASS"
+    qual = np.char.mod(b"%.1f", rng.uniform(20, 900, n))
+    tab = b"\t"
+    lines = _cat(contig, tab, _text(pos0 + 1), tab, b".", tab, _BASES[ref_c], tab, alt, tab, qual, tab, filt, tab,
+                 b"DP=", _text(dp), tab, fmt, tab, sample)
+    return lines, len(flips)
+
+
+def _impute_header(contigs: list[tuple[str, int]], with_ds: bool = True) -> bytes:
+    lines = ["##fileformat=VCFv4.2", '##FILTER=<ID=PASS,Description="All filters passed">',
+             '##FILTER=<ID=LowQual,Description="Low quality">',
+             '##INFO=<ID=DP,Number=1,Type=Integer,Description="Depth">',
+             '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+             '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Genotype quality">',
+             '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read depth">',
+             '##FORMAT=<ID=AD,Number=R,Type=Integer,Description="Allele depths">',
+             '##FORMAT=<ID=PL,Number=G,Type=Integer,Description="Phred-scaled genotype likelihoods">']
+    if with_ds:
+        lines.append('##FORMAT=<ID=DS,Number=A,Type=Float,Description="Genotype dosage from beagle">')
+    lines += [f"##contig=<ID={c},length={ln}>" for c, ln in contigs]
+    lines.append("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tHG002")
+    return ("\n".join(lines) + "\n").encode()
+
+
+#: the stub of beagle for the ``--input_vcf`` stage chain: it reads ``gt=``, and writes ``out=``.vcf.gz with
+#: phased GTs, a dosage a record (hom-alt where the 1-based position is a multiple of 3, else het) and DR2/IMP
+BEAGLE_STUB = """#!/usr/bin/env python3
+import gzip, sys
+kw = dict(a.split('=', 1) for a in sys.argv[1:] if '=' in a)
+opener = gzip.open if kw['gt'].endswith('.gz') else open
+out = []
+with opener(kw['gt'], 'rt') as fh:
+    for line in fh:
+        if line.startswith('##'):
+            out.append(line)
+        elif line.startswith('#'):
+            out.append('##FORMAT=<ID=DS,Number=A,Type=Float,Description="d">\\n')
+            out.append('##INFO=<ID=DR2,Number=1,Type=Float,Description="r">\\n')
+            out.append('##INFO=<ID=IMP,Number=0,Type=Flag,Description="i">\\n')
+            out.append(line)
+        else:
+            f = line.rstrip('\\n').split('\\t')
+            hom = int(f[1]) % 3 == 0
+            f[7] = 'DR2=0.%02d' % (int(f[1]) % 100) + (';IMP' if int(f[1]) % 2 else '')
+            f[8] = 'GT:DS'
+            f[9] = ('1|1:1.98' if hom else '0|1:1.01')
+            out.append('\\t'.join(f) + '\\n')
+with gzip.open(kw['out'] + '.vcf.gz', 'wt') as fh:
+    fh.writelines(out)
+"""
+
+
+def write_impute_world(d: str, seed: int, length: int = 64_444_167, n_records: int = 104_000, n_flips: int = 2_000,
+                       chain_records: int = 3_000) -> dict:
+    """Write the imputation world under ``d``.
+
+    ``annotated.vcf``: ``n_records`` chr20 records (``GT:GQ:DP:AD:PL:DS``,
+    1-3 alts in 85/10/5 %, PLs drawn up to 2,000 so that spans pass the
+    350 clamp, GQ from the PLs), about 5 % LowQual, 20 % without DS, and
+    no-call, half-missing (``./1``) and haploid GTs among them; ``n_flips``
+    planted biallelic het calls with a hom-alt PL 1-12 above theirs and a
+    dosage of 1.97-2.0, which the rewrite must flip to 1/1, and as many
+    conflicting calls with a margin of 60 or more, which it must not flip
+    (nor a rerun). ``chain.vcf``: a two-contig cut without DS (chr20 and
+    chr21, ``chain_records`` each) for the ``--input_vcf`` stage chain, its
+    JSON maps, fake cohort and map files, and ``beagle_stub.py``
+    (:data:`BEAGLE_STUB`). Returns the paths and the planted flips."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    pos0 = _distinct_positions(rng, 100, length - 100, n_records, np.zeros(0, np.int64))
+    lines, flips = _impute_records(rng, b"chr20", pos0, n_flips)
+    annotated = os.path.join(d, "annotated.vcf")
+    _write_lines(annotated, _impute_header([("chr20", length)]), pos0, lines)
+
+    chain_contigs = [("chr20", min(length, 2_000_000)), ("chr21", 2_000_000)]
+    parts, positions = [], []
+    for c, ln in chain_contigs:
+        p = _distinct_positions(rng, 100, ln - 100, chain_records, np.zeros(0, np.int64))
+        recs, _ = _impute_records(rng, c.encode(), p, 0, with_ds=False)
+        parts.append(recs[np.argsort(p)])
+        positions.append(p)
+    chain = os.path.join(d, "chain.vcf")
+    with open(chain, "wb") as fh:
+        fh.write(_impute_header(chain_contigs, with_ds=False))
+        fh.write(b"\n".join(np.concatenate(parts).tolist()) + b"\n")
+    stub = os.path.join(d, "beagle_stub.py")
+    with open(stub, "w") as fh:
+        fh.write(BEAGLE_STUB)
+    maps = {}
+    for name in ("cohort", "plink"):
+        maps[name] = {}
+        for c, _ in chain_contigs:
+            path = os.path.join(d, f"{name}.{c}" + (".vcf.gz" if name == "cohort" else ".map"))
+            with open(path, "wb") as fh:
+                fh.write(b"placeholder: the stub of beagle reads neither cohort nor map\n")
+            maps[name][c] = path
+        with open(os.path.join(d, f"{name}.json"), "w") as fh:
+            json.dump(maps[name], fh)
+    return {"annotated": annotated, "flips": flips, "n_records": n_records, "chain": chain, "beagle_stub": stub,
+            "cohort_json": os.path.join(d, "cohort.json"), "plink_json": os.path.join(d, "plink.json")}
+
+
+def write_haploid_world(d: str, seed: int, n_x: int = 150_000, n_y: int = 5_000) -> dict:
+    """Write a male callset ``calls.vcf`` (``GT:GQ:DP:PL``) of ``n_x`` chrX and
+    ``n_y`` chrY records at GRCh38's lengths, inside and outside hg38's
+    non-PAR spans (the PARs and the spans' edges included): 1-3 alts, PL
+    spans drawn up to 2,000 (past the 350 clamp), no-calls, records without
+    GQ, and records already haploid (GT ``1``, two PLs); QUAL as ``%g``
+    writes it, so that a record the tool leaves alone keeps its bytes. And
+    ``regions.bed``: 40 intervals of 0.5-2 Mbp on both contigs. Returns the paths."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    lines, positions, chroms = [], [], []
+    edges = {"chrX": [10_001, 2_781_479, 155_701_383, 156_030_895, 156_040_895], "chrY": [10_001, 2_781_479, 56_887_903]}
+    for contig, ln, n in (("chrX", GRCH38_CHRX, n_x), ("chrY", GRCH38_CHRY, n_y)):
+        at_edges = np.asarray([e + k for e in edges[contig] for k in (-1, 0, 1) if 100 <= e + k < ln - 100]) - 1
+        pos0 = _distinct_positions(rng, 100, ln - 100, n - len(at_edges), at_edges)
+        pos0 = np.sort(np.concatenate([pos0, at_edges]))
+        m = len(pos0)
+        n_alts = np.where(rng.random(m) < 0.85, 1, np.where(rng.random(m) < 0.67, 2, 3))
+        ref_c = rng.integers(0, 4, m)
+        alt = _BASES[(ref_c + 1) % 4].astype("S8")
+        for j in (2, 3):
+            mm = n_alts >= j
+            alt[mm] = _cat(alt[mm], b",", _BASES[(ref_c[mm] + j) % 4])
+        kind = rng.random(m)
+        gt = np.where(n_alts > 1, b"1/2", np.where(kind < 0.5, b"1/1", b"0/1")).astype("S4")
+        gt[(kind >= 0.9) & (kind < 0.95)] = b"./."
+        best = np.where(gt == b"1/1", 2, np.where(gt == b"1/2", 4, np.where(gt == b"0/1", 1, 0)))
+        pl_text = np.empty(m, dtype="S64")
+        gq_text = np.empty(m, dtype="S4")
+        for a in (1, 2, 3):
+            mm = np.flatnonzero(n_alts == a)
+            pl = _genotype_pls(rng, a, best[mm], 2_000)
+            pl_text[mm] = _join_ints(pl)
+            gq_text[mm] = _text(_gq_of(pl))
+        haploid = (kind >= 0.95) & (n_alts == 1)  # already haploid: GT 1 and two PLs
+        gt[haploid] = b"1"
+        pl_text[haploid] = _cat(_text(rng.integers(20, 900, int(haploid.sum()))), b",0")
+        dp = _text(rng.integers(15, 60, m))
+        no_gq = rng.random(m) < 0.05
+        fmt = np.where(no_gq, b"GT:DP:PL", b"GT:GQ:DP:PL")
+        sample = np.where(no_gq, _cat(gt, b":", dp, b":", pl_text), _cat(gt, b":", gq_text, b":", dp, b":", pl_text))
+        q = rng.integers(200, 9000, m)
+        qual = np.where(q % 10 == 0, _text(q // 10), _cat(_text(q // 10), b".", _text(q % 10)))
+        tab = b"\t"
+        lines.append(_cat(contig.encode(), tab, _text(pos0 + 1), tab, b".", tab, _BASES[ref_c], tab, alt, tab, qual,
+                          tab, b"PASS", tab, b"DP=", dp, tab, fmt, tab, sample))
+        positions.append(pos0)
+        chroms.append(contig)
+    header = ["##fileformat=VCFv4.2", '##FILTER=<ID=PASS,Description="All filters passed">',
+              '##INFO=<ID=DP,Number=1,Type=Integer,Description="Depth">',
+              '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+              '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Genotype quality">',
+              '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read depth">',
+              '##FORMAT=<ID=PL,Number=G,Type=Integer,Description="Phred-scaled genotype likelihoods">',
+              f"##contig=<ID=chrX,length={GRCH38_CHRX}>", f"##contig=<ID=chrY,length={GRCH38_CHRY}>",
+              "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tHG002"]
+    vcf = os.path.join(d, "calls.vcf")
+    with open(vcf, "wb") as fh:
+        fh.write(("\n".join(header) + "\n").encode())
+        fh.write(b"\n".join(np.concatenate(lines).tolist()) + b"\n")
+    bed = os.path.join(d, "regions.bed")
+    with open(bed, "w") as fh:
+        for contig, ln, k in (("chrX", GRCH38_CHRX, 30), ("chrY", GRCH38_CHRY, 10)):
+            starts = np.sort(rng.choice(ln // 2_500_000, size=k, replace=False)) * 2_500_000
+            for s in starts.tolist():
+                fh.write(f"{contig}\t{s}\t{s + int(rng.integers(500_000, 2_000_001))}\n")
+    return {"vcf": vcf, "bed": bed, "n": n_x + n_y}
+
+
+def _gvcf_header(contig: str, length: int, sample: str = "HG002") -> bytes:
+    lines = ["##fileformat=VCFv4.2", '##FILTER=<ID=PASS,Description="All filters passed">',
+             '##FILTER=<ID=RefCall,Description="Genotyping model thinks this site is reference.">',
+             '##INFO=<ID=END,Number=1,Type=Integer,Description="End position (for use with symbolic alleles)">',
+             '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+             '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Conditional genotype quality">',
+             '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read depth">',
+             '##FORMAT=<ID=MIN_DP,Number=1,Type=Integer,Description="Minimum DP observed within the GVCF block.">',
+             '##FORMAT=<ID=AD,Number=R,Type=Integer,Description="Read depth for each allele">',
+             '##FORMAT=<ID=VAF,Number=A,Type=Float,Description="Variant allele fractions.">',
+             '##FORMAT=<ID=PL,Number=G,Type=Integer,Description="Phred-scaled genotype likelihoods">',
+             f"##contig=<ID={contig},length={length}>",
+             f"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t{sample}"]
+    return ("\n".join(lines) + "\n").encode()
+
+
+def write_gvcf_world(d: str, seed: int, length: int = 64_444_167, n_variants: int = 104_000,
+                     mean_block: int = 40, contig: str = "chr20") -> dict:
+    """Write ``sample.g.vcf``, a single-sample 30x gVCF of a synthetic chr20
+    (the filter world's genome model), as DeepVariant writes one.
+
+    Reference blocks (``<*>``, ``END=``, ``GT:GQ:MIN_DP:PL``) tile every
+    base no variant covers, cut at random points about ``mean_block`` bp
+    apart; their GQ wanders (a random walk of step 0-4 in 1-99), 2 % are
+    uncalled (``./.``, GQ 0). ``n_variants`` variant records on a 16-bp
+    grid (``GT:GQ:DP:AD:VAF:PL``, six PLs: ``ALT,<*>`` or, for 10 %, two
+    real alts): 80 % PASS SNVs, insertions and deletions of 1-4 bp (called
+    0/1, 1/1 or 1/2), 20 % RefCall (``./.`` or ``0/0``, GQ 0-40), a third
+    of those deletions. After each called deletion, one or two uncalled
+    ``./.`` blocks inside its span: the records ``cleanup_gvcf_before_calling``
+    must drop. Returns the path, the record count and the planted drops."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    genome = _genome(rng, length)
+    slots = np.sort(rng.choice((length - 2_000) // 16, size=n_variants, replace=False))
+    vpos = 1_000 + slots * 16 + rng.integers(0, 8, n_variants)  # 0-based
+    n = n_variants
+    refcall = rng.random(n) < 0.2
+    kind = rng.random(n)
+    dele = np.where(refcall, kind < 0.33, kind >= 0.85)
+    ins = ~dele & ~refcall & (kind >= 0.75)
+    dlen = np.where(dele, rng.integers(1, 5, n), 0)
+    base = genome[vpos]
+    ref = _BASES[base].astype("S8")
+    for j in range(1, 5):
+        m = dlen >= j
+        ref[m] = _cat(ref[m], _BASES[genome[vpos[m] + j]])
+    shift = rng.integers(1, 4, n)
+    alt = _BASES[(base + shift) % 4].astype("S16")
+    alt[dele] = _BASES[base[dele]]
+    alt[ins] = _cat(_BASES[base[ins]], _BASES[rng.integers(0, 4, int(ins.sum()))])
+    two_real = ~refcall & ~dele & ~ins & (rng.random(n) < 0.1)
+    alts = _cat(alt, b",", np.where(two_real, _BASES[(base + shift % 3 + 1) % 4], b"<*>"))
+    gt = np.where(refcall, np.where(rng.random(n) < 0.5, b"./.", b"0/0"),
+                  np.where(two_real, b"1/2", np.where(rng.random(n) < 0.6, b"0/1", b"1/1"))).astype("S4")
+    best = np.select([gt == b"0/1", gt == b"1/1", gt == b"1/2"], [1, 2, 4], 0)
+    pl = _genotype_pls(rng, 2, best, 990)
+    gq = np.where(refcall, rng.integers(0, 41, n), _gq_of(pl))
+    dp = rng.integers(15, 60, n)
+    ad_alt = np.where(gt == b"1/1", dp - rng.integers(0, 3, n), rng.binomial(dp, 0.5))
+    ad_alt = np.where(refcall, rng.integers(0, 4, n), ad_alt)
+    ad = _cat(_text(dp - ad_alt), b",", _text(ad_alt), b",0")
+    vaf = np.char.mod(b"%.6g", ad_alt / dp)
+    vaf = np.where(two_real, _cat(vaf, b",", np.char.mod(b"%.6g", np.zeros(n))), _cat(vaf, b",0"))
+    q = np.where(refcall, 0, rng.integers(30, 900, n))
+    qual = np.where(q % 10 == 0, _text(q // 10), _cat(_text(q // 10), b".", _text(q % 10)))
+    filt = np.where(refcall, b"RefCall", b"PASS")
+    tab = b"\t"
+    cb = contig.encode()
+    var_lines = _cat(cb, tab, _text(vpos + 1), tab, b".", tab, ref, tab, alts, tab, qual, tab, filt, tab, b".", tab,
+                     b"GT:GQ:DP:AD:VAF:PL", tab, gt, b":", _text(gq), b":", _text(dp), b":", ad, b":", vaf, b":",
+                     _join_ints(pl))
+
+    # the planted uncalled blocks inside each called deletion's span
+    called_del = dele & ~refcall
+    k_planted = np.where(called_del, np.minimum(dlen, rng.integers(1, 3, n)), 0)
+    p_pos = np.concatenate([vpos[k_planted >= j] + j for j in (1, 2)])
+    p_lines = _cat(cb, tab, _text(p_pos + 1), tab, b".", tab, _BASES[genome[p_pos]], tab, b"<*>", tab, b"0", tab, b".",
+                   tab, b"END=", _text(p_pos + 1), tab, b"GT:GQ:MIN_DP:PL", tab, b"./.:0:0:0,0,0")
+
+    # reference blocks over every base no variant covers, cut at random points
+    covered = np.zeros(length, dtype=bool)
+    reflen = dlen + 1
+    for j in range(5):
+        m = reflen > j
+        covered[vpos[m] + j] = True
+    cut = np.zeros(length, dtype=bool)
+    cut[rng.integers(0, length, length // mean_block)] = True
+    free = ~covered
+    start_mask = free.copy()
+    start_mask[1:] &= cut[1:] | covered[:-1]
+    b_start = np.flatnonzero(start_mask)
+    end_mask = free.copy()
+    end_mask[:-1] &= start_mask[1:] | covered[1:]
+    b_end = np.flatnonzero(end_mask)
+    del covered, cut, free, start_mask, end_mask
+    nb = len(b_start)
+    steps = rng.integers(-4, 5, nb)
+    b_gq = np.clip(45 + np.cumsum(steps) % 160 - 80, 1, 99)  # a walk folded into 1-99
+    uncalled = rng.random(nb) < 0.02
+    b_gq = np.where(uncalled, 0, b_gq)
+    b_dp = np.where(uncalled, 0, rng.integers(10, 50, nb))
+    b_pl = np.where(uncalled[:, None], 0, np.stack([np.zeros(nb, np.int64), b_gq, b_gq * 10 + rng.integers(0, 30, nb)], 1))
+    b_lines = _cat(cb, tab, _text(b_start + 1), tab, b".", tab, _BASES[genome[b_start]], tab, b"<*>", tab, b"0", tab,
+                   b".", tab, b"END=", _text(b_end + 1), tab, b"GT:GQ:MIN_DP:PL", tab,
+                   np.where(uncalled, b"./.", b"0/0"), b":", _text(b_gq), b":", _text(b_dp), b":", _join_ints(b_pl))
+    path = os.path.join(d, "sample.g.vcf")
+    pos_all = np.concatenate([vpos, p_pos, b_start])
+    _write_lines(path, _gvcf_header(contig, length), pos_all, np.concatenate([var_lines, p_lines, b_lines]))
+    return {"gvcf": path, "n_records": len(pos_all), "planted_drops": int(k_planted.sum()), "n_blocks": nb,
+            "n_variants": n, "contig": contig, "length": length}
+
+
+def write_trio_world(d: str, seed: int, length: int = 64_444_167, n_sites: int = 104_000, n_somatic: int = 20_000,
+                     child: str = "HG002") -> dict:
+    """Write a joint trio callset ``trio.vcf`` (child, mother, father;
+    ``GT:GQ:DP``) of ``n_sites`` chr20 sites, about 1 % of them de novo in
+    the child (INFO ``hiConfDeNovo`` or ``loConfDeNovo``), and the
+    child-against-mother and child-against-father somatic callsets of
+    ``n_somatic`` records each, holding about 90 % of the de novo loci (a
+    few with QUAL ``.``) and other loci, with their JSON maps. Returns the
+    paths and, for each de novo record, its position and the expected
+    ``DENOVO_QUAL``: the smaller of the two somatic QUALs, 0 for a callset
+    that lacks the locus or has no QUAL."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    pos0 = _distinct_positions(rng, 100, length - 100, n_sites, np.zeros(0, np.int64))
+    n = n_sites
+    ref_c = rng.integers(0, 4, n)
+    denovo = rng.random(n) < 0.01
+    hi = denovo & (rng.random(n) < 0.6)
+    info = np.where(hi, _cat(b"hiConfDeNovo=", child.encode()),
+                    np.where(denovo, _cat(b"loConfDeNovo=", child.encode()), b"DP=30"))
+    gts = np.where(denovo[:, None], np.array([b"0/1", b"0/0", b"0/0"]),
+                   np.array([b"0/1", b"0/1", b"0/0"])[rng.permutation(3)][None, :])
+    samples = [_cat(gts[:, k], b":", _text(rng.integers(10, 99, n)), b":", _text(rng.integers(15, 60, n)))
+               for k in range(3)]
+    qual = np.char.mod(b"%.2f", rng.uniform(20, 900, n))
+    tab = b"\t"
+    lines = _cat(b"chr20", tab, _text(pos0 + 1), tab, b".", tab, _BASES[ref_c], tab, _BASES[(ref_c + 1) % 4], tab,
+                 qual, tab, b"PASS", tab, info, tab, b"GT:GQ:DP", tab, samples[0], tab, samples[1], tab, samples[2])
+    header = ["##fileformat=VCFv4.2", '##FILTER=<ID=PASS,Description="All filters passed">',
+              '##INFO=<ID=DP,Number=1,Type=Integer,Description="Depth">',
+              '##INFO=<ID=hiConfDeNovo,Number=.,Type=String,Description="High confidence de novo samples">',
+              '##INFO=<ID=loConfDeNovo,Number=.,Type=String,Description="Low confidence de novo samples">',
+              '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+              '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="Genotype quality">',
+              '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Read depth">',
+              f"##contig=<ID=chr20,length={length}>",
+              f"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t{child}\tHG004\tHG003"]
+    trio = os.path.join(d, "trio.vcf")
+    with open(trio, "wb") as fh:
+        fh.write(("\n".join(header) + "\n").encode())
+        fh.write(b"\n".join(lines.tolist()) + b"\n")
+
+    dn = np.flatnonzero(denovo)
+    expected = {}
+    paths = {}
+    for parent in ("mother", "father"):
+        held = dn[rng.random(len(dn)) < 0.9]
+        others = np.setdiff1d(np.arange(n), dn)
+        rest = np.sort(rng.choice(others, size=max(0, n_somatic - len(held)), replace=False))
+        idx = np.sort(np.concatenate([held, rest]))
+        q = rng.uniform(1, 60, len(idx))
+        q_text = np.char.mod(b"%.2f", q)
+        no_q = rng.random(len(idx)) < 0.01
+        q_text[no_q] = b"."
+        expected[parent] = {i: (0.0 if t == b"." else float(t)) for i, t in zip(idx.tolist(), q_text.tolist())}
+        som = _cat(b"chr20", tab, _text(pos0[idx] + 1), tab, b".", tab, _BASES[ref_c[idx]], tab,
+                   _BASES[(ref_c[idx] + 1) % 4], tab, q_text, tab, b"PASS", tab, b"TLOD=10.0", tab, b"GT:AD", tab,
+                   b"0/1:20,8", tab, b"0/0:30,0")
+        paths[parent] = os.path.join(d, f"somatic_{parent}.vcf")
+        with open(paths[parent], "wb") as fh:
+            fh.write(b"##fileformat=VCFv4.2\n##contig=<ID=chr20,length=%d>\n" % length)
+            fh.write(f"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t{child}\tPARENT\n".encode())
+            fh.write(b"\n".join(som.tolist()) + b"\n")
+    for parent in ("mother", "father"):
+        with open(os.path.join(d, f"{parent}.json"), "w") as fh:
+            json.dump({child: paths[parent]}, fh)
+    want = np.array([min(expected["mother"].get(i, 0.0), expected["father"].get(i, 0.0)) for i in dn.tolist()])
+    return {"trio": trio, "maternal_json": os.path.join(d, "mother.json"),
+            "paternal_json": os.path.join(d, "father.json"), "denovo_pos": pos0[dn] + 1, "denovo_qual": want}
+
+
+def write_runs_world(d: str, seed: int, contigs=(("chr20", 64_444_167), ("chrM", 16_569)), n_runs: int = 60_000,
+                     n_blocks: int = 200) -> dict:
+    """Write ``ref.fa`` (+ ``.fai``): each contig a sequence whose own runs
+    are at most 4 bases long, with ``n_runs`` homopolymer runs of 5-60 bp
+    planted (shared out by length; each one's neighbours other bases), a
+    run at each contig's first and last base, and ``n_blocks`` blocks of
+    N (50-5,000 bp). Returns the path and the planted runs: (contig,
+    0-based start, length) in contig and position order."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    total = sum(ln for _, ln in contigs)
+    out, planted = [], []
+    for ci, (name, ln) in enumerate(contigs):
+        k = max(4, n_runs * ln // total)
+        lens = rng.integers(1, 5, ln // 2 + 8)
+        bases = np.cumsum(rng.integers(1, 4, len(lens))) % 4  # each run's base differs from the previous one
+        codes = np.repeat(bases.astype(np.uint8), lens)[:ln].copy()
+        # N blocks in 10-kbp cells; runs in 80-bp slots clear of them and of the contig's ends
+        cells = np.sort(rng.choice(max(1, ln // 10_000 - 1), size=min(n_blocks if ci == 0 else 1,
+                                                                        max(1, ln // 10_000 - 1)), replace=False))
+        blk_start = cells * 10_000 + 200
+        blk_len = rng.integers(50, 5_001, len(cells))
+        blocked = np.zeros(ln // 80 + 1, dtype=bool)
+        for s, L in zip(blk_start.tolist(), blk_len.tolist()):
+            codes[s:s + L] = 4
+            blocked[max(0, s // 80 - 1): (s + L) // 80 + 2] = True
+        free = np.flatnonzero(~blocked[1: ln // 80 - 1]) + 1
+        slots = np.sort(rng.choice(free, size=min(k, len(free)), replace=False))
+        starts = slots * 80 + rng.integers(1, 10, len(slots))
+        run_len = rng.integers(5, 61, len(slots))
+        starts = np.concatenate([[0], starts, [ln - 37]])
+        run_len = np.concatenate([[23], run_len, [37]])
+        for s, L in zip(starts.tolist(), run_len.tolist()):
+            left = codes[s - 1] if s > 0 else 5
+            right = codes[s + L] if s + L < ln else 5
+            c = next(b for b in rng.permutation(4).tolist() if b != left and b != right)
+            codes[s:s + L] = c
+        out.append((name, codes))
+        planted += [(name, int(s), int(L)) for s, L in zip(starts.tolist(), run_len.tolist())]
+    fasta = os.path.join(d, "ref.fa")
+    fai = []
+    with open(fasta, "wb") as fh:
+        for name, codes in out:
+            seq = _ACGTN[codes].view(np.uint8)
+            full = len(seq) // 60
+            fh.write(f">{name}\n".encode())
+            fai.append(f"{name}\t{len(codes)}\t{fh.tell()}\t60\t61\n")
+            fh.write(np.concatenate([seq[: full * 60].reshape(full, 60),
+                                     np.full((full, 1), ord("\n"), np.uint8)], axis=1).tobytes())
+            if len(seq) > full * 60:
+                fh.write(seq[full * 60:].tobytes() + b"\n")
+    with open(fasta + ".fai", "w") as fh:
+        fh.write("".join(fai))
+    return {"fasta": fasta, "planted": planted}
