@@ -111,15 +111,15 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    concordance rows on GRCh38's 22 autosomes (chr20 at 104,000), written by
    the port's own HDF5 writer, through ``train_models_pipeline
    --evaluate_concordance --evaluate_concordance_contig chr20`` at the
-   default 100 trees, depth 6, 64 bins, once, and a fifth of its rows (about
-   1 M) twice, each run in a process of its own with the kernels' counts
+   default 100 trees, depth 6, 64 bins, once, and 200,000 of its rows
+   twice, each run in a process of its own with the kernels' counts
    set to 0 just before it: 2,400 ``gbt_hist`` launches and 5
    ``forest_wide`` launches a run, the pair's pickles and ``.h5`` frames
-   byte-equal (``TRAIN_DETAIL``: wall, seconds by stage, launches, peak
-   RSS and card memory); 200,000 of its rows on the card against
+   equal (``TRAIN_DETAIL``: wall, seconds by stage, launches, peak
+   RSS and card memory); those 200,000 rows on the card against
    ``--backend cpu`` (the native float32 trainer; the threshold models
    equal, the forests' agreement reported: ``TRAIN_NATIVE_DETAIL``), and
-   ``boosting.fit`` of one model on the card against
+   ``boosting.fit`` of one model on a quarter of those rows on the card against
    the CPU torch program (``VCTPU_NATIVE_GBT=0``): equal trees, values to
    1e-5, scores to 1e-6 (``TRAIN_FIT_DETAIL``); the histogram of one tree at
    5 M rows level by level, ``torch.equal`` to its plain version, timed
@@ -133,13 +133,14 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    every kernel's count set to 0 just before it and read just after (no
    kernel lies on these paths: none may launch): ``train_dan`` at its
    defaults (hidden 256, 2 layers, embed 16, 2,000 steps of 16,384 rows)
-   on ``TRAIN_WORLD`` (22 keys: 22 journaled ingest chunks), twice, each in
-   a process of its own, byte-equal pickles; two pairs of ``--n_steps 1000``
-   then ``--n_steps 2000`` on one checkpoint directory, the second run of
-   each resuming 22 of 22 chunks and step 999, the pairs byte-equal
+   on ``TRAIN_WORLD`` (22 keys: 22 journaled ingest chunks) in a process of
+   its own; on 200,000 of its rows (2 keys) two pairs of ``--n_steps 400``
+   then ``--n_steps 800`` on one checkpoint directory, each run a process of
+   its own, the second run of each resuming 2 of 2 chunks and step 399, the
+   pairs byte-equal
    (``DAN_TRAIN_DETAIL``: wall, stages, steps and rows a second, peaks, the
    logged losses); one step at those widths timed, and profiled for its
-   kernels and the card's busy share (``DAN_STEP_DETAIL``); 200 steps on 200,000 of its rows on the card and on the
+   kernels and the card's busy share (``DAN_STEP_DETAIL``); 100 steps on 200,000 of its rows on the card and on the
    CPU, losses within 1 % and scores within 5e-3 (``DAN_CPU_DETAIL``); a
    DAN trained on the 104,000-variant world's labels (its own features)
    filtering that world with ``VCTPU_MODEL_FAMILY=dan``, card against CPU
@@ -205,7 +206,30 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    ``RUNS_WORLD`` (chr20's length and chrM) through ``find_runs_bed`` on the
    card and the CPU, equal to the planted runs and a numpy walk, and the
    scan alone (``GENOTYPE_DETAIL``, ``GVCF_DETAIL``, ``RUNS_DETAIL``,
-   ``RUNS_KERNEL_DETAIL``, ``HOST_ENGINE`` lines).
+   ``RUNS_KERNEL_DETAIL``, ``HOST_ENGINE`` lines);
+14. the report tools and pileup fingerprinting (``phase_reports``), each
+   run a process of its own, one after another, the counts set to 0 just
+   before it and read just after (no kernel lies on these paths: none may
+   launch), each card run against its CPU twin under
+   ``tests/torch_report_compare``'s bars: ``REPORT_WORLD`` (a 30x chr20
+   callset of 104,000 records, ``GT:GQ:DP:AD:VAF``, 1-3 alts, hmer and
+   non-hmer indels, adjacent-SNV doublets and runs of three, a dbSNP of 40 %
+   of its sites and 500,000 others, a callable BED, two control callsets
+   of 20,000 records, seeded catalogs of COSMIC v3.3's shapes) through
+   ``run_no_gt_report`` ``full_analysis``, ``variant_eval`` and
+   ``somatic_analysis`` (the planted hmer tables, doublets, indel classes
+   and motifs found, the planted mixture recovered); ``joint_calling_report``
+   on phase 13's ``TRIO_WORLD`` joint VCF with its dbSNP;
+   ``substitution_error_rate_report`` on a seeded motif h5;
+   ``FINGERPRINT_WORLD`` (four samples over a 200 kbp region of chr20 at
+   30x, as BAM and as CRAM: two match their truth, one matches none, one
+   is a normal-in-tumor mix) through ``quick_fingerprinting`` and
+   ``training_set_consistency_check`` (the expected error lists), and the
+   pileup of every sample by the engine's BAM walk against its
+   ``VCTPU_NO_NATIVE=1`` plain walk and the CRAM decoder (``REPORT_DETAIL``,
+   ``FINGERPRINT_DETAIL``, ``PILEUP_DETAIL``, ``HOST_ENGINE`` lines; each
+   detail line counts the figures its run skipped: the card's machine has
+   no plotting library).
 
 A ``PHASE_SECONDS`` line follows every phase (wall seconds of the phase),
 and one for the whole run before the result lines.
@@ -229,7 +253,9 @@ compares their kernels (:func:`time_kernel`).
 
 from __future__ import annotations
 
+import contextlib
 import gzip
+import io
 import json
 import logging
 import math
@@ -412,11 +438,22 @@ def _measure(name: str, kernel, x_all: torch.Tensor, main_rows: int, north_star:
     abs error)."""
     max_err = 0.0
     spans = [(lo, KERNEL_ROWS) for lo in range(0, NORTH_STAR_ROWS, KERNEL_ROWS)] if north_star else []
+    n_north = len(spans)
     spans += [(0, main_rows), (0, KERNEL_ROWS)]
-    for lo, size in spans:
-        xc = x_all[lo: lo + size]
-        got, want = kernel.launch(xc), kernel.plain(xc)
+    plain_north_ms = 0.0  # the plain version over the 5 M rows: its chunks' times in this parity pass
+    if north_star:  # one call first, so that the timed pass is warm as the medians below are
+        kernel.plain(x_all[:KERNEL_ROWS])
         torch.cuda.synchronize()
+    for i, (lo, size) in enumerate(spans):
+        xc = x_all[lo: lo + size]
+        got = kernel.launch(xc)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = kernel.plain(xc)
+        end.record()
+        torch.cuda.synchronize()
+        if i < n_north:
+            plain_north_ms += start.elapsed_time(end)
         err = float((got - want).abs().nan_to_num(nan=math.inf).max())
         max_err = max(max_err, err)
         check(torch.equal(got, want), f"{name}: kernel != plain at rows {lo}..{lo + size} (max abs err {err})")
@@ -426,8 +463,8 @@ def _measure(name: str, kernel, x_all: torch.Tensor, main_rows: int, north_star:
         times = _launch_times(kernel.launch, x_all, n)
         if n <= KERNEL_ROWS:
             plain_ms = cuda_ms(lambda xn=x_all[:n]: kernel.plain(xn), reps=5)
-        else:
-            plain_ms = cuda_ms(lambda: _chunked(kernel.plain, x_all, KERNEL_ROWS), reps=2, warmup=1)
+        else:  # one warm pass in chunks, timed during the parity pass above (a second pass would add seconds)
+            plain_ms = plain_north_ms
         rows[n] = {**times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_share": bound_ms / times["ms"], "device_bound_share": bound_ms / times["device_ms"],
                    **detail, "launches": math.ceil(n / KERNEL_ROWS)}
@@ -1112,7 +1149,9 @@ FORKSERVER_PRELOAD = ["__main__", "torch", "numpy", *(f"variantcalling_tpu_torch
     "pipelines.sec.assess_sec_concordance", "pipelines.run_comparison", "pipelines.vcfeval_flavors",
     "pipelines.correct_genotypes_by_imputation", "pipelines.imputation_stages", "pipelines.convert_haploid_regions",
     "pipelines.compress_gvcf", "pipelines.cleanup_gvcf_before_calling", "pipelines.gvcf_hcr",
-    "pipelines.denovo_recalibrated_qualities", "pipelines.misc.find_runs_bed"))]
+    "pipelines.denovo_recalibrated_qualities", "pipelines.misc.find_runs_bed", "pipelines.run_no_gt_report",
+    "pipelines.joint_calling_report", "pipelines.substitution_error_rate_report", "pipelines.quick_fingerprinting",
+    "pipelines.training_set_consistency_check"))]
 
 
 def _forked(spec: dict, label: str, target=None) -> dict:
@@ -1386,8 +1425,8 @@ def phase_streaming(tmp: Path, card: str, pickle_world: dict) -> dict:
 TRAIN_WORLD = dict(seed=2029, n_rows=5_000_000, chr20_rows=104_000)
 #: rows of the GPU-against-CPU comparison: chr1's first 96,000 and chr20's 104,000
 TRAIN_CPU_ROWS = 200_000
-#: the reproducibility pair trains on 1 / TRAIN_PAIR_SHARE of each contig's rows (about 1 M)
-TRAIN_PAIR_SHARE = 5
+#: boosting.fit on the card against the torch program on the CPU: every 4th row of TRAIN_CPU_ROWS (about 49,000)
+TRAIN_FIT_STRIDE = 4
 #: gbt_hist launches of the default grid: 100 trees x depth 6 x the four rf cells
 TRAIN_GRID_LAUNCHES = 100 * 6 * 4
 
@@ -1559,17 +1598,18 @@ def phase_training(tmp: Path, card: str) -> dict:
     1. ``TRAIN_WORLD`` (5 M labeled rows, 22 autosomes, written by the port's
        own ``write_frames``) through ``train_models_pipeline
        --evaluate_concordance --evaluate_concordance_contig chr20`` at the
-       default 100 trees, depth 6, 64 bins, in a process of its own, and a
-       fifth of each contig's rows (about 1 M) the same way twice:
+       default 100 trees, depth 6, 64 bins, in a process of its own:
        ``gbt_hist`` launched 2,400 times and ``forest_wide`` once a forest
-       scored in each run; the pair's pickles and ``.h5`` files byte-equal.
-    2. ``TRAIN_CPU_ROWS`` of the same world: the CLI on the card against
-       ``--backend cpu`` (the native float32 trainer): the threshold models
+       scored.
+    2. ``TRAIN_CPU_ROWS`` of the same world: the CLI on the card twice (the
+       same launches; the pair's pickles and ``.h5`` frames equal) and
+       against ``--backend cpu`` (the native float32 trainer): the threshold models
        equal, the forests' agreement reported (:func:`_native_agreement`);
        ``boosting.fit`` of one
-       model on the card against the torch program on the CPU
-       (``VCTPU_NATIVE_GBT=0``): features and thresholds equal, values to
-       1e-5, scores to 1e-6, and whether the pickles came out byte-equal.
+       model on every 4th of those rows (:data:`TRAIN_FIT_STRIDE`) on the card
+       against the torch program on the CPU (``VCTPU_NATIVE_GBT=0``):
+       features and thresholds equal, values to 1e-5, scores to 1e-6, and
+       whether the pickles came out byte-equal.
     3. The histogram of one full-width tree at 5 M rows, level by level,
        ``torch.equal`` to its plain version, timed (:func:`_hist_levels`).
     4. Train -> filter: the 104,000-variant chr20 world with dbSNP IDs, a
@@ -1586,7 +1626,7 @@ def phase_training(tmp: Path, card: str) -> dict:
     from variantcalling_tpu_torch.utils import h5_utils
 
     out: dict = {}
-    # -- 1. the 5 M world, twice on the card ---------------------------------------
+    # -- 1. the 5 M world on the card; 200,000 of its rows twice on the card and once on the CPU
     t0 = time.perf_counter()
     frames = synthetic.train_world(TRAIN_WORLD["seed"], TRAIN_WORLD["n_rows"], chr20_rows=TRAIN_WORLD["chr20_rows"])
     world = tmp / "train_5m.h5"
@@ -1595,23 +1635,27 @@ def phase_training(tmp: Path, card: str) -> dict:
           f"chr20), {os.path.getsize(world)} bytes of h5 written by the port in {time.perf_counter() - t0:.1f} s",
           flush=True)
     grid = ["--evaluate_concordance", "--evaluate_concordance_contig", "chr20"]
-    # the 5 M run, then a pair on a fifth of each contig's rows that proves two runs write the same files
-    pair_world = tmp / "train_1m.h5"
-    h5_utils.write_frames(str(pair_world), {k: f.take(np.arange(len(f)) < len(f) // TRAIN_PAIR_SHARE)
-                                            for k, f in frames.items()})
+    small = {"chr1": frames["chr1"].take(np.arange(len(frames["chr1"])) < TRAIN_CPU_ROWS - TRAIN_WORLD["chr20_rows"]),
+             "chr20": frames["chr20"]}
+    del frames
+    small_path = tmp / "train_200k.h5"
+    h5_utils.write_frames(str(small_path), small)
+    # the 5 M run; then on 200,000 rows a pair on the card that proves two runs write the same files, and the CPU
     runs = {}
-    for label, path in (("train_5m_gpu", world), ("train_1m_gpu", pair_world), ("train_1m_gpu_again", pair_world)):
-        argv = ["--input_file", str(path), "--output_file_prefix", str(tmp / label), *grid, "--backend", "gpu"]
+    for label, path, backend in (("train_5m_gpu", world, "gpu"), ("train_200k_gpu", small_path, "gpu"),
+                                 ("train_200k_gpu_again", small_path, "gpu"), ("train_200k_cpu", small_path, "cpu")):
+        argv = ["--input_file", str(path), "--output_file_prefix", str(tmp / label), *grid, "--backend", backend]
         run = _forked({"argv": argv, "env": {}}, label, _train_child)
         check(run["rc"] == 0, f"{label}: exit {run['rc']}")
-        check(run["launches"]["gbt_hist"] == TRAIN_GRID_LAUNCHES and run["launches"]["forest_wide"] == 5
-              and run["launches"]["forest_tree_step"] == 0, f"{label}: launches {run['launches']}")
+        if backend == "gpu":
+            check(run["launches"]["gbt_hist"] == TRAIN_GRID_LAUNCHES and run["launches"]["forest_wide"] == 5
+                  and run["launches"]["forest_tree_step"] == 0, f"{label}: launches {run['launches']}")
         detail = {"world": path.stem, "run": label, "card": card, "wall_s": run["seconds"],
                   "stages": run["stages"], "launches": run["launches"], "peak_rss_bytes": run["peak_rss_bytes"],
                   "peak_device_bytes": run["peak_device_bytes"]}
         print("TRAIN_DETAIL " + json.dumps(detail), flush=True)
         runs[label] = detail
-    pair = ("train_1m_gpu", "train_1m_gpu_again")
+    pair = ("train_200k_gpu", "train_200k_gpu_again")
     pkl = [(tmp / f"{label}.pkl").read_bytes() for label in pair]
     h5 = [(tmp / f"{label}.h5").read_bytes() for label in pair]
     check(pkl[0] == pkl[1], "two GPU training runs wrote different pickles")
@@ -1626,28 +1670,14 @@ def phase_training(tmp: Path, card: str) -> dict:
     results = h5_utils.read_hdf(str(tmp / "train_5m_gpu.h5"), "training_results")
     acc = h5_utils.read_hdf(str(tmp / "train_5m_gpu.h5"), "optimal_recall_precision")
     check(all(0.5 < v <= 1 for v in results["f1"][::2]), f"rf F1 {list(results['f1'])}")
-    print(f"training 5M on the card; two GPU runs on a fifth of its rows wrote equal pickles ({len(pkl[0])} "
-          f"bytes) and .h5 files (bytes equal: {h5[0] == h5[1]}); rf F1 {[float(v) for v in results['f1'][::2]]}, held-out chr20 SNP "
-          f"precision/recall {float(acc['precision'][0])}/{float(acc['recall'][0])} ({card})", flush=True)
-    out["train_5m"] = runs
+    print(f"training 5M on the card; two GPU runs on {TRAIN_CPU_ROWS} of its rows wrote equal pickles "
+          f"({len(pkl[0])} bytes) and .h5 files (bytes equal: {h5[0] == h5[1]}); rf F1 "
+          f"{[float(v) for v in results['f1'][::2]]}, held-out chr20 SNP precision/recall "
+          f"{float(acc['precision'][0])}/{float(acc['recall'][0])} ({card})", flush=True)
+    out["train_5m"] = {k: v for k, v in runs.items() if k == "train_5m_gpu"}
 
     # -- 2. GPU against CPU on 200,000 rows of the same world ------------------------
-    small = {"chr1": frames["chr1"].take(np.arange(len(frames["chr1"])) < TRAIN_CPU_ROWS - TRAIN_WORLD["chr20_rows"]),
-             "chr20": frames["chr20"]}
-    del frames
-    small_path = tmp / "train_200k.h5"
-    h5_utils.write_frames(str(small_path), small)
-    pair = {}
-    for backend in ("gpu", "cpu"):
-        label = f"train_200k_{backend}"
-        argv = ["--input_file", str(small_path), "--output_file_prefix", str(tmp / label), *grid,
-                "--backend", backend]
-        run = _forked({"argv": argv, "env": {}}, label, _train_child)
-        check(run["rc"] == 0, f"{label}: exit {run['rc']}")
-        print("TRAIN_DETAIL " + json.dumps({"world": "train_200k", "run": label, "card": card,
-                                            "wall_s": run["seconds"], "stages": run["stages"],
-                                            "launches": run["launches"]}), flush=True)
-        pair[backend] = registry.load_models(str(tmp / f"{label}.pkl"))
+    pair = {backend: registry.load_models(str(tmp / f"train_200k_{backend}.pkl")) for backend in ("gpu", "cpu")}
     args = train_models.parse_args(["--input_file", str(small_path), "--output_file_prefix", "unused"])
     x, names, label_, _, weight, _, contig = train_models._ingest(args, torch.device("cpu"))
     native = {}
@@ -1666,19 +1696,21 @@ def phase_training(tmp: Path, card: str) -> dict:
           f"equal in {sum(v['features_equal'] for v in native.values())} of {len(native)} forests, the held-out "
           f"forest bar held by all; threshold models equal ({card})", flush=True)
     cfg = boosting.BoostConfig()
+    # the torch program on the CPU takes seconds a 10,000 rows: every TRAIN_FIT_STRIDE-th row of both contigs
+    xf, yf, wf = (np.ascontiguousarray(a[::TRAIN_FIT_STRIDE]) for a in (x, label_, weight))
     t0 = time.perf_counter()
-    gpu_fit = boosting.fit(x, label_, sample_weight=weight, cfg=cfg, feature_names=names, device="cuda")
+    gpu_fit = boosting.fit(xf, yf, sample_weight=wf, cfg=cfg, feature_names=names, device="cuda")
     gpu_s = time.perf_counter() - t0
     os.environ["VCTPU_NATIVE_GBT"] = "0"
     try:
         t0 = time.perf_counter()
-        cpu_fit = boosting.fit(x, label_, sample_weight=weight, cfg=cfg, feature_names=names, device="cpu")
+        cpu_fit = boosting.fit(xf, yf, sample_weight=wf, cfg=cfg, feature_names=names, device="cpu")
         cpu_s = time.perf_counter() - t0
     finally:
         del os.environ["VCTPU_NATIVE_GBT"]
-    one = _check_fit_bar(gpu_fit, cpu_fit, "boosting.fit GPU vs CPU torch program", x)
+    one = _check_fit_bar(gpu_fit, cpu_fit, "boosting.fit GPU vs CPU torch program", xf)
     same_bytes = registry.dumps_models({"m": gpu_fit}) == registry.dumps_models({"m": cpu_fit})
-    print("TRAIN_FIT_DETAIL " + json.dumps({"rows": len(x), "features": len(names), "card": card, "gpu_s": gpu_s,
+    print("TRAIN_FIT_DETAIL " + json.dumps({"rows": len(xf), "features": len(names), "card": card, "gpu_s": gpu_s,
                                             "cpu_torch_s": cpu_s, "pickles_byte_equal": same_bytes, **one}),
           flush=True)
     out["train_200k"] = {"native": native, "fit": {**one, "pickles_byte_equal": same_bytes}}
@@ -1732,8 +1764,13 @@ def phase_training(tmp: Path, card: str) -> dict:
 
 #: train_dan's defaults, at which phase 10 trains on TRAIN_WORLD: 2,000 steps of 16,384 rows
 DAN_STEPS, DAN_BATCH = 2000, 1 << 14
+#: each run of a resumed pair: this many steps, then as many again from its checkpoint
+DAN_RESUME_STEPS = 400
+#: train -> filter on the 104,000-variant world: half the default steps, still about 250 passes over
+#: its 66,651 labeled rows
+DAN_VCF_STEPS = 1000
 #: GPU against CPU: steps on TRAIN_CPU_ROWS, a loss logged every DAN_CPU_LOG of them
-DAN_CPU_STEPS, DAN_CPU_LOG = 200, 10
+DAN_CPU_STEPS, DAN_CPU_LOG = 100, 10
 #: the CPU tests' bf16 bar (tests/test_torch_dan_train.py): each logged loss within 1 %, scores within 5e-3
 DAN_LOSS_RTOL, DAN_SCORE_ATOL = 1e-2, 5e-3
 
@@ -1921,17 +1958,20 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
     1. ``TRAIN_WORLD`` (5 M rows, 22 keys: the ingest's ``keys`` mode, 22
        journaled chunks) through ``train_dan`` at its defaults (hidden 256,
        2 layers, embed 16, 2,000 steps of 16,384 rows, learning rate 1e-3)
-       with ``--checkpoint_every 200``, twice, each in a process of its own:
-       byte-equal pickles, the newest two checkpoints kept. Then ``--n_steps
-       1000`` and ``--n_steps 2000`` on one checkpoint directory, twice: the
-       second run of a pair resumes 22 of 22 chunks from the ingest cache and
-       from step 999, and the two pairs' pickles are byte-equal. One step at
-       those widths timed and profiled (:func:`_dan_step_profile`).
-    2. ``TRAIN_CPU_ROWS`` of the world, 200 steps on the card and with
+       with ``--checkpoint_every 200``, in a process of its own: the newest
+       two checkpoints kept. Then, on ``TRAIN_CPU_ROWS`` of it (two keys),
+       ``--n_steps 400`` and ``--n_steps 800`` (:data:`DAN_RESUME_STEPS`) on
+       one checkpoint directory, twice, each run a process of its own: the
+       second run of a pair resumes 2 of 2 chunks from the ingest cache and
+       from step 399, and the two pairs' pickles are byte-equal (two runs of
+       the card write the same model). One step at those widths timed and
+       profiled (:func:`_dan_step_profile`).
+    2. ``TRAIN_CPU_ROWS`` of the world, 100 steps on the card and with
        ``--backend cpu``: each logged loss within 1 %, the two models' scores
        of those rows within 5e-3 (the CPU tests' bf16 bar); the largest gaps.
-    3. Train -> filter: a DAN trained on the 104,000-variant chr20 world's
-       ``training_prep_pipeline`` labels (the filter's own features), then
+    3. Train -> filter: a DAN trained (``DAN_VCF_STEPS`` steps) on the
+       104,000-variant chr20 world's ``training_prep_pipeline`` labels (the
+       filter's own features), then
        that world's VCF filtered with ``VCTPU_MODEL_FAMILY=dan`` on the card
        and on the CPU, held to the DAN rule (``tests/torch_vcf_compare.py``,
        1e-5); the pickle names only ``variantcalling_tpu.models.dan``'s
@@ -1948,36 +1988,37 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
 
     out: dict = {}
     world = files["world"]
-    n_keys = len(h5_utils.list_keys(world))
-    # -- 1. the 5 M world at train_dan's defaults, twice, and two resumed pairs ------
+    # -- 1. the 5 M world at train_dan's defaults; two resumed pairs on 200,000 of its rows ------------
     base = ["--input_file", world, "--checkpoint_every", "200", "--backend", "gpu"]
     runs = {}
-    for label in ("dan_5m_gpu", "dan_5m_gpu_again"):
-        ck = tmp / f"{label}_ck"
-        runs[label] = _dan_train(tmp, label, card, [*base, "--checkpoint_dir", str(ck)], DAN_STEPS, DAN_BATCH)
-        check(checkpoint.steps(str(ck)) == [DAN_STEPS - 201, DAN_STEPS - 1], f"{label}: checkpoints "
-              f"{checkpoint.steps(str(ck))}")
-        check(runs[label]["resumed_chunks"] is None, f"{label}: a fresh run read a cache")
-    pkl = [(tmp / f"{label}.pkl").read_bytes() for label in runs]
-    check(pkl[0] == pkl[1], "two train_dan runs on the card wrote different pickles")
+    label = "dan_5m_gpu"
+    ck = tmp / f"{label}_ck"
+    runs[label] = _dan_train(tmp, label, card, [*base, "--checkpoint_dir", str(ck)], DAN_STEPS, DAN_BATCH)
+    check(checkpoint.steps(str(ck)) == [DAN_STEPS - 201, DAN_STEPS - 1], f"{label}: checkpoints "
+          f"{checkpoint.steps(str(ck))}")
+    check(runs[label]["resumed_chunks"] is None, f"{label}: a fresh run read a cache")
     pairs = []
+    half = DAN_RESUME_STEPS
+    n_keys = len(h5_utils.list_keys(files["small"]))
+    small = ["--input_file", files["small"], "--checkpoint_every", "200", "--backend", "gpu"]
     for pair in ("a", "b"):
         ck = ["--checkpoint_dir", str(tmp / f"dan_resume_{pair}_ck")]
-        first = _dan_train(tmp, f"dan_resume_{pair}_1000", card, [*base, *ck, "--n_steps", "1000"], 1000,
+        first = _dan_train(tmp, f"dan_resume_{pair}_{half}", card, [*small, *ck, "--n_steps", str(half)], half,
                            DAN_BATCH)
-        second = _dan_train(tmp, f"dan_resume_{pair}_2000", card, [*base, *ck, "--n_steps", "2000"], 1000,
-                            DAN_BATCH)
-        check(first["resume_step"] is None and second["resume_step"] == 999
+        second = _dan_train(tmp, f"dan_resume_{pair}_{2 * half}", card, [*small, *ck, "--n_steps", str(2 * half)],
+                            half, DAN_BATCH)
+        check(first["resume_step"] is None and second["resume_step"] == half - 1
               and second["resumed_chunks"] == [n_keys, n_keys],
               f"pair {pair}: resumed from step {second['resume_step']}, chunks {second['resumed_chunks']}")
-        pairs.append((tmp / f"dan_resume_{pair}_2000.pkl").read_bytes())
+        pairs.append((tmp / f"dan_resume_{pair}_{2 * half}.pkl").read_bytes())
     check(pairs[0] == pairs[1], "two resumed train_dan pairs wrote different pickles")
     model = registry.load_model(str(tmp / "dan_5m_gpu.pkl"), train_dan.MODEL_NAME)
     losses = runs["dan_5m_gpu"]["losses"]
     check(losses[-1][1] < losses[0][1], f"the loss did not fall: {losses}")
-    print(f"train_dan 5M: two runs wrote equal pickles ({len(pkl[0])} bytes), two resumed pairs (1000 + 1000 "
-          f"steps, {n_keys} of {n_keys} chunks from the cache) equal too; loss {losses[0][1]:.4f} -> "
-          f"{losses[-1][1]:.4f}; {runs['dan_5m_gpu']['steps_per_s']:.1f} steps/s ({card})", flush=True)
+    print(f"train_dan 5M: {DAN_STEPS} steps; two resumed pairs on {TRAIN_CPU_ROWS} rows ({half} + {half} steps, "
+          f"{n_keys} of {n_keys} chunks from the cache) wrote equal pickles ({len(pairs[0])} bytes); loss "
+          f"{losses[0][1]:.4f} -> {losses[-1][1]:.4f}; {runs['dan_5m_gpu']['steps_per_s']:.1f} steps/s ({card})",
+          flush=True)
     out["dan_5m"] = {**runs, "resumed": pairs[0] == pairs[1]}
     out["dan_step"] = _dan_step_profile(card, len(model.numeric_features))
 
@@ -2013,7 +2054,8 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
     d.mkdir()
     n_labeled = _vcf_concordance(w, files["labels"], d / "concordance.h5")
     run = _tool_run("train_dan", ["--input_file", str(d / "concordance.h5"), "--output_file_prefix", str(d / "dan"),
-                                  "--checkpoint_dir", str(d / "ck"), "--backend", "gpu"])
+                                  "--checkpoint_dir", str(d / "ck"), "--n_steps", str(DAN_VCF_STEPS),
+                                  "--backend", "gpu"])
     check(run["rc"] == 0 and not any(run["launches"].values()), f"train_dan on the VCF world: exit {run['rc']}, "
           f"launches {run['launches']}")
     globs = _pickle_globals((d / "dan.pkl").read_bytes())
@@ -2092,10 +2134,12 @@ CNV_STEP_CYCLES = 3 * 4
 
 
 def _tool_child(spec: dict, results) -> None:
-    """One tool of phases 11 and 12 (``spec["tool"]``, a name of the port's
+    """One tool of phases 11-14 (``spec["tool"]``, a name of the port's
     CLI) in a process of its own: every kernel's count and every host engine entry
     point's count set to 0 just before it and read just after; stages, wall
-    seconds, peak RSS and peak card memory to ``results``."""
+    seconds, peak RSS and peak card memory to ``results``, and the figures it
+    skipped; with ``spec["raises"]`` its standard output and the text of the
+    ``RuntimeError`` it raised (exit 1)."""
     import importlib
     import resource
 
@@ -2116,10 +2160,22 @@ def _tool_child(spec: dict, results) -> None:
         torch.cuda.reset_peak_memory_stats()
     viterbi_cuda.LAUNCHES = gbt_hist.LAUNCHES = forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
     native.reset_calls()
+    from variantcalling_tpu_torch.utils import degrade
+
+    degrade.clear_for_tests()
+    stdout, error = io.StringIO(), None
     t0 = time.perf_counter()
-    rc = module.run(spec["argv"])
+    with contextlib.redirect_stdout(stdout) if spec.get("raises") else contextlib.nullcontext():
+        try:
+            rc = module.run(spec["argv"])
+        except RuntimeError as e:  # the fingerprinting tools raise their error list
+            if not spec.get("raises"):
+                raise
+            rc, error = 1, str(e)
     seconds = time.perf_counter() - t0
     results.put({
+        "stdout": stdout.getvalue() if spec.get("raises") else None, "error": error,
+        "figures_skipped": len(degrade.events_for("reports.figure")),
         "rc": rc if isinstance(rc, int) else 0, "seconds": seconds, "stages": times.stages,
         "launches": {"cnv_viterbi": viterbi_cuda.LAUNCHES, "gbt_hist": gbt_hist.LAUNCHES,
                      "forest_wide": forest_cuda.LAUNCHES, "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES},
@@ -2652,19 +2708,23 @@ RUNS_MIN_LENGTH = 10
 RUNS_SCAN_BYTES = (1, 16)
 
 
-def _geno_jobs(jobs: list[tuple[str, list[str], str, dict | None]], card: str, kind: str,
-               served_by: tuple[str, ...] = ("vcf_parse",), plain_ok: tuple[str, ...] = ()) -> dict[str, dict]:
-    """Phase 13's runs ``(tool, argv, label, env)``, each in a process of its
-    own (:func:`_forked`), one after another: exit 0, no
-    kernel launched (none lies on these paths); served by the host engine's
-    ``served_by`` entry points and no plain version, but in a run whose env
-    turns the engine off and for ``plain_ok`` (the stub of beagle writes plain
-    gzip); a ``GENOTYPE_DETAIL``, ``GVCF_DETAIL`` or ``RUNS_DETAIL`` line
-    (``kind``) and a ``HOST_ENGINE`` line for each."""
+def _tool_jobs(jobs: list[tuple[str, list[str], str, dict | None]], card: str, kind: str,
+               served_by: tuple[str, ...] = ("vcf_parse",), plain_ok: tuple[str, ...] = (),
+               raises: bool = False) -> dict[str, dict]:
+    """Phase 13's and 14's runs ``(tool, argv, label, env)``, each in a process
+    of its own (:func:`_forked`), one after another: exit 0 (with ``raises``:
+    the ``RuntimeError`` of the fingerprinting tools' error list, exit 1, its
+    text and the run's standard output kept), no kernel launched (none lies
+    on these paths); served by the host engine's ``served_by`` entry points
+    and no plain version, but in a run whose env turns the engine off and
+    for ``plain_ok`` (the stub of beagle writes plain gzip); a ``<kind>_DETAIL``
+    line (wall, stages, peak RSS and card memory, figures skipped) and a
+    ``HOST_ENGINE`` line for each."""
     out = {}
     for tool, argv, label, env in jobs:
-        run = _forked({"tool": tool, "argv": argv, "env": env or {}}, label, _tool_child)
-        check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+        run = _forked({"tool": tool, "argv": argv, "env": env or {}, "raises": raises}, label, _tool_child)
+        check(run["rc"] == int(raises) and (run["error"] is not None) == raises,
+              f"{label}: exit {run['rc']}, error {run['error']!r}")
         check(not any(run["launches"].values()), f"{label}: a kernel was launched ({run['launches']})")
         host = run["host"]
         if not (env or {}).get("VCTPU_NO_NATIVE"):
@@ -2672,7 +2732,8 @@ def _geno_jobs(jobs: list[tuple[str, list[str], str, dict | None]], card: str, k
             missed = [k for k in served_by if host.get(k, {}).get("native", 0) == 0]
             check(not missed and not plain, f"{label}: the host engine did not serve {missed}; plain: {plain}")
         detail = {"run": label, "tool": tool, "card": card, "wall_s": run["seconds"], "stages": run["stages"],
-                  "peak_rss_bytes": run["peak_rss_bytes"], "peak_device_bytes": run["peak_device_bytes"]}
+                  "peak_rss_bytes": run["peak_rss_bytes"], "peak_device_bytes": run["peak_device_bytes"],
+                  "figures_skipped": run["figures_skipped"]}
         print(f"{kind}_DETAIL " + json.dumps(detail), flush=True)
         print("HOST_ENGINE " + json.dumps({"run": label, "calls": host}), flush=True)
         out[label] = run
@@ -2802,13 +2863,13 @@ def phase_genotypes_gvcf(tmp: Path, card: str, worlds: dict | None = None) -> di
             jobs.append(("convert_haploid_regions", ["--input_vcf", hap["vcf"], "--output_vcf",
                                                      str(o / f"hap_{label}_{b}.vcf"), "--haploid_regions", regions,
                                                      "--backend", b], f"haploid_{label}_{b}", None))
-    runs = _geno_jobs(jobs, card, "GENOTYPE")
+    runs = _tool_jobs(jobs, card, "GENOTYPE")
     n_imp = gcmp.differing_imputation_records((o / "imp_gpu.vcf").read_bytes(), (o / "imp_cpu.vcf").read_bytes(),
                                               imp["annotated"])
     gcmp.same_counters((o / "imp_gpu_counts.csv").read_bytes(), (o / "imp_cpu_counts.csv").read_bytes())
     changed = _csv_column(o / "imp_gpu_counts.csv", "changed_gt")
     check(changed == imp["flips"], f"imputation: {changed} genotypes changed, {imp['flips']} flips planted")
-    chain_runs = _geno_jobs(
+    chain_runs = _tool_jobs(
         [("correct_genotypes_by_imputation", ["--beagle_annotated_vcf", str(o / "imp_gpu.vcf"), "--output_vcf",
                                               str(o / "rerun_gpu.vcf"), "--backend", "gpu"], "impute_rerun_gpu", None)]
         + [("correct_genotypes_by_imputation", [*chain, "--temp_dir", str(o / f"chain_{b}"), "--output_vcf",
@@ -2871,8 +2932,8 @@ def phase_genotypes_gvcf(tmp: Path, card: str, worlds: dict | None = None) -> di
 
     dn = ("denovo_recalibrated_qualities", [trio["trio"], str(o / "denovo.vcf"), trio["maternal_json"],
                                              trio["paternal_json"]], "denovo", None)
-    runs.update(_geno_jobs([*gvcf_jobs(gv["gvcf"], "gvcf", None), dn], card, "GVCF"))
-    runs.update(_geno_jobs([*gvcf_jobs(str(cut), "cut", None), *gvcf_jobs(str(cut), "cut_plain",
+    runs.update(_tool_jobs([*gvcf_jobs(gv["gvcf"], "gvcf", None), dn], card, "GVCF"))
+    runs.update(_tool_jobs([*gvcf_jobs(str(cut), "cut", None), *gvcf_jobs(str(cut), "cut_plain",
                                                                              {"VCTPU_NO_NATIVE": "1"})], card, "GVCF"))
     n_in = len(_records(Path(gv["gvcf"])))
     kept = len(_records(o / "gvcf_cleanup.g.vcf"))
@@ -2901,7 +2962,7 @@ def phase_genotypes_gvcf(tmp: Path, card: str, worlds: dict | None = None) -> di
     out["denovo"] = {"annotated": len(got)}
 
     # -- 5, the runs scan ------------------------------------------------------------------------------------------
-    runs.update(_geno_jobs([("find_runs_bed", ["--reference", rw["fasta"], "--output_bed", str(o / f"runs_{b}.bed"),
+    runs.update(_tool_jobs([("find_runs_bed", ["--reference", rw["fasta"], "--output_bed", str(o / f"runs_{b}.bed"),
                                                "--backend", b], f"runs_{b}", None) for b in ("gpu", "cpu")],
                            card, "RUNS", served_by=("fasta_encode",)))
     bed_gpu = (o / "runs_gpu.bed").read_bytes()
@@ -2918,6 +2979,203 @@ def phase_genotypes_gvcf(tmp: Path, card: str, worlds: dict | None = None) -> di
           f"peak card memory {scan['peak_device_bytes']} bytes ({card})", flush=True)
     out["runs"] = {"runs": planted.count("\n"), "scan": scan}
     out["walls"] = {k: v["seconds"] for k, v in runs.items()}
+    out["files"] = {"trio": trio["trio"]}
+    return out
+
+
+def _tsv_column(path: str, name: str) -> np.ndarray:
+    rows = [line.rstrip("\r\n").split("\t") for line in Path(path).read_text().splitlines()]
+    j = rows[0].index(name)
+    return np.array([int(r[j]) for r in rows[1:]], dtype=np.int64)
+
+
+def phase_reports(tmp: Path, card: str, trio_vcf: str | None = None, worlds: dict | None = None) -> dict:
+    """The report tools and pileup fingerprinting (phase 14), each run a
+    process of its own, one after another, each card run against its CPU twin.
+
+    1. ``REPORT_WORLD`` (``synthetic_reports``): ``run_no_gt_report
+       full_analysis`` (with the callable BED), ``variant_eval`` and
+       ``somatic_analysis`` (the three seeded catalogs, their metadata, two
+       controls), card and CPU: every h5 frame equal, the ``.all`` matrices
+       byte-equal, the exposures under ``tests/torch_report_compare``'s bar
+       (counted); the planted hmer tables, doublets (DBS78), one-base ID83
+       channels, indel and SNV totals and SBS96 counts found exactly, and the
+       planted SBS96 mixture recovered (each planted signature's fraction
+       within 0.03, the others under 5 % together).
+    2. ``joint_calling_report`` on phase 13's ``TRIO_WORLD`` joint VCF with a
+       dbSNP of 40 % of its sites and 500,000 others, card and CPU: equal h5
+       frames and HTML.
+    3. ``substitution_error_rate_report`` (host code) on a seeded motif h5:
+       96 folded channels, the keys of the reference.
+    4. ``FINGERPRINT_WORLD``: ``quick_fingerprinting`` and
+       ``training_set_consistency_check`` on the BAMs and CRAMs, card and
+       CPU: the same printed lines and error lists, the expected errors; the
+       pileup of every sample by the engine's BAM walk equal to its
+       ``VCTPU_NO_NATIVE=1`` plain walk and to the CRAM decoder's, timed.
+    """
+    from tests import cram_fixtures
+    from tests import torch_report_compare as rc
+    from variantcalling_tpu_torch import synthetic, synthetic_reports
+    from variantcalling_tpu_torch.comparison import pileup_caller
+    from variantcalling_tpu_torch.io.vcf import read_vcf
+    from variantcalling_tpu_torch.reports.no_gt_stats import HMER_CLASSES
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    spec = {"report": synthetic_reports.REPORT_WORLD, "fingerprint": synthetic_reports.FINGERPRINT_WORLD,
+            "trio": synthetic.TRIO_WORLD, **(worlds or {})}
+    d = tmp / "reports"
+    o = d / "out"
+    o.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rw = synthetic_reports.write_report_world(str(d / "report"), **spec["report"])
+    report_s = time.perf_counter() - t0
+    if trio_vcf is None:
+        trio_vcf = synthetic.write_trio_world(str(d / "trio"), **spec["trio"])["trio"]
+    t1 = time.perf_counter()
+    trio = read_vcf(trio_vcf, drop_format=True)
+    trio_dbsnp = str(d / "trio_dbsnp.vcf")
+    n_trio_db = synthetic_reports.write_dbsnp(trio_dbsnp, 2040, "chr20", spec["trio"]["length"],
+                                              list(zip(trio.pos.tolist(), trio.ref.tolist(), trio.alt.tolist())),
+                                              n_extra=spec["report"]["n_extra_dbsnp"])
+    motifs = str(d / "motifs.h5")
+    synthetic_reports.write_motif_h5(motifs, 2041)
+    t2 = time.perf_counter()
+    fw = synthetic_reports.write_fingerprint_world(
+        str(d / "fingerprint"), **spec["fingerprint"],
+        cram_writer=lambda path, header, recs: cram_fixtures.write_cram(path, header, recs,
+                                                                        method=cram_fixtures.GZIP))
+    confs = synthetic_reports.fingerprint_confs(fw, str(d / "fingerprint"))
+    t3 = time.perf_counter()
+    planted = rw["planted"]["case"]
+    print(f"worlds reports and fingerprints: a case of {planted['records']} records ({planted['n_snv_records']} SNV "
+          f"records, {planted['n_indels']} indels, {int(planted['dbs'].sum())} doublets), two controls, a dbSNP of "
+          f"{rw['dbsnp_records']} records, written in {report_s:.1f} s; the trio's dbSNP of {n_trio_db} records and "
+          f"the motif h5 in {t2 - t1:.1f} s; four samples at {spec['fingerprint']['depth']}x over "
+          f"{fw['region_str']} as BAM and CRAM in {t3 - t2:.1f} s", flush=True)
+    out: dict = {"world": {"report_s": report_s, "dbsnp_motifs_s": t2 - t1, "fingerprint_s": t3 - t2}}
+
+    # -- 1. run_no_gt_report ---------------------------------------------------------------------------------
+    somatic = ["--signatures_file", rw["catalog_SBS96"], "--id_signatures_file", rw["catalog_ID83"],
+               "--dbs_signatures_file", rw["catalog_DBS78"], "--signatures_metadata", rw["metadata"],
+               "--control_vcfs", rw["control1"], rw["control2"]]
+    jobs = []
+    for b in ("gpu", "cpu"):
+        (o / b).mkdir()
+        jobs += [("run_no_gt_report", ["full_analysis", "--input_file", rw["case"], "--dbsnp", rw["dbsnp"],
+                                       "--reference", rw["fasta"], "--callable_region", rw["callable"],
+                                       "--output_prefix", str(o / b / "full"), "--backend", b],
+                  f"full_analysis_{b}", None),
+                 ("run_no_gt_report", ["variant_eval", "--input_file", rw["case"], "--dbsnp", rw["dbsnp"],
+                                       "--reference", rw["fasta"], "--output_prefix", str(o / b / "eval"),
+                                       "--backend", b], f"variant_eval_{b}", None),
+                 ("run_no_gt_report", ["somatic_analysis", "--input_file", rw["case"], "--reference", rw["fasta"],
+                                       *somatic, "--output_prefix", str(o / b / "case"), "--backend", b],
+                  f"somatic_analysis_{b}", None)]
+    runs = _tool_jobs(jobs, card, "REPORT")
+    for name in ("full", "eval"):
+        problems = rc.h5_problems(str(o / "gpu" / f"{name}.h5"), str(o / "cpu" / f"{name}.h5"))
+        check(not problems, f"run_no_gt_report {name}: the card's h5 differs from the CPU's: {problems[:3]}")
+    counts = rc.compare_somatic(str(o / "gpu" / "case"), str(o / "cpu" / "case"))
+    full = str(o / "gpu" / "full.h5")
+    for z in ("hete", "homo"):
+        f = h5_utils.read_hdf(full, f"ins_del_{z}")
+        check(np.array_equal(np.stack([f[c] for c in HMER_CLASSES]), planted["hmer"][z]),
+              f"full_analysis: the {z} hmer table is not the planted one")
+    id83 = h5_utils.read_hdf(full, "id83_channels")["size"]
+    check(int(id83.sum()) == planted["n_indels"] and np.array_equal(id83[:24], planted["id_1bp"]),
+          "full_analysis: the ID83 spectrum misses the planted indel classes")
+    check(np.array_equal(h5_utils.read_hdf(full, "dbs78_channels")["size"], planted["dbs"]),
+          "full_analysis: the DBS78 spectrum is not the planted doublets")
+    check(int(h5_utils.read_hdf(full, "snp_motifs")["size"].sum()) == planted["n_snv_records"],
+          "full_analysis: the SNP motifs miss planted SNV records")
+    prefix = str(o / "gpu" / "case")
+    for key, cs in (("case", planted), *((c, rw["planted"][c]) for c in ("control1", "control2"))):
+        check(np.array_equal(_tsv_column(prefix + ".SBS96.all", key), cs["sbs"])
+              and np.array_equal(_tsv_column(prefix + ".DBS78.all", key), cs["dbs"])
+              and int(_tsv_column(prefix + ".ID83.all", key).sum()) == cs["n_indels"],
+              f"somatic_analysis: the {key} matrices are not the planted counts")
+    exp = h5_utils.read_hdf(prefix + ".h5", "signature_exposures")
+    case = {g: f for c, n, g, f in zip(exp["catalog"], exp["sample"], exp["signature"], exp["fraction"])
+            if c == "SBS96" and n == "case"}
+    sigs, weights = synthetic_reports.CASE_MIXTURE
+    recovered = {f"SBS{k + 1}": case.get(f"SBS{k + 1}", 0.0) for k in sigs}
+    others = sum(v for k, v in case.items() if k not in recovered)
+    check(all(abs(recovered[f"SBS{k + 1}"] - w) < 0.03 for k, w in zip(sigs, weights)) and others < 0.05,
+          f"somatic_analysis: the planted mixture {dict(zip(sigs, weights))} not recovered: {case}")
+    print(f"run_no_gt_report: card and CPU h5 frames equal (full_analysis, variant_eval), .all matrices byte-equal; "
+          f"exposures {counts['rows']} rows, max relative error {counts['max_rel_err']:.3g} (bar "
+          f"{rc.EXPOSURE_RTOL}), near the cut {counts['near_cut']}, order flips {counts['order_flips']}; the planted "
+          f"hmer tables, {int(planted['dbs'].sum())} doublets, {planted['n_indels']} indels and SBS96 counts found; "
+          f"the case's mixture {recovered} (others {others:.4f}) ({card})", flush=True)
+    out["no_gt"] = {"exposures": {k: v for k, v in counts.items() if k != "near_cut_groups"}, "mixture": recovered,
+                    "others": others}
+
+    # -- 2 and 3. joint_calling_report; substitution_error_rate_report -------------------------------------------
+    jobs = [("joint_calling_report", ["--input_vcf", trio_vcf, "--dbsnp", trio_dbsnp, "--h5_output",
+                                      str(o / b / "joint.h5"), "--html_output", str(o / b / "joint.html"),
+                                      "--backend", b], f"joint_calling_report_{b}", None) for b in ("gpu", "cpu")]
+    runs.update(_tool_jobs(jobs, card, "REPORT"))
+    sub = ["--h5_substitution_error_rate", motifs, "--h5_output", str(o / "sub.h5"), "--html_output",
+           str(o / "sub.html")]
+    runs.update(_tool_jobs([("substitution_error_rate_report", sub, "substitution_error_rate_report", None)], card,
+                           "REPORT", served_by=()))
+    problems = rc.h5_problems(str(o / "gpu" / "joint.h5"), str(o / "cpu" / "joint.h5"))
+    check(not problems, f"joint_calling_report: the card's h5 differs from the CPU's: {problems[:3]}")
+    check((o / "gpu" / "joint.html").read_text() == (o / "cpu" / "joint.html").read_text(),
+          "joint_calling_report: the card's HTML differs from the CPU's")
+    per_sample = h5_utils.read_hdf(str(o / "gpu" / "joint.h5"), "per_sample")
+    check(len(per_sample) == 3, f"joint_calling_report: {len(per_sample)} per-sample rows")
+    keys = h5_utils.list_keys(str(o / "sub.h5"))
+    check(keys == ["asymmetry", "average_error_rate", "by_mut_type", "by_position", "folded_motifs"]
+          and len(h5_utils.read_hdf(str(o / "sub.h5"), "folded_motifs")) == 96, f"substitution report: keys {keys}")
+    print(f"joint_calling_report on {len(trio)} trio sites: card and CPU h5 and HTML equal; substitution report: "
+          f"96 folded channels, keys {keys} ({card})", flush=True)
+
+    # -- 4. fingerprinting ---------------------------------------------------------------------------------------
+    jobs = []
+    for b in ("gpu", "cpu"):
+        jobs += [("quick_fingerprinting", ["--json_conf", confs["qf"], "--region_str", fw["region_str"], "--out_dir",
+                                           str(o / b / "qf"), "--backend", b], f"quick_fingerprinting_{b}", None),
+                 ("training_set_consistency_check", ["--training_json_conf", confs["tscc"], "--region_str",
+                                                     fw["region_str"], "--out_dir", str(o / b / "tscc"), "--backend",
+                                                     b], f"training_set_consistency_check_{b}", None)]
+    fp = _tool_jobs(jobs, card, "FINGERPRINT", served_by=("bam_pileup", "cram_pileup"), raises=True)
+    runs.update(fp)
+    for tool, key in (("quick_fingerprinting", "qf_errors"), ("training_set_consistency_check", "tscc_errors")):
+        g, c = fp[f"{tool}_gpu"], fp[f"{tool}_cpu"]
+        check(g["error"] == c["error"] and g["stdout"] == c["stdout"],
+              f"{tool}: the card's lines differ from the CPU's")
+        lines = g["error"].strip().split("\n")
+        want = confs[key]
+        check(len(lines) == len(want) and all(ln.startswith(start) for ln, (_, start) in zip(lines, want)),
+              f"{tool}: errors {lines} against the expected {[s for _, s in want]}")
+    for name in sorted(p.name for p in (o / "cpu" / "qf").iterdir()):
+        check((o / "gpu" / "qf" / name).read_bytes() == (o / "cpu" / "qf" / name).read_bytes(),
+              f"quick_fingerprinting: {name} differs between the card and the CPU")
+    lo, hi = spec["fingerprint"]["region"]
+    pile = {}
+    for sample in ("A", "B", "C", "D"):
+        t0 = time.perf_counter()
+        got = pileup_caller.pileup_counts(fw["bam"][sample], "chr20", lo, hi)
+        t1 = time.perf_counter()
+        cram = pileup_caller.pileup_counts(fw["cram"][sample], "chr20", lo, hi, ref_path=fw["fasta"])
+        t2 = time.perf_counter()
+        os.environ["VCTPU_NO_NATIVE"] = "1"
+        try:
+            plain = pileup_caller.pileup_counts(fw["bam"][sample], "chr20", lo, hi)
+        finally:
+            del os.environ["VCTPU_NO_NATIVE"]
+        t3 = time.perf_counter()
+        check(np.array_equal(got, plain) and np.array_equal(got, cram),
+              f"pileup of {sample}: the engine's BAM walk, its plain version and the CRAM decoder differ")
+        pile[sample] = {"bases": int(got.sum()), "bam_s": t1 - t0, "cram_s": t2 - t1, "plain_s": t3 - t2}
+    print("PILEUP_DETAIL " + json.dumps({"card": card, "region": fw["region_str"], "samples": pile}), flush=True)
+    print(f"fingerprinting: card and CPU lines and error lists equal, the expected errors "
+          f"({len(confs['qf_errors'])} quick, {len(confs['tscc_errors'])} training-set); the native BAM pileup equal "
+          f"to its VCTPU_NO_NATIVE=1 walk and to the CRAM decoder for every sample ({card})", flush=True)
+    out["pileup"] = pile
+    out["walls"] = {k: v["seconds"] for k, v in runs.items()}
+    out["figures_skipped"] = {k: v["figures_skipped"] for k, v in runs.items() if v["figures_skipped"]}
     return out
 
 
@@ -2984,7 +3242,8 @@ def main() -> int:
         _phase("dan_eval", card, phase_dan_eval, Path(tmp), card, train["files"])
         cov = _phase("coverage", card, phase_coverage, Path(tmp), card)
         _phase("sec", card, phase_sec, Path(tmp), card)
-        _phase("genotypes_gvcf", card, phase_genotypes_gvcf, Path(tmp), card)
+        geno = _phase("genotypes_gvcf", card, phase_genotypes_gvcf, Path(tmp), card)
+        _phase("reports", card, phase_reports, Path(tmp), card, geno["files"]["trio"])
     print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     n = WORLD["n_variants"]

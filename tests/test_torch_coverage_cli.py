@@ -210,3 +210,19 @@ def test_backend_gpu_without_a_card_exits_2(world, tmp_path, monkeypatch):
     for sub in ("full_analysis", "collect_coverage"):
         assert tca.run([sub, "-i", bam, "-o", str(tmp_path / "x")]) == 2
     assert not list(tmp_path.iterdir())
+
+
+def test_world_bam_bytes_do_not_depend_on_the_writer_threads(tmp_path, monkeypatch):
+    """The coverage world's BAM record chunks built on a thread pool are
+    written in order: the bytes of one thread."""
+    from variantcalling_tpu_torch import synthetic
+
+    monkeypatch.setattr(synthetic, "_COVERAGE_CHUNK", 64 * len(synthetic.COVERAGE_SHAPE_CYCLE))
+    reads = synthetic.coverage_reads(3, [("chr20", 200_000)], 30.0, ())
+    assert len(reads["pos"]) > 10 * synthetic._COVERAGE_CHUNK
+    out = {}
+    for threads in (1, 4):
+        monkeypatch.setattr(synthetic, "_COVERAGE_WRITERS", threads)
+        path = tmp_path / f"t{threads}.bam"
+        out[threads] = (synthetic.write_coverage_bam(str(path), reads), path.read_bytes())
+    assert out[1] == out[4]

@@ -7,8 +7,10 @@ must be exact or reproducible: the concordance tally (int64 counts with no
 integer matrix product, which CUDA lacks) against the CPU's, and DAN
 training steps twice on the card, bit for bit; and the SEC likelihood
 ratio on the card against the CPU's, within its stated tolerance; the genotype
-programs (haploid conversion, imputation update) and the runs scan on the
-card against the CPU, bit for bit.
+programs (haploid conversion, imputation update), the runs scan and the
+report tools' programs (the eval tables' masked counts, the hmer and motif
+bincounts, the float32 AF histogram, the SNV gate) on the card against the
+CPU, bit for bit; and the signature fit within its stated relative bar.
 
 Needs a CUDA device, nvcc and the kernel's build; skips without a device.
 Imports only the port (no JAX), so it runs on the machine with the card:
@@ -375,3 +377,62 @@ def test_runs_scan_on_the_card_equals_the_cpu(n):
     for min_length in (1, 10):
         got, want = runs.find_runs(codes, min_length, "cuda"), runs.find_runs(codes, min_length, "cpu")
         assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_records", [300, 20_000])
+def test_report_programs_on_the_card_equal_the_cpu(tmp_path, n_records):
+    """The eval tables' masked counts, the hmer and motif bincounts, the float32
+    AF histogram and the SNV gate on the card, equal to the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tests import torch_report_compare as rc
+    from variantcalling_tpu_torch import synthetic_reports
+    from variantcalling_tpu_torch.comparison.pileup_caller import call_snvs
+    from variantcalling_tpu_torch.io.vcf import read_vcf
+    from variantcalling_tpu_torch.reports import no_gt_stats as st
+    from variantcalling_tpu_torch.reports.variant_eval import compute_eval_tables
+
+    w = synthetic_reports.write_report_world(str(tmp_path), seed=5, length=5_000_000, n_records=n_records,
+                                             control_records=10, n_extra_dbsnp=10)
+    table = read_vcf(w["case"])
+    known = np.random.default_rng(1).random(len(table)) < 0.4
+    card, cpu = (compute_eval_tables(table, known=known, device=d) for d in ("cuda", "cpu"))
+    for name in cpu:
+        assert not rc.frame_problems(card[name], cpu[name], name)
+    out = {}
+    for d in ("cuda", "cpu"):
+        cols, windows, hl, hn = st._annotate(table, w["fasta"], d)
+        vt = st.variant_type_labels(cols, hl)
+        out[d] = (st.insertion_deletion_statistics(table, cols, hl, hn, device=d),
+                  st.snp_statistics(table, cols, windows, device=d), st.allele_freq_hist(table, vt, device=d))
+    assert all(np.array_equal(out["cuda"][0][z], out["cpu"][0][z]) for z in ("homo", "hete"))
+    assert np.array_equal(out["cuda"][1], out["cpu"][1])
+    assert not rc.frame_problems(out["cuda"][2], out["cpu"][2], "af_hist")
+    rng = np.random.default_rng(n_records)
+    counts = rng.integers(0, 40, (100_000, 4)).astype(np.int32)
+    refs = rng.integers(0, 5, 100_000).astype(np.int8)
+    for min_af in (0.03, 0.1, 1 / 3):
+        got, want = call_snvs(counts, refs, min_af, "cuda"), call_snvs(counts, refs, min_af, "cpu")
+        assert all(np.array_equal(g, x) for g, x in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_signature_fit_on_the_card_within_the_bar(seed):
+    """500 float32 KL updates on the card against the CPU's, within the stated relative bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tests import torch_report_compare as rc
+    from variantcalling_tpu_torch import synthetic_reports
+    from variantcalling_tpu_torch.reports.signatures import fit_signatures
+
+    for _labels, _names, cat in synthetic_reports.report_catalogs(seed).values():
+        rng = np.random.default_rng(seed)
+        expo = np.zeros((3, cat.shape[1]))
+        for s in range(3):
+            expo[s, rng.choice(cat.shape[1], 4, replace=False)] = rng.uniform(100, 20_000, 4)
+        counts = rng.poisson(expo @ cat.T).astype(np.float64)
+        got, want = fit_signatures(counts, cat, device="cuda"), fit_signatures(counts, cat, device="cpu")
+        big = want / want.sum(axis=1, keepdims=True) >= 1e-3
+        assert np.all(np.abs(got - want)[big] <= rc.EXPOSURE_RTOL * np.abs(want)[big])

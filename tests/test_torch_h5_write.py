@@ -244,6 +244,17 @@ def test_nul_in_strings_refused_as_the_reference_refuses(tmp_path):
         jh5.write_hdf(_df(cols), str(tmp_path / "r.h5"), "k", mode="w")
 
 
+@pytest.mark.parametrize("values", [["ab\x00", "c"], ["\x00", "c"], ["ab\x00", None]])
+def test_trailing_nul_refused_as_the_reference_refuses(tmp_path, values):
+    """A NUL at a value's end, which a fixed-width copy drops, is refused
+    too, whether or not a value of the column is missing."""
+    cols = {"s": np.asarray(values, dtype=object)}
+    with pytest.raises(ValueError, match="NUL"):
+        th5.write_hdf(th5.Frame(cols), str(tmp_path / "p.h5"), "k", mode="w")
+    with pytest.raises(ValueError, match="NUL"):
+        jh5.write_hdf(_df(cols), str(tmp_path / "r.h5"), "k", mode="w")
+
+
 def test_write_frames_equals_keys_written_one_after_the_other(tmp_path):
     frames = {f"chr{i}": th5.Frame(_columns(3 + i, 30 + i)).take(np.arange(3 + i) % 2 == 1) for i in range(4)}
     th5.write_frames(str(tmp_path / "once.h5"), frames)

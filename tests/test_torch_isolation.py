@@ -3,9 +3,11 @@
 - an AST scan of ``variantcalling_tpu_torch/`` and ``chip_smoke.py`` finds
   no import of either, nor of optax, orbax, pandas, h5py, pyarrow or
   matplotlib, which the card's machine does not have (the registry's pickle name mapping is a
-  string);
+  string), but for the HTML report's optional matplotlib, imported inside a
+  ``try`` whose handler skips the figure (:data:`OPTIONAL`);
 - a subprocess run of the port's CLI with ``--backend cpu`` ends with none
-  of those packages in ``sys.modules``;
+  of those packages in ``sys.modules`` (the report tools that draw figures:
+  none but matplotlib, and none at all where matplotlib does not import);
 - without a CUDA device and without ``--backend cpu`` the CLI exits 2
   with a message and writes nothing, and the API raises;
 - the native host engine (``variantcalling_tpu_torch/native/``) names no
@@ -25,6 +27,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "variantcalling_tpu", "pandas", "h5py", "pyarrow", "matplotlib")
+#: a forbidden package a module may still import, inside a ``try`` with a handler:
+#: the HTML report draws its figures where matplotlib imports and skips them elsewhere
+OPTIONAL = {"variantcalling_tpu_torch/reports/html.py": ("matplotlib",)}
 
 
 def _port_sources() -> list[Path]:
@@ -37,9 +42,17 @@ def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+def _guarded_imports(tree: ast.AST) -> set[int]:
+    """The ids of the import nodes in the body of a ``try`` that has a handler."""
+    return {id(n) for t in ast.walk(tree) if isinstance(t, ast.Try) and t.handlers
+            for stmt in t.body for n in ast.walk(stmt) if isinstance(n, (ast.Import, ast.ImportFrom))}
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
+    optional = OPTIONAL.get(str(path.relative_to(ROOT)), ())
+    guarded = _guarded_imports(tree)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -50,7 +63,8 @@ def test_no_jax_or_reference_imports(path):
             names = [node.args[0].value]
         else:
             continue
-        bad = [n for n in names if _forbidden(n)]
+        bad = [n for n in names if _forbidden(n)
+               and not (id(node) in guarded and n.split(".")[0] in optional)]
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
@@ -101,13 +115,16 @@ def test_the_sec_and_comparison_modules_are_scanned():
         "pipelines/vcfeval_flavors")} <= scanned
 
 
-def _run_cli(args: list[str], tmp_path: Path) -> subprocess.CompletedProcess:
+def _run_cli(args: list[str], tmp_path: Path, block: tuple[str, ...] = ()) -> subprocess.CompletedProcess:
+    """The port's CLI in a subprocess; its last line the exit code and the
+    forbidden modules it loaded. ``block``: packages made unimportable first."""
     code = (
         "import json, sys\n"
+        f"sys.modules.update(dict.fromkeys({block!r}))\n"
         "from variantcalling_tpu_torch.__main__ import main\n"
         "rc = main(sys.argv[1:])\n"
-        "print(json.dumps({'rc': rc, 'loaded': sorted(m for m in sys.modules "
-        f"if m.split('.')[0] in {FORBIDDEN!r})}}))\n"
+        "print(json.dumps({'rc': rc, 'loaded': sorted(m for m, mod in sys.modules.items() "
+        f"if m.split('.')[0] in {FORBIDDEN!r} and mod is not None)}}))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
@@ -401,3 +418,96 @@ def test_host_genotype_tools_take_no_backend(genotype_worlds, tmp_path, tool):
     argv = next(a for a in _genotype_tools(genotype_worlds) if a[0] == tool)
     proc = _run_cli([*argv, "--backend", "cpu"], tmp_path)
     assert proc.returncode == 2 and "unrecognized arguments: --backend" in proc.stderr
+
+
+def test_the_report_and_fingerprinting_modules_are_scanned():
+    """The modules of the report and fingerprinting tools are among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "reports/__init__", "reports/html", "reports/variant_eval", "reports/no_gt_stats", "reports/signatures",
+        "pipelines/run_no_gt_report", "pipelines/joint_calling_report", "pipelines/substitution_error_rate_report",
+        "comparison/pileup_caller", "comparison/quick_fingerprinter", "pipelines/quick_fingerprinting",
+        "pipelines/training_set_consistency_check", "synthetic_reports")} <= scanned
+
+
+@pytest.fixture(scope="module")
+def report_worlds(tmp_path_factory):
+    from variantcalling_tpu_torch import synthetic_reports
+
+    d = tmp_path_factory.mktemp("iso_reports")
+    report = synthetic_reports.write_report_world(str(d / "rep"), seed=3, length=500_000, n_records=400,
+                                                  control_records=100, n_extra_dbsnp=100)
+    fp = synthetic_reports.write_fingerprint_world(str(d / "fp"), seed=3, length=100_000, region=(40_000, 44_000),
+                                                   snv_every=200)
+    fp["confs"] = synthetic_reports.fingerprint_confs(fp, str(d / "fp"), formats=("bam",))
+    motifs = str(d / "motifs.h5")
+    synthetic_reports.write_motif_h5(motifs, 3)
+    return {"report": report, "fp": fp, "motifs": motifs}
+
+
+def _report_tools(w: dict) -> list[list[str]]:
+    """Each new tool's arguments (the device tools first), outputs named ``x``-something."""
+    r, fp = w["report"], w["fp"]
+    return [
+        ["run_no_gt_report", "full_analysis", "--input_file", r["case"], "--dbsnp", r["dbsnp"], "--reference",
+         r["fasta"], "--output_prefix", "x_full"],
+        ["run_no_gt_report", "variant_eval", "--input_file", r["case"], "--dbsnp", r["dbsnp"], "--reference",
+         r["fasta"], "--output_prefix", "x_eval"],
+        ["run_no_gt_report", "somatic_analysis", "--input_file", r["case"], "--reference", r["fasta"],
+         "--signatures_file", r["catalog_SBS96"], "--control_vcfs", r["control1"], "--output_prefix", "x_som"],
+        ["joint_calling_report", "--input_vcf", r["case"], "--h5_output", "x_joint.h5", "--html_output",
+         "x_joint.html"],
+        ["quick_fingerprinting", "--json_conf", fp["confs"]["qf"], "--region_str", fp["region_str"], "--out_dir",
+         "x_qf"],
+        ["training_set_consistency_check", "--training_json_conf", fp["confs"]["tscc"], "--region_str",
+         fp["region_str"], "--out_dir", "x_tscc"],
+        ["substitution_error_rate_report", "--h5_substitution_error_rate", w["motifs"], "--h5_output", "x_sub.h5",
+         "--html_output", "x_sub.html"],
+    ]
+
+
+def test_report_and_fingerprinting_cli_cpu_runs_load_none_of_them(report_worlds, tmp_path):
+    """The device tools with ``--backend cpu``, the host tool as the reference
+    runs it, where matplotlib does not import (as on the card's machine): none
+    loads JAX, the reference or pandas, and the figures are skipped. Where it
+    imports, the two tools that draw load it and nothing else forbidden, and
+    embed their figures. The fingerprinting worlds plant mismatches, so those
+    two raise their error list."""
+    for i, argv in enumerate(_report_tools(report_worlds)):
+        proc = _run_cli([*argv, "--backend", "cpu"] if i < 6 else argv, tmp_path, block=("matplotlib",))
+        if argv[0] in ("quick_fingerprinting", "training_set_consistency_check"):
+            assert proc.returncode == 1 and "RuntimeError" in proc.stderr, proc.stderr
+            continue
+        assert proc.returncode == 0, proc.stderr
+        assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}, argv[0]
+    assert {"x_full.h5", "x_eval.h5", "x_som.h5", "x_som.SBS96.all", "x_joint.h5", "x_joint.html", "x_qf",
+            "x_tscc", "x_sub.h5", "x_sub.html"} <= {p.name for p in tmp_path.iterdir()}
+    assert "<img" not in (tmp_path / "x_joint.html").read_text() + (tmp_path / "x_sub.html").read_text()
+    for i, html in ((3, "x_joint.html"), (6, "x_sub.html")):
+        argv = _report_tools(report_worlds)[i]
+        proc = _run_cli([*argv, "--backend", "cpu"] if i < 6 else argv, tmp_path)
+        assert proc.returncode == 0, proc.stderr
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])["loaded"]
+        assert loaded and {m.split(".")[0] for m in loaded} == {"matplotlib"}, loaded
+        assert (tmp_path / html).read_text().count("<img") >= 3
+
+
+@pytest.mark.parametrize("i", range(6), ids=["full_analysis", "variant_eval", "somatic_analysis",
+                                             "joint_calling_report", "quick_fingerprinting",
+                                             "training_set_consistency_check"])
+def test_report_device_tools_without_cuda_exit_2(report_worlds, tmp_path, i):
+    proc = _run_cli(_report_tools(report_worlds)[i], tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
+    assert "no CUDA device" in proc.stderr and not list(tmp_path.glob("x*"))
+
+
+def test_substitution_report_takes_no_backend(report_worlds, tmp_path):
+    proc = _run_cli([*_report_tools(report_worlds)[6], "--backend", "cpu"], tmp_path)
+    assert proc.returncode == 2 and "unrecognized arguments: --backend" in proc.stderr
+
+
+def test_cli_lists_25_tools(tmp_path):
+    proc = _run_cli(["--help"], tmp_path)
+    tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
+    assert len(tools) == 25 and {"run_no_gt_report", "joint_calling_report", "substitution_error_rate_report",
+                                 "quick_fingerprinting", "training_set_consistency_check"} <= set(tools)

@@ -470,3 +470,21 @@ def test_streaming_peak_rss_grows_far_slower_than_the_input(tmp_path):
     # few chunks in flight and the input's mapped pages
     assert grow["serial"] > 5 * input_grow and grow["stream"] < 3 * input_grow < grow["serial"] / 3, \
         (grow, input_grow)
+
+
+@pytest.mark.parametrize("decimals", [None, 2, 3])
+def test_world_number_text_equals_np_char_mod(decimals):
+    """The world writer's number formatting by array arithmetic writes the
+    bytes ``np.char.mod`` writes, halves and carries included."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    if decimals is None:
+        values = np.concatenate([np.arange(1_001), rng.integers(0, 10 ** 12, 20_000)])
+        got, want = synthetic._decimal(values), np.char.mod(b"%d", values)
+    else:
+        edges = np.array([0.0, 0.005, 0.015, 0.125, 2.5, 9.995, 10.125, 0.0005, 0.9995, 99.995, 30_000.0])
+        values = np.concatenate([edges, rng.uniform(0, 3, 20_000), rng.uniform(10, 30_000, 20_000)])
+        got, want = synthetic._fixed(values, decimals), np.char.mod(f"%.{decimals}f".encode(), values)
+    assert got.tolist() == want.tolist()
+    assert np.char.add(got, b"|").tolist() == np.char.add(want, b"|").tolist()

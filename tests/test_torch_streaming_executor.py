@@ -282,6 +282,23 @@ def test_chunk_compressor_writes_the_serial_writers_bytes(tmp_path, chunk, poole
             pool.shutdown()
 
 
+@pytest.mark.parametrize("sizes", [(100, 300_000), (65_279, 140_000, 7), (1, 65_280, 65_281, 200_000)])
+def test_bgzf_writer_bytes_do_not_depend_on_the_write_sizes(tmp_path, sizes):
+    """A large write after a carry (the carry topped up to one block, the rest
+    deflated uncopied) cuts the stream into the blocks one write cuts."""
+    payload = np.random.default_rng(len(sizes)).integers(0, 4, sum(sizes)).astype(np.uint8).tobytes()
+    one, parts = tmp_path / "one.gz", tmp_path / "parts.gz"
+    with bgzf.BgzfWriter(str(one)) as w:
+        w.write(payload)
+    with bgzf.BgzfWriter(str(parts)) as w:
+        lo = 0
+        for size in sizes:
+            w.write(memoryview(payload)[lo: lo + size])
+            lo += size
+    assert parts.read_bytes() == one.read_bytes()
+    assert len(bgzf.block_spans(one.read_bytes())) == -(-len(payload) // bgzf.MAX_BLOCK_DATA) + 1
+
+
 def test_scan_and_inflate_spans_read_a_bgzf_file(tmp_path):
     data = bytes(range(256)) * 2000
     path = tmp_path / "x.gz"

@@ -1,6 +1,6 @@
 """CLI dispatch: ``python -m variantcalling_tpu_torch <tool> <args>``.
 
-Counterpart of ``variantcalling_tpu/__main__.py``; the port serves 20
+Counterpart of ``variantcalling_tpu/__main__.py``; the port serves 25
 tools so far: ``filter_variants_pipeline``, ``train_models_pipeline``,
 ``training_prep_pipeline``, ``train_dan``, ``evaluate_concordance``,
 ``coverage_analysis``, ``cnv_calling``, the four SEC tools
@@ -9,8 +9,11 @@ tools so far: ``filter_variants_pipeline``, ``train_models_pipeline``,
 ``vcfeval_flavors``, the genotype tools ``correct_genotypes_by_imputation``
 and ``convert_haploid_regions``, the gVCF tools ``compress_gvcf``,
 ``cleanup_gvcf_before_calling``, ``gvcf_hcr`` and
-``denovo_recalibrated_qualities``, and ``find_runs_bed``. Each tool is a
-module exposing ``run(argv)``, imported when called.
+``denovo_recalibrated_qualities``, ``find_runs_bed``, the report tools
+``run_no_gt_report``, ``joint_calling_report`` and
+``substitution_error_rate_report``, and the fingerprinting tools
+``quick_fingerprinting`` and ``training_set_consistency_check``. Each tool
+is a module exposing ``run(argv)``, imported when called.
 """
 
 from __future__ import annotations
@@ -40,6 +43,11 @@ TOOLS: dict[str, str] = {
     "gvcf_hcr": "variantcalling_tpu_torch.pipelines.gvcf_hcr",
     "denovo_recalibrated_qualities": "variantcalling_tpu_torch.pipelines.denovo_recalibrated_qualities",
     "find_runs_bed": "variantcalling_tpu_torch.pipelines.misc.find_runs_bed",
+    "run_no_gt_report": "variantcalling_tpu_torch.pipelines.run_no_gt_report",
+    "joint_calling_report": "variantcalling_tpu_torch.pipelines.joint_calling_report",
+    "substitution_error_rate_report": "variantcalling_tpu_torch.pipelines.substitution_error_rate_report",
+    "quick_fingerprinting": "variantcalling_tpu_torch.pipelines.quick_fingerprinting",
+    "training_set_consistency_check": "variantcalling_tpu_torch.pipelines.training_set_consistency_check",
 }
 
 

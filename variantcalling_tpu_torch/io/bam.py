@@ -220,20 +220,10 @@ def depth_diff_arrays(
         return bam.header, diffs
 
 
-def _depth_diff_arrays_native(
-    path: str,
-    min_bq: int,
-    min_mapq: int,
-    min_read_length: int,
-    include_deletions: bool,
-    region_contigs: set[str] | None,
-) -> tuple[BamHeader, dict[str, np.ndarray]] | None:
-    """The native engine's walk: the whole file inflated by
-    ``bgzf_decompress_array``, its records walked by ``bam_depth``; None
-    where the engine is off or declines (the plain reader serves)."""
-    if not native.available():
-        native.note_plain("bam_depth")
-        return None
+def inflate_bam(path: str) -> tuple[BamHeader, np.ndarray, int] | None:
+    """(header, the whole file inflated by ``native.bgzf_decompress_array``,
+    the offset of its first record); None where the engine declines or the
+    stream is not a BAM."""
     with open(path, "rb") as fh:
         raw = fh.read()
     arr = native.bgzf_decompress_array(raw)
@@ -257,7 +247,29 @@ def _depth_diff_arrays_native(
         off += 8 + l_name
         refs.append(name)
         lengths[name] = l_ref
-    header = BamHeader(text, refs, lengths)
+    return BamHeader(text, refs, lengths), arr, off
+
+
+def _depth_diff_arrays_native(
+    path: str,
+    min_bq: int,
+    min_mapq: int,
+    min_read_length: int,
+    include_deletions: bool,
+    region_contigs: set[str] | None,
+) -> tuple[BamHeader, dict[str, np.ndarray]] | None:
+    """The native engine's walk: the whole file inflated by
+    ``bgzf_decompress_array``, its records walked by ``bam_depth``; None
+    where the engine is off or declines (the plain reader serves)."""
+    if not native.available():
+        native.note_plain("bam_depth")
+        return None
+    inflated = inflate_bam(path)
+    if inflated is None:
+        return None
+    header, arr, off = inflated
+    refs, lengths = header.references, header.lengths
+    n_ref = len(refs)
     starts = np.full(n_ref, -1, dtype=np.int64)
     lens = np.zeros(n_ref, dtype=np.int64)
     cursor = 0

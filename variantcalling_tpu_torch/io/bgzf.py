@@ -175,13 +175,20 @@ class BgzfWriter:
 
     def write(self, data) -> int:
         n_in = len(data)
-        if not self._buf and n_in >= MAX_BLOCK_DATA:  # large write: no copy on the way to deflate
-            view = memoryview(data)
-            n_full = (n_in // MAX_BLOCK_DATA) * MAX_BLOCK_DATA
+        view = memoryview(data)
+        if self._buf and len(self._buf) + n_in >= 2 * MAX_BLOCK_DATA:
+            # the carry topped up to one block alone, so that the rest goes to deflate uncopied
+            fill = MAX_BLOCK_DATA - len(self._buf)
+            self._buf += view[:fill]
+            self._fh.write(_compress_full_blocks(bytes(self._buf), self._level))
+            self._buf.clear()
+            view = view[fill:]
+        if not self._buf and len(view) >= MAX_BLOCK_DATA:  # large write: no copy on the way to deflate
+            n_full = (len(view) // MAX_BLOCK_DATA) * MAX_BLOCK_DATA
             self._fh.write(_compress_full_blocks(view[:n_full], self._level))
             self._buf += view[n_full:]
             return n_in
-        self._buf += data
+        self._buf += view
         if len(self._buf) >= MAX_BLOCK_DATA:
             n_full = (len(self._buf) // MAX_BLOCK_DATA) * MAX_BLOCK_DATA
             chunk = bytes(self._buf[:n_full])

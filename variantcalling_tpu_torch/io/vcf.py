@@ -513,7 +513,7 @@ def _text_lines(path: str):
 NATIVE_INFLATE_MAX_BYTES = 512 << 20
 
 
-def read_vcf(path: str, drop_format: bool = False) -> VariantTable:
+def read_vcf(path: str, region: tuple[str, int, int] | None = None, drop_format: bool = False) -> VariantTable:
     """Parse a VCF (``.vcf`` or ``.vcf.gz``) into a :class:`VariantTable`.
 
     Lines split on ``\n`` alone. ``##`` lines before the first record are
@@ -525,9 +525,15 @@ def read_vcf(path: str, drop_format: bool = False) -> VariantTable:
 
     ``drop_format``: keep no FORMAT or sample data (every ``tail`` empty,
     genotypes missing) and no reference to the file's text, for a caller
-    that reads only the core columns of a large file."""
+    that reads only the core columns of a large file.
+
+    ``region``: ``(chrom, start_1based, end_inclusive)``, the reference's
+    semantics: only the records of ``chrom`` with ``start <= POS <= end``."""
     table = _read_vcf_native(path)
     table = table if table is not None else _read_vcf_plain(path)
+    if region is not None:
+        chrom, lo, hi = region
+        table = table.subset(np.flatnonzero((table.chrom == chrom) & (table.pos >= lo) & (table.pos <= hi)))
     if not drop_format:
         return table
     return VariantTable(table.header, table.chrom, table.pos, table.vid, table.ref, table.alt, table.qual,

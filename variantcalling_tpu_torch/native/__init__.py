@@ -57,7 +57,7 @@ CXXFLAGS = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC", "-std=
 ENTRY_POINTS = ("bgzf_decompress_array", "vcf_parse", "interval_membership", "fasta_encode",
                 "gather_windows_contig", "format_float_info", "vcf_assemble", "bgzf_compress",
                 "bin_features", "gbt_fit", "bam_depth", "cram_header", "cram_count", "cram_scan", "cram_depth",
-                "bedgraph_lines", "match_contig_native")
+                "bedgraph_lines", "match_contig_native", "bam_pileup", "cram_pileup")
 #: per entry point: calls served natively, their seconds, and calls left to the plain version
 CALLS: dict[str, dict] = {}
 #: guards CALLS: the streaming executor's workers call the engine concurrently
@@ -176,6 +176,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         "vctpu_cram_scan": (_i64, [_u8p, _i64, _i64, _i32p, _i64p, _i32p, _i32p, _i32p, _i32p]),
         "vctpu_cram_depth": (_i64, _DEPTH_ARGS),
         "vctpu_bedgraph_lines": (_i64, [_u8p, _i64, _i64p, _i64p, _i64p, _i64, _u8p, _i64]),
+        "vctpu_bam_pileup": (_i64, [_u8p, _i64, _i32, _i64, _i64, ctypes.c_uint32, _i32p]),
+        "vctpu_cram_pileup": (_i64, [_u8p, _i64, _i32, _i64, _i64, _u8p, _i64, _i32p]),
         "vctpu_match_contig": (_i64, [_u8p, _i64,
                                       _i64, _i64p, _u8p, _i64p, _u8p, _i64p, _i8p,
                                       _i64, _i64p, _u8p, _i64p, _u8p, _i64p, _i8p,
@@ -481,6 +483,35 @@ def bam_depth(lib, records, contig_starts: np.ndarray, contig_lens: np.ndarray, 
                               include_deletions, exclude_flags)
     n = lib.vctpu_bam_depth(*args)
     return None if n < 0 else int(n)
+
+
+@_entry
+def bam_pileup(lib, records, target_ref: int, start0: int, end0: int, exclude_flags: int) -> np.ndarray | None:
+    """(end0 - start0, 4) int32 A/C/G/T counts of the aligned bases of contig
+    ``target_ref`` over [start0, end0) from the raw BAM records (the inflated
+    stream past the reference list): records with SEQ whose flags miss
+    ``exclude_flags``, M/=/X bases only. None on a malformed stream (the
+    plain reader serves)."""
+    src = np.ascontiguousarray(_u8view(records))
+    counts = np.zeros((max(end0 - start0, 0), 4), dtype=np.int32)
+    n = lib.vctpu_bam_pileup(_p(src, _u8p), len(src), int(target_ref), int(start0), int(end0), int(exclude_flags),
+                             _p(counts, _i32p))
+    return None if n < 0 else counts
+
+
+@_entry
+def cram_pileup(lib, buf, target_ref: int, start0: int, end0: int, ref_seq: str) -> np.ndarray | None:
+    """(end0 - start0, 4) int32 aligned base counts over one contig window of a
+    whole CRAM 3.0 file's bytes (``vctpu_cram.cc``): matches from the
+    reference, X features through the SM matrix, records flagged 0x704
+    skipped. ``ref_seq`` is the whole target contig's sequence. None when
+    the stream is malformed or uses an unsupported codec."""
+    src = np.ascontiguousarray(_u8view(buf))
+    ref = np.frombuffer(ref_seq.encode("ascii", "replace"), dtype=np.uint8)
+    counts = np.zeros((max(end0 - start0, 0), 4), dtype=np.int32)
+    n = lib.vctpu_cram_pileup(_p(src, _u8p), len(src), int(target_ref), int(start0), int(end0), _p(ref, _u8p),
+                              len(ref), _p(counts, _i32p))
+    return None if n < 0 else counts
 
 
 @_entry

@@ -323,6 +323,66 @@ int64_t vctpu_bam_depth(const uint8_t* buf, int64_t n, const int64_t* contig_sta
     return count;
 }
 
+// Base counts over [start0, end0) of one contig from uncompressed BAM
+// alignment records (buf starts at the first record): every record of
+// contig target_ref whose flags miss exclude_flags, that has SEQ and starts
+// before end0, adds one to counts[(ref_pos - start0) * 4 + code] for each
+// base of its M, = and X ops inside the window whose code is A, C, G or T
+// (the pileup of the fingerprinting tools, comparison/pileup_caller.py; the
+// bases an op would read past SEQ's end are not counted). Returns records
+// seen, or -1 on malformed input.
+int64_t vctpu_bam_pileup(const uint8_t* buf, int64_t n, int32_t target_ref, int64_t start0, int64_t end0,
+                         uint32_t exclude_flags, int32_t* counts) {
+    static const int8_t code_of[16] = {4, 0, 1, 4, 2, 4, 4, 4, 3, 4, 4, 4, 4, 4, 4, 4};
+    int64_t off = 0, count = 0;
+    while (off + 4 <= n) {
+        int32_t bs;
+        std::memcpy(&bs, buf + off, 4);
+        if (bs < 32 || off + 4 + bs > n) return -1;
+        const uint8_t* r = buf + off + 4;
+        off += 4 + bs;
+        count++;
+        int32_t ref_id, pos, l_seq;
+        uint32_t lrn, flag_nc;
+        std::memcpy(&ref_id, r, 4);
+        std::memcpy(&pos, r + 4, 4);
+        std::memcpy(&lrn, r + 8, 4);
+        std::memcpy(&flag_nc, r + 12, 4);
+        std::memcpy(&l_seq, r + 16, 4);
+        uint32_t l_read_name = lrn & 0xff;
+        uint32_t n_cigar = flag_nc & 0xffff;
+        uint32_t flag = flag_nc >> 16;
+        if (ref_id != target_ref || (flag & exclude_flags) || l_seq <= 0 || pos >= end0) continue;
+        const uint8_t* cig = r + 32 + l_read_name;
+        const uint8_t* seq = cig + 4 * (int64_t)n_cigar;
+        if (seq + (l_seq + 1) / 2 > buf + off) return -1;
+        int64_t rpos = pos, qpos = 0;
+        for (uint32_t i = 0; i < n_cigar; i++) {
+            uint32_t c;
+            std::memcpy(&c, cig + 4 * (int64_t)i, 4);
+            uint32_t op = c & 0xf;
+            int64_t len = c >> 4;
+            if (op == 0 || op == 7 || op == 8) {  // M, =, X
+                int64_t lo = std::max(rpos, start0), hi = std::min(rpos + len, end0);
+                for (int64_t p = lo; p < hi; p++) {
+                    int64_t q = qpos + (p - rpos);
+                    if (q >= l_seq) break;
+                    uint8_t b = seq[q >> 1];
+                    int8_t code = code_of[(q & 1) ? (b & 0xf) : (b >> 4)];
+                    if (code < 4) counts[(p - start0) * 4 + code]++;
+                }
+                rpos += len;
+                qpos += len;
+            } else if (op == 1 || op == 4) {  // I, S
+                qpos += len;
+            } else if (op == 2 || op == 3) {  // D, N
+                rpos += len;
+            }
+        }
+    }
+    return count;
+}
+
 // bedGraph lines of one contig's runs of equal depth:
 // "<contig>\t<start>\t<end>\t<value>\n" each, integers in decimal (the
 // reference's write_bedgraph text). Returns the bytes written, or -1 when

@@ -230,6 +230,38 @@ def _cat(*parts) -> np.ndarray:
     return acc
 
 
+def _decimal(values) -> np.ndarray:
+    """``np.char.mod(b"%d", values)`` of non-negative integers, from their
+    digits by array arithmetic (the same bytes, without a Python call each)."""
+    v = np.asarray(values, dtype=np.int64)
+    if not len(v):
+        return np.char.mod(b"%d", v)
+    width = len(str(int(v.max())))
+    digits = (v[:, None] // 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)) % 10 + ord("0")
+    n_digits = np.searchsorted(10 ** np.arange(1, width, dtype=np.int64), v, side="right") + 1
+    col = np.arange(width) + (width - n_digits)[:, None]  # each value's digits moved to the left
+    out = np.where(col < width, np.take_along_axis(digits, np.minimum(col, width - 1), axis=1), 0)
+    return out.astype(np.uint8).view(f"S{width}").ravel()
+
+
+def _fixed(values, decimals: int) -> np.ndarray:
+    """``np.char.mod(b"%.{decimals}f", values)`` of non-negative floats: the
+    scaled values rounded by array arithmetic, where the product's rounding
+    error cannot reach a half; ``np.char.mod`` itself for any value within
+    1e-6 of one."""
+    v = np.asarray(values, dtype=np.float64)
+    scaled = v * 10 ** decimals
+    units = np.floor(scaled + 0.5).astype(np.int64)
+    frac = _decimal(units % 10 ** decimals + 10 ** decimals).view(np.uint8).reshape(len(v), -1)[:, 1:]
+    out = np.char.add(np.char.add(_decimal(units // 10 ** decimals), b"."), frac.copy().view(f"S{decimals}").ravel())
+    near = np.abs(scaled - np.floor(scaled) - 0.5) < 1e-6
+    if near.any():
+        exact = np.char.mod(f"%.{decimals}f".encode(), v[near])
+        out = out.astype(f"S{max(out.itemsize, exact.itemsize)}")
+        out[near] = exact
+    return out
+
+
 def _world_genome_positions(rng: np.random.Generator, length: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     """The world's genome codes and its variants' sorted distinct 0-based
     positions, the first draws of :func:`write_world`'s generator."""
@@ -320,21 +352,20 @@ def write_world(d: str, seed: int, contig: str = "chr20", length: int = 64_444_1
     missing = rng.random(n) < 0.1 if xgboost else np.zeros(n, dtype=bool)
     q = rng.uniform(10, 90, n)
     q = np.where(q > 89.2, 10_000 + (q - 89.2) * 25_000, q)  # 1 % at 10,000-30,000
-    qual = np.char.mod(b"%.2f", q)  # GATK's two decimals
-    info = _cat(b"DP=", np.char.mod(b"%d", rng.integers(10, 60, n)))
-    info = np.where(missing, info, _cat(info, b";SOR=", np.char.mod(b"%.3f", rng.uniform(0, 3, n))))
+    qual = _fixed(q, 2)  # GATK's two decimals
+    info = _cat(b"DP=", _decimal(rng.integers(10, 60, n)))
+    info = np.where(missing, info, _cat(info, b";SOR=", _fixed(rng.uniform(0, 3, n), 3)))
     gt = np.where(multi, b"1/2", np.where(rng.random(n) < 0.6, b"0/1", b"1/1"))
-    ad = _cat(np.char.mod(b"%d", rng.integers(0, 40, n)), b",",
-              np.char.mod(b"%d", rng.integers(1, 40, n))).astype("S12")
-    ad[multi] = _cat(ad[multi], b",", np.char.mod(b"%d", rng.integers(1, 40, int(multi.sum()))))
-    gq = np.char.mod(b"%d", rng.integers(10, 99, n))
+    ad = _cat(_decimal(rng.integers(0, 40, n)), b",", _decimal(rng.integers(1, 40, n))).astype("S12")
+    ad[multi] = _cat(ad[multi], b",", _decimal(rng.integers(1, 40, int(multi.sum()))))
+    gq = _decimal(rng.integers(10, 99, n))
     sample = np.where(missing, _cat(gt, b":", ad), _cat(gt, b":", gq, b":", ad))
     fmt = np.where(missing, b"GT:AD", b"GT:GQ:AD")
     tab = b"\t"
     chrom = np.repeat(np.asarray([name.encode() for name, _ in contigs]), counts)
     pos1 = np.concatenate([p + 1 for p in pos_parts]) - np.repeat(
         np.cumsum([0] + [ln for _, ln in contigs[:-1]]), counts)
-    rec = _cat(chrom, tab, np.char.mod(b"%d", pos1), tab, b".", tab,
+    rec = _cat(chrom, tab, _decimal(pos1), tab, b".", tab,
                ref, tab, alt, tab, qual, tab, b"PASS", tab, info, tab, fmt, tab, sample)
     header = [
         "##fileformat=VCFv4.2",
@@ -470,6 +501,7 @@ COVERAGE_EVENTS = ((20_000_000, 20_500_000, 15), (35_000_000, 36_000_000, 45), (
 _BAM_NIBBLE = np.array([1, 2, 4, 8, 15], np.uint8)  # codes A C G T N -> BAM 4-bit bases
 #: records a chunk of the writer (a multiple of the shape cycle)
 _COVERAGE_CHUNK = 1 << 20
+_COVERAGE_WRITERS = 4  # threads building BAM record chunks
 
 
 def coverage_reads(seed: int, contigs: list[tuple[str, int]], depth: float = 30.0,
@@ -573,6 +605,7 @@ def write_coverage_bam(path: str, reads: dict, level: int = 1) -> int:
     """Write the reads as a BGZF BAM (deflated at ``level`` by the native
     engine where it serves); the uncompressed bytes."""
     from variantcalling_tpu_torch.io.bgzf import BgzfWriter
+    from variantcalling_tpu_torch.parallel.pipeline import IoPool, imap_ordered
 
     contigs = reads["contigs"]
     text = "@HD\tVN:1.6\tSO:coordinate\n" + "".join(f"@SQ\tSN:{c}\tLN:{ln}\n" for c, ln in contigs)
@@ -581,12 +614,18 @@ def write_coverage_bam(path: str, reads: dict, level: int = 1) -> int:
         head += np.int32(len(c) + 1).tobytes() + c.encode() + b"\x00" + np.int32(ln).tobytes()
     n = len(reads["pos"])
     total = len(head)
-    with BgzfWriter(path, level=level) as out:
-        out.write(bytes(head))
-        for lo in range(0, n, _COVERAGE_CHUNK):
-            body = _bam_records(reads, lo, min(n, lo + _COVERAGE_CHUNK))
-            total += len(body)
-            out.write(memoryview(body))
+    pool = IoPool(_COVERAGE_WRITERS, name="coverage-world")
+    try:
+        with BgzfWriter(path, level=level) as out:
+            out.write(bytes(head))
+            # chunks built on the pool (numpy lets go of the GIL), written in order
+            bodies = imap_ordered(pool, lambda lo: _bam_records(reads, lo, min(n, lo + _COVERAGE_CHUNK)),
+                                  range(0, n, _COVERAGE_CHUNK), window=_COVERAGE_WRITERS)
+            for body in bodies:
+                total += len(body)
+                out.write(memoryview(body))
+    finally:
+        pool.shutdown()
     return total
 
 

@@ -161,7 +161,8 @@ def _concat_index(frames: list["Frame"]):
     return range(start, stop, step)
 
 
-def _obj(values) -> np.ndarray:
+def object_column(values) -> np.ndarray:
+    """``values`` as a 1-D object array (a string column of a :class:`Frame`)."""
     out = np.empty(len(values), dtype=object)
     out[:] = list(values)
     return out
@@ -170,7 +171,7 @@ def _obj(values) -> np.ndarray:
 def _decode_column(node, kind: str) -> np.ndarray:
     if kind == "ragged":
         flat, offsets = node["values"][()], node["offsets"][()]
-        return _obj([flat[offsets[i]: offsets[i + 1]] for i in range(len(offsets) - 1)])
+        return object_column([flat[offsets[i]: offsets[i + 1]] for i in range(len(offsets) - 1)])
     data = node[()]
     if kind == "fstr":
         try:  # ASCII bytes (the common case) widen to str in one C cast
@@ -181,7 +182,7 @@ def _decode_column(node, kind: str) -> np.ndarray:
         out[text == _NULL] = None
         return out
     if kind == "str":
-        out = _obj([v.decode() if isinstance(v, bytes) else str(v) for v in data])
+        out = object_column([v.decode() if isinstance(v, bytes) else str(v) for v in data])
         return np.where(out == _NULL, None, out)
     if kind == "bool":
         return data.astype(bool)
@@ -218,7 +219,7 @@ def _read_pytables_frame(g: hdf5.Group) -> Frame:
 
     def destring(col: np.ndarray) -> np.ndarray:
         if col.dtype.kind == "S" or (col.dtype == object and len(col) and isinstance(col[0], bytes)):
-            return _obj([_text(v, encoding) for v in col])
+            return object_column([_text(v, encoding) for v in col])
         return col
 
     nblocks = int(g.attrs.get("nblocks", 0))
@@ -266,7 +267,7 @@ def concat_frames(frames: list[Frame]) -> Frame:
                 parts.append(f[name])
             else:
                 like = next(g[name] for g in frames if name in g)
-                fill = np.full(len(f), np.nan) if like.dtype.kind in "biuf" else _obj([None] * len(f))
+                fill = np.full(len(f), np.nan) if like.dtype.kind in "biuf" else object_column([None] * len(f))
                 parts.append(fill)
         cols[name] = np.concatenate(parts)
     return Frame(cols, _concat_index(frames))
@@ -320,18 +321,32 @@ def _encode_column(vals: np.ndarray):
         flat = np.concatenate(arrays) if arrays else np.array([], dtype=np.float64)
         return (flat, offsets), "ragged"
     if vals.dtype == object or vals.dtype.kind in ("U", "S"):
-        strs = [_NULL if _missing(v) else str(v) for v in vals]
-        lens = [len(v) for v in strs]
-        n = max(len(strs), 1)
-        max_len = max(lens) if lens else 1
-        if max_len <= 64 or max_len * n <= 4 * (sum(lens) + n):
-            if any("\x00" in v for v in strs):
-                raise ValueError("NUL bytes in string column are not storable")
-            return np.char.encode(np.asarray(strs, dtype="U"), "utf-8"), "fstr"
-        return _obj(strs), "str"
+        if not (vals.dtype == object and len(vals) and set(map(type, vals)) == {str}):
+            vals = object_column([_NULL if _missing(v) else str(v) for v in vals])
+        return _encode_strings(vals)
     if vals.dtype.kind == "b":
         return vals.astype(np.uint8), "bool"
     return vals, vals.dtype.kind
+
+
+def _encode_strings(vals: np.ndarray):
+    """(data, kind) of an object column of ``str`` alone: ``fstr`` unless the
+    widest value is over 64 characters and over four times the mean length
+    plus one, else ``str``; a NUL anywhere in a value is refused. The
+    fixed-width copy is made only once the width is chosen."""
+    n = len(vals)
+    lens = np.fromiter(map(len, vals), np.int64, count=n)
+    width = max(int(lens.max()) if n else 1, 1)
+    if width > 64 and width * n > 4 * (int(lens.sum()) + n):
+        return vals, "str"
+    fixed = vals.astype(f"U{width}")
+    codes = fixed.view(np.uint32).reshape(n, width)  # code points, 0-padded
+    # a NUL inside a value, or at its end (which the fixed-width copy drops)
+    if (codes[np.arange(width) < lens[:, None]] == 0).any():
+        raise ValueError("NUL bytes in string column are not storable")
+    if not n or int(codes.max()) < 128:  # ASCII: the UTF-8 bytes are the code points
+        return codes.astype(np.uint8).view(f"S{width}").ravel(), "fstr"
+    return np.char.encode(fixed, "utf-8"), "fstr"
 
 
 def _frame_group(frame: Frame) -> hdf5.WGroup:
