@@ -136,11 +136,11 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    on ``TRAIN_WORLD`` (22 keys: 22 journaled ingest chunks) in a process of
    its own; on 200,000 of its rows (2 keys) two pairs of ``--n_steps 400``
    then ``--n_steps 800`` on one checkpoint directory, each run a process of
-   its own, the second run of each resuming 2 of 2 chunks and step 399, the
+   its own, the second run of each resuming 2 of 2 chunks and step 199, the
    pairs byte-equal
    (``DAN_TRAIN_DETAIL``: wall, stages, steps and rows a second, peaks, the
    logged losses); one step at those widths timed, and profiled for its
-   kernels and the card's busy share (``DAN_STEP_DETAIL``); 100 steps on 200,000 of its rows on the card and on the
+   kernels and the card's busy share (``DAN_STEP_DETAIL``); 50 steps on 200,000 of its rows on the card and on the
    CPU, losses within 1 % and scores within 5e-3 (``DAN_CPU_DETAIL``); a
    DAN trained on the 104,000-variant world's labels (its own features)
    filtering that world with ``VCTPU_MODEL_FAMILY=dan``, card against CPU
@@ -155,15 +155,17 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    written by ``synthetic.write_coverage_world``; each run a process of its
    own, the counts set to 0 just before it and read just after: on the card
    at full size ``full_analysis`` (default windows, ``-c`` with a
-   20,000-interval exome-like BED and the events), ``full_analysis -q 20 -Q
-   20 -l 100``, ``collect_coverage`` and ``cnv_calling --reference`` (every
-   planted event called with its copy number, one ``cnv_viterbi`` launch);
-   on a 500 kbp cut, the card against the CPU (parquets sha256-equal,
+   20,000-interval exome-like BED and the events), ``collect_coverage`` and
+   ``cnv_calling --reference`` (every planted event called with its copy
+   number, one ``cnv_viterbi`` launch); on a 500 kbp cut, the card against
+   the CPU (``full_analysis`` with ``-c`` and with ``-q 20 -Q 20 -l 100``:
+   parquets sha256-equal,
    histograms and percentiles equal, near-ties counted, stats to 1e-6; the
    inflated bedGraph and the ``.bw`` bytes equal; CNV BED and VCF bytes
    equal), a ``VCTPU_NO_NATIVE=1`` twin on that cut and a CRAM twin of a
    200 kbp cut (equal outputs), and the Viterbi kernel alone at chr20 and
-   GRCh38 at 1 kb, ``torch.equal`` to its plain version, beside its latency
+   GRCh38 at 1 kb, ``torch.equal`` to its plain version (at GRCh38 on each
+   contig's first 20,000 bins), beside its latency
    bound (``COVERAGE_DETAIL``, ``CNV_DETAIL``, ``CNV_KERNEL_DETAIL``,
    ``HOST_ENGINE`` lines). Phase 9's ``TRAIN_NATIVE_DETAIL`` holds the card's
    forests to the native trainer's on the held-out chr20 rows
@@ -198,7 +200,8 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    of beagle on a two-contig cut; ``HAPLOID_WORLD`` (155,000 chrX/chrY
    records) through ``convert_haploid_regions`` with ``hg38_non_par`` and a
    BED, card against CPU, every record outside the regions as the input has
-   it; ``GVCF_WORLD`` (a 30x chr20 gVCF of about 1.7 M records) through
+   it; ``GVCF_WORLD`` cut to half of chr20 (:data:`GVCF_SMOKE_WORLD`, a 30x
+   gVCF of about 0.9 M records) through
    ``compress_gvcf``, ``cleanup_gvcf_before_calling`` (the planted drops)
    and ``gvcf_hcr`` (both ``--below`` settings), each byte-equal to its
    ``VCTPU_NO_NATIVE=1`` twin on a 2 Mbp cut; ``TRIO_WORLD`` through
@@ -214,7 +217,7 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    ``tests/torch_report_compare``'s bars: ``REPORT_WORLD`` (a 30x chr20
    callset of 104,000 records, ``GT:GQ:DP:AD:VAF``, 1-3 alts, hmer and
    non-hmer indels, adjacent-SNV doublets and runs of three, a dbSNP of 40 %
-   of its sites and 500,000 others, a callable BED, two control callsets
+   of its sites and 250,000 others, a callable BED, two control callsets
    of 20,000 records, seeded catalogs of COSMIC v3.3's shapes) through
    ``run_no_gt_report`` ``full_analysis``, ``variant_eval`` and
    ``somatic_analysis`` (the planted hmer tables, doublets, indel classes
@@ -229,7 +232,25 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    ``VCTPU_NO_NATIVE=1`` plain walk and the CRAM decoder (``REPORT_DETAIL``,
    ``FINGERPRINT_DETAIL``, ``PILEUP_DETAIL``, ``HOST_ENGINE`` lines; each
    detail line counts the figures its run skipped: the card's machine has
-   no plotting library).
+   no plotting library);
+15. the single-read SNV and MRD chain, the LPR pair, bridging SNVs and
+   methylation (``phase_featuremaps``), each run a process of its own, one
+   after another, the counts set to 0 just before it and read just after:
+   ``FEATUREMAP_WORLD`` (``synthetic_featuremap``: TP and FP featuremaps of
+   500,000 reads, a cfDNA featuremap of 1,000,000 reads over 2,000 signature
+   SNVs at a planted tumor fraction of 1e-3 and its control, an LPR
+   featuremap of 300,000 reads on 12,000 loci and a calls VCF of 104,000
+   records) through ``srsnv_training`` (the held-out AUC, ``gbt_hist`` and
+   ``forest_wide`` launched; the card's fit against the CPU torch program on a
+   cut), ``srsnv_inference`` (``forest_wide``; the CPU and ``gemm``,
+   ``forest_tree_step``, byte-equal on a cut), ``mrd_analysis`` (card against
+   CPU, the planted tumor fraction inside the interval and detected, not on
+   the control) and the LPR pair (parquets and VCF byte-equal);
+   ``BRIDGING_WORLD`` through ``calibrate_bridging_snvs`` (exactly the planted
+   rescues); ``METHYL_WORLD`` through the five methylation tools (card files
+   equal to the CPU's, the planted M-bias found) (``FEATUREMAP_DETAIL``,
+   ``MRD_DETAIL``, ``LPR_DETAIL``, ``BRIDGING_DETAIL``, ``METHYL_DETAIL``,
+   ``HOST_ENGINE`` lines).
 
 A ``PHASE_SECONDS`` line follows every phase (wall seconds of the phase),
 and one for the whole run before the result lines.
@@ -462,7 +483,7 @@ def _measure(name: str, kernel, x_all: torch.Tensor, main_rows: int, north_star:
         bound_ms, bound_by, detail = bound(n)
         times = _launch_times(kernel.launch, x_all, n)
         if n <= KERNEL_ROWS:
-            plain_ms = cuda_ms(lambda xn=x_all[:n]: kernel.plain(xn), reps=5)
+            plain_ms = cuda_ms(lambda xn=x_all[:n]: kernel.plain(xn), reps=3, warmup=1)
         else:  # one warm pass in chunks, timed during the parity pass above (a second pass would add seconds)
             plain_ms = plain_north_ms
         rows[n] = {**times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -639,6 +660,7 @@ class _RunLog(logging.Handler):
         self.tables: list[int] = []
         self.genome = None
         self.stream = None
+        self.notes: dict = {}
 
     def emit(self, record: logging.LogRecord) -> None:
         from variantcalling_tpu_torch import featurize
@@ -660,6 +682,8 @@ class _RunLog(logging.Handler):
             keys = ("output", "layout", "chunks", "resumed", "quarantined", "records", "cache_hits",
                     "peak_device_bytes")
             self.stream = dict(zip(keys, record.args))
+        elif record.msg == "held-out AUC = %.4f (%d reads)":  # srsnv_training.AUC_LOG
+            self.notes["auc"], self.notes["heldout_reads"] = record.args
         elif record.msg == featurize.GENOME_LOG:
             device, nbytes, source, encode_s, upload_s = record.args
             self.genome = {"device": str(device), "bytes": nbytes, "source": source, "encode_s": encode_s,
@@ -1151,7 +1175,12 @@ FORKSERVER_PRELOAD = ["__main__", "torch", "numpy", *(f"variantcalling_tpu_torch
     "pipelines.compress_gvcf", "pipelines.cleanup_gvcf_before_calling", "pipelines.gvcf_hcr",
     "pipelines.denovo_recalibrated_qualities", "pipelines.misc.find_runs_bed", "pipelines.run_no_gt_report",
     "pipelines.joint_calling_report", "pipelines.substitution_error_rate_report", "pipelines.quick_fingerprinting",
-    "pipelines.training_set_consistency_check"))]
+    "pipelines.training_set_consistency_check", "pipelines.srsnv.srsnv_training", "pipelines.srsnv.srsnv_inference",
+    "pipelines.mrd_analysis", "pipelines.lpr.train_lib_prep_recalibration_model",
+    "pipelines.lpr.filter_vcf_with_lib_prep_recalibration_model", "pipelines.calibrate_bridging_snvs",
+    "pipelines.methylation.concat_methyldackel_csvs", "pipelines.methylation.process_mbias",
+    "pipelines.methylation.process_merge_context", "pipelines.methylation.process_merge_context_no_cp_g",
+    "pipelines.methylation.process_per_read"))]
 
 
 def _forked(spec: dict, label: str, target=None) -> dict:
@@ -1522,9 +1551,9 @@ def _native_agreement(got, want, x: np.ndarray) -> dict:
 
     split = got.feature != fmod.LEAF
     differ = np.flatnonzero((got.feature != want.feature).any(axis=1))
-    xt = torch.from_numpy(x)
-    sg = fmod.finalize_margin(fmod.predict_margin(got, xt).numpy(), got)
-    sw = fmod.finalize_margin(fmod.predict_margin(want, xt).numpy(), want)
+    xt = torch.from_numpy(x).cuda()  # the gather walk: the same bits on the card and the CPU
+    sg = fmod.finalize_margin(fmod.predict_margin(got, xt).cpu().numpy(), got)
+    sw = fmod.finalize_margin(fmod.predict_margin(want, xt).cpu().numpy(), want)
     first = int(differ[0]) if len(differ) else None
     before = slice(0, first)  # the trees before the first that differs
     return {"features_equal": not len(differ), "first_differing_tree": first, "differing_trees": len(differ),
@@ -1685,7 +1714,7 @@ def phase_training(tmp: Path, card: str) -> dict:
         got = pair["gpu"][name]
         if name.startswith("rf"):
             # the bar held: the held-out chr20 rows' TREE_SCORE and FILTER (tests/torch_worlds.forest_bar)
-            bar = torch_worlds.forest_bar(got, want, x[contig == "chr20"])
+            bar = torch_worlds.forest_bar(got, want, x[contig == "chr20"], device="cuda")
             native[name] = {**_native_agreement(got, want, x), "heldout_bar": bar}
             print("TRAIN_NATIVE_DETAIL " + json.dumps({"model": name, "card": card, **native[name]}), flush=True)
             check(bar["held"], f"{name}: the card's forest misses the forest bar against the native trainer: {bar}")
@@ -1765,12 +1794,12 @@ def phase_training(tmp: Path, card: str) -> dict:
 #: train_dan's defaults, at which phase 10 trains on TRAIN_WORLD: 2,000 steps of 16,384 rows
 DAN_STEPS, DAN_BATCH = 2000, 1 << 14
 #: each run of a resumed pair: this many steps, then as many again from its checkpoint
-DAN_RESUME_STEPS = 400
+DAN_RESUME_STEPS = 200
 #: train -> filter on the 104,000-variant world: half the default steps, still about 250 passes over
 #: its 66,651 labeled rows
 DAN_VCF_STEPS = 1000
 #: GPU against CPU: steps on TRAIN_CPU_ROWS, a loss logged every DAN_CPU_LOG of them
-DAN_CPU_STEPS, DAN_CPU_LOG = 100, 10
+DAN_CPU_STEPS, DAN_CPU_LOG = 50, 10
 #: the CPU tests' bf16 bar (tests/test_torch_dan_train.py): each logged loss within 1 %, scores within 5e-3
 DAN_LOSS_RTOL, DAN_SCORE_ATOL = 1e-2, 5e-3
 
@@ -1960,13 +1989,13 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
        2 layers, embed 16, 2,000 steps of 16,384 rows, learning rate 1e-3)
        with ``--checkpoint_every 200``, in a process of its own: the newest
        two checkpoints kept. Then, on ``TRAIN_CPU_ROWS`` of it (two keys),
-       ``--n_steps 400`` and ``--n_steps 800`` (:data:`DAN_RESUME_STEPS`) on
+       ``--n_steps 200`` and ``--n_steps 400`` (:data:`DAN_RESUME_STEPS`) on
        one checkpoint directory, twice, each run a process of its own: the
        second run of a pair resumes 2 of 2 chunks from the ingest cache and
-       from step 399, and the two pairs' pickles are byte-equal (two runs of
+       from step 199, and the two pairs' pickles are byte-equal (two runs of
        the card write the same model). One step at those widths timed and
        profiled (:func:`_dan_step_profile`).
-    2. ``TRAIN_CPU_ROWS`` of the world, 100 steps on the card and with
+    2. ``TRAIN_CPU_ROWS`` of the world, 50 steps on the card and with
        ``--backend cpu``: each logged loss within 1 %, the two models' scores
        of those rows within 5e-3 (the CPU tests' bf16 bar); the largest gaps.
     3. Train -> filter: a DAN trained (``DAN_VCF_STEPS`` steps) on the
@@ -2126,6 +2155,8 @@ COVERAGE_CUT_MIN_CONTIG = 100_000
 COVERAGE_CUT_EVENT = (200_000, 300_000, 45)
 #: the Viterbi kernel alone: chr20 at 1 kb, and GRCh38's 24 chromosomes at 1 kb (3,088,269 bins)
 CNV_CHR20_BINS = 64_444
+#: the GRCh38 Viterbi case is held to its plain version on each sequence's first this many bins
+VITERBI_PLAIN_CUT = 20_000
 GRCH38_MB = (248.956422, 242.193529, 198.295559, 190.214555, 181.538259, 170.805979, 159.345973, 145.138636,
              138.394717, 133.797422, 135.086622, 133.275309, 114.364328, 107.043718, 101.991189, 90.338345,
              83.257441, 80.373285, 58.617616, 64.444167, 46.709983, 50.818468, 156.040895, 57.227415)
@@ -2176,7 +2207,7 @@ def _tool_child(spec: dict, results) -> None:
     results.put({
         "stdout": stdout.getvalue() if spec.get("raises") else None, "error": error,
         "figures_skipped": len(degrade.events_for("reports.figure")),
-        "rc": rc if isinstance(rc, int) else 0, "seconds": seconds, "stages": times.stages,
+        "rc": rc if isinstance(rc, int) else 0, "seconds": seconds, "stages": times.stages, "notes": times.notes,
         "launches": {"cnv_viterbi": viterbi_cuda.LAUNCHES, "gbt_hist": gbt_hist.LAUNCHES,
                      "forest_wide": forest_cuda.LAUNCHES, "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES},
         "host": {k: dict(v) for k, v in native.CALLS.items() if v["native"] or v["plain"]},
@@ -2276,10 +2307,15 @@ def _viterbi_alone(card: str, sm_clock_hz: float, run_launches: int) -> dict:
         offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]).astype(np.int64))
         x = torch.from_numpy(obs).cuda()
         launches = viterbi_cuda.LAUNCHES
-        got = viterbi_cuda.viterbi_launch(x, offsets, params)
+        # the plain version walks its longest sequence bin by bin (GRCh38's chr1: about 26 s on an H100), so there
+        # the kernel is held to it on each sequence's first VITERBI_PLAIN_CUT bins (24 sequences, one launch)
+        cut = [min(n, VITERBI_PLAIN_CUT) for n in lens] if label == "grch38_1kb" else lens
+        xc = torch.cat([x[o: o + n] for o, n in zip(offsets[:-1].tolist(), cut)])
+        offc = torch.as_tensor(np.concatenate([[0], np.cumsum(cut)]).astype(np.int64))
+        got = viterbi_cuda.viterbi_launch(xc, offc, params)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = viterbi_cuda.viterbi_plain(x, offsets, params)
+        want = viterbi_cuda.viterbi_plain(xc, offc, params)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         equal = torch.equal(got, want)
@@ -2294,6 +2330,7 @@ def _viterbi_alone(card: str, sm_clock_hz: float, run_launches: int) -> dict:
         bound = max(bytes_ms, latency_ms, ops_ms)
         detail = {"kernel": "cnv_viterbi", "case": label, "card": card, "bins": total, "sequences": len(lens),
                   "longest": max(lens), "ms": ms, "device_ms": dev_ms, "host_ms": h_ms, "plain_ms": plain_ms,
+                  "plain_bins": int(sum(cut)),
                   "bound_ms": bound, "bound_by": "operations" if latency_ms >= bytes_ms else "bytes",
                   "bytes_bound_ms": bytes_ms, "latency_bound_ms": latency_ms, "sm_clock_mhz": sm_clock_hz / 1e6,
                   "bound_share": bound / ms, "states_equal": equal, "cnv_calling_launches": run_launches}
@@ -2309,12 +2346,13 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
     port's native ``bgzf_compress``), then, each run a process of its own:
     1. on the card at full size: ``full_analysis`` at the default windows
        with ``-c`` (an exome-like BED of 20,000 intervals and the planted
-       events) and with ``-q 20 -Q 20 -l 100``, ``collect_coverage`` to
+       events), ``collect_coverage`` to
        ``.bedgraph.gz`` and its ``.bw``, and ``cnv_calling --reference``:
        each planted event called with its copy number, one ``cnv_viterbi``
        launch;
     2. on a 500 kbp cut (a world of its own), the card against the CPU:
-       both ``full_analysis`` runs (the four parquets sha256-equal,
+       ``full_analysis`` with ``-c`` and with ``-q 20 -Q 20 -l 100`` (the
+       four parquets sha256-equal,
        ``histogram`` and ``percentiles`` equal, near-ties counted, ``stats``
        to 1e-6), ``collect_coverage`` (the inflated bedGraph and the ``.bw``
        bytes equal) and ``cnv_calling`` (BED and VCF bytes equal, the cut's
@@ -2324,7 +2362,9 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
        the 500 kbp cut against the native run, and a CRAM of a 200 kbp cut
        (``tests/cram_fixtures.write_cram``) against the BAM of the same
        reads: equal outputs;
-    4. the Viterbi kernel alone (:func:`_viterbi_alone`).
+    4. the Viterbi kernel alone (:func:`_viterbi_alone`; the GRCh38 case
+       held to its plain version on each contig's first
+       :data:`VITERBI_PLAIN_CUT` bins).
     """
     from tests import cram_fixtures
     from variantcalling_tpu_torch import synthetic
@@ -2345,10 +2385,10 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
     d = tmp / "cov_out"
     d.mkdir()
     full_args = {"full": ["-c", w["categories"]], "full_q20": ["-q", "20", "-Q", "20", "-l", "100"]}
-    for tag, extra in full_args.items():
-        run = _cov_run("coverage_analysis", ["full_analysis", "-i", w["bam"], "-o", str(d / f"{tag}_gpu"), *extra,
-                                             "--backend", "gpu"], f"{tag}_gpu", card, length)
-        out[tag] = {"gpu_s": run["seconds"], "peak_device_bytes": run["peak_device_bytes"]}
+    # the read filters (-q -Q -l) are held on the cut below, card against CPU
+    run = _cov_run("coverage_analysis", ["full_analysis", "-i", w["bam"], "-o", str(d / "full_gpu"),
+                                         *full_args["full"], "--backend", "gpu"], "full_gpu", card, length)
+    out["full"] = {"gpu_s": run["seconds"], "peak_device_bytes": run["peak_device_bytes"]}
     _cov_run("coverage_analysis", ["collect_coverage", "-i", w["bam"], "-o", str(d / "collect_gpu.bedgraph.gz"),
                                    "--backend", "gpu"], "collect_gpu", card, length)
     run = _cov_run("cnv_calling", ["--input_bam", w["bam"], "--output_bed", str(d / "cnv_gpu.bed"), "--output_vcf",
@@ -2390,7 +2430,7 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
         print(f"{tag} on the {world_spec['plain_cut']} bp cut: GPU and CPU wrote equal parquets and histograms; "
               f"stats within {same['max_stats_rel_gap']:.3g} relative, {same['percentile_near_ties']} percentile "
               f"near-ties ({card})", flush=True)
-        out[tag].update(same)
+        out.setdefault(tag, {}).update(same)
     sums = {}
     for backend in ("gpu", "cpu"):
         label = f"plain_cut_collect_{backend}"
@@ -2447,6 +2487,8 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
 
 #: phase 12's cut of the comparison for its VCTPU_NO_NATIVE=1 twin (bp of chr20 from its start)
 SEC_PLAIN_CUT = 2_000_000
+#: the cohort cut (its first callsets) on which sec_training's CPU twin and pool run are held to the card's
+SEC_CUT_SAMPLES = 25
 #: the SEC LRT's bytes a row: observed and noise counts (5 float32 each) in, the float32 ratio out
 SEC_LRT_ROW_BYTES = 44
 
@@ -2512,10 +2554,11 @@ def phase_sec(tmp: Path, card: str) -> dict:
     (a 100-sample cohort's noise DB) cut to one contig, the filter world's
     chr20; a held-out callset of 104,000 records and its truth. Then:
     1. ``sec_training``: ``--backend gpu --use_mesh`` (the dense (S, L, A)
-       sum on the card), ``--backend cpu`` (the host merge), and ``--backend
-       gpu --relevant_coords`` (the pool's loci): the card's DB equal to the
-       CPU's (keys, counts, ``n_samples``), the pool DB equal to the CPU DB's
-       rows at the pool's loci;
+       sum on the card) on the 100 callsets, the DB the later steps read; on
+       the first :data:`SEC_CUT_SAMPLES` callsets the same, ``--backend cpu``
+       (the host merge) and ``--backend gpu --relevant_coords`` (the pool's
+       loci): the card's DB equal to the CPU's (keys, counts, ``n_samples``),
+       the pool DB equal to the CPU DB's rows at the pool's loci;
     2. ``correct_systematic_errors`` on the held-out callset, GPU and CPU:
        records differ only as ``tests/torch_sec_compare`` allows (counted);
        at least 90 % of the planted noise records carry SEC, at most 5 % of
@@ -2556,21 +2599,27 @@ def phase_sec(tmp: Path, card: str) -> dict:
 
     # -- 1. sec_training --------------------------------------------------------------------
     train = {}
-    for label, backend, extra in (("train_mesh_gpu", "gpu", ["--use_mesh"]), ("train_cpu", "cpu", []),
-                                  ("train_pool_gpu", "gpu", ["--relevant_coords", w["pool"]])):
-        run = _sec_run("sec_training", ["--inputs", *w["samples"], "--output_file", str(d / f"{label}.h5"), *extra,
+    cut = w["samples"][:SEC_CUT_SAMPLES]
+    for label, samples, backend, extra in (
+            ("train_mesh_gpu", w["samples"], "gpu", ["--use_mesh"]), ("train_cut_mesh_gpu", cut, "gpu", ["--use_mesh"]),
+            ("train_cpu", cut, "cpu", []), ("train_pool_gpu", cut, "gpu", ["--relevant_coords", w["pool"]])):
+        run = _sec_run("sec_training", ["--inputs", *samples, "--output_file", str(d / f"{label}.h5"), *extra,
                                         "--backend", backend], label, card)
         train[label] = {"run": run, "db": SecDb.load(str(d / f"{label}.h5"))}
-    gpu_db, cpu_db, pool_db = (train[k]["db"] for k in ("train_mesh_gpu", "train_cpu", "train_pool_gpu"))
+    full_db, gpu_db, cpu_db, pool_db = (train[k]["db"] for k in ("train_mesh_gpu", "train_cut_mesh_gpu", "train_cpu",
+                                                                  "train_pool_gpu"))
+    check(full_db.n_samples == spec["n_samples"] and len(full_db) >= len(gpu_db),
+          f"sec_training: the cohort DB holds {full_db.n_samples} samples")
     check(np.array_equal(gpu_db.keys, cpu_db.keys) and np.array_equal(gpu_db.counts, cpu_db.counts)
-          and gpu_db.n_samples == cpu_db.n_samples == spec["n_samples"] and gpu_db.contigs == cpu_db.contigs,
+          and gpu_db.n_samples == cpu_db.n_samples == SEC_CUT_SAMPLES and gpu_db.contigs == cpu_db.contigs,
           "sec_training: the card's DB (--use_mesh) differs from the CPU's")
     at_pool = np.isin(cpu_db.keys, pool_db.keys)
     check(len(pool_db) > 0 and np.array_equal(cpu_db.keys[at_pool], pool_db.keys)
           and np.array_equal(cpu_db.counts[at_pool], pool_db.counts),
           "sec_training: the --relevant_coords DB is not the cohort DB at the pool's loci")
-    print(f"sec_training: the card's dense sum and the CPU's host merge wrote equal DBs ({len(gpu_db)} loci of "
-          f"{gpu_db.n_samples} samples); the pool DB holds {len(pool_db)} of them ({card})", flush=True)
+    print(f"sec_training: the cohort DB of {full_db.n_samples} samples ({len(full_db)} loci) on the card; on "
+          f"{SEC_CUT_SAMPLES} of them the card's dense sum and the CPU's host merge wrote equal DBs ({len(gpu_db)} "
+          f"loci); the pool DB holds {len(pool_db)} of them ({card})", flush=True)
     out["train"] = {k: {"seconds": v["run"]["seconds"], "loci": len(v["db"]),
                         "peak_device_bytes": v["run"]["peak_device_bytes"]} for k, v in train.items()}
     db_path = str(d / "train_mesh_gpu.h5")
@@ -2600,8 +2649,8 @@ def phase_sec(tmp: Path, card: str) -> dict:
                                     "--output_file", str(d / f"sweep_{backend}.csv"), "--backend", backend],
                  f"validation_{backend}", card)
     held = read_vcf(w["heldout"])
-    hit, rows = gpu_db.lookup(held.chrom, held.pos)
-    ratios = caller.hit_ratios(held, gpu_db, hit, rows, "cpu")
+    hit, rows = full_db.lookup(held.chrom, held.pos)
+    ratios = caller.hit_ratios(held, full_db, hit, rows, "cpu")
     n_rows = torch_sec_compare.differing_sweep_rows((d / "sweep_gpu.csv").read_text(),
                                                     (d / "sweep_cpu.csv").read_text(), ratios)
     print(f"sec_validation: GPU and CPU sweeps, {n_rows} rows differ within the tolerance of their threshold; "
@@ -3003,7 +3052,7 @@ def phase_reports(tmp: Path, card: str, trio_vcf: str | None = None, worlds: dic
        planted SBS96 mixture recovered (each planted signature's fraction
        within 0.03, the others under 5 % together).
     2. ``joint_calling_report`` on phase 13's ``TRIO_WORLD`` joint VCF with a
-       dbSNP of 40 % of its sites and 500,000 others, card and CPU: equal h5
+       dbSNP of 40 % of its sites and 250,000 others, card and CPU: equal h5
        frames and HTML.
     3. ``substitution_error_rate_report`` (host code) on a seeded motif h5:
        96 folded channels, the keys of the reference.
@@ -3179,6 +3228,257 @@ def phase_reports(tmp: Path, card: str, trio_vcf: str | None = None, worlds: dic
     return out
 
 
+def _slice_run(tool: str, argv: list[str], label: str, card: str, kind: str, env: dict | None = None,
+               served_by: tuple[str, ...] = ("vcf_parse",)) -> dict:
+    """One run of phase 15 in a process of its own (:func:`_forked`, the
+    counts set to 0 just before it and read just after): exit 0; a card run
+    served by the host engine's ``served_by`` entry points; a ``<kind>_DETAIL``
+    line (wall, stages, launches, peak RSS and card memory) and a
+    ``HOST_ENGINE`` line."""
+    run = _forked({"tool": tool, "argv": argv, "env": env or {}}, label, _tool_child)
+    check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+    host = run["host"]
+    if "gpu" in argv:
+        missed = [k for k in served_by if host.get(k, {}).get("native", 0) == 0]
+        check(not missed, f"{label}: the host engine did not serve {missed}")
+    detail = {"run": label, "tool": tool, "card": card, "wall_s": run["seconds"], "stages": run["stages"],
+              "launches": run["launches"], "notes": run["notes"], "peak_rss_bytes": run["peak_rss_bytes"],
+              "peak_device_bytes": run["peak_device_bytes"]}
+    print(f"{kind}_DETAIL " + json.dumps(detail), flush=True)
+    print("HOST_ENGINE " + json.dumps({"run": label, "calls": host}), flush=True)
+    return run
+
+
+def _vcf_body(path: str) -> bytes:
+    """A VCF's text without its ``##vctpu_*`` lines (a ``.gz`` inflated)."""
+    data = Path(path).read_bytes()
+    if data[:2] == b"\x1f\x8b":
+        data = gzip.decompress(data)
+    return _strip(data)
+
+
+#: trees of phase 15's fits held card against CPU (the cut's srsnv fits, the LPR pair); the full-size srsnv fit
+#: has the tool's default 100
+CUT_TREES = 50
+
+
+def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
+    """The single-read SNV and MRD chain, the LPR pair, ``calibrate_bridging_snvs``
+    and the five methylation tools (phase 15), each run a process of its own,
+    one after another, the counts set to 0 just before it and read just after;
+    every card run against a CPU run of the port, scoring with one model
+    pickle (the card's), so that each comparison holds the scoring and not
+    the fit.
+
+    1. ``FEATUREMAP_WORLD`` (``synthetic_featuremap``): ``srsnv_training`` on the
+       TP and FP featuremaps (500,000 reads each) on the card: the held-out
+       AUC over 0.9, ``gbt_hist`` launched trees x levels times, ``forest_wide``
+       at least once; on their twentieth cuts, :data:`CUT_TREES` trees, the
+       card's fit against the CPU torch program (``VCTPU_NATIVE_GBT=0``: equal
+       trees, values to 1e-5, scores to 1e-6) and the native trainer's
+       agreement (reported).
+    2. ``srsnv_inference`` with the card's model on the cfDNA featuremap
+       (1,000,000 reads) and its control on the card; its tenth cut (the
+       first 100,000 reads) on the CPU and with ``VCTPU_FOREST_STRATEGY=gemm``
+       (``forest_tree_step``) byte-equal to the head of the card's output.
+    3. ``mrd_analysis`` of the scored cfDNA on the card and the CPU (equal
+       frames; the planted tumor fraction inside the interval, detected) and
+       of the scored control (not detected).
+    4. The LPR pair (300,000 reads on 12,000 loci, a calls VCF of 104,000
+       records; :data:`CUT_TREES` trees) on the card and the CPU: labeled
+       parquets byte-equal; the filter with the card's model: scored parquets
+       and VCFs byte-equal.
+    5. ``BRIDGING_WORLD`` through ``calibrate_bridging_snvs``: card and CPU
+       bytes equal, exactly the planted records rescued.
+    6. ``METHYL_WORLD`` through the five methylation tools: card files equal
+       to the CPU's (the CpG tool on the first shard, with its merged
+       bedGraph; the others in full), the planted M-bias found by the
+       inclusion bounds.
+    ``FEATUREMAP_DETAIL``, ``MRD_DETAIL``, ``LPR_DETAIL``, ``BRIDGING_DETAIL``,
+    ``METHYL_DETAIL`` and ``HOST_ENGINE`` lines."""
+    from variantcalling_tpu_torch import synthetic_featuremap as sfm
+    from variantcalling_tpu_torch.models import registry
+    from variantcalling_tpu_torch.pipelines.srsnv.srsnv_training import build_training_frame
+    from variantcalling_tpu_torch.utils import h5_utils
+
+    spec = {"featuremap": sfm.FEATUREMAP_WORLD, "bridging": sfm.BRIDGING_WORLD, "methyl": sfm.METHYL_WORLD,
+            **(worlds or {})}
+    d = tmp / "featuremaps"
+    o = d / "out"
+    o.mkdir(parents=True)
+    t0 = time.perf_counter()
+
+    def timed(fn, *args, **kwargs):
+        t = time.perf_counter()
+        return fn(*args, **kwargs), time.perf_counter() - t
+
+    with ThreadPoolExecutor(3) as pool:  # numpy's string operations run outside the GIL: the three worlds overlap
+        jobs = [pool.submit(timed, sfm.write_featuremap_world, str(d / "fm"), **spec["featuremap"]),
+                pool.submit(timed, sfm.write_bridging_world, str(d / "br"), **spec["bridging"]),
+                pool.submit(timed, sfm.write_methyl_world, str(d / "me"), **spec["methyl"])]
+        (fm, fm_s), (br, br_s), (me, me_s) = (j.result() for j in jobs)
+    f = spec["featuremap"]
+    print(f"worlds featuremaps: TP and FP of {f['n_tp']} and {f['n_fp']} reads, a cfDNA map of {f['n_cfdna']} reads "
+          f"with {fm['n_tumor_reads']} tumor reads at {f['n_signature']} signature loci and its control, an LPR "
+          f"map of {fm['lpr_reads']} reads on {f['n_lpr_loci']} loci ({fm_s:.1f} s); the bridging world "
+          f"({br_s:.1f} s); the methylation world, {me['n_cpg_rows']} CpG rows ({me_s:.1f} s): written on three "
+          f"threads in {time.perf_counter() - t0:.1f} s", flush=True)
+    out: dict = {"world": {"featuremap_s": fm_s, "bridging_s": br_s, "methyl_s": me_s,
+                           "all_s": time.perf_counter() - t0}}
+    runs: dict = {}
+
+    # -- 1. srsnv_training --------------------------------------------------------------------------------------
+    depth, n_trees = 6, 100
+    card_model = str(o / "srsnv_card.pkl")
+    run = _slice_run("srsnv_training", ["--tp_featuremap", fm["tp"], "--fp_featuremap", fm["fp"], "--output_model",
+                                        card_model, "--backend", "gpu"], "srsnv_training_gpu", card, "FEATUREMAP")
+    runs["srsnv_training_gpu"] = run
+    check(run["launches"]["gbt_hist"] == n_trees * depth and run["launches"]["forest_wide"] >= 1,
+          f"srsnv_training: launches {run['launches']}")
+    check(run["notes"].get("auc", 0) > 0.9, f"srsnv_training: held-out AUC {run['notes']}")
+    cut = {}
+    for label, backend, env in (("gpu", "gpu", {}), ("cpu_torch", "cpu", {"VCTPU_NATIVE_GBT": "0"}),
+                                ("cpu_native", "cpu", {})):
+        path = str(o / f"srsnv_cut_{label}.pkl")
+        runs[f"srsnv_training_cut_{label}"] = _slice_run(
+            "srsnv_training", ["--tp_featuremap", fm["tp_cut"], "--fp_featuremap", fm["fp_cut"], "--output_model",
+                               path, "--n_trees", str(CUT_TREES), "--backend", backend],
+            f"srsnv_training_cut_{label}", card, "FEATUREMAP", env)
+        cut[label] = registry.load_model(path, "srsnv_model")
+    x_cut, _, _ = build_training_frame(fm["tp_cut"], fm["fp_cut"], None, None)
+    fit = _check_fit_bar(cut["gpu"], cut["cpu_torch"], "srsnv_training GPU vs CPU torch program", x_cut)
+    print("TRAIN_FIT_DETAIL " + json.dumps({"run": "srsnv_training_cut", "rows": len(x_cut), "card": card, **fit}),
+          flush=True)
+    native = _native_agreement(cut["gpu"], cut["cpu_native"], x_cut)
+    print("TRAIN_NATIVE_DETAIL " + json.dumps({"run": "srsnv_training_cut", "card": card, **native}), flush=True)
+    out["srsnv_training"] = {"auc": run["notes"]["auc"], "fit": fit, "native": native}
+
+    # -- 2. srsnv_inference ---------------------------------------------------------------------------------------
+    scored = {}
+    for name in ("cfdna", "control"):
+        scored[name] = str(o / f"scored_{name}.vcf")
+        run = _slice_run("srsnv_inference", ["--featuremap", fm[name], "--model", card_model,
+                                             "--output_featuremap", scored[name], "--backend", "gpu"],
+                         f"srsnv_inference_{name}_gpu", card, "FEATUREMAP")
+        runs[f"srsnv_inference_{name}_gpu"] = run
+        check(run["launches"]["forest_wide"] >= 1 and run["launches"]["forest_tree_step"] == 0,
+              f"srsnv_inference {name}: launches {run['launches']}")
+    reads = f["n_cfdna"]
+    wall = runs["srsnv_inference_cfdna_gpu"]["seconds"]
+    print(f"srsnv_inference: {reads} reads on the card in {wall:.2f} s ({reads / wall:.0f} reads/s), "
+          f"forest_wide launches {runs['srsnv_inference_cfdna_gpu']['launches']['forest_wide']} ({card})", flush=True)
+    # the cut is the cfDNA map's first records, and each read is scored alone: the CPU's and gemm's outputs
+    # of the cut are held to the head of the card's output of the whole map
+    bodies = {}
+    for label, backend, env in (("cpu", "cpu", {}), ("gemm", "gpu", {"VCTPU_FOREST_STRATEGY": "gemm"})):
+        path = str(o / f"scored_cut_{label}.vcf")
+        run = _slice_run("srsnv_inference", ["--featuremap", fm["cfdna_cut"], "--model", card_model,
+                                             "--output_featuremap", path, "--backend", backend],
+                         f"srsnv_inference_cut_{label}", card, "FEATUREMAP", env)
+        runs[f"srsnv_inference_cut_{label}"] = run
+        bodies[label] = _vcf_body(path)
+    card_head = _vcf_body(scored["cfdna"])[:len(bodies["cpu"])]
+    check(runs["srsnv_inference_cut_gemm"]["launches"]["forest_tree_step"] >= 1
+          and runs["srsnv_inference_cut_gemm"]["launches"]["forest_wide"] == 0,
+          f"srsnv_inference gemm: launches {runs['srsnv_inference_cut_gemm']['launches']}")
+    check(card_head == bodies["cpu"] == bodies["gemm"] and card_head.endswith(b"\n"),
+          "srsnv_inference: card, CPU and gemm bytes differ")
+
+    # -- 3. mrd_analysis ------------------------------------------------------------------------------------------
+    mrd = {}
+    for label, backend, name in (("gpu", "gpu", "cfdna"), ("cpu", "cpu", "cfdna"), ("control_gpu", "gpu", "control")):
+        h5 = str(o / f"mrd_{label}.h5")
+        runs[f"mrd_{label}"] = _slice_run("mrd_analysis", [
+            "--signature_vcf", fm["signature"], "--featuremap", scored[name], "--coverage_per_locus",
+            str(f["depth"]), "--output_h5", h5, "--backend", backend],
+            f"mrd_{label}", card, "MRD")
+        frame = h5_utils.read_hdf(h5, "mrd_summary")
+        mrd[label] = {c: frame[c][0].item() for c in frame.columns}
+    check(mrd["gpu"] == mrd["cpu"], f"mrd_analysis: the card's frame {mrd['gpu']} differs from the CPU's {mrd['cpu']}")
+    tf = f["tumor_fraction"]
+    check(mrd["gpu"]["tf_ci_low"] <= tf <= mrd["gpu"]["tf_ci_high"] and mrd["gpu"]["mrd_detected"],
+          f"mrd_analysis: the planted tumor fraction {tf} not found: {mrd['gpu']}")
+    check(not mrd["control_gpu"]["mrd_detected"], f"mrd_analysis: MRD detected on the control: {mrd['control_gpu']}")
+    print(f"mrd_analysis: card and CPU frames equal; {mrd['gpu']['n_supporting_reads']} supporting reads of "
+          f"{fm['n_tumor_reads']} planted, tf {mrd['gpu']['tumor_fraction']:.3g} in [{mrd['gpu']['tf_ci_low']:.3g}, "
+          f"{mrd['gpu']['tf_ci_high']:.3g}] (planted {tf}), detected; the control {mrd['control_gpu']} ({card})",
+          flush=True)
+    out["mrd"] = mrd
+
+    # -- 4. the LPR pair ------------------------------------------------------------------------------------------
+    lpr_model = str(o / "lpr_gpu" / "lib_prep_model.npz")
+    for backend in ("gpu", "cpu"):
+        runs[f"lpr_train_{backend}"] = _slice_run("train_lib_prep_recalibration_model", [
+            "--out_dir", str(o / f"lpr_{backend}"), "--ref_fasta", fm["fasta"], "--featuremap_vcf",
+            fm["lpr_featuremap"], "--calls_vcf", fm["lpr_calls"], "--balance_tp_fp", "--n_trees", str(CUT_TREES),
+            "--backend", backend], f"lpr_train_{backend}", card, "LPR")
+    check(runs["lpr_train_gpu"]["launches"]["gbt_hist"] == CUT_TREES * depth,
+          f"lpr train: launches {runs['lpr_train_gpu']['launches']}")
+    for backend in ("gpu", "cpu"):
+        runs[f"lpr_filter_{backend}"] = _slice_run("filter_vcf_with_lib_prep_recalibration_model", [
+            "--out_dir", str(o / f"lpr_{backend}"), "--ref_fasta", fm["fasta"], "--lib_prep_model_file", lpr_model,
+            "--calls_vcf", fm["lpr_calls"], "--featuremap_vcf", fm["lpr_featuremap"], "--backend", backend],
+            f"lpr_filter_{backend}", card, "LPR")
+    check(runs["lpr_filter_gpu"]["launches"]["forest_wide"] >= 1, f"lpr filter: {runs['lpr_filter_gpu']['launches']}")
+    for name in ("labeled_featuremap_training_set.parquet", "scored_alleles.parquet"):
+        check((o / "lpr_gpu" / name).read_bytes() == (o / "lpr_cpu" / name).read_bytes(),
+              f"LPR: {name} differs between the card and the CPU")
+    check(len({_vcf_body(str(o / f"lpr_{b}" / "recalibrated.vcf.gz")) for b in ("gpu", "cpu")}) == 1,
+          "LPR: the recalibrated VCF differs between the card and the CPU")
+
+    # -- 5. calibrate_bridging_snvs -------------------------------------------------------------------------------
+    for backend in ("gpu", "cpu"):
+        runs[f"bridging_{backend}"] = _slice_run("calibrate_bridging_snvs", [
+            "--vcf", br["vcf"], "--reference", br["fasta"], "--output", str(o / f"bridging_{backend}.vcf.gz"),
+            "--backend", backend], f"bridging_{backend}", card, "BRIDGING")
+    body = _vcf_body(str(o / "bridging_gpu.vcf.gz"))
+    check(body == _vcf_body(str(o / "bridging_cpu.vcf.gz")), "calibrate_bridging_snvs: card and CPU bytes differ")
+    before = {ln.split(b"\t")[1]: ln.split(b"\t")[6] for ln in _vcf_body(br["vcf"]).split(b"\n") if ln[:1] == b"c"}
+    rescued = sorted(int(ln.split(b"\t")[1]) for ln in body.split(b"\n")
+                     if ln[:1] == b"c" and ln.split(b"\t")[6] == b"PASS" and before[ln.split(b"\t")[1]] != b"PASS")
+    check(rescued == sorted(br["rescue"].tolist()),
+          f"calibrate_bridging_snvs: {len(rescued)} rescued against {len(br['rescue'])} planted")
+    print(f"calibrate_bridging_snvs: card and CPU bytes equal; exactly the {len(rescued)} planted records rescued "
+          f"({card})", flush=True)
+
+    # -- 6. methylation ------------------------------------------------------------------------------------------
+    jobs = [("process_merge_context", me["cpg"], "cpg_full", ("gpu",), False),
+            ("process_merge_context", me["shards"][0], "cpg_shard", ("gpu", "cpu"), True),
+            ("process_merge_context_no_cp_g", me["chh"], "chh", ("gpu", "cpu"), False)]
+    for tool, src, name, backends, bedgraph in jobs:  # the merged bedGraph written by the shard's runs
+        for backend in backends:
+            label = f"{name}_{backend}"
+            extra = ["--merged_bedgraph", str(o / f"{label}.bg")] if bedgraph else []
+            runs[label] = _slice_run(tool, ["--input", src, "--output", str(o / f"{label}.h5"), *extra,
+                                            "--backend", backend], label, card, "METHYL", served_by=())
+    for backend in ("gpu", "cpu"):
+        runs[f"per_read_{backend}"] = _slice_run("process_per_read", [
+            "--input", me["per_read"], "--output", str(o / f"per_read_{backend}.h5"), "--backend", backend],
+            f"per_read_{backend}", card, "METHYL", served_by=())
+    runs["concat"] = _slice_run("concat_methyldackel_csvs", ["--inputs", *me["shards"], "--output",
+                                                             str(o / "concat.csv")], "concat", card, "METHYL",
+                                served_by=())
+    runs["mbias"] = _slice_run("process_mbias", ["--input", me["mbias"], "--output", str(o / "mbias.h5")], "mbias",
+                               card, "METHYL", served_by=())
+    for name in ("cpg_shard_{}.h5", "cpg_shard_{}.bg", "chh_{}.h5", "per_read_{}.h5"):
+        check((o / name.format("gpu")).read_bytes() == (o / name.format("cpu")).read_bytes(),
+              f"methylation: {name.format('*')} differs between the card and the CPU")
+    bounds = h5_utils.read_hdf(str(o / "mbias.h5"), "inclusion_bounds")
+    check(len(bounds) == 8 and (bounds["inclusion_start"] == me["bias_5p"] + 1).all()
+          and (bounds["inclusion_end"] == 150 - me["bias_3p"]).all(),
+          f"process_mbias: the planted bias not found: {bounds['inclusion_start']}, {bounds['inclusion_end']}")
+    summary = h5_utils.read_hdf(str(o / "cpg_full_gpu.h5"), "summary")
+    check(int(summary["n_sites"][0]) < me["n_cpg_rows"], "process_merge_context: no strands merged")
+    print(f"methylation: card files equal the CPU's; inclusion bounds {me['bias_5p'] + 1}-{150 - me['bias_3p']} "
+          f"as planted; {int(summary['n_sites'][0])} merged CpG sites of {me['n_cpg_rows']} rows ({card})", flush=True)
+    kernel_free = [k for k, r in runs.items() if k.startswith(("mrd", "bridging", "cpg", "chh", "per_read", "concat",
+                                                               "mbias")) and any(r["launches"].values())]
+    check(not kernel_free, f"a kernel was launched on a path without one: {kernel_free}")
+    out["walls"] = {k: v["seconds"] for k, v in runs.items()}
+    out["launches"] = {k: v["launches"] for k, v in runs.items()}
+    return out
+
+
 def time_kernel(kind: str, root: str) -> int:
     """``--time-kernel {wide,tree_step} ROOT``: one kernel of the checkout at
     ROOT (this one, or an older one unpacked beside it) on phase 3's forests
@@ -3226,6 +3526,13 @@ def _phase(name: str, card: str, fn, *args):
     return out
 
 
+#: phase 13's gVCF world cut to half of chr20 (records, variants and planted drops about halved)
+GVCF_SMOKE_WORLD = dict(seed=2035, length=32_222_083, n_variants=52_000, mean_block=40)
+#: phase 14's report world with a dbSNP of the case's sites and 250,000 others (the trio's alike)
+REPORT_SMOKE_WORLD = dict(seed=2038, length=64_444_167, n_records=104_000, control_records=20_000,
+                          n_extra_dbsnp=250_000)
+
+
 def main() -> int:
     t0 = time.perf_counter()
     card = phase_card()
@@ -3242,8 +3549,10 @@ def main() -> int:
         _phase("dan_eval", card, phase_dan_eval, Path(tmp), card, train["files"])
         cov = _phase("coverage", card, phase_coverage, Path(tmp), card)
         _phase("sec", card, phase_sec, Path(tmp), card)
-        geno = _phase("genotypes_gvcf", card, phase_genotypes_gvcf, Path(tmp), card)
-        _phase("reports", card, phase_reports, Path(tmp), card, geno["files"]["trio"])
+        geno = _phase("genotypes_gvcf", card, phase_genotypes_gvcf, Path(tmp), card, {"gvcf": GVCF_SMOKE_WORLD})
+        _phase("reports", card, phase_reports, Path(tmp), card, geno["files"]["trio"],
+               {"report": REPORT_SMOKE_WORLD})
+        _phase("featuremaps", card, phase_featuremaps, Path(tmp), card)
     print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     n = WORLD["n_variants"]

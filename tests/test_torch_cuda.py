@@ -10,7 +10,9 @@ ratio on the card against the CPU's, within its stated tolerance; the genotype
 programs (haploid conversion, imputation update), the runs scan and the
 report tools' programs (the eval tables' masked counts, the hmer and motif
 bincounts, the float32 AF histogram, the SNV gate) on the card against the
-CPU, bit for bit; and the signature fit within its stated relative bar.
+CPU, bit for bit; the signature fit within its stated relative bar; and the
+single-read SNV, MRD, LPR, bridging and methylation tools on the card
+against the CPU, their files equal.
 
 Needs a CUDA device, nvcc and the kernel's build; skips without a device.
 Imports only the port (no JAX), so it runs on the machine with the card:
@@ -436,3 +438,80 @@ def test_signature_fit_on_the_card_within_the_bar(seed):
         got, want = fit_signatures(counts, cat, device="cuda"), fit_signatures(counts, cat, device="cpu")
         big = want / want.sum(axis=1, keepdims=True) >= 1e-3
         assert np.all(np.abs(got - want)[big] <= rc.EXPOSURE_RTOL * np.abs(want)[big])
+
+
+def _bytes(path) -> bytes:
+    import gzip
+
+    data = open(path, "rb").read()
+    return gzip.decompress(data) if data[:2] == b"\x1f\x8b" else data
+
+
+@pytest.mark.cuda
+def test_slice_tools_on_the_card_equal_the_cpu(tmp_path, monkeypatch):
+    """The single-read SNV, MRD, LPR, bridging and methylation tools on the
+    card against the CPU at a small size: the card's fit against the CPU torch
+    program (equal trees), scoring with one model pickle (equal bytes, on
+    ``cuda-wide`` and pinned to ``gemm``), equal MRD, LPR, bridging and
+    methylation outputs; the kernels launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from variantcalling_tpu_torch import synthetic_featuremap as sfm
+    from variantcalling_tpu_torch.models import gbt_hist, registry
+    from variantcalling_tpu_torch.pipelines import calibrate_bridging_snvs, mrd_analysis
+    from variantcalling_tpu_torch.pipelines.lpr import filter_vcf_with_lib_prep_recalibration_model as lfilter
+    from variantcalling_tpu_torch.pipelines.lpr import train_lib_prep_recalibration_model as ltrain
+    from variantcalling_tpu_torch.pipelines.methylation import process_merge_context, process_per_read
+    from variantcalling_tpu_torch.pipelines.srsnv import srsnv_inference, srsnv_training
+
+    fm = sfm.write_featuremap_world(str(tmp_path / "fm"), seed=3, length=500_000, n_tp=5_000, n_fp=5_000,
+                                    n_cfdna=20_000, n_signature=200, tumor_fraction=2e-2, n_lpr_loci=300,
+                                    lpr_reads=6_000, n_calls=2_000)
+    train = ["--tp_featuremap", fm["tp"], "--fp_featuremap", fm["fp"], "--n_trees", "20", "--max_depth", "5"]
+    gbt_hist.LAUNCHES = forest_cuda.LAUNCHES = 0
+    assert srsnv_training.run([*train, "--output_model", str(tmp_path / "card.pkl")]) == 0
+    assert gbt_hist.LAUNCHES == 20 * 5 and forest_cuda.LAUNCHES >= 1
+    monkeypatch.setenv("VCTPU_NATIVE_GBT", "0")
+    assert srsnv_training.run([*train, "--output_model", str(tmp_path / "cpu.pkl"), "--backend", "cpu"]) == 0
+    a, b = (registry.load_model(str(tmp_path / f"{n}.pkl"), "srsnv_model") for n in ("card", "cpu"))
+    assert np.array_equal(a.feature, b.feature) and np.array_equal(a.threshold, b.threshold)
+    np.testing.assert_allclose(a.value, b.value, rtol=0, atol=1e-5)
+    model = str(tmp_path / "card.pkl")
+    outs = {}
+    for label, backend, strategy in (("card", "gpu", None), ("gemm", "gpu", "gemm"), ("cpu", "cpu", None)):
+        if strategy:
+            monkeypatch.setenv("VCTPU_FOREST_STRATEGY", strategy)
+        out = str(tmp_path / f"scored_{label}.vcf")
+        assert srsnv_inference.run(["--featuremap", fm["cfdna"], "--model", model, "--output_featuremap", out,
+                                    "--backend", backend]) == 0
+        monkeypatch.delenv("VCTPU_FOREST_STRATEGY", raising=False)
+        outs[label] = _bytes(out)
+        mrd = str(tmp_path / f"mrd_{label}.h5")
+        assert mrd_analysis.run(["--signature_vcf", fm["signature"], "--featuremap", out, "--coverage_per_locus",
+                                 "30", "--output_h5", mrd, "--backend", backend]) == 0
+        outs[f"mrd_{label}"] = open(mrd, "rb").read()
+    assert outs["card"] == outs["cpu"] == outs["gemm"] and outs["mrd_card"] == outs["mrd_cpu"]
+    for backend in ("gpu", "cpu"):
+        d = str(tmp_path / f"lpr_{backend}")
+        assert ltrain.run(["--out_dir", d, "--ref_fasta", fm["fasta"], "--featuremap_vcf", fm["lpr_featuremap"],
+                           "--calls_vcf", fm["lpr_calls"], "--n_trees", "10", "--depth", "4",
+                           "--backend", backend]) == 0
+        assert lfilter.run(["--out_dir", d, "--ref_fasta", fm["fasta"], "--lib_prep_model_file",
+                            str(tmp_path / "lpr_gpu" / "lib_prep_model.npz"), "--calls_vcf", fm["lpr_calls"],
+                            "--featuremap_vcf", fm["lpr_featuremap"], "--backend", backend]) == 0
+    for name in ("labeled_featuremap_training_set.parquet", "scored_alleles.parquet", "recalibrated.vcf.gz"):
+        assert _bytes(tmp_path / "lpr_gpu" / name) == _bytes(tmp_path / "lpr_cpu" / name), name
+    br = sfm.write_bridging_world(str(tmp_path / "br"), seed=3, length=500_000, n_records=3_000, n_rescue=30,
+                                  n_tandem=10, n_high_normal=10)
+    me = sfm.write_methyl_world(str(tmp_path / "me"), seed=3, length=500_000, n_cpg_sites=20_000, n_chh=20_000,
+                                n_reads=20_000, n_alt_rows=10)
+    for backend in ("gpu", "cpu"):
+        assert calibrate_bridging_snvs.run(["--vcf", br["vcf"], "--reference", br["fasta"], "--output",
+                                            str(tmp_path / f"br_{backend}.vcf"), "--backend", backend]) == 0
+        assert process_merge_context.run(["--input", me["cpg"], "--output", str(tmp_path / f"mc_{backend}.h5"),
+                                          "--merged_bedgraph", str(tmp_path / f"mc_{backend}.bg"),
+                                          "--backend", backend]) == 0
+        assert process_per_read.run(["--input", me["per_read"], "--output", str(tmp_path / f"pr_{backend}.h5"),
+                                     "--backend", backend]) == 0
+    for name in ("br_{}.vcf", "mc_{}.h5", "mc_{}.bg", "pr_{}.h5"):
+        assert _bytes(tmp_path / name.format("gpu")) == _bytes(tmp_path / name.format("cpu")), name

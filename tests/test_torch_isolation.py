@@ -2,8 +2,9 @@
 
 - an AST scan of ``variantcalling_tpu_torch/`` and ``chip_smoke.py`` finds
   no import of either, nor of optax, orbax, pandas, h5py, pyarrow or
-  matplotlib, which the card's machine does not have (the registry's pickle name mapping is a
-  string), but for the HTML report's optional matplotlib, imported inside a
+  matplotlib, which the card's machine does not have (the registry's pickle
+  name mapping is a string), nor of scipy, whose functions the port computes
+  itself, but for the HTML report's optional matplotlib, imported inside a
   ``try`` whose handler skips the figure (:data:`OPTIONAL`);
 - a subprocess run of the port's CLI with ``--backend cpu`` ends with none
   of those packages in ``sys.modules`` (the report tools that draw figures:
@@ -26,7 +27,8 @@ import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "variantcalling_tpu", "pandas", "h5py", "pyarrow", "matplotlib")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "variantcalling_tpu", "pandas", "h5py", "pyarrow", "matplotlib",
+             "scipy")
 #: a forbidden package a module may still import, inside a ``try`` with a handler:
 #: the HTML report draws its figures where matplotlib imports and skips them elsewhere
 OPTIONAL = {"variantcalling_tpu_torch/reports/html.py": ("matplotlib",)}
@@ -506,8 +508,156 @@ def test_substitution_report_takes_no_backend(report_worlds, tmp_path):
     assert proc.returncode == 2 and "unrecognized arguments: --backend" in proc.stderr
 
 
+TOOLS_OF_PR15 = {
+    "filter_variants_pipeline", "train_models_pipeline", "training_prep_pipeline", "train_dan", "evaluate_concordance",
+    "coverage_analysis", "cnv_calling", "sec_training", "correct_systematic_errors", "sec_validation",
+    "assess_sec_concordance", "run_comparison_pipeline", "vcfeval_flavors", "correct_genotypes_by_imputation",
+    "convert_haploid_regions", "compress_gvcf", "cleanup_gvcf_before_calling", "gvcf_hcr",
+    "denovo_recalibrated_qualities", "find_runs_bed", "run_no_gt_report", "joint_calling_report",
+    "substitution_error_rate_report", "quick_fingerprinting", "training_set_consistency_check"}
+#: the tools of the single-read SNV, MRD, LPR, bridging and methylation slice; True: a device program
+#: runs (the tool takes --backend)
+NEW_TOOLS = {"srsnv_training": True, "srsnv_inference": True, "mrd_analysis": True,
+             "train_lib_prep_recalibration_model": True, "filter_vcf_with_lib_prep_recalibration_model": True,
+             "calibrate_bridging_snvs": True, "concat_methyldackel_csvs": False, "process_mbias": False,
+             "process_merge_context": True, "process_merge_context_no_cp_g": True, "process_per_read": True}
+
+
 def test_cli_lists_25_tools(tmp_path):
+    """The 25 tools of the earlier slices are listed."""
     proc = _run_cli(["--help"], tmp_path)
     tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
-    assert len(tools) == 25 and {"run_no_gt_report", "joint_calling_report", "substitution_error_rate_report",
-                                 "quick_fingerprinting", "training_set_consistency_check"} <= set(tools)
+    assert len(TOOLS_OF_PR15) == 25 and TOOLS_OF_PR15 <= set(tools)
+
+
+def test_cli_lists_36_tools(tmp_path):
+    proc = _run_cli(["--help"], tmp_path)
+    tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
+    assert len(tools) == 36 and set(tools) == TOOLS_OF_PR15 | set(NEW_TOOLS)
+
+
+def test_the_featuremap_mrd_lpr_bridging_and_methylation_modules_are_scanned():
+    """The 13 modules of the slice (and its world writer) are among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "io/featuremap", "pipelines/srsnv/srsnv_training", "pipelines/srsnv/srsnv_inference",
+        "pipelines/mrd_analysis", "pipelines/lpr/train_lib_prep_recalibration_model",
+        "pipelines/lpr/filter_vcf_with_lib_prep_recalibration_model", "pipelines/calibrate_bridging_snvs",
+        "methyl", "pipelines/methylation/concat_methyldackel_csvs", "pipelines/methylation/process_mbias",
+        "pipelines/methylation/process_merge_context", "pipelines/methylation/process_merge_context_no_cp_g",
+        "pipelines/methylation/process_per_read", "utils/frame_ops", "synthetic_featuremap")} <= scanned
+
+
+def _parser_options(run, argv=("--help",)) -> set[str]:
+    """The option strings of the parser ``run`` builds, caught at its ``parse_args``."""
+    import argparse
+
+    seen = []
+    real = argparse.ArgumentParser.parse_args
+
+    def catch(self, *args, **kwargs):
+        seen.append(self)
+        raise SystemExit(0)
+
+    argparse.ArgumentParser.parse_args = catch
+    try:
+        with pytest.raises(SystemExit):
+            run(list(argv))
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return {o for a in seen[0]._actions for o in a.option_strings} - {"-h", "--help"}
+
+
+@pytest.mark.parametrize("tool", list(NEW_TOOLS))
+def test_new_tools_take_the_reference_options(tool):
+    """Each tool's options are the reference parser's, plus ``--backend`` where a device program runs."""
+    import importlib
+
+    from variantcalling_tpu.__main__ import TOOLS as JTOOLS
+    from variantcalling_tpu_torch.__main__ import TOOLS
+
+    assert TOOLS[tool].replace("variantcalling_tpu_torch.", "variantcalling_tpu.") == JTOOLS[tool]  # same module name
+    want = _parser_options(importlib.import_module(JTOOLS[tool]).run)
+    got = _parser_options(importlib.import_module(TOOLS[tool]).run)
+    assert got == want | ({"--backend"} if NEW_TOOLS[tool] else set())
+
+
+@pytest.fixture(scope="module")
+def slice_worlds(tmp_path_factory):
+    from variantcalling_tpu_torch import synthetic_featuremap as sfm
+
+    d = tmp_path_factory.mktemp("iso_slice")
+    fm = sfm.write_featuremap_world(str(d / "fm"), seed=2, length=200_000, n_tp=300, n_fp=300, n_cfdna=400,
+                                    n_signature=40, tumor_fraction=0.05, n_lpr_loci=60, lpr_reads=800, n_calls=200)
+    br = sfm.write_bridging_world(str(d / "br"), seed=2, length=200_000, n_records=400, n_rescue=10, n_tandem=5,
+                                  n_high_normal=5)
+    me = sfm.write_methyl_world(str(d / "me"), seed=2, length=200_000, n_cpg_sites=2_000, n_shards=2, n_chh=2_000,
+                                n_reads=2_000, n_alt_rows=5)
+    return {"fm": fm, "br": br, "me": me}
+
+
+def _slice_tools(w: dict) -> list[list[str]]:
+    """Each tool of the slice, in an order whose outputs feed the next (``x``-something)."""
+    fm, br, me = w["fm"], w["br"], w["me"]
+    return [
+        ["srsnv_training", "--tp_featuremap", fm["tp"], "--fp_featuremap", fm["fp"], "--output_model", "x_m.pkl",
+         "--n_trees", "3", "--max_depth", "3"],
+        ["srsnv_inference", "--featuremap", fm["cfdna"], "--model", "x_m.pkl", "--output_featuremap", "x_s.vcf"],
+        ["mrd_analysis", "--signature_vcf", fm["signature"], "--featuremap", "x_s.vcf", "--coverage_per_locus", "30",
+         "--output_h5", "x_mrd.h5"],
+        ["train_lib_prep_recalibration_model", "--out_dir", "x_lpr", "--ref_fasta", fm["fasta"], "--featuremap_vcf",
+         fm["lpr_featuremap"], "--calls_vcf", fm["lpr_calls"], "--n_trees", "3", "--depth", "3"],
+        ["filter_vcf_with_lib_prep_recalibration_model", "--out_dir", "x_lpr", "--ref_fasta", fm["fasta"],
+         "--lib_prep_model_file", "x_lpr/lib_prep_model.npz", "--calls_vcf", fm["lpr_calls"], "--featuremap_vcf",
+         fm["lpr_featuremap"]],
+        ["calibrate_bridging_snvs", "--vcf", br["vcf"], "--reference", br["fasta"], "--output", "x_br.vcf"],
+        ["process_merge_context", "--input", me["cpg"], "--output", "x_mc.h5", "--merged_bedgraph", "x_mc.bg"],
+        ["process_merge_context_no_cp_g", "--input", me["chh"], "--output", "x_chh.h5"],
+        ["process_per_read", "--input", me["per_read"], "--output", "x_pr.h5"],
+        ["concat_methyldackel_csvs", "--inputs", *me["shards"], "--output", "x_cat.csv"],
+        ["process_mbias", "--input", me["mbias"], "--output", "x_mb.h5"],
+    ]
+
+
+def test_slice_cli_cpu_runs_load_none_of_them(slice_worlds, tmp_path):
+    """The eleven tools one after the other in one process (the device tools
+    with ``--backend cpu``): each exits 0 and, at the end, none of the
+    forbidden packages is loaded."""
+    steps = [[*argv, "--backend", "cpu"] if NEW_TOOLS[argv[0]] else argv for argv in _slice_tools(slice_worlds)]
+    code = (
+        "import json, sys\n"
+        "from variantcalling_tpu_torch.__main__ import main\n"
+        f"rcs = [main(a) for a in {steps!r}]\n"
+        "print(json.dumps({'rc': rcs, 'loaded': sorted(m for m, mod in sys.modules.items() "
+        f"if m.split('.')[0] in {FORBIDDEN!r} and mod is not None)}}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=tmp_path, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": [0] * 11, "loaded": []}
+    assert {"x_m.pkl", "x_s.vcf", "x_mrd.h5", "x_lpr", "x_br.vcf", "x_mc.h5", "x_mc.bg", "x_chh.h5", "x_pr.h5",
+            "x_cat.csv", "x_mb.h5"} <= {p.name for p in tmp_path.iterdir()}
+
+
+@pytest.mark.parametrize("tool", [t for t in NEW_TOOLS if NEW_TOOLS[t]])
+def test_slice_device_tools_without_cuda_exit_2(slice_worlds, tmp_path, tool, monkeypatch):
+    """Without ``--backend cpu`` and without a card each device tool exits 2
+    and writes nothing: no fallback to the CPU."""
+    import importlib
+
+    import torch
+
+    from variantcalling_tpu_torch.__main__ import TOOLS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    argv = next(a for a in _slice_tools(slice_worlds) if a[0] == tool)
+    if argv[0] in ("srsnv_inference", "mrd_analysis", "filter_vcf_with_lib_prep_recalibration_model"):
+        steps = _slice_tools(slice_worlds)
+        for prep in (steps[0], steps[1], steps[3]):  # the model and the scored map they read, on the CPU
+            assert importlib.import_module(TOOLS[prep[0]]).run([*prep[1:], "--backend", "cpu"]) == 0
+    before = {p.name for p in tmp_path.rglob("*")}
+    assert importlib.import_module(TOOLS[argv[0]]).run(argv[1:]) == 2
+    assert {p.name for p in tmp_path.rglob("*")} == before

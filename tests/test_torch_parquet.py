@@ -68,6 +68,27 @@ def test_float64_and_unicode_columns(tmp_path):
     assert got["x"].dtype == np.float64 and got["n"].dtype == np.int64
 
 
+@pytest.mark.parametrize("n,page_rows", [(0, 1 << 20), (1, 1 << 20), (13, 1 << 20), (1000, 77), (4096, 512)])
+def test_bool_column_with_every_type(n, page_rows, tmp_path, monkeypatch):
+    """pyarrow reads back a frame of bool, int64, float32, float64 and string
+    columns equal to the written one: the booleans bit-packed a page at a
+    time, whatever the page's length modulo 8."""
+    monkeypatch.setattr(parquet, "PAGE_ROWS", page_rows)
+    rng = np.random.default_rng(n)
+    cols = {"label": rng.random(n) < 0.3, "pos": rng.integers(-5, 1 << 40, n).astype(np.int64),
+            "score": rng.standard_normal(n).astype(np.float32), "af": rng.random(n),
+            "chrom": np.array([f"chr{k}" for k in rng.integers(1, 23, n)], dtype=object)}
+    cols["af"][::7] = np.nan
+    parquet.write_parquet(str(tmp_path / "x.parquet"), cols)
+    got = pq.read_table(tmp_path / "x.parquet").to_pandas()
+    assert list(got.columns) == list(cols) and len(got) == n
+    assert got["label"].dtype == bool and got["label"].tolist() == cols["label"].tolist()
+    for name in ("pos", "score", "af"):
+        assert got[name].dtype == cols[name].dtype
+        np.testing.assert_array_equal(got[name].to_numpy(), cols[name])
+    assert got["chrom"].tolist() == cols["chrom"].tolist()
+
+
 def test_unsupported_column_raises(tmp_path):
     with pytest.raises(ValueError, match="no type"):
         parquet.write_parquet(str(tmp_path / "x.parquet"), {"b": np.zeros(3, np.int16)})

@@ -115,3 +115,92 @@ def test_unsorted_records_write_no_index(tmp_path):
         write_vcf(str(out), read_vcf(str(plain)))
         assert not (tmp_path / f"{name}.vcf.gz.tbi").exists()
         assert gzip.decompress(out.read_bytes()).decode() == plain.read_text()
+
+
+# -- read_vcf(region=) through the index ------------------------------------------------------------------------
+
+_COLUMNS = ("chrom", "pos", "vid", "ref", "alt", "qual", "filters", "info", "tail", "qual_text")
+
+
+@pytest.fixture(scope="module")
+def sampled(tmp_path_factory):
+    """A .vcf.gz with a sample column (indexed by the port's writer), and a
+    copy of it without its ``.tbi``."""
+    tmp = tmp_path_factory.mktemp("torch_tabix_sampled")
+    rng = np.random.default_rng(5)
+    head = [*HEADER[:-1], '##FORMAT=<ID=GT,Number=1,Type=String,Description="g">',
+            '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="d">', HEADER[-1] + "\tFORMAT\tS1"]
+    recs = [f"{r}\tGT:DP\t0/1:{rng.integers(1, 99)}" for r in _records(rng)]
+    plain = tmp / "in.vcf"
+    plain.write_text("\n".join([*head, *recs]) + "\n")
+    out = tmp / "out.vcf.gz"
+    write_vcf(str(out), read_vcf(str(plain)))
+    bare = tmp / "bare.vcf.gz"
+    shutil.copyfile(out, bare)
+    assert (tmp / "out.vcf.gz.tbi").exists() and not (tmp / "bare.vcf.gz.tbi").exists()
+    return out, bare
+
+
+def _same_tables(got, want) -> None:
+    assert len(got) == len(want)
+    assert got.header.samples == want.header.samples and got.header.infos == want.header.infos
+    for name in _COLUMNS:
+        a, b = getattr(got, name), getattr(want, name)
+        if name == "qual":
+            np.testing.assert_array_equal(a, b)  # NaN where missing, in both
+        else:
+            assert list(a) == list(b), name
+
+
+# regions at a contig's start and end, across BGZF blocks, and empty (between records, past a contig, no contig)
+REGIONS = [("chr1", 1, 50_000), ("chr1", 1_000_000, 1_400_000), ("chr2", 1_990_000, 3_000_000),
+           ("chrX", 149_000, 200_000), ("chrX", 1, 200_000), ("chr2", 2_500_000, 2_600_000), ("chr3", 1, 10)]
+
+
+@pytest.mark.parametrize("engine", ["native", "plain"])
+@pytest.mark.parametrize("region", REGIONS)
+def test_region_read_through_the_index_equals_the_whole_file_read(sampled, region, engine, monkeypatch):
+    """``read_vcf(region=)`` on a ``.vcf.gz`` with its ``.tbi`` reads through
+    the index; the table equals the one read from the same file without an
+    index (the whole file parsed, then subset), and the JAX package's."""
+    from variantcalling_tpu.io.vcf import read_vcf as jread_vcf
+
+    if engine == "plain":
+        monkeypatch.setenv("VCTPU_NO_NATIVE", "1")
+    indexed, bare = sampled
+    got, want = read_vcf(str(indexed), region=region), read_vcf(str(bare), region=region)
+    _same_tables(got, want)
+    if region[0] == "chr1" and region[1] == 1_000_000:
+        assert len(got) > 100
+    ref = jread_vcf(str(indexed), region=region)
+    assert got.pos.tolist() == ref.pos.tolist() and list(got.info) == list(ref.info)
+    assert [t.split("\t", 1)[1] for t in got.tail] == [str(s[0]) for s in ref.sample_cols] if len(ref) else True
+
+
+def test_region_read_inflates_only_the_covering_blocks(sampled, monkeypatch):
+    """The indexed read inflates the blocks of the header and those the
+    index's chunks span, no others, and far fewer bytes than the file holds."""
+    indexed, _ = sampled
+    data = indexed.read_bytes()
+    spans = block_spans(data)
+    assert len(spans) >= 8
+    seen: list[int] = []
+    real = ttabix.inflate_block
+
+    def counting(buf, off, bsize):
+        seen.append(off)
+        return real(buf, off, bsize)
+
+    monkeypatch.setattr(ttabix, "inflate_block", counting)
+    region = ("chr1", 1_000_000, 1_010_000)
+    table = read_vcf(str(indexed), region=region)
+    assert len(table) > 0
+    starts = [off for off, _ in spans]
+    covering = set()
+    for v_start, v_end in ttabix.TabixIndex.load(str(indexed) + ".tbi").query_chunks("chr1", region[1] - 1, region[2]):
+        covering.update(o for o in starts if v_start >> 16 <= o <= v_end >> 16)
+    header_blocks = set(starts[:2])  # the header is the first block's text (and may run into the second)
+    assert set(seen) <= covering | header_blocks
+    inflated = sum(len(real(data, off, dict(spans)[off])) for off in set(seen))
+    total = len(gzip.decompress(data))
+    assert len(set(seen)) <= 4 and inflated < total / 2

@@ -286,17 +286,18 @@ def write_alignment_world(path: str, seed: int, contigs: dict[str, int], n_reads
 FOREST_SCORE_ULP, FOREST_MEAN_GAP, FOREST_FILTER_SHARE = 1.5e-4, 0.05, 0.95
 
 
-def forest_bar(got, want, x: np.ndarray) -> dict:
+def forest_bar(got, want, x: np.ndarray, device: str = "cpu") -> dict:
     """How forest ``got`` agrees with ``want`` (two port ``FlatForest``s) on
     the held-out rows ``x``: TREE_SCORE as the filter writes it
     (``np.round(score, 4)``), FILTER as PASS at ``pass_threshold``; whether
-    the bar above holds (``held``)."""
+    the bar above holds (``held``). The margins are the gather walk's on
+    ``device`` (the same bits on the card and the CPU)."""
     import torch
 
     from variantcalling_tpu_torch.models import forest as fmod
 
-    xt = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
-    sg, sw = (np.round(fmod.finalize_margin(fmod.predict_margin(f, xt).numpy(), f), 4) for f in (got, want))
+    xt = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+    sg, sw = (np.round(fmod.finalize_margin(fmod.predict_margin(f, xt).cpu().numpy(), f), 4) for f in (got, want))
     gap = np.abs(sg - sw)
     same_filter = (sg >= got.pass_threshold) == (sw >= want.pass_threshold)
     splits_equal = bool(np.array_equal(got.feature, want.feature))

@@ -1,6 +1,6 @@
 """CLI dispatch: ``python -m variantcalling_tpu_torch <tool> <args>``.
 
-Counterpart of ``variantcalling_tpu/__main__.py``; the port serves 25
+Counterpart of ``variantcalling_tpu/__main__.py``; the port serves 36
 tools so far: ``filter_variants_pipeline``, ``train_models_pipeline``,
 ``training_prep_pipeline``, ``train_dan``, ``evaluate_concordance``,
 ``coverage_analysis``, ``cnv_calling``, the four SEC tools
@@ -12,8 +12,14 @@ and ``convert_haploid_regions``, the gVCF tools ``compress_gvcf``,
 ``denovo_recalibrated_qualities``, ``find_runs_bed``, the report tools
 ``run_no_gt_report``, ``joint_calling_report`` and
 ``substitution_error_rate_report``, and the fingerprinting tools
-``quick_fingerprinting`` and ``training_set_consistency_check``. Each tool
-is a module exposing ``run(argv)``, imported when called.
+``quick_fingerprinting`` and ``training_set_consistency_check``, the
+single-read SNV and MRD tools ``srsnv_training``, ``srsnv_inference`` and
+``mrd_analysis``, the LPR pair ``train_lib_prep_recalibration_model`` and
+``filter_vcf_with_lib_prep_recalibration_model``,
+``calibrate_bridging_snvs``, and the methylation tools
+``concat_methyldackel_csvs``, ``process_mbias``, ``process_merge_context``,
+``process_merge_context_no_cp_g`` and ``process_per_read``. Each tool is a
+module exposing ``run(argv)``, imported when called.
 """
 
 from __future__ import annotations
@@ -48,6 +54,18 @@ TOOLS: dict[str, str] = {
     "substitution_error_rate_report": "variantcalling_tpu_torch.pipelines.substitution_error_rate_report",
     "quick_fingerprinting": "variantcalling_tpu_torch.pipelines.quick_fingerprinting",
     "training_set_consistency_check": "variantcalling_tpu_torch.pipelines.training_set_consistency_check",
+    "srsnv_training": "variantcalling_tpu_torch.pipelines.srsnv.srsnv_training",
+    "srsnv_inference": "variantcalling_tpu_torch.pipelines.srsnv.srsnv_inference",
+    "mrd_analysis": "variantcalling_tpu_torch.pipelines.mrd_analysis",
+    "train_lib_prep_recalibration_model": "variantcalling_tpu_torch.pipelines.lpr.train_lib_prep_recalibration_model",
+    "filter_vcf_with_lib_prep_recalibration_model":
+        "variantcalling_tpu_torch.pipelines.lpr.filter_vcf_with_lib_prep_recalibration_model",
+    "calibrate_bridging_snvs": "variantcalling_tpu_torch.pipelines.calibrate_bridging_snvs",
+    "concat_methyldackel_csvs": "variantcalling_tpu_torch.pipelines.methylation.concat_methyldackel_csvs",
+    "process_mbias": "variantcalling_tpu_torch.pipelines.methylation.process_mbias",
+    "process_merge_context": "variantcalling_tpu_torch.pipelines.methylation.process_merge_context",
+    "process_merge_context_no_cp_g": "variantcalling_tpu_torch.pipelines.methylation.process_merge_context_no_cp_g",
+    "process_per_read": "variantcalling_tpu_torch.pipelines.methylation.process_per_read",
 }
 
 

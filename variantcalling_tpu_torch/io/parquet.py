@@ -1,4 +1,4 @@
-"""A numpy-only parquet writer for flat frames of strings, int64, float32 and float64.
+"""A numpy-only parquet writer for flat frames of strings, booleans, int64, float32 and float64.
 
 The JAX package writes ``coverage_analysis``'s binned coverage with
 pandas' ``to_parquet`` (pyarrow). The card's machine has neither, so the
@@ -13,7 +13,9 @@ port writes the file itself, in the simplest layout every reader takes:
 - the Thrift-compact ``FileMetaData``, its 4-byte length and ``PAR1``.
 
 Strings are BYTE_ARRAY with the String logical type (and the legacy UTF8
-converted type); int64 is INT64, float32 FLOAT, float64 DOUBLE. No
+converted type); bool is BOOLEAN (PLAIN: one bit a value, the first value
+in the lowest bit, the last byte padded with 0), int64 INT64, float32
+FLOAT, float64 DOUBLE. No
 ``pandas`` key-value metadata is written: ``pd.read_parquet`` then gives
 the default RangeIndex, the frame's index here.
 """
@@ -30,7 +32,7 @@ PAGE_ROWS = 1 << 20
 CREATED_BY = "variantcalling_tpu_torch parquet writer"
 
 # parquet.thrift enums
-_BYTE_ARRAY, _INT64, _FLOAT, _DOUBLE = 6, 2, 4, 5
+_BOOLEAN, _BYTE_ARRAY, _INT64, _FLOAT, _DOUBLE = 0, 6, 2, 4, 5
 _PLAIN, _RLE = 0, 3
 _DATA_PAGE = 0
 _OPTIONAL = 1
@@ -112,16 +114,20 @@ class _Struct:
 def _physical(values: np.ndarray) -> int:
     if values.dtype.kind in "OUS":
         return _BYTE_ARRAY
-    kinds = {np.dtype(np.int64): _INT64, np.dtype(np.float32): _FLOAT, np.dtype(np.float64): _DOUBLE}
+    kinds = {np.dtype(bool): _BOOLEAN, np.dtype(np.int64): _INT64, np.dtype(np.float32): _FLOAT,
+             np.dtype(np.float64): _DOUBLE}
     if values.dtype not in kinds:
-        raise ValueError(f"parquet writer: no type for {values.dtype} (strings, int64, float32, float64)")
+        raise ValueError(f"parquet writer: no type for {values.dtype} (strings, bool, int64, float32, float64)")
     return kinds[values.dtype]
 
 
 def _plain(values: np.ndarray, ptype: int) -> bytes:
-    """PLAIN encoding: little-endian fixed-width numbers; a BYTE_ARRAY value
-    as its 4-byte length and its UTF-8 bytes (built as one byte matrix and
-    compacted, no loop over the values)."""
+    """PLAIN encoding: booleans bit-packed, the first in the lowest bit;
+    little-endian fixed-width numbers; a BYTE_ARRAY value as its 4-byte
+    length and its UTF-8 bytes (built as one byte matrix and compacted, no
+    loop over the values)."""
+    if ptype == _BOOLEAN:
+        return np.packbits(values, bitorder="little").tobytes()
     if ptype != _BYTE_ARRAY:
         return np.ascontiguousarray(values, dtype=values.dtype.newbyteorder("<")).tobytes()
     raw = values if values.dtype.kind == "S" else np.char.encode(values.astype(str), "utf-8")

@@ -211,6 +211,25 @@ class TabixIndex:
         return merged
 
 
+def read_header_bytes(vcf_path: str) -> bytes:
+    """The header of a BGZF-compressed VCF: its text up to the first line
+    that is neither empty nor starts with ``#``, inflating blocks from the
+    file's start only as far as the header reaches."""
+    with open(vcf_path, "rb") as fh:
+        data = fh.read()
+    text, pos = bytearray(), 0
+    for off, bsize in block_spans(data):
+        text += inflate_block(data, off, bsize)
+        while pos < len(text) and text[pos] in b"#\n":
+            nl = text.find(b"\n", pos)
+            if nl < 0:
+                break
+            pos = nl + 1
+        if pos < len(text) and text[pos] not in b"#\n":
+            return bytes(text[:pos])
+    return bytes(text)
+
+
 def read_region_lines(vcf_path: str, chrom: str, beg: int, end: int, index: TabixIndex | None = None):
     """Yield the record lines that overlap 0-based [beg, end), reading only
     the BGZF blocks the index points at."""

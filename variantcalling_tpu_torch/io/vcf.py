@@ -489,23 +489,28 @@ def _text_lines(path: str):
     valid UTF-8 decode with replacement characters, as the reference's
     header parse does; such a record raises."""
     with _open_bytes(path) as fh:
-        rest = b""
-        while True:
-            block = fh.read(_READ_BYTES)
-            data = rest + block
-            cut = len(data) if not block else data.rfind(b"\n") + 1
-            data, rest = data[:cut], data[cut:]
-            if data:
-                try:
-                    lines = data.decode("utf-8").split("\n")
-                except UnicodeDecodeError:
-                    lines = [ln.decode("utf-8", "replace" if ln.startswith(b"#") else "strict")
-                             for ln in data.split(b"\n")]
-                if data.endswith(b"\n"):
-                    lines.pop()
-                yield from lines
-            if not block:
-                return
+        yield from _stream_lines(fh)
+
+
+def _stream_lines(fh):
+    """:func:`_text_lines` over an open binary stream."""
+    rest = b""
+    while True:
+        block = fh.read(_READ_BYTES)
+        data = rest + block
+        cut = len(data) if not block else data.rfind(b"\n") + 1
+        data, rest = data[:cut], data[cut:]
+        if data:
+            try:
+                lines = data.decode("utf-8").split("\n")
+            except UnicodeDecodeError:
+                lines = [ln.decode("utf-8", "replace" if ln.startswith(b"#") else "strict")
+                         for ln in data.split(b"\n")]
+            if data.endswith(b"\n"):
+                lines.pop()
+            yield from lines
+        if not block:
+            return
 
 
 # a .gz above this size is read by the plain reader, in blocks, rather than
@@ -513,7 +518,8 @@ def _text_lines(path: str):
 NATIVE_INFLATE_MAX_BYTES = 512 << 20
 
 
-def read_vcf(path: str, region: tuple[str, int, int] | None = None, drop_format: bool = False) -> VariantTable:
+def read_vcf(path: str, region: tuple[str, int, int] | None = None, drop_format: bool = False,
+             numeric_info: bool = False) -> VariantTable:
     """Parse a VCF (``.vcf`` or ``.vcf.gz``) into a :class:`VariantTable`.
 
     Lines split on ``\n`` alone. ``##`` lines before the first record are
@@ -527,10 +533,21 @@ def read_vcf(path: str, region: tuple[str, int, int] | None = None, drop_format:
     genotypes missing) and no reference to the file's text, for a caller
     that reads only the core columns of a large file.
 
+    ``numeric_info``: the native scan also reads every INFO key the header
+    types ``Integer`` or ``Float`` as a number (:meth:`VariantTable.info_field`
+    then serves it from the scan), for a caller that reads them all.
+
     ``region``: ``(chrom, start_1based, end_inclusive)``, the reference's
-    semantics: only the records of ``chrom`` with ``start <= POS <= end``."""
-    table = _read_vcf_native(path)
-    table = table if table is not None else _read_vcf_plain(path)
+    semantics: only the records of ``chrom`` with ``start <= POS <= end``.
+    A ``.gz`` with a ``.tbi`` beside it is read through the index, as the
+    reference reads it (:func:`_read_vcf_indexed`): the header from the
+    file's head, the records from the BGZF blocks that cover the region."""
+    table = None
+    if region is not None and str(path).endswith(".gz") and os.path.exists(str(path) + ".tbi"):
+        table = _read_vcf_indexed(path, region)
+    if table is None:
+        table = _read_vcf_native(path, numeric_info)
+        table = table if table is not None else _read_vcf_plain(path)
     if region is not None:
         chrom, lo, hi = region
         table = table.subset(np.flatnonzero((table.chrom == chrom) & (table.pos >= lo) & (table.pos <= hi)))
@@ -560,7 +577,19 @@ def parse_header_bytes(bufb: bytes) -> tuple[VcfHeader, int]:
     return header, min(off, n)
 
 
-def _read_vcf_native(path: str) -> VariantTable | None:
+def _scan_info_keys(header: VcfHeader, numeric_info: bool) -> tuple[str, ...]:
+    """The INFO keys the native scan reads as numbers: the hot keys, and with
+    ``numeric_info`` every key the header types ``Integer`` or ``Float``."""
+    from variantcalling_tpu_torch import native
+
+    if not numeric_info:
+        return native.VCF_INFO_KEYS
+    extra = [k for k, meta in header.infos.items()
+             if meta.get("Type") in ("Integer", "Float") and k not in native.VCF_INFO_KEYS]
+    return (*native.VCF_INFO_KEYS, *extra)
+
+
+def _read_vcf_native(path: str, numeric_info: bool = False) -> VariantTable | None:
     """The whole file through the native scan (a ``.gz`` inflated by the
     engine first); None where the engine is off, the ``.gz`` is larger than
     :data:`NATIVE_INFLATE_MAX_BYTES`, or the scan declines the input."""
@@ -580,15 +609,25 @@ def _read_vcf_native(path: str) -> VariantTable | None:
             native.note_plain("vcf_parse")
             return None
         bufb = arr.tobytes()
+    return _scan_text(bufb, numeric_info)
+
+
+def _scan_text(bufb: bytes, numeric_info: bool = False) -> VariantTable | None:
+    """The table of a VCF's whole text by the native scan; None where it declines."""
+    from variantcalling_tpu_torch import native
+
     buf = np.frombuffer(bufb, dtype=np.uint8)
     header, _ = parse_header_bytes(bufb)
-    parsed = native.vcf_parse(buf, len(header.samples))
-    return None if parsed is None else _table_from_parsed(parsed, header, bufb, buf)
+    keys = _scan_info_keys(header, numeric_info)
+    parsed = native.vcf_parse(buf, len(header.samples), keys)
+    return None if parsed is None else _table_from_parsed(parsed, header, bufb, buf, keys)
 
 
-def _table_from_parsed(parsed: dict, header: VcfHeader, bufb: bytes, buf: np.ndarray) -> VariantTable:
+def _table_from_parsed(parsed: dict, header: VcfHeader, bufb: bytes, buf: np.ndarray,
+                       info_keys: tuple[str, ...] | None = None) -> VariantTable:
     """A table over one scan of ``buf`` (``bufb``: the same bytes): numbers
-    from the scan, string columns lazy, QUAL's text the span between ALT and
+    from the scan (``info_keys``: the INFO keys it read, the hot keys by
+    default), string columns lazy, QUAL's text the span between ALT and
     FILTER."""
     from variantcalling_tpu_torch import native
 
@@ -597,7 +636,8 @@ def _table_from_parsed(parsed: dict, header: VcfHeader, bufb: bytes, buf: np.nda
                             "filters": filt, "info": parsed["info_spans"], "tail": parsed["tail_spans"],
                             "qual_text": np.stack([alt[:, 1] + 1, filt[:, 0] - 1], axis=1)})
     aux = NativeAux(buf, parsed["line_spans"], parsed["tail_spans"], parsed["info_spans"], filt, parsed["gt"],
-                    parsed["gq"], parsed["dp_fmt"], parsed["ad"], parsed["info_vals"], native.VCF_INFO_KEYS,
+                    parsed["gq"], parsed["dp_fmt"], parsed["ad"], parsed["info_vals"],
+                    native.VCF_INFO_KEYS if info_keys is None else info_keys,
                     {k: parsed[k] for k in ("aclass", "indel_length", "indel_nuc", "ref_code", "alt_code",
                                             "n_alts", "ref_len")})
     names = _obj(parsed["chroms"])
@@ -606,12 +646,39 @@ def _table_from_parsed(parsed: dict, header: VcfHeader, bufb: bytes, buf: np.nda
                         aux=aux, lazy=lazy, chrom_codes=codes, chrom_names=names)
 
 
+def _read_vcf_indexed(path: str, region: tuple[str, int, int]) -> VariantTable:
+    """The header (the file's head, inflated block by block up to its first
+    record) and the record lines the ``.tbi`` finds for ``region``
+    (:func:`tabix.read_region_lines` over 0-based ``[start - 1, end)``),
+    parsed as one text by the scan that parses a whole file (the native
+    scan where it serves, else the plain reader), so the columns are the
+    ones the whole-file path gives; :func:`read_vcf` then keeps
+    ``start <= POS <= end`` as it does there."""
+    from variantcalling_tpu_torch import native
+    from variantcalling_tpu_torch.io import tabix
+
+    chrom, lo, hi = region
+    text = tabix.read_header_bytes(path) + b"".join(
+        line.encode() + b"\n" for line in tabix.read_region_lines(str(path), chrom, lo - 1, hi))
+    table = None
+    if native.available():
+        table = _scan_text(text)
+    else:
+        native.note_plain("vcf_parse")
+    return table if table is not None else _parse_plain(_stream_lines(_io.BytesIO(text)))
+
+
 def _read_vcf_plain(path: str) -> VariantTable:
     """:func:`read_vcf` in Python: lines decoded in blocks."""
+    return _parse_plain(_text_lines(path))
+
+
+def _parse_plain(lines) -> VariantTable:
+    """The table of a VCF's text lines (without their ``\n``)."""
     header = VcfHeader()
     cols: list[list] = [[] for _ in range(10)]
     chrom, pos, vid, ref, alt, qual, qual_text, filt, info, tail = cols
-    for line in _text_lines(path):
+    for line in lines:
         if line.startswith("#"):
             if chrom:  # among the records
                 continue

@@ -395,6 +395,43 @@ def make_margin_predictor(forest: FlatForest, n_features: int, strategy: str,
     raise ValueError(f"unknown forest strategy {strategy!r} (expected one of {STRATEGIES})")
 
 
+#: rows a :func:`predict_score` margin launch scores at most (the filter pipeline's chunk)
+SCORE_CHUNK = 1 << 18
+
+
+def xla_finalize(margin: torch.Tensor, forest: FlatForest, jit: bool = False) -> np.ndarray:
+    """The reference's device finalize of a margin (``_device_finalize``),
+    replayed in float32 on the host as XLA's CPU backend computes it:
+    ``logit_sum`` through :func:`ops.math.sigmoid_f32` (NumPy's ``exp``, the
+    one :func:`finalize_margin` uses, differs from XLA's in the last place on
+    about a sixth of float32 inputs); ``mean`` as a true division, or, where
+    the reference divides inside ``jax.jit`` (``jit``), as XLA rewrites a
+    division by a constant: a product with the float32 reciprocal."""
+    from variantcalling_tpu_torch.ops.math import sigmoid_f32
+
+    m = margin.detach().to("cpu", torch.float32)
+    if forest.aggregation == "mean":
+        n = np.float32(forest.n_trees)
+        return (m * float(np.float32(1.0) / n)).numpy() if jit else (m / float(n)).numpy()
+    if forest.aggregation == "logit_sum":
+        return sigmoid_f32(m + float(np.float32(forest.base_score))).numpy()
+    raise ValueError(f"unknown aggregation {forest.aggregation!r}")
+
+
+def predict_score(forest: FlatForest, x: np.ndarray, device: torch.device, jit: bool = False) -> np.ndarray:
+    """Scores of a (N, F) float32 matrix: the reference's ``predict_score``
+    (``jit``: its ``jax.jit(make_predictor(...))``) composed from the port's
+    parts. The margins come from the strategy :func:`resolve_strategy` picks
+    for ``device`` (``cuda-wide`` on the card under ``auto``; on the CPU the
+    gather walk), :data:`SCORE_CHUNK` rows a launch; the card returns
+    margins and the score is finalized on the host (:func:`xla_finalize`)."""
+    fn = make_margin_predictor(forest, x.shape[1], resolve_strategy(forest, device), device)
+    xt = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    parts = [fn(xt[lo: lo + SCORE_CHUNK].to(device)).cpu() for lo in range(0, len(xt), SCORE_CHUNK)]
+    margin = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.float32)
+    return xla_finalize(margin, forest, jit=jit)
+
+
 def from_sklearn(clf, feature_names: list[str] | None = None, pass_threshold: float = 0.5) -> FlatForest:
     """Flatten a fitted sklearn RandomForestClassifier/DecisionTree ensemble
     (``x[f] <= threshold`` goes left; leaf value = class-1 fraction; mean)."""

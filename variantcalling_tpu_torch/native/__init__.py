@@ -301,11 +301,12 @@ VCF_INFO_KEYS = ("DP", "SOR", "AF", "QD", "FS", "MQ", "TLOD", "AS_SOR", "DB", "E
 
 
 @_entry
-def vcf_parse(lib, buf, n_samples: int) -> dict | None:
+def vcf_parse(lib, buf, n_samples: int, info_keys: tuple[str, ...] = VCF_INFO_KEYS) -> dict | None:
     """One-pass columnar parse of an uncompressed VCF text buffer: the byte span
     of each record's line, ID, REF, ALT, FILTER, INFO and FORMAT..end; POS,
-    QUAL, CHROM codes; sample 0's GT, GQ, DP and AD; the hot INFO keys; the
-    allele classes. None on malformed input (the plain reader serves)."""
+    QUAL, CHROM codes; sample 0's GT, GQ, DP and AD; the INFO keys
+    ``info_keys`` as numbers (the hot keys by default); the allele classes.
+    None on malformed input (the plain reader serves)."""
     src_arr = np.ascontiguousarray(_u8view(buf))
     src = _p(src_arr, _u8p)
     first_off = _i64(0)
@@ -320,15 +321,15 @@ def vcf_parse(lib, buf, n_samples: int) -> dict | None:
         dp_fmt=np.empty(n, dtype=f32), ad=np.empty((n, 3), dtype=f32), aclass=np.empty(n, dtype=np.uint8),
         indel_length=np.empty(n, dtype=i32), indel_nuc=np.empty(n, dtype=i32), ref_code=np.empty(n, dtype=i32),
         alt_code=np.empty(n, dtype=i32), n_alts=np.empty(n, dtype=i32), ref_len=np.empty(n, dtype=i32),
-        info_vals=np.empty((n, len(VCF_INFO_KEYS)), dtype=f64))
+        info_vals=np.empty((n, len(info_keys)), dtype=f64))
     if n == 0:
         out["chroms"] = []
         return out
     uniq_cap = 4096
     uniq_buf = np.zeros(uniq_cap * 64, dtype=np.uint8)
     uniq_n = (ctypes.c_int32 * 1)(uniq_cap)
-    keys = np.frombuffer("".join(VCF_INFO_KEYS).encode(), dtype=np.uint8)
-    key_lens = np.asarray([len(k) for k in VCF_INFO_KEYS], dtype=i32)
+    keys = np.frombuffer("".join(info_keys).encode(), dtype=np.uint8)
+    key_lens = np.asarray([len(k.encode()) for k in info_keys], dtype=i32)
     rc = lib.vctpu_vcf_parse(
         src, len(src_arr), first_off.value, n, int(n_samples),
         *(_p(out[k], _i64p) for k in ("line_spans", "id_spans", "ref_spans", "alt_spans", "filter_spans",
@@ -338,7 +339,7 @@ def vcf_parse(lib, buf, n_samples: int) -> dict | None:
         *(_p(out[k], _f32p) for k in ("gq", "dp_fmt", "ad")),
         _p(out["aclass"], _u8p),
         *(_p(out[k], _i32p) for k in ("indel_length", "indel_nuc", "ref_code", "alt_code", "n_alts", "ref_len")),
-        _p(keys, _u8p), _p(key_lens, _i32p), len(VCF_INFO_KEYS), _p(out["info_vals"], _f64p))
+        _p(keys, _u8p), _p(key_lens, _i32p), len(info_keys), _p(out["info_vals"], _f64p))
     if rc != n:
         return None
     out["chroms"] = [bytes(uniq_buf[i * 64: (i + 1) * 64]).rstrip(b"\x00").decode() for i in range(uniq_n[0])]

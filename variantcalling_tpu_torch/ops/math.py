@@ -1,4 +1,4 @@
-"""Phred transforms and guarded division on the caller's device.
+"""Phred transforms, XLA's float32 ``exp``/``log``/``log1p``/sigmoid and guarded division.
 
 Counterpart of ``variantcalling_tpu/ops/math.py``. The reference's phred
 math runs in float32 through XLA, whose CPU backend computes ``exp`` and
@@ -44,6 +44,16 @@ _LOG_P = tuple(float(np.float32(c)) for c in (7.0376836292e-2, -1.1514610310e-1,
                                               1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
                                               3.3333331174e-1))
 _LOG_Q1, _LOG_Q2 = float(np.float32(-2.12194440e-4)), float(np.float32(0.693359375))
+
+# log1p: XLA's rational approximation (Cephes') for |x| < sqrt(2) - 1, highest degree first
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_NUM = tuple(float(np.float32(c)) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+    2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+_LOG1P_DEN = tuple(float(np.float32(c)) for c in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
+    3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1))
 
 
 def fma_f32(a, b, c) -> torch.Tensor:
@@ -102,6 +112,32 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     out = torch.where(x == 0, torch.full_like(out, -math.inf), out)
     out = torch.where(x == math.inf, torch.full_like(out, math.inf), out)
     return torch.where((x < 0) | torch.isnan(x), torch.full_like(out, math.nan), out)
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``log(1 + x)`` of a float32 tensor, bit for bit as XLA's
+    CPU backend computes it: for ``|x| < sqrt(2) - 1`` the rational
+    approximation ``x - x^2/2 + x^3 * P(x) / Q(x)`` (each polynomial by
+    Horner's rule with fused multiply-adds), else :func:`log_f32` of
+    ``1 + x``."""
+    x = x.float()
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    for cn, cd in zip(_LOG1P_NUM, _LOG1P_DEN):
+        num = fma_f32(num, x, cn)
+        den = fma_f32(den, x, cd)
+    x2 = x * x
+    small = x + fma_f32(-0.5, x2, (x * x2) * (num / den))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log_f32(x + 1.0))
+
+
+def sigmoid_f32(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``1 / (1 + e^-x)`` of a float32 tensor, bit for bit as
+    XLA's CPU backend computes ``jax.nn.sigmoid`` (its logistic expanded to
+    these three operations, the ``exp`` :func:`exp_f32`'s; a result below
+    the smallest normal float flushes to 0, as XLA flushes denormals)."""
+    out = 1.0 / (1.0 + exp_f32(-x.float()))
+    return torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
 
 
 def phred(p: torch.Tensor) -> torch.Tensor:

@@ -55,13 +55,14 @@ def parse_args(argv: list[str]):
 
 
 def bed_files_output(df: Frame, prefix: str, classify_column: str) -> None:
-    """``<prefix>_{fp,fn,tp}.bed``: one 1-base interval a variant of that class."""
-    classes = np.asarray([str(v) for v in df[classify_column]], dtype=object)
+    """``<prefix>_{fp,fn,tp}.bed``: one 1-base interval a variant of that class
+    (the lines :class:`BedWriter` writes, joined and written at once)."""
+    classes = np.asarray(df[classify_column]).astype(str)
+    chrom, pos = np.asarray(df["chrom"]), np.asarray(df["pos"], dtype=np.int64)
     for cls in ("fp", "fn", "tp"):
         sel = classes == cls
-        with BedWriter(f"{prefix}_{cls}.bed") as bw:
-            for chrom, pos in zip(df["chrom"][sel], df["pos"][sel]):
-                bw.write(str(chrom), int(pos) - 1, int(pos))
+        with open(f"{prefix}_{cls}.bed", "w") as fh:
+            fh.write("".join(f"{c}\t{p - 1}\t{p}\n" for c, p in zip(chrom[sel].tolist(), pos[sel].tolist())))
 
 
 def run(argv: list[str]) -> int:

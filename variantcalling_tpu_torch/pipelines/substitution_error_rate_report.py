@@ -19,6 +19,7 @@ import sys
 import numpy as np
 
 from variantcalling_tpu_torch.reports.html import HtmlReport, add_figure_safe
+from variantcalling_tpu_torch.utils.frame_ops import kahan_sum, nargsort
 from variantcalling_tpu_torch.utils.h5_utils import Frame, list_keys, object_column, read_hdf, write_frames
 
 log = logging.getLogger(__name__)
@@ -70,36 +71,6 @@ def fold_strands(df: Frame) -> Frame:
     names = list(rows[0]) if rows else []
     return Frame({n: object_column([r[n] for r in rows]) if n in ("ref", "alt", "left_motif", "right_motif", "mut_type")
                   else np.array([r[n] for r in rows], dtype=np.float64) for n in names})
-
-
-def nargsort(values: np.ndarray, ascending: bool = True) -> np.ndarray:
-    """The row order of pandas' one-key ``sort_values`` (``nargsort`` with
-    numpy's quicksort, NaN last)."""
-    values = np.asarray(values)
-    mask = np.isnan(values) if values.dtype.kind == "f" else np.zeros(len(values), dtype=bool)
-    idx = np.arange(len(values))
-    non_nans, non_nan_idx = values[~mask], idx[~mask]
-    if not ascending:
-        non_nans, non_nan_idx = non_nans[::-1], non_nan_idx[::-1]
-    indexer = non_nan_idx[non_nans.argsort(kind="quicksort")]
-    if not ascending:
-        indexer = indexer[::-1]
-    return np.concatenate([indexer, np.flatnonzero(mask)])
-
-
-def kahan_sum(values: np.ndarray) -> float:
-    """pandas' groupby sum of one group: NaN skipped, compensated addition in row order."""
-    total = comp = 0.0
-    for v in values.tolist():
-        if v != v:
-            continue
-        y = v - comp
-        t = total + y
-        comp = t - total - y
-        if comp != comp:
-            comp = 0.0
-        total = t
-    return total
 
 
 def by_mutation_type(folded: Frame) -> Frame:

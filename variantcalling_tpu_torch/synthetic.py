@@ -19,6 +19,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -223,11 +224,29 @@ def _write_fasta(path: str, contigs: list[tuple[str, np.ndarray]]) -> None:
         fh.write("".join(fai))
 
 
-def _cat(*parts) -> np.ndarray:
+#: rows a thread of :func:`_cat` joins at a time
+_CAT_ROWS = 1 << 18
+
+
+def _cat_serial(*parts) -> np.ndarray:
     acc = parts[0]
     for p in parts[1:]:
         acc = np.char.add(acc, p)
     return acc
+
+
+def _cat(*parts) -> np.ndarray:
+    """The row-wise concatenation of byte-string arrays (and scalars). Over
+    :data:`_CAT_ROWS` rows the rows are joined in slices on threads (numpy's
+    string operations run outside the GIL), the same bytes as one pass."""
+    n = max((len(p) for p in parts if isinstance(p, np.ndarray) and p.ndim), default=0)
+    if n <= 2 * _CAT_ROWS:
+        return _cat_serial(*parts)
+    cuts = range(0, n, _CAT_ROWS)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        pieces = list(pool.map(lambda lo: _cat_serial(*(p[lo: lo + _CAT_ROWS] if isinstance(p, np.ndarray)
+                                                        and p.ndim else p for p in parts)), cuts))
+    return np.concatenate(pieces)
 
 
 def _decimal(values) -> np.ndarray:

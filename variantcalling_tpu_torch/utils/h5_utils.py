@@ -81,9 +81,10 @@ class Frame:
         pos = np.flatnonzero(keep) if keep.dtype == bool else keep.astype(np.int64)
         return Frame({n: c[pos] for n, c in self.data.items()}, _take_index(self.index, len(self), pos))
 
-    def to_csv(self, path: str, sep: str = ",") -> None:
-        """The file pandas' ``to_csv(path, sep=sep, index=False)`` writes: a
-        header of the column names, then the rows through :mod:`csv` with
+    def to_csv(self, path: str, sep: str = ",", header: bool = True) -> None:
+        """The file pandas' ``to_csv(path, sep=sep, index=False,
+        header=header)`` writes: a header of the column names (unless
+        ``header`` is false), then the rows through :mod:`csv` with
         pandas' dialect (minimal quoting, ``os.linesep``). Values as pandas
         renders them: floats (float64 and float32 alike) by numpy's
         ``astype(str)``, the shortest text that reads back to the same
@@ -92,7 +93,10 @@ class Frame:
 
         def text(col: np.ndarray) -> list:
             if col.dtype.kind == "f":
-                out = col.astype(str).astype(object)
+                out = np.empty(len(col), dtype=object)
+                fast, texts = _cents_text(col)
+                out[fast] = texts
+                out[~fast] = col[~fast].astype(str)
                 out[np.isnan(col)] = ""
                 return out.tolist()
             if col.dtype.kind in "biu":
@@ -101,8 +105,30 @@ class Frame:
 
         with open(path, "w", encoding="utf-8", newline="") as fh:
             writer = csv.writer(fh, delimiter=sep, lineterminator=os.linesep, quoting=csv.QUOTE_MINIMAL)
-            writer.writerow(self.columns)
+            if header:
+                writer.writerow(self.columns)
             writer.writerows(zip(*(text(np.asarray(self.data[n])) for n in self.columns)))
+
+
+#: the two decimals of a hundredth as the shortest float text ends them: "5" for .50, "05", "0" for .00
+_CENTS = np.array([f"{i:02d}".rstrip("0") or "0" for i in range(100)], dtype=object)
+
+
+def _cents_text(col: np.ndarray) -> tuple[np.ndarray, list[str]]:
+    """(the rows, their texts) of the float64 values that are the double
+    nearest a multiple of 0.01 below 1e13 in magnitude (a whole number, or
+    one ``np.round(x, 2)`` made): the shortest round-trip text (``repr``)
+    of each, built from its integer count of hundredths. No row of a
+    float32 column."""
+    if col.dtype != np.float64:
+        return np.zeros(len(col), dtype=bool), []
+    with np.errstate(invalid="ignore", over="ignore"):
+        k = np.rint(col * 100.0)
+        ok = np.isfinite(col) & (np.abs(col) < 1e13) & (k / 100.0 == col) & ~((col == 0) & np.signbit(col))
+    k = np.abs(k[ok]).astype(np.int64)
+    cents = _CENTS.tolist()
+    return ok, [f"-{a}.{cents[b]}" if neg else f"{a}.{cents[b]}"
+                for a, b, neg in zip((k // 100).tolist(), (k % 100).tolist(), (col[ok] < 0).tolist())]
 
 
 def _take_index(index, n: int, pos: np.ndarray):
