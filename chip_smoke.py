@@ -119,7 +119,7 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    RSS and card memory); those 200,000 rows on the card against
    ``--backend cpu`` (the native float32 trainer; the threshold models
    equal, the forests' agreement reported: ``TRAIN_NATIVE_DETAIL``), and
-   ``boosting.fit`` of one model on a quarter of those rows on the card against
+   ``boosting.fit`` of one model on an eighth of those rows on the card against
    the CPU torch program (``VCTPU_NATIVE_GBT=0``): equal trees, values to
    1e-5, scores to 1e-6 (``TRAIN_FIT_DETAIL``); the histogram of one tree at
    5 M rows level by level, ``torch.equal`` to its plain version, timed
@@ -163,7 +163,7 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    histograms and percentiles equal, near-ties counted, stats to 1e-6; the
    inflated bedGraph and the ``.bw`` bytes equal; CNV BED and VCF bytes
    equal), a ``VCTPU_NO_NATIVE=1`` twin on that cut and a CRAM twin of a
-   200 kbp cut (equal outputs), and the Viterbi kernel alone at chr20 and
+   150 kbp cut (equal outputs), and the Viterbi kernel alone at chr20 and
    GRCh38 at 1 kb, ``torch.equal`` to its plain version (at GRCh38 on each
    contig's first 20,000 bins), beside its latency
    bound (``COVERAGE_DETAIL``, ``CNV_DETAIL``, ``CNV_KERNEL_DETAIL``,
@@ -251,6 +251,23 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    equal to the CPU's, the planted M-bias found) (``FEATUREMAP_DETAIL``,
    ``MRD_DETAIL``, ``LPR_DETAIL``, ``BRIDGING_DETAIL``, ``METHYL_DETAIL``,
    ``HOST_ENGINE`` lines).
+
+16. the resident daemon (``phase_serve``) on phase 4's forest pickle world:
+   an in-process ``Server`` on the card (2 requests in flight, 2 queued)
+   warmed, a cold filter request, then 4 more 2 at a time, each equal
+   outside ``##vctpu_*`` to phase 4's GPU output, ``forest_wide`` launched 4
+   times the cold run's count, one launch a table that reached the card,
+   the model loaded and the predictor built once; a request scoped to
+   ``gemm`` (``forest_tree_step``), ``/v1/score`` against a CPU
+   ``score_table``, ``/v1/coverage`` of 1,000,000 positions against the
+   plain numpy twin; a poisoned request (500) beside a clean one, a request
+   held past its deadline (504), 2 requests shed (503) with both slots held
+   and 2 queued, no partial or journal left, ``/v1/status`` and
+   ``/v1/metrics`` counting what was sent, the drain closing the obs stream;
+   then ``python -m variantcalling_tpu_torch serve --backend gpu`` as a
+   process of its own: one request, SIGTERM, exit 0, no leaked thread, no
+   process left (``SERVE_DETAIL`` lines: the cold request's seconds and the
+   warm ones' median among them).
 
 A ``PHASE_SECONDS`` line follows every phase (wall seconds of the phase),
 and one for the whole run before the result lines.
@@ -1454,8 +1471,8 @@ def phase_streaming(tmp: Path, card: str, pickle_world: dict) -> dict:
 TRAIN_WORLD = dict(seed=2029, n_rows=5_000_000, chr20_rows=104_000)
 #: rows of the GPU-against-CPU comparison: chr1's first 96,000 and chr20's 104,000
 TRAIN_CPU_ROWS = 200_000
-#: boosting.fit on the card against the torch program on the CPU: every 4th row of TRAIN_CPU_ROWS (about 49,000)
-TRAIN_FIT_STRIDE = 4
+#: boosting.fit on the card against the torch program on the CPU: every 8th row of TRAIN_CPU_ROWS (about 24,500)
+TRAIN_FIT_STRIDE = 8
 #: gbt_hist launches of the default grid: 100 trees x depth 6 x the four rf cells
 TRAIN_GRID_LAUNCHES = 100 * 6 * 4
 
@@ -1635,7 +1652,7 @@ def phase_training(tmp: Path, card: str) -> dict:
        against ``--backend cpu`` (the native float32 trainer): the threshold models
        equal, the forests' agreement reported (:func:`_native_agreement`);
        ``boosting.fit`` of one
-       model on every 4th of those rows (:data:`TRAIN_FIT_STRIDE`) on the card
+       model on every 8th of those rows (:data:`TRAIN_FIT_STRIDE`) on the card
        against the torch program on the CPU (``VCTPU_NATIVE_GBT=0``):
        features and thresholds equal, values to 1e-5, scores to 1e-6, and
        whether the pickles came out byte-equal.
@@ -2146,7 +2163,7 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
 #: world's synthetic chr20 (seed 2026) and chrM at GRCh38's lengths, 30x of 150-bp reads with the planted
 #: events of synthetic.COVERAGE_EVENTS; the no-native twin's and the CRAM twin's cuts of chr20
 COVERAGE_WORLD = dict(seed=2026, contigs=(("chr20", 64_444_167), ("chrM", 16_569)), depth=30.0,
-                      plain_cut=500_000, cram_cut=200_000)
+                      plain_cut=500_000, cram_cut=150_000)
 #: copy numbers the planted events must be called with (15x, 45x and 0x of a 30x genome)
 COVERAGE_EVENT_CN = (1, 3, 0)
 #: cnv_calling's --min_contig_length on the cut, whose chr20 is shorter than the default 1 Mbp
@@ -2359,7 +2376,7 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
        planted 45x event called CN3, one launch on the card, none on the
        CPU);
     3. the twins: ``VCTPU_NO_NATIVE=1`` (the pure-Python ``BamReader``) on
-       the 500 kbp cut against the native run, and a CRAM of a 200 kbp cut
+       the 500 kbp cut against the native run, and a CRAM of a 150 kbp cut
        (``tests/cram_fixtures.write_cram``) against the BAM of the same
        reads: equal outputs;
     4. the Viterbi kernel alone (:func:`_viterbi_alone`; the GRCh38 case
@@ -3292,8 +3309,8 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
        bytes equal, exactly the planted records rescued.
     6. ``METHYL_WORLD`` through the five methylation tools: card files equal
        to the CPU's (the CpG tool on the first shard, with its merged
-       bedGraph; the others in full), the planted M-bias found by the
-       inclusion bounds.
+       bedGraph, its strands merged; the concat on the first two shards; the
+       others in full), the planted M-bias found by the inclusion bounds.
     ``FEATUREMAP_DETAIL``, ``MRD_DETAIL``, ``LPR_DETAIL``, ``BRIDGING_DETAIL``,
     ``METHYL_DETAIL`` and ``HOST_ENGINE`` lines."""
     from variantcalling_tpu_torch import synthetic_featuremap as sfm
@@ -3442,8 +3459,7 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
           f"({card})", flush=True)
 
     # -- 6. methylation ------------------------------------------------------------------------------------------
-    jobs = [("process_merge_context", me["cpg"], "cpg_full", ("gpu",), False),
-            ("process_merge_context", me["shards"][0], "cpg_shard", ("gpu", "cpu"), True),
+    jobs = [("process_merge_context", me["shards"][0], "cpg_shard", ("gpu", "cpu"), True),
             ("process_merge_context_no_cp_g", me["chh"], "chh", ("gpu", "cpu"), False)]
     for tool, src, name, backends, bedgraph in jobs:  # the merged bedGraph written by the shard's runs
         for backend in backends:
@@ -3455,7 +3471,7 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
         runs[f"per_read_{backend}"] = _slice_run("process_per_read", [
             "--input", me["per_read"], "--output", str(o / f"per_read_{backend}.h5"), "--backend", backend],
             f"per_read_{backend}", card, "METHYL", served_by=())
-    runs["concat"] = _slice_run("concat_methyldackel_csvs", ["--inputs", *me["shards"], "--output",
+    runs["concat"] = _slice_run("concat_methyldackel_csvs", ["--inputs", *me["shards"][:2], "--output",
                                                              str(o / "concat.csv")], "concat", card, "METHYL",
                                 served_by=())
     runs["mbias"] = _slice_run("process_mbias", ["--input", me["mbias"], "--output", str(o / "mbias.h5")], "mbias",
@@ -3467,15 +3483,358 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
     check(len(bounds) == 8 and (bounds["inclusion_start"] == me["bias_5p"] + 1).all()
           and (bounds["inclusion_end"] == 150 - me["bias_3p"]).all(),
           f"process_mbias: the planted bias not found: {bounds['inclusion_start']}, {bounds['inclusion_end']}")
-    summary = h5_utils.read_hdf(str(o / "cpg_full_gpu.h5"), "summary")
-    check(int(summary["n_sites"][0]) < me["n_cpg_rows"], "process_merge_context: no strands merged")
+    summary = h5_utils.read_hdf(str(o / "cpg_shard_gpu.h5"), "summary")
+    with open(me["shards"][0], "rb") as fh:
+        shard_rows = sum(1 for ln in fh if not ln.startswith(b"track"))
+    check(int(summary["n_sites"][0]) < shard_rows, "process_merge_context: no strands merged")
     print(f"methylation: card files equal the CPU's; inclusion bounds {me['bias_5p'] + 1}-{150 - me['bias_3p']} "
-          f"as planted; {int(summary['n_sites'][0])} merged CpG sites of {me['n_cpg_rows']} rows ({card})", flush=True)
+          f"as planted; {int(summary['n_sites'][0])} merged CpG sites of the first shard's {shard_rows} rows "
+          f"({card})", flush=True)
     kernel_free = [k for k, r in runs.items() if k.startswith(("mrd", "bridging", "cpg", "chh", "per_read", "concat",
                                                                "mbias")) and any(r["launches"].values())]
     check(not kernel_free, f"a kernel was launched on a path without one: {kernel_free}")
     out["walls"] = {k: v["seconds"] for k, v in runs.items()}
     out["launches"] = {k: v["launches"] for k, v in runs.items()}
+    return out
+
+
+#: the coverage request's depth vector: one million positions, 1 kb windows
+SERVE_COVERAGE = dict(positions=1_000_000, window=1000, seed=2043)
+#: the scoped fault that holds a request at its first chunk until the hangs are released
+SERVE_HANG = "pipeline.stage_hang:1@120"
+
+
+def _http(address: str, path: str, body=None, timeout: float = 300) -> tuple[int, object]:
+    """One request to a daemon: (status, JSON payload), or the text of ``GET /v1/metrics``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(address + path, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw = r.read()
+            return r.status, raw.decode() if path == "/v1/metrics" else json.loads(raw)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _wait_for(cond, what: str, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"serve: {what} not reached in {timeout:.0f} s")
+        time.sleep(0.02)
+
+
+def _prom_values(text: str) -> dict[str, float]:
+    """``name{labels}`` -> value of a Prometheus text exposition's samples."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            key, value = ln.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def _serve_droppings(d: Path) -> list[str]:
+    return sorted(p.name for p in d.iterdir() if ".partial" in p.name or p.name.endswith((".journal", ".quarantine")))
+
+
+def phase_serve(tmp: Path, card: str, pipe: dict) -> dict:
+    """16. The resident daemon (``serve``) on the card, on phase 4's forest
+    pickle world (104,000 variants, chr20 scale):
+
+    1. an in-process ``Server(port=0)`` on the card with
+       ``VCTPU_SERVE_MAX_INFLIGHT=2`` and ``VCTPU_SERVE_QUEUE_DEPTH=2`` and an
+       obs stream: ``/v1/warm`` of the model and the reference, a cold filter
+       request alone, then 4 filter requests 2 at a time, each output equal
+       outside ``##vctpu_*`` to phase 4's ``run(argv)`` GPU output; the
+       ``forest_wide`` count around the 4 requests 4 times the cold one's, and
+       each equal to the tables that reached the card (no plain version
+       served); the model cache 1 miss and the rest hits, the predictor
+       cache one build (``SERVE_DETAIL``: the cold request's seconds, the
+       warm ones' median);
+    2. a request scoped to ``VCTPU_FOREST_STRATEGY=gemm`` (``forest_tree_step``
+       launched, the same bytes, its own predictor); ``/v1/score`` against a
+       CPU ``score_table`` of the same table; ``/v1/coverage`` of a
+       1,000,000-position depth vector against the plain numpy twin;
+    3. isolation: a request poisoned at every chunk answers 500 beside a
+       concurrent clean one with equal bytes; a request held past its
+       deadline at its first chunk answers 504; with both slots held and 2
+       requests queued, 2 more are shed with 503; no partial, journal or
+       quarantine file is left; ``/v1/status`` and ``/v1/metrics`` count the
+       requests sent; the drain closes the obs stream with status ``drain``;
+    4. ``python -m variantcalling_tpu_torch serve --backend gpu --port 0`` as a
+       subprocess: one filter request (equal bytes), then SIGTERM: exit 0, a
+       status file that says ``drained`` with no leaked thread, no process
+       left.
+    """
+    import signal
+    import threading
+
+    from variantcalling_tpu_torch import native
+    from variantcalling_tpu_torch.io.fasta import FastaReader
+    from variantcalling_tpu_torch.io.vcf import read_vcf
+    from variantcalling_tpu_torch.models import forest_cuda, registry
+    from variantcalling_tpu_torch.ops import coverage as cov
+    from variantcalling_tpu_torch.pipelines import filter_variants as fv
+    from variantcalling_tpu_torch.serve import Server
+    from variantcalling_tpu_torch.utils import faults
+
+    world = pipe["forest_pickle"]["world"]
+    want = _strip(pipe["forest_pickle"]["wide_gpu"]["bytes"])
+    d = tmp / "serve"
+    d.mkdir()
+    out: dict = {}
+    def body(name: str, **kw) -> dict:
+        return {"input": world["vcf"], "model": world["model"], "model_name": world["model_name"],
+                "reference": world["fasta"], "output": str(d / name), **kw}
+
+    env = {"VCTPU_SERVE_MAX_INFLIGHT": "2", "VCTPU_SERVE_QUEUE_DEPTH": "2"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    plog = logging.getLogger("variantcalling_tpu_torch")
+    plog.setLevel(logging.INFO)
+    obs_log = d / "serve.obs.jsonl"
+    server = Server(port=0, device="gpu", obs_log=str(obs_log))
+    server.start()
+    sent: dict[str, int] = {}
+
+    def count(endpoint: str, status: str, n: int = 1) -> None:
+        sent[f"{endpoint}:{status}"] = sent.get(f"{endpoint}:{status}", 0) + n
+
+    def launches() -> dict:
+        return {"forest_wide": forest_cuda.LAUNCHES, "forest_tree_step": forest_cuda.TREE_STEP_LAUNCHES}
+
+    def filtered(code: int, payload: dict, name: str, label: str, strategy: str = "cuda-wide") -> None:
+        check(code == 200 and payload["status"] == "ok" and payload["engine"] == "cuda",
+              f"serve {label}: {code} {payload}")
+        data = (d / name).read_bytes()
+        check(f"##vctpu_forest_strategy={strategy}".encode() in data and _strip(data) == want,
+              f"serve {label}: the output differs from phase 4's GPU output outside ##vctpu_*")
+
+    try:
+        # -- 1. warm, the cold request, 4 requests 2 at a time --------------------------------------------
+        code, payload = _http(server.address, "/v1/warm", {"model": world["model"], "model_name": world["model_name"],
+                                                           "reference": world["fasta"]})
+        check(code == 200 and payload["warmed"] == ["model", "reference"], f"serve warm: {code} {payload}")
+        count("warm", "ok")
+        builds0 = fv.predictor_cache_stats()["misses"]
+        times = _RunLog()
+        plog.addHandler(times)
+        torch.cuda.synchronize()
+        forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
+        t0 = time.perf_counter()
+        code, payload = _http(server.address, "/v1/filter", body("cold.vcf"))
+        cold_s = time.perf_counter() - t0
+        plog.removeHandler(times)
+        filtered(code, payload, "cold.vcf", "cold")
+        count("filter", "ok")
+        per_run = launches()
+        chunks = times.stream["chunks"] if times.stream else None
+        check(per_run["forest_wide"] == len(times.tables) == chunks > 0 and per_run["forest_tree_step"] == 0,
+              f"serve cold: launches {per_run} for {len(times.tables)} tables, {chunks} chunks")
+        check(fv.predictor_cache_stats()["misses"] - builds0 == 1, "serve cold: not one predictor build")
+        times = _RunLog()
+        plog.addHandler(times)
+        forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
+        warm: dict = {}
+
+        def call(i: int) -> None:
+            t = time.perf_counter()
+            warm[i] = (*_http(server.address, "/v1/filter", body(f"warm{i}.vcf")), time.perf_counter() - t)
+
+        for pair in ((0, 1), (2, 3)):
+            threads = [threading.Thread(target=call, args=(i,)) for i in pair]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+        plog.removeHandler(times)
+        for i in range(4):
+            filtered(warm[i][0], warm[i][1], f"warm{i}.vcf", f"warm {i}")
+        count("filter", "ok", 4)
+        four = launches()
+        check(four["forest_wide"] == 4 * per_run["forest_wide"] == len(times.tables) and four["forest_tree_step"] == 0,
+              f"serve: 4 requests launched {four}, one run {per_run}, {len(times.tables)} tables")
+        resident = server.status_payload()["resident"]
+        check(resident["models"]["misses"] == 1 and resident["models"]["hits"] == 5
+              and resident["genomes"]["misses"] == 1, f"serve: resident caches {resident}")
+        check(fv.predictor_cache_stats()["misses"] - builds0 == 1, "serve: a warm request built a predictor")
+        warm_s = [warm[i][2] for i in range(4)]
+        detail = {"run": "filter", "card": card, "variants": WORLD["n_variants"], "cold_s": cold_s,
+                  "warm_median_s": statistics.median(warm_s), "warm_s": warm_s, "chunks": chunks,
+                  "launches_one_run": per_run, "launches_four": four, "resident": resident,
+                  "predictor_builds": fv.predictor_cache_stats()["misses"] - builds0}
+        print("SERVE_DETAIL " + json.dumps(detail), flush=True)
+        out["filter"] = detail
+
+        # -- 2. gemm scoped, score, coverage -------------------------------------------------------------
+        forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
+        t0 = time.perf_counter()
+        code, payload = _http(server.address, "/v1/filter", body("gemm.vcf", knobs={"VCTPU_FOREST_STRATEGY": "gemm"}))
+        gemm_s = time.perf_counter() - t0
+        filtered(code, payload, "gemm.vcf", "gemm", "cuda-gemm")
+        count("filter", "ok")
+        gemm = launches()
+        check(gemm["forest_tree_step"] == per_run["forest_wide"] and gemm["forest_wide"] == 0,
+              f"serve gemm: launches {gemm}")
+        check(fv.predictor_cache_stats()["misses"] - builds0 == 2, "serve gemm: not its own predictor build")
+        forest_cuda.LAUNCHES = forest_cuda.TREE_STEP_LAUNCHES = 0
+        t0 = time.perf_counter()
+        code, score = _http(server.address, "/v1/score", {k: v for k, v in body("").items() if k != "output"})
+        score_s = time.perf_counter() - t0
+        count("score", "ok")
+        check(code == 200 and launches()["forest_wide"] >= 1, f"serve score: {code} {score} {launches()}")
+        model = registry.load_model(world["model"], world["model_name"])
+        with FastaReader(world["fasta"]) as fasta:
+            table = read_vcf(world["vcf"])
+            cpu_score, cpu_filters = fv.FilterContext(model, fasta, torch.device("cpu")).score_table(table)
+        cpu = {"n": len(table), "n_pass": int(np.sum(cpu_filters.codes == 0)),
+               "score_mean": round(float(np.mean(cpu_score)), 6), "score_min": round(float(np.min(cpu_score)), 6),
+               "score_max": round(float(np.max(cpu_score)), 6)}
+        check(score["n"] == cpu["n"] == WORLD["n_variants"] and score["n_pass"] == cpu["n_pass"],
+              f"serve score: {score} against the CPU's {cpu}")
+        rng = np.random.default_rng(SERVE_COVERAGE["seed"])
+        depth = rng.poisson(30, size=SERVE_COVERAGE["positions"]).astype(np.int32)
+        depth[rng.integers(0, len(depth), size=10_000)] = 0
+        native.reset_calls()
+        t0 = time.perf_counter()
+        code, coverage = _http(server.address, "/v1/coverage", {"depth": depth.tolist(),
+                                                                "window": SERVE_COVERAGE["window"]})
+        coverage_s = time.perf_counter() - t0
+        count("coverage", "ok")
+        means, hist = cov.coverage_stats_plain(depth, SERVE_COVERAGE["window"], cov.MAX_DEPTH_BIN, False)
+        cdf = np.cumsum(hist.astype(np.float32), dtype=np.float32) / max(hist.sum(dtype=np.float32), 1.0)
+        q = np.maximum(np.asarray([0.05, 0.5, 0.95], np.float32) * np.float32(1.0 - 1e-6), np.float32(1e-9))
+        pct = np.argmax(cdf[None, :] >= q[:, None], axis=1)
+        plain = {"windows": len(means), "mean": round(float(np.mean(means)), 6),
+                 "percentiles": {"p5": int(pct[0]), "p50": int(pct[1]), "p95": int(pct[2])}}
+        check(code == 200 and {k: coverage[k] for k in plain} == plain
+              and native.CALLS["coverage_stats"]["native"] == 1,
+              f"serve coverage: {coverage} against the plain twin's {plain}; {native.CALLS['coverage_stats']}")
+        detail = {"run": "requests", "card": card, "gemm_s": gemm_s, "gemm_launches": gemm, "score_s": score_s,
+                  "score": score, "cpu_score": cpu, "coverage_s": coverage_s,
+                  "coverage_positions": SERVE_COVERAGE["positions"], "coverage": plain}
+        print("SERVE_DETAIL " + json.dumps(detail), flush=True)
+        out["requests"] = detail
+
+        # -- 3. isolation: poison, deadline, shed; status and metrics; drain --------------------------------
+        res: dict = {}
+
+        def post(name: str, path: str, payload: dict) -> None:
+            res[name] = _http(server.address, path, payload)
+
+        threads = [threading.Thread(target=post, args=("poison", "/v1/filter", body(
+            "poison.vcf", faults="pipeline.chunk:0", knobs={"VCTPU_CHUNK_RETRIES": "0"}))),
+            threading.Thread(target=post, args=("clean", "/v1/filter", body("clean.vcf")))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(res["poison"][0] == 500 and res["poison"][1]["status"] == "error"
+              and not (d / "poison.vcf").exists(), f"serve poison: {res['poison']}")
+        filtered(*res["clean"], "clean.vcf", "clean beside the poisoned request")
+        count("filter", "failed")
+        count("filter", "ok")
+        t0 = time.perf_counter()
+        code, payload = _http(server.address, "/v1/filter", body("late.vcf", deadline_s=1.0,
+                                                                 faults="pipeline.stage_hang:1@5"))
+        deadline_s = time.perf_counter() - t0
+        check(code == 504 and payload["status"] == "deadline" and not (d / "late.vcf").exists(),
+              f"serve deadline: {code} {payload}")
+        count("filter", "deadline")
+        held = [threading.Thread(target=post, args=(f"held{i}", "/v1/filter", body(f"held{i}.vcf", faults=SERVE_HANG)))
+                for i in range(2)]
+        for t in held:
+            t.start()
+        _wait_for(lambda: server.admission.inflight == 2, "2 requests in flight")
+        queued = [threading.Thread(target=post, args=(f"queued{i}", "/v1/coverage", {"depth": [1, 2, 3], "window": 2}))
+                  for i in range(2)]
+        for t in queued:
+            t.start()
+        _wait_for(lambda: server.admission.queued == 2, "2 requests queued")
+        shed = [_http(server.address, "/v1/filter", body(f"shed{i}.vcf")) for i in range(2)]
+        check(all(c == 503 and p["status"] == "shed" and p["reason"] == "queue_full" for c, p in shed),
+              f"serve shed: {shed}")
+        count("filter", "shed", 2)
+        _wait_for(lambda: faults.cancel_hangs() or not any(t.is_alive() for t in held + queued), "the held requests")
+        for i in range(2):
+            filtered(*res[f"held{i}"], f"held{i}.vcf", f"held {i}")
+            check(res[f"queued{i}"][0] == 200, f"serve queued {i}: {res[f'queued{i}']}")
+        count("filter", "ok", 2)
+        count("coverage", "ok", 2)
+        left = _serve_droppings(d)
+        check(not left, f"serve: files left behind {left}")
+        code, status = _http(server.address, "/v1/status")
+        check(code == 200 and status["in_flight"] == status["queued"] == 0 and status["device"].startswith("cuda")
+              and status["engine"] == "cuda", f"serve status: {status}")
+        code, text = _http(server.address, "/v1/metrics")
+        values = _prom_values(text)
+        counted = {}
+        for key in sent:
+            endpoint, outcome = key.split(":")
+            counted[key] = values.get(f'vctpu_serve_requests_{outcome}_total{{endpoint="{endpoint}"}}')
+        check(counted == sent, f"serve metrics: counted {counted}, sent {sent}")
+        accepted = sum(n for k, n in sent.items() if not k.endswith(":shed"))
+        check(values.get("vctpu_serve_requests_accepted_total") == accepted,
+              f"serve metrics: {values.get('vctpu_serve_requests_accepted_total')} accepted, {accepted} admitted")
+        server.drain("smoke")
+        events = [json.loads(ln) for ln in obs_log.read_text().splitlines()]
+        check(events[0]["kind"] == "manifest" and events[-1]["kind"] == "run_end" and events[-1]["status"] == "drain",
+              f"serve obs stream: first {events[0]['kind']}, last {events[-1]}")
+        detail = {"run": "isolation", "card": card, "deadline_request_s": deadline_s, "sent": sent,
+                  "resident": status["resident"], "obs_events": len(events)}
+        print("SERVE_DETAIL " + json.dumps(detail), flush=True)
+        out["isolation"] = detail
+    finally:
+        faults.cancel_hangs()
+        if not server.draining.is_set():
+            server.drain("smoke")
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # -- 4. the daemon as a process of its own, drained by SIGTERM ------------------------------------
+    ready, status_file = d / "ready.json", d / "status.json"
+    root = Path(__file__).resolve().parent
+    child_env = {k: v for k, v in os.environ.items() if not k.startswith("VCTPU_")}
+    child_env["PYTHONPATH"] = str(root) + (os.pathsep + child_env["PYTHONPATH"] if child_env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    with open(d / "serve_process.log", "wb") as log_fh:
+        argv = [sys.executable, "-m", "variantcalling_tpu_torch", "serve", "--backend", "gpu", "--port", "0",
+                "--ready-file", str(ready), "--status-file", str(status_file), "--obs-log",
+                str(d / "serve_process.obs.jsonl")]
+        proc = subprocess.Popen(argv, cwd=str(root), env=child_env, stdout=log_fh, stderr=subprocess.STDOUT)
+        try:
+            _wait_for(lambda: proc.poll() is not None or ready.exists(), "the daemon's ready file")
+            check(proc.poll() is None, f"serve process: exited {proc.returncode} before listening")
+            start_s = time.perf_counter() - t0
+            address = json.loads(ready.read_text())["address"]
+            t0 = time.perf_counter()
+            code, payload = _http(address, "/v1/filter", body("process.vcf"))
+            request_s = time.perf_counter() - t0
+            filtered(code, payload, "process.vcf", "process")
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            drain_s = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    report = json.loads(status_file.read_text())
+    check(rc == 0 and report["status"] == "drained" and report["reason"] == "sigterm" and report["leaked"] == []
+          and report["counters"].get("serve.requests_ok") == 1, f"serve process: exit {rc}, report {report}")
+    children = _descendants()
+    check(not any("variantcalling_tpu_torch serve" in c for c in children.values()),
+          f"serve process: still running {children}")
+    detail = {"run": "process", "card": card, "start_s": start_s, "request_s": request_s, "drain_s": drain_s,
+              "exit": rc, "report": report}
+    print("SERVE_DETAIL " + json.dumps(detail), flush=True)
+    out["process"] = detail
     return out
 
 
@@ -3553,6 +3912,7 @@ def main() -> int:
         _phase("reports", card, phase_reports, Path(tmp), card, geno["files"]["trio"],
                {"report": REPORT_SMOKE_WORLD})
         _phase("featuremaps", card, phase_featuremaps, Path(tmp), card)
+        _phase("serve", card, phase_serve, Path(tmp), card, pipe)
     print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     n = WORLD["n_variants"]

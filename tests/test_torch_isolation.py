@@ -531,9 +531,16 @@ def test_cli_lists_25_tools(tmp_path):
 
 
 def test_cli_lists_36_tools(tmp_path):
+    """The 36 tools of the slices up to the single-read SNV one are listed."""
     proc = _run_cli(["--help"], tmp_path)
     tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
-    assert len(tools) == 36 and set(tools) == TOOLS_OF_PR15 | set(NEW_TOOLS)
+    assert len(TOOLS_OF_PR15 | set(NEW_TOOLS)) == 36 and TOOLS_OF_PR15 | set(NEW_TOOLS) <= set(tools)
+
+
+def test_cli_lists_37_tools(tmp_path):
+    proc = _run_cli(["--help"], tmp_path)
+    tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
+    assert len(tools) == 37 and set(tools) == TOOLS_OF_PR15 | set(NEW_TOOLS) | {"serve"}
 
 
 def test_the_featuremap_mrd_lpr_bridging_and_methylation_modules_are_scanned():
@@ -661,3 +668,82 @@ def test_slice_device_tools_without_cuda_exit_2(slice_worlds, tmp_path, tool, mo
     before = {p.name for p in tmp_path.rglob("*")}
     assert importlib.import_module(TOOLS[argv[0]]).run(argv[1:]) == 2
     assert {p.name for p in tmp_path.rglob("*")} == before
+
+
+# -- the serving daemon ------------------------------------------------------------------
+
+
+def test_the_serving_modules_are_scanned():
+    """The daemon's modules, its scopes, its obs stream and the caches it reads
+    are among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "serve/__init__", "serve/daemon", "serve/state", "serve/admission", "serve/metrics", "serve/cli",
+        "obs/__init__", "obs/metrics", "obs/prom", "utils/cancellation", "utils/keyed_cache", "utils/faults",
+        "knobs", "engine", "ops/coverage", "io/chunk_cache", "pipelines/filter_variants")} <= scanned
+
+
+def test_serve_takes_the_reference_options():
+    """``serve``'s options are the reference parser's (``variantcalling_tpu/serve/cli.py``),
+    option by option; the one difference is ``--backend``'s choices, ``gpu|cpu``
+    (default ``gpu``) in place of ``tpu|cpu`` (default ``cpu``)."""
+    from variantcalling_tpu.__main__ import TOOLS as JTOOLS
+    from variantcalling_tpu.serve import cli as jcli
+    from variantcalling_tpu_torch.__main__ import TOOLS
+    from variantcalling_tpu_torch.serve import cli as tcli
+
+    assert TOOLS["serve"].replace("variantcalling_tpu_torch.", "variantcalling_tpu.") == JTOOLS["serve"]
+    assert _parser_options(tcli.run) == _parser_options(jcli.run)
+
+    def actions(parser):
+        return {a.dest: (tuple(a.option_strings), a.default, a.choices, a.nargs, a.type, a.const)
+                for a in parser._actions if a.dest != "help"}
+
+    got, want = actions(tcli.get_parser()), actions(jcli.get_parser())
+    assert got.pop("backend") == (("--backend",), "gpu", ["gpu", "cpu"], None, None, None)
+    assert want.pop("backend") == (("--backend",), "cpu", ["tpu", "cpu"], None, None, None)
+    assert got == want
+
+
+def test_serve_cpu_daemon_loads_neither_jax_nor_reference(small_world, tmp_path):
+    """A daemon on the CPU started, warmed, asked to filter and drained, in a
+    process of its own: none of the forbidden packages is loaded."""
+    code = (
+        "import json, sys, urllib.request\n"
+        "from variantcalling_tpu_torch.serve import Server\n"
+        "s = Server(port=0, device='cpu')\n"
+        "s.start()\n"
+        f"body = {{'input': {small_world['vcf']!r}, 'model': {small_world['model']!r}, "
+        f"'model_name': {small_world['model_name']!r}, 'reference': {small_world['fasta']!r}, "
+        f"'output': {str(tmp_path / 'served.vcf')!r}}}\n"
+        "req = urllib.request.Request(s.address + '/v1/filter', data=json.dumps(body).encode())\n"
+        "status = urllib.request.urlopen(req, timeout=120).status\n"
+        "s.drain('test')\n"
+        "print(json.dumps({'status': status, 'loaded': sorted(m for m, mod in sys.modules.items() "
+        f"if m.split('.')[0] in {FORBIDDEN!r} and mod is not None)}}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH" and not k.startswith("VCTPU_")}
+    env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=tmp_path, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"status": 200, "loaded": []}
+    assert "##vctpu_engine=torch-cpu" in (tmp_path / "served.vcf").read_text()
+
+
+@pytest.mark.parametrize("argv", [[], ["--backend", "gpu"]], ids=["default", "gpu"])
+def test_serve_without_cuda_exits_2_and_never_falls_back(tmp_path, argv):
+    proc = _run_cli(["serve", "--port", "0", "--ready-file", str(tmp_path / "ready.json"), *argv], tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
+    assert "no CUDA device" in proc.stderr and not (tmp_path / "ready.json").exists()
+
+
+@pytest.mark.parametrize("flags", [["--fabric"], ["--fabric-backend"], ["--fabric", "--fabric-backend"],
+                                   ["--fabric", "--backends", "http://127.0.0.1:1"]])
+def test_serve_fabric_flags_exit_2(tmp_path, flags):
+    """The fabric is not ported: its flags exit 2 with a message, before any
+    device or socket is touched, and never start the plain daemon."""
+    proc = _run_cli(["serve", "--backend", "cpu", "--port", "0", "--ready-file", str(tmp_path / "ready.json"),
+                     *flags], tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
+    assert "fabric" in proc.stderr and "not ported" in proc.stderr and not (tmp_path / "ready.json").exists()

@@ -10,3 +10,5 @@ own copy.
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``--backend cpu`` on the CLI, ``device="cpu"`` in the API).
 """
+
+__version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """CLI dispatch: ``python -m variantcalling_tpu_torch <tool> <args>``.
 
-Counterpart of ``variantcalling_tpu/__main__.py``; the port serves 36
-tools so far: ``filter_variants_pipeline``, ``train_models_pipeline``,
+Counterpart of ``variantcalling_tpu/__main__.py``; the port serves
+``filter_variants_pipeline``, ``train_models_pipeline``,
 ``training_prep_pipeline``, ``train_dan``, ``evaluate_concordance``,
 ``coverage_analysis``, ``cnv_calling``, the four SEC tools
 (``sec_training``, ``correct_systematic_errors``, ``sec_validation``,
@@ -18,8 +18,9 @@ single-read SNV and MRD tools ``srsnv_training``, ``srsnv_inference`` and
 ``filter_vcf_with_lib_prep_recalibration_model``,
 ``calibrate_bridging_snvs``, and the methylation tools
 ``concat_methyldackel_csvs``, ``process_mbias``, ``process_merge_context``,
-``process_merge_context_no_cp_g`` and ``process_per_read``. Each tool is a
-module exposing ``run(argv)``, imported when called.
+``process_merge_context_no_cp_g`` and ``process_per_read``, and the resident
+daemon ``serve``: 37 tools. Each tool is a module exposing ``run(argv)``,
+imported when called.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ TOOLS: dict[str, str] = {
     "process_merge_context": "variantcalling_tpu_torch.pipelines.methylation.process_merge_context",
     "process_merge_context_no_cp_g": "variantcalling_tpu_torch.pipelines.methylation.process_merge_context_no_cp_g",
     "process_per_read": "variantcalling_tpu_torch.pipelines.methylation.process_per_read",
+    "serve": "variantcalling_tpu_torch.serve.cli",
 }
 
 

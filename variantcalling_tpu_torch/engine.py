@@ -28,5 +28,14 @@ def engine_name(device: torch.device) -> str:
     return _NAMES[device.type]
 
 
+def resolve_request(device: torch.device) -> str:
+    """A serving daemon's per-request engine: the engine of the daemon's
+    device. Counterpart of the reference's ``resolve_request``, whose engine
+    knobs (``VCTPU_ENGINE``, ``VCTPU_REQUIRE_NATIVE``) the port does not
+    honour yet (``ROADMAP.md`` A10): scoped in a request, they are validated
+    and ignored, as the CLI treats them."""
+    return engine_name(device)
+
+
 def header_line(name: str) -> str:
     return f"##{HEADER_KEY}={name}"

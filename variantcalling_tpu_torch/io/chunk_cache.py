@@ -245,6 +245,10 @@ _RESIDENT = False
 _MEMORY: MemoryStore | None = None
 _MEMORY_LOCK = threading.Lock()
 
+#: the process's session tallies, rolled in at each session's end (the
+#: serving daemon's ``/v1/status``); updated under ``_MEMORY_LOCK``
+_TOTALS = {"sessions": 0, "hits": 0, "misses": 0, "bytes_saved": 0, "published": 0}
+
 
 def resident_mode(on: bool = True) -> None:
     """Opt this process into the in-memory index shared by its runs (a
@@ -265,6 +269,16 @@ def _memory_store() -> MemoryStore | None:
         if _MEMORY is None:
             _MEMORY = MemoryStore(max_bytes())
         return _MEMORY
+
+
+def resident_stats() -> dict:
+    """The in-memory index's size and the process's cumulative cache traffic
+    (the serving daemon's ``/v1/status``)."""
+    with _MEMORY_LOCK:
+        out = dict(_TOTALS, enabled=enabled(), resident=_RESIDENT)
+        mem = _MEMORY
+    out["memory"] = mem.stats() if mem is not None else {"entries": 0, "bytes": 0}
+    return out
 
 
 class CacheSession:
@@ -338,6 +352,19 @@ class CacheSession:
         with self._lock:
             return {"hits": self.hits, "misses": self.misses, "bytes_saved": self.bytes_saved,
                     "published": self.published}
+
+    def finish(self) -> None:
+        """A run's end: one ``cache`` obs event with the session's traffic,
+        rolled into the process totals (:func:`resident_stats`)."""
+        from variantcalling_tpu_torch import obs
+
+        st = self.stats()
+        with _MEMORY_LOCK:
+            for k, v in st.items():
+                _TOTALS[k] += v
+            _TOTALS["sessions"] += 1
+        if obs.active():
+            obs.event("cache", "session", **st)
 
 
 def open_session(config: dict) -> CacheSession | None:

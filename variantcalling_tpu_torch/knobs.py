@@ -11,9 +11,11 @@ closest-match suggestion (:func:`warn_unknown_env`).
 
 The registry lists every knob of the reference, also those the port does
 not honour yet (``ROADMAP.md`` names the slice that brings each): they are
-validated all the same. :data:`HONOURED` names the knobs the port reads. Left out: the reference's per-request override
-layer (``knobs.scope``, for its serving daemon), its ``##vctpu_knobs=``
-header line, and the ``knobs`` tool that dumps the registry.
+validated all the same. :data:`HONOURED` names the knobs the port reads.
+:class:`scope` layers typed per-request overrides over the environment for
+one execution context (the serving daemon's requests, :mod:`serve`). Left
+out: the reference's ``##vctpu_knobs=`` header line, and the ``knobs``
+tool that dumps the registry.
 
 Booleans accept ``1/true/yes/on`` and ``0/false/no/off`` (case
 insensitive); a set-but-empty variable means "unset" except for ``str``
@@ -22,6 +24,7 @@ knobs, where the empty string is meaningful.
 
 from __future__ import annotations
 
+import contextvars
 import difflib
 import logging
 import os
@@ -369,14 +372,73 @@ HONOURED = frozenset({
     "VCTPU_RANK", "VCTPU_NUM_PROCESSES", "VCTPU_SPAN",
     # the bound on the imputation chain's external beagle
     "VCTPU_SUBPROC_TIMEOUT_S",
+    # the serving daemon: its address, admission limits, deadlines and drain, and the obs
+    # stream and rolling latency windows it writes
+    "VCTPU_SERVE_HOST", "VCTPU_SERVE_PORT", "VCTPU_SERVE_SOCKET", "VCTPU_SERVE_MAX_INFLIGHT",
+    "VCTPU_SERVE_QUEUE_DEPTH", "VCTPU_SERVE_DEADLINE_S", "VCTPU_SERVE_DRAIN_S",
+    "VCTPU_OBS", "VCTPU_OBS_PATH", "VCTPU_OBS_WINDOW_S",
 })
 
 
+#: the per-request override layer (:class:`scope`): knob name -> raw string,
+#: or None to mask the environment back to the declared default, carried in
+#: a contextvar so that two concurrent requests never see each other's
+#: settings. The executor copies the submitting context into its workers
+#: (``parallel/pipeline.py``), so a scope follows the request's chunks.
+_SCOPE: contextvars.ContextVar[dict[str, str | None] | None] = contextvars.ContextVar("vctpu_knob_scope",
+                                                                                     default=None)
+
+
+class scope:
+    """Layer raw knob overrides over the environment for the current
+    execution context.
+
+    ``overrides`` maps registered knob names to raw strings, parsed at the
+    first read exactly as the environment's text would be (a malformed value
+    raises ``EngineError`` there), or to ``None``, which masks an environment
+    setting back to the declared default. Scopes nest: an inner scope merges
+    over the outer one, and leaving a scope restores the layer before it. An
+    unknown name raises ``KeyError`` at construction."""
+
+    __slots__ = ("overrides", "_token")
+
+    def __init__(self, overrides: dict[str, object] | None = None, **kw):
+        merged: dict[str, object] = dict(overrides or {})
+        merged.update(kw)
+        for name in merged:
+            if name not in REGISTRY:
+                raise KeyError(f"{name} is not a registered VCTPU knob")
+        self.overrides = {name: (None if value is None else str(value)) for name, value in merged.items()}
+        self._token = None
+
+    def __enter__(self) -> "scope":
+        base = _SCOPE.get()
+        layered = dict(base) if base else {}
+        layered.update(self.overrides)
+        self._token = _SCOPE.set(layered)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _SCOPE.reset(self._token)
+        self._token = None
+        return False
+
+
+def scoped(name: str) -> bool:
+    """Whether ``name`` is overridden by the current context's scope layer."""
+    layer = _SCOPE.get()
+    return layer is not None and name in layer
+
+
 def raw(name: str) -> str | None:
-    """The raw string a knob resolves from (None when unset). The port's
-    single ``os.environ`` access point for ``VCTPU_*`` keys."""
+    """The raw string a knob resolves from (None when unset): the context's
+    scope layer first, else the environment. The port's single
+    ``os.environ`` access point for ``VCTPU_*`` keys."""
     if name not in REGISTRY:
         raise KeyError(f"{name} is not a registered VCTPU knob")
+    layer = _SCOPE.get()
+    if layer is not None and name in layer:
+        return layer[name]
     return os.environ.get(name)
 
 
@@ -465,6 +527,19 @@ def get_float(name: str) -> float:
 
 def get_str(name: str) -> str | None:
     return _typed(name, ("str", "enum"))
+
+
+def source(name: str) -> str:
+    """Where the resolved value came from: ``"scope"``, ``"env"`` or ``"default"``."""
+    if scoped(name):
+        return "scope"
+    return "env" if raw(name) is not None else "default"
+
+
+def resolved() -> list[tuple[str, Any, str]]:
+    """(name, typed value, source) of every registered knob, sorted. Raises on
+    the first malformed value, like :func:`validate_all`."""
+    return [(name, get(name), source(name)) for name in sorted(REGISTRY)]
 
 
 def validate_all() -> None:

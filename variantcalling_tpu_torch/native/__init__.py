@@ -10,7 +10,8 @@ the depth walkers of the coverage and CNV tools (``bam_depth``; the CRAM
 them), ``coverage_analysis``'s bedGraph text (``bedgraph_lines``) and the
 comparison's haplotype matcher (``match_contig_native``, a verbatim copy of
 the reference's ``vctpu_match.cc``, which ``comparison/matcher`` holds to its
-Python specification). The library is built
+Python specification) and the serving daemon's one-pass coverage reduce
+(``coverage_stats``, under ``ops/coverage.host_coverage_stats``). The library is built
 with g++ at first use into ``libvctpu_native-<hash>.so`` in the kernels'
 build directory (``csrc/build.BUILD_DIR``: the checkout's ``build/``),
 keyed by the sources, the flags and the CPU's ``flags`` line, under a file
@@ -57,7 +58,7 @@ CXXFLAGS = ["-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC", "-std=
 ENTRY_POINTS = ("bgzf_decompress_array", "vcf_parse", "interval_membership", "fasta_encode",
                 "gather_windows_contig", "format_float_info", "vcf_assemble", "bgzf_compress",
                 "bin_features", "gbt_fit", "bam_depth", "cram_header", "cram_count", "cram_scan", "cram_depth",
-                "bedgraph_lines", "match_contig_native", "bam_pileup", "cram_pileup")
+                "bedgraph_lines", "match_contig_native", "bam_pileup", "cram_pileup", "coverage_stats")
 #: per entry point: calls served natively, their seconds, and calls left to the plain version
 CALLS: dict[str, dict] = {}
 #: guards CALLS: the streaming executor's workers call the engine concurrently
@@ -178,6 +179,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         "vctpu_bedgraph_lines": (_i64, [_u8p, _i64, _i64p, _i64p, _i64p, _i64, _u8p, _i64]),
         "vctpu_bam_pileup": (_i64, [_u8p, _i64, _i32, _i64, _i64, ctypes.c_uint32, _i32p]),
         "vctpu_cram_pileup": (_i64, [_u8p, _i64, _i32, _i64, _i64, _u8p, _i64, _i32p]),
+        "vctpu_coverage_stats": (_i64, [_i32p, _i64, _i64, _i32, _i32, _f32p, _i64p]),
         "vctpu_match_contig": (_i64, [_u8p, _i64,
                                       _i64, _i64p, _u8p, _i64p, _u8p, _i64p, _i8p,
                                       _i64, _i64p, _u8p, _i64p, _u8p, _i64p, _i8p,
@@ -619,3 +621,19 @@ def match_contig_native(lib, ref_seq: str, c_pos, c_ref, c_alt, c_gt, t_pos, t_r
         return None
     return (call_tp[:nc].astype(bool), call_tp_gt[:nc].astype(bool),
             truth_tp[:nt].astype(bool), truth_tp_gt[:nt].astype(bool), idx[:nc], stats)
+
+
+@_entry
+def coverage_stats(lib, data: np.ndarray, window: int, max_bin: int = 1000,
+                   from_diffs: bool = False) -> tuple[np.ndarray, np.ndarray] | None:
+    """One-pass coverage reduce: (per-window float32 means, (max_bin + 1,)
+    int64 clipped histogram); ``from_diffs``: ``data`` is a difference array
+    whose running sum is the depth. None on bad arguments."""
+    d = np.ascontiguousarray(data, dtype=np.int32)
+    n = len(d)
+    n_win = -(-n // window) if n else 0
+    means = np.empty(n_win, dtype=np.float32)
+    hist = np.empty(max_bin + 1, dtype=np.int64)
+    rc = lib.vctpu_coverage_stats(_p(d, _i32p), n, int(window), int(max_bin), int(bool(from_diffs)),
+                                  _p(means, _f32p), _p(hist, _i64p))
+    return None if rc != 0 else (means, hist)

@@ -1088,3 +1088,71 @@ int64_t vctpu_fasta_encode(const uint8_t* buf, int64_t buf_len,
 }
 
 }  // extern "C"
+
+// The serving daemon's coverage reduce (host_coverage_stats), as the
+// reference's vctpu_coverage_stats.
+extern "C" {
+
+// Fused coverage reduce: per-window mean + clipped depth histogram in ONE
+// pass over the depth vector, sharded at window-aligned boundaries with
+// per-shard histograms merged at the end. ``from_diffs`` != 0 treats the
+// input as a difference array whose running cumsum is the depth (a cheap
+// per-shard total pre-pass seeds each shard's running depth).
+//
+// means_out: ceil(n/window) float32 (the tail window averages its
+// remainder, as ops/coverage.binned_mean): each window's exact int64 sum
+// rounded once to f32 over the f32 count. hist_out: (max_bin+1) int64,
+// depths clipped into [0, max_bin]. Returns 0, -1 on bad args.
+int64_t vctpu_coverage_stats(const int32_t* data, int64_t n, int64_t window,
+                             int32_t max_bin, int32_t from_diffs,
+                             float* means_out, int64_t* hist_out) try {
+    if (n < 0 || window <= 0 || max_bin < 0) return -1;
+    const int64_t n_win = n ? (n + window - 1) / window : 0;
+    const int bins = max_bin + 1;
+    for (int b = 0; b < bins; ++b) hist_out[b] = 0;
+    if (n == 0) return 0;
+    const int t_count = vctpu::nthreads();
+    const int max_shards = (t_count > 1 && n_win >= 8) ? t_count : 1;
+    std::vector<int64_t> base(max_shards + 1, 0);
+    if (from_diffs) {
+        // pre-pass: per-shard diff totals -> running-depth offset per shard
+        // (shard ranges are identical across both for_shards calls: same
+        // n_win / max_shards / min_per_shard)
+        std::vector<int64_t> tot(max_shards, 0);
+        const int used = vctpu::for_shards(n_win, max_shards,
+                                           [&](int t, int64_t wlo, int64_t whi) {
+            const int64_t lo = wlo * window, hi = std::min(n, whi * window);
+            int64_t s = 0;
+            for (int64_t i = lo; i < hi; ++i) s += data[i];
+            tot[t] = s;
+        }, 1);
+        for (int t = 0; t < used; ++t) base[t + 1] = base[t] + tot[t];
+    }
+    std::vector<std::vector<int64_t>> hists(max_shards);
+    vctpu::for_shards(n_win, max_shards, [&](int t, int64_t wlo, int64_t whi) {
+        std::vector<int64_t>& h = hists[t];
+        h.assign(bins, 0);
+        int64_t run = base[t];
+        for (int64_t w = wlo; w < whi; ++w) {
+            const int64_t lo = w * window, hi = std::min(n, lo + window);
+            int64_t sum = 0;
+            for (int64_t i = lo; i < hi; ++i) {
+                const int64_t d = from_diffs ? (run += data[i]) : data[i];
+                sum += d;
+                const int64_t b = d < 0 ? 0 : (d > max_bin ? max_bin : d);
+                ++h[b];
+            }
+            // f32/f32 divide: bit-identical to the jitted binned_mean
+            // while the exact sum fits f32 (see header comment)
+            means_out[w] = (float)sum / (float)(hi - lo);
+        }
+    }, 1);
+    for (auto& h : hists)
+        if ((int)h.size() == bins)
+            for (int b = 0; b < bins; ++b) hist_out[b] += h[b];
+    return 0;
+} catch (...) {
+    return -1;
+}
+
+}  // extern "C"

@@ -19,8 +19,10 @@ formulas and float32 where it computes in float32:
 - :func:`interval_histograms`, and :func:`mask_from_intervals`, built on
   the device from the interval bounds (a difference array and a cumsum).
 
-``host_coverage_stats`` and the native ``coverage_stats`` of the
-reference serve only its resident daemon and are not here.
+:func:`host_coverage_stats` is the serving daemon's host reduce (its
+``/v1/coverage``): the native engine's one-pass ``coverage_stats``, or its
+plain numpy twin in cache-sized tiles, with the reference's means, histogram
+and percentiles.
 """
 
 from __future__ import annotations
@@ -61,6 +63,62 @@ def depth_histogram(depth: torch.Tensor, mask: torch.Tensor | None = None,
         n_bins = max_depth + 2
     hist = torch.bincount(clipped, minlength=n_bins)
     return hist[: max_depth + 1].to(torch.float32)
+
+
+#: positions a tile of the plain host reduce: about 4 M keeps a tile in cache
+_HOST_TILE_POSITIONS = 4 << 20
+
+
+def host_coverage_stats(depth: np.ndarray, window: int, max_depth: int = MAX_DEPTH_BIN,
+                        qs: np.ndarray | None = None, from_diffs: bool = False) -> dict[str, np.ndarray]:
+    """One pass over a host depth vector: per-window float32 means (each
+    window's exact int64 sum rounded once), the float32 histogram of the depth
+    clipped to [0, max_depth] and, with ``qs``, the int32 depth at each
+    quantile (:func:`percentiles_from_histogram`'s rule in numpy). With
+    ``from_diffs`` the input is a difference array integrated on the fly.
+    The native engine's ``coverage_stats`` serves it; without the engine the
+    plain numpy reduce below, tile by tile, gives the same arrays."""
+    from variantcalling_tpu_torch import native
+
+    depth = np.ascontiguousarray(depth, dtype=np.int32)
+    got = native.coverage_stats(depth, window, max_bin=max_depth, from_diffs=from_diffs)
+    if got is not None:
+        means, hist = got
+    else:
+        means, hist = coverage_stats_plain(depth, window, max_depth, from_diffs)
+    out = {"means": means, "hist": hist.astype(np.float32)}
+    if qs is not None:
+        q = np.maximum(np.asarray(qs, dtype=np.float32) * (1.0 - 1e-6), 1e-9)
+        total = out["hist"].sum(dtype=np.float32)
+        cdf = np.cumsum(out["hist"], dtype=np.float32) / max(total, 1.0)
+        out["percentiles"] = np.argmax(cdf[None, :] >= q[:, None], axis=1).astype(np.int32)
+    return out
+
+
+def coverage_stats_plain(depth: np.ndarray, window: int, max_depth: int,
+                         from_diffs: bool) -> tuple[np.ndarray, np.ndarray]:
+    """The native ``coverage_stats``' plain twin: (float32 means, int64 histogram)."""
+    n = len(depth)
+    n_win = -(-n // window) if n else 0
+    means = np.empty(n_win, dtype=np.float32)
+    hist = np.zeros(max_depth + 1, dtype=np.int64)
+    tile_w = max(1, _HOST_TILE_POSITIONS // window)
+    run = np.int64(0)
+    for wlo in range(0, n_win, tile_w):
+        whi = min(wlo + tile_w, n_win)
+        lo, hi = wlo * window, min(n, whi * window)
+        seg = depth[lo:hi]
+        if from_diffs:
+            seg = np.cumsum(seg, dtype=np.int64) + run
+            run = seg[-1] if len(seg) else run
+        pad = (whi - wlo) * window - (hi - lo)
+        sums = np.pad(seg, (0, pad)).reshape(whi - wlo, window).sum(axis=1, dtype=np.int64)
+        counts = np.full(whi - wlo, window, dtype=np.float32)
+        if pad:
+            counts[-1] = window - pad
+        means[wlo:whi] = sums.astype(np.float32) / counts
+        hist += np.bincount(np.clip(seg, 0, max_depth), minlength=max_depth + 1)
+    return means, hist
 
 
 def percentiles_from_histogram(hist: torch.Tensor, qs) -> torch.Tensor:

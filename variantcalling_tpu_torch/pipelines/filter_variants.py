@@ -38,6 +38,13 @@ built on the ``genome-prefetch`` thread; a chunk that comes first waits
 for it. The device half of each chunk runs one chunk at a time, under one
 lock.
 
+A process builds each model's predictor once (:func:`predictor_for`: a
+forest's kernel with its tables on the card), so a resident process such as
+the serving daemon pays no table build or upload on a warm request; inside
+one of its requests the run polls the request's cancel token
+(``utils/cancellation``) at every chunk it commits, or at the serial path's
+stage boundaries.
+
 The run's device is ``cuda`` unless ``--backend cpu`` is given; asking for
 the card where there is none exits 2. Every ``VCTPU_*`` value is checked
 against the knob registry (:mod:`knobs`) before anything is read: a
@@ -79,7 +86,8 @@ from variantcalling_tpu_torch.models.dan import DanModel
 from variantcalling_tpu_torch.models.forest import FlatForest
 from variantcalling_tpu_torch.ops import intervals as iops
 from variantcalling_tpu_torch.parallel import pipeline as pipeline_mod
-from variantcalling_tpu_torch.utils import degrade, faults, h5_utils
+from variantcalling_tpu_torch.utils import cancellation, degrade, faults, h5_utils
+from variantcalling_tpu_torch.utils.keyed_cache import KeyedCache
 from variantcalling_tpu_torch.utils.stages import stage
 
 log = logging.getLogger("variantcalling_tpu_torch")
@@ -237,12 +245,47 @@ def _narrow_column(a: np.ndarray) -> np.ndarray:
     return a.astype(np.float32, copy=False)
 
 
+#: built predictors: a forest's kernel with its tables on the device (or the
+#: gather walk) and its host finalize, or a family's program, keyed by the
+#: model's identity, the feature order, the resolved strategy and the device.
+#: A process that scores many runs of one model (the serving daemon) builds
+#: and uploads the tables once. Each entry holds its model, so the model's id
+#: in the key stays its own while the entry lives. Bounded FIFO.
+PREDICTOR_CACHE_MAX = 8
+_PREDICTORS = KeyedCache("predictor", PREDICTOR_CACHE_MAX)
+
+
+def _build_predictor(model, names: list[str], strategy: str, device: torch.device):
+    """(model, program, host finalize or None) of one cache entry."""
+    if isinstance(model, FlatForest):
+        forest = forest_mod.with_feature_order(model, names)
+        program = forest_mod.make_margin_predictor(forest, len(names), strategy, device)
+        return model, program, (lambda margin: forest_mod.finalize_margin(margin, forest))
+    if isinstance(model, DanModel):
+        return model, dan_mod.make_score_predictor(model, names, device), None
+    return model, threshold_mod.make_score_predictor(model, names, device), None
+
+
+def predictor_for(model, names: list[str], strategy: str, device: torch.device):
+    """(program, host finalize or None) for ``model`` over feature order
+    ``names`` with ``strategy`` on ``device``, built on the first request."""
+    key = (id(model), tuple(names), strategy, str(device))
+    _, program, finalize = _PREDICTORS.get(key, lambda: _build_predictor(model, names, strategy, device))
+    return program, finalize
+
+
+def predictor_cache_stats() -> dict:
+    """Entries, hits and misses (each miss one build) of the predictor cache."""
+    return _PREDICTORS.stats()
+
+
 class FusedScorer:
     """The device half of scoring for one feature layout, one chunk at a time:
     the windows (sent from the host, or gathered from the resident genome),
     the window features, the (N, F) float32 matrix and the family's program
-    (forest margins through the strategy's kernel, threshold or DAN scores).
-    Counts the bytes it sends to the device (``sent_bytes``)."""
+    (forest margins through the strategy's kernel, threshold or DAN scores;
+    built once a process, :func:`predictor_for`). Counts the bytes it sends
+    to the device (``sent_bytes``)."""
 
     def __init__(self, model, names: list[str], strategy: str, flow_order: str, device: torch.device):
         self.names = list(names)
@@ -250,15 +293,8 @@ class FusedScorer:
         self.device = device
         self.sent_bytes = 0
         self._sent_lock = threading.Lock()
-        self.finalize = None  # threshold and DAN programs return final scores
-        if isinstance(model, FlatForest):
-            forest = forest_mod.with_feature_order(model, names)
-            self.program = forest_mod.make_margin_predictor(forest, len(names), strategy, device)
-            self.finalize = lambda margin: forest_mod.finalize_margin(margin, forest)
-        elif isinstance(model, DanModel):
-            self.program = dan_mod.make_score_predictor(model, names, device)
-        else:
-            self.program = threshold_mod.make_score_predictor(model, names, device)
+        # finalize: None for the threshold and DAN programs, which return final scores
+        self.program, self.finalize = predictor_for(model, self.names, strategy, device)
 
     def _count_sent(self, nbytes: int) -> None:
         with self._sent_lock:
@@ -784,6 +820,9 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
                 # serial writer's buffer takes it
                 _sink_write(sink, compressor.add(header_bytes) if compressor is not None else header_bytes)
             for body, k, p, qbody in gen:
+                # cooperative cancellation (a serving daemon's deadline or drain): chunk-granular,
+                # raising here unwinds through the failure teardown below, never a torn commit
+                cancellation.check("streaming filter run")
                 if qbody:
                     # the sidecar is appended before the journal claims the
                     # chunk: a kill between them can duplicate records in it
@@ -820,6 +859,7 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
         if journal is not None:
             journal.close()
         if cache_session is not None and not ok:
+            # failure or cancellation: every unpublished chunk is dropped
             cache_session.discard()
         if not ok:
             journal_mod.release_token(part_token)
@@ -847,6 +887,8 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
     journal_mod.release_token(part_token)
     if journal is not None:
         journal.finish()
+    if cache_session is not None:
+        cache_session.finish()
     if n_quar_chunks:
         log.warning("quarantine: %d chunk(s), %d record(s) diverted to %s — the output lacks that many records",
                     n_quar_chunks, n_quar_records, q_path)
@@ -907,9 +949,12 @@ def run_loaded(args, model, fasta: FastaReader, annotate, blacklist, device: tor
     log.info("reading %s", args.input_file)
     with stage("ingest"):
         table = read_vcf(args.input_file)
+    # the serial path polls cancellation at its stage boundaries (streaming: every chunk)
+    cancellation.check("filter run")
     if args.limit_to_contig:
         table = table.subset(np.asarray(table.chrom) == args.limit_to_contig)
     score, filters = ctx.score_table(table)
+    cancellation.check("filter run")
     _ensure_output_header(table.header, ctx.engine, ctx.forest_strategy, ctx.model_family)
     with stage("writeback"):  # rounding stays in numpy, as in the reference
         # this pipeline edits none of CHROM..QUAL: a scanned table's records

@@ -175,6 +175,12 @@ def arm(point: str, times: int | None = 1, seconds: float | None = None,
         _refresh_active()
 
 
+def disarm(point: str) -> None:
+    with _LOCK:
+        _ARMED.pop(point, None)
+        _refresh_active()
+
+
 def reset() -> None:
     """Disarm everything (test teardown)."""
     with _LOCK:
@@ -199,6 +205,19 @@ def cancel_hangs() -> None:
         f.cancel.set()
 
 
+def _record_firing(point: str, style: str, seconds: float | None = None) -> None:
+    """Every firing lands in the open obs run stream, when one is open, beside
+    the retries and errors it provoked."""
+    from variantcalling_tpu_torch import obs
+
+    if obs.active():
+        fields = {"style": style}
+        if seconds is not None:
+            fields["seconds"] = seconds
+        obs.event("fault", point, **fields)
+        obs.counter("faults.fired").add(1)
+
+
 def _armed_fault(point: str) -> "_Fault | None":
     """The fault governing ``point`` in this context: the scope layer wins,
     else the process-global table. Callers hold ``_LOCK``."""
@@ -206,6 +225,19 @@ def _armed_fault(point: str) -> "_Fault | None":
     if layer is not None and point in layer:
         return layer[point]
     return _ARMED.get(point)
+
+
+def should_fire(point: str) -> bool:
+    """Availability-style query: does ``point`` fire now? (no raise, no wait),
+    for a site that expresses the failure itself."""
+    if not _ACTIVE:
+        return False
+    with _LOCK:
+        f = _armed_fault(point)
+        fire = f is not None and f._take()
+    if fire:
+        _record_firing(point, "availability")
+    return fire
 
 
 def check(point: str) -> None:
@@ -220,6 +252,7 @@ def check(point: str) -> None:
         seconds = f.seconds
     _desc, exc_factory = POINTS[point]
     log.debug("injected fault %s fired (%s)", point, "delay" if seconds is not None else "raise")
+    _record_firing(point, "delay" if seconds is not None else "raise", seconds=seconds)
     if seconds is not None:
         # cancellable: a watchdog that aborts the run can release us so
         # the owning thread still joins
@@ -272,10 +305,11 @@ def parse_spec(spec: str) -> list[tuple[str, int | None, float | None, int]]:
 
 
 class scope:
-    """Context-scoped fault arming: the given ``VCTPU_FAULTS``-grammar spec
-    is armed for the current execution context only; concurrent contexts
-    see only their own scopes and the process-global table. An empty spec
-    is a no-op scope."""
+    """Context-scoped fault arming (the serving daemon's per-request poison
+    channel): the given ``VCTPU_FAULTS``-grammar spec is armed for the
+    current execution context only, and for the work it hands to the IO pool
+    and the stage threads; concurrent contexts see only their own scopes and
+    the process-global table. An empty spec is a no-op scope."""
 
     __slots__ = ("spec", "_token", "_layer")
 
