@@ -163,7 +163,7 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    histograms and percentiles equal, near-ties counted, stats to 1e-6; the
    inflated bedGraph and the ``.bw`` bytes equal; CNV BED and VCF bytes
    equal), a ``VCTPU_NO_NATIVE=1`` twin on that cut and a CRAM twin of a
-   150 kbp cut (equal outputs), and the Viterbi kernel alone at chr20 and
+   100 kbp cut (equal outputs), and the Viterbi kernel alone at chr20 and
    GRCh38 at 1 kb, ``torch.equal`` to its plain version (at GRCh38 on each
    contig's first 20,000 bins), beside its latency
    bound (``COVERAGE_DETAIL``, ``CNV_DETAIL``, ``CNV_KERNEL_DETAIL``,
@@ -268,6 +268,18 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    process of its own: one request, SIGTERM, exit 0, no leaked thread, no
    process left (``SERVE_DETAIL`` lines: the cold request's seconds and the
    warm ones' median among them).
+17. the run telemetry and the somatic composites (``phase_telemetry``): phase
+   8's 5 M-variant streaming run again with ``VCTPU_OBS=1`` and the CPU
+   sampler, the same output hash, a schema-valid stream with one complete
+   trace a chunk and the forest kernel's ``cost_analysis`` event, and every
+   ``obs`` subcommand exiting 0 on it (``OBS_DETAIL``: both walls, the
+   overhead, the dominant p95 edge, the limiting stage); the 104,000-variant
+   world streamed with the device trace (``torch.profiler``), its
+   ``forest_wide`` kernel events equal to the launch counter
+   (``DEVICE_BUSY``: the card's busy share of the run's wall); ``train_dan``
+   with obs on, a ``step`` event a step; ``run_somatic_comparison_and_graphs``
+   and ``detailed_var_report`` on phase 12's world, card against CPU
+   (``SOMATIC_DETAIL``, figures skipped counted); ``knobs --json``.
 
 A ``PHASE_SECONDS`` line follows every phase (wall seconds of the phase),
 and one for the whole run before the result lines.
@@ -293,6 +305,7 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import hashlib
 import io
 import json
 import logging
@@ -433,19 +446,18 @@ def _features(rng: np.random.Generator, n: int) -> np.ndarray:
 
 def _bound(n: int, n_features: int, table_bytes: int, plen: np.ndarray) -> tuple[float, str, dict]:
     """(least ms, "bytes"|"operations", detail) for scoring ``n`` rows with a
-    forest whose trees have the real-leaf path lengths ``plen`` (T, L): each
-    input byte read once (features, the kernel's tables), each margin written
-    once; operations are the threshold compares a row needs (complete trees:
-    depth per tree) and the adds of the tree sum, at the float32 rate outside
-    the tensor cores. Both kernels compute this same function."""
-    nbytes = n * n_features * 4 + table_bytes + n * 4
+    forest whose trees have the real-leaf path lengths ``plen`` (T, L): the
+    port's one count, ``forest_cuda.scoring_work`` (each input byte read once,
+    each margin written once; the threshold compares of complete trees and the
+    adds of the tree sum, at the float32 rate outside the tensor cores). Both
+    kernels compute this same function."""
+    from variantcalling_tpu_torch.models.forest_cuda import scoring_work
+
     depths = [int(p[p >= 0].max()) for p in plen]
     check(all(int(p[p >= 0].min()) == d for p, d in zip(plen, depths)), "bound assumes complete trees")
-    ops = n * (sum(depths) + len(depths))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    detail = {"bytes": nbytes, "ops": ops, "bytes_ms": t_bytes, "ops_ms": t_ops}
-    return (t_bytes, "bytes", detail) if t_bytes >= t_ops else (t_ops, "operations", detail)
+    w = scoring_work(n, n_features, table_bytes, depths)
+    detail = {"bytes": w["bytes"], "ops": w["ops"], "bytes_ms": w["bytes_ms"], "ops_ms": w["ops_ms"]}
+    return w["bound_ms"], w["bound_by"], detail
 
 
 def _chunked(kernel_fn, x: torch.Tensor, chunk: int) -> list[torch.Tensor]:
@@ -1197,34 +1209,47 @@ FORKSERVER_PRELOAD = ["__main__", "torch", "numpy", *(f"variantcalling_tpu_torch
     "pipelines.lpr.filter_vcf_with_lib_prep_recalibration_model", "pipelines.calibrate_bridging_snvs",
     "pipelines.methylation.concat_methyldackel_csvs", "pipelines.methylation.process_mbias",
     "pipelines.methylation.process_merge_context", "pipelines.methylation.process_merge_context_no_cp_g",
-    "pipelines.methylation.process_per_read"))]
+    "pipelines.methylation.process_per_read", "pipelines.run_somatic_comparison_and_graphs",
+    "pipelines.detailed_var_report", "obs.cli"))]
 
 
 def _forked(spec: dict, label: str, target=None) -> dict:
     """``target`` (default :func:`_stream_child`) in a process forked by a
     ``forkserver`` (:data:`FORKSERVER_PRELOAD` imported in it once): a child
     started otherwise keeps this process's peak in its ``ru_maxrss``."""
+    return _forked_all({label: spec}, target or _stream_child)[label]
+
+
+def _forked_all(specs: dict[str, dict], target) -> dict[str, dict]:
+    """:func:`_forked` of every ``label: spec`` at once, each in its own
+    process (the walls are then taken side by side, under each other's
+    load); the runs by label."""
     import multiprocessing
     import queue
 
     ctx = multiprocessing.get_context("forkserver")
     ctx.set_forkserver_preload(FORKSERVER_PRELOAD)
-    results = ctx.Queue()
-    proc = ctx.Process(target=target or _stream_child, args=(spec, results), name=label)
-    proc.start()
-    run = None
-    deadline = time.monotonic() + 900
-    while run is None and time.monotonic() < deadline and (proc.is_alive() or not results.empty()):
-        try:
-            run = results.get(timeout=1)
-        except queue.Empty:
-            pass
-    proc.join(timeout=60)
-    if proc.is_alive():
-        proc.kill()
-        proc.join()
-    check(run is not None and proc.exitcode == 0, f"{label}: the run's process exited {proc.exitcode}")
-    return run
+    started = {}
+    for label, spec in specs.items():
+        results = ctx.Queue()
+        proc = ctx.Process(target=target, args=(spec, results), name=label)
+        proc.start()
+        started[label] = (proc, results)
+    runs, deadline = {}, time.monotonic() + 900
+    for label, (proc, results) in started.items():
+        run = None
+        while run is None and time.monotonic() < deadline and (proc.is_alive() or not results.empty()):
+            try:
+                run = results.get(timeout=1)
+            except queue.Empty:
+                pass
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        check(run is not None and proc.exitcode == 0, f"{label}: the run's process exited {proc.exitcode}")
+        runs[label] = run
+    return runs
 
 
 def _adopt_orphans() -> None:
@@ -1394,6 +1419,7 @@ def phase_streaming(tmp: Path, card: str, pickle_world: dict) -> dict:
     for f in tmp.glob("stream_5m_*.vcf"):
         f.unlink()
     out["stream_5m"] = runs
+    out["world_5m"] = world  # phase 17's obs-on twin reads it again
 
     # -- 2. the 104,000-variant world in 1 MiB chunks --------------------------
     w = pickle_world
@@ -1462,7 +1488,7 @@ def phase_streaming(tmp: Path, card: str, pickle_world: dict) -> dict:
         _stream_detail(st, f"stream_{family}", card, n)
         print(f"streaming 104k {family}: {n_diff} of {n} records differ from the serial GPU run, within "
               f"{tol:g}", flush=True)
-    out["stream_104k"] = {"families": families}
+    out["stream_104k"] = {"families": families, "clean_sha256": hashlib.sha256(clean["bytes"]).hexdigest()}
     return out
 
 
@@ -1686,12 +1712,19 @@ def phase_training(tmp: Path, card: str) -> dict:
     del frames
     small_path = tmp / "train_200k.h5"
     h5_utils.write_frames(str(small_path), small)
-    # the 5 M run; then on 200,000 rows a pair on the card that proves two runs write the same files, and the CPU
+    # the 5 M run; then on 200,000 rows a pair on the card that proves two runs write the same files, and the
+    # CPU; the pair's second run and the CPU's side by side (their walls taken under each other's load)
     runs = {}
-    for label, path, backend in (("train_5m_gpu", world, "gpu"), ("train_200k_gpu", small_path, "gpu"),
-                                 ("train_200k_gpu_again", small_path, "gpu"), ("train_200k_cpu", small_path, "cpu")):
-        argv = ["--input_file", str(path), "--output_file_prefix", str(tmp / label), *grid, "--backend", backend]
-        run = _forked({"argv": argv, "env": {}}, label, _train_child)
+    jobs = {label: (path, backend) for label, path, backend in (
+        ("train_5m_gpu", world, "gpu"), ("train_200k_gpu", small_path, "gpu"),
+        ("train_200k_gpu_again", small_path, "gpu"), ("train_200k_cpu", small_path, "cpu"))}
+    specs = {label: {"argv": ["--input_file", str(path), "--output_file_prefix", str(tmp / label), *grid,
+                              "--backend", backend], "env": {}} for label, (path, backend) in jobs.items()}
+    done = {label: _forked(specs[label], label, _train_child) for label in ("train_5m_gpu", "train_200k_gpu")}
+    done.update(_forked_all({label: specs[label] for label in ("train_200k_gpu_again", "train_200k_cpu")},
+                            _train_child))
+    for label, (path, backend) in jobs.items():
+        run = done[label]
         check(run["rc"] == 0, f"{label}: exit {run['rc']}")
         if backend == "gpu":
             check(run["launches"]["gbt_hist"] == TRAIN_GRID_LAUNCHES and run["launches"]["forest_wide"] == 5
@@ -1812,9 +1845,9 @@ def phase_training(tmp: Path, card: str) -> dict:
 DAN_STEPS, DAN_BATCH = 2000, 1 << 14
 #: each run of a resumed pair: this many steps, then as many again from its checkpoint
 DAN_RESUME_STEPS = 200
-#: train -> filter on the 104,000-variant world: half the default steps, still about 250 passes over
-#: its 66,651 labeled rows
-DAN_VCF_STEPS = 1000
+#: train -> filter on the 104,000-variant world: a quarter of the default steps, still about 125 passes
+#: over its 66,651 labeled rows
+DAN_VCF_STEPS = 500
 #: GPU against CPU: steps on TRAIN_CPU_ROWS, a loss logged every DAN_CPU_LOG of them
 DAN_CPU_STEPS, DAN_CPU_LOG = 50, 10
 #: the CPU tests' bf16 bar (tests/test_torch_dan_train.py): each logged loss within 1 %, scores within 5e-3
@@ -1887,7 +1920,17 @@ def _dan_train(tmp: Path, label: str, card: str, argv: list[str], steps: int, ro
     """``train_dan`` with ``argv`` in a forked process: exit 0, no kernel
     launched; a ``DAN_TRAIN_DETAIL`` line (wall, stages, steps and rows a
     second through the train stage, peaks, the logged losses)."""
-    run = _forked({"argv": [*argv, "--output_file_prefix", str(tmp / label)], "env": {}}, label, _dan_child)
+    return _dan_trains(tmp, {label: argv}, card, steps, rows)[label]
+
+
+def _dan_trains(tmp: Path, argvs: dict[str, list[str]], card: str, steps: int, rows: int) -> dict[str, dict]:
+    """:func:`_dan_train` of each ``label: argv`` at once, side by side."""
+    runs = _forked_all({label: {"argv": [*argv, "--output_file_prefix", str(tmp / label)], "env": {}}
+                        for label, argv in argvs.items()}, _dan_child)
+    return {label: _dan_detail(label, card, run, steps, rows) for label, run in runs.items()}
+
+
+def _dan_detail(label: str, card: str, run: dict, steps: int, rows: int) -> dict:
     check(run["rc"] == 0, f"{label}: exit {run['rc']}")
     check(not any(run["launches"].values()), f"{label}: a kernel was launched ({run['launches']})")
     train_s = run["stages"].get("train", float("nan"))
@@ -2047,15 +2090,16 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
     half = DAN_RESUME_STEPS
     n_keys = len(h5_utils.list_keys(files["small"]))
     small = ["--input_file", files["small"], "--checkpoint_every", "200", "--backend", "gpu"]
-    for pair in ("a", "b"):
-        ck = ["--checkpoint_dir", str(tmp / f"dan_resume_{pair}_ck")]
-        first = _dan_train(tmp, f"dan_resume_{pair}_{half}", card, [*small, *ck, "--n_steps", str(half)], half,
-                           DAN_BATCH)
-        second = _dan_train(tmp, f"dan_resume_{pair}_{2 * half}", card, [*small, *ck, "--n_steps", str(2 * half)],
-                            half, DAN_BATCH)
-        check(first["resume_step"] is None and second["resume_step"] == half - 1
-              and second["resumed_chunks"] == [n_keys, n_keys],
-              f"pair {pair}: resumed from step {second['resume_step']}, chunks {second['resumed_chunks']}")
+    # the two pairs side by side: both first runs at once, then both second runs
+    ck = {pair: ["--checkpoint_dir", str(tmp / f"dan_resume_{pair}_ck")] for pair in ("a", "b")}
+    first = _dan_trains(tmp, {f"dan_resume_{pair}_{half}": [*small, *ck[pair], "--n_steps", str(half)]
+                              for pair in ck}, card, half, DAN_BATCH)
+    second = _dan_trains(tmp, {f"dan_resume_{pair}_{2 * half}": [*small, *ck[pair], "--n_steps", str(2 * half)]
+                               for pair in ck}, card, half, DAN_BATCH)
+    for pair in ck:
+        a, b = first[f"dan_resume_{pair}_{half}"], second[f"dan_resume_{pair}_{2 * half}"]
+        check(a["resume_step"] is None and b["resume_step"] == half - 1 and b["resumed_chunks"] == [n_keys, n_keys],
+              f"pair {pair}: resumed from step {b['resume_step']}, chunks {b['resumed_chunks']}")
         pairs.append((tmp / f"dan_resume_{pair}_{2 * half}.pkl").read_bytes())
     check(pairs[0] == pairs[1], "two resumed train_dan pairs wrote different pickles")
     model = registry.load_model(str(tmp / "dan_5m_gpu.pkl"), train_dan.MODEL_NAME)
@@ -2138,8 +2182,10 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
     for label, backend, rows in (("eval_5m_gpu", "gpu", n_rows), ("eval_200k_gpu", "gpu", n_small),
                                  ("eval_200k_cpu", "cpu", n_small)):
         prefix = tmp / label
+        # the BED files only where they are held card against CPU (200,000 rows)
+        bed = [] if label == "eval_5m_gpu" else ["--output_bed"]
         run = _tool_run("evaluate_concordance", ["--input_file", str(tmp / f"{label.rsplit('_', 1)[0]}.h5"),
-                                                 "--output_prefix", str(prefix), "--output_bed", "--backend", backend])
+                                                 "--output_prefix", str(prefix), *bed, "--backend", backend])
         check(run["rc"] == 0 and not any(run["launches"].values()), f"evaluate_concordance {label}: exit "
               f"{run['rc']}, launches {run['launches']}")
         evals[label] = run
@@ -2163,7 +2209,7 @@ def phase_dan_eval(tmp: Path, card: str, files: dict) -> dict:
 #: world's synthetic chr20 (seed 2026) and chrM at GRCh38's lengths, 30x of 150-bp reads with the planted
 #: events of synthetic.COVERAGE_EVENTS; the no-native twin's and the CRAM twin's cuts of chr20
 COVERAGE_WORLD = dict(seed=2026, contigs=(("chr20", 64_444_167), ("chrM", 16_569)), depth=30.0,
-                      plain_cut=500_000, cram_cut=150_000)
+                      plain_cut=500_000, cram_cut=100_000)
 #: copy numbers the planted events must be called with (15x, 45x and 0x of a 30x genome)
 COVERAGE_EVENT_CN = (1, 3, 0)
 #: cnv_calling's --min_contig_length on the cut, whose chr20 is shorter than the default 1 Mbp
@@ -2376,8 +2422,9 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
        planted 45x event called CN3, one launch on the card, none on the
        CPU);
     3. the twins: ``VCTPU_NO_NATIVE=1`` (the pure-Python ``BamReader``) on
-       the 500 kbp cut against the native run, and a CRAM of a 150 kbp cut
-       (``tests/cram_fixtures.write_cram``) against the BAM of the same
+       the 500 kbp cut against the native run, and a CRAM of a 100 kbp cut
+       (``tests/cram_fixtures.write_cram``, its container's base count in
+       the specification's LTF8: :func:`_ltf8`) against the BAM of the same
        reads: equal outputs;
     4. the Viterbi kernel alone (:func:`_viterbi_alone`; the GRCh38 case
        held to its plain version on each contig's first
@@ -2478,8 +2525,12 @@ def phase_coverage(tmp: Path, card: str, world_spec: dict = COVERAGE_WORLD) -> d
     synthetic.write_coverage_bam(str(cw / "reads.bam"), cram_reads)
     t0 = time.perf_counter()
     header = f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:{contigs[0][0]}\tLN:{world_spec['cram_cut']}\n"
-    cram_fixtures.write_cram(str(cw / "reads.cram"), header, synthetic.coverage_cram_records(cram_reads),
-                             method=cram_fixtures.GZIP)
+    writer_ltf8, cram_fixtures.ltf8 = cram_fixtures.ltf8, _ltf8  # the container's base count to the specification
+    try:
+        cram_fixtures.write_cram(str(cw / "reads.cram"), header, synthetic.coverage_cram_records(cram_reads),
+                                 method=cram_fixtures.GZIP)
+    finally:
+        cram_fixtures.ltf8 = writer_ltf8
     cram_write_s = time.perf_counter() - t0
     for label, src, served in (("cram_cut_bam", "reads.bam", "bam_depth"), ("cram_cut_cram", "reads.cram",
                                                                              "cram_depth")):
@@ -2519,6 +2570,12 @@ def _sec_run(tool: str, argv: list[str], label: str, card: str, env: dict | None
     for ``run_comparison_pipeline`` and ``vcfeval_flavors``) and a
     ``HOST_ENGINE`` line."""
     run = _forked({"tool": tool, "argv": argv, "env": env or {}}, label, _tool_child)
+    return _sec_checked(tool, argv, label, card, run, env, served_by)
+
+
+def _sec_checked(tool: str, argv: list[str], label: str, card: str, run: dict, env: dict | None,
+                 served_by: tuple[str, ...]) -> dict:
+    """:func:`_sec_run`'s checks and lines for a run already made."""
     check(run["rc"] == 0, f"{label}: exit {run['rc']}")
     check(not any(run["launches"].values()), f"{label}: a kernel was launched ({run['launches']})")
     host = run["host"]
@@ -2547,11 +2604,31 @@ def _same_frames(a: str, b: str, label: str) -> int:
         check(x.columns == y.columns and len(x) == len(y), f"{label}: {key} differs in shape")
         for c in x.columns:
             u, v = np.asarray(x[c]), np.asarray(y[c])
-            same = u.dtype == v.dtype and (np.array_equal(u, v, equal_nan=True) if u.dtype.kind == "f"
-                                           else np.array_equal(u, v))
+            if u.dtype == v.dtype == object and any(isinstance(a, np.ndarray) for a in v):
+                # a ragged column (the evaluation's curves): array cells, value for value
+                same = all(np.array_equal(a, b, equal_nan=True) for a, b in zip(u, v))
+            else:
+                same = u.dtype == v.dtype and (np.array_equal(u, v, equal_nan=True) if u.dtype.kind == "f"
+                                               else np.array_equal(u, v))
             check(same, f"{label}: {key}.{c} differs")
         rows += len(x)
     return rows
+
+
+def _ltf8(v: int) -> bytes:
+    """LTF8 by the CRAM 3.0 specification (section 2.3), up to 28 bits.
+    ``tests/cram_fixtures.ltf8`` writes every value from 0x4000 up in the
+    3-byte form, which holds 21 bits: a data container's base count of 2^21
+    or more with bit 21 set then breaks the stream (ROADMAP C5), so the CRAM
+    twin's writer takes this one."""
+    if v < 0x80:
+        return bytes([v])
+    if v < 0x4000:
+        return bytes([0x80 | (v >> 8), v & 0xFF])
+    if v < 0x200000:
+        return bytes([0xC0 | (v >> 16), (v >> 8) & 0xFF, v & 0xFF])
+    check(v < 0x10000000, f"LTF8 of {v}: past the 4-byte form")
+    return bytes([0xE0 | (v >> 24), (v >> 16) & 0xFF, (v >> 8) & 0xFF, v & 0xFF])
 
 
 def _hbm_rate() -> float:
@@ -2617,11 +2694,18 @@ def phase_sec(tmp: Path, card: str) -> dict:
     # -- 1. sec_training --------------------------------------------------------------------
     train = {}
     cut = w["samples"][:SEC_CUT_SAMPLES]
-    for label, samples, backend, extra in (
-            ("train_mesh_gpu", w["samples"], "gpu", ["--use_mesh"]), ("train_cut_mesh_gpu", cut, "gpu", ["--use_mesh"]),
-            ("train_cpu", cut, "cpu", []), ("train_pool_gpu", cut, "gpu", ["--relevant_coords", w["pool"]])):
-        run = _sec_run("sec_training", ["--inputs", *samples, "--output_file", str(d / f"{label}.h5"), *extra,
-                                        "--backend", backend], label, card)
+    argvs = {label: ["--inputs", *samples, "--output_file", str(d / f"{label}.h5"), *extra, "--backend", backend]
+             for label, samples, backend, extra in (
+                 ("train_mesh_gpu", w["samples"], "gpu", ["--use_mesh"]),
+                 ("train_cut_mesh_gpu", cut, "gpu", ["--use_mesh"]), ("train_cpu", cut, "cpu", []),
+                 ("train_pool_gpu", cut, "gpu", ["--relevant_coords", w["pool"]]))}
+    # the 100-callset run alone (its wall is the headline); the three runs on the cut side by side
+    runs = {"train_mesh_gpu": _sec_run("sec_training", argvs["train_mesh_gpu"], "train_mesh_gpu", card)}
+    side = _forked_all({label: {"tool": "sec_training", "argv": argvs[label], "env": {}}
+                        for label in ("train_cut_mesh_gpu", "train_cpu", "train_pool_gpu")}, _tool_child)
+    runs.update({label: _sec_checked("sec_training", argvs[label], label, card, run, None, ("vcf_parse",))
+                 for label, run in side.items()})
+    for label, run in runs.items():
         train[label] = {"run": run, "db": SecDb.load(str(d / f"{label}.h5"))}
     full_db, gpu_db, cpu_db, pool_db = (train[k]["db"] for k in ("train_mesh_gpu", "train_cut_mesh_gpu", "train_cpu",
                                                                   "train_pool_gpu"))
@@ -2713,7 +2797,8 @@ def phase_sec(tmp: Path, card: str) -> dict:
           f"{int(planted.sum())} of {len(w['repr_pos'])} planted representation differences tp; the no-native twin "
           f"equal on the {SEC_PLAIN_CUT} bp cut ({n_cut} rows); GC {gc_counts} ({card})", flush=True)
     out["comparison"] = {"rows": n_cmp, "classes": counts, "planted_tp": int(planted.sum()), "cut_rows": n_cut,
-                         "gc_classes": gc_counts}
+                         "gc_classes": gc_counts, "gpu_h5": str(d / "cmp_gpu.h5")}
+    out["paths"] = {k: w[k] for k in ("heldout", "truth", "hcr", "fasta")}
 
     # -- 5. assess_sec_concordance -----------------------------------------------------------------
     for backend in ("gpu", "cpu"):
@@ -3875,6 +3960,202 @@ def time_kernel(kind: str, root: str) -> int:
                                                **_launch_times(kernel.launch, x, n)}), flush=True)
     return 0
 
+#: phase 17's train_dan run: steps, each logged (one ``step`` event each)
+OBS_DAN_STEPS = 50
+
+
+def _obs_tools(log: str, out_dir: Path) -> tuple[dict, dict, float]:
+    """The ``obs`` tool's subcommands over ``log`` through ``obs.cli.run`` in
+    this process, their files under ``out_dir``: (exit code by subcommand,
+    the JSON roll-ups of ``bottleneck`` and ``critical-path``, seconds)."""
+    from variantcalling_tpu_torch.obs import cli as obs_cli
+
+    t0 = time.perf_counter()
+    rcs, parsed = {}, {}
+    for name, argv in (("summary", ["summary", log]), ("bottleneck", ["bottleneck", log, "--json"]),
+                       ("critical-path", ["critical-path", log, "--json"]),
+                       ("flame", ["flame", log, "-o", str(out_dir / "run.speedscope.json"), "--collapsed",
+                                  str(out_dir / "run.collapsed.txt")]),
+                       ("cpuledger", ["cpuledger", log]), ("prom", ["prom", log, "-o", str(out_dir / "run.prom")]),
+                       ("export", ["export", log, "-o", str(out_dir / "run.trace.json")])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rcs[name] = obs_cli.run(argv)
+        if argv[-1] == "--json" and rcs[name] == 0:
+            parsed[name] = json.loads(buf.getvalue())
+    return rcs, parsed, time.perf_counter() - t0
+
+
+def _chunk_traces(events: list[dict]) -> dict[str, list[str]]:
+    """trace id -> its span names in stream order, each span parented on the one before it."""
+    spans: dict[str, list[dict]] = {}
+    for e in events:
+        if e["kind"] == "trace":
+            spans.setdefault(e["trace_id"], []).append(e)
+    for tid, chain in spans.items():
+        check("parents" not in chain[0] and all(c["parents"] == [p["span_id"]] for p, c in zip(chain, chain[1:])),
+              f"trace {tid} is not a chain from its root")
+    return {tid: [e["name"] for e in chain] for tid, chain in spans.items()}
+
+
+def phase_telemetry(tmp: Path, card: str, stream: dict, pipe: dict, files: dict, sec: dict) -> dict:
+    """Phase 17: the run telemetry on the main path, the device trace, and the somatic composites.
+
+    1. Phase 8's 5 M-variant world streamed again (a forked process) with
+       ``VCTPU_OBS=1`` (the stage profiler on by default) and
+       ``VCTPU_OBS_CPUPROF=1``, right after an obs-off run of the same: the
+       output's hash equal to that run's and phase 8's default run's, every
+       line of the stream valid under the port's schema, one complete trace
+       a chunk (ingest to writeback, a chain), as many as the run's chunks, the ``cost_analysis`` event naming ``cuda-wide``;
+       ``obs summary``, ``bottleneck``, ``critical-path``, ``flame``,
+       ``cpuledger``, ``prom`` and ``export`` exit 0 on it. An
+       ``OBS_DETAIL`` line: both walls and the overhead, the dominant p95
+       edge, the limiting stage.
+    2. The 104,000-variant forest pickle world streamed in 1 MiB chunks with
+       ``VCTPU_OBS_JAXPROF=1``: the bytes of phase 8's clean run, the device
+       trace (``torch.profiler``'s Chrome trace) written, its
+       ``forest_wide`` kernel events as many as the launch counter counted.
+       A ``DEVICE_BUSY`` line: the card's busy share of the run's wall, from
+       the union of the kernel intervals.
+    3. ``train_dan`` on phase 9's 200,000 rows, ``OBS_DAN_STEPS`` steps each
+       logged, obs on (a forked process): a ``step`` event a step.
+    4. ``run_somatic_comparison_and_graphs`` on phase 12's held-out callset
+       and truth, card and CPU (forked processes), and ``detailed_var_report``
+       over phase 12's annotated comparison of the card, card and CPU (the
+       four processes side by side): every h5 frame equal, the BED and CSVs
+       byte-equal, the HTML equal without its images; the figures skipped
+       counted (``SOMATIC_DETAIL`` lines).
+    5. ``knobs --json`` exits 0 (the ``obs`` tool ran in 1).
+    """
+    from tests.torch_report_compare import strip_images
+    from variantcalling_tpu_torch import knobs, obs
+    from variantcalling_tpu_torch.obs import critical, export, schema
+    from variantcalling_tpu_torch.obs import profile as obs_profile
+
+    out: dict = {}
+    # -- 1. the obs-on twin of phase 8's 5 M default run ---------------------------------
+    # an obs-off run right before the obs-on one, so that the pair's walls compare (phase 8's default
+    # run, minutes earlier, gives the bytes)
+    base = _stream_subprocess(stream["world_5m"], tmp / "stream_5m_obs_off.vcf", card, "stream_5m_obs_off", {})
+    (tmp / "stream_5m_obs_off.vcf").unlink()
+    target = tmp / "stream_5m_obs.vcf"
+    run = _stream_subprocess(stream["world_5m"], target, card, "stream_5m_obs",
+                             {"VCTPU_OBS": "1", "VCTPU_OBS_CPUPROF": "1"})
+    target.unlink()
+    check(run["sha256"] == base["sha256"] == stream["stream_5m"]["default"]["sha256"],
+          "the obs-on 5 M run's output differs from the obs-off runs'")
+    log = str(target) + ".obs.jsonl"
+    lines = Path(log).read_text().splitlines()
+    errors = schema.validate_lines(lines)
+    check(not errors, f"obs stream: {len(errors)} schema errors, first {errors[:3]}")
+    events = export.read_run(log)
+    traces = _chunk_traces(events)
+    committed = [e for e in events if e["kind"] == "journal" and e["name"] == "committed"]
+    check(len(traces) == run["chunks"] == committed[-1]["chunks"]
+          and all(t[0] == "ingest" and t[-1] == "writeback" for t in traces.values()),
+          f"obs stream: {len(traces)} traces for {run['chunks']} chunks, shapes {set(map(tuple, traces.values()))}")
+    cost = [e for e in events if e["kind"] == "profile" and e["name"] == "cost_analysis"]
+    check(len(cost) == 1 and cost[0]["strategy"] == "cuda-wide", f"cost_analysis events: {cost}")
+    rcs, parsed, tools_s = _obs_tools(log, tmp)
+    check(all(rc == 0 for rc in rcs.values()), f"obs tool exit codes: {rcs}")
+    cp, bott = parsed["critical-path"], parsed["bottleneck"]
+    check(cp["chunks"] == run["chunks"], f"critical-path counts {cp['chunks']} chunks of {run['chunks']}")
+    detail = {"run": "stream_5m", "card": card, "chunks": run["chunks"], "wall_off_s": base["wall_s"],
+              "wall_on_s": run["wall_s"], "overhead_pct": 100.0 * (run["wall_s"] / base["wall_s"] - 1.0),
+              "events": len(events), "log_bytes": os.path.getsize(log),
+              "dominant_p95_edge": cp["dominant_p95_edge"], "p95_edge_s": cp["p95_edges"].get(cp["dominant_p95_edge"]),
+              "latency_p50_s": cp["latency_p50_s"], "latency_p95_s": cp["latency_p95_s"],
+              "limiting_stage": bott.get("limiting_stage"), "cost_analysis": cost[0], "obs_tools_s": tools_s}
+    print("OBS_DETAIL " + json.dumps(detail), flush=True)
+    out["obs_5m"] = detail
+
+    # -- 2. the device trace on the 104,000-variant world -----------------------------------------
+    w = pipe["forest_pickle"]["world"]
+    target = tmp / "stream_104k_devtrace.vcf"
+    env = {"VCTPU_STREAM": "1", "VCTPU_STREAM_CHUNK_BYTES": str(STREAM_SMALL_CHUNK), "VCTPU_OBS": "1",
+           "VCTPU_OBS_JAXPROF": "1"}
+    dev = _drive(w, target, "gpu", card, "stream_104k_devtrace", env=env)
+    check(hashlib.sha256(dev["bytes"]).hexdigest() == stream["stream_104k"]["clean_sha256"],
+          "the device-traced run's output differs from the clean run's")
+    log = str(target) + ".obs.jsonl"
+    trace = Path(log + ".jaxprof") / obs.DEVICE_TRACE_FILE
+    check(trace.exists(), f"no device trace at {trace}")
+    summary = obs_profile.device_trace_summary(str(trace))
+    launches = dev["launches"]["forest_wide"]
+    # the kernel's events by its symbol (mangled or demangled, whichever the profiler records)
+    wide_events = sum(k for name, k in summary["kernels"].items() if "forest_wide_margin_kernel" in name)
+    check(launches > 0 and wide_events == launches,
+          f"device trace: {wide_events} forest_wide kernel events, {launches} launches counted; kernels "
+          f"{dict(sorted(summary['kernels'].items(), key=lambda kv: -kv[1])[:12])}")
+    run_end = [e for e in export.read_run(log) if e["kind"] == "run_end"][-1]
+    busy = {"run": "stream_104k", "card": card, "chunks": dev["stream"]["chunks"], "wall_s": run_end["dur"],
+            "busy_s": summary["busy_s"], "busy_share": summary["busy_s"] / run_end["dur"],
+            "kernel_s": summary["kernel_s"], "kernel_events": summary["kernel_events"],
+            "forest_wide_events": wide_events, "forest_wide_launches": launches,
+            "kernels": dict(sorted(summary["kernels"].items(), key=lambda kv: -kv[1])[:12]),
+            "trace_bytes": trace.stat().st_size}
+    print("DEVICE_BUSY " + json.dumps(busy), flush=True)
+    out["device_busy"] = busy
+
+    # -- 3. train_dan with obs on -------------------------------------------------------------------
+    label = "dan_obs"
+    argv = ["--input_file", files["small"], "--n_steps", str(OBS_DAN_STEPS), "--log_every", "1", "--backend", "gpu",
+            "--output_file_prefix", str(tmp / label)]
+    dan_run = _forked({"argv": argv, "env": {"VCTPU_OBS": "1"}}, label, _dan_child)
+    check(dan_run["rc"] == 0 and not any(dan_run["launches"].values()), f"{label}: exit {dan_run['rc']}, "
+          f"launches {dan_run['launches']}")
+    events = export.read_run(str(tmp / f"{label}.obs.jsonl"))
+    steps = [e for e in events if e["kind"] == "train" and e["name"] == "step"]
+    hist = [e for e in events if e["kind"] == "metrics"][-1]["histograms"]["train.step_s"]
+    check([e["step"] for e in steps] == list(range(OBS_DAN_STEPS)) and hist["count"] == OBS_DAN_STEPS,
+          f"{label}: {len(steps)} step events, {hist['count']} step times for {OBS_DAN_STEPS} steps")
+    print(f"train_dan with obs: {len(steps)} step events for {OBS_DAN_STEPS} steps, loss {steps[0]['loss']:.4f} -> "
+          f"{steps[-1]['loss']:.4f}, step p50 {hist['p50']:.4g} s ({card})", flush=True)
+    out["dan_obs"] = {"steps": len(steps), "wall_s": dan_run["seconds"]}
+
+    # -- 4. the somatic composites, card against CPU ------------------------------------------------
+    p = sec["paths"]
+    d = tmp / "somatic"
+    d.mkdir()
+    jobs = {}
+    for backend in ("gpu", "cpu"):
+        argv = ["--somatic_vcf", p["heldout"], "--gt_vcf", p["truth"], "--highconf_bed", p["hcr"], "--reference",
+                p["fasta"], "--output_folder", str(d / backend), "--call_sample_name", "sm1", "--truth_sample_name",
+                "HG001", "--make_plots", "--backend", backend]
+        jobs[f"somatic_{backend}"] = {"tool": "run_somatic_comparison_and_graphs", "argv": argv, "env": {}}
+        argv = ["--h5_concordance_file", sec["comparison"]["gpu_h5"], "--h5_output", str(d / f"det_{backend}.h5"),
+                "--csv_output", str(d / f"det_{backend}.csv"), "--html_output", str(d / f"det_{backend}.html"),
+                "--exome_column_name", "exome", "--backend", backend]
+        jobs[f"detailed_{backend}"] = {"tool": "detailed_var_report", "argv": argv, "env": {}}
+    runs = _forked_all(jobs, _tool_child)  # the four side by side: no wall here is a headline
+    for label, r in runs.items():
+        check(r["rc"] == 0, f"{label}: exit {r['rc']}")
+        print("SOMATIC_DETAIL " + json.dumps({"run": label, "card": card, "wall_s": r["seconds"], "stages": r["stages"],
+                                              "launches": r["launches"], "figures_skipped": r["figures_skipped"],
+                                              "peak_rss_bytes": r["peak_rss_bytes"],
+                                              "peak_device_bytes": r["peak_device_bytes"]}), flush=True)
+    rows = sum(_same_frames(str(d / "gpu" / f), str(d / "cpu" / f), f"somatic {f}")
+               for f in ("somatic_comparison.h5", "somatic_eval.h5"))
+    for f in ("somatic_comparison.intervals.bed", "somatic_eval.stats.csv", "somatic_eval.thresholds.csv"):
+        check((d / "gpu" / f).read_bytes() == (d / "cpu" / f).read_bytes(), f"somatic: {f} differs")
+    det_rows = _same_frames(str(d / "det_gpu.h5"), str(d / "det_cpu.h5"), "detailed_var_report")
+    check((d / "det_gpu.csv").read_bytes() == (d / "det_cpu.csv").read_bytes(), "detailed_var_report: CSVs differ")
+    html = [strip_images((d / f"det_{b}.html").read_text())[0] for b in ("gpu", "cpu")]
+    check(html[0] == html[1], "detailed_var_report: the HTML differs")
+    skipped = {k: r["figures_skipped"] for k, r in runs.items()}
+    print(f"somatic composites: card and CPU equal ({rows} comparison and evaluation rows, {det_rows} detailed "
+          f"rows, BED, CSVs and HTML without images); figures_skipped {skipped}; forest_wide launches "
+          f"{[r['launches']['forest_wide'] for r in runs.values()]} ({card})", flush=True)
+    out["somatic"] = {"figures_skipped": skipped, "launches": {k: r["launches"] for k, r in runs.items()}}
+
+    # -- 5. the knobs tool ---------------------------------------------------------------------------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = knobs.run(["--json"])
+    check(rc == 0 and len(json.loads(buf.getvalue())) == len(knobs.REGISTRY), f"knobs --json: exit {rc}")
+    print(f"knobs --json: {len(knobs.REGISTRY)} knobs; obs tools {sorted(rcs)} exit 0 in {tools_s:.2f} s", flush=True)
+    return out
+
 
 def _phase(name: str, card: str, fn, *args):
     """``fn(*args)``, then a ``PHASE_SECONDS`` line with its wall seconds."""
@@ -3907,12 +4188,13 @@ def main() -> int:
         train = _phase("training", card, phase_training, Path(tmp), card)
         _phase("dan_eval", card, phase_dan_eval, Path(tmp), card, train["files"])
         cov = _phase("coverage", card, phase_coverage, Path(tmp), card)
-        _phase("sec", card, phase_sec, Path(tmp), card)
+        sec = _phase("sec", card, phase_sec, Path(tmp), card)
         geno = _phase("genotypes_gvcf", card, phase_genotypes_gvcf, Path(tmp), card, {"gvcf": GVCF_SMOKE_WORLD})
         _phase("reports", card, phase_reports, Path(tmp), card, geno["files"]["trio"],
                {"report": REPORT_SMOKE_WORLD})
         _phase("featuremaps", card, phase_featuremaps, Path(tmp), card)
         _phase("serve", card, phase_serve, Path(tmp), card, pipe)
+        _phase("telemetry", card, phase_telemetry, Path(tmp), card, stream, pipe, train["files"], sec)
     print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     n = WORLD["n_variants"]

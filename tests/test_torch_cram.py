@@ -113,3 +113,92 @@ def test_engine_off_raises_value_error(world, monkeypatch):
     monkeypatch.setenv("VCTPU_NO_NATIVE", "1")
     with pytest.raises(ValueError, match="native engine unavailable"):
         tcram.depth_diff_arrays(world[0])
+
+
+# -- C5: the 100 kbp CRAM that both packages refuse ------------------------------------------------------------
+
+C5_CUT = 100_000
+
+
+def _ltf8_spec(v: int) -> bytes:
+    """LTF8 by the CRAM 3.0 specification (section 2.3): the count of leading
+    1 bits of the first byte says how many bytes follow; a 3-byte form holds
+    21 bits, a 4-byte form 28 (the longer forms are not needed here)."""
+    if v < 0x80:
+        return bytes([v])
+    if v < 0x4000:
+        return bytes([0x80 | (v >> 8), v & 0xFF])
+    if v < 0x200000:
+        return bytes([0xC0 | (v >> 16), (v >> 8) & 0xFF, v & 0xFF])
+    assert v < 0x10000000
+    return bytes([0xE0 | (v >> 24), (v >> 16) & 0xFF, (v >> 8) & 0xFF, v & 0xFF])
+
+
+def _read_ltf8(buf: bytes, i: int = 0) -> tuple[int, int]:
+    """(value, bytes used) of the LTF8 at ``buf[i]``, read by the specification."""
+    b0 = buf[i]
+    n = 0
+    while n < 8 and b0 & (0x80 >> n):
+        n += 1
+    value = b0 & (0xFF >> (n + 1)) if n < 7 else 0
+    for k in range(n):
+        value = (value << 8) | buf[i + 1 + k]
+    return value, n + 1
+
+
+@pytest.fixture(scope="module")
+def c5_reads():
+    from variantcalling_tpu_torch import synthetic
+
+    if not native.available():
+        pytest.skip("CRAM decoding needs the native host engine (g++)")
+    reads = synthetic.coverage_reads(2028, [("chr20", C5_CUT)], 30.0, ())
+    return reads, synthetic.coverage_cram_records(reads)
+
+
+def test_c5_the_writer_breaks_ltf8_in_the_container_base_count(c5_reads):
+    """The fault of the 100 kbp file is the writer's: the data container's
+    header field "number of bases" (an LTF8, CRAM 3.0 section 7.1) holds
+    2,995,200, which needs 22 bits; ``tests/cram_fixtures.ltf8`` writes it in
+    the 3-byte form, which holds 21, so bit 21 lands in the first byte's
+    prefix (0xED: the 4-byte form) and a reader consumes one byte too many,
+    shifting every field after it. The 150 and 200 kbp cuts' counts have bit
+    21 clear, so their prefixes stay 3-byte (their values are cut, but no
+    reader uses this count) and they decode."""
+    from tests import cram_fixtures
+
+    _, records = c5_reads
+    n_bases = sum(r["read_len"] for r in records)
+    assert (len(records), n_bases) == (19_968, 2_995_200)
+    written = cram_fixtures.ltf8(n_bases)
+    assert written == bytes.fromhex("edb400")
+    value, used = _read_ltf8(written + b"\x00" * 8)
+    assert used == 4 != len(written)  # the 4-byte form's prefix on a 3-byte field
+    assert _ltf8_spec(n_bases) == bytes.fromhex("e02db400") and _read_ltf8(_ltf8_spec(n_bases)) == (n_bases, 4)
+    for cut, bases in ((150_000, 4_492_800), (200_000, 5_995_200)):
+        prefix = cram_fixtures.ltf8(bases)[0]
+        assert prefix >> 5 == 0b110, cut  # a 3-byte prefix: these decode
+
+
+def test_c5_the_port_decodes_the_file_written_to_the_specification(c5_reads, tmp_path, monkeypatch):
+    """Written with the field to the specification, the same 19,968 reads
+    decode, and their depth equals the BAM's of the same reads; written by
+    the fixture as it is, the port refuses the file as the reference does."""
+    from tests import cram_fixtures
+    from variantcalling_tpu_torch import synthetic
+
+    reads, records = c5_reads
+    header = f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr20\tLN:{C5_CUT}\n"
+    bam_p, bad_p, good_p = (str(tmp_path / n) for n in ("reads.bam", "as_written.cram", "to_spec.cram"))
+    synthetic.write_coverage_bam(bam_p, reads)
+    cram_fixtures.write_cram(bad_p, header, records, method=GZIP)
+    with pytest.raises(ValueError, match="malformed stream"):
+        tcram.depth_diff_arrays(bad_p)
+    with pytest.raises(ValueError):
+        jcram.depth_diff_arrays(bad_p)
+    monkeypatch.setattr(cram_fixtures, "ltf8", _ltf8_spec)
+    cram_fixtures.write_cram(good_p, header, records, method=GZIP)
+    _, got = tcram.depth_diff_arrays(good_p)
+    _, want = tbam.depth_diff_arrays(bam_p)
+    assert list(got) == list(want) == ["chr20"] and np.array_equal(got["chr20"], want["chr20"])
+    assert np.cumsum(got["chr20"]).max() > 0

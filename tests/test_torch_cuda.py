@@ -515,3 +515,48 @@ def test_slice_tools_on_the_card_equal_the_cpu(tmp_path, monkeypatch):
                                      "--backend", backend]) == 0
     for name in ("br_{}.vcf", "mc_{}.h5", "mc_{}.bg", "pr_{}.h5"):
         assert _bytes(tmp_path / name.format("gpu")) == _bytes(tmp_path / name.format("cpu")), name
+
+
+@pytest.mark.cuda
+def test_obs_on_filter_run_and_device_trace_on_the_card(tmp_path, monkeypatch):
+    """The filter on the card with the run telemetry on (profile, CPU
+    sampler, device trace): the bytes of the obs-off run, one complete trace
+    a chunk, the ``cost_analysis`` event naming ``cuda-wide``, and the
+    device trace's ``forest_wide`` kernel events as many as the launch
+    counter counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import json
+    import os
+
+    from variantcalling_tpu_torch import obs, synthetic
+    from variantcalling_tpu_torch.obs import critical, export
+    from variantcalling_tpu_torch.obs import profile as obs_profile
+    from variantcalling_tpu_torch.pipelines import filter_variants as tfv
+
+    for k in [k for k in os.environ if k.startswith("VCTPU_")]:
+        monkeypatch.delenv(k)
+    w = synthetic.write_world(str(tmp_path / "w"), seed=44, n_variants=20_000, n_trees=20, depth=6)
+    monkeypatch.setenv("VCTPU_STREAM_CHUNK_BYTES", str(256 << 10))
+
+    def argv(out):
+        return ["--input_file", w["vcf"], "--model_file", w["model"], "--model_name", w["model_name"],
+                "--reference_file", w["fasta"], "--output_file", str(out), "--backend", "gpu"]
+
+    assert tfv.run(argv(tmp_path / "off.vcf")) == 0
+    for k, v in (("VCTPU_OBS", "1"), ("VCTPU_OBS_CPUPROF", "1"), ("VCTPU_OBS_JAXPROF", "1")):
+        monkeypatch.setenv(k, v)
+    before = forest_cuda.LAUNCHES
+    assert tfv.run(argv(tmp_path / "on.vcf")) == 0
+    launches = forest_cuda.LAUNCHES - before
+    assert (tmp_path / "on.vcf").read_bytes() == (tmp_path / "off.vcf").read_bytes()
+    log = str(tmp_path / "on.vcf.obs.jsonl")
+    events = export.read_run(log)
+    committed = [e for e in events if e["kind"] == "journal" and e["name"] == "committed"][-1]
+    assert critical.critical_path(events)["chunks"] == committed["chunks"] == launches > 1
+    (cost,) = [e for e in events if e["kind"] == "profile" and e["name"] == "cost_analysis"]
+    assert cost["strategy"] == "cuda-wide" and cost["roofline_vps_h100"] > 0
+    summary = obs_profile.device_trace_summary(os.path.join(log + ".jaxprof", obs.DEVICE_TRACE_FILE))
+    assert sum(k for name, k in summary["kernels"].items() if "forest_wide_margin_kernel" in name) == launches
+    assert 0 < summary["busy_s"] <= [e for e in events if e["kind"] == "run_end"][-1]["dur"]
+    assert json.loads(open(log).readline())["topology"]["backend"] == "gpu"

@@ -538,9 +538,22 @@ def test_cli_lists_36_tools(tmp_path):
 
 
 def test_cli_lists_37_tools(tmp_path):
+    """The 37 tools of the slices up to the serving daemon are listed."""
     proc = _run_cli(["--help"], tmp_path)
     tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
-    assert len(tools) == 37 and set(tools) == TOOLS_OF_PR15 | set(NEW_TOOLS) | {"serve"}
+    earlier = TOOLS_OF_PR15 | set(NEW_TOOLS) | {"serve"}
+    assert len(earlier) == 37 and earlier <= set(tools)
+
+
+#: the telemetry and somatic slice's tools; True: a device program runs (the tool takes --backend)
+TELEMETRY_TOOLS = {"knobs": False, "obs": False, "run_somatic_comparison_and_graphs": True,
+                   "detailed_var_report": True}
+
+
+def test_cli_lists_41_tools(tmp_path):
+    proc = _run_cli(["--help"], tmp_path)
+    tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
+    assert len(tools) == 41 and set(tools) == TOOLS_OF_PR15 | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS)
 
 
 def test_the_featuremap_mrd_lpr_bridging_and_methylation_modules_are_scanned():
@@ -747,3 +760,83 @@ def test_serve_fabric_flags_exit_2(tmp_path, flags):
                      *flags], tmp_path)
     assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
     assert "fabric" in proc.stderr and "not ported" in proc.stderr and not (tmp_path / "ready.json").exists()
+
+
+# -- the run telemetry and the somatic composites ----------------------------------------
+
+
+def test_the_telemetry_and_somatic_modules_are_scanned():
+    """The telemetry's modules, the two composites and the report loader are
+    among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "obs/__init__", "obs/schema", "obs/manifest", "obs/profile", "obs/sampler", "obs/critical", "obs/export",
+        "obs/cli", "obs/prom", "utils/jsonio", "utils/trace", "utils/stages", "reports/report_data_loader",
+        "pipelines/run_somatic_comparison_and_graphs", "pipelines/detailed_var_report")} <= scanned
+
+
+@pytest.mark.parametrize("tool", list(TELEMETRY_TOOLS))
+def test_telemetry_and_somatic_tools_take_the_reference_options(tool):
+    """Each tool's options are the reference parser's, plus ``--backend`` where a device program runs."""
+    import importlib
+
+    from variantcalling_tpu.__main__ import TOOLS as JTOOLS
+    from variantcalling_tpu_torch.__main__ import TOOLS
+
+    assert TOOLS[tool].replace("variantcalling_tpu_torch.", "variantcalling_tpu.") == JTOOLS[tool]
+    want = _parser_options(importlib.import_module(JTOOLS[tool]).run)
+    got = _parser_options(importlib.import_module(TOOLS[tool]).run)
+    assert got == want | ({"--backend"} if TELEMETRY_TOOLS[tool] else set())
+
+
+@pytest.fixture(scope="module")
+def somatic_world(tmp_path_factory):
+    from variantcalling_tpu_torch import synthetic
+
+    d = tmp_path_factory.mktemp("iso_somatic")
+    return synthetic.write_sec_world(str(d), seed=4, length=300_000, n_pool=300, n_samples=1, n_private=20,
+                                     n_heldout=400)
+
+
+def _somatic_tools(w: dict) -> list[list[str]]:
+    return [["run_somatic_comparison_and_graphs", "--somatic_vcf", w["heldout"], "--gt_vcf", w["truth"],
+             "--highconf_bed", w["hcr"], "--reference", w["fasta"], "--output_folder", "x_som",
+             "--call_sample_name", "sm1", "--truth_sample_name", "HG001", "--make_plots"],
+            ["detailed_var_report", "--h5_concordance_file", "x_som/somatic_comparison.h5", "--h5_output",
+             "x_det.h5", "--html_output", "x_det.html"]]
+
+
+def test_telemetry_and_somatic_cli_cpu_runs_load_none_of_them(small_world, somatic_world, tmp_path):
+    """Where matplotlib does not import (as on the card's machine): a filter
+    run with obs, the CPU sampler and the device trace on, the ``obs`` and
+    ``knobs`` tools over its stream, and the two composites with ``--backend
+    cpu``, in one process: each exits 0 and none of the forbidden packages is
+    loaded."""
+    log = str(tmp_path / "f.vcf.obs.jsonl")
+    steps = [[*_argv(small_world, tmp_path / "f.vcf"), "--backend", "cpu"],
+             ["obs", "summary", log], ["obs", "bottleneck", log], ["obs", "critical-path", log],
+             ["obs", "export", log, "-o", str(tmp_path / "x.trace.json")], ["obs", "prom", log],
+             ["knobs", "--json"]] + [[*a, "--backend", "cpu"] for a in _somatic_tools(somatic_world)]
+    code = (
+        "import json, sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "from variantcalling_tpu_torch.__main__ import main\n"
+        f"rcs = [main(a) for a in {steps!r}]\n"
+        "print(json.dumps({'rc': rcs, 'loaded': sorted(m for m, mod in sys.modules.items() "
+        f"if m.split('.')[0] in {FORBIDDEN!r} and mod is not None)}}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH" and not k.startswith("VCTPU_")}
+    env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="", VCTPU_OBS="1", VCTPU_OBS_CPUPROF="1",
+               VCTPU_OBS_JAXPROF="1")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=tmp_path, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": [0] * len(steps), "loaded": []}
+    assert (tmp_path / "f.vcf.obs.jsonl.jaxprof").is_dir() and (tmp_path / "x_det.h5").exists()
+
+
+@pytest.mark.parametrize("i", range(2), ids=["run_somatic_comparison_and_graphs", "detailed_var_report"])
+def test_somatic_tools_without_cuda_exit_2(somatic_world, tmp_path, i):
+    proc = _run_cli(_somatic_tools(somatic_world)[i], tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
+    assert "no CUDA device" in proc.stderr and not list(tmp_path.glob("x*"))

@@ -4,7 +4,8 @@ Field for field the same registry; the same parse of each kind (and the same
 messages); ``validate_all`` refusing a malformed value of any knob, also of
 one the port does not read, so that both CLIs exit 2 on it before they read
 their input; the two knobs the port reads keep their messages; unknown
-``VCTPU_*`` names draw a warning with the closest registered name.
+``VCTPU_*`` names draw a warning with the closest registered name; the
+``knobs`` tool prints the reference's dump, as text and as ``--json``.
 """
 
 import dataclasses
@@ -114,3 +115,41 @@ def test_honoured_knobs_are_the_ones_the_port_reads():
                 read.add(node.value)
     assert "VCTPU_NATIVE_THREADS" in (root / "native" / "src" / "vctpu_threads.h").read_text()
     assert read | {"VCTPU_NATIVE_THREADS"} == knobs.HONOURED and knobs.HONOURED <= set(knobs.REGISTRY)
+
+
+#: the telemetry's knobs, which the port reads since its telemetry slice
+OBS_KNOBS = {"VCTPU_OBS", "VCTPU_OBS_PATH", "VCTPU_OBS_WINDOW_S", "VCTPU_OBS_PROFILE", "VCTPU_OBS_SAMPLE_S",
+             "VCTPU_OBS_CPUPROF", "VCTPU_OBS_CPUPROF_HZ", "VCTPU_OBS_TAIL_POLL_S", "VCTPU_OBS_JAXPROF",
+             "VCTPU_OBS_TRACE", "VCTPU_OBS_SNAPSHOT_S", "VCTPU_OBS_MAX_MB", "VCTPU_OBS_PROM_FILE", "VCTPU_TRACE"}
+
+
+def test_the_obs_knobs_are_honoured():
+    assert OBS_KNOBS <= knobs.HONOURED and {k for k in knobs.REGISTRY if k.startswith("VCTPU_OBS")} <= OBS_KNOBS
+
+
+@pytest.mark.parametrize("env", [{}, {"VCTPU_IO_THREADS": "3", "VCTPU_OBS": "1", "VCTPU_OBS_CPUPROF_HZ": "19"},
+                                 {"VCTPU_FOERST_STRATEGY": "wide"}], ids=["defaults", "set", "misspelt"])
+@pytest.mark.parametrize("json_out", [True, False], ids=["json", "text"])
+def test_knobs_tool_prints_the_references_dump(monkeypatch, capsys, env, json_out):
+    for k in [k for k in __import__("os").environ if k.startswith("VCTPU_")]:
+        monkeypatch.delenv(k)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    argv = ["--json"] if json_out else []
+    assert jknobs.run(list(argv)) == 0
+    want = capsys.readouterr().out
+    assert torch_main(["knobs", *argv]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    if json_out and not env.get("VCTPU_FOERST_STRATEGY"):
+        dump = __import__("json").loads(got)
+        assert list(dump) == sorted(knobs.REGISTRY) and dump["VCTPU_OBS"]["source"] == ("env" if env else "default")
+
+
+def test_knobs_tool_exits_2_on_a_malformed_value(monkeypatch, capsys):
+    monkeypatch.setenv("VCTPU_OBS_MAX_MB", "-3")
+    assert jknobs.run(["--json"]) == 2
+    want = capsys.readouterr()
+    assert torch_main(["knobs", "--json"]) == 2
+    got = capsys.readouterr()
+    assert (got.out, got.err) == (want.out, want.err) and "VCTPU_OBS_MAX_MB" in got.err

@@ -18,8 +18,10 @@ single-read SNV and MRD tools ``srsnv_training``, ``srsnv_inference`` and
 ``filter_vcf_with_lib_prep_recalibration_model``,
 ``calibrate_bridging_snvs``, and the methylation tools
 ``concat_methyldackel_csvs``, ``process_mbias``, ``process_merge_context``,
-``process_merge_context_no_cp_g`` and ``process_per_read``, and the resident
-daemon ``serve``: 37 tools. Each tool is a module exposing ``run(argv)``,
+``process_merge_context_no_cp_g`` and ``process_per_read``, the resident
+daemon ``serve``, the somatic composites ``run_somatic_comparison_and_graphs``
+and ``detailed_var_report``, and the registry and telemetry tools ``knobs``
+and ``obs``: 41 tools. Each tool is a module exposing ``run(argv)``,
 imported when called.
 """
 
@@ -30,6 +32,8 @@ import logging
 import sys
 
 TOOLS: dict[str, str] = {
+    "knobs": "variantcalling_tpu_torch.knobs",
+    "obs": "variantcalling_tpu_torch.obs.cli",
     "filter_variants_pipeline": "variantcalling_tpu_torch.pipelines.filter_variants",
     "train_models_pipeline": "variantcalling_tpu_torch.pipelines.train_models",
     "training_prep_pipeline": "variantcalling_tpu_torch.pipelines.training_prep",
@@ -68,6 +72,8 @@ TOOLS: dict[str, str] = {
     "process_merge_context_no_cp_g": "variantcalling_tpu_torch.pipelines.methylation.process_merge_context_no_cp_g",
     "process_per_read": "variantcalling_tpu_torch.pipelines.methylation.process_per_read",
     "serve": "variantcalling_tpu_torch.serve.cli",
+    "run_somatic_comparison_and_graphs": "variantcalling_tpu_torch.pipelines.run_somatic_comparison_and_graphs",
+    "detailed_var_report": "variantcalling_tpu_torch.pipelines.detailed_var_report",
 }
 
 

@@ -37,6 +37,8 @@ import gzip
 import io as _io
 import logging
 import os
+import threading
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -1000,10 +1002,11 @@ class _ParallelBgzfStream:
     reassembled in file order: the byte stream of a serial ``gzip`` read, so
     chunk boundaries do not depend on the worker count. Raises ``ValueError``
     on a file that is not BGZF-framed (plain gzip): the caller reads it
-    serially.
+    serially. ``profiler`` (``obs/profile.StageProfiler``): each worker's
+    inflate work goes to its ``inflate.w<idx>`` row.
     """
 
-    def __init__(self, path: str, pool):
+    def __init__(self, path: str, pool, profiler=None):
         from variantcalling_tpu_torch import knobs
         from variantcalling_tpu_torch.io import bgzf as bgzf_mod
         from variantcalling_tpu_torch.parallel.pipeline import imap_ordered
@@ -1015,6 +1018,7 @@ class _ParallelBgzfStream:
         if spans is None:
             raise ValueError(f"{path}: not BGZF-framed")
         groups = bgzf_mod.group_spans(spans, knobs.get_int("VCTPU_IO_SHARD_BYTES"))
+        self._profiler = profiler
         self._shards = imap_ordered(pool, self._inflate, groups, window=pool.threads + 2)
         self._buf = bytearray()
         self._eof = False
@@ -1030,7 +1034,14 @@ class _ParallelBgzfStream:
             faults.check("io.shard_decompress")
             return bgzf_mod.inflate_spans(self._mm, spans)
 
-        return retry_transient(attempt, f"bgzf shard inflate ({self.path})")
+        if self._profiler is None:
+            return retry_transient(attempt, f"bgzf shard inflate ({self.path})")
+        t0 = time.perf_counter()
+        out = retry_transient(attempt, f"bgzf shard inflate ({self.path})")
+        worker = threading.current_thread().name.rsplit("-", 1)[-1]
+        self._profiler.stage(f"inflate.{worker}").add_work(time.perf_counter() - t0,
+                                                           bytes_in=sum(s[1] for s in spans), bytes_out=len(out))
+        return out
 
     def read(self, n: int) -> bytes:
         while len(self._buf) < n and not self._eof:
@@ -1068,10 +1079,12 @@ class VcfChunkReader:
     ``chunk_bytes`` (argument, else ``VCTPU_STREAM_CHUNK_BYTES``), at any
     IO thread count. With ``VCTPU_IO_THREADS`` > 1 iteration parses the
     chunks on the IO pool, reassembled in order. One-shot; needs the native
-    engine; a mid-stream scan failure raises.
+    engine; a mid-stream scan failure raises. ``profiler``
+    (``obs/profile.StageProfiler``): the pool workers' inflate and parse
+    work goes to their ``inflate.w<idx>`` and ``parse.w<idx>`` rows.
     """
 
-    def __init__(self, path: str, chunk_bytes: int = 0, io_threads: int | None = None):
+    def __init__(self, path: str, chunk_bytes: int = 0, io_threads: int | None = None, profiler=None):
         from variantcalling_tpu_torch import knobs, native
         from variantcalling_tpu_torch.parallel.pipeline import resolve_io_threads
 
@@ -1085,6 +1098,7 @@ class VcfChunkReader:
             if knobs.raw("VCTPU_STREAM_CHUNK_BYTES") is not None else None
         self.chunk_bytes = int(chunk_bytes) or env_chunk or STREAM_CHUNK_BYTES
         self.io_threads = resolve_io_threads() if io_threads is None else max(1, int(io_threads))
+        self.profiler = profiler
         self._pool = None
         self._pool_shared = False
         #: chunks to advance without parsing (resume: their bytes are committed)
@@ -1133,7 +1147,7 @@ class VcfChunkReader:
         is BGZF-framed, else the serial gzip stream: the same bytes."""
         if self.io_threads > 1:
             try:
-                return _ParallelBgzfStream(self.path, self._ensure_pool())
+                return _ParallelBgzfStream(self.path, self._ensure_pool(), profiler=self.profiler)
             except ValueError:
                 pass  # not BGZF-framed: one deflate stream, inflated serially
         return gzip.open(self.path, "rb")
@@ -1217,13 +1231,24 @@ class VcfChunkReader:
         from variantcalling_tpu_torch.parallel.pipeline import imap_ordered
 
         try:
-            yield from imap_ordered(self._ensure_pool(), lambda r: self.parse_chunk(*r), raw,
-                                    window=self.io_threads + 1)
+            yield from imap_ordered(self._ensure_pool(), self._parse_worker, raw, window=self.io_threads + 1)
         finally:
             if self._pool_shared:
                 self._close_stream()
             else:
                 self.close()
+
+    def _parse_worker(self, raw: tuple) -> VariantTable:
+        """One pooled chunk parse, its work attributed to the worker's row."""
+        buf_np, lazy_buf = raw
+        if self.profiler is None:
+            return self.parse_chunk(buf_np, lazy_buf)
+        t0 = time.perf_counter()
+        table = self.parse_chunk(buf_np, lazy_buf)
+        worker = threading.current_thread().name.rsplit("-", 1)[-1]
+        self.profiler.stage(f"parse.{worker}").add_work(time.perf_counter() - t0, bytes_in=len(buf_np),
+                                                        records=len(table))
+        return table
 
     def _raw_mm(self):
         """Chunk buffers of a plain-text file: ``chunk_bytes`` from the last

@@ -13,9 +13,9 @@ The registry lists every knob of the reference, also those the port does
 not honour yet (``ROADMAP.md`` names the slice that brings each): they are
 validated all the same. :data:`HONOURED` names the knobs the port reads.
 :class:`scope` layers typed per-request overrides over the environment for
-one execution context (the serving daemon's requests, :mod:`serve`). Left
-out: the reference's ``##vctpu_knobs=`` header line, and the ``knobs``
-tool that dumps the registry.
+one execution context (the serving daemon's requests, :mod:`serve`).
+:func:`run` is the ``knobs`` tool that dumps the resolved registry. Left
+out: the reference's ``##vctpu_knobs=`` header line.
 
 Booleans accept ``1/true/yes/on`` and ``0/false/no/off`` (case
 insensitive); a set-but-empty variable means "unset" except for ``str``
@@ -377,6 +377,12 @@ HONOURED = frozenset({
     "VCTPU_SERVE_HOST", "VCTPU_SERVE_PORT", "VCTPU_SERVE_SOCKET", "VCTPU_SERVE_MAX_INFLIGHT",
     "VCTPU_SERVE_QUEUE_DEPTH", "VCTPU_SERVE_DEADLINE_S", "VCTPU_SERVE_DRAIN_S",
     "VCTPU_OBS", "VCTPU_OBS_PATH", "VCTPU_OBS_WINDOW_S",
+    # the run telemetry: the stage profiler and its resource sampler, the CPU
+    # sampler, causal tracing, snapshots, rotation, the Prometheus textfile,
+    # the device trace (torch.profiler), the obs tool's tail, the span log
+    "VCTPU_OBS_PROFILE", "VCTPU_OBS_SAMPLE_S", "VCTPU_OBS_CPUPROF", "VCTPU_OBS_CPUPROF_HZ",
+    "VCTPU_OBS_TAIL_POLL_S", "VCTPU_OBS_JAXPROF", "VCTPU_OBS_TRACE", "VCTPU_OBS_SNAPSHOT_S",
+    "VCTPU_OBS_MAX_MB", "VCTPU_OBS_PROM_FILE", "VCTPU_TRACE",
 })
 
 
@@ -574,3 +580,38 @@ def warn_unknown_env() -> list[str]:
         warnings.append(msg)
         log.warning("%s", msg)
     return warnings
+
+
+def run(argv: list[str]) -> int:
+    """CLI (``knobs``): print every knob's resolved value and source, as the
+    reference's ``vctpu knobs`` does. ``--json`` emits a machine-readable
+    dump. Exit 2 on a malformed value, after naming the knob."""
+    import argparse
+    import sys
+
+    parser = argparse.ArgumentParser(
+        prog="vctpu knobs",
+        description="dump the resolved VCTPU_* knob registry")
+    parser.add_argument("--json", action="store_true",
+                        help="emit JSON instead of aligned text")
+    args = parser.parse_args(argv)
+
+    for msg in warn_unknown_env():
+        print(f"warning: {msg}")
+    try:
+        rows = resolved()
+    except EngineError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        from variantcalling_tpu_torch.utils.jsonio import emit_json
+
+        emit_json({name: {"value": value, "source": src,
+                          "help": REGISTRY[name].help}
+                   for name, value, src in rows})
+        return 0
+    width = max(len(name) for name, _, _ in rows)
+    for name, value, src in rows:
+        shown = "" if value is None else value
+        print(f"{name:<{width}}  {shown!s:<12} [{src:>7}]  {REGISTRY[name].help}")
+    return 0

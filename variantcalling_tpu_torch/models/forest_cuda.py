@@ -41,6 +41,11 @@ leaf whose sum equals ``c - plen`` (a true decision is -1). Its plain version is
 Both kernels read ``x[row, feat]`` exactly — no TF32 product, no
 ``torch.matmul`` — and add each tree's leaf value to one float32
 accumulator per row in ascending tree order, writing (N,) margins.
+
+Both compute the same function, so both have one least work
+(:func:`scoring_work`, each kernel's ``work``): the count ``chip_smoke.py``
+bounds each kernel with and the run telemetry's ``cost_analysis`` event
+carries.
 """
 
 from __future__ import annotations
@@ -70,6 +75,30 @@ def _count_launch(name: str) -> None:
     """Add one launch to the count ``name`` (``LAUNCHES`` or ``TREE_STEP_LAUNCHES``)."""
     with _COUNT_LOCK:
         globals()[name] += 1
+
+
+#: H100 SXM published peaks (NVIDIA data sheet, at the 700 W power limit): the
+#: card's memory rate and its float32 rate outside the tensor cores
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_FP32_OPS_PER_S = 67e12
+
+
+def scoring_work(n: int, n_features: int, table_bytes: int, depths) -> dict:
+    """The least work of scoring ``n`` rows with a forest whose trees take
+    ``depths`` compares from root to leaf (complete trees: each row walks
+    every tree to that depth): each input byte read once (the (n, F) float32
+    features, the kernel's ``table_bytes``), each float32 margin written
+    once; operations are a row's threshold compares and the adds of its tree
+    sum. ``bound_ms`` is the larger of the bytes over the H100's memory rate
+    and the operations over its float32 rate, ``bound_by`` which one."""
+    depths = np.asarray(depths, dtype=np.int64)
+    nbytes = n * n_features * 4 + int(table_bytes) + n * 4
+    ops = n * (int(depths.sum()) + len(depths))
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
 
 #: one load of each kernel library, whichever thread asks first
 _LIB_LOCK = threading.Lock()
@@ -377,16 +406,26 @@ class WideForestKernel:
             return
         self.tables = compact_tables(forest, n_features)
         self._rows_max = tile_rows(n_features)
-        self.records = torch.from_numpy(self.tables.records).to(self.device)
-        self.tree_info = torch.from_numpy(np.stack([self.tables.tree_off, self.tables.depth], axis=1)).to(self.device)
-        self.chunk_tree = torch.from_numpy(self.tables.chunk_tree).to(self.device)
-        self.chunk_rec = torch.from_numpy(self.tables.chunk_rec).to(self.device)
-        self.chunk_global = torch.from_numpy(self.tables.chunk_global.astype(np.int32)).to(self.device)
+        self.records, self.tree_info, self.chunk_tree, self.chunk_rec, self.chunk_global = (
+            torch.from_numpy(a).to(self.device) for a in self._table_arrays(self.tables))
         self.device = self.records.device  # with its index
         # the launch's arguments after x and n, fixed for the kernel's life
         self._table_args = (n_features, self.records.data_ptr(), self.tree_info.data_ptr(),
                             self.chunk_tree.data_ptr(), self.chunk_rec.data_ptr(), self.chunk_global.data_ptr(),
                             self.tables.n_chunks, self.tables.chunk_records)
+
+    @staticmethod
+    def _table_arrays(tables: WideTables) -> tuple[np.ndarray, ...]:
+        """The arrays the kernel reads, as they go to the card: the records,
+        (root slot, depth) a tree, the chunks' trees, records and globality."""
+        return (tables.records, np.stack([tables.tree_off, tables.depth], axis=1), tables.chunk_tree,
+                tables.chunk_rec, tables.chunk_global.astype(np.int32))
+
+    def work(self, n: int) -> dict:
+        """:func:`scoring_work` of ``n`` rows through this kernel (a kernel
+        made for the CPU builds the tables it would upload, to count them)."""
+        tables = self.tables if self.tables is not None else compact_tables(self.forest, self.n_features)
+        return scoring_work(n, self.n_features, sum(a.nbytes for a in self._table_arrays(tables)), tables.depth)
 
     def load(self) -> None:
         """On the card: build and load the kernel's library and ask the
@@ -653,6 +692,12 @@ class TreeStepKernel:
         # the launch's table arguments, fixed for the kernel's life
         self._table_args = (self.n_features, self.tables.columns, self.blob.data_ptr(), self.units.data_ptr(),
                             self.stages.data_ptr(), len(self.tables.stages), self.tables.stage_bytes)
+
+    def work(self, n: int) -> dict:
+        """:func:`scoring_work` of ``n`` rows through this kernel."""
+        plen = self.gf.plen
+        depths = [int(p[p >= 0].max()) for p in plen]
+        return scoring_work(n, self.n_features, self.tables.blob.nbytes + self.tables.units.nbytes, depths)
 
     def load(self) -> None:
         """On the card: build and load the kernel's library and ask the

@@ -226,8 +226,13 @@ def native_threads() -> int | None:
 
 def _entry(fn):
     """An entry point ``fn(lib, ...)``: None (plain version) without the engine;
-    counted as served natively, with its seconds, unless it declines (None)."""
+    counted as served natively, with its seconds, unless it declines (None).
+    Each engine call runs inside a ``native_span`` of its name, so the CPU
+    sampler (``obs/sampler.py``) books its samples to it."""
+    from variantcalling_tpu_torch.obs.sampler import native_span
+
     name = fn.__name__
+    span_name = f"native.{name}"
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
@@ -236,7 +241,8 @@ def _entry(fn):
             note_plain(name)
             return None
         t0 = time.perf_counter()
-        out = fn(lib, *args, **kwargs)
+        with native_span(span_name):
+            out = fn(lib, *args, **kwargs)
         if out is None:
             note_plain(name)
         else:

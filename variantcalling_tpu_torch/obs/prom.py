@@ -1,22 +1,34 @@
-"""Prometheus text exposition of a metrics snapshot.
+"""Prometheus text exposition of obs metrics — the external-scraper face
+of the live telemetry plane.
 
-Counterpart of ``variantcalling_tpu/obs/prom.py``, the same renderer: the
-serving daemon's ``GET /v1/metrics`` answers with :func:`snapshot_to_prom`
-of its registry.
+Counterpart of ``variantcalling_tpu/obs/prom.py``, the same renderer; the
+serving daemon's ``GET /v1/metrics`` also answers with
+:func:`snapshot_to_prom` of its registry.
+
+Two consumers share one renderer:
+
+- ``vctpu obs prom <log>`` converts any obs run log's latest metrics
+  state (the final ``metrics`` snapshot of a finished run, or the last
+  periodic ``snapshot`` of an in-flight one) into the Prometheus text
+  exposition format, for ad-hoc scraping of a genome-scale run;
+- the live textfile writer (``VCTPU_OBS_PROM_FILE``) atomically rewrites
+  a node-exporter-style textfile on every periodic snapshot, so a
+  standing scraper watches the run without parsing JSONL.
 
 Mapping: counters -> ``vctpu_<name>_total``; gauges -> ``vctpu_<name>``
-plus ``vctpu_<name>_peak``; histograms -> a summary family (``quantile``
-label, ``_count``/``_sum`` series) from the cumulative buckets plus a
-``_rolling`` gauge family (the same quantile labels and a ``window_s``
-label) from the rolling-window rings. A metric named
-``<base>.by_endpoint.<endpoint>`` renders as the base family with an
-``{endpoint="..."}`` label. Metric names are sanitized to the Prometheus
+plus ``vctpu_<name>_peak``; histograms -> a summary family
+(``quantile`` label, ``_count``/``_sum`` series) from the CUMULATIVE
+buckets plus a ``_rolling`` gauge family (same quantile labels,
+``window_s`` label) from the rolling-window rings — rolling p95 means
+"recent", the SLO signal. Metric names are sanitized to the Prometheus
 charset; everything else is verbatim.
 """
 
 from __future__ import annotations
 
+import os
 import re
+import tempfile
 
 #: Prometheus metric-name charset (values and label values are free-form)
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
@@ -29,7 +41,7 @@ def _san(name: str) -> str:
     return _NAME_RE.sub("_", name)
 
 
-#: per-endpoint metric convention (the serving daemon's series): a
+#: per-endpoint metric convention (vctpu serve, docs/serving.md): a
 #: metric named ``<base>.by_endpoint.<endpoint>`` renders as the base
 #: family with a real ``{endpoint="…"}`` label, so per-endpoint request
 #: series (rolling p99s, shed/accepted/failed counters) are one
@@ -58,7 +70,9 @@ def _num(v) -> str:
     return format(float(v), ".9g")
 
 
-def snapshot_to_prom(snap: dict, tool: str = "vctpu", in_flight: bool = True) -> str:
+def snapshot_to_prom(snap: dict, tool: str = "vctpu",
+                     in_flight: bool = True,
+                     extra: dict[str, float] | None = None) -> str:
     """Render one metrics snapshot (``{counters, gauges, histograms}``,
     the ``metrics``/``snapshot`` event body) as text exposition."""
     lines: list[str] = []
@@ -77,6 +91,11 @@ def snapshot_to_prom(snap: dict, tool: str = "vctpu", in_flight: bool = True) ->
            "1 while the run is still writing its obs stream")
     lines.append(f'vctpu_run_in_flight{{tool="{tool}"}} '
                  f"{1 if in_flight else 0}")
+
+    for name, value in sorted((extra or {}).items()):
+        m = f"vctpu_{_san(name)}"
+        family(m, "gauge", f"obs run field {name}")
+        lines.append(f"{m} {_num(value)}")
 
     for name, value in sorted((snap.get("counters") or {}).items()):
         base, endpoint = _split_endpoint(name)
@@ -127,3 +146,45 @@ def snapshot_to_prom(snap: dict, tool: str = "vctpu", in_flight: bool = True) ->
                 f"{rm}_count{_label_str(ep_labels + [('window_s', window)])} "
                 f"{_num(rolling.get('count', 0))}")
     return "\n".join(lines) + "\n"
+
+
+def events_to_prom(events: list[dict]) -> str:
+    """Text exposition of an obs log's LATEST metrics state: the last
+    ``snapshot``/``metrics`` event wins (an in-flight run has periodic
+    snapshots, a finished one ends with the final ``metrics``)."""
+    manifest = next((e for e in events if e.get("kind") == "manifest"), None)
+    run_end = next((e for e in reversed(events)
+                    if e.get("kind") == "run_end"), None)
+    snap_ev = next((e for e in reversed(events)
+                    if e.get("kind") in ("snapshot", "metrics")), None)
+    snap = {k: snap_ev.get(k, {}) for k in
+            ("counters", "gauges", "histograms")} if snap_ev else {}
+    extra: dict[str, float] = {}
+    hb = next((e for e in reversed(events)
+               if e.get("kind") == "heartbeat"), None)
+    if hb is not None:
+        for key in ("chunks", "records", "vps", "pct", "eta_s"):
+            if isinstance(hb.get(key), (int, float)):
+                extra[f"progress.{key}"] = hb[key]
+    if run_end is not None:
+        extra["run_duration_seconds"] = float(run_end.get("dur", 0.0))
+    return snapshot_to_prom(
+        snap, tool=(manifest or {}).get("tool", "vctpu"),
+        in_flight=run_end is None, extra=extra)
+
+
+def write_textfile(path: str, text: str) -> None:
+    """Atomic textfile-collector write: a scraper must never read a
+    half-written exposition (tmp file + ``os.replace`` in one dir)."""
+    d = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(prefix=".vctpu_prom_", dir=d)
+    try:
+        with os.fdopen(fd, "w", encoding="utf-8") as fh:
+            fh.write(text)
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise

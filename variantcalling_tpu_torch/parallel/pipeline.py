@@ -1,7 +1,6 @@
 """Bounded-queue ordered stage executor: the host side of the streaming filter.
 
-Counterpart of ``variantcalling_tpu/parallel/pipeline.py`` (without its
-profiler and telemetry hooks). The streaming executor runs its stages as a
+Counterpart of ``variantcalling_tpu/parallel/pipeline.py``. The streaming executor runs its stages as a
 chunked pipeline over sequence-numbered items: one worker thread per stage,
 bounded queues between stages, results consumed strictly in submission
 order, so stage time hides behind the slowest stage instead of summing.
@@ -26,7 +25,14 @@ Design rules:
 
 Stage bodies are native engine calls, numpy, torch and file IO, which
 release the interpreter lock. Worker threads are named ``vctpu-io-w<N>``
-(:class:`IoPool`) and ``pipe-*`` (:class:`StagePipeline`).
+(:class:`IoPool`) and ``pipe-*`` (:class:`StagePipeline`); the CPU sampler
+attributes each to its family (``obs/sampler.py``).
+
+Telemetry, when an obs run is open: each stage item's span and latency
+histogram, the per-stage work, wait-in and wait-out attribution of a
+``profiler`` (``obs/profile.StageProfiler``), the pipeline's lifecycle
+events, and the retry, quarantine and watchdog events, each linked to the
+trace of the chunk it concerns.
 """
 
 from __future__ import annotations
@@ -41,12 +47,43 @@ import zlib
 from collections import deque
 from collections.abc import Callable, Iterable, Iterator
 
-from variantcalling_tpu_torch import knobs
+from variantcalling_tpu_torch import knobs, obs
+from variantcalling_tpu_torch.obs import sampler as obs_sampler
 from variantcalling_tpu_torch.utils import degrade, faults
 
 log = logging.getLogger(__name__)
 
 _SENTINEL = object()
+
+
+def _get_timed(q: queue.Queue, stats) -> tuple[bool, object]:
+    """One bounded (0.1s) queue get, with the blocked time accounted to
+    ``stats.wait_in`` when profiling (stage workers and the consumer share
+    it). Returns ``(ok, item)``."""
+    if stats is None:
+        try:
+            return True, q.get(timeout=0.1)
+        except queue.Empty:
+            return False, None
+    t0 = time.perf_counter()
+    try:
+        return True, q.get(timeout=0.1)
+    except queue.Empty:
+        return False, None
+    finally:
+        stats.add_wait_in(time.perf_counter() - t0)
+
+
+def _put_timed(put: Callable, q: queue.Queue, item, stats) -> bool:
+    """One bounded put through ``put`` (the pipeline's cancellable
+    ``_put``), with the blocked time accounted to ``stats.wait_out`` when
+    profiling: backpressure."""
+    if stats is None:
+        return put(q, item)
+    t0 = time.perf_counter()
+    ok = put(q, item)
+    stats.add_wait_out(time.perf_counter() - t0)
+    return ok
 
 
 class StageTimeoutError(RuntimeError):
@@ -201,6 +238,9 @@ def retry_transient(fn: Callable, what: str, attempts: int | None = None,
             if k + 1 >= attempts:
                 break
             delay = _retry_delay(k, backoff_s, threading.current_thread().name)
+            if obs.active():
+                obs.event("retry", what, attempt=k + 1, attempts=attempts, error=f"{type(e).__name__}: {e}")
+                obs.counter("io.retries").add(1)
             log.warning("transient error in %s (attempt %d/%d): %s — retrying in %.2fs", what, k + 1, attempts, e,
                         delay)
             if delay:
@@ -239,6 +279,16 @@ def retry_chunk(fn: Callable, what: str, seq: int | None = None):
     try:
         for k in range(max(1, attempts)):
             if k:
+                if obs.active():
+                    fields = {"what": what, "attempt": k, "retries": attempts - 1,
+                              "chunk": -1 if seq is None else seq, "error": f"{type(last).__name__}: {last}"}
+                    # the re-dispatch names the trace of the chunk it recovers
+                    # (the chunk body bound it with obs.trace_scope)
+                    tid = obs.current_trace()
+                    if tid is not None:
+                        fields["trace_id"] = tid
+                    obs.event("recovery", "chunk_retry", **fields)
+                    obs.counter("recovery.chunk_retries").add(1)
                 log.warning("chunk failure in %s%s (attempt %d/%d): %s — re-dispatching", what,
                             "" if seq is None else f" (chunk {seq})", k, attempts, last)
             _RETRY_TLS.final = k + 1 >= attempts
@@ -253,11 +303,19 @@ def retry_chunk(fn: Callable, what: str, seq: int | None = None):
     raise last  # type: ignore[misc]
 
 
-def record_quarantine(what: str, records: int, exc: BaseException) -> None:
+def record_quarantine(what: str, records: int, exc: BaseException, trace_id: str | None = None) -> None:
     """The bookkeeping of a chunk diverted to the quarantine sidecar: a
-    sanctioned degradation at warning level."""
+    sanctioned degradation at warning level, and the ``recovery``/
+    ``quarantine`` obs event carrying the chunk's trace id."""
     degrade.record("stream.quarantine", exc, warn=True,
                    fallback=f"chunk of {records} records diverted to the .quarantine sidecar ({what})")
+    if obs.active():
+        fields = {"what": what, "records": records, "error": f"{type(exc).__name__}: {exc}"}
+        tid = trace_id if trace_id is not None else obs.current_trace()
+        if tid is not None:
+            fields["trace_id"] = tid
+        obs.event("recovery", "quarantine", **fields)
+        obs.counter("recovery.quarantined_chunks").add(1)
 
 
 class StagePipeline:
@@ -275,11 +333,19 @@ class StagePipeline:
     (duplicate deliveries are dropped by sequence number: chunk bodies are
     pure). A stage callable with ``retry_safe = False`` (the BGZF carry) is
     never re-dispatched.
+
+    ``profiler`` (an ``obs/profile.StageProfiler``) takes each stage's work,
+    wait-in and wait-out while an obs run with profiling is open; the
+    caller emits it. ``source_name`` and ``consumer_name`` label the feed's
+    reads and the consumer's waits; ``source_pooled``: the source is an
+    ordered drain of a worker pool whose workers attribute their own work,
+    so time blocked in its ``next()`` is wait, not work.
     """
 
     def __init__(self, stages: list[Callable], queue_depth: int = 2,
                  threads: int | None = None, timeout: float | None = None,
-                 recover: bool = False):
+                 recover: bool = False, profiler=None, source_name: str = "source",
+                 consumer_name: str = "consume", source_pooled: bool = False):
         if stages is None:
             raise ValueError("StagePipeline needs a stage list")
         # an empty stage list is legal: source -> bounded queue -> consumer,
@@ -289,6 +355,10 @@ class StagePipeline:
         self.threads = resolve_threads() if threads is None else max(1, int(threads))
         self.timeout = resolve_stage_timeout() if timeout is None else max(0.0, float(timeout))
         self.recover = bool(recover)
+        self.profiler = profiler
+        self.source_name = source_name
+        self.consumer_name = consumer_name
+        self.source_pooled = source_pooled
         #: True when the watchdog spent its single retry on the last run
         self.watchdog_retried = False
         #: threads that did not join within the grace period on the last run
@@ -304,34 +374,101 @@ class StagePipeline:
 
     # -- serial path -------------------------------------------------------
 
-    @staticmethod
-    def _stage_item(fn: Callable, item):
+    def _active_profiler(self):
+        """The attribution sink for this run, or None (profiling rides the
+        obs run: no stream, or ``VCTPU_OBS_PROFILE=0``, no cost)."""
+        if self.profiler is None or not obs.active():
+            return None
+        return self.profiler if obs.profile_mod().enabled() else None
+
+    def _record_stage_work(self, name: str, dt: float, seq: int, prof) -> None:
+        """One stage item closed: span, latency histogram, attribution."""
+        obs.span(name, dt, threading.current_thread().name, chunk=seq)
+        obs.histogram(f"stage.{name}.s").observe(dt)
+        if prof is not None:
+            prof.stage(name).add_work(dt)
+
+    def _next_timed(self, it: Iterator, seq: int, prof) -> tuple[bool, object]:
+        """One source read, timed into the source stage when obs is on
+        (the serial loop and the feed thread share it). ``(ok, item)``."""
+        if not obs.active():
+            try:
+                return True, next(it)
+            except StopIteration:
+                return False, None
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return False, None
+        dt = time.perf_counter() - t0
+        if self.source_pooled:
+            # a pooled source: time blocked on the pool is wait-in, not work
+            obs.span(self.source_name, dt, threading.current_thread().name, chunk=seq)
+            obs.histogram(f"stage.{self.source_name}.s").observe(dt)
+            if prof is not None:
+                prof.stage(self.source_name).add_wait_in(dt, items=1)
+        else:
+            self._record_stage_work(self.source_name, dt, seq, prof)
+        return True, item
+
+    def _stage_item(self, i: int, fn: Callable, seq: int, item, prof):
         """One stage applied to one item: the injection points fire per
-        stage, on both paths."""
+        stage, on both paths, and the body is timed when obs is on."""
         faults.check("pipeline.stage")
         faults.check("pipeline.stage_hang")
-        return fn(item)
+        if not obs.active():
+            return fn(item)
+        t0 = time.perf_counter()
+        out = fn(item)
+        self._record_stage_work(self._stage_name(i), time.perf_counter() - t0, seq, prof)
+        return out
 
-    def _apply_stages(self, item, seq: int):
+    def _apply_stages(self, item, seq: int, prof):
         """One item through the serial stage chain, each stage with its own
         re-dispatch budget in supervised mode (``retry_safe = False`` stages
-        run exactly once)."""
+        run exactly once); the chunk's trace is bound so that the ladder's
+        events name it."""
         for i, fn in enumerate(self.stages):
             if self.recover and getattr(fn, "retry_safe", True):
-                item = retry_chunk(lambda it_=item, fn_=fn: self._stage_item(fn_, it_), self._stage_name(i), seq=seq)
+                with obs.trace_scope(obs.trace_of(item) if obs.tracing() else None):
+                    item = retry_chunk(lambda it_=item, i_=i, fn_=fn: self._stage_item(i_, fn_, seq, it_, prof),
+                                       self._stage_name(i), seq=seq)
             else:
-                item = self._stage_item(fn, item)
+                item = self._stage_item(i, fn, seq, item, prof)
         return item
 
     def _run_serial(self, source: Iterable) -> Iterator:
-        for seq, item in enumerate(source):
-            yield self._apply_stages(item, seq)
+        prof = self._active_profiler()
+        it = iter(source)
+        seq = 0
+        while True:
+            ok, item = self._next_timed(it, seq, prof)
+            if not ok:
+                break
+            yield self._apply_stages(item, seq, prof)
+            seq += 1
 
     # -- threaded path -----------------------------------------------------
 
     def run(self, source: Iterable) -> Iterator:
+        if obs.active():
+            obs.event("stage", "pipeline_start", stages=[self._stage_name(i) for i in range(len(self.stages))],
+                      threads=self.threads, queue_depth=self.queue_depth,
+                      mode="threaded" if self.parallel else "serial",
+                      # the serial loop runs no watchdog
+                      watchdog_s=self.timeout if self.parallel else 0)
+            if self.timeout and self.parallel:
+                obs.counter("watchdog.armed").add(1)
         if not self.parallel:
-            yield from self._run_serial(source)
+            done = 0
+            try:
+                for item in self._run_serial(source):
+                    done += 1
+                    yield item
+            finally:
+                if obs.active():  # the lifecycle closes on every exit
+                    obs.event("stage", "pipeline_end", chunks=done, unjoined=[])
             return
 
         stop = threading.Event()
@@ -357,17 +494,32 @@ class StagePipeline:
         # downstream and exits; it does not set the stop event, or the next
         # stage could see stop before the error. Only the consumer sets stop.
 
+        prof = self._active_profiler()
+
         def _feed() -> None:
+            obs_sampler.register_current("pipe.src")
+            src = prof.stage(self.source_name) if prof is not None else None
             try:
-                for seq, item in enumerate(source):
-                    if not _put(queues[0], (seq, item)):
+                it = iter(source)
+                seq = 0
+                while True:
+                    ok, item = self._next_timed(it, seq, prof)
+                    if not ok:
+                        break
+                    if not _put_timed(_put, queues[0], (seq, item), src):
                         return
+                    if obs.active():
+                        obs.gauge("queue.source.depth").set(queues[0].qsize())
+                    seq += 1
                 _put(queues[0], _SENTINEL)
             except BaseException as e:  # noqa: BLE001 — relayed to the consumer, re-raised there
                 _put(queues[0], (_SENTINEL, e))
 
         def _stage(i: int, fn: Callable) -> None:
+            # the sampler's family by stage name: flames read "pipe.render_stage"
+            obs_sampler.register_current(f"pipe.{self._stage_name(i)}")
             q_in, q_out = queues[i], queues[i + 1]
+            stats = prof.stage(self._stage_name(i)) if prof is not None else None
             # a stateful stage (retry_safe = False) sees each item exactly
             # once: no re-dispatch, and duplicates from an upstream watchdog
             # re-dispatch dropped before its body
@@ -375,9 +527,8 @@ class StagePipeline:
             last_seq = -1
             try:
                 while not stop.is_set():
-                    try:
-                        got = q_in.get(timeout=0.1)
-                    except queue.Empty:
+                    ok, got = _get_timed(q_in, stats)
+                    if not ok:
                         continue
                     if got is _SENTINEL or (isinstance(got, tuple) and got[0] is _SENTINEL):
                         _put(q_out, got)
@@ -389,14 +540,19 @@ class StagePipeline:
                     busy_item[i] = got
                     try:
                         if retryable:
-                            out = retry_chunk(lambda: self._stage_item(fn, item), self._stage_name(i), seq=seq)
+                            # the ladder's events name the chunk they recover
+                            with obs.trace_scope(obs.trace_of(item) if obs.tracing() else None):
+                                out = retry_chunk(lambda: self._stage_item(i, fn, seq, item, prof),
+                                                  self._stage_name(i), seq=seq)
                         else:
-                            out = self._stage_item(fn, item)
+                            out = self._stage_item(i, fn, seq, item, prof)
                         last_seq = seq
+                        if obs.active():
+                            obs.gauge(f"queue.stage{i}.depth").set(q_out.qsize())
                     finally:
                         busy_since[i] = None
                         busy_item[i] = None
-                    _put(q_out, (seq, out))
+                    _put_timed(_put, q_out, (seq, out), stats)
             except BaseException as e:  # noqa: BLE001 — relayed to the consumer, re-raised there
                 _put(q_out, (_SENTINEL, e))
 
@@ -406,8 +562,15 @@ class StagePipeline:
             stage's in-flight chunk once on a one-shot thread; the consumer
             drops duplicate sequence numbers. The run then gets one more
             deadline before the abort."""
+            msg = self._watchdog_message(busy_since, workers)
             log.warning("stage pipeline watchdog: first deadline expired — re-dispatching the wedged chunk once "
-                        "before aborting. %s", self._watchdog_message(busy_since, workers))
+                        "before aborting. %s", msg)
+            if obs.active():
+                # the wedged chunks' traces, so the re-dispatch resolves to their DAGs
+                tids = [tid for tid in (obs.trace_of(got[1]) for got in busy_item if got is not None)
+                        if tid is not None]
+                obs.event("recovery", "watchdog_retry", detail=msg, trace_ids=tids)
+                obs.counter("recovery.watchdog_retries").add(1)
             faults.cancel_hangs()
             for i, got in enumerate(busy_item):
                 if got is None or not getattr(self.stages[i], "retry_safe", True):
@@ -415,9 +578,9 @@ class StagePipeline:
                 seq, item = got
                 fn, q_out = self.stages[i], queues[i + 1]
 
-                def _redispatch(fn=fn, seq=seq, item=item, q_out=q_out):
+                def _redispatch(i=i, fn=fn, seq=seq, item=item, q_out=q_out):
                     try:
-                        out = self._stage_item(fn, item)
+                        out = self._stage_item(i, fn, seq, item, prof)
                     except BaseException as e:  # noqa: BLE001 — relayed to the consumer, re-raised there
                         _put(q_out, (_SENTINEL, e))
                         return
@@ -442,11 +605,11 @@ class StagePipeline:
         expect = 0
         last_progress = time.monotonic()
         self.watchdog_retried = False
+        consume = prof.stage(self.consumer_name) if prof is not None else None
         try:
             while True:
-                try:
-                    got = queues[-1].get(timeout=0.1)
-                except queue.Empty:
+                ok, got = _get_timed(queues[-1], consume)
+                if not ok:
                     if stop.is_set():
                         raise RuntimeError("stage pipeline cancelled") from None
                     if self.timeout and time.monotonic() - last_progress > self.timeout:
@@ -455,7 +618,11 @@ class StagePipeline:
                             _watchdog_recover()
                             last_progress = time.monotonic()
                             continue
-                        raise StageTimeoutError(self._watchdog_message(busy_since, workers)) from None
+                        msg = self._watchdog_message(busy_since, workers)
+                        if obs.active():
+                            obs.event("stage", "watchdog_fire", detail=msg)
+                            obs.counter("watchdog.fired").add(1)
+                        raise StageTimeoutError(msg) from None
                     continue
                 last_progress = time.monotonic()
                 if got is _SENTINEL:
@@ -487,6 +654,8 @@ class StagePipeline:
             if self.unjoined:
                 log.warning("stage pipeline: %d worker(s) did not join: %s", len(self.unjoined),
                             ", ".join(self.unjoined))
+            if obs.active():
+                obs.event("stage", "pipeline_end", chunks=expect, unjoined=list(self.unjoined))
 
     def _watchdog_message(self, busy_since: list[float | None], workers: list[threading.Thread]) -> str:
         now = time.monotonic()

@@ -45,6 +45,14 @@ one of its requests the run polls the request's cancel token
 (``utils/cancellation``) at every chunk it commits, or at the serial path's
 stage boundaries.
 
+Telemetry: with ``VCTPU_OBS=1`` the run writes its obs stream
+(:mod:`obs`) to ``<output_file>.obs.jsonl`` (or ``VCTPU_OBS_PATH``): the
+manifest, the resolved engine, strategy and family, one causal trace a
+chunk (``ingest``, ``score_stage``, ``render_stage``, ``compress_stage``,
+``writeback`` spans), heartbeats, the stage profiler's attribution and the
+forest kernel's counted work (``cost_analysis``); the output bytes are the
+same either way, and no span synchronizes the card.
+
 The run's device is ``cuda`` unless ``--backend cpu`` is given; asking for
 the card where there is none exits 2. Every ``VCTPU_*`` value is checked
 against the knob registry (:mod:`knobs`) before anything is read: a
@@ -62,6 +70,7 @@ import os
 import pickle
 import sys
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -70,7 +79,7 @@ import torch
 from variantcalling_tpu_torch import device as device_mod
 from variantcalling_tpu_torch import engine as engine_mod
 from variantcalling_tpu_torch import featurize as feat
-from variantcalling_tpu_torch import knobs, native
+from variantcalling_tpu_torch import knobs, native, obs
 from variantcalling_tpu_torch.featurize import (CENTER, DEVICE_FEATURES, classify_alleles,
                                                 device_feature_dict, host_featurize)
 from variantcalling_tpu_torch.io import bed as bedio
@@ -86,7 +95,7 @@ from variantcalling_tpu_torch.models.dan import DanModel
 from variantcalling_tpu_torch.models.forest import FlatForest
 from variantcalling_tpu_torch.ops import intervals as iops
 from variantcalling_tpu_torch.parallel import pipeline as pipeline_mod
-from variantcalling_tpu_torch.utils import cancellation, degrade, faults, h5_utils
+from variantcalling_tpu_torch.utils import cancellation, degrade, faults, h5_utils, trace
 from variantcalling_tpu_torch.utils.keyed_cache import KeyedCache
 from variantcalling_tpu_torch.utils.stages import stage
 
@@ -293,6 +302,7 @@ class FusedScorer:
         self.device = device
         self.sent_bytes = 0
         self._sent_lock = threading.Lock()
+        self.strategy = strategy
         # finalize: None for the threshold and DAN programs, which return final scores
         self.program, self.finalize = predictor_for(model, self.names, strategy, device)
 
@@ -348,6 +358,11 @@ class FusedScorer:
         for lo in range(0, n, CHUNK):
             hi = min(lo + CHUNK, n)
             out[lo:hi] = self.chunk_output(hf, host_cols, lo, hi, genome, gpos).cpu().numpy()
+        if n and obs.active() and hasattr(self.program, "work"):
+            # the forest kernel's counted work, once a run and strategy
+            from variantcalling_tpu_torch.obs import profile as profile_mod
+
+            profile_mod.record_scoring_cost(self.strategy, self.program, n)
         return out if self.finalize is None else self.finalize(out)
 
 
@@ -378,6 +393,16 @@ class FilterContext:
         log.info("engine %s, model family %s, forest strategy %s, genome positions pack into 4 bytes: %s, "
                  "host engine %s", self.engine, self.model_family, self.forest_strategy, self.genome_packable,
                  native.engine_name())
+        if obs.active():
+            # the run's decisions, once a run, beside the stream's spans
+            obs.event("resolve", "engine", value=self.engine, requested=device.type,
+                      reason=f"the run's device is {device}")
+            obs.event("resolve", "forest_strategy", value=self.forest_strategy,
+                      requested=forest_mod.requested_strategy() if isinstance(model, FlatForest) else "-",
+                      reason=f"model type {type(model).__name__}")
+            obs.event("resolve", "model_family", value=self.model_family,
+                      requested=registry.requested_family() if family is None else family,
+                      reason=f"model type {type(model).__name__}")
         self.model = model
         self.fasta = fasta
         self.hpol_dist = hpol_dist
@@ -534,6 +559,27 @@ def quarantine_path(out_path: str) -> str:
     return str(out_path) + QUARANTINE_SUFFIX
 
 
+def _traced_chunks(tables):
+    """The causal-tracing ingest boundary of the serial-IO layout: every
+    chunk table gets a run-scoped trace id, carried on the table
+    (``_obs_trace``), and its root ``ingest`` span, so every later stage of
+    the chunk (score, render, compress, the sequenced commit) and every
+    recovery event links to it. Ids are allocated in chunk order. A
+    pass-through when tracing is off (``obs.new_trace`` returns None)."""
+    it = iter(tables)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            table = next(it)
+        except StopIteration:
+            return
+        tid = obs.new_trace()
+        if tid is not None:
+            table._obs_trace = tid
+            obs.trace_span(tid, "ingest", time.perf_counter() - t0, records=len(table))
+        yield table
+
+
 def _guard_chunk(table: VariantTable, what: str, body):
     """The quarantine rung of the recovery ladder for one chunk body: runs
     ``body()``; on failure re-raises (the default: a poison chunk fails the
@@ -628,13 +674,23 @@ def run_streaming(args, ctx: FilterContext) -> dict:
     counts (records, chunks, resumed, quarantined, cache traffic, layout,
     peak device memory).
     """
+    # telemetry: a caller that came through run() already opened the obs run
+    # (start_run returns None and the events join it); a direct caller gets
+    # its own stream here
+    obs_run = obs.start_run("filter_variants_pipeline", default_path=str(args.output_file) + ".obs.jsonl",
+                            inputs={"input": args.input_file}, device=str(ctx.device))
     ctx.stream_resident = ctx.stream_resident_possible
     lease = feat.lease_genome(ctx.fasta, ctx.device) if ctx.stream_resident else contextlib.nullcontext()
     try:
         with lease:
-            return _run_streaming_impl(args, ctx)
+            stats = _run_streaming_impl(args, ctx)
+    except BaseException as e:
+        obs.end_run(obs_run, f"error: {type(e).__name__}")
+        raise
     finally:
         ctx.stream_resident = False
+    obs.end_run(obs_run, "ok")
+    return stats
 
 
 def _run_streaming_impl(args, ctx: FilterContext) -> dict:
@@ -644,13 +700,22 @@ def _run_streaming_impl(args, ctx: FilterContext) -> dict:
     # the device's first use (kernel libraries, the window features' and the
     # families' programs) before the stream, outside any chunk's watchdog
     ctx.scorer(ctx.feature_names).warm_up()
-    reader = VcfChunkReader(args.input_file)
+    from variantcalling_tpu_torch.obs import profile as profile_mod
+    from variantcalling_tpu_torch.obs import sampler as sampler_mod
+
+    # the stage profiler, made before the reader so the IO pool's inflate
+    # and parse work is attributed from the first shard; the executor feeds
+    # each stage's work and waits into it, the commit loop its writeback
+    prof = profile_mod.StageProfiler() if profile_mod.enabled() else None
+    # this thread runs the sequenced commit for the run
+    sampler_mod.register_current("committer")
+    reader = VcfChunkReader(args.input_file, profiler=prof)
     prefetch_cancel = threading.Event()
     prefetch = threading.Thread(target=_prefetch_genome, args=(ctx, prefetch_cancel), name="genome-prefetch",
                                 daemon=True)
     prefetch.start()
     try:
-        return _stream(args, ctx, reader)
+        return _stream(args, ctx, reader, prof)
     finally:
         # on every exit the IO pool is shut down and the prefetch cancelled
         # and joined (a dying run must not cut a sidecar write short)
@@ -659,9 +724,10 @@ def _run_streaming_impl(args, ctx: FilterContext) -> dict:
         prefetch.join()
 
 
-def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
+def _stream(args, ctx: FilterContext, reader: VcfChunkReader, prof=None) -> dict:
     """:func:`_run_streaming_impl` past its set-up: the stage pipeline, the
-    sequenced commit, the atomic rename and the ``.tbi``."""
+    sequenced commit, the atomic rename and the ``.tbi``. Each chunk's item
+    carries its trace id from render on (the table is dropped there)."""
     from variantcalling_tpu_torch.io import chunk_cache as chunk_cache_mod
     from variantcalling_tpu_torch.io import identity as identity_mod
     from variantcalling_tpu_torch.io import journal as journal_mod
@@ -671,45 +737,90 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
 
     def score_stage(table):
         # the chunk body rides the recovery ladder: the executor (serial IO)
-        # or raw_chunk_worker (pooled) re-dispatches; the guard quarantines
-        out = _guard_chunk(table, "score_stage", lambda: ctx.score_table(table))
+        # or raw_chunk_worker (pooled) re-dispatches; the guard quarantines.
+        # The chunk's trace is bound to the thread meanwhile, so the ladder's
+        # events name it
+        tid = getattr(table, "_obs_trace", None)
+        with obs.trace_scope(tid):
+            t0 = time.perf_counter()
+            out = _guard_chunk(table, "score_stage", lambda: ctx.score_table(table))
+            if tid is not None:
+                obs.trace_span(tid, "score_stage", time.perf_counter() - t0, records=len(table))
         return (table, None, None) if out is None else (table, *out)
 
     def render_stage(item):
         table, score, filters = item
+        # the trace id rides the rendered tuple from here on
+        tid = getattr(table, "_obs_trace", None)
+        t0 = time.perf_counter()
         if score is None:
             # quarantined chunk: nothing to the output, the original records
             # (no TREE_SCORE, the original FILTER) to the sidecar
             qbody = assemble_table_bytes(table)
             if qbody is None:
                 qbody = render_table_bytes_python(table)
-            return b"", len(table), 0, bytes(qbody)
-        extra = {"TREE_SCORE": np.round(score, 4)}
-        body = assemble_table_bytes(table, new_filters=filters, extra_info=extra)
-        if body is None:
-            body = render_table_bytes_python(table, new_filters=filters, extra_info=extra)
-        return body, len(table), int(np.sum(filters.codes == 0)), None
+            out = b"", len(table), 0, bytes(qbody), tid
+        else:
+            extra = {"TREE_SCORE": np.round(score, 4)}
+            body = assemble_table_bytes(table, new_filters=filters, extra_info=extra)
+            if body is None:
+                body = render_table_bytes_python(table, new_filters=filters, extra_info=extra)
+            out = body, len(table), int(np.sum(filters.codes == 0)), None, tid
+        if tid is not None:
+            obs.trace_span(tid, "render_stage", time.perf_counter() - t0, records=len(table))
+        return out
+
+    def _timed_worker(fn, stage_name, item, n_records):
+        """One stage callable on an IO-pool worker, with the span and
+        histogram the executor gives a stage, and the worker's own
+        attribution row (``<stage>.w<idx>``)."""
+        if not obs.active():
+            return fn(item)
+        t0 = time.perf_counter()
+        out = fn(item)
+        dt = time.perf_counter() - t0
+        tname = threading.current_thread().name
+        obs.span(stage_name, dt, tname)
+        obs.histogram(f"stage.{stage_name}.s").observe(dt)
+        if prof is not None:
+            prof.stage(f"{stage_name}.{tname.rsplit('-', 1)[-1]}").add_work(dt, records=n_records)
+        return out
 
     def raw_chunk_worker(item):
         """One chunk's whole body over its raw buffer: parse, score, render,
         inside the chunk's re-dispatch budget. With the cache on, the raw
-        span is keyed first: a hit returns the stored rendered body; a miss
-        computes and stages its result for publication at commit."""
-        seq, (buf_np, lazy_buf) = item
+        span is keyed first: a hit returns the stored rendered body (its
+        trace: one ``cache_hit`` span and the commit's); a miss computes and
+        stages its result for publication at commit. The trace id was
+        allocated at the raw feed; the ``ingest`` span, the parse, is
+        emitted once a chunk whatever the retries spend."""
+        seq, (buf_np, lazy_buf), tid = item
         ckey = None
         if cache_session is not None:
             ckey = cache_session.key_of(buf_np)
             hit = cache_session.get(ckey)
             if hit is not None:
                 body, k, p = hit
-                return body, k, p, None
+                if tid is not None:
+                    obs.trace_span(tid, "cache_hit", 0.0, records=k)
+                return body, k, p, None, tid
+        ingest_span_emitted = [False]
 
         def body():
             faults.check("pipeline.stage")
             faults.check("pipeline.stage_hang")
-            return render_stage(score_stage(reader.parse_chunk(buf_np, lazy_buf)))
+            t0 = time.perf_counter()
+            table = reader.parse_chunk(buf_np, lazy_buf)
+            if tid is not None:
+                table._obs_trace = tid
+                if not ingest_span_emitted[0]:
+                    ingest_span_emitted[0] = True
+                    obs.trace_span(tid, "ingest", time.perf_counter() - t0, records=len(table))
+            scored = _timed_worker(score_stage, "score_stage", table, len(table))
+            return _timed_worker(render_stage, "render_stage", scored, len(table))
 
-        out = pipeline_mod.retry_chunk(body, "chunk_worker", seq=seq)
+        with obs.trace_scope(tid):
+            out = pipeline_mod.retry_chunk(body, "chunk_worker", seq=seq)
         if ckey is not None and out[3] is None:
             # clean chunks only: a quarantined chunk's empty body is not a
             # function of its input
@@ -728,10 +839,15 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
         compressor = BgzfChunkCompressor(pool=reader.shared_pool() if reader.io_threads > 1 else None)
 
         def compress_stage(item):
-            body, k, p, q = item
+            body, k, p, q, tid = item
             if not len(body):  # a quarantined chunk: nothing to compress
-                return b"", k, p, q
-            return compressor.add(memoryview(body) if isinstance(body, np.ndarray) else body), k, p, q
+                return b"", k, p, q, tid
+            data = memoryview(body) if isinstance(body, np.ndarray) else body
+            t0 = time.perf_counter()
+            out = compressor.add(data)
+            if tid is not None:
+                obs.trace_span(tid, "compress_stage", time.perf_counter() - t0, bytes_in=len(data))
+            return out, k, p, q, tid
 
         # the one stage that is not a pure chunk body: the BGZF carry takes
         # every byte it sees, so it runs exactly once a chunk and a failure
@@ -772,6 +888,9 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
             journal = journal_mod.ChunkJournal(out_path)
             journal.reopen()
             log.info("streaming resume: %d chunks (%d records) already committed", resume.chunks, resume.n_records)
+            if obs.active():
+                obs.event("journal", "resume_decision", outcome="resumed", chunks=resume.chunks,
+                          records=resume.n_records, watermark=resume.watermark)
         else:
             journal_mod.discard(out_path)  # leftovers of older runs
             part_token = journal_mod.new_partial_token()
@@ -780,6 +899,13 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
             if resume_enabled:
                 journal = journal_mod.ChunkJournal(out_path)
                 journal.begin(dict(meta, partial=part_token))
+            if obs.active():
+                if gz:
+                    obs.event("journal", "resume_decision", outcome="disabled",
+                              reason="gz output: BGZF block state does not survive a kill")
+                else:
+                    obs.event("journal", "resume_decision", outcome="fresh" if resume_enabled else "opted_out",
+                              journaling=resume_enabled)
     except BaseException:
         if part_token is not None:
             journal_mod.release_token(part_token)
@@ -788,27 +914,46 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
     # chunk-result cache: opened after the resume decision, so sequence
     # numbers count post-skip delivery order on both sides
     cache_session = chunk_cache_mod.open_session(scoring_cfg)
+
+    def traced_raw(raws):
+        # trace ids allocated at the raw feed, in chunk order (the pooled
+        # workers parse concurrently); the sequence number is the cache's
+        # staging key
+        for seq, raw in enumerate(raws):
+            yield seq, raw, obs.new_trace()
+
     if reader.io_threads > 1:
         # pooled: each chunk's whole body (parse, score, render) is one task
         # over its raw buffer on the IO pool, reassembled in order
         layout = "pooled"
-        source = pipeline_mod.imap_ordered(reader.shared_pool(), raw_chunk_worker, enumerate(reader.iter_raw()),
+        source = pipeline_mod.imap_ordered(reader.shared_pool(), raw_chunk_worker, traced_raw(reader.iter_raw()),
                                            window=reader.io_threads + 2)
         stages = []
     elif cache_session is not None:
         # serial IO with the cache: the same raw-buffer body, inline on the
         # feed (lookups key the raw span)
         layout = "serial-io-cached"
-        source = map(raw_chunk_worker, enumerate(reader.iter_raw()))
+        source = map(raw_chunk_worker, traced_raw(reader.iter_raw()))
         stages = []
     else:
         layout = "serial-io"
-        source = reader
+        source = _traced_chunks(reader)
         stages = [score_stage, render_stage]
     if compressor is not None:
         stages.append(compress_stage)
-    pipe = pipeline_mod.StagePipeline(stages, queue_depth=2, recover=True)
+    # the feed of the raw-buffer layouts attributes its own work (the chunk
+    # bodies on the workers), so time blocked in it is wait, not work
+    pipe = pipeline_mod.StagePipeline(stages, queue_depth=2, recover=True, profiler=prof, source_name="ingest",
+                                      consumer_name="writeback", source_pooled=layout != "serial-io")
     gen = pipe.run(source)
+    wb = prof.stage("writeback") if prof is not None else None
+    # heartbeats: progress counts every committed chunk, resumed ones too;
+    # the rate counts the records this run scored over its elapsed time. A .gz
+    # input's chunks count inflated bytes, so its heartbeats carry no pct
+    bytes_comparable = not args.input_file.endswith(".gz")
+    input_bytes = os.path.getsize(args.input_file)
+    resumed_records = n_total
+    t_start = time.perf_counter()
     ok = False
     resumed_chunks = n_chunks
     n_quar_chunks = n_quar_records = 0
@@ -819,7 +964,7 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
                 # the header rides the block stream the bodies do, as the
                 # serial writer's buffer takes it
                 _sink_write(sink, compressor.add(header_bytes) if compressor is not None else header_bytes)
-            for body, k, p, qbody in gen:
+            for body, k, p, qbody, trace_id in gen:
                 # cooperative cancellation (a serving daemon's deadline or drain): chunk-granular,
                 # raising here unwinds through the failure teardown below, never a torn commit
                 cancellation.check("streaming filter run")
@@ -834,10 +979,25 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
                     n_quar_chunks += 1
                     n_quar_records += k
                 data = memoryview(body) if isinstance(body, np.ndarray) else body
-                _sink_write(sink, data)
+                if wb is not None or trace_id is not None:
+                    t0 = time.perf_counter()
+                    _sink_write(sink, data)
+                    dt = time.perf_counter() - t0
+                    if wb is not None:
+                        wb.add_work(dt, bytes_out=len(data))
+                    if trace_id is not None:
+                        # the sequenced commit: the terminal span of the chunk's DAG
+                        obs.trace_span(trace_id, "writeback", dt, chunk=n_chunks, bytes_out=len(data))
+                        obs.end_trace(trace_id)
+                else:
+                    _sink_write(sink, data)
                 n_total += k
                 n_pass += p
                 n_chunks += 1
+                if obs.active():
+                    _heartbeat(k, p, n_chunks, n_total, n_pass, resumed_chunks, resumed_records,
+                               time.perf_counter() - t_start, reader.chunk_bytes,
+                               input_bytes if bytes_comparable else None)
                 if journal is not None:
                     # the journal never claims bytes still in the write buffer
                     sink.flush()
@@ -868,6 +1028,8 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
             else:
                 log.info("streaming run failed after %d chunks; partial output and journal kept for resume",
                          n_chunks)
+                if obs.active():
+                    obs.event("journal", "kept_for_resume", chunks=n_chunks)
 
     def _commit():
         # injection point "io.commit": fires before the rename, so a
@@ -889,9 +1051,17 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
         journal.finish()
     if cache_session is not None:
         cache_session.finish()
+    if obs.active():
+        obs.event("journal", "committed", chunks=n_chunks, records=n_total)
     if n_quar_chunks:
         log.warning("quarantine: %d chunk(s), %d record(s) diverted to %s — the output lacks that many records",
                     n_quar_chunks, n_quar_records, q_path)
+    if prof is not None:
+        # ingest bytes: the reader takes chunk_bytes of (inflated) text a
+        # chunk, capped at the file's size where the two compare
+        approx = n_chunks * reader.chunk_bytes
+        prof.stage("ingest").bytes_in = min(approx, input_bytes) if bytes_comparable else approx
+        prof.emit(wall_s=time.perf_counter() - t_start, records=n_total - resumed_records)
     if gz:
         write_tabix(out_path)
     stats = {"n": n_total, "n_pass": n_pass, "chunks": n_chunks, "layout": layout,
@@ -904,6 +1074,26 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader) -> dict:
     return stats
 
 
+def _heartbeat(k: int, p: int, n_chunks: int, n_total: int, n_pass: int, resumed_chunks: int,
+               resumed_records: int, elapsed: float, chunk_bytes: int, input_bytes: int | None) -> None:
+    """The streaming run's counters and progress event after committing a
+    chunk of ``k`` records (``p`` passing): records, the variants a second
+    this run scored, and, where the input's size compares with its chunks'
+    (``input_bytes``), the percent done and the seconds left."""
+    obs.counter("records").add(k)
+    obs.counter("records_pass").add(p)
+    obs.histogram("chunk.records").observe(k)
+    hb = {"chunks": n_chunks, "records": n_total, "records_pass": n_pass,
+          "vps": round((n_total - resumed_records) / elapsed) if elapsed > 0 else 0}
+    if input_bytes:
+        done = min(n_chunks * chunk_bytes, input_bytes)
+        session_done = min((n_chunks - resumed_chunks) * chunk_bytes, input_bytes)
+        hb["pct"] = round(100.0 * done / input_bytes, 2)
+        hb["eta_s"] = round(elapsed * (input_bytes - done) / session_done, 2) \
+            if 0 < session_done and done < input_bytes else 0.0
+    obs.event("heartbeat", "stream", **hb)
+
+
 def run(argv: list[str]) -> int:
     args = get_parser().parse_args(argv)
     try:
@@ -913,6 +1103,24 @@ def run(argv: list[str]) -> int:
     except (engine_mod.EngineError, device_mod.DeviceUnavailable) as e:
         log.error("%s", e)
         return 2
+    # the run manifest opens the telemetry stream (VCTPU_OBS=1); the output
+    # bytes are the same either way
+    obs_run = obs.start_run("filter_variants_pipeline", default_path=str(args.output_file) + ".obs.jsonl",
+                            argv=argv, inputs={"input": args.input_file, "model": args.model_file,
+                                               "reference": args.reference_file}, device=str(device))
+    status = "error"
+    try:
+        rc = _run_impl(args, device, family)
+        status = "ok" if rc == 0 else f"exit {rc}"
+        return rc
+    except BaseException as e:
+        status = f"error: {type(e).__name__}"
+        raise
+    finally:
+        obs.end_run(obs_run, status)
+
+
+def _run_impl(args, device: torch.device, family: str | None) -> int:
     try:
         model = registry.load_model(args.model_file, args.model_name)
         blacklist = read_blacklist(args.blacklist) if args.blacklist else None
@@ -943,7 +1151,9 @@ def run_loaded(args, model, fasta: FastaReader, annotate, blacklist, device: tor
         family=family)
     if streaming_eligible(args.limit_to_contig):
         log.info("streaming %s", args.input_file)
-        stats = run_streaming(args, ctx)
+        with stage("stream"):
+            stats = run_streaming(args, ctx)
+        log.debug("%s", trace.report())
         log.info("wrote %s: %d variants, %d PASS", args.output_file, stats["n"], stats["n_pass"])
         return 0
     log.info("reading %s", args.input_file)

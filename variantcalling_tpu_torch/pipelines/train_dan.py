@@ -20,7 +20,11 @@ the card; asking for it without one exits 2):
 - checkpoints every ``--checkpoint_every`` steps (:mod:`io.checkpoint`, the
   newest two kept), and resume from the latest;
 - the model saved through ``registry.save_models`` under
-  :data:`MODEL_NAME`, in the reference's class names.
+  :data:`MODEL_NAME`, in the reference's class names;
+- with ``VCTPU_OBS=1``, the run's obs stream at
+  ``<output_file_prefix>.obs.jsonl``: an ``ingest_chunk`` event a chunk, a
+  ``step`` event a logged step (its loss, steps and rows a second) and the
+  ``train.step_s`` histogram of each step's host time.
 
 The port trains on one rank: ``VCTPU_RANK``/``VCTPU_NUM_PROCESSES``/
 ``VCTPU_SPAN`` asking for more exit 2 (multi-GPU is ROADMAP A7). Only h5
@@ -43,7 +47,7 @@ import torch
 
 from variantcalling_tpu_torch import device as device_mod
 from variantcalling_tpu_torch import engine as engine_mod
-from variantcalling_tpu_torch import knobs
+from variantcalling_tpu_torch import knobs, obs
 from variantcalling_tpu_torch.io import checkpoint, hdf5
 from variantcalling_tpu_torch.io import identity as identity_mod
 from variantcalling_tpu_torch.models import dan
@@ -235,6 +239,7 @@ def ingest_streaming(args):
     parts = []
     names: list[str] | None = None
     for i, unit in enumerate(units):
+        t0 = time.monotonic()
         if i in done:
             with np.load(done[i], allow_pickle=False) as z:
                 part = (z["x"], [str(s) for s in z["names"]], z["label"], z["weight"])
@@ -248,6 +253,9 @@ def ingest_streaming(args):
             raise SystemExit(f"ingest chunk {i} produced feature layout {part[1]} != {names} — the input's "
                              "frames disagree on columns")
         parts.append(part)
+        if obs.active():
+            obs.event("train", "ingest_chunk", i=i, rows=int(len(part[0])), cached=i in done,
+                      seconds=round(time.monotonic() - t0, 4))
     resumed = sum(1 for i in range(len(units)) if i in done)
     if resumed:
         log.info(RESUMED_LOG, resumed, len(units))
@@ -279,13 +287,26 @@ def run(argv) -> int:
         log.error("train_dan reads a concordance h5 (.h5, .hdf, .hdf5); %s is not one (VCF training is not a "
                   "path of the reference's train_dan either)", args.input_file)
         return 2
+    # the run's telemetry stream (VCTPU_OBS=1): the ingest chunks, the
+    # logged steps and the step-time histogram
+    obs_run = obs.start_run("train_dan", default_path=str(args.output_file_prefix) + ".obs.jsonl", argv=argv,
+                            inputs={"input": args.input_file}, device=str(device))
+    status = "error"
     try:
-        if args.checkpoint_dir:
-            checkpoint.check_not_orbax(args.checkpoint_dir)
-        return _run_impl(args, device)
-    except (hdf5.H5Unsupported, checkpoint.ForeignCheckpoint, engine_mod.EngineError) as e:
-        log.error("%s", e)
-        return 2
+        try:
+            if args.checkpoint_dir:
+                checkpoint.check_not_orbax(args.checkpoint_dir)
+            rc = _run_impl(args, device)
+        except (hdf5.H5Unsupported, checkpoint.ForeignCheckpoint, engine_mod.EngineError) as e:
+            log.error("%s", e)
+            rc = 2
+        status = "ok" if rc == 0 else f"exit {rc}"
+        return rc
+    except BaseException as e:
+        status = f"error: {type(e).__name__}"
+        raise
+    finally:
+        obs.end_run(obs_run, status)
 
 
 def _restored(args, cfg: dan.DanConfig, params: dict, device: torch.device):
@@ -335,16 +356,23 @@ def _run_impl(args, device: torch.device) -> int:
         data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in data.items()}
         rng = np.random.default_rng(args.seed + start_step)
         window_t0, window_start = time.monotonic(), start_step
+        # host time of each step (no card synchronisation of its own)
+        step_hist = obs.histogram("train.step_s")
         for lo in range(start_step, args.n_steps, INDEX_WINDOW):
             steps = range(lo, min(lo + INDEX_WINDOW, args.n_steps))
             idx = torch.from_numpy(np.stack([rng.integers(0, n, bs) for _ in steps])).to(device)
             for j, step in enumerate(steps):
+                t0 = time.monotonic()
                 batch = {k: v.index_select(0, idx[j]) for k, v in data.items()}
                 params, opt_state, loss = dan.train_step(cfg, params, opt_state, batch)
+                step_hist.observe(time.monotonic() - t0)
                 if step % max(1, args.log_every) == 0:
                     value = float(loss)
                     steps_per_s = (step + 1 - window_start) / max(time.monotonic() - window_t0, 1e-9)
                     log.info(STEP_LOG, step, value, steps_per_s)
+                    if obs.active():
+                        obs.event("train", "step", step=step, loss=value, steps_per_s=round(steps_per_s, 3),
+                                  rows_per_s=round(steps_per_s * bs, 1))
                     window_t0, window_start = time.monotonic(), step + 1
                 if args.checkpoint_dir and (step + 1) % args.checkpoint_every == 0:
                     checkpoint.save(args.checkpoint_dir, step, params, opt_state)

@@ -5,7 +5,8 @@ whose fallback cannot change output bytes (a chunk-cache entry that could
 not be read or written, a chunk diverted to the quarantine sidecar under
 ``VCTPU_QUARANTINE=1``) routes through :func:`record`, which logs the event
 with its fallback and keeps a bounded trail (:data:`EVENTS`) that tests and
-operators can read. Scoring-path failures never degrade: they fail the run.
+operators can read, and writes a ``degrade`` event into the open obs run
+stream. Scoring-path failures never degrade: they fail the run.
 """
 
 from __future__ import annotations
@@ -29,6 +30,12 @@ def record(point: str, exc: BaseException | None = None,
     exc_text = "" if exc is None else f"{type(exc).__name__}: {exc}"
     with _LOCK:
         EVENTS.append((point, exc_text, fallback))
+    # every degradation also lands in the open obs run stream
+    from variantcalling_tpu_torch import obs
+
+    if obs.active():
+        obs.event("degrade", point, exc=exc_text, fallback=fallback, warn=bool(warn))
+        obs.counter("degradations").add(1)
     (log.warning if warn else log.debug)("degradation %s: %s -> %s", point, exc_text or "(no exception)",
                                          fallback or "(continue)")
 

@@ -2,7 +2,8 @@
 
 Each stage of a run logs ``stage <name> <seconds> s`` at INFO
 (:data:`STAGE_LOG`), the record that ``chip_smoke.py`` sums a run's stages
-from. Every tool times its stages with :func:`stage`.
+from, and lands as a span in the span table and the open obs stream
+(:func:`utils.trace.record`). Every tool times its stages with :func:`stage`.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
+
+from variantcalling_tpu_torch.utils import trace
 
 log = logging.getLogger(__name__)
 
@@ -23,10 +26,17 @@ def stage(name: str, device=None):
     CUDA device, after synchronizing it, so the time holds the card's work.
     A stage without ``device`` that touches the card ends in a copy to the
     host, which waits for that work."""
+    local = trace.TRACER._local
+    local.depth += 1
     t0 = time.perf_counter()
-    yield
-    if getattr(device, "type", None) == "cuda":
-        import torch
+    try:
+        yield
+        if getattr(device, "type", None) == "cuda":
+            import torch
 
-        torch.cuda.synchronize(device)
-    log.info(STAGE_LOG, name, time.perf_counter() - t0)
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        log.info(STAGE_LOG, name, dt)
+    finally:
+        local.depth -= 1
+    trace.record(name, dt, local.depth)
