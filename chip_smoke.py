@@ -280,6 +280,22 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    with obs on, a ``step`` event a step; ``run_somatic_comparison_and_graphs``
    and ``detailed_var_report`` on phase 12's world, card against CPU
    (``SOMATIC_DETAIL``, figures skipped counted); ``knobs --json``.
+18. the report chain and the QC metrics tools (``phase_report_chain``), on
+   the files phases 12, 14 and 15 wrote, each tool twice in two directories
+   side by side (the two runs' files byte-equal): ``create_var_report`` at
+   verbosity 2 on phase 12's card comparison h5 (its counts the
+   comparison's own), ``create_somatic_gt_file`` on a tumor/normal pair
+   planted on phase 12's truth (the planted records back exactly, no
+   planted problematic position in the BED; its GT VCF and BED then through
+   ``run_somatic_comparison_and_graphs --backend gpu``), ``report_wo_gt`` on
+   phase 14's ``full_analysis`` h5, ``mrd_data_analysis`` on phase 15's
+   summary, scored cfDNA map and signature with a read and a signature
+   query (the filtered tables equal to a numpy selection), and the six QC
+   tools chained on two seeded samples, ``convert_h5_to_json`` holding every
+   key of ``create_qc_report``'s h5; figures skipped counted
+   (``REPORT_CHAIN_DETAIL`` lines: wall, peak RSS, how many ran side by side).
+   Independent runs of phases 13-15 (the CPU twins beside the card runs,
+   the gVCF tools, the methylation tools) also run side by side since then.
 
 A ``PHASE_SECONDS`` line follows every phase (wall seconds of the phase),
 and one for the whole run before the result lines.
@@ -2243,6 +2259,8 @@ def _tool_child(spec: dict, results) -> None:
     from variantcalling_tpu_torch.models import forest_cuda, gbt_hist
 
     os.environ.update(spec["env"])
+    if spec.get("cwd"):  # relative outputs: two runs in two directories write the same bytes
+        os.chdir(spec["cwd"])
     plog = logging.getLogger("variantcalling_tpu_torch")
     plog.setLevel(logging.INFO)
     times = _RunLog()
@@ -2861,9 +2879,10 @@ RUNS_SCAN_BYTES = (1, 16)
 
 def _tool_jobs(jobs: list[tuple[str, list[str], str, dict | None]], card: str, kind: str,
                served_by: tuple[str, ...] = ("vcf_parse",), plain_ok: tuple[str, ...] = (),
-               raises: bool = False) -> dict[str, dict]:
+               raises: bool = False, side_by_side: bool = False) -> dict[str, dict]:
     """Phase 13's and 14's runs ``(tool, argv, label, env)``, each in a process
-    of its own (:func:`_forked`), one after another: exit 0 (with ``raises``:
+    of its own (:func:`_forked`), one after another, or with ``side_by_side``
+    all at once (:func:`_forked_all`: independent runs): exit 0 (with ``raises``:
     the ``RuntimeError`` of the fingerprinting tools' error list, exit 1, its
     text and the run's standard output kept), no kernel launched (none lies
     on these paths); served by the host engine's ``served_by`` entry points
@@ -2872,8 +2891,10 @@ def _tool_jobs(jobs: list[tuple[str, list[str], str, dict | None]], card: str, k
     line (wall, stages, peak RSS and card memory, figures skipped) and a
     ``HOST_ENGINE`` line for each."""
     out = {}
+    specs = {label: {"tool": tool, "argv": argv, "env": env or {}, "raises": raises} for tool, argv, label, env in jobs}
+    together = _forked_all(specs, _tool_child) if side_by_side else {}
     for tool, argv, label, env in jobs:
-        run = _forked({"tool": tool, "argv": argv, "env": env or {}, "raises": raises}, label, _tool_child)
+        run = together[label] if side_by_side else _forked(specs[label], label, _tool_child)
         check(run["rc"] == int(raises) and (run["error"] is not None) == raises,
               f"{label}: exit {run['rc']}, error {run['error']!r}")
         check(not any(run["launches"].values()), f"{label}: a kernel was launched ({run['launches']})")
@@ -2884,7 +2905,7 @@ def _tool_jobs(jobs: list[tuple[str, list[str], str, dict | None]], card: str, k
             check(not missed and not plain, f"{label}: the host engine did not serve {missed}; plain: {plain}")
         detail = {"run": label, "tool": tool, "card": card, "wall_s": run["seconds"], "stages": run["stages"],
                   "peak_rss_bytes": run["peak_rss_bytes"], "peak_device_bytes": run["peak_device_bytes"],
-                  "figures_skipped": run["figures_skipped"]}
+                  "figures_skipped": run["figures_skipped"], "side_by_side": len(jobs) if side_by_side else 1}
         print(f"{kind}_DETAIL " + json.dumps(detail), flush=True)
         print("HOST_ENGINE " + json.dumps({"run": label, "calls": host}), flush=True)
         out[label] = run
@@ -3014,7 +3035,7 @@ def phase_genotypes_gvcf(tmp: Path, card: str, worlds: dict | None = None) -> di
             jobs.append(("convert_haploid_regions", ["--input_vcf", hap["vcf"], "--output_vcf",
                                                      str(o / f"hap_{label}_{b}.vcf"), "--haploid_regions", regions,
                                                      "--backend", b], f"haploid_{label}_{b}", None))
-    runs = _tool_jobs(jobs, card, "GENOTYPE")
+    runs = _tool_jobs(jobs, card, "GENOTYPE", side_by_side=True)
     n_imp = gcmp.differing_imputation_records((o / "imp_gpu.vcf").read_bytes(), (o / "imp_cpu.vcf").read_bytes(),
                                               imp["annotated"])
     gcmp.same_counters((o / "imp_gpu_counts.csv").read_bytes(), (o / "imp_cpu_counts.csv").read_bytes())
@@ -3025,7 +3046,8 @@ def phase_genotypes_gvcf(tmp: Path, card: str, worlds: dict | None = None) -> di
                                               str(o / "rerun_gpu.vcf"), "--backend", "gpu"], "impute_rerun_gpu", None)]
         + [("correct_genotypes_by_imputation", [*chain, "--temp_dir", str(o / f"chain_{b}"), "--output_vcf",
                                                 str(o / f"chain_{b}.vcf.gz"), "--backend", b], f"impute_chain_{b}",
-            None) for b in ("gpu", "cpu")], card, "GENOTYPE", plain_ok=("vcf_parse", "bgzf_decompress_array"))
+            None) for b in ("gpu", "cpu")], card, "GENOTYPE", plain_ok=("vcf_parse", "bgzf_decompress_array"),
+        side_by_side=True)
     runs.update(chain_runs)
     check(_csv_column(o / "rerun_gpu_counts.csv", "changed_gt") == 0, "imputation rerun: a genotype changed")
     first, second = (o / "imp_gpu.vcf").read_bytes(), (o / "rerun_gpu.vcf").read_bytes()
@@ -3083,9 +3105,10 @@ def phase_genotypes_gvcf(tmp: Path, card: str, worlds: dict | None = None) -> di
 
     dn = ("denovo_recalibrated_qualities", [trio["trio"], str(o / "denovo.vcf"), trio["maternal_json"],
                                              trio["paternal_json"]], "denovo", None)
-    runs.update(_tool_jobs([*gvcf_jobs(gv["gvcf"], "gvcf", None), dn], card, "GVCF"))
+    runs.update(_tool_jobs([*gvcf_jobs(gv["gvcf"], "gvcf", None), dn], card, "GVCF", side_by_side=True))
     runs.update(_tool_jobs([*gvcf_jobs(str(cut), "cut", None), *gvcf_jobs(str(cut), "cut_plain",
-                                                                             {"VCTPU_NO_NATIVE": "1"})], card, "GVCF"))
+                                                                             {"VCTPU_NO_NATIVE": "1"})], card, "GVCF",
+                           side_by_side=True))
     n_in = len(_records(Path(gv["gvcf"])))
     kept = len(_records(o / "gvcf_cleanup.g.vcf"))
     check(n_in - kept == gv["planted_drops"], f"cleanup: {n_in - kept} dropped, {gv['planted_drops']} planted")
@@ -3222,7 +3245,7 @@ def phase_reports(tmp: Path, card: str, trio_vcf: str | None = None, worlds: dic
                  ("run_no_gt_report", ["somatic_analysis", "--input_file", rw["case"], "--reference", rw["fasta"],
                                        *somatic, "--output_prefix", str(o / b / "case"), "--backend", b],
                   f"somatic_analysis_{b}", None)]
-    runs = _tool_jobs(jobs, card, "REPORT")
+    runs = _tool_jobs(jobs, card, "REPORT", side_by_side=True)
     for name in ("full", "eval"):
         problems = rc.h5_problems(str(o / "gpu" / f"{name}.h5"), str(o / "cpu" / f"{name}.h5"))
         check(not problems, f"run_no_gt_report {name}: the card's h5 differs from the CPU's: {problems[:3]}")
@@ -3258,6 +3281,7 @@ def phase_reports(tmp: Path, card: str, trio_vcf: str | None = None, worlds: dic
           f"{rc.EXPOSURE_RTOL}), near the cut {counts['near_cut']}, order flips {counts['order_flips']}; the planted "
           f"hmer tables, {int(planted['dbs'].sum())} doublets, {planted['n_indels']} indels and SBS96 counts found; "
           f"the case's mixture {recovered} (others {others:.4f}) ({card})", flush=True)
+    out["files"] = {"full_h5": full}
     out["no_gt"] = {"exposures": {k: v for k, v in counts.items() if k != "near_cut_groups"}, "mixture": recovered,
                     "others": others}
 
@@ -3265,7 +3289,7 @@ def phase_reports(tmp: Path, card: str, trio_vcf: str | None = None, worlds: dic
     jobs = [("joint_calling_report", ["--input_vcf", trio_vcf, "--dbsnp", trio_dbsnp, "--h5_output",
                                       str(o / b / "joint.h5"), "--html_output", str(o / b / "joint.html"),
                                       "--backend", b], f"joint_calling_report_{b}", None) for b in ("gpu", "cpu")]
-    runs.update(_tool_jobs(jobs, card, "REPORT"))
+    runs.update(_tool_jobs(jobs, card, "REPORT", side_by_side=True))
     sub = ["--h5_substitution_error_rate", motifs, "--h5_output", str(o / "sub.h5"), "--html_output",
            str(o / "sub.html")]
     runs.update(_tool_jobs([("substitution_error_rate_report", sub, "substitution_error_rate_report", None)], card,
@@ -3290,7 +3314,8 @@ def phase_reports(tmp: Path, card: str, trio_vcf: str | None = None, worlds: dic
                  ("training_set_consistency_check", ["--training_json_conf", confs["tscc"], "--region_str",
                                                      fw["region_str"], "--out_dir", str(o / b / "tscc"), "--backend",
                                                      b], f"training_set_consistency_check_{b}", None)]
-    fp = _tool_jobs(jobs, card, "FINGERPRINT", served_by=("bam_pileup", "cram_pileup"), raises=True)
+    fp = _tool_jobs(jobs, card, "FINGERPRINT", served_by=("bam_pileup", "cram_pileup"), raises=True,
+                    side_by_side=True)
     runs.update(fp)
     for tool, key in (("quick_fingerprinting", "qf_errors"), ("training_set_consistency_check", "tscc_errors")):
         g, c = fp[f"{tool}_gpu"], fp[f"{tool}_cpu"]
@@ -3330,25 +3355,34 @@ def phase_reports(tmp: Path, card: str, trio_vcf: str | None = None, worlds: dic
     return out
 
 
+def _slice_runs(jobs: list[tuple], card: str) -> dict[str, dict]:
+    """Runs of phase 15 ``(tool, argv, label, kind, env, served_by)``, all at
+    once, each in a process of its own (:func:`_forked_all`, the counts set to
+    0 just before each and read just after; independent runs only): exit 0; a
+    card run served by the host engine's ``served_by`` entry points; a
+    ``<kind>_DETAIL`` line (wall, stages, launches, peak RSS and card memory,
+    how many ran side by side) and a ``HOST_ENGINE`` line a run."""
+    runs = _forked_all({label: {"tool": tool, "argv": argv, "env": env or {}}
+                        for tool, argv, label, _, env, _ in jobs}, _tool_child)
+    for tool, argv, label, kind, _, served_by in jobs:
+        run = runs[label]
+        check(run["rc"] == 0, f"{label}: exit {run['rc']}")
+        host = run["host"]
+        if "gpu" in argv:
+            missed = [k for k in served_by if host.get(k, {}).get("native", 0) == 0]
+            check(not missed, f"{label}: the host engine did not serve {missed}")
+        detail = {"run": label, "tool": tool, "card": card, "wall_s": run["seconds"], "stages": run["stages"],
+                  "launches": run["launches"], "notes": run["notes"], "peak_rss_bytes": run["peak_rss_bytes"],
+                  "peak_device_bytes": run["peak_device_bytes"], "side_by_side": len(jobs)}
+        print(f"{kind}_DETAIL " + json.dumps(detail), flush=True)
+        print("HOST_ENGINE " + json.dumps({"run": label, "calls": host}), flush=True)
+    return runs
+
+
 def _slice_run(tool: str, argv: list[str], label: str, card: str, kind: str, env: dict | None = None,
                served_by: tuple[str, ...] = ("vcf_parse",)) -> dict:
-    """One run of phase 15 in a process of its own (:func:`_forked`, the
-    counts set to 0 just before it and read just after): exit 0; a card run
-    served by the host engine's ``served_by`` entry points; a ``<kind>_DETAIL``
-    line (wall, stages, launches, peak RSS and card memory) and a
-    ``HOST_ENGINE`` line."""
-    run = _forked({"tool": tool, "argv": argv, "env": env or {}}, label, _tool_child)
-    check(run["rc"] == 0, f"{label}: exit {run['rc']}")
-    host = run["host"]
-    if "gpu" in argv:
-        missed = [k for k in served_by if host.get(k, {}).get("native", 0) == 0]
-        check(not missed, f"{label}: the host engine did not serve {missed}")
-    detail = {"run": label, "tool": tool, "card": card, "wall_s": run["seconds"], "stages": run["stages"],
-              "launches": run["launches"], "notes": run["notes"], "peak_rss_bytes": run["peak_rss_bytes"],
-              "peak_device_bytes": run["peak_device_bytes"]}
-    print(f"{kind}_DETAIL " + json.dumps(detail), flush=True)
-    print("HOST_ENGINE " + json.dumps({"run": label, "calls": host}), flush=True)
-    return run
+    """One run of phase 15 in a process of its own (:func:`_slice_runs`)."""
+    return _slice_runs([(tool, argv, label, kind, env, served_by)], card)[label]
 
 
 def _vcf_body(path: str) -> bytes:
@@ -3438,15 +3472,12 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
     check(run["launches"]["gbt_hist"] == n_trees * depth and run["launches"]["forest_wide"] >= 1,
           f"srsnv_training: launches {run['launches']}")
     check(run["notes"].get("auc", 0) > 0.9, f"srsnv_training: held-out AUC {run['notes']}")
-    cut = {}
-    for label, backend, env in (("gpu", "gpu", {}), ("cpu_torch", "cpu", {"VCTPU_NATIVE_GBT": "0"}),
-                                ("cpu_native", "cpu", {})):
-        path = str(o / f"srsnv_cut_{label}.pkl")
-        runs[f"srsnv_training_cut_{label}"] = _slice_run(
-            "srsnv_training", ["--tp_featuremap", fm["tp_cut"], "--fp_featuremap", fm["fp_cut"], "--output_model",
-                               path, "--n_trees", str(CUT_TREES), "--backend", backend],
-            f"srsnv_training_cut_{label}", card, "FEATUREMAP", env)
-        cut[label] = registry.load_model(path, "srsnv_model")
+    fits = (("gpu", "gpu", {}), ("cpu_torch", "cpu", {"VCTPU_NATIVE_GBT": "0"}), ("cpu_native", "cpu", {}))
+    runs.update(_slice_runs([("srsnv_training", [
+        "--tp_featuremap", fm["tp_cut"], "--fp_featuremap", fm["fp_cut"], "--output_model",
+        str(o / f"srsnv_cut_{label}.pkl"), "--n_trees", str(CUT_TREES), "--backend", backend],
+        f"srsnv_training_cut_{label}", "FEATUREMAP", env, ("vcf_parse",)) for label, backend, env in fits], card))
+    cut = {label: registry.load_model(str(o / f"srsnv_cut_{label}.pkl"), "srsnv_model") for label, _, _ in fits}
     x_cut, _, _ = build_training_frame(fm["tp_cut"], fm["fp_cut"], None, None)
     fit = _check_fit_bar(cut["gpu"], cut["cpu_torch"], "srsnv_training GPU vs CPU torch program", x_cut)
     print("TRAIN_FIT_DETAIL " + json.dumps({"run": "srsnv_training_cut", "rows": len(x_cut), "card": card, **fit}),
@@ -3456,13 +3487,13 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
     out["srsnv_training"] = {"auc": run["notes"]["auc"], "fit": fit, "native": native}
 
     # -- 2. srsnv_inference ---------------------------------------------------------------------------------------
-    scored = {}
-    for name in ("cfdna", "control"):
-        scored[name] = str(o / f"scored_{name}.vcf")
-        run = _slice_run("srsnv_inference", ["--featuremap", fm[name], "--model", card_model,
-                                             "--output_featuremap", scored[name], "--backend", "gpu"],
-                         f"srsnv_inference_{name}_gpu", card, "FEATUREMAP")
-        runs[f"srsnv_inference_{name}_gpu"] = run
+    scored = {name: str(o / f"scored_{name}.vcf") for name in ("cfdna", "control")}
+    runs.update(_slice_runs([("srsnv_inference", ["--featuremap", fm[name], "--model", card_model,
+                                                  "--output_featuremap", scored[name], "--backend", "gpu"],
+                              f"srsnv_inference_{name}_gpu", "FEATUREMAP", None, ("vcf_parse",)) for name in scored],
+                            card))
+    for name in scored:
+        run = runs[f"srsnv_inference_{name}_gpu"]
         check(run["launches"]["forest_wide"] >= 1 and run["launches"]["forest_tree_step"] == 0,
               f"srsnv_inference {name}: launches {run['launches']}")
     reads = f["n_cfdna"]
@@ -3471,14 +3502,13 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
           f"forest_wide launches {runs['srsnv_inference_cfdna_gpu']['launches']['forest_wide']} ({card})", flush=True)
     # the cut is the cfDNA map's first records, and each read is scored alone: the CPU's and gemm's outputs
     # of the cut are held to the head of the card's output of the whole map
-    bodies = {}
-    for label, backend, env in (("cpu", "cpu", {}), ("gemm", "gpu", {"VCTPU_FOREST_STRATEGY": "gemm"})):
-        path = str(o / f"scored_cut_{label}.vcf")
-        run = _slice_run("srsnv_inference", ["--featuremap", fm["cfdna_cut"], "--model", card_model,
-                                             "--output_featuremap", path, "--backend", backend],
-                         f"srsnv_inference_cut_{label}", card, "FEATUREMAP", env)
-        runs[f"srsnv_inference_cut_{label}"] = run
-        bodies[label] = _vcf_body(path)
+    pins = (("cpu", "cpu", {}), ("gemm", "gpu", {"VCTPU_FOREST_STRATEGY": "gemm"}))
+    runs.update(_slice_runs([("srsnv_inference", ["--featuremap", fm["cfdna_cut"], "--model", card_model,
+                                                  "--output_featuremap", str(o / f"scored_cut_{label}.vcf"),
+                                                  "--backend", backend],
+                              f"srsnv_inference_cut_{label}", "FEATUREMAP", env, ("vcf_parse",))
+                             for label, backend, env in pins], card))
+    bodies = {label: _vcf_body(str(o / f"scored_cut_{label}.vcf")) for label, _, _ in pins}
     card_head = _vcf_body(scored["cfdna"])[:len(bodies["cpu"])]
     check(runs["srsnv_inference_cut_gemm"]["launches"]["forest_tree_step"] >= 1
           and runs["srsnv_inference_cut_gemm"]["launches"]["forest_wide"] == 0,
@@ -3488,13 +3518,13 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
 
     # -- 3. mrd_analysis ------------------------------------------------------------------------------------------
     mrd = {}
-    for label, backend, name in (("gpu", "gpu", "cfdna"), ("cpu", "cpu", "cfdna"), ("control_gpu", "gpu", "control")):
-        h5 = str(o / f"mrd_{label}.h5")
-        runs[f"mrd_{label}"] = _slice_run("mrd_analysis", [
-            "--signature_vcf", fm["signature"], "--featuremap", scored[name], "--coverage_per_locus",
-            str(f["depth"]), "--output_h5", h5, "--backend", backend],
-            f"mrd_{label}", card, "MRD")
-        frame = h5_utils.read_hdf(h5, "mrd_summary")
+    cases = (("gpu", "gpu", "cfdna"), ("cpu", "cpu", "cfdna"), ("control_gpu", "gpu", "control"))
+    runs.update(_slice_runs([("mrd_analysis", [
+        "--signature_vcf", fm["signature"], "--featuremap", scored[name], "--coverage_per_locus", str(f["depth"]),
+        "--output_h5", str(o / f"mrd_{label}.h5"), "--backend", backend], f"mrd_{label}", "MRD", None, ("vcf_parse",))
+        for label, backend, name in cases], card))
+    for label, _, _ in cases:
+        frame = h5_utils.read_hdf(str(o / f"mrd_{label}.h5"), "mrd_summary")
         mrd[label] = {c: frame[c][0].item() for c in frame.columns}
     check(mrd["gpu"] == mrd["cpu"], f"mrd_analysis: the card's frame {mrd['gpu']} differs from the CPU's {mrd['cpu']}")
     tf = f["tumor_fraction"]
@@ -3506,21 +3536,20 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
           f"{mrd['gpu']['tf_ci_high']:.3g}] (planted {tf}), detected; the control {mrd['control_gpu']} ({card})",
           flush=True)
     out["mrd"] = mrd
+    out["files"] = {"mrd_h5": str(o / "mrd_gpu.h5"), "scored": scored["cfdna"], "signature": fm["signature"]}
 
     # -- 4. the LPR pair ------------------------------------------------------------------------------------------
     lpr_model = str(o / "lpr_gpu" / "lib_prep_model.npz")
-    for backend in ("gpu", "cpu"):
-        runs[f"lpr_train_{backend}"] = _slice_run("train_lib_prep_recalibration_model", [
-            "--out_dir", str(o / f"lpr_{backend}"), "--ref_fasta", fm["fasta"], "--featuremap_vcf",
-            fm["lpr_featuremap"], "--calls_vcf", fm["lpr_calls"], "--balance_tp_fp", "--n_trees", str(CUT_TREES),
-            "--backend", backend], f"lpr_train_{backend}", card, "LPR")
+    runs.update(_slice_runs([("train_lib_prep_recalibration_model", [
+        "--out_dir", str(o / f"lpr_{backend}"), "--ref_fasta", fm["fasta"], "--featuremap_vcf", fm["lpr_featuremap"],
+        "--calls_vcf", fm["lpr_calls"], "--balance_tp_fp", "--n_trees", str(CUT_TREES), "--backend", backend],
+        f"lpr_train_{backend}", "LPR", None, ("vcf_parse",)) for backend in ("gpu", "cpu")], card))
     check(runs["lpr_train_gpu"]["launches"]["gbt_hist"] == CUT_TREES * depth,
           f"lpr train: launches {runs['lpr_train_gpu']['launches']}")
-    for backend in ("gpu", "cpu"):
-        runs[f"lpr_filter_{backend}"] = _slice_run("filter_vcf_with_lib_prep_recalibration_model", [
-            "--out_dir", str(o / f"lpr_{backend}"), "--ref_fasta", fm["fasta"], "--lib_prep_model_file", lpr_model,
-            "--calls_vcf", fm["lpr_calls"], "--featuremap_vcf", fm["lpr_featuremap"], "--backend", backend],
-            f"lpr_filter_{backend}", card, "LPR")
+    runs.update(_slice_runs([("filter_vcf_with_lib_prep_recalibration_model", [
+        "--out_dir", str(o / f"lpr_{backend}"), "--ref_fasta", fm["fasta"], "--lib_prep_model_file", lpr_model,
+        "--calls_vcf", fm["lpr_calls"], "--featuremap_vcf", fm["lpr_featuremap"], "--backend", backend],
+        f"lpr_filter_{backend}", "LPR", None, ("vcf_parse",)) for backend in ("gpu", "cpu")], card))
     check(runs["lpr_filter_gpu"]["launches"]["forest_wide"] >= 1, f"lpr filter: {runs['lpr_filter_gpu']['launches']}")
     for name in ("labeled_featuremap_training_set.parquet", "scored_alleles.parquet"):
         check((o / "lpr_gpu" / name).read_bytes() == (o / "lpr_cpu" / name).read_bytes(),
@@ -3529,10 +3558,9 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
           "LPR: the recalibrated VCF differs between the card and the CPU")
 
     # -- 5. calibrate_bridging_snvs -------------------------------------------------------------------------------
-    for backend in ("gpu", "cpu"):
-        runs[f"bridging_{backend}"] = _slice_run("calibrate_bridging_snvs", [
-            "--vcf", br["vcf"], "--reference", br["fasta"], "--output", str(o / f"bridging_{backend}.vcf.gz"),
-            "--backend", backend], f"bridging_{backend}", card, "BRIDGING")
+    runs.update(_slice_runs([("calibrate_bridging_snvs", [
+        "--vcf", br["vcf"], "--reference", br["fasta"], "--output", str(o / f"bridging_{backend}.vcf.gz"), "--backend",
+        backend], f"bridging_{backend}", "BRIDGING", None, ("vcf_parse",)) for backend in ("gpu", "cpu")], card))
     body = _vcf_body(str(o / "bridging_gpu.vcf.gz"))
     check(body == _vcf_body(str(o / "bridging_cpu.vcf.gz")), "calibrate_bridging_snvs: card and CPU bytes differ")
     before = {ln.split(b"\t")[1]: ln.split(b"\t")[6] for ln in _vcf_body(br["vcf"]).split(b"\n") if ln[:1] == b"c"}
@@ -3544,23 +3572,20 @@ def phase_featuremaps(tmp: Path, card: str, worlds: dict | None = None) -> dict:
           f"({card})", flush=True)
 
     # -- 6. methylation ------------------------------------------------------------------------------------------
-    jobs = [("process_merge_context", me["shards"][0], "cpg_shard", ("gpu", "cpu"), True),
-            ("process_merge_context_no_cp_g", me["chh"], "chh", ("gpu", "cpu"), False)]
-    for tool, src, name, backends, bedgraph in jobs:  # the merged bedGraph written by the shard's runs
-        for backend in backends:
+    methyl = []  # the eight runs at once: the shard's runs write the merged bedGraph
+    for tool, src, name, bedgraph in (("process_merge_context", me["shards"][0], "cpg_shard", True),
+                                      ("process_merge_context_no_cp_g", me["chh"], "chh", False),
+                                      ("process_per_read", me["per_read"], "per_read", False)):
+        for backend in ("gpu", "cpu"):
             label = f"{name}_{backend}"
             extra = ["--merged_bedgraph", str(o / f"{label}.bg")] if bedgraph else []
-            runs[label] = _slice_run(tool, ["--input", src, "--output", str(o / f"{label}.h5"), *extra,
-                                            "--backend", backend], label, card, "METHYL", served_by=())
-    for backend in ("gpu", "cpu"):
-        runs[f"per_read_{backend}"] = _slice_run("process_per_read", [
-            "--input", me["per_read"], "--output", str(o / f"per_read_{backend}.h5"), "--backend", backend],
-            f"per_read_{backend}", card, "METHYL", served_by=())
-    runs["concat"] = _slice_run("concat_methyldackel_csvs", ["--inputs", *me["shards"][:2], "--output",
-                                                             str(o / "concat.csv")], "concat", card, "METHYL",
-                                served_by=())
-    runs["mbias"] = _slice_run("process_mbias", ["--input", me["mbias"], "--output", str(o / "mbias.h5")], "mbias",
-                               card, "METHYL", served_by=())
+            methyl.append((tool, ["--input", src, "--output", str(o / f"{label}.h5"), *extra, "--backend", backend],
+                           label, "METHYL", None, ()))
+    methyl += [("concat_methyldackel_csvs", ["--inputs", *me["shards"][:2], "--output", str(o / "concat.csv")],
+                "concat", "METHYL", None, ()),
+               ("process_mbias", ["--input", me["mbias"], "--output", str(o / "mbias.h5")], "mbias", "METHYL", None,
+                ())]
+    runs.update(_slice_runs(methyl, card))
     for name in ("cpg_shard_{}.h5", "cpg_shard_{}.bg", "chh_{}.h5", "per_read_{}.h5"):
         check((o / name.format("gpu")).read_bytes() == (o / name.format("cpu")).read_bytes(),
               f"methylation: {name.format('*')} differs between the card and the CPU")
@@ -4157,6 +4182,225 @@ def phase_telemetry(tmp: Path, card: str, stream: dict, pipe: dict, files: dict,
     return out
 
 
+#: phase 18's seeded inputs: the tumor/normal pair planted on phase 12's truth, the two QC samples
+SOMATIC_GT_PAIR = dict(seed=2045, n_somatic=2_000, n_mismatch=500)
+QC_WORLD = dict(seed=2046, samples=("s1", "s2"), hist_rows=1_000)
+#: phase 18's MRD queries (the signature VCF carries no INFO: its filter reads the position)
+MRD_READ_QUERY = "rq > 0.7 and X_EDIST <= 4"
+MRD_SIGNATURE_QUERY = "pos % 3 != 0"
+
+
+def _chain_runs(jobs: dict[str, tuple[str, list[str], bool]], d: Path, card: str) -> dict[str, dict]:
+    """Each ``label: (tool, argv, reads_vcf)`` twice, in ``d/a`` and ``d/b``
+    (relative outputs), all at once, each in a forked process: exit 0, no
+    kernel launched, a VCF read by the host engine's scan and no plain
+    version; a ``REPORT_CHAIN_DETAIL`` line a run (wall, peak RSS, figures
+    skipped). The runs of ``a`` by label."""
+    specs = {}
+    for label, (tool, argv, _) in jobs.items():
+        for copy in ("a", "b"):
+            (d / copy).mkdir(parents=True, exist_ok=True)
+            specs[f"{label}/{copy}"] = {"tool": tool, "argv": argv, "env": {}, "cwd": str(d / copy)}
+    runs = _forked_all(specs, _tool_child)
+    for key, run in runs.items():
+        label = key.split("/")[0]
+        tool, _, reads_vcf = jobs[label]
+        check(run["rc"] == 0, f"{key}: exit {run['rc']}")
+        check(not any(run["launches"].values()), f"{key}: a kernel was launched ({run['launches']})")
+        plain = [k for k, v in run["host"].items() if v["plain"]]
+        check(not plain and (not reads_vcf or run["host"].get("vcf_parse", {}).get("native", 0) >= 1),
+              f"{key}: the host engine did not serve its VCF reads; plain: {plain}")
+        print("REPORT_CHAIN_DETAIL " + json.dumps({
+            "run": key, "tool": tool, "card": card, "wall_s": run["seconds"], "peak_rss_bytes": run["peak_rss_bytes"],
+            "figures_skipped": run["figures_skipped"], "side_by_side": len(specs)}), flush=True)
+    return {label: runs[f"{label}/a"] for label in jobs}
+
+
+def _same_trees(a: Path, b: Path, label: str) -> int:
+    """The files under ``a`` and ``b``: the same names and bytes; returns how many."""
+    names = sorted(str(p.relative_to(a)) for p in a.rglob("*") if p.is_file())
+    check(names == sorted(str(p.relative_to(b)) for p in b.rglob("*") if p.is_file()),
+          f"{label}: the two runs wrote other files")
+    for name in names:
+        check((a / name).read_bytes() == (b / name).read_bytes(), f"{label}: the two runs' {name} differ")
+    return len(names)
+
+
+def phase_report_chain(tmp: Path, card: str, sec: dict, reports: dict, feat: dict) -> dict:
+    """The report chain and the QC metrics tools (phase 18), on the files the
+    earlier phases wrote; each tool run twice, in two directories, all runs of
+    a step side by side in forked processes (:func:`_chain_runs`), the two
+    runs' files byte-equal.
+
+    1. ``create_var_report --verbosity 2`` on phase 12's card comparison h5
+       (its exome track): the all-data table's counts (``# pos``, ``# neg``,
+       ``fn`` over SNP and Indel) equal the comparison frame's own TP, FP and
+       FN counts;
+    2. ``create_somatic_gt_file`` on a tumor and normal pair planted on phase
+       12's truth (``synthetic_reports.write_somatic_gt_pair``): the planted
+       somatic records and mismatches come back exactly, no planted
+       problematic position is left in the BED; the GT VCF and BED then feed
+       one ``run_somatic_comparison_and_graphs --backend gpu`` against phase
+       12's held-out callset;
+    3. ``report_wo_gt`` on phase 14's ``full_analysis`` h5;
+    4. ``mrd_data_analysis`` on phase 15's card summary, scored cfDNA map and
+       signature, with :data:`MRD_READ_QUERY` and :data:`MRD_SIGNATURE_QUERY`:
+       the filtered tables equal a numpy selection written here;
+    5. the six QC tools chained on two seeded samples
+       (``synthetic_reports.write_qc_world``): ``import_metrics``,
+       ``collect_existing_metrics``, ``sorter_to_h5``,
+       ``sorter_stats_to_mean_coverage``, ``create_qc_report``, then
+       ``convert_h5_to_json`` of its h5, which holds every key of it.
+
+    Where matplotlib does not import (the card's machine) every figure is
+    skipped and counted. ``REPORT_CHAIN_DETAIL`` lines."""
+    from tests import torch_report_compare as rc
+    from variantcalling_tpu_torch import synthetic_reports
+    from variantcalling_tpu_torch.io.bed import read_bed
+    from variantcalling_tpu_torch.io.vcf import read_vcf
+    from variantcalling_tpu_torch.utils import h5_utils
+    from variantcalling_tpu_torch.utils.frame_ops import json_double_text
+
+    d = tmp / "report_chain"
+    d.mkdir()
+    out: dict = {}
+    paths = sec["paths"]
+    t0 = time.perf_counter()
+    pair = synthetic_reports.write_somatic_gt_pair(str(d / "pair"), truth_vcf=paths["truth"], fasta=paths["fasta"],
+                                                   **SOMATIC_GT_PAIR)
+    qc = synthetic_reports.write_qc_world(str(d / "qc"), **QC_WORLD)
+    print(f"world report chain: a tumor GT of {pair['n_planted']} planted somatic SNVs and "
+          f"{len(pair['problematic'])} mismatches over phase 12's truth, QC metrics of {len(qc['samples'])} samples, "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    cmp_h5 = sec["comparison"]["gpu_h5"]
+
+    # -- 1-4. the reports, side by side -----------------------------------------------------------------------------
+    first = _chain_runs({
+        "create_var_report": ("create_var_report", [
+            "--h5_concordance_file", cmp_h5, "--exome_column_name", "exome", "--verbosity", "2", "--h5_output",
+            "var.h5", "--html_output", "var.html"], False),
+        "create_somatic_gt_file": ("create_somatic_gt_file", [
+            "--gt_tumor", pair["tumor"], "--gt_normal", pair["normal"], "--gt_tumor_name", "T1", "--gt_normal_name",
+            "N1", "--cmp_intervals", paths["hcr"], "--output_folder", "gt"], True),
+        "report_wo_gt": ("report_wo_gt", ["--input_h5", reports["full_h5"], "--html_output", "wo_gt.html",
+                                          "--sample_name", "case"], False),
+        "mrd_data_analysis": ("mrd_data_analysis", [
+            "--mrd_summary_h5", feat["mrd_h5"], "--featuremap", feat["scored"], "--signature_vcf", feat["signature"],
+            "--read_filter_query", MRD_READ_QUERY, "--signature_filter_query", MRD_SIGNATURE_QUERY, "--h5_output",
+            "mrd.h5", "--html_output", "mrd.html"], True),
+        "import_metrics_s1": ("import_metrics", ["--metrics_prefix", qc["prefix"]["s1"], "--output_h5",
+                                                 "s1.metrics.h5"], False),
+        "import_metrics_s2": ("import_metrics", ["--metrics_prefix", qc["prefix"]["s2"], "--output_h5",
+                                                 "s2.metrics.h5"], False),
+        "collect_existing_metrics": ("collect_existing_metrics", [
+            "--metric_files", *qc["files"]["s1"], qc["sorter_csv"], qc["frames_h5"], "--output_h5", "col.h5"], False),
+        "sorter_to_h5": ("sorter_to_h5", ["--input_csv_file", qc["sorter_csv"], "--input_json_file", qc["sorter_json"],
+                                          "--metric_mapping_file", qc["mapping_csv"], "--output_file", "sorter.h5"],
+                         False),
+        "sorter_stats_to_mean_coverage": ("sorter_stats_to_mean_coverage", [
+            "--input_sorter_stats_json", qc["sorter_json"], "--output_file", "cov.txt"], False),
+    }, d / "runs1", card)
+    second = _chain_runs({"create_qc_report": ("create_qc_report", [
+        "--samples", *qc["samples"], "--metrics_h5",
+        *[str(d / "runs1" / "a" / f"{s}.metrics.h5") for s in qc["samples"]], "--run_id", "chip", "--h5_output",
+        "qc.h5", "--html_output", "qc.html"], False)}, d / "runs2", card)
+    third = _chain_runs({"convert_h5_to_json": ("convert_h5_to_json", [
+        "--input_h5", str(d / "runs2" / "a" / "qc.h5"), "--output_json", "qc.json"], False)}, d / "runs3", card)
+    runs = {**first, **second, **third}
+    n_files = sum(_same_trees(d / f"runs{k}" / "a", d / f"runs{k}" / "b", f"report chain step {k}") for k in (1, 2, 3))
+    a = d / "runs1" / "a"
+
+    # 1. the report's counts against the comparison's own
+    frame = h5_utils.read_hdf(cmp_h5, "all", skip_keys=h5_utils.CONCORDANCE_SKIP_KEYS)
+    call, base = np.asarray(frame["call"], dtype=object), np.asarray(frame["base"], dtype=object)
+    n_tp = int((call == "TP").sum())
+    n_fp = int(((call == "FP") | (call == "FP_CA")).sum())
+    n_fn = int(((base == "FN") | (base == "FN_CA")).sum())
+    tab = h5_utils.read_hdf(str(a / "var.h5"), "all_data")
+    rows = [list(tab.index).index(c) for c in ("SNP", "Indel")]
+    pos, neg, fn = (int(np.asarray(tab[f"whole genome|{c}"])[rows].sum()) for c in ("# pos", "# neg", "fn"))
+    check((pos - fn, neg, fn) == (n_tp, n_fp, n_fn),
+          f"create_var_report: initial tp/fp/fn {(pos - fn, neg, fn)} != the comparison's {(n_tp, n_fp, n_fn)}")
+    out["var_report"] = {"keys": len(h5_utils.list_keys(str(a / "var.h5"))), "initial_tp": n_tp,
+                         "initial_fp": n_fp, "initial_fn": n_fn}
+
+    # 2. the somatic truth: the plant back, the problematic positions out, then a comparison on the card
+    gt_vcf = a / "gt" / "OUTPUT_gt_T1_minus_N1.vcf.gz"
+    body = [ln for ln in gzip.decompress(gt_vcf.read_bytes()).decode().splitlines() if not ln.startswith("#")]
+    check(body == pair["somatic"], f"create_somatic_gt_file: {len(body)} records, {len(pair['somatic'])} planted")
+    bed_path = a / "gt" / "OUTPUT_hcr_no_problematic_positions.bed"
+    bed = read_bed(str(bed_path))
+    left = [(c, s, e) for c, s, e in pair["problematic"]
+            if bed.contains(np.array([c] * (e - s), dtype=object), np.arange(s, e)).any()]
+    check(not left, f"create_somatic_gt_file: {len(left)} planted problematic positions left in the BED")
+    som = _forked({"tool": "run_somatic_comparison_and_graphs", "env": {}, "argv": [
+        "--somatic_vcf", paths["heldout"], "--gt_vcf", str(gt_vcf), "--highconf_bed", str(bed_path), "--reference",
+        paths["fasta"], "--output_folder", str(d / "somatic"), "--call_sample_name", "sm1", "--truth_sample_name",
+        "HG001", "--backend", "gpu"]}, "somatic_on_gt", _tool_child)
+    check(som["rc"] == 0 and not any(som["launches"].values()),
+          f"run_somatic_comparison_and_graphs on the new truth: exit {som['rc']}, launches {som['launches']}")
+    cmp_rows = sum(len(h5_utils.read_hdf(str(d / "somatic" / "somatic_comparison.h5"), k))
+                   for k in h5_utils.list_keys(str(d / "somatic" / "somatic_comparison.h5")))
+    print("REPORT_CHAIN_DETAIL " + json.dumps({
+        "run": "somatic_on_gt", "tool": "run_somatic_comparison_and_graphs", "card": card, "wall_s": som["seconds"],
+        "peak_rss_bytes": som["peak_rss_bytes"], "peak_device_bytes": som["peak_device_bytes"],
+        "figures_skipped": som["figures_skipped"], "side_by_side": 1}), flush=True)
+    out["somatic_gt"] = {"records": len(body), "problematic": len(pair["problematic"]),
+                         "bed_bp": int((bed.end - bed.start).sum()), "comparison_rows": cmp_rows}
+
+    # 4. the MRD tables against a selection written apart
+    fm, sig = read_vcf(feat["scored"]), read_vcf(feat["signature"])
+    sig_pos = np.asarray(sig.pos, dtype=np.int64)
+    loci = set(zip(np.asarray(sig.chrom)[sig_pos % 3 != 0].tolist(), sig_pos[sig_pos % 3 != 0].tolist()))
+    passing = (fm.info_field("rq") > 0.7) & (fm.info_field("X_EDIST") <= 4)
+    chrom, fpos = np.asarray(fm.chrom), np.asarray(fm.pos, dtype=np.int64)
+    on = np.array([(c, p) in loci for c, p in zip(chrom.tolist(), fpos.tolist())], dtype=bool)
+    for tag, keep in (("filt_signature_filt_featuremap", on & passing), ("filt_signature_unfilt_featuremap", on)):
+        support: dict = {}
+        for locus in zip(chrom[keep].tolist(), fpos[keep].tolist()):
+            support[locus] = support.get(locus, 0) + 1
+        per = h5_utils.read_hdf(str(a / "mrd.h5"), f"df_supporting_reads_per_locus_{tag}")
+        got = dict(zip(zip(np.asarray(per["chrom"]).tolist(), np.asarray(per["pos"]).tolist()),
+                       np.asarray(per["n_supporting_reads"]).tolist()))
+        tf = h5_utils.read_hdf(str(a / "mrd.h5"), f"df_tf_{tag}")
+        check(got == support and list(got) == sorted(got) and int(tf["n_supporting_reads"][0]) == int(keep.sum())
+              and int(tf["n_loci"][0]) == len(loci),
+              f"mrd_data_analysis: {tag} is not the selection ({len(got)} loci, {len(support)} selected)")
+    out["mrd"] = {"loci": len(loci), "filtered_reads": int((on & passing).sum()), "signature_reads": int(on.sum())}
+
+    # 5. the JSON holds every key of the QC report
+    qc_h5, doc = str(d / "runs2" / "a" / "qc.h5"), json.loads((d / "runs3" / "a" / "qc.json").read_text())
+    check(sorted(doc) == h5_utils.list_keys(qc_h5), f"convert_h5_to_json: keys {sorted(doc)}")
+    for key, records in doc.items():
+        f = h5_utils.read_hdf(qc_h5, key)
+        want = [{c: (v if not isinstance(v, float) else None if v != v or abs(v) == float("inf")
+                     else float(json_double_text(v))) for c, v in zip(f.columns, row)}
+                for row in zip(*(np.asarray(f[c]).tolist() for c in f.columns))]
+        check(records == want, f"convert_h5_to_json: {key} is not the report's frame")
+    out["qc"] = {"keys": sorted(doc), "rows": {k: len(v) for k, v in doc.items()}}
+
+    # figures: drawn where matplotlib imports, else every one skipped and counted
+    import importlib.util
+
+    drawn = importlib.util.find_spec("matplotlib") is not None  # absent on the card's machine
+    # a figure a section: report_wo_gt a key; MRD mutation types, ML_QUAL, read lengths (and the AFs, where the
+    # signature has them); the QC report's reads and coverage; create_var_report none without --plot_dir
+    want_skipped = {"report_wo_gt": len(h5_utils.list_keys(reports["full_h5"])),
+                    "mrd_data_analysis": 3 + int(bool((~np.isnan(sig.info_field("AF"))).any())),
+                    "create_qc_report": 2, "create_var_report": 0}
+    skipped = {k: runs[k]["figures_skipped"] for k in want_skipped}
+    check(skipped == {k: 0 if drawn else v for k, v in want_skipped.items()},
+          f"figures skipped {skipped}, expected {want_skipped} (matplotlib {'present' if drawn else 'absent'})")
+    out["figures_skipped"] = skipped
+    out["walls"] = {k: v["seconds"] for k, v in runs.items()}
+    print(f"report chain: 10 tools twice, {n_files} files byte-equal between the runs; create_var_report's counts "
+          f"(tp {n_tp}, fp {n_fp}, fn {n_fn}) equal the comparison's; {len(body)} somatic GT records as planted, "
+          f"none of {len(pair['problematic'])} problematic positions left, the comparison on them {cmp_rows} rows; "
+          f"the MRD tables equal the selection ({out['mrd']}); the JSON holds the QC report's "
+          f"{len(doc)} keys; figures skipped {skipped} ({card})", flush=True)
+    return out
+
+
 def _phase(name: str, card: str, fn, *args):
     """``fn(*args)``, then a ``PHASE_SECONDS`` line with its wall seconds."""
     t0 = time.perf_counter()
@@ -4190,11 +4434,12 @@ def main() -> int:
         cov = _phase("coverage", card, phase_coverage, Path(tmp), card)
         sec = _phase("sec", card, phase_sec, Path(tmp), card)
         geno = _phase("genotypes_gvcf", card, phase_genotypes_gvcf, Path(tmp), card, {"gvcf": GVCF_SMOKE_WORLD})
-        _phase("reports", card, phase_reports, Path(tmp), card, geno["files"]["trio"],
-               {"report": REPORT_SMOKE_WORLD})
-        _phase("featuremaps", card, phase_featuremaps, Path(tmp), card)
+        reports = _phase("reports", card, phase_reports, Path(tmp), card, geno["files"]["trio"],
+                         {"report": REPORT_SMOKE_WORLD})
+        feat = _phase("featuremaps", card, phase_featuremaps, Path(tmp), card)
         _phase("serve", card, phase_serve, Path(tmp), card, pipe)
         _phase("telemetry", card, phase_telemetry, Path(tmp), card, stream, pipe, train["files"], sec)
+        _phase("report_chain", card, phase_report_chain, Path(tmp), card, sec, reports["files"], feat["files"])
     print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     n = WORLD["n_variants"]

@@ -508,7 +508,7 @@ def test_substitution_report_takes_no_backend(report_worlds, tmp_path):
     assert proc.returncode == 2 and "unrecognized arguments: --backend" in proc.stderr
 
 
-TOOLS_OF_PR15 = {
+FIRST_25_TOOLS = {
     "filter_variants_pipeline", "train_models_pipeline", "training_prep_pipeline", "train_dan", "evaluate_concordance",
     "coverage_analysis", "cnv_calling", "sec_training", "correct_systematic_errors", "sec_validation",
     "assess_sec_concordance", "run_comparison_pipeline", "vcfeval_flavors", "correct_genotypes_by_imputation",
@@ -523,37 +523,33 @@ NEW_TOOLS = {"srsnv_training": True, "srsnv_inference": True, "mrd_analysis": Tr
              "process_merge_context": True, "process_merge_context_no_cp_g": True, "process_per_read": True}
 
 
-def test_cli_lists_25_tools(tmp_path):
-    """The 25 tools of the earlier slices are listed."""
-    proc = _run_cli(["--help"], tmp_path)
-    tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
-    assert len(TOOLS_OF_PR15) == 25 and TOOLS_OF_PR15 <= set(tools)
-
-
-def test_cli_lists_36_tools(tmp_path):
-    """The 36 tools of the slices up to the single-read SNV one are listed."""
-    proc = _run_cli(["--help"], tmp_path)
-    tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
-    assert len(TOOLS_OF_PR15 | set(NEW_TOOLS)) == 36 and TOOLS_OF_PR15 | set(NEW_TOOLS) <= set(tools)
-
-
-def test_cli_lists_37_tools(tmp_path):
-    """The 37 tools of the slices up to the serving daemon are listed."""
-    proc = _run_cli(["--help"], tmp_path)
-    tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
-    earlier = TOOLS_OF_PR15 | set(NEW_TOOLS) | {"serve"}
-    assert len(earlier) == 37 and earlier <= set(tools)
-
-
+#: the report chain and QC metrics tools; none runs a device program (none takes --backend)
+REPORT_CHAIN_TOOLS = ("create_var_report", "create_somatic_gt_file", "report_wo_gt", "mrd_data_analysis",
+                      "import_metrics", "collect_existing_metrics", "sorter_to_h5", "sorter_stats_to_mean_coverage",
+                      "convert_h5_to_json", "create_qc_report")
 #: the telemetry and somatic slice's tools; True: a device program runs (the tool takes --backend)
 TELEMETRY_TOOLS = {"knobs": False, "obs": False, "run_somatic_comparison_and_graphs": True,
                    "detailed_var_report": True}
 
 
-def test_cli_lists_41_tools(tmp_path):
-    proc = _run_cli(["--help"], tmp_path)
-    tools = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
-    assert len(tools) == 41 and set(tools) == TOOLS_OF_PR15 | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS)
+#: the tools each slice had served by its end: (count, the set)
+SERVED = {25: FIRST_25_TOOLS, 36: FIRST_25_TOOLS | set(NEW_TOOLS), 37: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"},
+          41: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS),
+          51: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS) | set(REPORT_CHAIN_TOOLS)}
+
+
+@pytest.fixture(scope="module")
+def listed_tools(tmp_path_factory) -> list[str]:
+    proc = _run_cli(["--help"], tmp_path_factory.mktemp("help"))
+    return [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  ")]
+
+
+@pytest.mark.parametrize("count", sorted(SERVED))
+def test_cli_lists_tools(listed_tools, count):
+    """The tools of every slice up to each count are listed; the whole list is the last count's."""
+    assert len(SERVED[count]) == count and SERVED[count] <= set(listed_tools)
+    if count == max(SERVED):
+        assert len(listed_tools) == count and set(listed_tools) == SERVED[count]
 
 
 def test_the_featuremap_mrd_lpr_bridging_and_methylation_modules_are_scanned():
@@ -840,3 +836,96 @@ def test_somatic_tools_without_cuda_exit_2(somatic_world, tmp_path, i):
     proc = _run_cli(_somatic_tools(somatic_world)[i], tmp_path)
     assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
     assert "no CUDA device" in proc.stderr and not list(tmp_path.glob("x*"))
+
+
+# -- the report chain and the QC metrics tools -------------------------------------------
+
+
+def test_the_report_chain_and_qc_modules_are_scanned():
+    """The ten tools' modules, the report utilities and the pandas replays are
+    among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "reports/report_utils", "pipelines/create_var_report", "pipelines/create_somatic_gt_file",
+        "pipelines/report_wo_gt", "pipelines/mrd_data_analysis", "pipelines/import_metrics",
+        "pipelines/create_qc_report", "pipelines/misc/collect_existing_metrics", "pipelines/misc/sorter_to_h5",
+        "pipelines/misc/sorter_stats_to_mean_coverage", "pipelines/misc/convert_h5_to_json", "utils/frame_ops",
+        "io/bed", "synthetic_reports")} <= scanned
+
+
+@pytest.mark.parametrize("tool", REPORT_CHAIN_TOOLS)
+def test_report_chain_tools_take_the_reference_options(tool):
+    """Each tool's options are the reference parser's, option for option, and
+    none is ``--backend``: no device program runs."""
+    import importlib
+
+    from variantcalling_tpu.__main__ import TOOLS as JTOOLS
+    from variantcalling_tpu_torch.__main__ import TOOLS
+
+    assert TOOLS[tool].replace("variantcalling_tpu_torch.", "variantcalling_tpu.") == JTOOLS[tool]
+    want = _parser_options(importlib.import_module(JTOOLS[tool]).run)
+    got = _parser_options(importlib.import_module(TOOLS[tool]).run)
+    assert got == want and "--backend" not in got
+
+
+def test_report_chain_cli_runs_load_none_of_them(report_worlds, slice_worlds, somatic_world, tmp_path):
+    """Where matplotlib does not import (as on the card's machine), in one
+    process: the inputs made by the earlier tools (``--backend cpu``), then
+    the ten tools of the chain: each exits 0, and at the end none of the
+    forbidden packages is loaded."""
+    from variantcalling_tpu_torch import synthetic_reports
+
+    conc = synthetic_reports.write_concordance_h5(str(tmp_path / "conc.h5"), seed=1, n_rows=600)
+    pair = synthetic_reports.write_somatic_gt_pair(str(tmp_path / "pair"), seed=1, truth_vcf=somatic_world["truth"],
+                                                   fasta=somatic_world["fasta"], n_somatic=20, n_mismatch=10)
+    qc = synthetic_reports.write_qc_world(str(tmp_path / "qc"), seed=1, hist_rows=40)
+    r, fm = report_worlds["report"], slice_worlds["fm"]
+    cpu = ["--backend", "cpu"]
+    inputs = [
+        ["run_no_gt_report", "full_analysis", "--input_file", r["case"], "--dbsnp", r["dbsnp"], "--reference",
+         r["fasta"], "--output_prefix", "x_full", *cpu],
+        ["srsnv_training", "--tp_featuremap", fm["tp"], "--fp_featuremap", fm["fp"], "--output_model", "x_m.pkl",
+         "--n_trees", "3", "--max_depth", "3", *cpu],
+        ["srsnv_inference", "--featuremap", fm["cfdna"], "--model", "x_m.pkl", "--output_featuremap", "x_s.vcf", *cpu],
+        ["mrd_analysis", "--signature_vcf", fm["signature"], "--featuremap", "x_s.vcf", "--coverage_per_locus", "30",
+         "--output_h5", "x_mrd.h5", *cpu],
+    ]
+    chain = [
+        ["create_var_report", "--h5_concordance_file", conc, "--h5_output", "x_var.h5", "--html_output", "x_var.html",
+         "--verbosity", "3", "--plot_dir", "x_plots"],
+        ["create_somatic_gt_file", "--gt_tumor", pair["tumor"], "--gt_normal", pair["normal"], "--gt_tumor_name", "T",
+         "--gt_normal_name", "N", "--cmp_intervals", somatic_world["hcr"], "--output_folder", "x_gt"],
+        ["report_wo_gt", "--input_h5", "x_full.h5", "--html_output", "x_wo.html"],
+        ["mrd_data_analysis", "--mrd_summary_h5", "x_mrd.h5", "--featuremap", "x_s.vcf", "--signature_vcf",
+         fm["signature"], "--read_filter_query", "ML_QUAL >= 1 and X_LENGTH < 250", "--signature_filter_query",
+         "pos % 2 == 0", "--h5_output", "x_mrdr.h5", "--html_output", "x_mrdr.html"],
+        *[["import_metrics", "--metrics_prefix", qc["prefix"][s], "--output_h5", f"x_{s}.metrics.h5"]
+          for s in qc["samples"]],
+        ["collect_existing_metrics", "--metric_files", *qc["files"]["s1"], qc["sorter_csv"], "--output_h5", "x_col.h5"],
+        ["sorter_to_h5", "--input_csv_file", qc["sorter_csv"], "--input_json_file", qc["sorter_json"],
+         "--metric_mapping_file", qc["mapping_csv"], "--output_file", "x_sorter.h5"],
+        ["sorter_stats_to_mean_coverage", "--input_sorter_stats_json", qc["sorter_json"], "--output_file", "x_cov.txt"],
+        ["create_qc_report", "--samples", *qc["samples"], "--metrics_h5", *[f"x_{s}.metrics.h5" for s in qc["samples"]],
+         "--h5_output", "x_qc.h5", "--html_output", "x_qc.html"],
+        ["convert_h5_to_json", "--input_h5", "x_qc.h5", "--output_json", "x_qc.json"],
+    ]
+    assert {a[0] for a in chain} == set(REPORT_CHAIN_TOOLS)
+    steps = inputs + chain
+    code = (
+        "import json, sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "from variantcalling_tpu_torch.__main__ import main\n"
+        f"rcs = [main(a) for a in {steps!r}]\n"
+        "print(json.dumps({'rc': rcs, 'loaded': sorted(m for m, mod in sys.modules.items() "
+        f"if m.split('.')[0] in {FORBIDDEN!r} and mod is not None)}}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH" and not k.startswith("VCTPU_")}
+    env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=tmp_path, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": [0] * len(steps), "loaded": []}
+    assert {"x_var.h5", "x_var.html", "x_gt", "x_wo.html", "x_mrdr.h5", "x_col.h5", "x_sorter.h5", "x_cov.txt",
+            "x_qc.h5", "x_qc.json"} <= {p.name for p in tmp_path.iterdir()}
+    assert not (tmp_path / "x_plots").exists()  # every figure skipped
+    assert "<img" not in "".join((tmp_path / f).read_text() for f in ("x_wo.html", "x_mrdr.html", "x_qc.html"))

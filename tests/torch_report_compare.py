@@ -5,7 +5,10 @@ Used by the CPU tests (the port against the JAX package) and by
 JAX, so it runs on the card's machine too.
 
 - Frames and h5 files (:func:`frame_problems`, :func:`h5_problems`): equal
-  keys, columns, dtypes, values (NaN equal to NaN) and index.
+  keys, columns, dtypes, values (NaN equal to NaN) and index;
+  :func:`store_problems` also each key's stored column kinds (``fstr``,
+  ``str``, ``bool``, ``ragged``, a numpy kind) and array cells element by
+  element.
 - The signature exposures (:func:`compare_exposures`): the fit is 500
   float32 multiplicative updates, whose products accumulate in another
   order on another engine, so ``mutations`` may differ by a relative
@@ -82,6 +85,45 @@ def h5_problems(got: str, want: str, skip: tuple[str, ...] = ()) -> list[str]:
 def assert_same_h5(got: str, want: str, skip: tuple[str, ...] = ()) -> None:
     problems = h5_problems(got, want, skip)
     assert not problems, "\n".join(problems)
+
+
+def _cells_equal(a, b) -> bool:
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return isinstance(a, np.ndarray) and isinstance(b, np.ndarray) and np.array_equal(a, b, equal_nan=True)
+    return bool(a == b) or (a != a and b != b)
+
+
+def _stored_layout(path: str) -> dict[str, tuple]:
+    """Each key's ``columns`` and ``kinds`` attributes, as stored."""
+    from variantcalling_tpu_torch.io import hdf5
+
+    with hdf5.H5File(path) as f:
+        return {k: (f.root[k].attrs.get("columns"), f.root[k].attrs.get("kinds")) for k in f.root.keys()}
+
+
+def store_problems(got: str, want: str) -> list[str]:
+    """What differs between two h5 files of frames: the keys, each key's
+    stored columns and kinds, index, dtypes and values (NaN equal to NaN,
+    array cells element by element)."""
+    keys = h5_utils.list_keys(want)
+    if h5_utils.list_keys(got) != keys:
+        return [f"keys {h5_utils.list_keys(got)} != {keys}"]
+    lg, lw = _stored_layout(got), _stored_layout(want)
+    out = [f"{k}: stored layout {lg.get(k)} != {lw.get(k)}" for k in keys if lg.get(k) != lw.get(k)]
+    for key in keys:
+        g, w = h5_utils.read_hdf(got, key), h5_utils.read_hdf(want, key)
+        if g.columns != w.columns or len(g) != len(w):
+            out.append(f"{key}: columns {g.columns} != {w.columns} or {len(g)} != {len(w)} rows")
+            continue
+        if _index(g) != _index(w):
+            out.append(f"{key}: index differs")
+        for c in g.columns:
+            x, y = np.asarray(g[c]), np.asarray(w[c])
+            bad = [i for i in range(len(x)) if not _cells_equal(x[i], y[i])]
+            if x.dtype != y.dtype or bad:
+                out.append(f"{key}.{c}: dtype {x.dtype} / {y.dtype}, {len(bad)} values differ"
+                           + (f", first {x[bad[0]]!r} != {y[bad[0]]!r}" if bad else ""))
+    return out
 
 
 def strip_images(html: str) -> tuple[str, int]:

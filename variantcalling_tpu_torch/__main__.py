@@ -20,8 +20,12 @@ single-read SNV and MRD tools ``srsnv_training``, ``srsnv_inference`` and
 ``concat_methyldackel_csvs``, ``process_mbias``, ``process_merge_context``,
 ``process_merge_context_no_cp_g`` and ``process_per_read``, the resident
 daemon ``serve``, the somatic composites ``run_somatic_comparison_and_graphs``
-and ``detailed_var_report``, and the registry and telemetry tools ``knobs``
-and ``obs``: 41 tools. Each tool is a module exposing ``run(argv)``,
+and ``detailed_var_report``, the registry and telemetry tools ``knobs``
+and ``obs``, the report chain ``create_var_report``,
+``create_somatic_gt_file``, ``report_wo_gt`` and ``mrd_data_analysis``, and
+the QC metrics tools ``import_metrics``, ``collect_existing_metrics``,
+``sorter_to_h5``, ``sorter_stats_to_mean_coverage``, ``convert_h5_to_json``
+and ``create_qc_report``: 51 tools. Each tool is a module exposing ``run(argv)``,
 imported when called.
 """
 
@@ -74,6 +78,16 @@ TOOLS: dict[str, str] = {
     "serve": "variantcalling_tpu_torch.serve.cli",
     "run_somatic_comparison_and_graphs": "variantcalling_tpu_torch.pipelines.run_somatic_comparison_and_graphs",
     "detailed_var_report": "variantcalling_tpu_torch.pipelines.detailed_var_report",
+    "create_var_report": "variantcalling_tpu_torch.pipelines.create_var_report",
+    "create_somatic_gt_file": "variantcalling_tpu_torch.pipelines.create_somatic_gt_file",
+    "report_wo_gt": "variantcalling_tpu_torch.pipelines.report_wo_gt",
+    "mrd_data_analysis": "variantcalling_tpu_torch.pipelines.mrd_data_analysis",
+    "import_metrics": "variantcalling_tpu_torch.pipelines.import_metrics",
+    "collect_existing_metrics": "variantcalling_tpu_torch.pipelines.misc.collect_existing_metrics",
+    "sorter_to_h5": "variantcalling_tpu_torch.pipelines.misc.sorter_to_h5",
+    "sorter_stats_to_mean_coverage": "variantcalling_tpu_torch.pipelines.misc.sorter_stats_to_mean_coverage",
+    "convert_h5_to_json": "variantcalling_tpu_torch.pipelines.misc.convert_h5_to_json",
+    "create_qc_report": "variantcalling_tpu_torch.pipelines.create_qc_report",
 }
 
 

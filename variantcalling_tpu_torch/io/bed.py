@@ -33,6 +33,9 @@ class IntervalSet:
     def __len__(self) -> int:
         return len(self.start)
 
+    def total_length(self) -> int:
+        return int(np.sum(self.end - self.start))
+
     def by_chrom(self) -> dict[str, tuple[np.ndarray, np.ndarray]]:
         """chrom -> (starts, ends), each sorted by start."""
         out: dict[str, tuple[np.ndarray, np.ndarray]] = {}
@@ -91,6 +94,35 @@ class IntervalSet:
                     i += 1
                 else:
                     j += 1
+        return IntervalSet(_obj(chroms), np.asarray(starts, dtype=np.int64), np.asarray(ends, dtype=np.int64))
+
+    def subtract(self, other: "IntervalSet") -> "IntervalSet":
+        """Set difference self \\ other (bedtools subtract), by merged sweeps a chrom."""
+        a = self.merged().by_chrom()
+        b = other.merged().by_chrom()
+        none = np.empty(0, dtype=np.int64)
+        chroms: list[str] = []
+        starts: list[int] = []
+        ends: list[int] = []
+        for c in a:
+            sa, ea = a[c]
+            sb, eb = (x.tolist() for x in b.get(c, (none, none)))
+            j = 0
+            for cur, end in zip(sa.tolist(), ea.tolist()):
+                while j < len(sb) and eb[j] <= cur:
+                    j += 1
+                k = j
+                while k < len(sb) and sb[k] < end:
+                    if cur < sb[k]:
+                        chroms.append(c)
+                        starts.append(cur)
+                        ends.append(sb[k])
+                    cur = max(cur, eb[k])
+                    k += 1
+                if cur < end:
+                    chroms.append(c)
+                    starts.append(cur)
+                    ends.append(end)
         return IntervalSet(_obj(chroms), np.asarray(starts, dtype=np.int64), np.asarray(ends, dtype=np.int64))
 
     def contains(self, chrom: np.ndarray, pos0: np.ndarray) -> np.ndarray:

@@ -36,6 +36,7 @@ from variantcalling_tpu_torch.io.vcf import read_vcf
 from variantcalling_tpu_torch.reports import no_gt_stats
 from variantcalling_tpu_torch.reports import signatures as sigmod
 from variantcalling_tpu_torch.reports.variant_eval import compute_eval_tables, dbsnp_membership
+from variantcalling_tpu_torch.utils.frame_ops import value_counts
 from variantcalling_tpu_torch.utils.h5_utils import Frame, concat_frames, object_column, write_frames, write_hdf
 from variantcalling_tpu_torch.utils.stages import stage
 
@@ -50,15 +51,6 @@ def _sample_index(table, sample_id: int | None, sample_name: str | None) -> int:
     if sample_name is not None and sample_name in table.header.samples:
         return table.header.samples.index(sample_name)
     return sample_id or 0
-
-
-def value_counts(values: np.ndarray) -> tuple[list, np.ndarray]:
-    """(values, counts) as ``pd.Series(values).value_counts()`` orders them:
-    count descending, ties in order of first appearance."""
-    uniq = no_gt_stats.unique_in_order(values)
-    counts = np.array([int(np.count_nonzero(values == u)) for u in uniq], dtype=np.int64)
-    order = np.argsort(-counts, kind="stable")
-    return [uniq[i] for i in order], counts[order]
 
 
 def _indel_records(table):

@@ -65,10 +65,20 @@ def _column_texts(col: np.ndarray, float_fmt: str) -> list[str]:
     return ["NaN" if _missing(v) else str(v) for v in col]
 
 
-def frame_to_html(frame: Frame, float_fmt: str = "{:,.4g}") -> str:
-    """``frame`` as pandas' ``to_html(float_format=float_fmt.format, border=0)``."""
-    lines = ['<table class="dataframe">', "  <thead>", '    <tr style="text-align: right;">', "      <th></th>"]
+def frame_to_html(frame: Frame, float_fmt: str = "{:,.4g}", border: int = 0, index_name: str | None = None,
+                  columns_name: str | None = None) -> str:
+    """``frame`` as pandas' ``to_html(float_format=float_fmt.format, border=border)``
+    (pandas' own default border is 1); ``index_name`` and ``columns_name``:
+    the names of the index and of the columns (a pivot table's), each
+    rendered as pandas renders it (the columns' name heads the header row,
+    the index's a row of its own under it)."""
+    table = f'<table border="{border}" class="dataframe">' if border else '<table class="dataframe">'
+    first = "" if columns_name is None else _cell(str(columns_name))
+    lines = [table, "  <thead>", '    <tr style="text-align: right;">', f"      <th>{first}</th>"]
     lines += [f"      <th>{_cell(str(name))}</th>" for name in frame.columns]
+    if index_name is not None:
+        lines += ["    </tr>", "    <tr>", f"      <th>{_cell(str(index_name))}</th>"]
+        lines += ["      <th></th>" for _ in frame.columns]
     lines += ["    </tr>", "  </thead>", "  <tbody>"]
     n = len(frame)
     index = range(n) if frame.index is None else frame.index
@@ -98,8 +108,9 @@ class HtmlReport:
     def add_section(self, heading: str) -> None:
         self.parts.append(f"<h2>{_html.escape(heading)}</h2>")
 
-    def add_table(self, frame: Frame, float_fmt: str = "{:,.4g}") -> None:
-        self.parts.append(frame_to_html(frame, float_fmt))
+    def add_table(self, frame: Frame, float_fmt: str = "{:,.4g}", index_name: str | None = None,
+                  columns_name: str | None = None) -> None:
+        self.parts.append(frame_to_html(frame, float_fmt, index_name=index_name, columns_name=columns_name))
 
     def add_text(self, text: str) -> None:
         self.parts.append(f"<p>{_html.escape(text)}</p>")

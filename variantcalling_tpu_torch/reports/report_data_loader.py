@@ -97,6 +97,19 @@ def _max_vaf(v):
     return max(v) if isinstance(v, (tuple, list)) else v
 
 
+def _inferred(values: list) -> np.ndarray:
+    """The column pandas infers from ``apply``'s results: int64 where all are
+    ints, float64 where all are numbers, else objects."""
+    if all(isinstance(v, (int, np.integer)) and not isinstance(v, (bool, np.bool_)) for v in values):
+        return np.array(values, dtype=np.int64)
+    if all(isinstance(v, (int, float, np.integer, np.floating)) and not isinstance(v, (bool, np.bool_))
+           for v in values):
+        return np.array(values, dtype=np.float64)
+    out = np.empty(len(values), dtype=object)
+    out[:] = values
+    return out
+
+
 class ReportDataLoader:
     def __init__(self, concordance_file: str, reference_version: str = "hg38", exome_column_name: str = "exome.twist"):
         self.concordance_file = concordance_file
@@ -118,9 +131,9 @@ class ReportDataLoader:
             ad1 = np.array([_ad_alt(v) for v in df["ad"]], dtype=np.float64)
             with np.errstate(invalid="ignore", divide="ignore"):
                 df["vaf"] = ad1 / np.where(dp == 0, np.nan, dp)
-        # element by element, as pandas' apply hands numpy scalars over: a
-        # float32 NaN is no Python float and stays NaN
-        df["max_vaf"] = np.array([_max_vaf(v) for v in np.asarray(df["vaf"])])
+        # element by element, as pandas' apply hands the values over: as Python
+        # objects (a float32 NaN too is a Python float there, and becomes 0)
+        df["max_vaf"] = _inferred([_max_vaf(v) for v in np.asarray(df["vaf"]).tolist()])
         if "qual" not in df or not (~np.array([_is_missing(v) for v in df["qual"]], dtype=bool)).any():
             df["qual"] = df["tree_score"]
         types = np.empty(len(df), dtype=object)

@@ -527,3 +527,269 @@ def fingerprint_confs(world: dict, d: str, formats=("bam", "cram")) -> dict:
                           (world["bam"]["D"], f"{world['bam']['D']} - suspected normal-in-tumor sample does not "
                                               "match any normal sample")]
     return out
+
+
+# -- the report and QC chain: somatic ground truth, MRD signature AFs, picard and sorter metrics ----------------------
+
+
+def _vcf_parts(path: str) -> tuple[list[str], list[list[str]]]:
+    """(header lines, records split at tabs) of a plain-text VCF."""
+    head, recs = [], []
+    with open(path, encoding="utf-8") as fh:
+        for line in fh:
+            line = line.rstrip("\n")
+            if line.startswith("#"):
+                head.append(line)
+            elif line:
+                recs.append(line.split("\t"))
+    return head, recs
+
+
+def _write_vcf_parts(path: str, head: list[str], recs: list[list[str]]) -> None:
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("".join(f"{h}\n" for h in head) + "".join("\t".join(r) + "\n" for r in recs))
+
+
+def write_somatic_gt_pair(d: str, seed: int, truth_vcf: str, fasta: str, n_somatic: int = 2_000,
+                          n_mismatch: int = 500) -> dict:
+    """A tumor and a normal ground-truth VCF made from ``truth_vcf`` (both
+    its records), for ``create_somatic_gt_file``: the tumor also holds
+    ``n_somatic`` planted SNVs at free positions (no truth record within
+    5 bp), and at ``n_mismatch`` truth SNV positions an allele the normal
+    lacks (half another base, half a 2-4 bp deletion from that position).
+    Returns the paths, ``somatic``: the tumor records the normal lacks (the
+    planted SNVs and the mismatches) as text lines in file order, and
+    ``problematic``: the mismatches' 0-based reference spans."""
+    from variantcalling_tpu_torch.io.fasta import FastaReader
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(d, exist_ok=True)
+    head, recs = _vcf_parts(truth_vcf)
+    chrom = recs[0][0]
+    pos = np.array([int(r[1]) for r in recs], dtype=np.int64)
+    with FastaReader(fasta) as fa:
+        length = fa.get_reference_length(chrom)
+        seq = fa.fetch(chrom, 0, length).upper()
+    snv = np.array([len(r[3]) == 1 and len(r[4]) == 1 for r in recs], dtype=bool)
+    gap_ok = np.ones(len(recs), dtype=bool)
+    gap_ok[1:] &= np.diff(pos) > 5
+    gap_ok[:-1] &= np.diff(pos) > 5
+    mism = np.sort(rng.choice(np.flatnonzero(snv & gap_ok & (pos + 5 < length)), size=n_mismatch, replace=False))
+    tumor = {i: list(r) for i, r in enumerate(recs)}
+    problematic = []
+    for k, i in enumerate(mism.tolist()):
+        r = tumor[i]
+        p = int(r[1])
+        if k % 2 == 0:
+            r[4] = next(b for b in rng.permutation(list(_B)).tolist() if b not in (r[3], r[4]))
+            problematic.append((chrom, p - 1, p))
+        else:
+            ref = seq[p - 1: p - 1 + int(rng.integers(2, 5))]
+            r[3], r[4] = ref, ref[0]
+            problematic.append((chrom, p - 1, p - 1 + len(ref)))
+    taken = np.zeros(length + 12, dtype=bool)
+    for p in pos.tolist():
+        taken[max(p - 6, 0): p + 6] = True
+    free = np.flatnonzero(~taken[1: length - 5]) + 1
+    cand = rng.choice(free, size=min(len(free), 2 * n_somatic), replace=False)
+    planted = np.sort(cand[np.array([seq[p - 1] in _B for p in cand.tolist()], dtype=bool)][:n_somatic])
+    sample = recs[0][9:] if len(recs[0]) > 9 else []
+    new = []
+    for p in planted.tolist():
+        ref = seq[p - 1]
+        alt = next(b for b in rng.permutation(list(_B)).tolist() if b != ref)
+        new.append([chrom, str(p), ".", ref, alt, "50", "PASS", "."] + (["GT", "0/1"] if sample else []))
+    rows = sorted([*tumor.values(), *new], key=lambda r: int(r[1]))
+    paths = {"tumor": os.path.join(d, "gt_tumor.vcf"), "normal": os.path.join(d, "gt_normal.vcf")}
+    _write_vcf_parts(paths["tumor"], head, rows)
+    _write_vcf_parts(paths["normal"], head, recs)
+    mism_pos = set(pos[mism].tolist())
+    new_pos = {int(r[1]) for r in new}
+    paths["somatic"] = ["\t".join(r) for r in rows if int(r[1]) in mism_pos or int(r[1]) in new_pos]
+    paths["problematic"] = problematic
+    paths["n_planted"] = len(new)
+    return paths
+
+
+def write_signature_af(path: str, signature_vcf: str, seed: int) -> str:
+    """A copy of a signature VCF whose records carry a seeded INFO ``AF``
+    (one in ten missing), for the allele-fraction sections and an ``AF`` query."""
+    rng = np.random.default_rng(seed)
+    head, recs = _vcf_parts(signature_vcf)
+    info = '##INFO=<ID=AF,Number=A,Type=Float,Description="Allele fraction">'
+    head = [h for h in head if not h.startswith("#CHROM")] + [info] + [h for h in head if h.startswith("#CHROM")]
+    for r in recs:
+        if rng.random() >= 0.1:
+            af = f"AF={rng.beta(2, 5):.4f}"
+            r[7] = af if r[7] in (".", "") else f"{r[7]};{af}"
+    _write_vcf_parts(path, head, recs)
+    return path
+
+
+#: picard metric files of a sample: class, (name, kind) of each field (kinds: int, rate, text, empty)
+PICARD_FILES = {
+    "alignment_summary_metrics": ("picard.analysis.AlignmentSummaryMetrics", [
+        ("CATEGORY", "text"), ("TOTAL_READS", "int"), ("PF_READS", "int"), ("PCT_PF_READS", "rate"),
+        ("PF_READS_ALIGNED", "int"), ("PCT_PF_READS_ALIGNED", "rate"), ("MEAN_READ_LENGTH", "rate"),
+        ("PF_MISMATCH_RATE", "rate"), ("PF_INDEL_RATE", "rate"), ("SAMPLE", "empty"), ("LIBRARY", "empty")]),
+    "quality_yield_metrics": ("picard.analysis.QualityYieldMetricsFlow", [
+        ("TOTAL_READS", "int"), ("PF_READS", "int"), ("READ_LENGTH", "int"), ("PF_BASES", "int"),
+        ("PF_Q30_BASES", "int"), ("PCT_PF_Q30", "rate")]),
+    "raw_wgs_metrics": ("picard.analysis.CollectWgsMetrics$WgsMetrics", [
+        ("GENOME_TERRITORY", "int"), ("MEAN_COVERAGE", "rate"), ("SD_COVERAGE", "rate"),
+        ("MEDIAN_COVERAGE", "int"), ("PCT_20X", "rate"), ("FOLD_90_BASE_PENALTY", "rate"), ("HET_SNP_Q", "text")]),
+    "wgs_metrics": ("picard.analysis.CollectWgsMetrics$WgsMetrics", [
+        ("GENOME_TERRITORY", "int"), ("MEAN_COVERAGE", "rate"), ("MEDIAN_COVERAGE", "int"), ("PCT_20X", "rate")]),
+    "duplication_metrics": ("picard.sam.DuplicationMetrics", [
+        ("LIBRARY", "text"), ("READ_PAIRS_EXAMINED", "int"), ("PERCENT_DUPLICATION", "rate"),
+        ("ESTIMATED_LIBRARY_SIZE", "empty")]),
+}
+
+
+def _picard_value(rng, kind: str) -> str:
+    if kind == "int":
+        return str(int(rng.integers(1_000, 10**12)))
+    if kind == "rate":  # many decimals, some tiny, some past 1e16: pandas' JSON rounding is held on them
+        scale = float(10.0 ** rng.choice([-12, -7, -3, 0, 1, 17]))
+        return repr(float(rng.random() * scale))
+    if kind == "text":
+        return str(rng.choice(["PAIR", "UNPAIRED", "lib/1", "Ünïcode", "?"]))
+    return ""
+
+
+def write_qc_world(d: str, seed: int, samples: tuple[str, ...] = ("s1", "s2"), hist_rows: int = 200) -> dict:
+    """Seeded inputs of the six QC tools: each sample's picard metric files
+    (:data:`PICARD_FILES`, with picard's ``##`` header lines, a ``## METRICS
+    CLASS`` section and, for the two WGS files, a coverage ``## HISTOGRAM``)
+    under ``d/<sample>/``, the sorter's stats CSV (quoted fields, a repeated
+    column name, blanks) and JSON (nested objects, a list, null, a bool), a
+    metric-name mapping CSV, and an h5 of two frames."""
+    rng = np.random.default_rng(seed)
+    out = {"samples": list(samples), "prefix": {}, "files": {}}
+    for s in samples:
+        sd = os.path.join(d, s)
+        os.makedirs(sd, exist_ok=True)
+        out["prefix"][s] = os.path.join(sd, f"{s}.")
+        out["files"][s] = []
+        for name, (cls, fields) in PICARD_FILES.items():
+            path = os.path.join(sd, f"{s}.{name}")
+            lines = ["## htsjdk.samtools.metrics.StringHeader", f"# {cls} INPUT={s}.cram", "",
+                     f"## METRICS CLASS\t{cls}", "\t".join(f for f, _ in fields)]
+            lines += ["\t".join(_picard_value(rng, k) for _, k in fields) for _ in range(int(rng.integers(1, 3)))]
+            if "wgs" in name:
+                lines += ["", "## HISTOGRAM\tjava.lang.Integer", "coverage\thigh_quality_coverage_count"]
+                counts = rng.poisson(1_000 * np.exp(-0.5 * ((np.arange(hist_rows) - 30) / 8.0) ** 2))
+                lines += [f"{c}\t{int(n)}" for c, n in enumerate(counts.tolist())]
+            with open(path, "w", encoding="utf-8") as fh:
+                fh.write("\n".join(lines) + "\n")
+            out["files"][s].append(path)
+    out["sorter_csv"] = os.path.join(d, "sorter_stats.csv")
+    with open(out["sorter_csv"], "w", encoding="utf-8") as fh:
+        fh.write("metric,value,value,note,flag\n")
+        for i in range(40):
+            note = ['"with, comma"', '"say ""hi"""', "", "plain", "Ünï/code"][i % 5]
+            fh.write(f"m{i},{rng.integers(0, 10**9)},{float(rng.random() * 10.0 ** rng.integers(-8, 8))!r},{note},"
+                     f"{['True', 'False'][i % 2]}\n")
+    out["sorter_json"] = os.path.join(d, "sorter_stats.json")
+    stats = {"aligned_bases": int(rng.integers(10**10, 10**11)), "mean_cvg": float(rng.random() * 60),
+             "pf_rate": float(rng.random()), "run": "R-1/A", "ok": True, "missing": None,
+             "cvg_hist": [int(v) for v in rng.integers(0, 100, 5)],
+             "qc": {"pct_q30": float(rng.random()), "reads": {"total": int(rng.integers(10**8, 10**9)),
+                                                               "tiny": 1.234567890123e-9}},
+             "empty": {}, "m3": 3}
+    with open(out["sorter_json"], "w", encoding="utf-8") as fh:
+        json.dump(stats, fh)
+    out["mapping_csv"] = os.path.join(d, "mapping.csv")
+    with open(out["mapping_csv"], "w", encoding="utf-8") as fh:
+        fh.write("sorter_name,report_name\nmetric,Metric\nmean_cvg,mean_coverage\nm3,metric_3\n")
+    out["frames_h5"] = os.path.join(d, "frames.h5")
+    write_frames(out["frames_h5"], {
+        "table": Frame({"name": np.array(["a", "b/c", "ü"], dtype=object), "x": np.array([1.5, np.nan, 1e20]),
+                        "n": np.array([1, 2, 3], dtype=np.int64)}),
+        "indexed": Frame({"v": np.array([0.1, 0.2], dtype=np.float32)}, np.array(["r1", "r2"], dtype=object))})
+    return out
+
+
+def write_concordance_h5(path: str, seed: int, n_rows: int = 4_000, contigs: tuple[str, ...] = ("chr1", "chr2"),
+                         exome_column: str = "exome.twist") -> str:
+    """A seeded comparison h5 in ``run_comparison_pipeline``'s layout (a frame
+    a contig) with every column ``create_var_report`` reads: calls TP, FP
+    (``FP_CA`` too) and FN (missing candidates among them), genotype errors
+    of every class, tree scores (some missing) higher on PASS, SEC and other
+    blacklist tags, hmer indels of 0-22 bases and every annotation track
+    (``ug_hcr``, ``LCR-hs38``, ``mappability.0``, ``callable``, the exome
+    column, ``well_mapped_coverage``)."""
+    rng = np.random.default_rng(seed)
+    frames = {}
+    for k, contig in enumerate(contigs):
+        n = n_rows // len(contigs) + (k < n_rows % len(contigs))
+        kind = rng.choice(3, size=n, p=[0.7, 0.18, 0.12])  # tp, fp, fn
+        indel = rng.random(n) < 0.4
+        hmer = np.where(indel & (rng.random(n) < 0.6), rng.integers(1, 23, n), 0).astype(np.int64)
+        indel_length = np.where(indel, rng.integers(1, 6, n), 0).astype(np.int64)
+        passing = np.where(kind == 0, rng.random(n) < 0.9, np.where(kind == 1, rng.random(n) < 0.4, True))
+        score = np.where(passing, rng.normal(0.8, 0.15, n), rng.normal(0.3, 0.15, n))
+        score[rng.random(n) < 0.05] = np.nan
+        het = rng.random(n) < 0.6
+        truth_gt = np.where(kind == 1, np.where(rng.random(n) < 0.5, "0/0", None), np.where(het, "0/1", "1/1"))
+        err = rng.random(n)
+        call_gt = truth_gt.copy()
+        tp = kind == 0
+        call_gt[tp & (err < 0.05)] = np.where(het[tp & (err < 0.05)], "1/1", "0/1")  # het->hom, hom->het
+        call_gt[tp & (err >= 0.05) & (err < 0.08)] = "1/2"  # a wrong allele
+        call_gt[kind == 1] = "0/1"
+        call_gt[(kind == 2) & (err < 0.5)] = "0/0"
+        call_gt[(kind == 2) & (err >= 0.5)] = None
+        missing = (kind == 2) & (rng.random(n) < 0.5)
+        call = np.where(kind == 0, "TP", np.where(kind == 1, np.where(rng.random(n) < 0.9, "FP", "FP_CA"),
+                                                  np.where(missing, None, "NA")))
+        base = np.where(kind == 0, "TP", np.where(kind == 2, np.where(rng.random(n) < 0.9, "FN", "FN_CA"), None))
+        bl = rng.random(n)
+        blacklst = np.where(bl < 0.08, "SEC", np.where(bl < 0.11, "COHORT_FP;SEC", np.where(bl < 0.15, "COHORT_FP",
+                                                                                             None)))
+        refs = rng.choice(list(_B), size=n)
+        alt_len = np.where(indel, indel_length + 1, 1)
+        dp = rng.integers(5, 60, n)
+        alt_ad = np.minimum(dp, rng.binomial(dp, np.where(het, 0.5, 0.97)))
+        cols = {
+            "chrom": _text_column([contig] * n),
+            "pos": np.sort(rng.choice(np.arange(1, 50_000_000), size=n, replace=False)).astype(np.int64),
+            "indel": indel,
+            "hmer_indel_length": hmer,
+            "tree_score": score,
+            "filter": _text_column(np.where(passing, "PASS", rng.choice(["LowQual", "HPOL_RUN;LowQual"], n))),
+            "blacklst": _text_column(blacklst),
+            "classify": _text_column(np.array(["tp", "fp", "fn"])[kind]),
+            "classify_gt": _text_column(np.array(["tp", "fp", "fn"])[kind]),
+            "indel_length": indel_length,
+            "hmer_indel_nuc": _text_column(np.where(hmer > 0, rng.choice(list(_B), size=n), "N")),
+            "well_mapped_coverage": np.where(rng.random(n) < 0.02, np.nan, rng.gamma(9, 3.3, n)),
+            "base": _text_column(base),
+            "call": _text_column(call),
+            "gt_ground_truth": _text_column(truth_gt),
+            "gt_ultima": _text_column(call_gt),
+            "ad": _text_column([f"{d - a},{a}" for d, a in zip(dp.tolist(), alt_ad.tolist())]),
+            "dp": dp.astype(np.float64),
+            "vaf": (alt_ad / dp).astype(np.float32),
+            "ref": _text_column(refs),
+            "alleles": _text_column([f"{r},{r * int(m)}" for r, m in zip(refs.tolist(), alt_len.tolist())]),
+            "gc_content": rng.random(n).astype(np.float32),
+            "indel_classify": _text_column(np.where(indel, np.where(rng.random(n) < 0.5, "ins", "del"), None)),
+            "qual": np.round(rng.gamma(4, 12, n), 2),
+            "gq": rng.integers(0, 99, n).astype(np.float64),
+            exome_column: rng.random(n) < 0.3,
+            "LCR-hs38": rng.random(n) < 0.1,
+            "mappability.0": rng.random(n) < 0.85,
+            "ug_hcr": rng.random(n) < 0.8,
+            "callable": rng.random(n) < 0.9,
+        }
+        frames[contig] = Frame(cols)
+    write_frames(path, frames)
+    return path
+
+
+def _text_column(values) -> np.ndarray:
+    """``values`` (a list or a numpy array, None for missing) as an object column of ``str``."""
+    out = np.empty(len(values), dtype=object)
+    out[:] = [None if v is None else str(v) for v in (values.tolist() if isinstance(values, np.ndarray) else values)]
+    return out

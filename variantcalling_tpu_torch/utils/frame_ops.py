@@ -7,9 +7,53 @@ machine has no pandas). Each function names the pandas call it replays.
 
 from __future__ import annotations
 
+import ast
+import csv
+import math
+
 import numpy as np
 
 from variantcalling_tpu_torch.utils.h5_utils import Frame
+
+
+def value_counts(values: np.ndarray) -> tuple[list, np.ndarray]:
+    """(values, counts) as ``pd.Series(values).value_counts()`` orders them:
+    count descending, ties in order of first appearance."""
+    values = np.asarray(values)
+    uniq = list(dict.fromkeys(values.tolist()))
+    counts = np.array([int(np.count_nonzero(values == u)) for u in uniq], dtype=np.int64)
+    order = np.argsort(-counts, kind="stable")
+    return [uniq[i] for i in order], counts[order]
+
+
+def astype_str(column: np.ndarray) -> np.ndarray:
+    """pandas 3's ``Series.astype(str)`` as an object column: each value's
+    text (a float's shortest text at its own width, as numpy writes it;
+    ``True``/``False``; ``str`` of any other object), a missing value (NaN,
+    None) left missing, as None."""
+    column = np.asarray(column)
+    out = np.empty(len(column), dtype=object)
+    if column.dtype.kind == "f":
+        ok = ~np.isnan(column)
+        out[ok] = column[ok].astype(str).astype(object)
+        return out
+    if column.dtype.kind in "biu":
+        out[:] = [str(v) for v in column.tolist()]
+        return out
+    out[:] = [None if v is None or (isinstance(v, (float, np.floating)) and v != v) else str(v)
+              for v in column.tolist()]
+    return out
+
+
+def nan_mean(column: np.ndarray) -> float:
+    """``Series.mean()`` of a numeric column: NaN set to 0, numpy's sum (in
+    the column's float dtype; ints in float64) over the count of the others."""
+    column = np.asarray(column)
+    if column.dtype.kind != "f":
+        column = column.astype(np.float64)
+    mask = np.isnan(column)
+    count = column.dtype.type(len(column) - int(mask.sum()))
+    return np.where(mask, column.dtype.type(0), column).sum(dtype=column.dtype) / count
 
 
 def take_rows(df: Frame, keep) -> Frame:
@@ -340,3 +384,259 @@ def read_tsv(path: str, names: list[str] | None = None, comment: bytes | None = 
             texts = col
         out[name] = infer_column(texts, none)
     return out
+
+
+_POW10 = [float(f"1e{k}") for k in range(309)]
+
+
+def precise_xstrtod(text: str) -> float | None:
+    """A decimal text as ``read_csv``'s default float converter reads it
+    (pandas' ``precise_xstrtod``, not always the nearest double): leading and
+    trailing blanks skipped, up to 17 significant digits accumulated into a
+    double, the rest counted into the exponent, then one multiplication or
+    division by a power of ten. None where the text is no such number."""
+    p, n = 0, len(text)
+    while p < n and text[p] in " \t\n\v\f\r":
+        p += 1
+    negative = p < n and text[p] == "-"
+    if p < n and text[p] in "+-":
+        p += 1
+    number, exponent, num_digits = 0.0, 0, 0
+    while p < n and "0" <= text[p] <= "9":
+        if num_digits < 17:
+            number = number * 10.0 + (ord(text[p]) - 48)
+            num_digits += 1
+        else:
+            exponent += 1
+        p += 1
+    if p < n and text[p] == ".":
+        p += 1
+        num_decimals = 0
+        while num_digits < 17 and p < n and "0" <= text[p] <= "9":
+            number = number * 10.0 + (ord(text[p]) - 48)
+            p += 1
+            num_digits += 1
+            num_decimals += 1
+        while p < n and "0" <= text[p] <= "9":
+            p += 1
+        exponent -= num_decimals
+    if num_digits == 0:
+        return None
+    if negative:
+        number = -number
+    if p < n and text[p] in "eE":
+        q = p + 1
+        neg_exp = q < n and text[q] == "-"
+        if q < n and text[q] in "+-":
+            q += 1
+        digits, e = 0, 0
+        while digits < 17 and q < n and "0" <= text[q] <= "9":
+            e = e * 10 + (ord(text[q]) - 48)
+            digits += 1
+            q += 1
+        if digits:
+            exponent += -e if neg_exp else e
+            p = q
+    while p < n and text[p] in " \t\n\v\f\r":
+        p += 1
+    if p != n or exponent > 308:
+        return None
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -308:
+        return 0.0 if exponent < -616 else number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
+
+
+def _csv_bools(texts: list[str]) -> np.ndarray | None:
+    """A bool column where every field is one of ``read_csv``'s default true or false texts."""
+    truth = {"True": True, "TRUE": True, "true": True, "False": False, "FALSE": False, "false": False}
+    if not texts or any(t not in truth for t in texts):
+        return None
+    return np.array([truth[t] for t in texts], dtype=bool)
+
+
+def read_csv(path: str) -> dict[str, np.ndarray]:
+    """``pd.read_csv(path)``: the first line is the header (a repeated name
+    made ``name.1``, ``name.2``), fields split at commas with ``"`` quoting
+    (a doubled quote inside a quoted field is one quote), blank lines skipped,
+    a short row padded with missing fields, a row of more fields than the
+    header refused (``ValueError``). Each column typed by :func:`infer_column`
+    (int64, float64, or ``str`` objects with NaN for the missing texts),
+    or bool where every field is ``True``/``False`` in one of their three
+    spellings."""
+    with open(path, newline="", encoding="utf-8") as fh:
+        rows = [r for r in csv.reader(fh) if r]
+    if not rows:
+        raise ValueError("No columns to parse from file")
+    names: list[str] = []
+    for name in rows[0]:
+        base, k = name, 0
+        while name in names:
+            k += 1
+            name = f"{base}.{k}"
+        names.append(name)
+    width = len(names)
+    body = rows[1:]
+    for i, r in enumerate(body):
+        if len(r) > width:
+            raise ValueError(f"Expected {width} fields in line {i + 2}, saw {len(r)}")
+    out = {}
+    for j, name in enumerate(names):
+        texts = [r[j] if j < len(r) else "" for r in body]
+        none = np.array([j >= len(r) for r in body], dtype=bool)
+        bools = _csv_bools(texts)
+        if bools is not None:
+            out[name] = bools
+            continue
+        raw = np.array([t.encode() for t in texts], dtype=bytes) if texts else np.zeros(0, dtype="S1")
+        col = infer_column(raw, none)
+        if col.dtype.kind == "f":  # the numbers as pandas' converter reads them
+            for i in np.flatnonzero(~np.isnan(col)).tolist():
+                v = precise_xstrtod(texts[i])
+                if v is not None:
+                    col[i] = v
+                elif texts[i].strip().lower().lstrip("+-") not in ("inf", "infinity") \
+                        and not np.isinf(col[i]):  # a text numpy reads and pandas does not ("1_0")
+                    col = np.array(texts, dtype=object)
+                    col[none | np.isin(raw, np.array(sorted(NA_TEXTS), dtype=bytes))] = np.nan
+                    break
+        out[name] = col
+    return out
+
+
+# -- DataFrame.eval over a whitelist ----------------------------------------------------------------------------------
+
+_COMPARE = {ast.Eq: np.equal, ast.NotEq: np.not_equal, ast.Lt: np.less, ast.LtE: np.less_equal,
+            ast.Gt: np.greater, ast.GtE: np.greater_equal}
+_ARITH = {ast.Add: np.add, ast.Sub: np.subtract, ast.Mult: np.multiply, ast.Div: np.true_divide,
+          ast.FloorDiv: np.floor_divide, ast.Mod: np.mod, ast.Pow: np.power,
+          ast.BitAnd: np.bitwise_and, ast.BitOr: np.bitwise_or}
+
+
+def _eval_node(node: ast.AST, columns: dict[str, np.ndarray]):
+    if isinstance(node, ast.Expression):
+        return _eval_node(node.body, columns)
+    if isinstance(node, ast.Name):
+        if node.id not in columns:
+            raise NameError(f"name '{node.id}' is not defined")
+        return np.asarray(columns[node.id])
+    if isinstance(node, ast.Constant) and isinstance(node.value, (bool, int, float, str)):
+        return node.value
+    if isinstance(node, ast.BoolOp):  # ``and``/``or`` are element-wise, as pandas' eval reads them
+        fn = np.bitwise_and if isinstance(node.op, ast.And) else np.bitwise_or
+        out = _eval_node(node.values[0], columns)
+        for v in node.values[1:]:
+            out = fn(out, _eval_node(v, columns))
+        return out
+    if isinstance(node, ast.UnaryOp):
+        v = _eval_node(node.operand, columns)
+        if isinstance(node.op, (ast.Not, ast.Invert)):
+            return np.invert(v)
+        if isinstance(node.op, ast.USub):
+            return np.negative(v)
+        if isinstance(node.op, ast.UAdd):
+            return np.positive(v)
+    if isinstance(node, ast.BinOp) and type(node.op) in _ARITH:
+        return _ARITH[type(node.op)](_eval_node(node.left, columns), _eval_node(node.right, columns))
+    if isinstance(node, ast.Compare):
+        out = None
+        left = _eval_node(node.left, columns)
+        for op, comp in zip(node.ops, node.comparators):
+            if isinstance(op, (ast.In, ast.NotIn)):
+                if not isinstance(comp, (ast.List, ast.Tuple)):
+                    raise TypeError("'in' takes a list of constants")
+                right = [_eval_node(e, columns) for e in comp.elts]
+                if any(isinstance(v, np.ndarray) for v in right):
+                    raise TypeError("'in' takes a list of constants")
+                hit = np.isin(left, np.array(right, dtype=object if np.asarray(left).dtype == object else None))
+                step = hit if isinstance(op, ast.In) else ~hit
+            elif type(op) in _COMPARE:
+                right = _eval_node(comp, columns)
+                step = _COMPARE[type(op)](left, right)
+            else:
+                break
+            out = step if out is None else out & step
+            left = right
+        else:
+            return out
+    raise TypeError(f"unsupported expression: {ast.dump(node)[:60]}")
+
+
+def eval_query(columns: dict[str, np.ndarray], query: str, n_rows: int) -> np.ndarray:
+    """``DataFrame.eval(query).fillna(False).astype(bool)`` over ``columns``
+    (``n_rows`` long), without ``eval``: the query is parsed with :mod:`ast`
+    and only names, constants, comparisons (chained ones too), ``and``,
+    ``or``, ``not``, ``&``, ``|``, ``~``, arithmetic and ``in``/``not in``
+    over a list of constants are evaluated, element-wise over the columns,
+    NaN giving False. Any other expression, or a failure, raises
+    ``ValueError(f"filter query {query!r} failed: ...")``, the reference's
+    text."""
+    try:
+        out = _eval_node(ast.parse(query.strip(), mode="eval"), columns)
+        out = np.asarray(out)
+        if out.shape != (n_rows,):
+            raise TypeError(f"the query gives no column of {n_rows} rows")
+        if out.dtype == bool:
+            return out
+        if out.dtype.kind == "f":
+            return np.where(np.isnan(out), False, out != 0)
+        return np.array([not (isinstance(v, float) and v != v) and bool(v) for v in out.tolist()], dtype=bool)
+    except Exception as e:  # noqa: BLE001 - every failure is the one refusal
+        raise ValueError(f"filter query {query!r} failed: {e}") from e
+
+
+# -- DataFrame.to_json(orient="records") ------------------------------------------------------------------------------
+
+#: pandas' ``to_json`` writes floats with this many decimals at most
+JSON_DOUBLE_PRECISION = 10
+
+
+def json_double_text(value: float, precision: int = JSON_DOUBLE_PRECISION) -> str:
+    """A finite float as pandas' ``to_json`` writes it (its vendored ujson's
+    ``Buffer_AppendDoubleUnchecked``): past 1e16, or nonzero below 1e-15 in
+    magnitude, ``%.{precision}g``; else the whole part, a point and the
+    fraction rounded to ``precision`` decimals (half to odd, or up from a
+    zero last digit), trailing zeros cut, ``.0`` for none."""
+    neg = value < 0
+    if neg:
+        value = -value
+    if value > 1e16 - 1 or (value != 0.0 and value < 1e-15):
+        return "%.*g" % (precision, -value if neg else value)
+    pow10 = float(10 ** precision)
+    whole = int(value)
+    tmp = (value - float(whole)) * pow10
+    frac = int(tmp)
+    diff = tmp - float(frac)
+    if diff > 0.5 or (diff == 0.5 and (frac == 0 or frac & 1)):
+        frac += 1
+    if frac >= pow10:
+        frac = 0
+        whole += 1
+    text = f"{whole}." + (f"{frac:0{precision}d}".rstrip("0") if frac else "0")
+    return ("-" if neg else "") + text
+
+
+def _json_value(v):
+    if v is None:
+        return None
+    if isinstance(v, (np.ndarray, list, tuple)):
+        return [_json_value(x) for x in (v.tolist() if isinstance(v, np.ndarray) else v)]
+    if isinstance(v, (bool, np.bool_)):
+        return bool(v)
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    if isinstance(v, (float, np.floating)):
+        v = float(v)
+        return None if math.isnan(v) or math.isinf(v) else float(json_double_text(v))
+    return str(v)
+
+
+def records_json(frame: Frame) -> list[dict]:
+    """``json.loads(df.to_json(orient="records"))``: a dict a row, column
+    name to value; floats rounded as pandas writes them
+    (:func:`json_double_text`), NaN, infinities and missing values ``None``,
+    ints and bools as they are, strings as they are, an array cell a list."""
+    names = frame.columns
+    cols = [[_json_value(v) for v in np.asarray(frame[n]).tolist()] for n in names]
+    return [dict(zip(names, row)) for row in zip(*cols)] if names else [{} for _ in range(len(frame))]
