@@ -296,6 +296,19 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    (``REPORT_CHAIN_DETAIL`` lines: wall, peak RSS, how many ran side by side).
    Independent runs of phases 13-15 (the CPU twins beside the card runs,
    the gVCF tools, the methylation tools) also run side by side since then.
+19. the last twelve host-only tools (``phase_host_tools``), each twice in two
+   directories side by side (the two runs' files byte-equal), on seeded
+   worlds of ``synthetic_tools`` and phase 4's chr20 world:
+   ``sv_stats_collect`` (25,000 SV records and a concordance h5: the
+   histograms and counts as planted) and ``create_sv_report`` on its pickle
+   and on the committed JAX-written pickle (equal to the port's own on that
+   world: the pandas 3 reader on a machine without pandas), ``ppmseq_qc``,
+   ``find_adapter_coords`` and ``add_ml_tags_bam`` on 500,000 and 20,000
+   reads (the crosstab as drawn, samples as the plain per-read specs, the
+   planted adapters found), ``collect_hpol_table``, ``annotate_contig``,
+   ``intersect_bed_regions``, ``index_vcf_file``, ``remove_vcf_duplicates``,
+   ``remove_empty_files`` and ``cloud_sync`` (a stub ``gsutil``, no network),
+   each held to a numpy check (``HOST_TOOLS_DETAIL`` lines).
 
 A ``PHASE_SECONDS`` line follows every phase (wall seconds of the phase),
 and one for the whole run before the result lines.
@@ -1226,7 +1239,11 @@ FORKSERVER_PRELOAD = ["__main__", "torch", "numpy", *(f"variantcalling_tpu_torch
     "pipelines.methylation.concat_methyldackel_csvs", "pipelines.methylation.process_mbias",
     "pipelines.methylation.process_merge_context", "pipelines.methylation.process_merge_context_no_cp_g",
     "pipelines.methylation.process_per_read", "pipelines.run_somatic_comparison_and_graphs",
-    "pipelines.detailed_var_report", "obs.cli"))]
+    "pipelines.detailed_var_report", "obs.cli", "pipelines.sv_stats_collect", "pipelines.create_sv_report",
+    "pipelines.ppmseq_qc", "pipelines.find_adapter_coords", "pipelines.add_ml_tags_bam",
+    "pipelines.collect_hpol_table", "pipelines.vcfbed.annotate_contig", "pipelines.vcfbed.intersect_bed_regions",
+    "pipelines.misc.index_vcf_file", "pipelines.misc.remove_vcf_duplicates", "pipelines.misc.remove_empty_files",
+    "pipelines.misc.cloud_sync"))]
 
 
 def _forked(spec: dict, label: str, target=None) -> dict:
@@ -4401,6 +4418,371 @@ def phase_report_chain(tmp: Path, card: str, sec: dict, reports: dict, feat: dic
     return out
 
 
+#: phase 19's planted duplicates, empty files and samples held to the per-read specs
+HOST_DUPS = 1_040
+HOST_EMPTY = dict(n=100, n_empty=30)
+HOST_ADAPTER_SAMPLE = 5_000
+HOST_ML_SAMPLE = 1_000
+#: the world seed of phase 19's BEDs, duplicates and files
+HOST_SEED = 2051
+#: phase 19's homopolymer collection regions, and the intervals of each annotation BED
+HOST_HPOL = dict(n_intervals=2_000, total_bp=20_000_000)
+HOST_REGION_INTERVALS = 5_000
+
+
+def _host_runs(jobs: dict[str, tuple], d: Path, card: str) -> dict[str, dict]:
+    """Each ``label: (tool, argv, env, expected exit code)`` twice, in
+    ``d/a/label`` and ``d/b/label`` (relative outputs), all at once, each in a
+    forked process (:func:`_tool_child`, its standard output kept): the exit
+    code, no kernel launched; a ``HOST_TOOLS_DETAIL`` line a run. The runs of
+    ``a`` by label, after the two copies' files are held byte-equal."""
+    specs = {}
+    for label, (tool, argv, env, _) in jobs.items():
+        for copy in ("a", "b"):
+            (d / copy / label).mkdir(parents=True, exist_ok=True)
+            specs[f"{label}/{copy}"] = {"tool": tool, "argv": argv, "env": env or {}, "cwd": str(d / copy / label),
+                                        "raises": True}
+    runs = _forked_all(specs, _tool_child)
+    for key, run in runs.items():
+        label = key.split("/")[0]
+        tool, _, _, want_rc = jobs[label]
+        check(run["rc"] == want_rc, f"{key}: exit {run['rc']} (expected {want_rc}): {run['error']}")
+        check(not any(run["launches"].values()), f"{key}: a kernel was launched ({run['launches']})")
+        print("HOST_TOOLS_DETAIL " + json.dumps({
+            "run": key, "tool": tool, "card": card, "wall_s": run["seconds"], "peak_rss_bytes": run["peak_rss_bytes"],
+            "figures_skipped": run["figures_skipped"], "side_by_side": len(specs)}), flush=True)
+    _same_trees(d / "a", d / "b", f"host tools {d.name}")
+    return {label: runs[f"{label}/a"] for label in jobs}
+
+
+def _bed_mask(path: str, length: int) -> np.ndarray:
+    """A BED's cover of one contig as a boolean mask, by numpy."""
+    rows = np.loadtxt(path, dtype=np.int64, usecols=(1, 2), ndmin=2)
+    edge = np.zeros(length + 1, dtype=np.int32)
+    np.add.at(edge, np.minimum(rows[:, 0], length), 1)
+    np.add.at(edge, np.minimum(rows[:, 1], length), -1)
+    return np.cumsum(edge[:-1]) > 0
+
+
+def _appended(path: str, sizes_in: np.ndarray, rows: np.ndarray) -> list[bytes]:
+    """The bytes each record of ``rows`` of the BAM at ``path`` has past its input size ``sizes_in``."""
+    from variantcalling_tpu_torch.io import bam as bam_io
+
+    buf = bam_io.read_stream(path)
+    starts, sizes = bam_io.record_offsets(buf, bam_io.header_end(buf))
+    check(len(starts) == len(sizes_in), f"{path}: {len(starts)} records, the input {len(sizes_in)}")
+    return [bytes(buf[starts[i] + 4 + sizes_in[i]:starts[i] + 4 + sizes[i]]) for i in rows.tolist()]
+
+
+def phase_host_tools(tmp: Path, card: str, world: dict) -> dict:
+    """The last twelve host-only tools (phase 19), each run twice in two
+    directories, the runs of a step side by side in forked processes
+    (:func:`_host_runs`), the two runs' files byte-equal, on seeded worlds
+    of ``synthetic_tools`` and phase 4's chr20 world:
+
+    1. ``sv_stats_collect`` on :data:`synthetic_tools.SV_WORLD` (25,000 SV
+       records, a concordance h5 of 20,000 base and 25,000 call rows): the
+       histograms and the concordance counts equal a numpy count of the
+       plant; then ``create_sv_report --html_output`` on its pickle; and
+       ``create_sv_report`` on the committed JAX-written pickle
+       (``tests/torch_data/sv_stats_reference.pkl``, pandas 3 with Arrow
+       strings) gives the h5 frames of the port's own ``sv_stats_collect``
+       then ``create_sv_report`` on that world regenerated from its seed;
+    2. ``ppmseq_qc`` on 500,000 reads of 200 bp: the crosstab equals a
+       numpy count of the drawn tags;
+    3. ``find_adapter_coords`` on the same reads: XF, XT and RX of a sample
+       equal the plain per-read spec, and at least 99 % of the planted
+       full-length adapters are found at their planted coordinate;
+    4. ``add_ml_tags_bam`` on 20,000 reads and a (20,000, 380, 21) float32
+       tensor: the tags of a sample equal the plain per-read spec, ``kr``
+       the argmax key;
+    5. ``collect_hpol_table`` on phase 4's FASTA and 2,000 intervals of
+       about 20 Mbp: every row a run of its nucleotide of its length, a
+       different base (or its interval's edge) on each side;
+    6. ``annotate_contig --contig chr20`` on phase 4's VCF bgzipped with a
+       ``.tbi``, two BEDs: each flag's count equals numpy membership;
+    7. ``intersect_bed_regions`` of two BEDs less a third: the total length
+       equals a numpy mask;
+    8. ``index_vcf_file`` of the ``.vcf``: region reads through the new
+       ``.tbi`` equal the whole-file read;
+    9. ``remove_vcf_duplicates`` of 104,000 records and 1,040 planted
+       duplicates: exactly those go, every other record as read (QUAL in the
+       reference's rendering);
+    10. ``remove_empty_files --dry_run`` of 100 files, 30 empty: 30 counted,
+        none removed;
+    11. ``cloud_sync``: a local path passes through, a ``gs://`` URI is
+        localized by a stub ``gsutil`` on ``PATH`` with equal bytes, and with
+        no CLI on ``PATH`` the tool fails as the reference's does. No network.
+
+    ``HOST_TOOLS_DETAIL`` lines (wall, peak RSS, figures skipped, runs side by side)."""
+    from tests import torch_worlds
+    from variantcalling_tpu_torch import synthetic_tools as st
+    from variantcalling_tpu_torch.io import bam as bam_io
+    from variantcalling_tpu_torch.io.bed import read_bed
+    from variantcalling_tpu_torch.io.vcf import format_qual, read_vcf
+    from variantcalling_tpu_torch.pipelines import add_ml_tags_bam, find_adapter_coords
+    from variantcalling_tpu_torch.pipelines.sv_stats_collect import SVBINS
+    from variantcalling_tpu_torch.utils import h5_utils
+    from variantcalling_tpu_torch.utils import pandas_pickle as pp
+    from variantcalling_tpu_torch.utils.frame_ops import read_tsv
+
+    d = tmp / "host_tools"
+    d.mkdir()
+    out: dict = {}
+    length = WORLD["length"]
+    t0 = time.perf_counter()
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(FORKSERVER_PRELOAD)
+    with ProcessPoolExecutor(4, mp_context=ctx) as pool:  # processes: the writers' Python parts side by side
+        futures = {
+            "reads": pool.submit(st.write_read_world, str(d / "reads"), **st.READ_WORLD),
+            "ml": pool.submit(st.write_ml_world, str(d / "ml"), **st.ML_WORLD),
+            "sv": pool.submit(st.write_sv_world, str(d / "sv"), **st.SV_WORLD),
+            "sv_ref": pool.submit(st.write_sv_world, str(d / "sv_ref"), **st.SV_REFERENCE_WORLD),
+            "beds": pool.submit(st.write_region_beds, str(d / "beds"), seed=HOST_SEED, contig="chr20", length=length,
+                                n_intervals=HOST_REGION_INTERVALS),
+            "hpol": pool.submit(st.write_hpol_bed, str(d / "hpol.bed"), seed=HOST_SEED, contig="chr20", length=length,
+                                **HOST_HPOL),
+            "dup": pool.submit(st.write_dup_vcf, str(d / "dup.vcf"), world["vcf"], seed=HOST_SEED, n_dups=HOST_DUPS),
+            "empty": pool.submit(st.write_empty_files, str(d / "empty"), seed=HOST_SEED, **HOST_EMPTY),
+            "gz": pool.submit(st.bgzip_indexed, world["vcf"], str(d / "calls.vcf.gz")),
+        }
+        w = {k: f.result() for k, f in futures.items()}
+    (d / "jax").mkdir()
+    (d / "jax" / "stats.pkl").write_bytes(torch_worlds.SV_REFERENCE_PICKLE.read_bytes())
+    stub = d / "bin"
+    stub.mkdir()
+    (stub / "gsutil").write_text(f"#!/bin/sh\n# gsutil -q cp URI DEST: a local copy, no network\ncp '{world['vcf']}' "
+                                 "\"$4\"\n")
+    (stub / "gsutil").chmod(0o755)
+    (d / "nobin").mkdir()
+    for copy in ("a", "b"):
+        (d / "runs1" / copy / "index_vcf_file").mkdir(parents=True)
+        (d / "runs1" / copy / "index_vcf_file" / "calls.vcf").write_bytes(Path(world["vcf"]).read_bytes())
+    world_s = time.perf_counter() - t0
+    print(f"world host tools: {st.READ_WORLD['n_reads']} reads, an ML tensor {st.ML_WORLD}, "
+          f"{st.SV_WORLD['n_records']} SV records, BEDs, {HOST_DUPS} duplicates, {HOST_EMPTY['n']} files, "
+          f"written in {world_s:.1f} s", flush=True)
+    out["world_s"] = world_s
+
+    sv, beds, reads = w["sv"], w["beds"], w["reads"]
+    adapters = ["--left_adapter", st.LEFT_ADAPTER, "--right_adapter", st.RIGHT_ADAPTER, "--left_umi_length",
+                str(st.LEFT_UMI)]
+    path_env = {"PATH": str(stub) + os.pathsep + os.environ.get("PATH", "")}
+    first = _host_runs({
+        "sv_stats_collect": ("sv_stats_collect", [sv["vcf"], "sv.pkl", "--concordance_h5", sv["concordance_h5"]],
+                             None, 0),
+        "sv_stats_collect_ref": ("sv_stats_collect", [w["sv_ref"]["vcf"], "stats.pkl", "--concordance_h5",
+                                                      w["sv_ref"]["concordance_h5"]], None, 0),
+        "create_sv_report_jax_pickle": ("create_sv_report", ["--statistics_file", str(d / "jax" / "stats.pkl"),
+                                                             "--h5_output", "ref.h5"], None, 0),
+        "ppmseq_qc": ("ppmseq_qc", ["--input_bam", reads["bam"], "--output_h5", "ppmseq.h5"], None, 0),
+        "find_adapter_coords": ("find_adapter_coords", ["--input_bam", reads["bam"], "--output_bam", "tagged.bam",
+                                                        *adapters], None, 0),
+        "add_ml_tags_bam": ("add_ml_tags_bam", ["--probability_tensor", w["ml"]["probs"], "--input_ubam",
+                                                w["ml"]["bam"], "--output_ubam", "ml.bam"], None, 0),
+        "collect_hpol_table": ("collect_hpol_table", ["--reference", world["fasta"], "--collection_regions",
+                                                      w["hpol"], "--output", "hpol.tsv"], None, 0),
+        "annotate_contig": ("annotate_contig", ["--input_vcf", w["gz"], "--output_vcf", "annotated.vcf",
+                                                "--annotate_intervals", *beds[:2], "--contig", "chr20"], None, 0),
+        "intersect_bed_regions": ("intersect_bed_regions", ["--include-regions", *beds[:2], "--exclude-regions",
+                                                            beds[2], "--output-bed", "intersect.bed"], None, 0),
+        "index_vcf_file": ("index_vcf_file", ["calls.vcf"], None, 0),
+        "remove_vcf_duplicates": ("remove_vcf_duplicates", [w["dup"]["vcf"], "dedup.vcf"], None, 0),
+        "remove_empty_files": ("remove_empty_files", [*w["empty"]["paths"], "--dry_run"], None, 0),
+        "cloud_sync_local": ("cloud_sync", [world["vcf"], "--cache_dir", "cache"], None, 0),
+        "cloud_sync_gs": ("cloud_sync", ["gs://bucket/chr20/calls.vcf", "--cache_dir", "cache"], path_env, 0),
+        "cloud_sync_no_cli": ("cloud_sync", ["gs://bucket/x.vcf", "--cache_dir", "cache"], {"PATH": str(d / "nobin")},
+                              1),
+    }, d / "runs1", card)
+    a1 = d / "runs1" / "a"
+    second = _host_runs({
+        "create_sv_report": ("create_sv_report", ["--statistics_file", str(a1 / "sv_stats_collect" / "sv.pkl"),
+                                                  "--h5_output", "sv.h5", "--html_output", "sv.html"], None, 0),
+        "create_sv_report_ref": ("create_sv_report", ["--statistics_file",
+                                                      str(a1 / "sv_stats_collect_ref" / "stats.pkl"), "--h5_output",
+                                                      "ref.h5"], None, 0),
+    }, d / "runs2", card)
+    runs = {**first, **second}
+    a2 = d / "runs2" / "a"
+
+    # 1. the SV histograms and concordance against the plant; the JAX pickle's report against the port's own
+    res = pp.loads((a1 / "sv_stats_collect" / "sv.pkl").read_bytes())
+    keep = sv["pass"]
+    types, lens = sv["svtype"][keep], np.nan_to_num(sv["svlen"][keep], nan=0.0)
+    bins = np.searchsorted(np.asarray(SVBINS), np.abs(lens), side="right") - 1
+    want_types = {t: int((types == t).sum()) for t in set(types.tolist())}
+    got_types = dict(zip(res["type_counts"].index.values.tolist(), res["type_counts"].values.tolist()))
+    check(got_types == want_types, f"sv_stats_collect: type counts {got_types} != the plant's {want_types}")
+    check(res["length_counts"].values.tolist() == np.bincount(bins, minlength=11).tolist(),
+          "sv_stats_collect: length counts are not the plant's")
+    lbt = res["length_by_type_counts"]
+    want_rows = {t: np.bincount(bins[types == t], minlength=11).tolist() for t in sorted(want_types) if t != "CTX"}
+    got_rows = {t: [int(lbt.columns[c][i]) for c in lbt.columns] for i, t in enumerate(lbt.index.values.tolist())}
+    check(got_rows == want_rows, "sv_stats_collect: the length-by-type table is not the plant's")
+    base = h5_utils.read_hdf(sv["concordance_h5"], "base")
+    calls = h5_utils.read_hdf(sv["concordance_h5"], "calls")
+    conc = res["concordance"]
+    all_row = conc.index.tuples().index(("ALL", ""))
+    want_all = {"TP_base": int((np.asarray(base["label"]) == "TP").sum()),
+                "FN": int((np.asarray(base["label"]) == "FN").sum()),
+                "TP_calls": int((np.asarray(calls["label"]) == "TP").sum()),
+                "FP": int((np.asarray(calls["label"]) == "FP").sum())}
+    got_all = {k: int(conc.columns[k][all_row]) for k in want_all}
+    check(got_all == want_all and int(res["fp_stats"].values.sum()) == want_all["FP"],
+          f"sv_stats_collect: the ALL row {got_all} != the h5's {want_all}")
+    report_keys = h5_utils.list_keys(str(a2 / "create_sv_report" / "sv.h5"))
+    check(report_keys == sorted(["parameters", "type_counts", "length_counts", "length_by_type_counts", "concordance",
+                                 "recall_per_type", "recall_per_length_and_type",
+                                 "fp_counts_per_length_and_type"]), f"create_sv_report: keys {report_keys}")
+    ref_rows = _same_frames(str(a2 / "create_sv_report_ref" / "ref.h5"),
+                            str(a1 / "create_sv_report_jax_pickle" / "ref.h5"), "create_sv_report (JAX pickle)")
+    out["sv"] = {"records": int(len(sv["pass"])), "passing": int(keep.sum()), "types": want_types,
+                 "report_keys": len(report_keys), "jax_pickle_rows": ref_rows}
+
+    # 2. the crosstab against the drawn tags
+    cross = h5_utils.read_hdf(str(a1 / "ppmseq_qc" / "ppmseq.h5"), "strand_tag_crosstab")
+    want = np.zeros((6, 6), dtype=np.int64)
+    np.add.at(want, (reads["cat_start"], reads["cat_end"]), 1)
+    got = np.stack([np.asarray(cross[c]) for c in cross.columns[1:]], axis=1)
+    check((got == want).all(), "ppmseq_qc: the crosstab is not the drawn tags' count")
+    out["ppmseq"] = {"reads": int(want.sum()), "mixed_mixed": int(want[0, 0])}
+
+    # 3. the adapters: a sample against the plain per-read spec, the planted ones found
+    buf = bam_io.read_stream(reads["bam"])
+    starts, sizes = bam_io.record_offsets(buf, bam_io.header_end(buf))
+    lay = bam_io.record_layout(buf, starts, sizes)
+    letters = bam_io.sequence_letters(buf, lay["seq"], st.READ_WORLD["read_len"])
+    tagged = bam_io.read_stream(str(a1 / "find_adapter_coords" / "tagged.bam"))
+    t_starts, t_sizes = bam_io.record_offsets(tagged, bam_io.header_end(tagged))
+    t_lay = bam_io.record_layout(tagged, t_starts, t_sizes)
+    tags = bam_io.find_aux_tags(tagged, t_lay["aux"], t_lay["end"], ("XF", "XT", "RX"))
+    xf, xt = (bam_io.le_ints(tagged, tags[t][1], 4, signed=True) for t in ("XF", "XT"))
+    args = find_adapter_coords.parse_args(["--input_bam", "-", "--output_bam", "-", *adapters])
+    sample = np.sort(np.random.default_rng(HOST_SEED).choice(len(starts), HOST_ADAPTER_SAMPLE, replace=False))
+    bad = 0
+    for i in sample.tolist():
+        got_rx = bytes(tagged[tags["RX"][1][i]:tags["RX"][1][i] + tags["RX"][2][i] - 1]).decode()
+        bad += find_adapter_coords.analyze_read(bytes(letters[i]).decode(), args) != (int(xf[i]), int(xt[i]), got_rx)
+    check(bad == 0, f"find_adapter_coords: {bad} of {HOST_ADAPTER_SAMPLE} sampled reads differ from the plain spec")
+    left_full = (reads["left_end"] > 0) & ~reads["truncated"]
+    left_hit = float((xf[left_full] == reads["left_end"][left_full] + 1 + st.LEFT_UMI).mean())
+    right_full = reads["right_len"] == len(st.RIGHT_ADAPTER)
+    right_hit = float((xt[right_full] == reads["right_start"][right_full] + 1).mean())
+    check(left_hit >= 0.99 and right_hit >= 0.99,
+          f"find_adapter_coords: planted full-length adapters found 5' {left_hit:.4f}, 3' {right_hit:.4f}")
+    out["adapters"] = {"sample": HOST_ADAPTER_SAMPLE, "left_found": left_hit, "right_found": right_hit,
+                       "left_planted": int(left_full.sum()), "right_planted": int(right_full.sum())}
+
+    # 4. the ML tags of a sample against the plain per-read spec
+    probs = np.load(w["ml"]["probs"], mmap_mode="r")
+    ml_buf = bam_io.read_stream(w["ml"]["bam"])
+    _, ml_sizes = bam_io.record_offsets(ml_buf, bam_io.header_end(ml_buf))
+    rows = np.sort(np.random.default_rng(HOST_SEED + 1).choice(len(ml_sizes), HOST_ML_SAMPLE, replace=False))
+    bad = kr_bad = 0
+    for i, tail in zip(rows.tolist(), _appended(str(a1 / "add_ml_tags_bam" / "ml.bam"), ml_sizes, rows)):
+        p = np.asarray(probs[i])
+        key = p.argmax(axis=1)
+        bad += tail != add_ml_tags_bam.read_tags(p, key, 0.003, 10.0)
+        kr = np.frombuffer(tail[8:8 + p.shape[0]], dtype=np.int8)
+        kr_bad += not (tail[:4] == b"krBc" and (kr == np.clip(key, 0, 127)).all())
+    check(bad == 0 and kr_bad == 0, f"add_ml_tags_bam: {bad} sampled reads differ from the plain spec, {kr_bad} "
+                                     "with kr not the argmax key")
+    out["ml_tags"] = {"sample": HOST_ML_SAMPLE, "reads": int(len(ml_sizes))}
+
+    # 5. the homopolymers against the genome
+    codes = _fasta_codes(world["fasta"])["chr20"]
+    hp = read_tsv(str(a1 / "collect_hpol_table" / "hpol.tsv"), names=["chrom", "pos", "length", "base"])
+    pos, hl = np.asarray(hp["pos"], dtype=np.int64), np.asarray(hp["length"], dtype=np.int64)
+    letter = np.full(128, 255, dtype=np.uint8)
+    letter[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    nuc = letter[np.asarray(hp["base"]).astype("U1").view(np.uint32) % 128]
+    iv = read_bed(w["hpol"])
+    which = np.searchsorted(iv.start, pos, side="right") - 1
+    lo, hi = iv.start[which], np.minimum(iv.end[which], length)
+    inside = (pos >= lo) & (pos + hl <= hi)
+    run_ok = np.zeros(len(pos), dtype=bool)
+    for h in np.unique(hl).tolist():  # the rows of one hmer length at once
+        at = np.flatnonzero(hl == h)
+        run_ok[at] = (codes[np.minimum(pos[at, None] + np.arange(h), length - 1)] == nuc[at, None]).all(axis=1)
+    left_ok = (pos == lo) | (codes[np.maximum(pos - 1, 0)] != nuc)
+    right_ok = (pos + hl == hi) | (codes[np.minimum(pos + hl, length - 1)] != nuc)
+    check(len(pos) > 0 and inside.all() and run_ok.all() and left_ok.all() and right_ok.all(),
+          f"collect_hpol_table: of {len(pos)} rows, {int((~run_ok).sum())} are not a run of their base, "
+          f"{int((~left_ok | ~right_ok).sum())} have their base beside them")
+    out["hpol"] = {"rows": len(pos), "at_interval_edge": int(((pos == lo) | (pos + hl == hi)).sum())}
+
+    # 6-7. the flags and the intersection against numpy masks
+    table = read_vcf(str(a1 / "annotate_contig" / "annotated.vcf"))
+    pos0 = np.asarray(table.pos, dtype=np.int64) - 1
+    flags = {}
+    for path in beds[:2]:
+        name = Path(path).name.removesuffix(".bed")
+        got_n = sum(f";{name};" in f";{s};" for s in table.info)
+        want_n = int(_bed_mask(path, length)[pos0].sum())
+        check(got_n == want_n, f"annotate_contig: {name} on {got_n} records, numpy membership {want_n}")
+        flags[name] = got_n
+    out["annotate"] = {"records": len(table), "flags": flags}
+    inter = read_bed(str(a1 / "intersect_bed_regions" / "intersect.bed"))
+    want_bp = int((_bed_mask(beds[0], length) & _bed_mask(beds[1], length) & ~_bed_mask(beds[2], length)).sum())
+    check(inter.total_length() == want_bp, f"intersect_bed_regions: {inter.total_length()} bp, the mask {want_bp}")
+    out["intersect"] = {"intervals": len(inter), "bp": want_bp}
+
+    # 8. the index: region reads against the whole file
+    gz = a1 / "index_vcf_file" / "calls.vcf.gz"
+    check(runs["index_vcf_file"]["stdout"].strip() == "calls.vcf.gz.tbi", "index_vcf_file: printed "
+          f"{runs['index_vcf_file']['stdout']!r}")
+    whole = read_vcf(str(a1 / "index_vcf_file" / "calls.vcf"))
+    wpos = np.asarray(whole.pos, dtype=np.int64)
+    for lo_, hi_ in ((1, 1_000_000), (20_000_000, 20_050_000), (40_000_000, length)):
+        part = read_vcf(str(gz), region=("chr20", lo_, hi_))
+        sel = (wpos >= lo_) & (wpos <= hi_)
+        check(np.array_equal(np.asarray(part.pos), wpos[sel]) and list(part.alt) == list(np.asarray(whole.alt)[sel]),
+              f"index_vcf_file: the region chr20:{lo_}-{hi_} read through the index is not the whole file's")
+
+    # 9. the duplicates gone, every other record as read
+    got_lines = _records(a1 / "remove_vcf_duplicates" / "dedup.vcf")
+    originals = w["dup"]["records"]
+    same = len(got_lines) == len(originals) and all(
+        g.split(b"\t")[:5] + g.split(b"\t")[6:] == o.split(b"\t")[:5] + o.split(b"\t")[6:]
+        and g.split(b"\t")[5].decode() == format_qual(float(o.split(b"\t")[5])) for g, o in zip(got_lines, originals))
+    check(same, f"remove_vcf_duplicates: {len(got_lines)} records, {len(originals)} originals, or a record changed")
+    out["dedup"] = {"records_in": len(originals) + HOST_DUPS, "records_out": len(got_lines)}
+
+    # 10-11. the file tools' printed lines
+    check(runs["remove_empty_files"]["stdout"] == f"{HOST_EMPTY['n_empty']}\n"
+          and all(os.path.exists(p) for p in w["empty"]["paths"]),
+          f"remove_empty_files --dry_run: printed {runs['remove_empty_files']['stdout']!r} or removed a file")
+    check(runs["cloud_sync_local"]["stdout"] == world["vcf"] + "\n", "cloud_sync: a local path did not pass through")
+    cached = a1 / "cloud_sync_gs" / "cache" / "gs" / "bucket" / "chr20" / "calls.vcf"
+    check(runs["cloud_sync_gs"]["stdout"] == "cache/gs/bucket/chr20/calls.vcf\n"
+          and cached.read_bytes() == Path(world["vcf"]).read_bytes(), "cloud_sync: the stub's copy is not localized")
+    check((runs["cloud_sync_no_cli"]["error"] or "").startswith(
+        "could not localize gs://bucket/x.vcf: no working cloud CLI"),
+          f"cloud_sync without a CLI: {runs['cloud_sync_no_cli']['error']!r}")
+
+    import importlib.util
+
+    drawn = importlib.util.find_spec("matplotlib") is not None  # absent on the card's machine
+    skipped = {k: runs[k]["figures_skipped"] for k in ("create_sv_report", "create_sv_report_ref")}
+    check(skipped == ({"create_sv_report": 0, "create_sv_report_ref": 0} if drawn
+                      else {"create_sv_report": 6, "create_sv_report_ref": 6}),
+          f"create_sv_report figures skipped {skipped} (matplotlib {'present' if drawn else 'absent'})")
+    out["figures_skipped"] = skipped
+    out["walls"] = {k: v["seconds"] for k, v in runs.items()}
+    print(f"host tools: 12 tools twice, files byte-equal between the runs; SV histograms as planted "
+          f"({out['sv']['passing']} passing records), the JAX pickle's report equal to the port's "
+          f"({ref_rows} rows); ppmseq crosstab as drawn; adapters found 5' {left_hit:.4f}, 3' {right_hit:.4f}, "
+          f"{HOST_ADAPTER_SAMPLE} reads as the plain spec; {HOST_ML_SAMPLE} ML-tagged reads as the plain spec; "
+          f"{len(pos)} homopolymers checked; flags {flags}; intersection {want_bp} bp; "
+          f"{len(originals) + HOST_DUPS} -> {len(got_lines)} records; figures skipped {skipped} ({card})",
+          flush=True)
+    return out
+
+
 def _phase(name: str, card: str, fn, *args):
     """``fn(*args)``, then a ``PHASE_SECONDS`` line with its wall seconds."""
     t0 = time.perf_counter()
@@ -4440,6 +4822,7 @@ def main() -> int:
         _phase("serve", card, phase_serve, Path(tmp), card, pipe)
         _phase("telemetry", card, phase_telemetry, Path(tmp), card, stream, pipe, train["files"], sec)
         _phase("report_chain", card, phase_report_chain, Path(tmp), card, sec, reports["files"], feat["files"])
+        _phase("host_tools", card, phase_host_tools, Path(tmp), card, world)
     print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     n = WORLD["n_variants"]

@@ -532,10 +532,18 @@ TELEMETRY_TOOLS = {"knobs": False, "obs": False, "run_somatic_comparison_and_gra
                    "detailed_var_report": True}
 
 
+#: the host-only tools of the last host slice; none runs a device program (none takes --backend)
+HOST_TOOLS = ("sv_stats_collect", "create_sv_report", "ppmseq_qc", "find_adapter_coords", "add_ml_tags_bam",
+              "collect_hpol_table", "annotate_contig", "intersect_bed_regions", "index_vcf_file",
+              "remove_vcf_duplicates", "remove_empty_files", "cloud_sync")
+
+
 #: the tools each slice had served by its end: (count, the set)
 SERVED = {25: FIRST_25_TOOLS, 36: FIRST_25_TOOLS | set(NEW_TOOLS), 37: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"},
           41: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS),
-          51: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS) | set(REPORT_CHAIN_TOOLS)}
+          51: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS) | set(REPORT_CHAIN_TOOLS),
+          63: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS) | set(REPORT_CHAIN_TOOLS)
+          | set(HOST_TOOLS)}
 
 
 @pytest.fixture(scope="module")
@@ -929,3 +937,126 @@ def test_report_chain_cli_runs_load_none_of_them(report_worlds, slice_worlds, so
             "x_qc.h5", "x_qc.json"} <= {p.name for p in tmp_path.iterdir()}
     assert not (tmp_path / "x_plots").exists()  # every figure skipped
     assert "<img" not in "".join((tmp_path / f).read_text() for f in ("x_wo.html", "x_mrdr.html", "x_qc.html"))
+
+
+# -- the host-only tools ------------------------------------------------------------------------------------------
+
+
+def test_the_host_tool_modules_are_scanned():
+    """The twelve tools' modules, the pandas pickle, the flow and cloud
+    utilities and the world writer are among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (
+        "pipelines/sv_stats_collect", "pipelines/create_sv_report", "pipelines/ppmseq_qc",
+        "pipelines/find_adapter_coords", "pipelines/add_ml_tags_bam", "pipelines/collect_hpol_table",
+        "pipelines/vcfbed/annotate_contig", "pipelines/vcfbed/intersect_bed_regions", "pipelines/misc/index_vcf_file",
+        "pipelines/misc/remove_vcf_duplicates", "pipelines/misc/remove_empty_files", "pipelines/misc/cloud_sync",
+        "utils/pandas_pickle", "utils/flow", "utils/cloud", "io/bam", "synthetic_tools")} <= scanned
+
+
+def test_the_port_serves_every_tool_but_merge_ranks():
+    from variantcalling_tpu.__main__ import TOOLS as JTOOLS
+    from variantcalling_tpu_torch.__main__ import TOOLS
+
+    assert set(JTOOLS) - set(TOOLS) == {"merge-ranks"} and set(TOOLS) <= set(JTOOLS)
+    assert all(TOOLS[t].replace("variantcalling_tpu_torch.", "variantcalling_tpu.") == JTOOLS[t] for t in TOOLS)
+
+
+@pytest.mark.parametrize("tool", HOST_TOOLS)
+def test_host_tools_take_the_reference_options(tool):
+    """Each tool's options are the reference parser's, option for option
+    (positionals by their names), and none is ``--backend``."""
+    import importlib
+
+    from variantcalling_tpu.__main__ import TOOLS as JTOOLS
+    from variantcalling_tpu_torch.__main__ import TOOLS
+
+    assert TOOLS[tool].replace("variantcalling_tpu_torch.", "variantcalling_tpu.") == JTOOLS[tool]
+    want = _parser_actions(importlib.import_module(JTOOLS[tool]).run)
+    got = _parser_actions(importlib.import_module(TOOLS[tool]).run)
+    assert got == want and not any("--backend" in a[0] for a in got)
+
+
+def _parser_actions(run, argv=("--help",)) -> list[tuple]:
+    """Each action of the parser ``run`` builds: (option strings or dest, nargs, default, required, type, choices)."""
+    import argparse
+
+    seen = []
+    real = argparse.ArgumentParser.parse_args
+
+    def catch(self, *args, **kwargs):
+        seen.append(self)
+        raise SystemExit(0)
+
+    argparse.ArgumentParser.parse_args = catch
+    try:
+        with pytest.raises(SystemExit):
+            run(list(argv))
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return [(tuple(a.option_strings) or a.dest, a.nargs, a.default, a.required, getattr(a.type, "__name__", a.type),
+             a.choices, type(a).__name__) for a in seen[0]._actions if not isinstance(a, argparse._HelpAction)]
+
+
+@pytest.mark.parametrize("command", ["full_analysis", "collect_coverage"])
+def test_coverage_analysis_subcommands_take_the_reference_options(command):
+    """Each subcommand's parser holds the reference's options one by one (the
+    same defaults, types, choices and arity), and ``--backend`` besides."""
+    from variantcalling_tpu.pipelines import coverage_analysis as jcov
+    from variantcalling_tpu_torch.pipelines import coverage_analysis as tcov
+
+    want = _parser_actions(jcov.run, (command, "--help"))
+    got = _parser_actions(tcov.run, (command, "--help"))
+    assert [a for a in got if a[0] != ("--backend",)] == want
+    assert [a[0] for a in got if a[0] == ("--backend",)] == [("--backend",)]
+
+
+def test_host_tool_cli_runs_load_none_of_them(tmp_path):
+    """Where matplotlib does not import (as on the card's machine), in one
+    process: the twelve tools on small seeded inputs, each exits 0, and at the
+    end none of the forbidden packages is loaded."""
+    from variantcalling_tpu_torch import synthetic, synthetic_tools
+
+    w = synthetic.write_world(str(tmp_path / "w"), seed=3, length=300_000, n_variants=600, n_trees=2, depth=2)
+    sv = synthetic_tools.write_sv_world(str(tmp_path / "sv"), seed=3, n_records=300, n_base=300, n_calls=300)
+    reads = synthetic_tools.write_read_world(str(tmp_path / "r"), seed=3, n_reads=300)
+    ml = synthetic_tools.write_ml_world(str(tmp_path / "ml"), seed=3, n_reads=100, n_flows=20, n_classes=5)
+    beds = synthetic_tools.write_region_beds(str(tmp_path / "b"), seed=3, contig="chr20", length=300_000,
+                                             n_intervals=40)
+    empty = synthetic_tools.write_empty_files(str(tmp_path / "e"), seed=3, n=10, n_empty=3)
+    hb = synthetic_tools.write_hpol_bed(str(tmp_path / "h.bed"), seed=3, contig="chr20", length=300_000,
+                                        n_intervals=10, total_bp=50_000)
+    steps = [
+        ["sv_stats_collect", sv["vcf"], "x_sv.pkl", "--concordance_h5", sv["concordance_h5"]],
+        ["create_sv_report", "--statistics_file", "x_sv.pkl", "--h5_output", "x_sv.h5", "--html_output", "x_sv.html"],
+        ["ppmseq_qc", "--input_bam", reads["bam"], "--output_h5", "x_pp.h5"],
+        ["find_adapter_coords", "--input_bam", reads["bam"], "--output_bam", "x_fa.bam", "--left_adapter",
+         synthetic_tools.LEFT_ADAPTER, "--left_umi_length", "8"],
+        ["add_ml_tags_bam", "--probability_tensor", ml["probs"], "--input_ubam", ml["bam"], "--output_ubam",
+         "x_ml.bam"],
+        ["collect_hpol_table", "--reference", w["fasta"], "--collection_regions", hb, "--output", "x_h.tsv"],
+        ["annotate_contig", "--input_vcf", w["vcf"], "--output_vcf", "x_an.vcf", "--annotate_intervals", beds[0]],
+        ["intersect_bed_regions", "--include-regions", *beds[:2], "--output-bed", "x_in.bed"],
+        ["remove_vcf_duplicates", w["vcf"], "x_rd.vcf"],
+        ["index_vcf_file", "x_rd.vcf"],
+        ["remove_empty_files", *empty["paths"], "--dry_run"],
+        ["cloud_sync", w["vcf"]],
+    ]
+    assert {a[0] for a in steps} == set(HOST_TOOLS)
+    code = (
+        "import json, sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "from variantcalling_tpu_torch.__main__ import main\n"
+        f"rcs = [main(a) for a in {steps!r}]\n"
+        "print(json.dumps({'rc': rcs, 'loaded': sorted(m for m, mod in sys.modules.items() "
+        f"if m.split('.')[0] in {FORBIDDEN!r} and mod is not None)}}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH" and not k.startswith("VCTPU_")}
+    env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=tmp_path, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": [0] * len(steps), "loaded": []}
+    assert {"x_sv.pkl", "x_sv.h5", "x_sv.html", "x_pp.h5", "x_fa.bam", "x_ml.bam", "x_h.tsv", "x_an.vcf",
+            "x_in.bed", "x_rd.vcf.gz", "x_rd.vcf.gz.tbi"} <= {p.name for p in tmp_path.iterdir()}
+    assert "<img" not in (tmp_path / "x_sv.html").read_text()

@@ -17,6 +17,11 @@
   the inputs of ``training_prep_pipeline`` and ``train_models_pipeline``, a
   callset with dbSNP IDs, a blacklist, hpol runs and an annotation, and a
   labeled concordance h5 (both written by the port alone).
+- the committed SV statistics pickle ``tests/torch_data/sv_stats_reference.pkl``:
+  the JAX package's ``sv_stats_collect`` (pandas 3 with its Arrow strings)
+  on ``synthetic_tools.write_sv_world(**SV_REFERENCE_WORLD)`` with its
+  concordance h5 (:func:`write_sv_reference_pickle`; rewrite it with
+  ``python -m tests.torch_worlds``);
 - :func:`write_alignment_world`: a small BAM of mixed reads (every CIGAR
   op, flags, MAPQ, mixed base qualities, several contigs) through
   ``tests/fixtures.write_bam``, and :func:`forest_bar`, the bar between two
@@ -244,9 +249,29 @@ def write_training_h5_world(path: Path, seed: int, n_rows: int, chr20_rows: int,
     return str(path)
 
 
+#: the committed pickle of the JAX package's sv_stats_collect
+SV_REFERENCE_PICKLE = TORCH_DATA / "sv_stats_reference.pkl"
+
+
+def write_sv_reference_pickle(path: Path = SV_REFERENCE_PICKLE, world_dir: str | None = None) -> dict:
+    """The JAX package's ``sv_stats_collect`` pickle of the seeded SV world
+    (``synthetic_tools.SV_REFERENCE_WORLD``, written under ``world_dir`` or a
+    temporary directory) with its concordance h5. Returns the world."""
+    import tempfile
+
+    from variantcalling_tpu.pipelines import sv_stats_collect
+    from variantcalling_tpu_torch import synthetic_tools
+
+    with tempfile.TemporaryDirectory() as tmp:
+        w = synthetic_tools.write_sv_world(world_dir or tmp, **synthetic_tools.SV_REFERENCE_WORLD)
+        assert sv_stats_collect.run([w["vcf"], str(path), "--concordance_h5", w["concordance_h5"]]) == 0
+    return w
+
+
 if __name__ == "__main__":
     write_blacklist_fixtures()
-    for p in BLACKLIST_FILES.values():
+    write_sv_reference_pickle()
+    for p in [*BLACKLIST_FILES.values(), SV_REFERENCE_PICKLE]:
         print(p, p.stat().st_size, "bytes")
 
 

@@ -25,7 +25,12 @@ and ``obs``, the report chain ``create_var_report``,
 ``create_somatic_gt_file``, ``report_wo_gt`` and ``mrd_data_analysis``, and
 the QC metrics tools ``import_metrics``, ``collect_existing_metrics``,
 ``sorter_to_h5``, ``sorter_stats_to_mean_coverage``, ``convert_h5_to_json``
-and ``create_qc_report``: 51 tools. Each tool is a module exposing ``run(argv)``,
+and ``create_qc_report``, and the host-only tools ``sv_stats_collect``,
+``create_sv_report``, ``ppmseq_qc``, ``find_adapter_coords``,
+``add_ml_tags_bam``, ``collect_hpol_table``, ``annotate_contig``,
+``intersect_bed_regions``, ``index_vcf_file``, ``remove_vcf_duplicates``,
+``remove_empty_files`` and ``cloud_sync``: 63 tools, all of the JAX
+package's but ``merge-ranks``. Each tool is a module exposing ``run(argv)``,
 imported when called.
 """
 
@@ -88,6 +93,18 @@ TOOLS: dict[str, str] = {
     "sorter_stats_to_mean_coverage": "variantcalling_tpu_torch.pipelines.misc.sorter_stats_to_mean_coverage",
     "convert_h5_to_json": "variantcalling_tpu_torch.pipelines.misc.convert_h5_to_json",
     "create_qc_report": "variantcalling_tpu_torch.pipelines.create_qc_report",
+    "sv_stats_collect": "variantcalling_tpu_torch.pipelines.sv_stats_collect",
+    "create_sv_report": "variantcalling_tpu_torch.pipelines.create_sv_report",
+    "ppmseq_qc": "variantcalling_tpu_torch.pipelines.ppmseq_qc",
+    "find_adapter_coords": "variantcalling_tpu_torch.pipelines.find_adapter_coords",
+    "add_ml_tags_bam": "variantcalling_tpu_torch.pipelines.add_ml_tags_bam",
+    "collect_hpol_table": "variantcalling_tpu_torch.pipelines.collect_hpol_table",
+    "annotate_contig": "variantcalling_tpu_torch.pipelines.vcfbed.annotate_contig",
+    "intersect_bed_regions": "variantcalling_tpu_torch.pipelines.vcfbed.intersect_bed_regions",
+    "index_vcf_file": "variantcalling_tpu_torch.pipelines.misc.index_vcf_file",
+    "remove_vcf_duplicates": "variantcalling_tpu_torch.pipelines.misc.remove_vcf_duplicates",
+    "remove_empty_files": "variantcalling_tpu_torch.pipelines.misc.remove_empty_files",
+    "cloud_sync": "variantcalling_tpu_torch.pipelines.misc.cloud_sync",
 }
 
 

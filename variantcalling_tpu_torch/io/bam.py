@@ -327,3 +327,148 @@ def _add_bq_filtered(diff: np.ndarray, aln: Alignment, min_bq: int, cov_ops: set
 def depth_vectors(header: BamHeader, diffs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """cumsum of the diff arrays -> per-base depth (length = contig length)."""
     return {name: np.cumsum(d[:-1], dtype=np.int32) for name, d in diffs.items()}
+
+
+# -- whole-stream record access (the uBAM tools: ppmseq_qc, find_adapter_coords, add_ml_tags_bam) -----------------
+
+#: BAM 4-bit base nibble -> its ASCII letter
+NIBBLE_LETTERS = np.frombuffer(b"=ACMGRSVTWYHKDBN", dtype=np.uint8)
+
+
+def read_stream(path: str) -> np.ndarray:
+    """The whole file inflated (the native engine's block-parallel inflate, else gzip)."""
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    buf = native.bgzf_decompress_array(raw)
+    if buf is None:
+        buf = np.frombuffer(gzip.decompress(raw), dtype=np.uint8)
+    return buf
+
+
+def header_end(buf: np.ndarray) -> int:
+    """The offset of the first record of an inflated BAM stream (ValueError if it is not one)."""
+    if bytes(buf[:4]) != b"BAM\x01":
+        raise ValueError("not a BAM")
+    (l_text,) = struct.unpack_from("<i", buf, 4)
+    off = 8 + l_text
+    (n_ref,) = struct.unpack_from("<i", buf, off)
+    off += 4
+    for _ in range(n_ref):
+        (l_name,) = struct.unpack_from("<i", buf, off)
+        off += 8 + l_name
+    return off
+
+
+def record_offsets(buf: np.ndarray, off: int) -> tuple[np.ndarray, np.ndarray]:
+    """(each record's offset, of its ``block_size`` field; each ``block_size``) from ``off`` on."""
+    starts, sizes = [], []
+    n = len(buf)
+    unpack = struct.Struct("<i").unpack_from
+    while off + 4 <= n:
+        (bs,) = unpack(buf, off)
+        starts.append(off)
+        sizes.append(bs)
+        off += 4 + bs
+    return np.asarray(starts, dtype=np.int64), np.asarray(sizes, dtype=np.int64)
+
+
+def le_ints(buf: np.ndarray, at: np.ndarray, width: int, signed: bool = False) -> np.ndarray:
+    """The little-endian integers of ``width`` bytes at each offset ``at`` (int64)."""
+    v = np.zeros(len(at), dtype=np.int64)
+    for k in range(width):
+        v |= buf[at + k].astype(np.int64) << (8 * k)
+    if signed:
+        v = np.where(v >= 1 << (8 * width - 1), v - (1 << (8 * width)), v)
+    return v
+
+
+def record_layout(buf: np.ndarray, starts: np.ndarray, sizes: np.ndarray) -> dict[str, np.ndarray]:
+    """Each record's ``l_seq`` and the offsets of its packed sequence, its
+    auxiliary fields and its end, in the stream."""
+    body = starts + 4
+    l_read_name = buf[body + 8].astype(np.int64)
+    n_cigar = le_ints(buf, body + 12, 2)
+    l_seq = le_ints(buf, body + 16, 4, signed=True)
+    seq = body + 32 + l_read_name + 4 * n_cigar
+    aux = seq + (l_seq + 1) // 2 + l_seq
+    return {"l_seq": l_seq, "seq": seq, "aux": aux, "end": body + sizes}
+
+
+def sequence_letters(buf: np.ndarray, seq_off: np.ndarray, length: int) -> np.ndarray:
+    """(reads, length) uint8 ASCII letters of reads of one length from their packed nibbles."""
+    packed = buf[seq_off[:, None] + np.arange((length + 1) // 2)]
+    nib = np.empty((len(seq_off), 2 * packed.shape[1]), dtype=np.uint8)
+    nib[:, 0::2] = packed >> 4
+    nib[:, 1::2] = packed & 0xF
+    return NIBBLE_LETTERS[nib[:, :length]]
+
+
+def append_to_records(buf: np.ndarray, first: int, starts: np.ndarray, sizes: np.ndarray, extra: np.ndarray,
+                      extra_lens: np.ndarray) -> np.ndarray:
+    """The stream with ``extra`` (the bytes of every record, in record order,
+    ``extra_lens`` each) appended to each record and its ``block_size``
+    raised to match: the header up to ``first`` and every byte of every
+    record kept. Built in place: a mask of the appended bytes' places, the
+    stream's bytes into the rest, then the new sizes."""
+    if not len(starts):
+        return buf[:first].copy()
+    ends = starts + 4 + sizes
+    shift = np.concatenate([[0], np.cumsum(extra_lens)])
+    out = np.empty(int(ends[-1]) + int(shift[-1]), dtype=np.uint8)
+    edge = np.zeros(len(out) + 1, dtype=np.int8)
+    some = extra_lens > 0
+    at = ends[some] + shift[:-1][some]
+    edge[at] = 1
+    edge[at + extra_lens[some]] -= 1
+    appended = np.cumsum(edge[:-1], dtype=np.int8).view(bool)
+    out[~appended] = buf[:int(ends[-1])]
+    out[appended] = extra
+    new_sizes = (sizes + extra_lens).astype("<i4").view(np.uint8).reshape(-1, 4)
+    out[(starts + shift[:-1])[:, None] + np.arange(4)] = new_sizes
+    return out
+
+
+def _aux_value_sizes(buf: np.ndarray, at: np.ndarray, typ: np.ndarray, zeros: np.ndarray) -> np.ndarray:
+    """The byte length of each auxiliary value at ``at`` by its type code (SAM
+    §4.2.4): -1 where the type is unknown or a Z/H string has no NUL."""
+    size = np.full(len(at), -1, dtype=np.int64)
+    for codes, width in ((b"AcC", 1), (b"sS", 2), (b"iIf", 4)):
+        size[np.isin(typ, np.frombuffer(codes, np.uint8))] = width
+    text = np.isin(typ, np.frombuffer(b"ZH", np.uint8))
+    if text.any():
+        k = np.searchsorted(zeros, at[text])
+        ok = k < len(zeros)
+        nul = np.where(ok, zeros[np.minimum(k, len(zeros) - 1)], -1)
+        size[text] = np.where(ok, nul - at[text] + 1, -1)
+    arr = typ == ord("B")
+    if arr.any():
+        sub = buf[np.minimum(at[arr], len(buf) - 1)]
+        width = np.full(len(sub), -1, dtype=np.int64)
+        for codes, w in ((b"cC", 1), (b"sS", 2), (b"iIf", 4)):
+            width[np.isin(sub, np.frombuffer(codes, np.uint8))] = w
+        count = le_ints(buf, np.minimum(at[arr] + 1, len(buf) - 4), 4)
+        size[arr] = np.where(width > 0, 5 + count * width, -1)
+    return size
+
+
+def find_aux_tags(buf: np.ndarray, aux: np.ndarray, end: np.ndarray, tags: tuple[str, ...]) -> dict:
+    """Each record's last field of each tag in ``tags``: ``{tag: (type code,
+    value offset, value length)}``, type 0 where absent. The fields are walked
+    as ``_parse_aux_tags`` walks them, every record at once: a field needs its
+    3-byte head inside the record, and an unknown type code ends the walk."""
+    n = len(aux)
+    found = {t: (np.zeros(n, np.uint8), np.zeros(n, np.int64), np.zeros(n, np.int64)) for t in tags}
+    zeros = np.flatnonzero(buf == 0)
+    cur = aux.copy()
+    live = np.flatnonzero(cur + 3 <= end)
+    while len(live):
+        c = cur[live]
+        t0, t1, typ = buf[c], buf[c + 1], buf[c + 2]
+        size = _aux_value_sizes(buf, c + 3, typ, zeros)
+        for tag in tags:
+            hit = (t0 == ord(tag[0])) & (t1 == ord(tag[1])) & (size >= 0)
+            typs, at, lens = found[tag]
+            typs[live[hit]], at[live[hit]], lens[live[hit]] = typ[hit], c[hit] + 3, size[hit]
+        cur[live] = c + 3 + np.maximum(size, 0)
+        live = live[(size >= 0) & (cur[live] + 3 <= end[live])]
+    return found

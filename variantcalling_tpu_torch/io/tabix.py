@@ -36,6 +36,10 @@ def reg2bin(beg: int, end: int) -> int:
     return 0
 
 
+#: the end of the coordinates a tabix index bins (its deepest level has 2^15 bins of 16 kbp)
+BIN_SPAN = 1 << 29
+
+
 def _reg2bins(beg: int, end: int) -> list[int]:
     """Every bin that overlaps [beg, end)."""
     bins = [0]
@@ -200,7 +204,10 @@ class TabixIndex:
             return []
         lin = self.linear.get(chrom)
         min_off = int(lin[beg >> LINEAR_SHIFT]) if lin is not None and (beg >> LINEAR_SHIFT) < len(lin) else 0
-        found = sorted((max(s, min_off), e) for b in _reg2bins(beg, end)
+        # a region past BIN_SPAN (an open end such as 1 << 60) is clamped to it: the reference's walk
+        # lists bins that cannot exist until it runs out of memory
+        bins = _reg2bins(min(beg, BIN_SPAN - 1), min(end, BIN_SPAN))
+        found = sorted((max(s, min_off), e) for b in bins
                        for s, e in self.bins[chrom].get(b, []) if e > min_off)
         merged: list[tuple[int, int]] = []
         for s, e in found:  # overlapping ranges merge, so no line is read twice

@@ -368,6 +368,8 @@ HONOURED = frozenset({
     "VCTPU_CACHE_DIR", "VCTPU_CACHE_MAX_MB", "VCTPU_FAULTS",
     # the boosted-forest fit
     "VCTPU_NATIVE_GBT",
+    # the bound on each cloud CLI copy of utils/cloud
+    "VCTPU_CLOUD_TIMEOUT",
     # the rank check of train_dan and sec_training: a launch of more than one rank exits 2 (A7)
     "VCTPU_RANK", "VCTPU_NUM_PROCESSES", "VCTPU_SPAN",
     # the bound on the imputation chain's external beagle
