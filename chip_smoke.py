@@ -4783,6 +4783,258 @@ def phase_host_tools(tmp: Path, card: str, world: dict) -> dict:
     return out
 
 
+#: a worker's own log lines that phase 20 reads: its engine, its forest kernels' launches and its card memory
+_SCALEOUT_RE = r"rank (\d+)/(\d+): done in ([\d.]+) s; forest kernel launches in this process: wide (\d+), tree_step (\d+)"
+_ENGINE_RE = r"engine (\S+), model family (\S+), forest strategy (\S+),"
+_PEAK_RE = r"peak device memory (-?\d+) bytes"
+
+
+def _pod_cmd(world: dict, out: Path, inp: str | None = None, *flags: str) -> list[str]:
+    """The port's pod launcher over ``world`` into ``out`` on the card, workers' logs kept."""
+    return [sys.executable, "-m", "variantcalling_tpu_torch.parallel.podrun", "--keep-logs", "--timeout", "600",
+            *flags, "--", "--input_file", inp or world["vcf"], "--model_file", world["model"], "--model_name",
+            world["model_name"], "--reference_file", world["fasta"], "--output_file", str(out), "--backend", "gpu"]
+
+
+def _popen_all(cmds: dict[str, list[str]], on_start=None) -> dict[str, dict]:
+    """Every command side by side (``subprocess``: each starts a fresh
+    interpreter, never a fork of this process and its CUDA context); exit
+    code, host wall and output by label. ``on_start(procs)`` runs once all
+    have started (phase 20's kill)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(Path(__file__).resolve().parent),
+                                                               os.environ.get("PYTHONPATH")) if p))
+    t0, procs = {}, {}
+    for label, cmd in cmds.items():
+        t0[label] = time.perf_counter()
+        procs[label] = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait(label: str) -> dict:
+        out, _ = procs[label].communicate(timeout=900)
+        return {"rc": procs[label].returncode, "wall_s": time.perf_counter() - t0[label], "stdout": out}
+
+    with ThreadPoolExecutor(len(procs)) as pool:  # each process's pipe drained, and its end timed, as it comes
+        waits = {label: pool.submit(wait, label) for label in procs}
+        extra = on_start(procs) if on_start is not None else None
+        runs = {label: w.result() for label, w in waits.items()}
+    for label, run in runs.items():
+        check(run["rc"] == 0, f"{label}: exit {run['rc']}\n{run['stdout'][-3000:]}")
+    return {**runs, "on_start": extra}
+
+
+def _pod_workers(out: Path, label: str, card: str, launched: bool = True) -> list[dict]:
+    """Each worker of a pod into ``out``, read from its own log (``--keep-logs``),
+    the logs removed: its rank, seconds in the scale-out, forest kernel
+    launches, engine and strategy, peak card memory. Every worker must have
+    scored on the card, none on ``cuda-gemm``, and (``launched``) each
+    launched ``cuda-wide`` (an elastic adopter that resumed every chunk of
+    its span launches nothing)."""
+    import re
+
+    workers = []
+    for log in sorted(out.parent.glob(out.name + ".*.podlog")):
+        text = log.read_text(errors="replace")
+        log.unlink()
+        done = re.findall(_SCALEOUT_RE, text)
+        if not done:  # a worker killed on purpose, or one that lost its lease
+            workers.append({"log": log.name, "completed": False})
+            continue
+        rank, ranks, seconds, wide, tree_step = done[-1]
+        engine = re.findall(_ENGINE_RE, text)
+        peak = re.findall(_PEAK_RE, text)
+        w = {"log": log.name, "completed": True, "rank": int(rank), "ranks": int(ranks), "scaleout_s": float(seconds),
+             "forest_wide_launches": int(wide), "forest_tree_step_launches": int(tree_step),
+             "engine": engine[-1][0] if engine else None, "strategy": engine[-1][2] if engine else None,
+             "peak_device_bytes": int(peak[-1]) if peak else None}
+        check(w["engine"] == "cuda" and (w["forest_wide_launches"] > 0 or not launched)
+              and w["forest_tree_step_launches"] == 0,
+              f"{label}: worker {log.name} engine {w['engine']}, launches {wide} wide, {tree_step} tree_step ({card})")
+        workers.append(w)
+    check(any(w["completed"] for w in workers), f"{label}: no worker log found")
+    return workers
+
+
+def _without_ranks_line_sha256(path: Path) -> tuple[str, int]:
+    """sha256 of ``path`` without its ``##vctpu_ranks=`` lines, and how many there were."""
+    h, n = hashlib.sha256(), 0
+    with open(path, "rb") as fh:
+        for line in fh:
+            if line.startswith(b"##vctpu_ranks="):
+                n += 1
+                continue
+            h.update(line)
+    return h.hexdigest(), n
+
+
+def _kill_first_journaled(pod: subprocess.Popen, out: Path, timeout: float = 300) -> dict:
+    """SIGKILL the elastic pod's first span's worker (the slowed one) once its
+    journal holds a committed chunk; the pod's state file names each running
+    worker's pid and span."""
+    import signal
+
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and pod.poll() is None:
+        try:
+            workers = json.loads(Path(f"{out}.podrun.json").read_text()).get("workers") or []
+        except (OSError, ValueError):
+            workers = []
+        w = min(workers, key=lambda w: w["span"][0], default=None)
+        journal = Path(f"{out}.span{w['span'][0]}-{w['span'][1]}.seg.journal") if w else None
+        try:
+            committed = len(journal.read_text().splitlines()) - 1 if journal else 0
+            running = Path(f"/proc/{w['pid']}/stat").read_text().rsplit(")", 1)[1].split()[0] != "Z"
+        except (OSError, TypeError):
+            committed, running = 0, False
+        if committed >= 1 and running:
+            try:
+                os.kill(w["pid"], signal.SIGKILL)
+                return {"killed_span": w["span"], "after_chunks": committed, "at_s": time.perf_counter() - t0}
+            except ProcessLookupError:
+                pass
+        time.sleep(0.01)
+    return {}
+
+
+def _pod_leftovers(out: Path) -> list[str]:
+    return sorted(p.name for p in out.parent.glob(out.name + ".*") if any(
+        s in p.name for s in (".seg", ".done", ".lease", ".journal", ".partial", ".podrun.json", ".podlog")))
+
+
+#: phase 20's slowed worker: a delay at each of its chunks, so the kill lands mid-span
+SCALEOUT_SLOW_CHUNK = "pipeline.stage_hang:0@0.25"
+#: phase 20's elastic ``--grace``: a worker on the card takes about 8 s to reach it, so the launcher's default
+#: of 1.5 s lets the straggler rule steal a fresh worker of a short span again and again (exit 7)
+SCALEOUT_GRACE_S = "30"
+
+
+def phase_scaleout(tmp: Path, card: str, stream: dict, pipe: dict) -> dict:
+    """Rank-partitioned and elastic filter pods on the one card (phase 20),
+    every worker a process of its own running the streaming filter and
+    ``cuda-wide`` on its span (``parallel/podrun``). A pod of N processes on
+    one card checks correctness, not scaling.
+
+    The three pods and the single-rank run of (c) side by side (4 + 3 + 2 + 1
+    worker processes on the host's 8 cores and the one card, so each wall is
+    a share):
+
+    (a) phase 8's 5 M world through a 4-rank classic pod into ``.vcf``
+        (``--no-merge``, then ``rank_plan.merge_ranks`` timed here): the
+        merged bytes the default run's outside ``##vctpu_ranks=n=4``, which is
+        there; every worker's ``forest_wide`` launches > 0 (its own log);
+        ``merge-ranks`` on a copy with one segment removed exits 3 and leaves
+        the destination as it was;
+    (b) an elastic pod of 3 spans on the same world, the first span's worker
+        (slowed by :data:`SCALEOUT_SLOW_CHUNK`) SIGKILLed after its first
+        journaled chunk: the same launch exits 0 with the default run's
+        sha256, nothing left over;
+    (c) phase 4's 104,000-variant pickle world from a BGZF input through a
+        2-rank pod into ``.vcf.gz``, beside a single-rank ``.vcf.gz`` run: the
+        inflated bytes equal outside ``##vctpu_*``, a ``.tbi`` written, and a
+        region read through it gives the single-rank run's records.
+
+    One ``SCALEOUT_DETAIL`` line a pod: its wall, each worker's seconds,
+    launches and peak card memory, the merge's seconds.
+    """
+    from variantcalling_tpu_torch.io import tabix
+    from variantcalling_tpu_torch.io.bgzf import BgzfWriter
+    from variantcalling_tpu_torch.parallel import rank_plan
+
+    w5 = stream["world_5m"]
+    want_5m = stream["stream_5m"]["default"]["sha256"]
+    w104 = pipe["forest_pickle"]["world"]
+    d = tmp / "scaleout"
+    d.mkdir()
+    bgzf_in = d / "calls_104k.vcf.gz"
+    with BgzfWriter(str(bgzf_in)) as fh:
+        fh.write(Path(w104["vcf"]).read_bytes())
+    a_out, c_out, c_single = d / "pod_5m.vcf", d / "pod_104k.vcf.gz", d / "single_104k.vcf.gz"
+    single_cmd = [sys.executable, "-m", "variantcalling_tpu_torch", "filter_variants_pipeline", "--input_file",
+                  str(bgzf_in), "--model_file", w104["model"], "--model_name", w104["model_name"], "--reference_file",
+                  w104["fasta"], "--output_file", str(c_single), "--backend", "gpu"]
+    b_out = d / "elastic_5m.vcf"
+    runs = _popen_all({"b": _pod_cmd(w5, b_out, None, "--elastic", "--ranks", "3", "--grace", SCALEOUT_GRACE_S,
+                                     "--worker-env", f"0:VCTPU_FAULTS={SCALEOUT_SLOW_CHUNK}"),
+                       "a": _pod_cmd(w5, a_out, None, "--ranks", "4", "--no-merge"),
+                       "c": _pod_cmd(w104, c_out, str(bgzf_in), "--ranks", "2"), "c_single": single_cmd},
+                      on_start=lambda procs: _kill_first_journaled(procs["b"], b_out))
+    out = {}
+
+    # -- (a) the 4-rank classic pod ---------------------------------------------------------------------------
+    workers = _pod_workers(a_out, "scaleout_5m", card)
+    check(sorted(w["rank"] for w in workers) == [0, 1, 2, 3], f"scaleout_5m: workers {workers}")
+    # merge-ranks on a copy missing one segment: exit 3, the destination as it was
+    bad = d / "bad"
+    bad.mkdir()
+    for seg in a_out.parent.glob(a_out.name + ".rank*of4.seg*"):
+        if not seg.name.startswith(a_out.name + ".rank2of4.seg"):
+            os.link(seg, bad / seg.name)
+    (bad / a_out.name).write_bytes(b"untouched\n")
+    proc = subprocess.run([sys.executable, "-m", "variantcalling_tpu_torch", "merge-ranks", str(bad / a_out.name)],
+                          env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)), capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 3 and (bad / a_out.name).read_bytes() == b"untouched\n"
+          and "rank 2/4 segment missing" in proc.stderr,
+          f"merge-ranks without rank 2: exit {proc.returncode}, {proc.stderr[-500:]}")
+    t0 = time.perf_counter()
+    merged = rank_plan.merge_ranks(str(a_out), 4)
+    merge_s = time.perf_counter() - t0
+    digest, n_lines = _without_ranks_line_sha256(a_out)
+    check(digest == want_5m and n_lines == 1 and b"##vctpu_ranks=n=4\n" in a_out.read_bytes()[:1 << 16],
+          f"scaleout_5m: merged bytes differ from the default run's outside ##vctpu_ranks ({n_lines} lines)")
+    check(merged["n"] == WORLD_STREAM["n_variants"] and not _pod_leftovers(a_out), f"scaleout_5m: {merged}")
+    a_out.unlink()
+    for f in bad.iterdir():
+        f.unlink()
+    out["scaleout_5m"] = {"pod": "classic", "world": "stream_5m", "ranks": 4, "card": card,
+                          "pod_wall_s": runs["a"]["wall_s"], "merge_s": merge_s, "workers": workers,
+                          "forest_wide_launches": sum(w["forest_wide_launches"] for w in workers),
+                          "merge_ranks_exit_without_a_segment": proc.returncode, "side_by_side": 4}
+
+    # -- (c) the 2-rank pod from BGZF into .vcf.gz -------------------------------------------------------------------
+    workers = _pod_workers(c_out, "scaleout_104k_gz", card)
+    got, want = gzip.decompress(c_out.read_bytes()), gzip.decompress(c_single.read_bytes())
+    check(_strip(got) == _strip(want) and b"##vctpu_ranks=n=2" in got,
+          "scaleout_104k_gz: inflated bytes differ from the single-rank run's outside ##vctpu_*")
+    check(Path(f"{c_out}.tbi").exists(), "scaleout_104k_gz: no .tbi")
+    contig, length = "chr20", WORLD["length"]
+    lo, hi = length // 3, length // 3 + 2_000_000
+    region = list(tabix.read_region_lines(str(c_out), contig, lo, hi))
+    region_single = list(tabix.read_region_lines(str(c_single), contig, lo, hi))
+    check(region == region_single and len(region) > 1000,
+          f"scaleout_104k_gz: region read {len(region)} records against {len(region_single)}")
+    check(not _pod_leftovers(c_out), f"scaleout_104k_gz: leftovers {_pod_leftovers(c_out)}")
+    out["scaleout_104k_gz"] = {"pod": "classic", "world": "forest_pickle_104k", "ranks": 2, "card": card,
+                               "pod_wall_s": runs["c"]["wall_s"], "single_wall_s": runs["c_single"]["wall_s"],
+                               "workers": workers, "region_records": len(region),
+                               "forest_wide_launches": sum(w["forest_wide_launches"] for w in workers),
+                               "side_by_side": 4}
+
+    # -- (b) the elastic pod with a SIGKILL --------------------------------------------------------------------------
+    kill = runs["on_start"]
+    stdout = runs["b"]["stdout"]
+    check(bool(kill), f"scaleout_elastic: the kill never landed\n{stdout[-2000:]}")
+    check("membership: recut" in stdout or "membership: reassign" in stdout,
+          f"scaleout_elastic: no recut or reassign\n{stdout[-2000:]}")
+    workers = _pod_workers(b_out, "scaleout_elastic", card, launched=False)
+    check(sum(w.get("forest_wide_launches", 0) for w in workers) > 0, f"scaleout_elastic: no launch {workers}")
+    check(_sha256(b_out) == want_5m, "scaleout_elastic: sha256 differs from the default run's")
+    check(not _pod_leftovers(b_out), f"scaleout_elastic: leftovers {_pod_leftovers(b_out)}")
+    b_out.unlink()
+    transitions = [ln.split("membership: ", 1)[1].split(" ", 1)[0] for ln in stdout.splitlines()
+                   if "membership: " in ln]
+    out["scaleout_elastic"] = {"pod": "elastic", "world": "stream_5m", "spans": 3, "card": card,
+                               "pod_wall_s": runs["b"]["wall_s"], "kill": kill, "transitions": transitions,
+                               "workers": workers,
+                               "forest_wide_launches": sum(w["forest_wide_launches"] for w in workers
+                                                           if w["completed"]), "side_by_side": 4}
+    for label, detail in out.items():
+        print("SCALEOUT_DETAIL " + json.dumps({"run": label, **detail}), flush=True)
+    print(f"scaleout: 4-rank pod on 5 M variants {runs['a']['wall_s']:.1f} s (merge {merge_s:.2f} s), elastic pod "
+          f"with a SIGKILL {runs['b']['wall_s']:.1f} s ({' '.join(transitions)}), 2-rank BGZF pod "
+          f"{runs['c']['wall_s']:.1f} s; bytes equal the single-rank runs' ({card})", flush=True)
+    return out
+
+
 def _phase(name: str, card: str, fn, *args):
     """``fn(*args)``, then a ``PHASE_SECONDS`` line with its wall seconds."""
     t0 = time.perf_counter()
@@ -4823,6 +5075,7 @@ def main() -> int:
         _phase("telemetry", card, phase_telemetry, Path(tmp), card, stream, pipe, train["files"], sec)
         _phase("report_chain", card, phase_report_chain, Path(tmp), card, sec, reports["files"], feat["files"])
         _phase("host_tools", card, phase_host_tools, Path(tmp), card, world)
+        _phase("scaleout", card, phase_scaleout, Path(tmp), card, stream, pipe)
     print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     n = WORLD["n_variants"]

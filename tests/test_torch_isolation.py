@@ -543,7 +543,9 @@ SERVED = {25: FIRST_25_TOOLS, 36: FIRST_25_TOOLS | set(NEW_TOOLS), 37: FIRST_25_
           41: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS),
           51: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS) | set(REPORT_CHAIN_TOOLS),
           63: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS) | set(REPORT_CHAIN_TOOLS)
-          | set(HOST_TOOLS)}
+          | set(HOST_TOOLS),
+          64: FIRST_25_TOOLS | set(NEW_TOOLS) | {"serve"} | set(TELEMETRY_TOOLS) | set(REPORT_CHAIN_TOOLS)
+          | set(HOST_TOOLS) | {"merge-ranks"}}
 
 
 @pytest.fixture(scope="module")
@@ -954,12 +956,61 @@ def test_the_host_tool_modules_are_scanned():
         "utils/pandas_pickle", "utils/flow", "utils/cloud", "io/bam", "synthetic_tools")} <= scanned
 
 
-def test_the_port_serves_every_tool_but_merge_ranks():
+def test_the_port_serves_every_tool():
     from variantcalling_tpu.__main__ import TOOLS as JTOOLS
     from variantcalling_tpu_torch.__main__ import TOOLS
 
-    assert set(JTOOLS) - set(TOOLS) == {"merge-ranks"} and set(TOOLS) <= set(JTOOLS)
+    assert set(TOOLS) == set(JTOOLS) and len(TOOLS) == 64
     assert all(TOOLS[t].replace("variantcalling_tpu_torch.", "variantcalling_tpu.") == JTOOLS[t] for t in TOOLS)
+
+
+# -- the rank-partitioned and elastic pods ---------------------------------------------------------------------------
+
+
+def test_the_scaleout_modules_are_scanned():
+    """``rank_plan``, ``elastic`` and the port's own pod launcher are among the
+    sources the scan above reads (the reference's launcher, ``tools/podrun``,
+    imports the JAX package)."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/parallel/{m}.py" for m in ("rank_plan", "elastic", "podrun")} <= scanned
+
+
+def test_merge_ranks_takes_the_reference_options():
+    import importlib
+
+    from variantcalling_tpu.__main__ import TOOLS as JTOOLS
+    from variantcalling_tpu_torch.__main__ import TOOLS
+
+    assert TOOLS["merge-ranks"] == "variantcalling_tpu_torch.parallel.rank_plan"
+    want = _parser_actions(importlib.import_module(JTOOLS["merge-ranks"]).run)
+    got = _parser_actions(importlib.import_module(TOOLS["merge-ranks"]).run)
+    assert got == want and [a[0] for a in got] == ["output_file", ("--ranks",), ("--keep-segments",)]
+
+
+def test_the_pod_launcher_takes_the_reference_options():
+    """The port's launcher parses the reference launcher's options, option for option."""
+    import tools.podrun as jpodrun
+    from variantcalling_tpu_torch.parallel import podrun
+
+    assert _parser_actions(podrun.main, ("--ranks", "1")) == _parser_actions(jpodrun.main, ("--ranks", "1"))
+
+
+def test_a_pod_cli_run_loads_neither_jax_nor_reference(small_world, tmp_path, monkeypatch):
+    """A rank launch of the CLI and ``merge-ranks``, in subprocesses, with
+    none of the forbidden packages loaded."""
+    out = tmp_path / "pod.vcf"
+    monkeypatch.setenv("VCTPU_NUM_PROCESSES", "2")
+    for r in (0, 1):
+        monkeypatch.setenv("VCTPU_RANK", str(r))
+        proc = _run_cli([*_argv(small_world, out), "--backend", "cpu"], tmp_path)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}
+        assert not out.exists() and os.path.exists(f"{out}.rank{r}of2.seg.done")
+    monkeypatch.delenv("VCTPU_RANK")
+    monkeypatch.delenv("VCTPU_NUM_PROCESSES")
+    proc = _run_cli(["merge-ranks", str(out)], tmp_path)
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "loaded": []}
+    assert sorted(os.listdir(tmp_path)) == ["pod.vcf"] and b"##vctpu_ranks=n=2" in out.read_bytes()
 
 
 @pytest.mark.parametrize("tool", HOST_TOOLS)

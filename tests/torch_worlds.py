@@ -22,6 +22,9 @@
   on ``synthetic_tools.write_sv_world(**SV_REFERENCE_WORLD)`` with its
   concordance h5 (:func:`write_sv_reference_pickle`; rewrite it with
   ``python -m tests.torch_worlds``);
+- :func:`write_pod_world`: the rank-partitioned and elastic pods' world, a
+  two-contig callset as ``.vcf``, BGZF ``.vcf.gz`` and plain single-member
+  gzip, and a forest pickle saved by the JAX package that both packages load;
 - :func:`write_alignment_world`: a small BAM of mixed reads (every CIGAR
   op, flags, MAPQ, mixed base qualities, several contigs) through
   ``tests/fixtures.write_bam``, and :func:`forest_bar`, the bar between two
@@ -279,6 +282,35 @@ if __name__ == "__main__":
 ALIGNMENT_CIGARS = ([("M", 50)], [("M", 20), ("D", 4), ("M", 30)], [("S", 5), ("M", 30), ("I", 3), ("M", 12)],
                     [("M", 10), ("N", 40), ("M", 25)], [("=", 15), ("X", 2), ("=", 20), ("H", 5)],
                     [("M", 12), ("P", 2), ("D", 1), ("M", 9), ("S", 4)])
+
+
+def write_pod_world(d: Path, seed: int = 61, n_variants: int = 2500) -> dict:
+    """A callset of ``n_variants`` on chr1 and chr2 (``synthetic.write_world``)
+    as ``calls.vcf``, ``calls.vcf.gz`` (BGZF) and ``plain.vcf.gz`` (one gzip
+    member), with its forest (12 trees of depth 5) saved by the JAX package's
+    registry as ``jmodel.pkl``. Paths by key, and the model's name."""
+    import dataclasses
+
+    from variantcalling_tpu.models import registry as jregistry
+    from variantcalling_tpu.models.forest import FlatForest as JFlatForest
+    from variantcalling_tpu_torch import synthetic
+    from variantcalling_tpu_torch.io.bgzf import BgzfWriter
+    from variantcalling_tpu_torch.models import registry as tregistry
+
+    w = synthetic.write_world(str(d), seed=seed, n_variants=n_variants, n_trees=12, depth=5,
+                              contigs=[("chr1", 150_000), ("chr2", 100_000)])
+    forest = tregistry.load_model(w["model"], w["model_name"])
+    jmodel = str(Path(d) / "jmodel.pkl")
+    jregistry.save_models(jmodel, {w["model_name"]: JFlatForest(**{f.name: getattr(forest, f.name)
+                                                                   for f in dataclasses.fields(JFlatForest)})})
+    text = Path(w["vcf"]).read_bytes()
+    with BgzfWriter(str(Path(d) / "calls.vcf.gz")) as out:
+        out.write(text)
+    with gzip.open(Path(d) / "plain.vcf.gz", "wb") as out:
+        out.write(text)
+    return {"dir": str(d), "vcf": w["vcf"], "vcf_gz": str(Path(d) / "calls.vcf.gz"),
+            "plain_gz": str(Path(d) / "plain.vcf.gz"), "fasta": w["fasta"], "model": jmodel,
+            "model_name": w["model_name"], "n": n_variants}
 
 
 def write_alignment_world(path: str, seed: int, contigs: dict[str, int], n_reads: int = 600,

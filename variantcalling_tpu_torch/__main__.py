@@ -29,8 +29,9 @@ and ``create_qc_report``, and the host-only tools ``sv_stats_collect``,
 ``create_sv_report``, ``ppmseq_qc``, ``find_adapter_coords``,
 ``add_ml_tags_bam``, ``collect_hpol_table``, ``annotate_contig``,
 ``intersect_bed_regions``, ``index_vcf_file``, ``remove_vcf_duplicates``,
-``remove_empty_files`` and ``cloud_sync``: 63 tools, all of the JAX
-package's but ``merge-ranks``. Each tool is a module exposing ``run(argv)``,
+``remove_empty_files`` and ``cloud_sync``, and ``merge-ranks``, the
+commit of a rank-partitioned filter pod: 64 tools, all of the JAX
+package's. Each tool is a module exposing ``run(argv)``,
 imported when called.
 """
 
@@ -105,6 +106,7 @@ TOOLS: dict[str, str] = {
     "remove_vcf_duplicates": "variantcalling_tpu_torch.pipelines.misc.remove_vcf_duplicates",
     "remove_empty_files": "variantcalling_tpu_torch.pipelines.misc.remove_empty_files",
     "cloud_sync": "variantcalling_tpu_torch.pipelines.misc.cloud_sync",
+    "merge-ranks": "variantcalling_tpu_torch.parallel.rank_plan",
 }
 
 

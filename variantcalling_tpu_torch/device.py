@@ -36,7 +36,9 @@ def as_device(device: torch.device | str) -> torch.device:
 def multi_rank() -> str | None:
     """The knobs that ask for more than one rank, as text for a message, if
     any: the tools that run one process on the whole input refuse them
-    (multi-GPU runs are ``ROADMAP.md`` A7)."""
+    (``train_dan``, ``sec_training``: their collectives are ``ROADMAP.md``
+    A7c). The filter runs such a launch as one worker of a pod
+    (``parallel/rank_plan``)."""
     from variantcalling_tpu_torch import knobs
 
     span, rank, ranks = knobs.get_str("VCTPU_SPAN"), knobs.get_int("VCTPU_RANK"), knobs.get_int("VCTPU_NUM_PROCESSES")

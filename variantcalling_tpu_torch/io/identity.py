@@ -51,21 +51,29 @@ def scoring_fields(args) -> dict:
 
 
 def scoring_config(args, engine: str, forest_strategy: str, model_family: str,
-                   model_digest: str | None = None) -> dict:
+                   model_digest: str | None = None, rank: int = 0, ranks: int = 1,
+                   span: tuple | None = None) -> dict:
     """The full scoring configuration: the args' fields plus the run's
     resolved engine (``cuda`` or ``torch-cpu``: threshold and DAN scores
     differ within their tolerance between the card and the CPU, so a partial
     written on one never resumes on the other), forest strategy, model
     family and, for a DAN, the digest of its weights (one pickle holds
     several families). The journal's ``config`` and the cache's fingerprint
-    input. The port scores on one device and one rank: ``mesh_devices``,
-    ``ranks`` and ``span`` keep the reference's keys at those values."""
+    input. The port scores on one device: ``mesh_devices`` keeps the
+    reference's key at 1.
+
+    ``ranks`` (``[rank, ranks]``): a rank-partitioned run's layout cuts the
+    chunk sequence itself, so a journal or segment of rank r of n describes
+    r's span only (``parallel/rank_plan``). ``span``: an elastic worker's
+    leased target interval ``[lo, hi)`` (``parallel/elastic``), None for
+    rank and single runs; a journal handed over at a re-cut pins the new
+    interval."""
     cfg = scoring_fields(args)
     cfg["engine"] = engine
     cfg["forest_strategy"] = forest_strategy
     cfg["mesh_devices"] = 1
-    cfg["ranks"] = [0, 1]
-    cfg["span"] = None
+    cfg["ranks"] = [int(rank), int(ranks)]
+    cfg["span"] = [int(span[0]), int(span[1])] if span is not None else None
     cfg["model_family"] = model_family
     cfg["model_digest"] = model_digest
     return cfg
@@ -73,7 +81,9 @@ def scoring_config(args, engine: str, forest_strategy: str, model_family: str,
 
 def cache_identity(config: dict) -> dict:
     """The chunk cache's partition-agnostic view of a scoring config:
-    ``ranks`` and ``span`` removed (record bytes never depend on them)."""
+    ``ranks`` and ``span`` removed. Record bytes never depend on them, so a
+    re-cut or stolen span still hits entries written under another
+    partition."""
     cfg = dict(config)
     cfg.pop("ranks", None)
     cfg.pop("span", None)

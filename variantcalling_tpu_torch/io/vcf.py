@@ -1002,11 +1002,12 @@ class _ParallelBgzfStream:
     reassembled in file order: the byte stream of a serial ``gzip`` read, so
     chunk boundaries do not depend on the worker count. Raises ``ValueError``
     on a file that is not BGZF-framed (plain gzip): the caller reads it
-    serially. ``profiler`` (``obs/profile.StageProfiler``): each worker's
+    serially. ``spans``: inflate only these members (a rank's window of the
+    chain) instead of the whole file. ``profiler`` (``obs/profile.StageProfiler``): each worker's
     inflate work goes to its ``inflate.w<idx>`` row.
     """
 
-    def __init__(self, path: str, pool, profiler=None):
+    def __init__(self, path: str, pool, profiler=None, spans=None):
         from variantcalling_tpu_torch import knobs
         from variantcalling_tpu_torch.io import bgzf as bgzf_mod
         from variantcalling_tpu_torch.parallel.pipeline import imap_ordered
@@ -1014,9 +1015,12 @@ class _ParallelBgzfStream:
         size = os.path.getsize(path)
         self.path = str(path)
         self._mm = np.memmap(path, dtype=np.uint8, mode="r") if size else np.empty(0, dtype=np.uint8)
-        spans = bgzf_mod.scan_block_spans(self._mm) if size else []
         if spans is None:
-            raise ValueError(f"{path}: not BGZF-framed")
+            spans = bgzf_mod.scan_block_spans(self._mm) if size else []
+            if spans is None:
+                raise ValueError(f"{path}: not BGZF-framed")
+        # ``spans`` given: a run of the member chain (a rank's window), so a
+        # rank inflates only about its share of the file
         groups = bgzf_mod.group_spans(spans, knobs.get_int("VCTPU_IO_SHARD_BYTES"))
         self._profiler = profiler
         self._shards = imap_ordered(pool, self._inflate, groups, window=pool.threads + 2)
@@ -1060,11 +1064,147 @@ class _ParallelBgzfStream:
         self._mm = None
 
 
+class _MemberStream:
+    """Serial ``read(n)`` over a run of BGZF members (a rank's suffix of the
+    member chain): the ``VCTPU_IO_THREADS=1`` sibling of
+    :class:`_ParallelBgzfStream` for a span window."""
+
+    def __init__(self, mm, spans):
+        self._mm = mm
+        self._spans = spans
+        self._i = 0
+        self._buf = bytearray()
+
+    def read(self, n: int) -> bytes:
+        from variantcalling_tpu_torch.io import bgzf as bgzf_mod
+
+        while len(self._buf) < n and self._i < len(self._spans):
+            j = min(self._i + 16, len(self._spans))
+            self._buf += bgzf_mod.inflate_spans(self._mm, self._spans[self._i:j])
+            self._i = j
+        out = bytes(self._buf[:n])
+        del self._buf[:n]
+        return out
+
+    def close(self) -> None:
+        self._buf.clear()
+        self._i = len(self._spans)
+
+
+class _SpanGzWindow:
+    """File-like ``read(n)`` serving one line-aligned window of a BGZF file's
+    decompressed stream (the rank and span partition rule).
+
+    The window is ``[cut(t_lo), cut(t_hi))``, where ``cut(u)`` is the
+    smallest line start at or after ``u``: the position after the first
+    newline at offset ``u - 1`` or later, clamped to the record region
+    ``[h, total]``. Neighbouring windows compute the same cut for their
+    shared target, so the windows tile the record region exactly, whatever
+    the block layout. ``inner`` starts at the member that holds the first
+    byte the window needs (``base`` is that member's decompressed offset),
+    so a rank inflates about its share (and the members its boundary lines
+    straddle).
+    """
+
+    def __init__(self, inner, base: int, t_lo: int, t_hi: int, h: int, total: int):
+        self._inner = inner
+        self._buf = bytearray()
+        self._buf_abs = base  # absolute offset of _buf[0]
+        self._inner_eof = False
+        self._t_lo, self._t_hi = t_lo, t_hi
+        self._h, self._total = h, total
+        self._start: int | None = None  # cut(t_lo), resolved on first use
+        self._end: int | None = None  # cut(t_hi)
+
+    def start(self) -> int:
+        """The absolute decompressed offset of the window's first byte,
+        ``cut(t_lo)``: the base of the chunks' end offsets."""
+        self._resolve_start()
+        return self._start
+
+    def _resolve_start(self) -> None:
+        if self._start is not None:
+            return
+        self._start = self._cut(self._t_lo)
+        if self._t_hi >= self._total:
+            self._end = self._total
+        while self._buf_abs < self._start:
+            if not self._buf:
+                if not self._more():
+                    break
+                continue
+            self._drop(min(len(self._buf), self._start - self._buf_abs))
+
+    def _more(self) -> bool:
+        if self._inner_eof:
+            return False
+        block = self._inner.read(4 << 20)
+        if not block:
+            self._inner_eof = True
+            return False
+        self._buf += block
+        return True
+
+    def _drop(self, n: int) -> None:
+        del self._buf[:n]
+        self._buf_abs += n
+
+    def _cut(self, t: int) -> int:
+        """``cut(t)``, buffering inner bytes as needed; the end of the stream
+        clamps."""
+        if t <= self._h:
+            return self._h
+        if t >= self._total:
+            return self._total
+        probe = t - 1
+        if probe < self._buf_abs:
+            # the probe byte is consumed already: only when this cut is the
+            # start cut (no newline lies between the two targets)
+            return self._start if self._start is not None else self._buf_abs
+        while True:
+            start_idx = probe - self._buf_abs
+            if start_idx < len(self._buf):
+                nl = self._buf.find(b"\n", start_idx)
+                if nl >= 0:
+                    return self._buf_abs + nl + 1
+                probe = self._buf_abs + len(self._buf)
+            if not self._more():
+                return self._buf_abs + len(self._buf)  # the stream ends mid-line
+
+    def read(self, n: int) -> bytes:
+        self._resolve_start()
+        out = bytearray()
+        while len(out) < n:
+            if self._end is not None and self._buf_abs >= self._end:
+                break
+            if not self._buf and not self._more():
+                break
+            avail = len(self._buf)
+            if self._end is None:
+                # the end is unknown: every byte before t_hi - 1 is inside;
+                # once the buffer reaches the probe byte, resolve the end cut
+                # (the last line may straddle members)
+                if self._buf_abs + avail > self._t_hi - 1:
+                    self._end = self._cut(self._t_hi)
+                    continue
+                take = avail
+            else:
+                take = min(avail, self._end - self._buf_abs)
+            take = min(take, n - len(out))
+            if take <= 0:
+                break
+            out += self._buf[:take]
+            self._drop(take)
+        return bytes(out)
+
+    def close(self) -> None:
+        self._inner.close()
+
+
 class VcfChunkReader:
     """Line-aligned chunked VCF ingest for the streaming executor.
 
-    Counterpart of the reference's ``VcfChunkReader`` (whole-file spans
-    only). Iterating yields :class:`VariantTable` chunks in file order, each
+    Counterpart of the reference's ``VcfChunkReader``. Iterating yields :class:`VariantTable` chunks in file order, each
     scanned by ``native.vcf_parse`` and built by the table assembly
     :func:`read_vcf` uses, so a chunk's table is a row slice of the
     whole-file table. Sources:
@@ -1077,20 +1217,47 @@ class VcfChunkReader:
 
     Chunk boundaries follow the reference's rule for the same
     ``chunk_bytes`` (argument, else ``VCTPU_STREAM_CHUNK_BYTES``), at any
-    IO thread count. With ``VCTPU_IO_THREADS`` > 1 iteration parses the
+    IO thread count, as a function of (input bytes, ``chunk_bytes``, the
+    span's start).
+
+    ``rank_span=(rank, ranks)``: only that rank's line-aligned span of the
+    record region (targets at ``rank / ranks`` of the record bytes, each
+    advanced to the next line start), so the ranks' spans tile the file;
+    ``span_targets=(lo, hi)``: an elastic worker's absolute decompressed
+    targets, cut by the same rule (the rank fractions are a special case).
+    A BGZF input is read from the member holding the span's first byte; a
+    plain single-member gzip under either raises :class:`EngineError`
+    (exit 2), never inflated from its start by every rank. With ``VCTPU_IO_THREADS`` > 1 iteration parses the
     chunks on the IO pool, reassembled in order. One-shot; needs the native
     engine; a mid-stream scan failure raises. ``profiler``
     (``obs/profile.StageProfiler``): the pool workers' inflate and parse
     work goes to their ``inflate.w<idx>`` and ``parse.w<idx>`` rows.
     """
 
-    def __init__(self, path: str, chunk_bytes: int = 0, io_threads: int | None = None, profiler=None):
+    def __init__(self, path: str, chunk_bytes: int = 0, io_threads: int | None = None, profiler=None,
+                 rank_span: tuple[int, int] | None = None, span_targets: tuple[int, int] | None = None):
         from variantcalling_tpu_torch import knobs, native
         from variantcalling_tpu_torch.parallel.pipeline import resolve_io_threads
 
         if not native.available():
             raise RuntimeError("VcfChunkReader requires the native engine")
         self.path = str(path)
+        self._rank_span: tuple[int, int] | None = None
+        if rank_span is not None and int(rank_span[1]) > 1:
+            r, nr = int(rank_span[0]), int(rank_span[1])
+            if not 0 <= r < nr:
+                raise ValueError(f"rank_span {rank_span!r} out of range")
+            self._rank_span = (r, nr)
+        self._span_targets: tuple[int, int] | None = None
+        if span_targets is not None:
+            lo, hi = int(span_targets[0]), int(span_targets[1])
+            if hi < lo:
+                raise ValueError(f"span_targets {span_targets!r} inverted")
+            self._span_targets = (lo, hi)
+            if self._rank_span is not None:
+                raise ValueError("rank_span and span_targets are exclusive")
+        #: decompressed bytes of this reader's span (None: the whole file)
+        self.span_bytes: int | None = None
         #: the absolute (decompressed) end offset of every chunk boundary
         #: computed so far, skipped chunks included, by sequence number
         self.chunk_ends: list[int] = []
@@ -1107,7 +1274,13 @@ class VcfChunkReader:
         self._mm: np.ndarray | None = None
         self._fh = None
         self._pending = b""
-        if self._gz:
+        if self._gz and (self._rank_span is not None or self._span_targets is not None):
+            try:
+                self._init_gz_span()
+            except BaseException:
+                self.close()
+                raise
+        elif self._gz:
             try:  # a failing header read must release the started pool
                 self._fh = self._open_gz_stream()
                 self.header, first_off, head = self._scan_gz_header(self._fh)
@@ -1127,7 +1300,16 @@ class VcfChunkReader:
                     break
                 cap *= 8
             self.header = header
+            self._first_off = first_off
             self._span_lo, self._span_hi = first_off, size
+            if self._rank_span is not None:
+                self._span_lo, self._span_hi = self._mm_span_bounds(size)
+                self.span_bytes = self._span_hi - self._span_lo
+            elif self._span_targets is not None:
+                lo, hi = self._span_targets
+                self._span_lo = self._mm_newline_cut(lo, size)
+                self._span_hi = max(self._span_lo, self._mm_newline_cut(hi, size))
+                self.span_bytes = self._span_hi - self._span_lo
 
     def _scan_gz_header(self, fh) -> tuple:
         """The header off a decompressed stream: ``chunk_bytes`` windows until
@@ -1141,6 +1323,79 @@ class VcfChunkReader:
             if not block or (first_off < len(head) and head[first_off:first_off + 1] != b"#"):
                 break
         return header, first_off, head
+
+    def _mm_newline_cut(self, u: int, size: int) -> int:
+        """The smallest line start at or after ``u``: the position after the
+        first newline at ``u - 1`` or later, clamped to the record region.
+        Every rank applies it, so neighbouring spans meet exactly."""
+        if u <= self._first_off:
+            return self._first_off
+        if u >= size:
+            return size
+        pos = u - 1
+        probe = 1 << 16
+        while pos < size:
+            w = self._mm[pos: min(pos + probe, size)]
+            hits = np.flatnonzero(w == 0x0A)
+            if len(hits):
+                return min(pos + int(hits[0]) + 1, size)
+            pos += len(w)
+            probe *= 8
+        return size
+
+    def _mm_span_bounds(self, size: int) -> tuple[int, int]:
+        r, n_ranks = self._rank_span
+        body = size - self._first_off
+        lo = self._mm_newline_cut(self._first_off + body * r // n_ranks, size)
+        hi = self._mm_newline_cut(self._first_off + body * (r + 1) // n_ranks, size)
+        return lo, max(lo, hi)
+
+    def _init_gz_span(self) -> None:
+        """A span of a BGZF input: the member chain mapped, the header read
+        by a short serial inflate from the start, then the span's window of
+        the decompressed stream (:class:`_SpanGzWindow`) from the member that
+        holds its first needed byte."""
+        from variantcalling_tpu_torch.engine import EngineError
+        from variantcalling_tpu_torch.io import bgzf as bgzf_mod
+
+        size = os.path.getsize(self.path)
+        mm = np.memmap(self.path, dtype=np.uint8, mode="r") if size else np.empty(0, dtype=np.uint8)
+        spans = bgzf_mod.scan_block_spans(mm) if size else []
+        if spans is None:
+            raise EngineError(
+                f"{self.path}: rank-partitioned ingest needs BGZF-framed input (plain gzip is one "
+                "indivisible deflate stream) — re-compress with bgzip/the BGZF writer, or run single-rank")
+        with gzip.open(self.path, "rb") as fh:
+            self.header, first_off, _ = self._scan_gz_header(fh)
+        h = first_off
+        total = int(sum(s[2] for s in spans))
+        if self._span_targets is not None:
+            t_lo = max(h, min(self._span_targets[0], total))
+            t_hi = max(t_lo, min(self._span_targets[1], total))
+        else:
+            r, n_ranks = self._rank_span
+            body = max(0, total - h)
+            t_lo = h + body * r // n_ranks
+            t_hi = h + body * (r + 1) // n_ranks
+        self.span_bytes = max(0, t_hi - t_lo)
+        # the first decompressed byte the window needs: the line-start probe
+        # at t_lo - 1 (or the header's end, for the first span)
+        probe = t_lo - 1 if t_lo > h else h
+        probe = max(0, min(probe, max(total - 1, 0)))
+        cum = 0
+        m_lo = len(spans)
+        for i, sp in enumerate(spans):
+            if cum + sp[2] > probe:
+                m_lo = i
+                break
+            cum += sp[2]
+        tail = spans[m_lo:]
+        if self.io_threads > 1 and tail:
+            inner = _ParallelBgzfStream(self.path, self._ensure_pool(), profiler=self.profiler, spans=tail)
+        else:
+            inner = _MemberStream(mm, tail)
+        self._fh = _SpanGzWindow(inner, cum, t_lo, t_hi, h, total)
+        self._pending = b""
 
     def _open_gz_stream(self):
         """Shard-parallel BGZF inflate where the IO pool is on and the file
@@ -1251,8 +1506,8 @@ class VcfChunkReader:
         return table
 
     def _raw_mm(self):
-        """Chunk buffers of a plain-text file: ``chunk_bytes`` from the last
-        cut, extended to the next line end."""
+        """Chunk buffers of a plain-text file (or of its span): ``chunk_bytes``
+        from the last cut, extended to the next line end."""
         mm = self._mm
         n = self._span_hi
         off = self._span_lo
@@ -1280,8 +1535,9 @@ class VcfChunkReader:
 
     def _raw_gz(self):
         """Chunk buffers of the decompressed stream: ``chunk_bytes`` windows
-        cut at their last line end, the rest carried to the next."""
-        pos = self._gz_base
+        cut at their last line end, the rest carried to the next. Chunk ends
+        count from the header's end, or from a span window's start."""
+        pos = self._fh.start() if isinstance(self._fh, _SpanGzWindow) else self._gz_base
         carry = self._pending
         self._pending = b""
         while True:
@@ -1309,3 +1565,44 @@ class VcfChunkReader:
             else:
                 yield np.frombuffer(carry, dtype=np.uint8), carry
         self._fh.close()
+
+
+def scan_record_region(path: str) -> tuple[int, int]:
+    """``(header_end, total_size)`` of a VCF in decompressed bytes: the target
+    domain an elastic pod cuts its spans over (``parallel/elastic``). The
+    header's end follows the chunk reader's rule, so the coordinator's
+    targets and every worker's cuts agree byte for byte. A BGZF file's total
+    comes from its member index without inflating it; plain single-member
+    gzip raises :class:`EngineError`, as a span reader does."""
+    path = str(path)
+    if path.endswith((".gz", ".bgz")):
+        from variantcalling_tpu_torch.engine import EngineError
+        from variantcalling_tpu_torch.io import bgzf as bgzf_mod
+
+        size = os.path.getsize(path)
+        mm = np.memmap(path, dtype=np.uint8, mode="r") if size else np.empty(0, dtype=np.uint8)
+        spans = bgzf_mod.scan_block_spans(mm) if size else []
+        if spans is None:
+            raise EngineError(
+                f"{path}: span-partitioned ingest needs BGZF-framed input (plain gzip is one indivisible "
+                "deflate stream) — re-compress with bgzip/the BGZF writer, or run single-rank")
+        total = int(sum(s[2] for s in spans))
+        head = b""
+        with gzip.open(path, "rb") as fh:
+            while True:
+                block = fh.read(STREAM_CHUNK_BYTES)
+                head += block
+                _header, first_off = parse_header_bytes(head)
+                if not block or (first_off < len(head) and head[first_off:first_off + 1] != b"#"):
+                    break
+        return first_off, total
+    size = os.path.getsize(path)
+    mm = np.memmap(path, dtype=np.uint8, mode="r") if size else np.empty(0, dtype=np.uint8)
+    cap = 1 << 20
+    while True:
+        head = bytes(memoryview(mm[: min(cap, size)]))
+        _header, first_off = parse_header_bytes(head)
+        if (first_off < len(head) and head[first_off:first_off + 1] != b"#") or cap >= size:
+            break
+        cap *= 8
+    return first_off, size

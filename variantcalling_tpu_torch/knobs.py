@@ -370,7 +370,8 @@ HONOURED = frozenset({
     "VCTPU_NATIVE_GBT",
     # the bound on each cloud CLI copy of utils/cloud
     "VCTPU_CLOUD_TIMEOUT",
-    # the rank check of train_dan and sec_training: a launch of more than one rank exits 2 (A7)
+    # the filter's rank-partitioned and elastic pods (parallel/rank_plan, parallel/elastic); train_dan and
+    # sec_training refuse a launch of more than one rank (exit 2) until the collectives (A7c)
     "VCTPU_RANK", "VCTPU_NUM_PROCESSES", "VCTPU_SPAN",
     # the bound on the imputation chain's external beagle
     "VCTPU_SUBPROC_TIMEOUT_S",

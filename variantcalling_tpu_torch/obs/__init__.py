@@ -280,8 +280,8 @@ class ObsRun:
 
 def _rank_suffixed(path: str) -> str:
     """Multi-rank runs must not interleave one file: rank N > 0 writes
-    ``<path>.rankN``. The rank is ``VCTPU_RANK`` (the port runs one rank;
-    its tools refuse a launch of more, so in practice this is rank 0)."""
+    ``<path>.rankN``. The rank is ``VCTPU_RANK``, the pod launcher's
+    spelling (``parallel/podrun``)."""
     r = knobs.get_int("VCTPU_RANK") or 0
     return f"{path}.rank{r}" if r else path
 

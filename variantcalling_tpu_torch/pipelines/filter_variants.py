@@ -38,6 +38,13 @@ built on the ``genome-prefetch`` thread; a chunk that comes first waits
 for it. The device half of each chunk runs one chunk at a time, under one
 lock.
 
+Under a pod launch (``VCTPU_RANK`` with ``VCTPU_NUM_PROCESSES``, or an
+elastic worker's ``VCTPU_SPAN``; ``parallel/rank_plan``) the run is one
+worker of N: it streams its line-aligned span of the input into its segment
+beside the output, seals it with a ``.done`` marker and never writes the
+output itself; ``merge-ranks`` or the pod launcher (``parallel/podrun``)
+commits. A launch that cannot stream exits 2.
+
 A process builds each model's predictor once (:func:`predictor_for`: a
 forest's kernel with its tables on the card), so a resident process such as
 the serving daemon pays no table build or upload on a warm request; inside
@@ -371,7 +378,9 @@ class FilterContext:
 
     The engine, the model family, the forest strategy and whether the
     genome's positions pack into 4 bytes are decided here once per run.
-    ``family`` is the run's ``VCTPU_MODEL_FAMILY`` request (None: read it).
+    ``family`` is the run's ``VCTPU_MODEL_FAMILY`` request (None: read it);
+    ``rank_plan`` its ``parallel/rank_plan.RankPlan`` (None: resolved from
+    the environment; a malformed one raises ``EngineError``).
     """
 
     def __init__(self, model, fasta: FastaReader, device: torch.device,
@@ -379,8 +388,15 @@ class FilterContext:
                  blacklist: tuple[np.ndarray, np.ndarray] | None = None,
                  blacklist_cg_insertions: bool = False,
                  annotate_intervals: dict[str, bedio.IntervalSet] | None = None,
-                 flow_order: str = "TGCA", is_mutect: bool = False, family: str | None = None):
+                 flow_order: str = "TGCA", is_mutect: bool = False, family: str | None = None, rank_plan=None):
+        from variantcalling_tpu_torch.parallel import rank_plan as rank_plan_mod
+
         self.device = device
+        # the run's rank layout: the one run_scaleout partitioned by,
+        # else resolved here, so the reader's span and the header's
+        # ##vctpu_ranks= line never disagree
+        self.rank_plan = rank_plan if rank_plan is not None else rank_plan_mod.resolve()
+        rank_plan_mod.log_plan(self.rank_plan)
         self.engine = engine_mod.engine_name(device)
         forest_mod.validate_strategy_env()
         self.model_family = registry.resolve_family(
@@ -535,11 +551,14 @@ def _replace_or_append_meta(header, prefix: str, line: str) -> None:
         header.add_meta_line(line)
 
 
-def _ensure_output_header(header, engine: str, strategy: str, family: str) -> None:
+def _ensure_output_header(header, engine: str, strategy: str, family: str, rank_plan=None) -> None:
     """The pipeline's header additions: FILTER/INFO definitions, then the
     engine and forest-strategy provenance lines, and the model family's
     line for threshold and DAN runs (forest runs write none and strip a
-    stale one, so their bytes stay the reference's)."""
+    stale one, so their bytes stay the reference's). A run of more than one
+    rank records ``##vctpu_ranks=n=N`` (``rank_plan.header_line``: N, never
+    the rank, so every rank's segment carries the same header bytes); other
+    runs strip a stale one."""
     header.ensure_filter(LOW_SCORE, "Model score below threshold")
     header.ensure_filter(COHORT_FP, "Blacklisted cohort false-positive locus")
     header.ensure_filter(HPOL_RUN, "Variant close to long homopolymer run")
@@ -553,6 +572,8 @@ def _ensure_output_header(header, engine: str, strategy: str, family: str) -> No
     else:
         header.lines[:] = [ln for ln in header.lines if not ln.startswith(fam_prefix)]
     header.lines[:] = [ln for ln in header.lines if not ln.startswith(_STALE_PROVENANCE)]
+    if rank_plan is not None and rank_plan.ranks > 1:
+        header.add_meta_line(rank_plan.header_line())
 
 
 def quarantine_path(out_path: str) -> str:
@@ -600,14 +621,22 @@ def _guard_chunk(table: VariantTable, what: str, body):
         return None
 
 
-def streaming_eligible(args_limit_to_contig=None) -> bool:
+def streaming_eligible(args_limit_to_contig=None, allow_multiprocess: bool = False) -> bool:
     """The streaming executor runs where host threads are available
     (``VCTPU_THREADS`` != 1, ``VCTPU_STREAM`` on), the native engine is
-    built, and the job is the whole file. Anything else selects the serial
-    path."""
+    built, and the job is the whole file in one process. Anything else
+    selects the serial path. ``allow_multiprocess``: the rank-partitioned
+    path's opt-in (``parallel/rank_plan``): a rank is one of N processes
+    by design, streaming over its own span. Without it, a process of an
+    initialized ``torch.distributed`` group of more than one is not
+    eligible, as the reference's check of ``jax.process_count`` decides."""
     if not knobs.get_bool("VCTPU_STREAM") or pipeline_mod.resolve_threads() <= 1:
         return False
-    return native.available() and not args_limit_to_contig
+    if not native.available() or args_limit_to_contig:
+        return False
+    if not allow_multiprocess and torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_world_size() <= 1
+    return True
 
 
 def _sink_write(sink, data) -> None:
@@ -650,9 +679,12 @@ def run_streaming(args, ctx: FilterContext) -> dict:
     """Chunked streaming execution: chunk ingest, featurize and score on the
     run's device, ordered writeback, overlapped on the stage executor
     (:mod:`parallel.pipeline`). Counterpart of the reference's
-    ``run_streaming`` on one device and one rank. The output bytes are the
-    serial path's: chunks are sequence-numbered, written strictly in order,
-    and each runs the code the whole-table path runs.
+    ``run_streaming`` on one device. The output bytes are the serial path's:
+    chunks are sequence-numbered, written strictly in order, and each runs
+    the code the whole-table path runs. Under a rank or span plan
+    (``ctx.rank_plan``) the run reads only its span of the input and writes
+    it with a ``##vctpu_ranks=n=N`` line (N > 1); its output is then a rank
+    segment (``parallel/rank_plan.run_scaleout``).
 
     Failure semantics:
 
@@ -709,7 +741,12 @@ def _run_streaming_impl(args, ctx: FilterContext) -> dict:
     prof = profile_mod.StageProfiler() if profile_mod.enabled() else None
     # this thread runs the sequenced commit for the run
     sampler_mod.register_current("committer")
-    reader = VcfChunkReader(args.input_file, profiler=prof)
+    # a rank's reader takes only its line-aligned span (a rank fraction, or an
+    # elastic worker's absolute targets); its chunks, journal and segment are
+    # the rank's own
+    plan = ctx.rank_plan
+    reader = VcfChunkReader(args.input_file, profiler=prof,
+                            rank_span=(plan.rank, plan.ranks) if plan.ranks > 1 else None, span_targets=plan.span)
     prefetch_cancel = threading.Event()
     prefetch = threading.Thread(target=_prefetch_genome, args=(ctx, prefetch_cancel), name="genome-prefetch",
                                 daemon=True)
@@ -733,7 +770,7 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader, prof=None) -> dict
     from variantcalling_tpu_torch.io import journal as journal_mod
 
     header = reader.header
-    _ensure_output_header(header, ctx.engine, ctx.forest_strategy, ctx.model_family)
+    _ensure_output_header(header, ctx.engine, ctx.forest_strategy, ctx.model_family, ctx.rank_plan)
 
     def score_stage(table):
         # the chunk body rides the recovery ladder: the executor (serial IO)
@@ -856,7 +893,8 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader, prof=None) -> dict
 
     scoring_cfg = identity_mod.scoring_config(
         args, engine=ctx.engine, forest_strategy=ctx.forest_strategy, model_family=ctx.model_family,
-        model_digest=dan_mod.weights_digest(ctx.model) if isinstance(ctx.model, DanModel) else None)
+        model_digest=dan_mod.weights_digest(ctx.model) if isinstance(ctx.model, DanModel) else None,
+        rank=ctx.rank_plan.rank, ranks=ctx.rank_plan.ranks, span=ctx.rank_plan.span)
 
     # resume only for plain-text outputs: a killed BGZF writer's block
     # state is lost, so .gz runs restart (still atomically)
@@ -951,7 +989,8 @@ def _stream(args, ctx: FilterContext, reader: VcfChunkReader, prof=None) -> dict
     # the rate counts the records this run scored over its elapsed time. A .gz
     # input's chunks count inflated bytes, so its heartbeats carry no pct
     bytes_comparable = not args.input_file.endswith(".gz")
-    input_bytes = os.path.getsize(args.input_file)
+    # a rank's reader takes its span only: progress is over the span's bytes
+    input_bytes = reader.span_bytes if reader.span_bytes is not None else os.path.getsize(args.input_file)
     resumed_records = n_total
     t_start = time.perf_counter()
     ok = False
@@ -1142,13 +1181,44 @@ def _run_impl(args, device: torch.device, family: str | None) -> int:
 def run_loaded(args, model, fasta: FastaReader, annotate, blacklist, device: torch.device,
                family: str | None = None) -> int:
     """The filter pipeline over already-loaded resources; ``family``: the
-    run's ``VCTPU_MODEL_FAMILY`` request (None: read it)."""
+    run's ``VCTPU_MODEL_FAMILY`` request (None: read it).
+
+    A rank or span launch (``parallel/rank_plan.resolve``) runs this process
+    as one worker of a pod first: its span streamed into its segment, never
+    the whole output (``rank_plan.run_scaleout``). A worker that lost its
+    span's lease returns 6; a launch that cannot stream (``VCTPU_THREADS=1``,
+    ``VCTPU_STREAM=0``, ``--limit_to_contig``, no native engine) raises
+    ``EngineError`` (exit 2) before writing anything."""
+    from variantcalling_tpu_torch.parallel import elastic
+    from variantcalling_tpu_torch.parallel import rank_plan as rank_plan_mod
+
+    plan = rank_plan_mod.resolve()
+    partitioned = plan.ranks > 1 or plan.span is not None
+    if partitioned and not rank_plan_mod.scaleout_eligible(args):
+        # a launched worker has no collective to merge scores through: the
+        # whole output from each of N workers would race on one destination
+        raise engine_mod.EngineError(
+            f"VCTPU_{'SPAN' if plan.span is not None else 'RANK'} is set but this job cannot run the "
+            "rank-partitioned streaming executor (it needs the native engine, VCTPU_STREAM=1, VCTPU_THREADS>1 "
+            "and no --limit_to_contig) — unset it or fix the configuration")
     ctx = FilterContext(
         model, fasta, device, runs_file=args.runs_file,
         hpol_length=args.hpol_filter_length_dist[0], hpol_dist=args.hpol_filter_length_dist[1],
         blacklist=blacklist, blacklist_cg_insertions=args.blacklist_cg_insertions,
         annotate_intervals=annotate, flow_order=args.flow_order, is_mutect=args.is_mutect,
-        family=family)
+        family=family, rank_plan=plan)
+    if partitioned:
+        if plan.span is not None:
+            log.info("elastic scale-out: span [%d,%d) gen %d", plan.span[0], plan.span[1], plan.gen)
+        else:
+            log.info("rank-partitioned scale-out: rank %d of %d (%s)", plan.rank, plan.ranks, plan.source)
+        try:
+            with stage("scaleout"):
+                return rank_plan_mod.run_scaleout(args, ctx, plan=plan)
+        except elastic.LeaseLost as e:
+            # benign: another worker holds this (span, generation) lease
+            log.info("%s — yielding (exit %d)", e, elastic.EXIT_LEASE_LOST)
+            return elastic.EXIT_LEASE_LOST
     if streaming_eligible(args.limit_to_contig):
         log.info("streaming %s", args.input_file)
         with stage("stream"):

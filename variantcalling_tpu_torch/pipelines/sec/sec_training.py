@@ -14,7 +14,7 @@ sample too) are dropped. The DB is written in the reference's h5 layout.
 One process builds the whole cohort. A launch of more than one rank
 (``VCTPU_RANK``, ``VCTPU_NUM_PROCESSES``, ``VCTPU_SPAN``) exits 2: the
 reference's multi-host branch, one all-reduce over every host's samples,
-waits for multi-GPU support (``ROADMAP.md`` A7).
+waits for multi-GPU support (``ROADMAP.md`` A7c).
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ def run(argv: list[str]) -> int:
     ranks = device_mod.multi_rank()
     if ranks:
         log.error("sec_training: %s asks for more than one rank; the port builds the cohort in one process "
-                  "(the multi-host all-reduce is ROADMAP A7) and never builds one rank's share as the whole "
+                  "(the multi-host all-reduce is ROADMAP A7c) and never builds one rank's share as the whole "
                   "cohort: unset them", ranks)
         return 2
     region = bedio.read_intervals(args.relevant_coords) if args.relevant_coords else None

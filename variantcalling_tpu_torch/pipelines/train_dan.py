@@ -27,7 +27,7 @@ the card; asking for it without one exits 2):
   ``train.step_s`` histogram of each step's host time.
 
 The port trains on one rank: ``VCTPU_RANK``/``VCTPU_NUM_PROCESSES``/
-``VCTPU_SPAN`` asking for more exit 2 (multi-GPU is ROADMAP A7). Only h5
+``VCTPU_SPAN`` asking for more exit 2 (multi-GPU is ROADMAP A7c). Only h5
 input is read; the reference's VCF path fails with an ``AttributeError``
 (its parser lacks the VCF-mode arguments), and the port exits 2 with a
 message instead.
@@ -281,7 +281,7 @@ def run(argv) -> int:
     ranks = device_mod.multi_rank()
     if ranks:
         log.error("train_dan: %s asks for more than one rank; the port trains on one (multi-GPU training is "
-                  "ROADMAP A7) and never trains one rank on the whole input: unset them", ranks)
+                  "ROADMAP A7c) and never trains one rank on the whole input: unset them", ranks)
         return 2
     if not args.input_file.endswith((".h5", ".hdf", ".hdf5")):
         log.error("train_dan reads a concordance h5 (.h5, .hdf, .hdf5); %s is not one (VCF training is not a "
