@@ -309,6 +309,17 @@ Phases (any failure exits non-zero, and the final result line is not printed):
    ``intersect_bed_regions``, ``index_vcf_file``, ``remove_vcf_duplicates``,
    ``remove_empty_files`` and ``cloud_sync`` (a stub ``gsutil``, no network),
    each held to a numpy check (``HOST_TOOLS_DETAIL`` lines).
+20. the rank-partitioned and elastic filter pods (``phase_scaleout``): three
+   pods of the port's launcher side by side, their merged bytes the
+   single-rank runs' (``SCALEOUT_DETAIL`` lines).
+21. the serving fabric (``phase_fabric``): two fleets of two backends on the
+   card and a router each (``parallel/podrun.start_fabric``); phase 4's and
+   phase 8's worlds streamed through the routers at 1, 2 and 4 spans, cold,
+   warm and scoped to ``gemm``, with the batch bytes outside ``##vctpu_*``;
+   tokens and the quota on a second router; a backend SIGKILLed mid-request
+   (a re-span, the same bytes), then ``backend_lost``; clean drains, nothing
+   left, the router off the card, each backend's launches from its log
+   (``FABRIC_DETAIL``).
 
 A ``PHASE_SECONDS`` line follows every phase (wall seconds of the phase),
 and one for the whole run before the result lines.
@@ -345,7 +356,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from pathlib import Path
 
 import numpy as np
@@ -1185,6 +1196,16 @@ def _sha256(path: Path) -> str:
     return h.hexdigest()
 
 
+def _stripped_sha256(path: Path) -> str:
+    """sha256 of ``path`` without its ``##vctpu_*`` lines (:func:`_strip`'s bytes)."""
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for line in fh:
+            if not line.startswith(b"##vctpu_"):
+                h.update(line)
+    return h.hexdigest()
+
+
 def _stream_child(spec: dict, results) -> None:
     """One CLI run in a process of its own, for its own peak RSS: ``spec``
     holds ``argv`` and ``env``; ``argv`` None runs nothing past the imports
@@ -1449,6 +1470,8 @@ def phase_streaming(tmp: Path, card: str, pickle_world: dict) -> dict:
     print(f"streaming 5M: default, VCTPU_IO_THREADS=1 and serial outputs identical "
           f"({runs['default']['chunks']} chunks); peak RSS "
           f"{[runs[k]['peak_rss_bytes'] >> 20 for k in runs]} MiB ({card})", flush=True)
+    # phase 21's fabric answers are held to this outside ##vctpu_*
+    runs["default"]["stripped_sha256"] = _stripped_sha256(tmp / "stream_5m_default.vcf")
     for f in tmp.glob("stream_5m_*.vcf"):
         f.unlink()
     out["stream_5m"] = runs
@@ -5035,6 +5058,289 @@ def phase_scaleout(tmp: Path, card: str, stream: dict, pipe: dict) -> dict:
     return out
 
 
+#: phase 21: backends a fleet, a request's bound (the client's socket timeout and its deadline), and the scoped
+#: fault that holds the quota case's first request at its first chunk for a few seconds
+FABRIC_BACKENDS = 2
+FABRIC_TIMEOUT_S = 300.0
+FABRIC_HOLD = "pipeline.stage_hang:1@3"
+#: a backend's drain line (``serve/backend.DRAIN_LOG``) in its ``.podlog``
+_DRAIN_RE = r"forest kernel launches in this process: wide (\d+), tree_step (\d+); peak card memory (\d+) bytes"
+_FABRIC_LEFTOVERS = (".seg", ".lease", ".done", ".tmp", ".partial", ".journal", ".podrun.json")
+
+
+class _PeakRss:
+    """The largest resident set of process ``pid``, sampled every 50 ms on a
+    thread (``/proc/<pid>/statm``; the card's machine has no ``VmHWM``), and
+    how much of it was anonymous at that sample (the ``Anonymous`` lines of
+    ``/proc/<pid>/smaps``; the rest is file pages, such as a memory-mapped
+    spool). ``anon`` stays None where ``smaps`` cannot be read."""
+
+    def __init__(self, pid: int):
+        import threading
+
+        self.pid, self.peak, self.anon = pid, 0, None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="fabric-rss", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        page = os.sysconf("SC_PAGE_SIZE")
+        while not self._stop.is_set():
+            with contextlib.suppress(OSError, ValueError, IndexError):
+                with open(f"/proc/{self.pid}/statm") as fh:
+                    rss = int(fh.read().split()[1]) * page
+                if rss > self.peak:
+                    self.peak = rss
+                    with open(f"/proc/{self.pid}/smaps") as fh:
+                        self.anon = 1024 * sum(int(ln.split()[1]) for ln in fh if ln.startswith("Anonymous:"))
+            self._stop.wait(0.05)
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(5)
+        return {"peak": self.peak, "anon": self.anon, "file": None if self.anon is None else self.peak - self.anon}
+
+
+def _fabric_request(address: str, world: dict, out: Path, token: str | None = None,
+                    timeout: float = FABRIC_TIMEOUT_S, **params) -> dict:
+    """One filter request through a fabric's front door (``transport.client_filter``):
+    ``world``'s VCF streamed up, the answer streamed into ``out``."""
+    from variantcalling_tpu_torch.serve import transport
+
+    body = {"model": world["model"], "model_name": world["model_name"], "reference": world["fasta"],
+            "output_name": out.name, "deadline_s": timeout, **params}
+    t0 = time.perf_counter()
+    code, payload = transport.client_filter(address, body, world["vcf"], str(out), token=token, timeout=timeout)
+    return {"code": code, "payload": payload, "seconds": time.perf_counter() - t0}
+
+
+def _within(future, bound: float):
+    """``future``'s result; fails if the call outlives ``bound`` seconds."""
+    check(bool(wait([future], timeout=bound).done), f"fabric: a client request outlived its {bound:.0f} s bound")
+    return future.result()
+
+
+def _maps(pid: int) -> str:
+    with open(f"/proc/{pid}/maps") as fh:
+        return fh.read()
+
+
+def _fabric_leftovers(*dirs: Path) -> list[str]:
+    return sorted(str(p) for d in dirs for p in d.rglob("*") if p.is_file() and any(s in p.name
+                                                                                     for s in _FABRIC_LEFTOVERS))
+
+
+def phase_fabric(tmp: Path, card: str, stream: dict, pipe: dict) -> dict:
+    """21. The serving fabric on the card, through the port's launcher
+    (``parallel/podrun.start_fabric``): two fleets of two backends
+    (``serve --fabric-backend --backend gpu``, each a process with its own
+    CUDA context on the one card) and a router (``serve --fabric``, a process
+    that imports no torch), started at once.
+
+    Fleet A, on phase 4's 104,000-variant forest pickle world: a cold request
+    at ``ranks=2`` (a span on each backend), warm ones at ``ranks=1`` and
+    ``ranks=2``, one scoped to
+    ``VCTPU_FOREST_STRATEGY=gemm``, each equal outside ``##vctpu_*`` to phase
+    4's GPU output; ``/v1/status`` (``role`` router, 2 alive) and
+    ``/v1/fabric/backends`` (each backend's rolling ``segment`` series); phase
+    8's 5 M world at ``ranks=2`` and ``ranks=4`` (two spans a backend), the
+    sha256 of the stripped bytes phase 8's default run's; while the ``ranks=4``
+    request runs, the router maps neither ``libcuda`` nor ``libtorch`` (so it
+    holds no CUDA context) and each backend maps ``libcuda``. A second router over the
+    same backends with ``VCTPU_FABRIC_TOKENS`` and ``VCTPU_FABRIC_QUOTA=1``: no
+    token 401, a wrong one 401, the right one 200 with equal bytes, and a
+    second request of the principal while its first is held 429 ``quota``;
+    SIGTERM: exit 0, ``drained``. Fleet A drained: every tier exit 0,
+    ``drained``, no leaked thread; each backend's ``.podlog`` gives its
+    ``forest_wide`` launches (> 0), its ``forest_tree_step`` launches (> 0: the
+    ``gemm`` request's spans) and its peak card memory.
+
+    Fleet B: the 5 M request at ``ranks=2``, backend 1 SIGKILLed once both
+    spans are placed: 200, ``respans >= 1``, the same stripped sha256, a
+    ``membership`` ``dead`` event in the router's obs stream; backend 2
+    SIGKILLed, and the next request answers 502 ``backend_lost`` (or 503
+    ``shed``) within its bound with no output; the router drained, exit 0.
+    No ``.seg``, ``.lease``, ``.done``, ``.tmp``, partial or journal is left,
+    and the routers' and drained backends' spools are gone (a SIGKILLed
+    backend's spool is counted and removed).
+
+    One ``FABRIC_DETAIL`` line: the fleets' start, each request's seconds,
+    each backend's launches and peak card memory, the router's peak RSS.
+    """
+    import re
+    import shutil
+    import signal
+
+    from variantcalling_tpu_torch.parallel import podrun
+
+    w104, w5 = pipe["forest_pickle"]["world"], stream["world_5m"]
+    want104 = _strip(pipe["forest_pickle"]["wide_gpu"]["bytes"])
+    want5 = stream["stream_5m"]["default"]["stripped_sha256"]
+    d = tmp / "fabric"
+    d.mkdir()
+    tmpdirs = {k: d / f"tmp_{k}" for k in ("a_router", "a_backends", "b_router", "b_backends", "auth_router")}
+    for t in tmpdirs.values():
+        t.mkdir()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VCTPU_")}
+    fleets: dict = {}
+    auth = None
+    out: dict = {"card": card, "requests": {}}
+    clients = ThreadPoolExecutor(1, thread_name_prefix="fabric-client")  # the requests held open while others run
+
+    def stop_all():
+        for h in fleets.values():
+            podrun.stop_fabric(h)
+        if auth is not None and auth.poll() is None:
+            auth.kill()
+            auth.wait(30)
+        clients.shutdown(wait=False, cancel_futures=True)
+
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            futures = {k: pool.submit(podrun.start_fabric, str(d / k), FABRIC_BACKENDS, 240.0, env,
+                                      {"TMPDIR": str(tmpdirs[f"{k}_backends"])},
+                                      {"TMPDIR": str(tmpdirs[f"{k}_router"])}) for k in ("a", "b")}
+            errors = []
+            for k, f in futures.items():
+                try:
+                    fleets[k] = f.result()
+                except Exception as e:  # noqa: BLE001 -- the other fleet is stopped, then this fails the phase
+                    errors.append(f"fleet {k}: {e}")
+            check(not errors, f"fabric: {errors}")
+        out["fleet_start_s"] = time.perf_counter() - t0
+        a, b = fleets["a"], fleets["b"]
+        rss = _PeakRss(a.router.pid)
+
+        def ok(label: str, address: str, world: dict, token: str | None = None, **params) -> dict:
+            target = d / f"{label}.vcf"
+            r = _fabric_request(address, world, target, token=token, **params)
+            check(r["code"] == 200, f"fabric {label}: {r['code']} {r['payload']}")
+            if world is w5:
+                check(_stripped_sha256(target) == want5, f"fabric {label}: stripped sha256 differs from phase 8's")
+            else:
+                check(_strip(target.read_bytes()) == want104, f"fabric {label}: bytes differ from phase 4's GPU run")
+            target.unlink()
+            p = r["payload"]
+            out["requests"][label] = {"seconds": r["seconds"], "n": p["n"], "spans": p["spans"],
+                                      "respans": p["respans"]}
+            return p
+
+        # -- fleet A: the 104,000-variant world, cold and warm, auto and gemm ----------------------------------------
+        ra = a.router_address
+        ok("cold_ranks2", ra, w104, ranks=2)  # both backends cold: their first span each
+        ok("warm_ranks1", ra, w104, ranks=1)
+        ok("warm_ranks2", ra, w104, ranks=2)
+        ok("gemm_ranks2", ra, w104, ranks=2, knobs={"VCTPU_FOREST_STRATEGY": "gemm"})
+        _, status = _http(ra, "/v1/status")
+        check(status["role"] == "router" and status["fleet"]["alive"] == FABRIC_BACKENDS, f"fabric status {status}")
+
+        def segment_series() -> bool:
+            reg = _http(ra, "/v1/fabric/backends")[1]["backends"]
+            return all((b_["status"].get("endpoints") or {}).get("segment", {}).get("rolling_p50_s") for b_ in reg)
+
+        _wait_for(segment_series, "every backend's rolling segment series in the router's registry", 30)
+
+        # -- the 5 M world at 2 and 4 spans; the router off the card while it runs -----------------------------
+        ok("stream5m_ranks2", ra, w5, ranks=2)
+        ranks4 = clients.submit(ok, "stream5m_ranks4", ra, w5, ranks=4)
+        _wait_for(lambda: _http(ra, "/v1/status")[1]["in_flight"] >= 1, "the ranks=4 request in flight", 60)
+        router_maps = _maps(a.router.pid)
+        check("libcuda" not in router_maps and "libtorch" not in router_maps, "fabric: the router maps CUDA or torch")
+        check(all("libcuda" in _maps(p.pid) for p in a.backends), "fabric: a backend has not mapped libcuda")
+        _within(ranks4, FABRIC_TIMEOUT_S + 60)
+
+        # -- bearer tokens and the quota, on a second router over fleet A's backends ---------------------------------
+        ready, status_file = d / "auth.router.ready", d / "auth.router.status"
+        auth_env = dict(env, TMPDIR=str(tmpdirs["auth_router"]), VCTPU_FABRIC_TOKENS="sekrit:alice",
+                        VCTPU_FABRIC_QUOTA="1",
+                        PYTHONPATH=os.pathsep.join(p for p in (podrun.REPO, env.get("PYTHONPATH")) if p))
+        auth = podrun._spawn_tier(["--fabric", "--port", "0", "--backends", ",".join(a.backend_addresses),
+                                   "--ready-file", str(ready), "--status-file", str(status_file)],
+                                  auth_env, str(d / "auth.router.podlog"))
+        rauth = podrun._wait_ready(str(ready), auth, time.monotonic() + 60, "auth router")["address"]
+        for label, token in (("no_token", None), ("wrong_token", "nope")):
+            r = _fabric_request(rauth, w104, d / f"{label}.vcf", token=token, ranks=2)
+            check(r["code"] == 401 and r["payload"]["status"] == "unauthorized" and not (d / f"{label}.vcf").exists(),
+                  f"fabric {label}: {r['code']} {r['payload']}")
+            out["requests"][label] = {"seconds": r["seconds"], "code": r["code"]}
+        ok("right_token", rauth, w104, token="sekrit", ranks=2)
+        # a handler releases its request's quota just after the response
+        _wait_for(lambda: not _http(rauth, "/v1/status")[1]["principals"], "the quota released", 30)
+        held = clients.submit(ok, "quota_held", rauth, w104, token="sekrit", ranks=2, faults=FABRIC_HOLD)
+        _wait_for(lambda: _http(rauth, "/v1/status")[1]["principals"].get("alice") == 1, "the held request", 60)
+        r = _fabric_request(rauth, w104, d / "quota.vcf", token="sekrit", ranks=2)
+        check(r["code"] == 429 and r["payload"]["status"] == "quota" and not (d / "quota.vcf").exists(),
+              f"fabric quota: {r['code']} {r['payload']}")
+        out["requests"]["quota_refused"] = {"seconds": r["seconds"], "code": r["code"]}
+        _within(held, FABRIC_TIMEOUT_S)
+        auth.terminate()
+        rc = auth.wait(60)
+        doc = json.loads(status_file.read_text())
+        check(rc == 0 and doc["status"] == "drained" and doc["leaked"] == [], f"fabric auth router: rc {rc}, {doc}")
+        auth = None
+
+        # -- fleet A drained: every tier clean, each backend's launches from its own log ------------------------------
+        out["router_rss_bytes"] = rss.stop()
+        report = podrun.stop_fabric(fleets.pop("a"))
+        for tier, doc in [("router", report["router"]), *((f"backend {i}", v) for i, v in report["backends"].items())]:
+            check(doc["rc"] == 0 and doc.get("status") == "drained" and doc.get("leaked") == [],
+                  f"fabric A {tier}: {doc}")
+        backends = []
+        for i in range(1, FABRIC_BACKENDS + 1):
+            found = re.findall(_DRAIN_RE, Path(f"{a.base}.backend{i}.podlog").read_text(errors="replace"))
+            check(bool(found), f"fabric: backend {i} logged no launches")
+            wide, tree_step, peak = (int(v) for v in found[-1])
+            check(wide > 0 and tree_step > 0, f"fabric: backend {i} launched wide {wide}, tree_step {tree_step}")
+            backends.append({"backend": i, "forest_wide_launches": wide, "forest_tree_step_launches": tree_step,
+                             "peak_card_bytes": peak})
+        out["backends"] = backends
+        check(all(Path(f"{a.base}.obs.jsonl{s}").exists() for s in ("", ".backend1", ".backend2")),
+              "fabric: an obs stream of fleet A is missing")
+
+        # -- fleet B: a backend SIGKILLed mid-request, then the other ----------------------------------------------
+        rb = b.router_address
+        respan = clients.submit(ok, "respan_5m", rb, w5, ranks=2)
+        _wait_for(lambda: all(v["inflight"] >= 1 for v in _http(rb, "/v1/status")[1]["backends"].values()),
+                  "both spans of the 5 M request placed", 120)
+        os.kill(b.backends[0].pid, signal.SIGKILL)
+        b.backends[0].wait(30)
+        p = _within(respan, FABRIC_TIMEOUT_S + 60)
+        check(p["respans"] >= 1, f"fabric respan: {p}")
+        os.kill(b.backends[1].pid, signal.SIGKILL)
+        b.backends[1].wait(30)
+        r = _fabric_request(rb, w104, d / "lost.vcf", ranks=2, timeout=120.0)
+        check(r["code"] in (502, 503) and r["payload"]["status"] in ("backend_lost", "shed")
+              and r["seconds"] < 120.0 and not (d / "lost.vcf").exists(), f"fabric lost: {r}")
+        out["requests"]["backend_lost"] = {"seconds": r["seconds"], "code": r["code"],
+                                           "status": r["payload"]["status"]}
+        report = podrun.stop_fabric(fleets.pop("b"))
+        check(report["router"]["rc"] == 0 and report["router"].get("status") == "drained"
+              and report["router"].get("leaked") == [], f"fabric B router: {report['router']}")
+        check(all(v["rc"] == -signal.SIGKILL for v in report["backends"].values()), f"fabric B: {report['backends']}")
+        events = [json.loads(ln) for ln in Path(f"{b.base}.obs.jsonl").read_text().splitlines() if ln.strip()]
+        dead = [e for e in events if e.get("kind") == "membership" and e.get("action") == "dead"]
+        check(len(dead) >= 1, "fabric: no membership dead event in the router's obs stream")
+        out["membership_dead_events"] = len(dead)
+    finally:
+        stop_all()
+    left = _fabric_leftovers(d)
+    check(not left, f"fabric: files left {left}")
+    for k in ("a_router", "a_backends", "b_router", "auth_router"):
+        check(not any(tmpdirs[k].iterdir()), f"fabric: {k} spool left {sorted(tmpdirs[k].iterdir())}")
+    killed = sorted(str(p) for p in tmpdirs["b_backends"].rglob("*") if p.is_file())
+    out["killed_backend_spool_files"] = len(killed)
+    shutil.rmtree(d)
+    print("FABRIC_DETAIL " + json.dumps(out), flush=True)
+    req = out["requests"]
+    print(f"fabric: fleets up in {out['fleet_start_s']:.1f} s; 104k cold {req['cold_ranks2']['seconds']:.2f} s, warm "
+          f"{req['warm_ranks1']['seconds']:.2f} / {req['warm_ranks2']['seconds']:.2f} s, gemm "
+          f"{req['gemm_ranks2']['seconds']:.2f} s; 5 M {req['stream5m_ranks2']['seconds']:.1f} / "
+          f"{req['stream5m_ranks4']['seconds']:.1f} s, re-span {req['respan_5m']['seconds']:.1f} s; backend_lost in "
+          f"{req['backend_lost']['seconds']:.2f} s; bytes equal phases 4 and 8 ({card})", flush=True)
+    return out
+
+
 def _phase(name: str, card: str, fn, *args):
     """``fn(*args)``, then a ``PHASE_SECONDS`` line with its wall seconds."""
     t0 = time.perf_counter()
@@ -5076,6 +5382,7 @@ def main() -> int:
         _phase("report_chain", card, phase_report_chain, Path(tmp), card, sec, reports["files"], feat["files"])
         _phase("host_tools", card, phase_host_tools, Path(tmp), card, world)
         _phase("scaleout", card, phase_scaleout, Path(tmp), card, stream, pipe)
+        _phase("fabric", card, phase_fabric, Path(tmp), card, stream, pipe)
     print("PHASE_SECONDS " + json.dumps({"phase": "all", "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     n = WORLD["n_variants"]

@@ -757,15 +757,74 @@ def test_serve_without_cuda_exits_2_and_never_falls_back(tmp_path, argv):
     assert "no CUDA device" in proc.stderr and not (tmp_path / "ready.json").exists()
 
 
-@pytest.mark.parametrize("flags", [["--fabric"], ["--fabric-backend"], ["--fabric", "--fabric-backend"],
-                                   ["--fabric", "--backends", "http://127.0.0.1:1"]])
+@pytest.mark.parametrize("flags", [["--fabric", "--fabric-backend"], ["--fabric-backend"],
+                                   ["--fabric-backend", "--backend", "gpu"],
+                                   ["--fabric", "--fabric-backend", "--backends", "http://127.0.0.1:1"]])
 def test_serve_fabric_flags_exit_2(tmp_path, flags):
-    """The fabric is not ported: its flags exit 2 with a message, before any
-    device or socket is touched, and never start the plain daemon."""
-    proc = _run_cli(["serve", "--backend", "cpu", "--port", "0", "--ready-file", str(tmp_path / "ready.json"),
-                     *flags], tmp_path)
+    """The fabric's flags exit 2 where the reference's do, before any socket is
+    touched: the two tiers together (a message naming them), and a backend
+    without a card, on the default ``--backend gpu`` or an explicit one (the
+    daemon's rule, no fallback to the CPU)."""
+    proc = _run_cli(["serve", "--port", "0", "--ready-file", str(tmp_path / "ready.json"), *flags], tmp_path)
     assert json.loads(proc.stdout.strip().splitlines()[-1])["rc"] == 2
-    assert "fabric" in proc.stderr and "not ported" in proc.stderr and not (tmp_path / "ready.json").exists()
+    assert not (tmp_path / "ready.json").exists()
+    if "--fabric" in flags:
+        assert "--fabric and --fabric-backend are different tiers" in proc.stderr
+    else:
+        assert "no CUDA device" in proc.stderr
+
+
+# -- the serving fabric ----------------------------------------------------------------------------------------------
+
+
+FABRIC_MODULES = ("serve/transport", "serve/backend", "serve/router")
+
+
+def test_the_fabric_modules_are_scanned():
+    """The fabric's router, backend and transport and the launcher that starts
+    them are among the sources the scan above reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"variantcalling_tpu_torch/{m}.py" for m in (*FABRIC_MODULES, "parallel/podrun")} <= scanned
+
+
+@pytest.mark.parametrize("code", [
+    "import variantcalling_tpu_torch.serve.router",
+    "import variantcalling_tpu_torch.serve.transport",
+    "import variantcalling_tpu_torch.engine, variantcalling_tpu_torch.knobs, variantcalling_tpu_torch.obs",
+    "import variantcalling_tpu_torch.serve, variantcalling_tpu_torch.serve.daemon",
+    "from variantcalling_tpu_torch.serve import cli; cli.run(['--fabric', '--help'])",
+], ids=["router", "transport", "engine-knobs-obs", "serve-daemon", "cli-fabric-help"])
+def test_the_router_imports_no_torch(code):
+    """The router's modules, and the ``serve --fabric`` CLI, leave torch (and
+    every forbidden package) out of ``sys.modules``: the router never touches
+    the card. ``engine`` imports no torch at module level, nor does the daemon
+    module the router takes its HTTP servers from."""
+    probe = (
+        "import json, sys\n"
+        "try:\n"
+        f"    {code}\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{('torch', *FORBIDDEN)!r})))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_fabric_knobs_are_honoured():
+    """The seven ``VCTPU_FABRIC_*`` knobs are read (by the router and the
+    transport), which takes the honoured registry to 58 names; a request still
+    may not scope them."""
+    from variantcalling_tpu_torch import knobs
+    from variantcalling_tpu_torch.serve import daemon
+
+    fabric = {n for n in knobs.REGISTRY if n.startswith("VCTPU_FABRIC_")}
+    assert len(fabric) == 7 and fabric <= knobs.HONOURED and fabric <= daemon._UNSCOPABLE
+    assert len(knobs.HONOURED) == 58
 
 
 # -- the run telemetry and the somatic composites ----------------------------------------

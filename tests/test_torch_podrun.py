@@ -19,8 +19,14 @@ the CPU (``--backend cpu``), two threads each.
   duplicate claimant is refused and the bytes are the single-rank run's.
 - Distinct exits: a worker's configuration error gives the pod its code 2
   (``VCTPU_THREADS=1``; ``--backend gpu`` without a card); ``--chaos``
-  without ``--elastic``, ``--fabric`` (A8), no ``--output_file`` and
-  ``--ranks 0`` exit 2.
+  without ``--elastic``, ``--fabric`` with forwarded arguments, no
+  ``--output_file`` and ``--ranks 0`` exit 2.
+- The serving fabric as processes (``start_fabric(..., backend="cpu")``): two
+  backends and a router; a streamed ``.vcf.gz`` request gives the batch CLI's
+  bytes, the router never maps torch, ``stop_fabric`` reports rc 0,
+  ``drained`` and no leaked thread for each tier, each backend logs its kernel
+  launches at drain, and the obs streams in the ``.backendH`` sibling layout
+  merge into one timeline labelled ``fabric (router)`` and ``fabric (backend H)``.
 """
 
 import json
@@ -200,9 +206,52 @@ def test_a_workers_configuration_error_is_the_pods_exit(world, tmp_path, flags, 
         log.unlink()
 
 
+def test_a_fabric_of_processes_serves_the_batch_bytes_and_drains_clean(world, tmp_path):
+    from variantcalling_tpu_torch.serve import backend as backend_mod
+    from variantcalling_tpu_torch.serve import transport
+
+    base = str(tmp_path / "fab")
+    h = podrun.start_fabric(base, 2, timeout=120, env=_env(), backend_env={"CUDA_VISIBLE_DEVICES": ""},
+                            backend="cpu")
+    try:
+        with open(f"/proc/{h.router.pid}/maps") as fh:
+            assert "libtorch" not in fh.read()
+        params = {"model": world["model"], "model_name": world["model_name"], "reference": world["fasta"],
+                  "output_name": "served.vcf", "ranks": 2, "deadline_s": 120.0}
+        out = tmp_path / "served.vcf"
+        code, stats = transport.client_filter(h.router_address, params, world["vcf_gz"], str(out))
+        assert code == 200, stats
+        assert (stats["n"], stats["spans"], stats["respans"]) == (world["n"], 2, 0)
+        assert fixtures.strip_vctpu_header(out.read_bytes()) == fixtures.strip_vctpu_header(world["want"])
+    finally:
+        report = podrun.stop_fabric(h)
+    for doc in [report["router"], *report["backends"].values()]:
+        assert doc["rc"] == 0 and doc["status"] == "drained" and doc["leaked"] == [], doc
+    assert sorted(report["backends"]) == [1, 2]
+    drained = backend_mod.DRAIN_LOG.split(";")[0]
+    for i in (1, 2):
+        log = Path(f"{base}.backend{i}.podlog").read_text()
+        assert drained in log and "launches in this process: wide 0, tree_step 0" in log
+    proc = subprocess.run([sys.executable, "-m", "variantcalling_tpu_torch", "obs", "summary", "--json",
+                           f"{base}.obs.jsonl"], env=_env(), capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    summary = json.loads(proc.stdout)
+    assert summary["run"]["tool"] == "fabric" and summary["throughput"]["records"] == world["n"]
+    trace = tmp_path / "fab.trace.json"
+    proc = subprocess.run([sys.executable, "-m", "variantcalling_tpu_torch", "obs", "export", "-o", str(trace),
+                           f"{base}.obs.jsonl"], env=_env(), capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = {e["args"]["name"] for e in json.loads(trace.read_text())["traceEvents"] if e["name"] == "process_name"}
+    assert names == {"fabric (router)", "fabric (backend 1)", "fabric (backend 2)"}
+    left = sorted(p.name for p in tmp_path.iterdir())
+    assert left == sorted(["served.vcf", "fab.trace.json", "fab.obs.jsonl", "fab.obs.jsonl.backend1",
+                           "fab.obs.jsonl.backend2"] + [f"fab.{t}.{x}" for t in ("backend1", "backend2", "router")
+                                                        for x in ("ready", "status", "podlog")]), left
+
+
 @pytest.mark.parametrize("argv,message", [
     (["--ranks", "2", "--chaos", "steal_race", "--"], "--chaos requires --elastic"),
-    (["--ranks", "2", "--fabric"], "A8"),
+    (["--ranks", "2", "--fabric", "--", "--output_file", "x.vcf"], "no forwarded CLI arguments"),
     (["--ranks", "2", "--", "--input_file", "x.vcf"], "--output_file"),
     (["--ranks", "0", "--", "--output_file", "x.vcf"], "--ranks must be positive"),
     (["--ranks", "2"], "after `--`"),

@@ -9,8 +9,6 @@ once per run, and is written as ``##vctpu_engine=<name>``.
 
 from __future__ import annotations
 
-import torch
-
 HEADER_KEY = "vctpu_engine"
 
 

@@ -380,6 +380,10 @@ HONOURED = frozenset({
     "VCTPU_SERVE_HOST", "VCTPU_SERVE_PORT", "VCTPU_SERVE_SOCKET", "VCTPU_SERVE_MAX_INFLIGHT",
     "VCTPU_SERVE_QUEUE_DEPTH", "VCTPU_SERVE_DEADLINE_S", "VCTPU_SERVE_DRAIN_S",
     "VCTPU_OBS", "VCTPU_OBS_PATH", "VCTPU_OBS_WINDOW_S",
+    # the serving fabric: the router's backends, heartbeat, membership, span
+    # attempts, bearer tokens and quota, and the transport's frame size
+    "VCTPU_FABRIC_BACKENDS", "VCTPU_FABRIC_HEARTBEAT_S", "VCTPU_FABRIC_DEAD_AFTER", "VCTPU_FABRIC_QUOTA",
+    "VCTPU_FABRIC_TOKENS", "VCTPU_FABRIC_STREAM_CHUNK_BYTES", "VCTPU_FABRIC_SPAN_ATTEMPTS",
     # the run telemetry: the stage profiler and its resource sampler, the CPU
     # sampler, causal tracing, snapshots, rotation, the Prometheus textfile,
     # the device trace (torch.profiler), the obs tool's tail, the span log

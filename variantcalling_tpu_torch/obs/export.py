@@ -155,6 +155,13 @@ def read_run(path: str) -> list[dict]:
     return merged
 
 
+def _lead_manifest(events: list[dict]) -> dict | None:
+    """The manifest that names the run: the router's in a fabric-merged
+    timeline (its backends start first and run the ``serve`` tool), else the
+    first one."""
+    return next((e for e in events if e.get("kind") == "manifest" and e.get("backend", 0) == 0), None)
+
+
 def _args_of(event: dict) -> dict:
     return {k: v for k, v in event.items() if k not in _ENVELOPE}
 
@@ -169,7 +176,7 @@ def _last_t(events: list[dict]) -> float:
 def to_chrome_trace(events: list[dict]) -> dict:
     """The ``{"traceEvents": [...]}`` object Perfetto loads."""
     trace: list[dict] = []
-    manifest = next((e for e in events if e.get("kind") == "manifest"), None)
+    manifest = _lead_manifest(events)
     pids = {e.get("pid", 0) for e in events}
     tool = (manifest or {}).get("tool", "vctpu")
     threads: dict[tuple, str] = {}
@@ -262,7 +269,7 @@ def to_chrome_trace(events: list[dict]) -> dict:
 def summarize(events: list[dict]) -> dict:
     """Terminal roll-up: per-stage time, throughput, degradations,
     slowest chunks, final metrics."""
-    manifest = next((e for e in events if e.get("kind") == "manifest"), None)
+    manifest = _lead_manifest(events)
     run_end = next((e for e in reversed(events)
                     if e.get("kind") == "run_end"), None)
     metrics = next((e for e in reversed(events)

@@ -34,11 +34,15 @@ from variantcalling_tpu_torch import __version__, knobs
 
 def _topology(device: str | None = None) -> dict:
     """``device``: the run's device as its entry point resolved it (None:
-    the card where one is visible)."""
+    the card where one is visible). A run on the CPU is described without
+    importing torch (the fabric's router imports none)."""
     topo: dict = {
         "hostname": socket.gethostname(),
         "cpu_count": os.cpu_count() or 1,
     }
+    if device is not None and not str(device).startswith("cuda"):
+        topo.update(backend="cpu", devices=1, local_devices=1, process_count=1, process_index=0, device=str(device))
+        return topo
     try:
         import torch
 

@@ -29,7 +29,7 @@ Exit codes, one a failure class:
 
 - ``0``: every worker completed and the merge committed;
 - ``2``: a usage or configuration error (bad flags, no ``--output_file``,
-  ``--fabric``: the serving fabric is ``ROADMAP.md`` A8, not ported);
+  forwarded arguments with ``--fabric``, a fabric tier that did not come up);
 - ``3``: classic pods only: a worker was killed by a signal; the merge is
   skipped and the destination untouched (a relaunch resumes that rank from
   its journal and skips finished ranks through their ``.done`` markers);
@@ -45,6 +45,18 @@ atomically, removed at the end); an elastic pod's says ``"mode":
 output goes to ``<out>.rank{r}.podlog`` (elastic:
 ``<out>.span{lo}-{hi}.g{gen}.podlog``), removed on success unless
 ``--keep-logs``.
+
+``--fabric`` starts the serving fabric instead of a batch pod
+(``serve/router``, ``serve/backend``): ``--ranks`` backend daemons
+(``serve --fabric-backend``, each on an ephemeral port, on the card) and one
+router (``serve --fabric``) in front of them, then stays up until SIGTERM or
+SIGINT and drains the fleet, the router first. Its files hang off ``--base``
+(default ``./fabric``): ``<base>.backendH.{ready,status,podlog}``,
+``<base>.router.{ready,status,podlog}``, and the obs streams in the sibling
+layout the ``obs`` tool merges into one timeline, the router's at
+``<base>.obs.jsonl`` and backend H's at ``<base>.obs.jsonl.backendH``.
+:func:`start_fabric` and :func:`stop_fabric` are the same launcher as a
+library (``backend="cpu"`` puts the backends on the CPU).
 """
 
 from __future__ import annotations
@@ -129,6 +141,160 @@ def _remove(paths) -> None:
             pass
 
 
+# -- the serving fabric ------------------------------------------------------------
+
+
+#: seconds a tier may take to drain after SIGTERM before it is killed
+_FABRIC_STOP_S = 45.0
+
+
+class FabricHandle:
+    """A running local serving fabric (:func:`start_fabric`): the router and
+    backend processes, their addresses and the files they write."""
+
+    def __init__(self, base: str):
+        self.base = base
+        self.router = None  # subprocess.Popen
+        self.router_address = None
+        self.backends: list = []  # subprocess.Popen, backend H at index H - 1
+        self.backend_addresses: list[str] = []
+        self.logs: list[str] = []
+
+
+def _wait_ready(ready_file: str, proc, deadline: float, what: str) -> dict:
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise RuntimeError(f"podrun fabric: {what} exited rc={proc.returncode} before becoming ready")
+        try:
+            with open(ready_file, encoding="utf-8") as fh:
+                return json.load(fh)
+        except (OSError, ValueError):
+            time.sleep(0.05)
+    raise RuntimeError(f"podrun fabric: {what} not ready in time")
+
+
+def _spawn_tier(cmd: list[str], env: dict[str, str], log: str) -> subprocess.Popen:
+    fh = open(log, "wb")
+    try:
+        return subprocess.Popen([sys.executable, "-m", "variantcalling_tpu_torch", "serve", *cmd], env=env,
+                                stdout=fh, stderr=subprocess.STDOUT)
+    finally:
+        fh.close()
+
+
+def start_fabric(base: str, n_backends: int = 2, timeout: float = 90.0, env: dict | None = None,
+                 backend_env: dict | None = None, router_env: dict | None = None,
+                 backend: str = "gpu") -> FabricHandle:
+    """Start the local serving fabric: ``n_backends`` ``serve
+    --fabric-backend`` daemons on ephemeral ports, on ``backend`` (the card
+    unless the caller asks for the CPU), then one ``serve --fabric`` router
+    over them. Every tier is a ``subprocess`` (never a fork of a process that
+    holds a CUDA context) with this checkout first on its ``PYTHONPATH``. The
+    files hang off ``base``: ``.backendH.{ready,status,podlog}``,
+    ``.router.*``, the router's obs stream at ``<base>.obs.jsonl`` and backend
+    H's at ``<base>.obs.jsonl.backendH``. Raises ``RuntimeError`` (the fleet
+    stopped) if a tier does not come up within ``timeout``."""
+    env = dict(os.environ if env is None else env)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    h = FabricHandle(base)
+    try:
+        readies = []
+        for i in range(1, n_backends + 1):
+            ready = f"{base}.backend{i}.ready"
+            _remove([ready, f"{base}.backend{i}.status"])
+            cmd = ["--fabric-backend", "--port", "0", "--backend", backend, "--ready-file", ready,
+                   "--status-file", f"{base}.backend{i}.status", "--obs-log", f"{base}.obs.jsonl.backend{i}"]
+            h.logs.append(f"{base}.backend{i}.podlog")
+            h.backends.append(_spawn_tier(cmd, dict(env, **(backend_env or {})), h.logs[-1]))
+            readies.append(ready)
+        deadline = time.monotonic() + timeout
+        h.backend_addresses = [_wait_ready(r, p, deadline, f"backend {i + 1}")["address"]
+                               for i, (r, p) in enumerate(zip(readies, h.backends))]
+
+        ready = f"{base}.router.ready"
+        _remove([ready, f"{base}.router.status"])
+        cmd = ["--fabric", "--port", "0", "--backends", ",".join(h.backend_addresses), "--ready-file", ready,
+               "--status-file", f"{base}.router.status", "--obs-log", f"{base}.obs.jsonl"]
+        h.logs.append(f"{base}.router.podlog")
+        h.router = _spawn_tier(cmd, dict(env, **(router_env or {})), h.logs[-1])
+        h.router_address = _wait_ready(ready, h.router, time.monotonic() + timeout, "router")["address"]
+    except Exception:
+        stop_fabric(h)
+        raise
+    return h
+
+
+def stop_fabric(h: FabricHandle) -> dict:
+    """Drain the fleet, the router first (SIGTERM: the graceful drain, exit
+    0), and collect each tier's shutdown report: ``{"router": {...},
+    "backends": {H: {...}}}``, each the exit code and the ``--status-file``
+    document (its leaked threads among them) where one was written."""
+
+    def stop_one(proc, status_file):
+        if proc is None:
+            return None
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=_FABRIC_STOP_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=_FABRIC_STOP_S)
+        doc = {"rc": proc.returncode}
+        try:
+            with open(status_file, encoding="utf-8") as fh:
+                doc.update(json.load(fh))
+        except (OSError, ValueError):
+            pass
+        return doc
+
+    report: dict = {"router": stop_one(h.router, f"{h.base}.router.status"), "backends": {}}
+    for i, p in enumerate(h.backends, start=1):
+        report["backends"][i] = stop_one(p, f"{h.base}.backend{i}.status")
+    return report
+
+
+def _run_fabric(args) -> int:
+    import signal
+
+    base = args.base or "fabric"
+    try:
+        h = start_fabric(base, n_backends=args.ranks, timeout=args.timeout)
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return EXIT_USAGE
+    _dump_state(base, {"mode": "fabric", "router": {"pid": h.router.pid, "address": h.router_address},
+                       "workers": [{"backend": i, "pid": p.pid, "address": a}
+                                   for i, (p, a) in enumerate(zip(h.backends, h.backend_addresses), start=1)],
+                       "launcher_pid": os.getpid()})
+    print(f"podrun: fabric up: router {h.router_address} over {args.ranks} backends {h.backend_addresses}",
+          flush=True)
+
+    stop = {"sig": None}
+
+    def _sig(signum, frame):
+        stop["sig"] = signum
+
+    signal.signal(signal.SIGTERM, _sig)
+    signal.signal(signal.SIGINT, _sig)
+    try:
+        while stop["sig"] is None:
+            if h.router.poll() is not None:
+                print(f"podrun: router exited rc={h.router.returncode}", file=sys.stderr)
+                break
+            time.sleep(0.2)
+    finally:
+        report = stop_fabric(h)
+        _remove([state_path(base)])
+    leaked = [w for w, doc in [("router", report["router"])]
+              + [(f"backend{i}", d) for i, d in report["backends"].items()] if doc and doc.get("leaked")]
+    if leaked:
+        print(f"podrun: fabric drain leaked threads in {leaked}", file=sys.stderr)
+        return 1
+    print("podrun: fabric drained", flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     # the coordinator's membership lines, as the CLI logs
@@ -166,15 +332,19 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--chaos", choices=("steal_race", "join_during_merge"), default=None,
                     help="elastic fault injection for the chaos harness")
     ap.add_argument("--fabric", action="store_true",
-                    help="serving-fabric mode (not ported: ROADMAP.md A8; exits 2)")
-    ap.add_argument("--base", default=None, help="fabric: artifact base path (not ported)")
+                    help="serving-fabric mode: spawn --ranks backend daemons + 1 router and stay resident until "
+                         "SIGTERM")
+    ap.add_argument("--base", default=None,
+                    help="fabric: artifact base path (ready/status/obs/log files hang off it; default ./fabric)")
     args = ap.parse_args(argv)
     if args.ranks <= 0:
         print("podrun: --ranks must be positive", file=sys.stderr)
         return EXIT_USAGE
     if args.fabric:
-        print("podrun: --fabric (the serving fabric) is not ported yet: ROADMAP.md A8", file=sys.stderr)
-        return EXIT_USAGE
+        if fwd:
+            print("podrun: --fabric takes no forwarded CLI arguments (clients bring the requests)", file=sys.stderr)
+            return EXIT_USAGE
+        return _run_fabric(args)
     if not fwd:
         print("podrun: pass the filter CLI arguments after `--`", file=sys.stderr)
         return EXIT_USAGE

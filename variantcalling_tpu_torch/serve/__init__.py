@@ -1,7 +1,6 @@
-"""``serve``: the resident, fault-isolated scoring daemon, on the card.
+"""``serve``: the resident, fault-isolated scoring daemon, on the card, and the serving fabric.
 
-Counterpart of ``variantcalling_tpu/serve/`` (its single-host daemon; the
-fabric's router, backends and transport are ``ROADMAP.md`` A7/A8). A CLI run
+Counterpart of ``variantcalling_tpu/serve/``. A CLI run
 pays its cold costs every time: the interpreter and torch, the model
 unpickle, the predictor's kernel tables built and uploaded, the genome
 encoded and put on the card. The daemon pays them once and serves filter,
@@ -22,6 +21,15 @@ card:
 - **observability**: one obs stream over the daemon's life (request events,
   per-endpoint rolling latency histograms, request counters), the same
   registry rendered for Prometheus at ``GET /v1/metrics``.
+
+The serving fabric puts a router (:mod:`.router`, ``serve --fabric``) in
+front of N backends (:mod:`.backend`, ``serve --fabric-backend``: the daemon
+plus the streaming ``POST /v1/segment``): the router cuts each streamed
+filter request into contig-aware spans, streams each to a live backend,
+merges the segments at their seams and streams the batch CLI's bytes back
+(:mod:`.transport`: chunked bodies, bearer tokens, per-principal quota). The
+router imports no torch: this package's modules import it only where a
+device is used.
 """
 
 from variantcalling_tpu_torch.serve.daemon import Server  # noqa: F401

@@ -13,12 +13,20 @@ flags are what a supervisor or a test harness needs:
 - ``--obs-log PATH``: an obs stream at this path, whatever ``VCTPU_OBS``
   says.
 
+The serving fabric's two tiers (``docs/serving_fabric.md``):
+
+- ``--fabric``: the router (:mod:`.router`), the scatter-gather front door
+  over the backends named by ``--backends`` or ``VCTPU_FABRIC_BACKENDS``.
+  It resolves no device and imports no torch;
+- ``--fabric-backend``: a backend (:mod:`.backend`), the daemon plus the
+  streaming ``/v1/segment`` endpoint, on the device ``--backend`` names.
+
 SIGTERM and SIGINT start the graceful drain (requests in flight finish
 within ``VCTPU_SERVE_DRAIN_S``, new ones get 503 ``draining``, the obs stream
 closes with status ``drain``) and the process exits 0. Exit 2 on a malformed
-knob, on ``--backend gpu`` without a card, and on ``--fabric`` or
-``--fabric-backend``: the fabric (router, backends, transport) is not ported
-(``ROADMAP.md`` A7/A8), and neither flag falls back to the plain daemon.
+knob (``VCTPU_FABRIC_TOKENS`` among them), on ``--backend gpu`` without a
+card (the daemon and a backend; no CPU fallback), and on ``--fabric``
+together with ``--fabric-backend``.
 """
 
 from __future__ import annotations
@@ -45,10 +53,14 @@ def get_parser() -> argparse.ArgumentParser:
     ap.add_argument("--status-file", default=None, help="write the shutdown report JSON at exit")
     ap.add_argument("--obs-log", default=None, help="force an obs run stream at this path")
     ap.add_argument("--backend", default="gpu", choices=["gpu", "cpu"], help="Execution backend")
-    ap.add_argument("--fabric", action="store_true", help="the fabric router tier (not ported: exits 2)")
-    ap.add_argument("--fabric-backend", action="store_true", help="a fabric backend (not ported: exits 2)")
+    ap.add_argument("--fabric", action="store_true",
+                    help="run the fabric ROUTER tier: the scatter-gather front door over the backends named by "
+                         "VCTPU_FABRIC_BACKENDS / --backends; never touches torch or the card")
+    ap.add_argument("--fabric-backend", action="store_true",
+                    help="run a fabric BACKEND: the resident daemon plus the streaming /v1/segment endpoint the "
+                         "router fans spans out to")
     ap.add_argument("--backends", default=None,
-                    help="router only: comma-separated backend addresses (not ported)")
+                    help="router only: comma-separated backend addresses (default VCTPU_FABRIC_BACKENDS)")
     return ap
 
 
@@ -67,23 +79,42 @@ def _leaked_threads() -> list[str]:
 
 def run(argv: list[str]) -> int:
     args = get_parser().parse_args(argv)
-    from variantcalling_tpu_torch import device as device_mod
     from variantcalling_tpu_torch import knobs
     from variantcalling_tpu_torch.engine import EngineError
 
-    if args.fabric or args.fabric_backend:
-        log.error("%s: the serving fabric (router, backends, transport) is not ported; run serve without it",
-                  "--fabric" if args.fabric else "--fabric-backend")
+    if args.fabric and args.fabric_backend:
+        log.error("--fabric and --fabric-backend are different tiers; pick one")
         return 2
     try:
         knobs.validate_all()
-        device = device_mod.resolve(args.backend)
-    except (EngineError, device_mod.DeviceUnavailable) as e:
+    except EngineError as e:
         log.error("%s", e)
         return 2
-    from variantcalling_tpu_torch.serve.daemon import Server
+    if args.fabric:
+        # the router places, moves bytes and splices: no pipeline, no torch,
+        # no device
+        from variantcalling_tpu_torch.serve.router import Router
 
-    server = Server(host=args.host, port=args.port, socket_path=args.socket, obs_log=args.obs_log, device=device)
+        try:
+            server = Router(host=args.host, port=args.port, socket_path=args.socket, obs_log=args.obs_log,
+                            backends=[a.strip() for a in args.backends.split(",") if a.strip()]
+                            if args.backends is not None else None)
+        except ValueError as e:  # a malformed VCTPU_FABRIC_TOKENS
+            log.error("%s", e)
+            return 2
+    else:
+        from variantcalling_tpu_torch import device as device_mod
+
+        try:
+            device = device_mod.resolve(args.backend)
+        except device_mod.DeviceUnavailable as e:
+            log.error("%s", e)
+            return 2
+        if args.fabric_backend:
+            from variantcalling_tpu_torch.serve.backend import Backend as _Cls
+        else:
+            from variantcalling_tpu_torch.serve.daemon import Server as _Cls
+        server = _Cls(host=args.host, port=args.port, socket_path=args.socket, obs_log=args.obs_log, device=device)
     stop_reason: dict = {}
 
     def _signal_drain(signum, frame):

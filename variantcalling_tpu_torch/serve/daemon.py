@@ -19,6 +19,12 @@ Endpoints:
 - ``GET /healthz``, ``GET /v1/status``, ``GET /v1/metrics``: liveness,
   admission and cache state, the Prometheus text exposition.
 
+A subclass adds streaming endpoints through ``STREAM_ROUTES`` (the fabric
+backend's ``POST /v1/segment``), which own their whole exchange and are
+dispatched before the JSON routes. The module imports torch only when a
+:class:`Server` is built, so the fabric's router reaches its HTTP server
+classes without it.
+
 Every pipeline request runs behind the admission controller, under its own
 ``knobs.scope``, ``faults.scope`` and cancel token (:meth:`Server.execute`):
 a request that fails, is poisoned or blows its deadline gets its own error
@@ -41,9 +47,6 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-import torch
-
-from variantcalling_tpu_torch import device as device_mod
 from variantcalling_tpu_torch import engine as engine_mod
 from variantcalling_tpu_torch import knobs, obs
 from variantcalling_tpu_torch.engine import EngineError
@@ -89,11 +92,20 @@ class Server:
     ``device``: a ``torch.device``, or ``"gpu"`` (the default) / ``"cpu"``;
     asking for the card where there is none raises ``DeviceUnavailable``."""
 
-    #: endpoint name -> unbound handler (bound at the bottom of this module)
+    #: endpoint name -> unbound handler (bound at the bottom of this module;
+    #: the fabric backend extends it with ``dict(Server.ENDPOINTS, ...)``)
     ENDPOINTS: dict = {}
+    #: path -> method name of the endpoints that own their transport
+    #: (streamed bodies, not the JSON round trip); checked before the JSON
+    #: routes
+    STREAM_ROUTES: dict = {}
 
     def __init__(self, host: str | None = None, port: int | None = None, socket_path: str | None = None,
                  obs_log: str | None = None, device: torch.device | str = "gpu"):
+        # torch is imported here, not with the module: the fabric's router
+        # reaches this module's HTTP server classes without importing torch
+        from variantcalling_tpu_torch import device as device_mod
+
         self.device = device_mod.as_device(device)
         self.host = host if host is not None else knobs.get_str("VCTPU_SERVE_HOST")
         self.port = port if port is not None else knobs.get_int("VCTPU_SERVE_PORT")
@@ -202,8 +214,13 @@ class Server:
             obs.event("serve", "drain_end", clean=self.admission.idle())
         obs.end_run(self._obs_run, "drain")
         self._obs_run = None
+        self._drained()
         self.stopped.set()
         log.info("serve: stopped")
+
+    def _drained(self) -> None:
+        """What a subclass does once drained, before ``stopped`` is set (the
+        fabric backend removes its spool and logs its kernel launches)."""
 
     # -- deadlines ----------------------------------------------------------
 
@@ -521,6 +538,17 @@ def _make_handler(server: Server):
                 self._respond(404, {"status": "not_found", "error": f"unknown path {self.path}"})
 
         def do_POST(self):
+            stream = server.STREAM_ROUTES.get(self.path)
+            if stream is not None:
+                # a streaming endpoint owns its whole exchange (chunked upload
+                # in, chunked artifact out); a fault of the serving layer
+                # still answers the client
+                try:
+                    getattr(server, stream)(self)
+                except Exception as e:  # noqa: BLE001
+                    log.warning("serve: internal error handling %s: %s: %s", self.path, type(e).__name__, e)
+                    self._respond(500, {"status": "error", "kind": type(e).__name__, "error": str(e)[:2000]})
+                return
             endpoint = self._POST_ROUTES.get(self.path)
             if endpoint is None:
                 self._respond(404, {"status": "not_found", "error": f"unknown path {self.path}"})
